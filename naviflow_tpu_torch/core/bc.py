@@ -1,0 +1,141 @@
+"""Boundary-condition registry and functional application (port of
+``naviflow_tpu/core/bc.py``).
+
+Semantics preserved exactly (staggered shapes u=(nx+1,ny), v=(nx,ny+1)):
+1. every boundary is first zeroed (wall default);
+2. sides registered with a VELOCITY condition overwrite their boundary slab
+   with the given (u, v) values:  top -> u[:, ny-1], v[:, ny];
+   bottom -> u[:, 0], v[:, 0]; left -> u[0, :], v[0, :];
+   right -> u[nx, :], v[nx-1, :].
+
+The window variant (``apply_velocity_bcs_window``, for domain-decomposed
+blocks) belongs to the distributed path and is not ported yet (ROADMAP §1
+item 13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from enum import Enum
+from typing import Optional
+
+
+class BoundaryType(Enum):
+    WALL = "wall"
+    VELOCITY = "velocity"
+    PRESSURE = "pressure"
+    INFLOW = "inflow"
+    OUTFLOW = "outflow"
+    SYMMETRY = "symmetry"
+
+
+class BoundaryLocation(Enum):
+    TOP = "top"
+    BOTTOM = "bottom"
+    LEFT = "left"
+    RIGHT = "right"
+
+
+_SIDES = ("top", "bottom", "left", "right")
+
+
+@dataclasses.dataclass(frozen=True)
+class SideCondition:
+    """Condition on one side of the domain."""
+
+    kind: BoundaryType = BoundaryType.WALL
+    u: float = 0.0
+    v: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class BoundaryConditions:
+    """Immutable set of conditions for all four sides."""
+
+    top: SideCondition = SideCondition()
+    bottom: SideCondition = SideCondition()
+    left: SideCondition = SideCondition()
+    right: SideCondition = SideCondition()
+
+    def with_condition(
+        self, location, bc_type, values: Optional[dict] = None
+    ) -> "BoundaryConditions":
+        if isinstance(location, BoundaryLocation):
+            location = location.value
+        location = location.lower()
+        if location not in _SIDES:
+            raise ValueError(f"Unknown boundary location: {location}")
+        if isinstance(bc_type, str):
+            bc_type = BoundaryType(bc_type.lower())
+        values = values or {}
+        side = SideCondition(
+            kind=bc_type, u=float(values.get("u", 0.0)), v=float(values.get("v", 0.0))
+        )
+        return dataclasses.replace(self, **{location: side})
+
+    def side(self, name: str) -> SideCondition:
+        return getattr(self, name)
+
+    def get_boundary_types(self) -> dict:
+        return {s: self.side(s).kind.value for s in _SIDES}
+
+    def apply_to_velocity(self, u, v):
+        return apply_velocity_bcs(u, v, self)
+
+
+def lid_driven_cavity(lid_velocity: float = 1.0) -> BoundaryConditions:
+    """Standard lid-driven cavity: moving top lid, no-slip walls elsewhere."""
+    return BoundaryConditions().with_condition(
+        "top", BoundaryType.VELOCITY, {"u": lid_velocity}
+    )
+
+
+def apply_velocity_bcs(u, v, bc: BoundaryConditions):
+    """All boundaries are zeroed, then VELOCITY sides are overwritten
+    (corners owned by the velocity side).  Returns new tensors; never
+    mutates its inputs."""
+    nxp1, ny = u.shape
+    nx = nxp1 - 1
+    u = u.clone()
+    v = v.clone()
+    # in place on the fresh copies
+    u[:, 0] = 0.0
+    u[:, ny - 1] = 0.0
+    u[0, :] = 0.0
+    u[nx, :] = 0.0
+    v[:, 0] = 0.0
+    v[:, ny] = 0.0
+    v[0, :] = 0.0
+    v[nx - 1, :] = 0.0
+    for name in _SIDES:
+        s = bc.side(name)
+        if s.kind != BoundaryType.VELOCITY:
+            continue
+        if name == "top":
+            u[:, ny - 1] = s.u
+            v[:, ny] = s.v
+        elif name == "bottom":
+            u[:, 0] = s.u
+            v[:, 0] = s.v
+        elif name == "left":
+            u[0, :] = s.u
+            v[0, :] = s.v
+        elif name == "right":
+            u[nx, :] = s.u
+            v[nx - 1, :] = s.v
+    return u, v
+
+
+def enforce_pressure_bcs(p, bc: BoundaryConditions):
+    """Zero-gradient (Neumann) pressure boundary enforcement: each boundary
+    slab copies its first interior neighbor, in top, bottom, left, right
+    order."""
+    nx, ny = p.shape
+    p = p.clone()
+    # in place on the fresh copy; each copy reads the slab state left by
+    # the previous one, as the JAX chain of selects does
+    p[:, ny - 1] = p[:, ny - 2].clone()
+    p[:, 0] = p[:, 1].clone()
+    p[0, :] = p[1, :].clone()
+    p[nx - 1, :] = p[nx - 2, :].clone()
+    return p

@@ -1,0 +1,170 @@
+"""9-point stencils and exact Galerkin coarsening (port of
+``naviflow_tpu/ops/stencil9.py``).
+
+Coarse operators are the exact ``A_c = R A P``: all nine coarse stencil
+arrays are recovered from NINE applications of the composite map R∘A∘P to
+3-strided "comb" grids (columns K1, K2 of RAP with ``|K1-K2|_inf >= 3``
+have disjoint supports).  Stencils are stored SIGNED:
+``apply9(x) = sum_k s_k * shift_k(x)`` including the center.
+
+The rebuild runs composed every ``coarse_rebuild_every`` outer steps; it is
+cancellation-sensitive, so it stays in full f32 (no matmul at all here, and
+the callers set ``allow_tf32 = False`` besides).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .poisson import PoissonCoeffs
+from .stencil import index_grids, pad2, shift_e, shift_n, shift_s, shift_w
+
+
+def shift_ne(x):
+    return pad2(x[1:, 1:], 0, 1, 0, 1)
+
+
+def shift_nw(x):
+    return pad2(x[:-1, 1:], 1, 0, 0, 1)
+
+
+def shift_se(x):
+    return pad2(x[1:, :-1], 0, 1, 1, 0)
+
+
+def shift_sw(x):
+    return pad2(x[:-1, :-1], 1, 0, 1, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Stencil9:
+    """Signed 9-point stencil: (A x)[i,j] = c*x + e*x_E + w*x_W + n*x_N +
+    s*x_S + ne*x_NE + nw*x_NW + se*x_SE + sw*x_SW."""
+
+    c: torch.Tensor
+    e: torch.Tensor
+    w: torch.Tensor
+    n: torch.Tensor
+    s: torch.Tensor
+    ne: torch.Tensor
+    nw: torch.Tensor
+    se: torch.Tensor
+    sw: torch.Tensor
+
+    @property
+    def shape(self):
+        return tuple(self.c.shape)
+
+
+def from_poisson(pc: PoissonCoeffs) -> Stencil9:
+    """Embed the 5-point pressure operator as a signed 9-point stencil."""
+    z = torch.zeros_like(pc.diag)
+    return Stencil9(c=pc.diag, e=-pc.a_e, w=-pc.a_w, n=-pc.a_n, s=-pc.a_s,
+                    ne=z, nw=z, se=z, sw=z)
+
+
+def apply9(x, st: Stencil9):
+    return (
+        st.c * x
+        + st.e * shift_e(x)
+        + st.w * shift_w(x)
+        + st.n * shift_n(x)
+        + st.s * shift_s(x)
+        + st.ne * shift_ne(x)
+        + st.nw * shift_nw(x)
+        + st.se * shift_se(x)
+        + st.sw * shift_sw(x)
+    )
+
+
+def apply5(x, st: Stencil9):
+    """Apply a Stencil9 whose corner entries are known-zero (the 5-point
+    finest level); summation order matches :func:`apply9`'s first terms."""
+    return (
+        st.c * x
+        + st.e * shift_e(x)
+        + st.w * shift_w(x)
+        + st.n * shift_n(x)
+        + st.s * shift_s(x)
+    )
+
+
+def apply_five(x, st: Stencil9, five_point: bool):
+    return apply5(x, st) if five_point else apply9(x, st)
+
+
+def _comb(shape, a, b, dtype, device):
+    ii, jj = index_grids(shape, device)
+    return ((ii % 3 == a) & (jj % 3 == b)).to(dtype)
+
+
+_OFFSET_NAMES = {
+    (0, 0): "c",
+    (1, 0): "e",
+    (-1, 0): "w",
+    (0, 1): "n",
+    (0, -1): "s",
+    (1, 1): "ne",
+    (-1, 1): "nw",
+    (1, -1): "se",
+    (-1, -1): "sw",
+}
+
+
+def comb_select(images, ii, jj, di: int, dj: int):
+    """Read the comb image value for neighbor offset (di, dj) at each cell:
+    ``images[(ii+di)%3, (jj+dj)%3, cell]`` as nine masked selects.
+
+    ``images``: (3, 3, m, n); ``ii``, ``jj``: (m, n) global index grids.
+    """
+    mi = [(ii % 3) == r for r in range(3)]
+    mj = [(jj % 3) == r for r in range(3)]
+    val = torch.zeros(images.shape[2:], dtype=images.dtype, device=images.device)
+    for a in range(3):
+        for b in range(3):
+            m = mi[(a - di) % 3] & mj[(b - dj) % 3]
+            val = torch.where(m, images[a, b], val)
+    return val
+
+
+def galerkin_coarsen(st: Stencil9, restrict_fn, prolong_fn, nxc: int, nyc: int) -> Stencil9:
+    """Exact A_c = R A P via nine comb applications."""
+    dtype, device = st.c.dtype, st.c.device
+    ii, jj = index_grids((nxc, nyc), device)
+    images = torch.stack(
+        [restrict_fn(apply9(prolong_fn(_comb((nxc, nyc), a, b, dtype, device)), st))
+         for a in range(3) for b in range(3)]
+    ).reshape(3, 3, nxc, nyc)
+
+    entries = {}
+    for (di, dj), name in _OFFSET_NAMES.items():
+        val = comb_select(images, ii, jj, di, dj)
+        inside = (
+            (ii + di >= 0) & (ii + di <= nxc - 1) & (jj + dj >= 0) & (jj + dj <= nyc - 1)
+        )
+        entries[name] = torch.where(inside, val, torch.zeros_like(val))
+    return Stencil9(**entries)
+
+
+def stencil9_diagonal(st: Stencil9, floor: float = 1e-15):
+    return torch.where(torch.abs(st.c) < floor, torch.ones_like(st.c), st.c)
+
+
+def gs4_sweep(p, b, st: Stencil9, omega: float = 1.0):
+    """One four-color Gauss-Seidel sweep (valid for any 9-point stencil);
+    colours ``(i%2, j%2)`` in the order (0,0), (0,1), (1,0), (1,1)."""
+    ii, jj = index_grids(p.shape, p.device)
+    inv_c = 1.0 / stencil9_diagonal(st)
+
+    def quarter(p, color_mask):
+        off = apply9(p, st) - st.c * p
+        p_new = (b - off) * inv_c
+        return torch.where(color_mask, p + omega * (p_new - p), p)
+
+    for a in range(2):
+        for bpar in range(2):
+            p = quarter(p, (ii % 2 == a) & (jj % 2 == bpar))
+    return p
+

@@ -1,0 +1,132 @@
+"""K2: temporally blocked fine multigrid levels (``strip_down``/``strip_up``).
+
+Replaces ``naviflow_tpu/ops/pallas_strip.py:strip_down`` / ``strip_up``;
+the CUDA kernels are ``csrc/strip.cu`` (its header says what bounds them on
+the H100 and how the 2-D halo tiles deal with that).
+
+* :func:`strip_down`: ``cfg.pre_smoothing`` Gauss-Seidel sweeps, the
+  residual, and its full cell-centred restriction, in one launch.
+* :func:`strip_up`: prolongated coarse correction + ``cfg.post_smoothing``
+  sweeps, in one launch.
+
+Five-point levels (the finest) use red-black colours, 9-point Galerkin
+levels four colours.  On a CPU tensor each wrapper runs its plain version
+(``_smooth`` -> ``b - apply`` -> ``restrict_cc``, and ``p + prolong_cc(ec)``
+-> ``_smooth``); on a CUDA tensor it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _cuda
+from .stencil9 import Stencil9, apply_five
+from .transfer_cc import prolong_cc, restrict_cc
+
+# The TPU kernels' halo rows and window caps (VMEM budgets).  They decide,
+# as in the reference, which levels the peeled cycle runs as strips; they
+# are not H100 limits.
+H = 16
+_CAP_FIVE = 656 * 1024
+_CAP_NINE = 384 * 1024
+
+STRIP_DOWN_LAUNCHES = 0
+STRIP_UP_LAUNCHES = 0
+
+
+def _strip_rows(nx: int, ny: int, five: bool = True) -> int:
+    cap = _CAP_FIVE if five else _CAP_NINE
+    for T in (256, 128, 64, 32, 16):
+        if T + 2 * H > nx or nx % T:
+            continue
+        if (T + 2 * H) * ny <= cap:
+            return T
+    return 0
+
+
+def supports_strip(nx: int, ny: int, five_point: bool, cfg, dtype) -> bool:
+    """Gate: big even square level, GS smoothing with <= 2 pre/post sweeps,
+    cell-centred transfers, f32 (the reference's rule)."""
+    if dtype != torch.float32:
+        return False
+    if nx != ny or nx % 2:
+        return False
+    if (cfg.smoother != "gs" or cfg.pre_smoothing > 2
+            or cfg.post_smoothing > 2
+            or getattr(cfg, "smoother_dtype", "float32") != "float32"):
+        return False
+    if cfg.restriction != "full_weighting" or cfg.prolongation != "linear":
+        return False
+    return _strip_rows(nx, ny, five_point) > 0
+
+
+def _st_arrays(st: Stencil9, five: bool):
+    if five:
+        return [st.c, st.e, st.w, st.n, st.s]
+    return [st.c, st.e, st.w, st.n, st.s, st.ne, st.nw, st.se, st.sw]
+
+
+def strip_down_plain(p, b, st: Stencil9, cfg, five: bool = True):
+    from ..solvers.multigrid import _smooth
+
+    x = _smooth(p, b, st, cfg, cfg.pre_smoothing, five)
+    return x, restrict_cc(b - apply_five(x, st, five))
+
+
+def strip_up_plain(p, b, st: Stencil9, ec, cfg, five: bool = True):
+    from ..solvers.multigrid import _smooth
+
+    return _smooth(p + prolong_cc(ec), b, st, cfg, cfg.post_smoothing, five)
+
+
+def _check(p, b, st, cfg, five):
+    nx, ny = p.shape
+    if nx % 2 or ny % 2:
+        raise ValueError(f"strip kernels need an even level, got {(nx, ny)}")
+    if cfg.smoother != "gs" or getattr(cfg, "smoother_dtype", "float32") != "float32":
+        raise ValueError("strip kernels implement float32 Gauss-Seidel smoothing only")
+    _cuda.require(p, (nx, ny), "p")
+    _cuda.require(b, (nx, ny), "b")
+    arrays = _st_arrays(st, five)
+    for k, a in enumerate(arrays):
+        _cuda.require(a, (nx, ny), f"stencil[{k}]")
+    return nx, ny, arrays
+
+
+def strip_down(p, b, st: Stencil9, cfg, five: bool = True):
+    """Pre-smooth + residual + cell-centred restriction of a level.
+    Returns ``(p_smoothed, r_coarse)``."""
+    global STRIP_DOWN_LAUNCHES
+    if not p.is_cuda:
+        return strip_down_plain(p, b, st, cfg, five)
+    nx, ny, arrays = _check(p, b, st, cfg, five)
+    p_sm = torch.empty_like(p)
+    rc = torch.empty((nx // 2, ny // 2), dtype=p.dtype, device=p.device)
+    tensors = [p, b, *arrays, p_sm, rc]
+    ptrs = (ctypes.c_longlong * len(tensors))(*[t.data_ptr() for t in tensors])
+    ip = (ctypes.c_int * 4)(nx, ny, int(five), cfg.pre_smoothing)
+    fp = (ctypes.c_float * 1)(cfg.omega)
+    _cuda.check(_cuda.library().nf_strip_down(ptrs, ip, fp, _cuda.stream_of(p)),
+                "strip_down")
+    STRIP_DOWN_LAUNCHES += 1
+    return p_sm, rc
+
+
+def strip_up(p, b, st: Stencil9, ec, cfg, five: bool = True):
+    """Prolongated coarse correction + post-smoothing of a level."""
+    global STRIP_UP_LAUNCHES
+    if not p.is_cuda:
+        return strip_up_plain(p, b, st, ec, cfg, five)
+    nx, ny, arrays = _check(p, b, st, cfg, five)
+    _cuda.require(ec, (nx // 2, ny // 2), "ec")
+    out = torch.empty_like(p)
+    tensors = [p, b, *arrays, ec, out]
+    ptrs = (ctypes.c_longlong * len(tensors))(*[t.data_ptr() for t in tensors])
+    ip = (ctypes.c_int * 4)(nx, ny, int(five), cfg.post_smoothing)
+    fp = (ctypes.c_float * 1)(cfg.omega)
+    _cuda.check(_cuda.library().nf_strip_up(ptrs, ip, fp, _cuda.stream_of(p)),
+                "strip_up")
+    STRIP_UP_LAUNCHES += 1
+    return out
