@@ -2,10 +2,12 @@
 
 It mirrors the JAX package's layout and names (``core/``, ``ops/``,
 ``solvers/``, ``algorithms/``) and runs on the device of the state it is
-given.  On a CUDA tensor the large-grid SIMPLE path launches hand-written
-Hopper kernels (``csrc/``, built by ``nvcc`` at first use); on a CPU tensor
-every kernel wrapper runs its plain PyTorch version.  The package never
-imports JAX.
+given: ``initialize_state`` makes it on the card unless the caller asks
+for ``device='cpu'``.  On a CUDA tensor the SIMPLE paths launch
+hand-written Hopper kernels (``csrc/``, built by ``nvcc`` at first use):
+the 63^2 headline one whole-step kernel per outer step, the large-grid path
+its momentum and multigrid kernels; on a CPU tensor every kernel wrapper
+runs its plain PyTorch version.  The package never imports JAX.
 """
 
 from .core.mesh import StructuredMesh

@@ -9,12 +9,14 @@ One outer iteration:
 4. ``u = u* + d_u (p'_W - p'_P)`` etc., then velocity BCs;
 5. convergence on ``max(u_norm, v_norm) <= tol``.
 
-On a CUDA float32 state at >= 1024^2 with Chebyshev momentum and the
-bench's fixed-cycle multigrid, a step launches K1 once, K2 (``strip_down``
-and ``strip_up``) twice each and K3 once; everything else is composed
-PyTorch.  The JAX package's whole-step kernel branch (``pallas_step``, K6)
-is not ported: it needs BiCGSTAB momentum, which the port does not run yet
-(ROADMAP §2 K6).
+Kernel paths on a CUDA float32 state:
+* the 63^2 headline (odd grid, BiCGSTAB momentum, multigrid V-cycles): one
+  step is one launch of the whole-step kernel K6 (``ops/step.py``) wherever
+  its gate admits the configuration; the lagged coarse carry passes through
+  untouched (K6 rebuilds the coarse operators every step);
+* >= 1024^2 with Chebyshev momentum and the bench's fixed-cycle multigrid:
+  a step launches K1 once, K2 (``strip_down`` and ``strip_up``) twice each
+  and K3 once; everything else is composed PyTorch.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ from ..core.bc import BoundaryConditions, enforce_pressure_bcs
 from ..core.fluid import FluidProperties
 from ..core.mesh import StructuredMesh
 from ..core.state import FlowState
+from ..ops import _cuda
 from ..ops.poisson import poisson_coefficients, pressure_rhs
+from ..ops.step import fused_simple_step, supports_fused_step
 from ..solvers.dispatch import dispatch_pressure_solve
 from ..solvers.momentum import (JacobiMomentumConfig, lagged_rho_enabled,
                                 solve_momentum_pair)
@@ -67,6 +71,14 @@ def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
     if lagged:
         lg = make_lagged_mg(pres_cfg, dx=dx, dy=dy, rho=rho, variant=cfg.poisson_variant)
 
+    def _fused_step_ok(p):
+        """The whole-step kernel's gate (K6): a CUDA state, the kernel
+        backend, and the reference's admission rule."""
+        return (_cuda.kernel_device(p)
+                and getattr(pres_cfg, "backend", "auto") in ("auto", "kernel")
+                and supports_fused_step(p.shape[0], p.shape[1], cfg, mom_cfg, pres_cfg,
+                                        p.dtype))
+
     def step(u, v, p, extra):
         rho_pair = None
         if lagged_rho:
@@ -75,6 +87,20 @@ def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
             p_max_l2, mg_extra = extra
         else:
             p_max_l2 = extra
+
+        if _fused_step_ok(p):
+            (u_new, v_new, p_new, p_max_new, u_norm, v_norm, p_rel,
+             cycles, r_u, r_v, r_p) = fused_simple_step(
+                u, v, p, p_max_l2, dx=dx, dy=dy, rho=rho, mu=mu, bc=bc,
+                simple_cfg=cfg, mom_cfg=mom_cfg, pres_cfg=pres_cfg)
+            info = StepInfo(u_norm=u_norm, v_norm=v_norm, p_norm=p_rel,
+                            inner_iterations=cycles, r_u=r_u, r_v=r_v, r_p=r_p)
+            # the lagged carry passes through untouched: K6 rebuilds the
+            # coarse hierarchy every step
+            extra_out = (p_max_new, (mg_extra[0] + 1, mg_extra[1])) if lagged else p_max_new
+            if lagged_rho:  # the K1 and K6 gates are disjoint (momentum kinds)
+                extra_out = (extra_out, rho_pair)
+            return u_new, v_new, p_new, extra_out, info
 
         p_star = p
         fold = getattr(cfg, "fold_poisson", "auto") == "auto"

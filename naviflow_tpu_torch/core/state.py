@@ -39,9 +39,16 @@ def initialize_state(
     mesh: StructuredMesh,
     bc: BoundaryConditions,
     dtype=torch.float32,
-    device=None,
+    device="cuda",
 ) -> FlowState:
-    """Zero fields with velocity BCs applied, on ``device``."""
+    """Zero fields with velocity BCs applied, on ``device``: the card by
+    default; pass ``device='cpu'`` for the CPU.  Raises where the device
+    does not exist (no silent fall back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "initialize_state: no CUDA device is available; pass device='cpu' "
+            "to run on the CPU")
     u = torch.zeros(mesh.u_shape, dtype=dtype, device=device)
     v = torch.zeros(mesh.v_shape, dtype=dtype, device=device)
     p = torch.zeros(mesh.p_shape, dtype=dtype, device=device)

@@ -47,3 +47,58 @@ __device__ __forceinline__ float nf_prolong_cc(const float* __restrict__ ec,
   const float t1 = 0.75f * ec[(int64_t)I * ncj + Ja] + 0.25f * ec[(int64_t)Ia * ncj + Ja];
   return 0.75f * t0 + 0.25f * t1;
 }
+
+// Knuth TwoSum: s + e == a + b exactly (needs -fmad=false, NVCC_FLAGS).
+__device__ __forceinline__ void nf_two_sum(float a, float b, float& s, float& e) {
+  s = a + b;
+  const float bb = s - a;
+  e = (a - (s - bb)) + (b - bb);
+}
+
+// Dekker TwoProduct: p + e == a * b exactly, with the 4097 split of
+// ops/compensated._split (no contraction: -fmad=false).
+__device__ __forceinline__ void nf_two_prod(float a, float b, float& p, float& e) {
+  p = a * b;
+  float c = 4097.f * a;
+  const float ah = c - (c - a), al = a - ah;
+  c = 4097.f * b;
+  const float bh = c - (c - b), bl = b - bh;
+  e = ((ah * bh - p) + ah * bl + al * bh) + al * bl;
+}
+
+// A double-single running sum (hi word s, error channel e).
+struct NfDS {
+  float s, e;
+};
+
+__device__ __forceinline__ NfDS nf_ds_zero() { return NfDS{0.f, 0.f}; }
+
+__device__ __forceinline__ NfDS nf_ds_add(NfDS a, NfDS b) {
+  float s, c;
+  nf_two_sum(a.s, b.s, s, c);
+  return NfDS{s, (a.e + b.e) + c};
+}
+
+// acc += a * b, the product split exactly (Ogita-Rump-Oishi Dot2)
+__device__ __forceinline__ void nf_ds_fma(NfDS& acc, float a, float b) {
+  float p, pe, s, c;
+  nf_two_prod(a, b, p, pe);
+  nf_two_sum(acc.s, p, s, c);
+  acc.s = s;
+  acc.e = acc.e + (pe + c);
+}
+
+// acc += a (exactly, error into the channel)
+__device__ __forceinline__ void nf_ds_addf(NfDS& acc, float a) {
+  float s, c;
+  nf_two_sum(acc.s, a, s, c);
+  acc.s = s;
+  acc.e = acc.e + c;
+}
+
+// The correctly rounded hi word of the pair.
+__device__ __forceinline__ float nf_ds_value(NfDS a) {
+  float s, c;
+  nf_two_sum(a.s, a.e, s, c);
+  return s;
+}

@@ -1,208 +1,147 @@
-// K3: one whole multigrid V-cycle over a level hierarchy, in one launch.
+// K3, K4, K5: the multigrid kernels over a whole level hierarchy, each one
+// cooperative launch over the device code of mg.cuh.
 //
-// Replaces naviflow_tpu/ops/pallas_mg.py:fused_vcycle (_mk_kernel with
-// whole_solve=False, vcycle_value).  Per level, finest to coarsest:
-// Gauss-Seidel pre-smoothing (red-black on 5-point levels, four colours on
-// 9-point Galerkin levels), the residual, and its 2x2 cell-centred
-// restriction into the next level's right-hand side; `coarsest` sweeps on
-// the last level; then, coarsest to finest, the bilinear prolongation of the
-// correction and post-smoothing.  Transfers use their direct 2-tap / 4-tap
-// fp32 weights (the cell-centred factors of pallas_mg._transfer_matrices),
-// not matrix products.
+// K3 nf_fused_vcycle    one V-cycle; replaces
+//                       naviflow_tpu/ops/pallas_mg.py:fused_vcycle.
+// K4 nf_galerkin_levels every Galerkin coarse stencil of a vertex
+//                       hierarchy; replaces pallas_mg.py:galerkin_levels_pallas.
+// K5 nf_fused_mg_solve  the whole solve: cycles, compensated convergence
+//                       checks, mean normalisation and residual; replaces
+//                       pallas_mg.py:fused_mg_solve.
 //
-// Bound on the H100: a 256^2 -> 4^2 tail holds ~5 MB, so it lives in L2
-// and the cycle is bound by the ~200 dependent passes (one per colour,
-// residual and transfer) and the grid-wide barriers between them.  Design:
-// a cooperative launch (cudaLaunchCooperativeKernel) of as many blocks as
-// fit at once on the SMs; every pass loops over its level's cells with a
-// grid stride and ends in cooperative_groups' grid.sync().  Levels of at
-// most SMALL_CELLS cells run in block 0 alone between __syncthreads(), and
-// the other blocks wait at the next grid barrier, so the coarsest sweeps cost
-// no grid barriers at all.  Level 0's iterate is the output buffer; the
-// coarser iterates and right-hand sides are scratch from the wrapper.
-// Every neighbour access is bounds-checked: nothing reads outside an
-// allocation.
+// Bound on the H100: a hierarchy the gate admits (<= 255^2 for K4/K5, the
+// 256^2 -> 4^2 tail for K3) holds at most ~8 MB, so it lives in the 50 MB
+// L2 and the kernels are bound by their dependent passes (one per colour,
+// residual, transfer and RAP level) and the grid-wide barriers between
+// them, not by HBM.  Design (coop.cuh): as many blocks as fit at once,
+// grid-stride passes ending in grid.sync(), levels of <= 1,024 cells in
+// block 0 alone, so the coarsest sweeps cost no grid barriers; the
+// convergence scalars of K5 come from nf_grid_reduce, identical in every
+// block, so every block takes the same number of cycles.  Level 0's iterate
+// is the output buffer; coarser iterates and right-hand sides are scratch
+// from the wrapper.
 
-#include <cooperative_groups.h>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "mg.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int MAX_LEVELS = 16;
-constexpr int SMALL_CELLS = 1024;
+__global__ void __launch_bounds__(NF_THREADS) vcycle_kernel(NfMG M) {
+  NfCoop C = nf_coop(nullptr);
+  nf_vcycle(C, M);
+}
 
-struct Level {
-  const float* st[9];  // c, e, w, n, s, ne, nw, se, sw (corners null on 5-point)
-  float* x;
-  const float* rhs;
-  int ni, nj, five;
+struct SolveParams {
+  NfMG M;
+  float* r;
+  int* cycles;
+  float* rel;
+  float* red;
+  int max_cycles, check_every, mean_normalize;
+  float tol;
 };
 
-struct Params {
-  Level lv[MAX_LEVELS];
-  int L, pre, post, coarsest;
-  float omega;
+__global__ void __launch_bounds__(NF_THREADS) mg_solve_kernel(SolveParams P) {
+  NfCoop C = nf_coop(P.red);
+  nf_mg_solve(C, P.M, P.r, P.max_cycles, P.check_every, P.tol, P.mean_normalize != 0, P.cycles,
+              P.rel);
+}
+
+struct RapParams {
+  NfLevel lv[NF_MAX_LEVELS];
+  int L;
 };
 
-__device__ __forceinline__ float at(const float* x, const Level& L, int i, int j) {
-  return (i >= 0 && i < L.ni && j >= 0 && j < L.nj) ? x[(int64_t)i * L.nj + j] : 0.f;
+__global__ void __launch_bounds__(NF_THREADS) rap_kernel(RapParams P) {
+  NfCoop C = nf_coop(nullptr);
+  nf_galerkin_rap(C, P.lv, P.L);
 }
 
-// Off-diagonal part of (A x)[i, j].
-__device__ __forceinline__ float offdiag(const Level& L, int i, int j, int64_t g) {
-  const float* x = L.x;
-  float off = L.st[1][g] * at(x, L, i + 1, j) + L.st[2][g] * at(x, L, i - 1, j) +
-              L.st[3][g] * at(x, L, i, j + 1) + L.st[4][g] * at(x, L, i, j - 1);
-  if (!L.five)
-    off = off + L.st[5][g] * at(x, L, i + 1, j + 1) + L.st[6][g] * at(x, L, i - 1, j + 1) +
-          L.st[7][g] * at(x, L, i + 1, j - 1) + L.st[8][g] * at(x, L, i - 1, j - 1);
-  return off;
-}
-
-__device__ __forceinline__ float residual(const Level& L, int i, int j) {
-  const int64_t g = (int64_t)i * L.nj + j;
-  const float* x = L.x;
-  float ax = L.st[0][g] * x[g] + L.st[1][g] * at(x, L, i + 1, j) +
-             L.st[2][g] * at(x, L, i - 1, j) + L.st[3][g] * at(x, L, i, j + 1) +
-             L.st[4][g] * at(x, L, i, j - 1);
-  if (!L.five)
-    ax = ax + L.st[5][g] * at(x, L, i + 1, j + 1) + L.st[6][g] * at(x, L, i - 1, j + 1) +
-         L.st[7][g] * at(x, L, i + 1, j - 1) + L.st[8][g] * at(x, L, i - 1, j - 1);
-  return L.rhs[g] - ax;
-}
-
-// One colour pass of Gauss-Seidel (same-colour cells are never neighbours,
-// so the in-place update is a true GS update).
-__device__ void smooth_pass(const Level& L, int color, float omega, int64_t start,
-                            int64_t stride) {
-  const int64_t n = (int64_t)L.ni * L.nj;
-  for (int64_t g = start; g < n; g += stride) {
-    const int i = (int)(g / L.nj), j = (int)(g % L.nj);
-    const int c = L.five ? ((i + j) & 1) : (((i & 1) << 1) | (j & 1));
-    if (c != color) continue;
-    const float pnew = (L.rhs[g] - offdiag(L, i, j, g)) * nf_inv_diag(L.st[0][g]);
-    L.x[g] = L.x[g] + omega * (pnew - L.x[g]);
-  }
-}
-
-// Coarse right-hand side = 2x2-restricted fine residual; coarse iterate = 0.
-__device__ void restrict_pass(const Level& F, const Level& C, int64_t start, int64_t stride) {
-  const int64_t n = (int64_t)C.ni * C.nj;
-  for (int64_t g = start; g < n; g += stride) {
-    const int I = (int)(g / C.nj), J = (int)(g % C.nj);
-    const int i = 2 * I, j = 2 * J;
-    const float r00 = residual(F, i, j), r10 = residual(F, i + 1, j);
-    const float r01 = residual(F, i, j + 1), r11 = residual(F, i + 1, j + 1);
-    const_cast<float*>(C.rhs)[g] = 0.5f * (0.5f * (r00 + r10) + 0.5f * (r01 + r11));
-    C.x[g] = 0.f;
-  }
-}
-
-__device__ void prolong_pass(const Level& F, const Level& C, int64_t start, int64_t stride) {
-  const int64_t n = (int64_t)F.ni * F.nj;
-  for (int64_t g = start; g < n; g += stride) {
-    const int i = (int)(g / F.nj), j = (int)(g % F.nj);
-    F.x[g] = F.x[g] + nf_prolong_cc(C.x, C.ni, C.nj, i, j);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) vcycle_kernel(Params P) {
+// `n` grid-wide barriers and nothing else: the unit of the K3-K7 bound.
+__global__ void __launch_bounds__(NF_THREADS) sync_probe_kernel(int n) {
   cg::grid_group grid = cg::this_grid();
-  const int64_t gtid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t gstride = (int64_t)gridDim.x * blockDim.x;
-  bool pending = false;  // block 0 wrote without a grid barrier since
+  for (int i = 0; i < n; ++i) grid.sync();
+}
 
-  // Run one pass over `cells` cells: block 0 alone for small levels,
-  // the whole grid otherwise.  `cells` is uniform over the grid.
-#define NF_PASS(cells, CALL)                                 \
-  do {                                                       \
-    if ((cells) <= SMALL_CELLS) {                            \
-      if (blockIdx.x == 0) {                                 \
-        const int64_t start = threadIdx.x;                   \
-        const int64_t stride = blockDim.x;                   \
-        CALL;                                                \
-        __syncthreads();                                     \
-      }                                                      \
-      pending = true;                                        \
-    } else {                                                 \
-      if (pending) {                                         \
-        grid.sync();                                         \
-        pending = false;                                     \
-      }                                                      \
-      const int64_t start = gtid;                            \
-      const int64_t stride = gstride;                        \
-      CALL;                                                  \
-      grid.sync();                                           \
-    }                                                        \
-  } while (0)
-
-  const int L = P.L;
-  for (int l = 0; l < L - 1; ++l) {
-    const Level& F = P.lv[l];
-    const Level& C = P.lv[l + 1];
-    const int64_t cells = (int64_t)F.ni * F.nj;
-    const int colors = F.five ? 2 : 4;
-    for (int s = 0; s < P.pre; ++s)
-      for (int c = 0; c < colors; ++c) NF_PASS(cells, smooth_pass(F, c, P.omega, start, stride));
-    NF_PASS((int64_t)C.ni * C.nj, restrict_pass(F, C, start, stride));
+// Per level: 9 stencil pointers (0 for absent corners), x, rhs; ni, nj, five.
+int read_levels(NfMG& M, const long long* ptrs, const int* ip, int L) {
+  if (L < 1 || L > NF_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  M.L = L;
+  for (int l = 0; l < L; ++l) {
+    NfLevel& lv = M.lv[l];
+    for (int k = 0; k < 9; ++k) lv.st[k] = reinterpret_cast<const float*>(ptrs[11 * l + k]);
+    lv.x = reinterpret_cast<float*>(ptrs[11 * l + 9]);
+    lv.rhs = reinterpret_cast<const float*>(ptrs[11 * l + 10]);
+    lv.ni = ip[3 * l]; lv.nj = ip[3 * l + 1]; lv.five = ip[3 * l + 2];
   }
-  {
-    const Level& Cst = P.lv[L - 1];
-    const int64_t cells = (int64_t)Cst.ni * Cst.nj;
-    const int colors = Cst.five ? 2 : 4;
-    for (int s = 0; s < P.coarsest; ++s)
-      for (int c = 0; c < colors; ++c) NF_PASS(cells, smooth_pass(Cst, c, P.omega, start, stride));
-  }
-  for (int l = L - 2; l >= 0; --l) {
-    const Level& F = P.lv[l];
-    const Level& C = P.lv[l + 1];
-    const int64_t cells = (int64_t)F.ni * F.nj;
-    const int colors = F.five ? 2 : 4;
-    NF_PASS(cells, prolong_pass(F, C, start, stride));
-    for (int s = 0; s < P.post; ++s)
-      for (int c = 0; c < colors; ++c) NF_PASS(cells, smooth_pass(F, c, P.omega, start, stride));
-  }
-#undef NF_PASS
+  return 0;
 }
 
 }  // namespace
 
-// ptrs: per level, 9 stencil pointers (0 for absent corners), x, rhs
-//       (level 0: x = output already holding p, rhs = b)
+// ptrs: per level, 9 stencil pointers, x, rhs (level 0: x = output already
+//       holding p, rhs = b)
 // ip:   L, pre, post, coarsest, then per level ni, nj, five
 // fp:   omega
 NF_EXPORT int nf_fused_vcycle(const long long* ptrs, const int* ip, const float* fp,
                               void* stream) {
-  Params P = {};
+  NfMG M = {};
+  int err = read_levels(M, ptrs, ip + 4, ip[0]);
+  if (err) return err;
+  M.pre = ip[1]; M.post = ip[2]; M.coarsest = ip[3]; M.omega = fp[0];
+  return nf_coop_launch(vcycle_kernel, M, (int64_t)M.lv[0].ni * M.lv[0].nj,
+                        (cudaStream_t)stream);
+}
+
+// ptrs: per level 11 pointers as nf_fused_vcycle, then r, cycles (int32),
+//       rel, reduction scratch
+// ip:   L, pre, post, coarsest, max_cycles, check_every, mean_normalize,
+//       then per level ni, nj, five
+// fp:   omega, tolerance
+NF_EXPORT int nf_fused_mg_solve(const long long* ptrs, const int* ip, const float* fp,
+                                void* stream) {
+  SolveParams P = {};
+  const int L = ip[0];
+  int err = read_levels(P.M, ptrs, ip + 7, L);
+  if (err) return err;
+  P.M.pre = ip[1]; P.M.post = ip[2]; P.M.coarsest = ip[3]; P.M.omega = fp[0];
+  P.max_cycles = ip[4]; P.check_every = ip[5]; P.mean_normalize = ip[6];
+  if (P.check_every < 1) return (int)cudaErrorInvalidValue;
+  P.tol = fp[1];
+  P.r = reinterpret_cast<float*>(ptrs[11 * L]);
+  P.cycles = reinterpret_cast<int*>(ptrs[11 * L + 1]);
+  P.rel = reinterpret_cast<float*>(ptrs[11 * L + 2]);
+  P.red = reinterpret_cast<float*>(ptrs[11 * L + 3]);
+  return nf_coop_launch(mg_solve_kernel, P, (int64_t)P.M.lv[0].ni * P.M.lv[0].nj,
+                        (cudaStream_t)stream);
+}
+
+// ptrs: the fine stencil (9 pointers, 0 for absent corners), then 9 output
+//       arrays per coarse level
+// ip:   L (levels, fine included), fine_five, then per level ni, nj
+NF_EXPORT int nf_galerkin_levels(const long long* ptrs, const int* ip, const float* fp,
+                                 void* stream) {
+  (void)fp;
+  RapParams P = {};
   P.L = ip[0];
-  if (P.L < 1 || P.L > MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  P.pre = ip[1]; P.post = ip[2]; P.coarsest = ip[3]; P.omega = fp[0];
+  if (P.L < 2 || P.L > NF_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  int64_t cells = 0;
   for (int l = 0; l < P.L; ++l) {
-    Level& lv = P.lv[l];
-    for (int k = 0; k < 9; ++k) lv.st[k] = reinterpret_cast<const float*>(ptrs[11 * l + k]);
-    lv.x = reinterpret_cast<float*>(ptrs[11 * l + 9]);
-    lv.rhs = reinterpret_cast<const float*>(ptrs[11 * l + 10]);
-    lv.ni = ip[4 + 3 * l]; lv.nj = ip[5 + 3 * l]; lv.five = ip[6 + 3 * l];
+    NfLevel& lv = P.lv[l];
+    for (int k = 0; k < 9; ++k) lv.st[k] = reinterpret_cast<const float*>(ptrs[9 * l + k]);
+    lv.ni = ip[2 + 2 * l]; lv.nj = ip[3 + 2 * l];
+    lv.five = l == 0 ? ip[1] : 0;
+    if (l == 1) cells = (int64_t)lv.ni * lv.nj;
   }
-  int device = 0, n_sm = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, vcycle_kernel, THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  // as many blocks as the largest level can use, and no more than fit at once
-  int64_t cells0 = (int64_t)P.lv[0].ni * P.lv[0].nj;
-  int blocks = (int)((cells0 + THREADS - 1) / THREADS);
-  if (blocks > per_sm * n_sm) blocks = per_sm * n_sm;
-  if (blocks < 1) blocks = 1;
-  void* args[] = {&P};
-  err = cudaLaunchCooperativeKernel((void*)vcycle_kernel, dim3(blocks), dim3(THREADS), args, 0,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return nf_coop_launch(rap_kernel, P, cells, (cudaStream_t)stream);
+}
+
+// A measurement aid, not a kernel of the solver: `syncs` grid-wide barriers
+// in one cooperative launch sized, as the kernels above, for `cells` cells.
+// ip: cells, syncs
+NF_EXPORT int nf_grid_sync_probe(const long long* ptrs, const int* ip, const float* fp,
+                                 void* stream) {
+  (void)ptrs;
+  (void)fp;
+  int syncs = ip[1];
+  return nf_coop_launch(sync_probe_kernel, syncs, (int64_t)ip[0], (cudaStream_t)stream);
 }

@@ -65,13 +65,14 @@ def coarse_tuple(coarse, *, dtype=None, device=None):
 
 def _port_config_classes():
     from .algorithms.simple import SIMPLEConfig
-    from .solvers.momentum import ChebyshevMomentumConfig, JacobiMomentumConfig
+    from .solvers.momentum import (ChebyshevMomentumConfig, JacobiMomentumConfig,
+                                   KrylovMomentumConfig)
     from .solvers.multigrid import MultigridConfig
     from .solvers.pressure import RBGSPressureConfig
 
     return {c.__name__: c for c in (
         SIMPLEConfig, ChebyshevMomentumConfig, JacobiMomentumConfig,
-        MultigridConfig, RBGSPressureConfig)}
+        KrylovMomentumConfig, MultigridConfig, RBGSPressureConfig)}
 
 
 def config(cfg):

@@ -15,3 +15,5 @@ from .poisson import (
     divergence,
     max_interior_divergence,
 )
+from .transfer import coarse_size, prolong_linear, restrict_full_weighting, restrict_inject
+from .compensated import compensated_norm, fold_dot, fold_norm2, fold_sum

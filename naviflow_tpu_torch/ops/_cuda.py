@@ -1,7 +1,8 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
 At the first CUDA use, ``nvcc`` compiles every ``naviflow_tpu_torch/csrc/*.cu``
-for ``sm_90a`` into one shared library with a plain C interface, under
+for ``sm_90a`` (one process per source, all started together) and links
+the objects into one shared library with a plain C interface, under
 ``naviflow_tpu_torch/_build/`` (git-ignored), named by a hash of the sources
 and flags; later uses load the same file.  The library is loaded with
 ``ctypes``: each C entry point takes a host array of device pointers (as
@@ -31,7 +32,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # no multiply-add contraction: the kernels round like the plain
     # PyTorch versions they are held against, op by op
     "-fmad=false",
@@ -43,7 +44,9 @@ _ARGS = [ctypes.POINTER(ctypes.c_longlong),  # device pointers
          ctypes.POINTER(ctypes.c_float),     # float parameters
          ctypes.c_void_p]                    # stream
 # C entry points (see csrc/*.cu for each one's pointer and parameter order)
-_KERNELS = ("nf_asmcheby_pair", "nf_strip_down", "nf_strip_up", "nf_fused_vcycle")
+_KERNELS = ("nf_asmcheby_pair", "nf_strip_down", "nf_strip_up", "nf_fused_vcycle",
+            "nf_galerkin_levels", "nf_fused_mg_solve", "nf_bicgstab", "nf_fused_simple_step",
+            "nf_grid_sync_probe")
 
 _lib = None
 _lock = threading.Lock()
@@ -80,21 +83,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libnaviflow_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands concurrently; raise with the stderr of a failure."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    except FileNotFoundError as e:
+        for _, proc in procs:
+            proc.kill()
+        raise RuntimeError(f"nvcc not found ({cmds[0][0]}); set CUDA_HOME or put nvcc "
+                           "on PATH") from e
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _build(out: Path):
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in CSRC.glob("*.cu")]]
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f"nvcc not found ({cmd[0]}); set CUDA_HOME or put nvcc on PATH") from e
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
+    _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+          for src, obj in zip(sources, objs)])
+    tmp = out.with_name(f"{tag}.tmp.so")
+    _run([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
     build_seconds = time.perf_counter() - t0
 
 

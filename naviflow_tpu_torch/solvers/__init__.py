@@ -1,6 +1,7 @@
 from .momentum import (
     ChebyshevMomentumConfig,
     JacobiMomentumConfig,
+    KrylovMomentumConfig,
     solve_momentum_pair,
     solve_u_momentum,
     solve_v_momentum,

@@ -3,21 +3,27 @@
 
 Exact Galerkin coarse operators (``ops/stencil9.galerkin_coarsen``),
 red-black SOR on the 5-point finest level, four-colour GS on the 9-point
-Galerkin levels, cell-centred transfers on even grids.
+Galerkin levels; vertex-centred transfers (``ops/transfer.py``) on odd
+grids, cell-centred ones (``ops/transfer_cc.py``) on even grids; V, W and
+FMG cycles.
 
-Kernel path (CUDA tensors, ``backend`` 'auto' or 'kernel'): a cycle whose
-whole hierarchy the fused kernel admits runs as one launch of K3
-(``ops/mg.fused_vcycle``); otherwise the fine levels too big for it are
-peeled — each qualifying one as a K2 ``strip_down``/``strip_up`` pair
-(``ops/strip.py``) — and the first tail K3 admits runs as one launch.  At a
-1024^2 grid that is levels 0 and 1 as strips and 256^2 -> 4^2 as K3.
+Kernel path (CUDA tensors, ``backend`` 'auto' or 'kernel'):
+* the coarse hierarchy of an odd grid comes from one launch of K4
+  (``ops/mg.galerkin_levels``) from the first level its gate admits; the
+  levels above it are coarsened composed;
+* a solve whose whole hierarchy the fused gate admits is one launch of K5
+  (``ops/mg.fused_mg_solve``: cycles, checks, mean normalisation and the
+  residual), after the composed FMG bootstrap where ``cycle_type='fmg'``;
+* otherwise each cycle is one launch of K3 (``ops/mg.fused_vcycle``) where
+  the whole hierarchy fits, else the fine levels too big for it are peeled
+  (each qualifying one as a K2 ``strip_down``/``strip_up`` pair) and the
+  first tail K3 admits runs as one launch.  At a 1024^2 grid that is levels
+  0 and 1 as strips and 256^2 -> 4^2 as K3.
 
-Not yet ported (each raises :class:`NotImplementedError`): vertex-centred
-(odd) grids (``ops/transfer.py``, ROADMAP §1 item 1), rediscretized
-coarsening, the FMG bootstrap and the Jacobi, Chebyshev and bfloat16
-smoothers (item 10), the colour-plane fine layout (``ops/plane.py`` and K10,
-ROADMAP §2), and the whole-solve kernel K5 (``fused_mg_solve``, ROADMAP
-§2), which the reference would launch wherever the whole hierarchy fits.
+Not yet ported (each raises :class:`NotImplementedError`): rediscretized
+coarsening, cubic prolongation, the Jacobi, Chebyshev and bfloat16
+smoothers (ROADMAP §1 item 10), and the colour-plane fine layout
+(``ops/plane.py`` and K10, ROADMAP §2).
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from typing import Tuple
 import torch
 
 from ..ops import _cuda
-from ..ops.mg import fused_vcycle, supports_fused
+from ..ops.mg import (fused_mg_solve, fused_vcycle, galerkin_levels, supports_fused,
+                      supports_fused_rap)
 from ..ops.poisson import poisson_coefficients
 from ..ops.stencil import index_grids
 from ..ops.stencil9 import (
@@ -41,6 +48,7 @@ from ..ops.stencil9 import (
     stencil9_diagonal,
 )
 from ..ops.strip import strip_down, strip_up, supports_strip
+from ..ops.transfer import coarse_size, prolong_linear, restrict_full_weighting, restrict_inject
 from ..ops.transfer_cc import prolong_cc, restrict_cc
 from ..ops.unported import not_ported
 from .pressure import PressureSolveInfo
@@ -55,16 +63,16 @@ class MultigridConfig:
     max_cycles: int = 100
     pre_smoothing: int = 2
     post_smoothing: int = 2
-    cycle_type: str = "v"  # 'v' | 'w' ('fmg' not ported)
+    cycle_type: str = "v"  # 'v' | 'w' | 'fmg'
     smoother: str = "gs"  # 'gs' ('jacobi', 'chebyshev' not ported)
     omega: float = 1.0
     cheby_degree: int = 4
     cheby_theta: float = 30.0
     coarsest_grid_size: int = 7
     coarsest_sweeps: int = 64
-    restriction: str = "full_weighting"
+    restriction: str = "full_weighting"  # 'full_weighting' | 'inject'
     smoother_dtype: str = "float32"
-    prolongation: str = "linear"
+    prolongation: str = "linear"  # 'linear' ('cubic' not ported)
     coarsening: str = "galerkin"
     check_every: int = 1
     # rebuild the coarse Galerkin operators only every K outer iterations
@@ -112,15 +120,25 @@ def _smooth_core(p, b, st: Stencil9, cfg, n, five_point: bool, lam=None):
     return p
 
 
+def _restrict(r, cfg):
+    if cfg.restriction == "full_weighting":
+        return restrict_full_weighting(r)
+    return restrict_inject(r)
+
+
 def _level_transfers(nx, ny, cfg):
-    """Cell-centred transfers for an even level.  Returns
+    """The transfers of one level by grid parity: vertex-centred on odd
+    (2^k - 1) grids, cell-centred on even ones.  Returns
     ``(restrict_fn, prolong_fn, (nxc, nyc))``."""
+    if nx % 2 == 1 and ny % 2 == 1:
+        if cfg.prolongation != "linear":
+            raise NotImplementedError(
+                f"prolongation={cfg.prolongation!r}: only 'linear' is ported "
+                "(ROADMAP §1 item 10)")
+        return (lambda r: _restrict(r, cfg), prolong_linear,
+                (coarse_size(nx), coarse_size(ny)))
     if nx % 2 == 0 and ny % 2 == 0:
         return restrict_cc, prolong_cc, (nx // 2, ny // 2)
-    if nx % 2 == 1 and ny % 2 == 1:
-        raise NotImplementedError(
-            f"vertex-centred (odd) grid {(nx, ny)}: ops/transfer.py is not "
-            "ported yet (ROADMAP §1 item 1)")
     raise ValueError(f"mixed-parity grid ({nx}, {ny}) cannot be coarsened")
 
 
@@ -130,19 +148,30 @@ def build_levels(d_u, d_v, cfg: MultigridConfig, *, dx, dy, rho, variant):
     nx, ny = d_u.shape[0] - 1, d_v.shape[1] - 1
     if cfg.coarsening != "galerkin":
         raise NotImplementedError(
-            f"coarsening={cfg.coarsening!r}: ops/transfer.py is not ported yet "
-            "(ROADMAP §1 item 10)")
+            f"coarsening={cfg.coarsening!r}: rediscretized coarsening is not "
+            "ported yet (ROADMAP §1 item 10)")
     fine = from_poisson(
         poisson_coefficients(d_u, d_v, dx=dx, dy=dy, rho=rho, variant=variant))
     levels = [(fine, (nx, ny), True, None)]
-    st, shape = fine, (nx, ny)
-    # composed Galerkin coarsening level by level (the reference's one-launch
-    # RAP kernel K4 serves odd grids only, which stop at _level_transfers)
-    while min(shape) > cfg.coarsest_grid_size:
-        rf, pf, shp_c = _level_transfers(*shape, cfg)
-        st = galerkin_coarsen(st, rf, pf, *shp_c)
-        levels.append((st, shp_c, False, None))
-        shape = shp_c
+    shapes = [(nx, ny)]
+    while min(shapes[-1]) > cfg.coarsest_grid_size:
+        shapes.append(_level_transfers(*shapes[-1], cfg)[2])
+    kernel = _kernel_path(cfg, d_u) and len(shapes) > 1
+
+    def rap_ok(shp):
+        return kernel and supports_fused_rap(*shp, cfg, fine.c.dtype)
+
+    # levels too large for the one-launch RAP (K4) are coarsened composed;
+    # K4 then builds the whole remaining sub-hierarchy
+    st, cur = fine, 0
+    while cur < len(shapes) - 1 and not rap_ok(shapes[cur]):
+        rf, pf, _ = _level_transfers(*shapes[cur], cfg)
+        st = galerkin_coarsen(st, rf, pf, *shapes[cur + 1])
+        levels.append((st, shapes[cur + 1], False, None))
+        cur += 1
+    if cur < len(shapes) - 1:
+        for stc, shp in zip(galerkin_levels(st, shapes[cur:], cur == 0), shapes[cur + 1:]):
+            levels.append((stc, shp, False, None))
     return levels
 
 
@@ -213,6 +242,21 @@ def _peeled_cycle(p, b, levels, cfg, k: int, tail_fn, strip: bool = False):
     return ec
 
 
+def _fmg(b, levels, cfg):
+    """Full-multigrid bootstrap: restrict b down the hierarchy, smooth on the
+    coarsest level, then prolong and cycle level by level back up."""
+    rhs = [b]
+    for lvl in range(len(levels) - 1):
+        rf, _, _ = _level_transfers(*levels[lvl][1], cfg)
+        rhs.append(rf(rhs[-1]))
+    st, _, five, lam = levels[-1]
+    p = _smooth(torch.zeros_like(rhs[-1]), rhs[-1], st, cfg, cfg.coarsest_sweeps, five, lam)
+    for lvl in range(len(levels) - 2, -1, -1):
+        _, pf, _ = _level_transfers(*levels[lvl][1], cfg)
+        p = _cycle(pf(p), rhs[lvl], levels, lvl, cfg)
+    return p
+
+
 def coarse_stencils(levels):
     """The carryable part of a hierarchy: the coarse-level Stencil9 tuple."""
     return tuple(st for st, _, _, _ in levels[1:])
@@ -230,20 +274,23 @@ def multigrid_solve(
         levels = build_levels(d_u, d_v, cfg, dx=dx, dy=dy, rho=rho, variant=variant)
     st_fine = levels[0][0]
     five_fine = levels[0][2]
-    bnorm = torch.linalg.vector_norm(b)
-    safe_bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
+    if cfg.cycle_type not in ("v", "w", "fmg"):
+        raise ValueError(f"Unknown cycle_type: {cfg.cycle_type}")
+
+    p_start = _fmg(b, levels, cfg) if cfg.cycle_type == "fmg" else p0
 
     if _kernel_path(cfg, b) and supports_fused(levels, cfg):
-        raise not_ported("K5 fused_mg_solve", "§2 K5")
+        # the whole cycle/check loop in one launch (K5)
+        p, r, cycles, rel = fused_mg_solve(p_start, b, levels, cfg,
+                                           mean_normalize=(variant != "reference"))
+        return p, PressureSolveInfo(iterations=cycles, residual_field=r, rel_residual=rel)
     if getattr(cfg, "fine_layout", "auto") not in ("auto", "interleaved"):
         raise not_ported("the colour-plane fine layout (ops/plane.py, K10 plane_strip_*)",
                          "§2 K10")
 
-    if cfg.cycle_type not in ("v", "w"):
-        raise NotImplementedError(
-            f"cycle_type={cfg.cycle_type!r}: the FMG bootstrap is not ported yet "
-            "(ROADMAP §1 item 10)")
-    p = p0
+    bnorm = torch.linalg.vector_norm(b)
+    safe_bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
+    p = p_start
     if cfg.tolerance <= 0.0:
         for _ in range(cfg.max_cycles):
             p = _cycle0(p, b, levels, cfg)

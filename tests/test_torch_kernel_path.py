@@ -88,7 +88,7 @@ def test_forced_kernel_path_matches_jax_merged_kernel(kernel_gates_open, monkeyp
         _build_solve.cache_clear()
 
     tmesh, tbc = interop.mesh(mesh), interop.boundary_conditions(bc)
-    state0 = nt.initialize_state(tmesh, tbc, dtype=torch.float32)
+    state0 = nt.initialize_state(tmesh, tbc, dtype=torch.float32, device="cpu")
     assert tmom.lagged_rho_enabled(n, n, interop.config(MOM), fold_poisson=True,
                                    dtype=torch.float32, device=state0.u.device)
     ts, td = port_simple_solve(tmesh, interop.fluid(fluid), tbc, state0,
@@ -111,21 +111,28 @@ def test_unported_kernel_gates_refuse(kernel_gates_open):
     from naviflow_tpu_torch.solvers.multigrid import MultigridConfig as TMG
     from naviflow_tpu_torch.solvers.multigrid import multigrid_solve
 
-    # K5: the whole 16^2 hierarchy fits the fused budget
+    # K5, now ported: the whole 16^2 hierarchy fits the fused budget, so the
+    # solve goes through its wrapper (the plain version on the CPU)
     n = 16
     d_u = torch.rand((n + 1, n)) + 0.5
     d_v = torch.rand((n, n + 1)) + 0.5
     b = torch.randn((n, n))
     kw = dict(dx=1.0 / n, dy=1.0 / n, rho=1.0)
-    with pytest.raises(NotImplementedError, match="K5"):
-        multigrid_solve(b, d_u, d_v, torch.zeros_like(b), TMG(), **kw)
+    calls = []
+    real = mg.fused_mg_solve_plain
+    mg.fused_mg_solve_plain = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        p, info = multigrid_solve(b, d_u, d_v, torch.zeros_like(b), TMG(), **kw)
+    finally:
+        mg.fused_mg_solve_plain = real
+    assert calls == [1] and torch.isfinite(p).all()
     p, info = multigrid_solve(b, d_u, d_v, torch.zeros_like(b), TMG(backend="composed", max_cycles=2), **kw)
     assert torch.isfinite(p).all()
 
     # K8: fused assembly at 384 x 256 with a non-merged momentum config
     mesh = nt.StructuredMesh(nx=384, ny=256)
     bc = nt.lid_driven_cavity(1.0)
-    s = nt.initialize_state(mesh, bc)
+    s = nt.initialize_state(mesh, bc, device="cpu")
     kw = dict(dx=mesh.dx, dy=mesh.dy, rho=1.0, mu=0.01, alpha=0.7, bc=bc)
     with pytest.raises(NotImplementedError, match="K8"):
         tmom.solve_momentum_pair(s.u, s.v, s.p, cfg=JacobiMomentumConfig(), **kw)

@@ -67,7 +67,7 @@ def test_velocity_bcs_and_initial_state(lid):
     close(tv, jv)
     mesh = nf.StructuredMesh(nx=NX, ny=NY)
     js = interop.flow_state(nf.initialize_state(mesh, jb, dtype=jnp.float64))
-    ts = nt.initialize_state(interop.mesh(mesh), tb, dtype=torch.float64)
+    ts = nt.initialize_state(interop.mesh(mesh), tb, dtype=torch.float64, device="cpu")
     for name in ("u", "v", "p"):
         close(getattr(ts, name), getattr(js, name))
 

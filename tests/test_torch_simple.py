@@ -53,7 +53,7 @@ def test_large_grid_slice_matches_jax_f64():
                           cfg, momentum=MOM, pressure=PRES, loop="fused")
 
     tmesh, tbc = interop.mesh(mesh), interop.boundary_conditions(bc)
-    state0 = nt.initialize_state(tmesh, tbc, dtype=torch.float64)
+    state0 = nt.initialize_state(tmesh, tbc, dtype=torch.float64, device="cpu")
     before = [t.clone() for t in (state0.u, state0.v, state0.p)]
     ts, td = port_simple_solve(tmesh, interop.fluid(fluid), tbc, state0,
                                interop.config(cfg), momentum=interop.config(MOM),
@@ -88,7 +88,7 @@ def test_convergence_stop_matches_jax():
                           cfg, momentum=mom, pressure=pres, loop="fused")
     tmesh, tbc = interop.mesh(mesh), interop.boundary_conditions(bc)
     ts, td = port_simple_solve(tmesh, interop.fluid(fluid), tbc,
-                               nt.initialize_state(tmesh, tbc, dtype=torch.float64),
+                               nt.initialize_state(tmesh, tbc, dtype=torch.float64, device="cpu"),
                                interop.config(cfg), momentum=interop.config(mom),
                                pressure=interop.config(pres))
     assert td.iterations == int(jd.iterations)
@@ -104,7 +104,7 @@ def test_unported_loop_modes_raise(loop):
     bc = nt.lid_driven_cavity(1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_simple_solve(mesh, nt.FluidProperties(reynolds_number=10), bc,
-                          nt.initialize_state(mesh, bc), loop=loop)
+                          nt.initialize_state(mesh, bc, device="cpu"), loop=loop)
 
 
 def test_port_imports_without_jax():
