@@ -17,8 +17,11 @@ result line:
    cavity state (maxiter 3 and 20); K4 on 63^2 and 255^2 vertex
    hierarchies; K5 on the 63^2 hierarchy at the headline configuration and
    at tolerance 1e-4 / 30 cycles; K6 over 3 chained 63^2 steps from rest
-   and one 255^2 step; K3 on the 63^2 -> 7^2 vertex hierarchy.  Beside them
-   the time of one grid-wide barrier at each kernel's grid size;
+   and one 255^2 step; K3 on the 63^2 -> 7^2 vertex hierarchy; K8 at 2048^2
+   (plain, with the Gershgorin maxima, and with each Poisson fold); K9 on
+   the u and v systems of a 2048^2 cavity state (degree 4); K6's simplec,
+   piso and simpler bodies over 3 chained 63^2 steps from rest.  Beside
+   them the time of one grid-wide barrier at each kernel's grid size;
 4. the 1024^2 slice: ``simple_solve`` at 1024^2, Re=100, with the bench's
    large-grid configuration (Chebyshev momentum of degree 4, one fixed
    V-cycle with 1/1 smoothing, 32 coarsest sweeps, coarse rebuild every 8
@@ -36,7 +39,19 @@ result line:
    at 1e-5; a ``torch.profiler`` window of 20 kernel steps;
 6. the FMG run: the same case with ``cycle_type='fmg'`` (which the K6 gate
    refuses) for 40 steps: launches K7 = 80, K5 = 40, K4 = 1 + 5 refreshes,
-   nothing else; residual finite, falling, within 5% of the composed run.
+   nothing else; residual finite, falling, within 5% of the composed run;
+7. the 2048^2 large-grid path: SIMPLEC (20 steps), PISO, SIMPLER and SIMPLE
+   with the bench's BiCGSTAB momentum (10 steps each) at Re=100 with the
+   bench's large-grid configuration, with the kernels and composed: launches
+   K8 once per momentum solve, K9 once per field and Chebyshev solve, a K2
+   pair per peeled level and one K3 per pressure solve, K1 never; histories
+   finite and falling (SIMPLER's: falling first, then it turns, as in the
+   JAX package); the residual within 5% of the composed run's at every
+   step;
+8. SIMPLEC, PISO and SIMPLER at 63^2 with the headline configuration to
+   1e-3, with the kernels and composed: one K6 launch per step and K4 once;
+   iterations within 2% or 2 (SIMPLEC: 5%) of the composed run's and of the
+   JAX package's on the CPU (131 / 39 / 56).
 
 Then a JSON line with every kernel's launches, error, times and bound, the
 card's name and power limit, and, last, ``{"ok": true, "device": {...}}``.
@@ -56,6 +71,12 @@ STEPS = 40
 NH = 63  # the headline grid (bench.py main)
 NH_BIG = 255  # the largest grid the K6 gate admits
 FMG_STEPS = 40
+NL = 2048  # the large-grid algorithms' grid (bench.py large-grid row)
+# outer steps of each large-grid run, and of the 63^2 algorithm runs' JAX
+# counts to 1e-3 (the JAX package in float32 on the CPU, bench.py's
+# headline configuration)
+LARGE_STEPS = {"simplec": 20, "piso": 10, "simpler": 10, "simple_bicgstab": 10}
+JAX_ITERATIONS_63 = {"simplec": 131, "piso": 39, "simpler": 56}
 RE = 100.0
 SEED = 0
 REPS = 20  # timed launches per kernel measurement
@@ -270,16 +291,19 @@ def bicgstab_work(n, iterations):
     return 8 * 4 * n, flops  # x0 and six coefficient arrays in, x out
 
 
-def step_work(nx, meta, cfg, k_total, cycles):
+def step_work(nx, meta, cfg, k_total, cycles, pairs=1, psolves=1):
+    """One outer step with ``pairs`` BiCGSTAB momentum pairs (the first with
+    its compensated residuals) and ``psolves`` pressure solves."""
     nu, nv, np_ = (nx + 1) * nx, nx * (nx + 1), nx * nx
     faces = nu + nv
     byts = 4 * (3 * faces + 3 * np_)  # u, v, p in; u', v', p', r_u, r_v, r_p out
-    # assembly, compensated residuals, corrections per face; continuity,
-    # operator and norm per cell
-    flops = faces * (70 + 6 * (2 + 6 + 17) + 2 * DOT2 + 8) + np_ * (20 + DOT2 + 3)
-    flops += (2 * (APPLY5 + 3 * DOT2 + 1) * max(nu, nv)
+    # assembly per face and pair; compensated residuals once; corrections
+    # per face and solve; continuity, operator and norm per cell and solve
+    flops = (faces * (pairs * 70 + 6 * (2 + 6 + 17) + 2 * DOT2 + psolves * 8)
+             + psolves * np_ * (20 + DOT2 + 3))
+    flops += (2 * pairs * (APPLY5 + 3 * DOT2 + 1) * max(nu, nv)
               + k_total * max(nu, nv) * (2 * APPLY5 + 5 * DOT2 + 12))
-    flops += rap_work(meta)[1] + mg_solve_work(meta, cfg, cycles)[1]
+    flops += psolves * rap_work(meta)[1] + mg_solve_work(meta, cfg, cycles)[1]
     return byts, flops
 
 
@@ -700,12 +724,183 @@ def check_step(dev, sync_ms):
     return rows
 
 
+def check_assembly(dev):
+    """K8 at 2048^2 from a seeded cavity state: plain, with the Gershgorin
+    maxima, and with each Poisson fold; coefficients at rtol/atol 1e-5,
+    maxima at rtol 1e-6, d and the operator at rtol 1e-6 / atol 1e-9
+    (tests/test_pallas_assembly.py's tolerances)."""
+    import torch
+
+    from naviflow_tpu_torch.ops import assembly
+
+    u, v, p, kw = cavity_fields(NL, dev)
+    alpha = 0.7
+    faces, cells = 2 * NL * (NL + 1), NL * NL
+    rows = []
+    for bounds, variant in ((False, None), (True, None), (False, "consistent"),
+                            (False, "symmetric"), (False, "reference")):
+        args = dict(alpha=alpha, with_bounds=bounds, poisson_variant=variant, **kw)
+        got = assembly.fused_assembly_pair(u, v, p, **args)
+        want = assembly.fused_assembly_pair_plain(u, v, p, **args)
+        torch_sync()
+        ok, worst_abs = True, 0.0
+        pairs = [(getattr(g, f), getattr(w, f)) for g, w in zip(got[:4], want[:4])
+                 for f in ("a_e", "a_w", "a_n", "a_s", "a_p", "src")]
+        for g, w in pairs:
+            worst_abs = max(worst_abs, max_err(g, w)[0])
+            ok &= bool(torch.allclose(g, w, rtol=1e-5, atol=1e-5))
+        rest_g, rest_w = got[4:], want[4:]
+        if bounds:
+            for g, w in zip(rest_g[:2], rest_w[:2]):
+                worst_abs = max(worst_abs, max_err(g, w)[0])
+                ok &= abs(float(g) - float(w)) <= 1e-6 * abs(float(w))
+            rest_g, rest_w = rest_g[2:], rest_w[2:]
+        if variant is not None:
+            fold = [(rest_g[0], rest_w[0]), (rest_g[1], rest_w[1])] + [
+                (getattr(rest_g[2], f), getattr(rest_w[2], f))
+                for f in ("a_e", "a_w", "a_n", "a_s", "diag")]
+            for g, w in fold:
+                worst_abs = max(worst_abs, max_err(g, w)[0])
+                ok &= bool(torch.allclose(g, w, rtol=1e-6, atol=1e-9))
+        ms, plain_ms = time_pair(lambda: assembly.fused_assembly_pair_plain(u, v, p, **args),
+                                 lambda: assembly.fused_assembly_pair(u, v, p, **args), reps=10)
+        # u, v, p in; 16 coefficient arrays out (+ d_u, d_v, 5 operator arrays)
+        nbytes = 4 * (faces + cells + 8 * faces)
+        flops = faces * 80
+        if variant is not None:
+            nbytes += 4 * (faces + 5 * cells)
+            flops += cells * (4 * 80 + 20)
+        rows.append(dict(name="fused_assembly_pair", shape=[NL, NL], with_bounds=bounds,
+                         poisson_variant=variant, ok=ok, max_abs_err=worst_abs, ms=ms,
+                         plain_ms=plain_ms, work=(nbytes, flops),
+                         main=bounds and variant is None))
+    return rows
+
+
+def check_cheby(dev):
+    """K9 on the u and v systems of a 2048^2 cavity state, degree 4: x* and
+    the masked residual within 2e-5 of each output's scale
+    (tests/test_pallas_cheby.py's tolerance)."""
+    from naviflow_tpu_torch.ops import cheby
+    from naviflow_tpu_torch.ops.powerlaw import (relax_coefficients, u_momentum_coefficients,
+                                                 v_momentum_coefficients)
+    from naviflow_tpu_torch.solvers.momentum import _chebyshev_bounds
+    from naviflow_tpu_torch.ops.stencil import interior_mask
+
+    u, v, p, kw = cavity_fields(NL, dev)
+    degree = 4
+    rows = []
+    for field, x0, fn in (("u", u, u_momentum_coefficients), ("v", v, v_momentum_coefficients)):
+        c_un = fn(u, v, p, **kw)
+        c_rel = relax_coefficients(c_un, x0, 0.7)
+        bounds = _chebyshev_bounds(c_rel, interior_mask(x0.shape, 1, 1, 1, 1, device=dev))
+        args = dict(theta=bounds[0], delta=bounds[1], sigma1=bounds[2], degree=degree)
+        got = cheby.chebyshev_momentum_strips(x0, c_rel, c_un, **args)
+        want = cheby.chebyshev_momentum_strips_plain(x0, c_rel, c_un, **args)
+        torch_sync()
+        errs = [max_err(g, w) for g, w in zip(got, want)]
+        ms, plain_ms = time_pair(
+            lambda: cheby.chebyshev_momentum_strips_plain(x0, c_rel, c_un, **args),
+            lambda: cheby.chebyshev_momentum_strips(x0, c_rel, c_un, **args), reps=10)
+        n = x0.numel()
+        rows.append(dict(name="chebyshev_momentum_strips", field=field, shape=list(x0.shape),
+                         degree=degree, ok=all(r < 2e-5 for _, r in errs),
+                         max_abs_err=max(a for a, _ in errs), rel_err=[r for _, r in errs],
+                         ms=ms, plain_ms=plain_ms,
+                         work=(4 * 11 * n, n * (degree * (APPLY5 + 8) + APPLY5 + 1))))
+    return rows
+
+
+def body_barriers(meta, pres, k_total, cycles, pairs, jacobi_pairs, sweeps, psolves):
+    """The grid-wide barriers of one K6 body (csrc/step.cu), pass by pass."""
+    bar = Barriers()
+    for pair in range(pairs + jacobi_pairs):
+        bar.grid(2)  # BCs, assembly
+        if pair < pairs:
+            bar.bicgstab(0)
+            bar.bicgstab(0)
+        else:
+            bar.grid(2 * max(sweeps, 1))
+        bar.grid()  # BCs on u*, v*
+    bar.n += 5 * k_total
+    bar.grid()  # the predictor's residual norms
+    for _ in range(psolves):
+        bar.grid()  # RHS and operator
+        bar.rap(meta)
+    bar.mg_solve(meta, pres, cycles)
+    bar.n += (psolves - 1) * 4  # the other solves' norm, mean and residual passes
+    bar.grid(2 * psolves + 2)  # pressure and velocity updates, the final norm
+    return bar.n
+
+
+def check_step_bodies(dev, sync_ms):
+    """K6's simplec, piso and simpler bodies: three chained 63^2 steps from
+    rest, u, v, p within 2e-4, equal cycle counts, the scalar results within
+    2e-4 (the simple body's tolerances, tests/test_pallas.py)."""
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import PISOConfig, SIMPLECConfig, SIMPLERConfig
+    from naviflow_tpu_torch.ops import step
+
+    rows = []
+    mesh, _, bc = cavity_case(NH)
+    mom, pres = headline_configs()
+    shapes = step.step_shapes(NH, NH, pres)
+    meta = [(shp, lvl == 0) for lvl, shp in enumerate(shapes)]
+    for algo, cfg, n_solves in (("simplec", SIMPLECConfig(), 2), ("piso", PISOConfig(), 2),
+                                ("simpler", SIMPLERConfig(), 4)):
+        assert step.supports_fused_step(NH, NH, cfg, mom, pres, torch.float32, algo=algo)
+        kw = dict(dx=mesh.dx, dy=mesh.dy, rho=1.0, mu=1.0 / RE, bc=bc, cfg=cfg, mom_cfg=mom,
+                  pres_cfg=pres)
+        s = nt.initialize_state(mesh, bc, device=dev)
+
+        def scalar(x):
+            return torch.full((), x, device=dev)
+
+        sc = (scalar(cfg.alpha_p), scalar(float("inf"))) if algo == "simplec" else (scalar(0.0),)
+        u, v, p = s.u, s.v, s.p
+        worst_abs = worst_rel = 0.0
+        ok = True
+        for _ in range(3):
+            got = step.fused_outer_step(algo, u, v, p, sc, **kw)
+            with count_applies() as applies:
+                want = step.fused_outer_step_plain(algo, u, v, p, sc, **kw)
+            torch_sync()
+            for g, w in zip(got[:3], want[:3]):
+                a, r = max_err(g, w)
+                worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+                ok &= r < 2e-4
+            for g, w in zip(got[3], want[3]):
+                ok &= abs(float(g) - float(w)) <= 2e-4 * abs(float(w)) + 1e-6
+            ok &= int(got[4]) == int(want[4])
+            ins = (u, v, p, sc)
+            cycles, k_total = int(want[4]), (applies[0] - n_solves) // 2
+            u, v, p = want[0], want[1], want[2]
+            sc = tuple(want[3][:2]) if algo == "simplec" else (want[3][0],)
+        u, v, p, sc = ins
+        ms, plain_ms = time_pair(lambda: step.fused_outer_step_plain(algo, u, v, p, sc, **kw),
+                                 lambda: step.fused_outer_step(algo, u, v, p, sc, **kw), reps=5)
+        pairs = 2 if algo == "simpler" else 1
+        jacobi_pairs = cfg.n_corrections - 1 if algo == "piso" else 0
+        psolves = cfg.n_corrections if algo == "piso" else 1 + (algo == "simpler")
+        n_bar = body_barriers(meta, pres, k_total, cycles, pairs, jacobi_pairs,
+                              getattr(cfg, "corrector_sweeps", 0), psolves)
+        rows.append(dict(name=f"fused_outer_step[{algo}]", shape=[NH, NH], chained_steps=3,
+                         cycles=cycles, krylov_iterations=k_total, ok=ok,
+                         max_abs_err=worst_abs, rel_err=worst_rel, ms=ms, plain_ms=plain_ms,
+                         work=step_work(NH, meta, pres, k_total, cycles,
+                                        pairs + jacobi_pairs, psolves),
+                         grid_barriers=n_bar, barrier_bound_ms=n_bar * sync_ms((NH + 1) * NH)))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # main paths
 
 
 def counts():
-    from naviflow_tpu_torch.ops import asmcheby, krylov, mg, step, strip
+    from naviflow_tpu_torch.ops import asmcheby, assembly, cheby, krylov, mg, step, strip
 
     return {"fused_asmcheby_pair": asmcheby.LAUNCHES,
             "strip_down": strip.STRIP_DOWN_LAUNCHES,
@@ -714,11 +909,13 @@ def counts():
             "galerkin_levels": mg.RAP_LAUNCHES,
             "fused_mg_solve": mg.SOLVE_LAUNCHES,
             "bicgstab_momentum": krylov.LAUNCHES,
-            "fused_simple_step": step.LAUNCHES}
+            "fused_outer_step": step.LAUNCHES,
+            "fused_assembly_pair": assembly.LAUNCHES,
+            "chebyshev_momentum_strips": cheby.LAUNCHES}
 
 
 def reset_counts():
-    from naviflow_tpu_torch.ops import asmcheby, krylov, mg, step, strip
+    from naviflow_tpu_torch.ops import asmcheby, assembly, cheby, krylov, mg, step, strip
 
     asmcheby.LAUNCHES = 0
     strip.STRIP_DOWN_LAUNCHES = 0
@@ -726,6 +923,8 @@ def reset_counts():
     mg.LAUNCHES = mg.RAP_LAUNCHES = mg.SOLVE_LAUNCHES = 0
     krylov.LAUNCHES = 0
     step.LAUNCHES = 0
+    assembly.LAUNCHES = 0
+    cheby.LAUNCHES = 0
 
 
 def only(**nonzero):
@@ -801,17 +1000,18 @@ def solve_headline(dev, backend, tol, *, cycle_type="v", max_iterations=4000):
     return out, diag, time.perf_counter() - t0
 
 
-def profile_headline(dev, steps=20):
-    """torch.profiler over ``steps`` kernel-path steps: device busy time,
-    the window, and the kernels by device time."""
+def profile_window(run, steps):
+    """torch.profiler over ``run()`` (``steps`` kernel-path steps, warmed up
+    by one call before): device busy time, the window, and the kernels by
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    solve_headline(dev, "auto", 0.0, max_iterations=steps)  # warm-up
+    run()  # warm-up
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            solve_headline(dev, "auto", 0.0, max_iterations=steps)
+            run()
             window_ms = (time.perf_counter() - t0) * 1e3
         by_name = {}
         for e in prof.key_averages():
@@ -842,7 +1042,7 @@ def run_headline(dev):
             state, diag, wall = solve_headline(dev, backend, tol)
             launches = counts()
             it = int(diag.iterations)
-            want = (only(fused_simple_step=it, galerkin_levels=1) if backend == "auto"
+            want = (only(fused_outer_step=it, galerkin_levels=1) if backend == "auto"
                     else only())
             err = infinity_norm_error(state.u, state.v, mesh, int(RE))
             runs[f"{backend}_{tol:g}"] = dict(
@@ -855,7 +1055,8 @@ def run_headline(dev):
         ok &= abs(k["iterations"] - c["iterations"]) <= max(2, 0.02 * c["iterations"])
     ok &= runs["auto_1e-05"]["ghia_infinity_error"] < 0.10
     return dict(phase="headline", grid=NH, re=RE, runs=runs,
-                profile=profile_headline(dev), ok=ok)
+                profile=profile_window(
+                    lambda: solve_headline(dev, "auto", 0.0, max_iterations=20), 20), ok=ok)
 
 
 def run_fmg(dev):
@@ -884,56 +1085,244 @@ def run_fmg(dev):
                 ok=launches == want and finite and falling and gap <= 0.05)
 
 
+def large_grid_configs(backend="auto"):
+    """bench.py's large-grid configuration (_bench_large_grid)."""
+    from naviflow_tpu_torch.solvers import ChebyshevMomentumConfig, MultigridConfig
+
+    mom = ChebyshevMomentumConfig(degree=4, backend=backend)
+    pres = MultigridConfig(tolerance=0.0, max_cycles=1, cycle_type="v", pre_smoothing=1,
+                           post_smoothing=1, coarsest_sweeps=32, coarse_rebuild_every=8,
+                           backend=backend)
+    return mom, pres
+
+
+def peeled_strip_levels(n, pres):
+    """How many fine levels of an n^2 even-grid hierarchy run as a K2 pair
+    before the first tail the fused V-cycle (K3) admits (the rule of
+    solvers/multigrid._cycle0), from the gates alone."""
+    import torch
+
+    from naviflow_tpu_torch.ops import mg, strip
+    from naviflow_tpu_torch.ops.stencil9 import Stencil9
+
+    shapes = [(n, n)]
+    while min(shapes[-1]) > pres.coarsest_grid_size:
+        shapes.append((shapes[-1][0] // 2, shapes[-1][1] // 2))
+    z = torch.zeros((1, 1), dtype=torch.float32)
+    levels = [(Stencil9(*(z,) * 9), shp, lvl == 0, None) for lvl, shp in enumerate(shapes)]
+    k = next(k for k in range(1, len(levels)) if mg.supports_fused(levels[k:], pres))
+    return sum(strip.supports_strip(*levels[lvl][1], levels[lvl][2], pres, torch.float32)
+               for lvl in range(k))
+
+
+def alpha_backoffs(diag):
+    """SIMPLEC's x0.95 alpha_p backoffs in a run: the steps whose max-abs
+    residual rose over the previous step's."""
+    h = diag.total_res_history[:diag.iterations].double()
+    return int((h[1:] > h[:-1]).sum())
+
+
+def run_large_grid(dev):
+    """SIMPLEC, PISO, SIMPLER and SIMPLE-BiCGSTAB at 2048^2, kernels and
+    composed, from rest."""
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch import algorithms as talg
+    from naviflow_tpu_torch.solvers import KrylovMomentumConfig
+
+    mesh = nt.StructuredMesh(nx=NL, ny=NL)
+    fluid = nt.FluidProperties(density=1.0, reynolds_number=RE)
+    bc = nt.lid_driven_cavity(1.0)
+    _, pres = large_grid_configs()
+    strips = peeled_strip_levels(NL, pres)
+    # algo -> (solve, config class, K8 and K9 launches and pressure solves per step)
+    cases = {"simplec": (talg.simplec_solve, talg.SIMPLECConfig, 1, 2, 1),
+             "piso": (talg.piso_solve, talg.PISOConfig, 2, 2, 2),
+             "simpler": (talg.simpler_solve, talg.SIMPLERConfig, 2, 4, 2),
+             "simple_bicgstab": (talg.simple_solve, talg.SIMPLEConfig, 1, 0, 1)}
+
+    def run(name, backend, steps):
+        solve, cls = cases[name][:2]
+        mom, pres_b = large_grid_configs(backend)
+        if name == "simple_bicgstab":  # bench.py's BENCH_MOM=bicgstab
+            mom = KrylovMomentumConfig(tolerance=1e-6, max_iterations=5, backend=backend)
+        state = nt.initialize_state(mesh, bc, device=dev)
+        torch_sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out, diag = solve(mesh, fluid, bc, state, cls(max_iterations=steps, tolerance=0.0),
+                          momentum=mom, pressure=pres_b)
+        torch_sync()
+        return out, diag, (time.perf_counter() - t0) * 1e3 / steps, counts()
+
+    run("simplec", "auto", 2)  # warm-up (allocator)
+    runs, ok, total = {}, True, only()
+    for name, steps in LARGE_STEPS.items():
+        _, k8, k9, psolves = cases[name][1:]
+        state_k, diag_k, ms_k, launches = run(name, "auto", steps)
+        _, diag_c, ms_c, launches_c = run(name, "composed", steps)
+        want = only(fused_assembly_pair=k8 * steps, chebyshev_momentum_strips=k9 * steps,
+                    strip_down=strips * psolves * steps, strip_up=strips * psolves * steps,
+                    fused_vcycle=psolves * steps)
+        # PISO's Jacobi corrector config has no backend switch (as in the JAX
+        # package): its momentum pair takes K8 on the composed run too
+        want_c = only(fused_assembly_pair=steps) if name == "piso" else only()
+        hist = diag_k.total_res_history.double()
+        hist_c = diag_c.total_res_history.double()
+        finite = bool(torch.isfinite(hist).all()) and all(
+            bool(torch.isfinite(getattr(state_k, k)).all()) for k in ("u", "v", "p"))
+        # SIMPLER with this configuration falls for six steps, then turns and
+        # diverges, in the JAX package as here (its one-V-cycle p_bar is
+        # added unrelaxed); its check is that it falls first and follows the
+        # composed run step by step
+        falling = bool((hist.min() if name == "simpler" else hist[-1]) < hist[0])
+        history_gap = float(((hist - hist_c).abs() / hist_c.abs()).max())
+        res_k, res_c = float(diag_k.final_residual), float(diag_c.final_residual)
+        gap = abs(res_k - res_c) / res_c
+        row = dict(steps=steps, launches=launches, launches_expected=want,
+                   launches_composed=launches_c, launches_composed_expected=want_c,
+                   residual_kernel=res_k, residual_composed=res_c, residual_gap=gap,
+                   history_gap=history_gap, history_kernel=hist.tolist(),
+                   finite=finite, falling=falling, ms_per_step_kernel=ms_k,
+                   ms_per_step_composed=ms_c)
+        if name == "simplec":
+            row["alpha_p_backoffs"] = dict(kernel=alpha_backoffs(diag_k),
+                                           composed=alpha_backoffs(diag_c))
+        row["ok"] = (launches == want and launches_c == want_c and finite and falling
+                     and gap <= 0.05 and history_gap <= 0.05)
+        runs[name] = row
+        ok &= row["ok"]
+        total = {k: total[k] + launches[k] for k in total}
+    # 8 SIMPLEC steps: one with the composed coarse rebuild, seven without
+    profile = profile_window(lambda: run("simplec", "auto", 8), 8)
+    return dict(phase="large_grid", grid=NL, re=RE, strip_levels=strips, runs=runs,
+                launches=total, profile=profile, ok=ok)
+
+
+def run_algorithms63(dev):
+    """SIMPLEC, PISO and SIMPLER at 63^2 with the headline configuration to
+    1e-3, kernels and composed."""
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch import algorithms as talg
+
+    mesh, fluid, bc = cavity_case(NH)
+    cases = {"simplec": (talg.simplec_solve, talg.SIMPLECConfig),
+             "piso": (talg.piso_solve, talg.PISOConfig),
+             "simpler": (talg.simpler_solve, talg.SIMPLERConfig)}
+
+    def run(name, backend, max_iterations=4000):
+        solve, cls = cases[name]
+        mom, pres = headline_configs(backend)
+        state = nt.initialize_state(mesh, bc, device=dev)
+        torch_sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        _, diag = solve(mesh, fluid, bc, state, cls(max_iterations=max_iterations,
+                                                    tolerance=1e-3),
+                        momentum=mom, pressure=pres)
+        torch_sync()
+        return diag, time.perf_counter() - t0, counts()
+
+    runs, ok, paths = {}, True, {}
+    for name in cases:
+        run(name, "auto", max_iterations=3)  # warm-up
+        diag_k, wall_k, launches = run(name, "auto")
+        diag_c, wall_c, launches_c = run(name, "composed")
+        it_k, it_c = int(diag_k.iterations), int(diag_c.iterations)
+        want = only(fused_outer_step=it_k, galerkin_levels=1)
+        frac = 0.05 if name == "simplec" else 0.02
+        jax_it = JAX_ITERATIONS_63[name]
+
+        def near(a, b):
+            return abs(a - b) <= (frac * b if name == "simplec" else max(2, frac * b))
+
+        row = dict(iterations_kernel=it_k, iterations_composed=it_c, iterations_jax_cpu=jax_it,
+                   converged=[bool(diag_k.converged), bool(diag_c.converged)],
+                   final_residual_kernel=float(diag_k.final_residual),
+                   final_residual_composed=float(diag_c.final_residual),
+                   wall_s_kernel=wall_k, wall_s_composed=wall_c,
+                   ms_per_step_kernel=wall_k * 1e3 / max(it_k, 1),
+                   ms_per_step_composed=wall_c * 1e3 / max(it_c, 1),
+                   launches=launches, launches_expected=want, launches_composed=launches_c)
+        if name == "simplec":
+            row["alpha_p_backoffs"] = dict(kernel=alpha_backoffs(diag_k),
+                                           composed=alpha_backoffs(diag_c))
+        row["ok"] = (launches == want and launches_c == only() and diag_k.converged
+                     and diag_c.converged and near(it_k, it_c) and near(it_k, jax_it)
+                     and near(it_c, jax_it))
+        runs[name] = row
+        ok &= row["ok"]
+        paths[name] = launches
+    return dict(phase="algorithms63", grid=NH, re=RE, tolerance=1e-3, runs=runs, ok=ok,
+                paths=paths)
+
+
 # ---------------------------------------------------------------------------
 
 
+# line name -> (launch counter, source, the TPU kernel's pallas_call, the path
+# whose run counts its launches)
 SOURCES = {
-    "fused_asmcheby_pair": ("naviflow_tpu_torch/csrc/asmcheby.cu",
+    "fused_asmcheby_pair": ("fused_asmcheby_pair", "naviflow_tpu_torch/csrc/asmcheby.cu",
                             "naviflow_tpu/ops/pallas_asmcheby.py:303", "slice"),
-    "strip_down": ("naviflow_tpu_torch/csrc/strip.cu", "naviflow_tpu/ops/pallas_strip.py:304",
-                   "slice"),
-    "strip_up": ("naviflow_tpu_torch/csrc/strip.cu", "naviflow_tpu/ops/pallas_strip.py:339",
-                 "slice"),
-    "fused_vcycle": ("naviflow_tpu_torch/csrc/mg.cu", "naviflow_tpu/ops/pallas_mg.py:479",
-                     "slice"),
-    "galerkin_levels": ("naviflow_tpu_torch/csrc/mg.cu", "naviflow_tpu/ops/pallas_mg.py:445",
-                        "headline"),
-    "fused_mg_solve": ("naviflow_tpu_torch/csrc/mg.cu", "naviflow_tpu/ops/pallas_mg.py:512",
-                       "fmg"),
-    "bicgstab_momentum": ("naviflow_tpu_torch/csrc/krylov.cu",
+    "strip_down": ("strip_down", "naviflow_tpu_torch/csrc/strip.cu",
+                   "naviflow_tpu/ops/pallas_strip.py:304", "slice"),
+    "strip_up": ("strip_up", "naviflow_tpu_torch/csrc/strip.cu",
+                 "naviflow_tpu/ops/pallas_strip.py:339", "slice"),
+    "fused_vcycle": ("fused_vcycle", "naviflow_tpu_torch/csrc/mg.cu",
+                     "naviflow_tpu/ops/pallas_mg.py:479", "slice"),
+    "galerkin_levels": ("galerkin_levels", "naviflow_tpu_torch/csrc/mg.cu",
+                        "naviflow_tpu/ops/pallas_mg.py:445", "headline"),
+    "fused_mg_solve": ("fused_mg_solve", "naviflow_tpu_torch/csrc/mg.cu",
+                       "naviflow_tpu/ops/pallas_mg.py:512", "fmg"),
+    "bicgstab_momentum": ("bicgstab_momentum", "naviflow_tpu_torch/csrc/krylov.cu",
                           "naviflow_tpu/ops/pallas_krylov.py:142", "fmg"),
-    "fused_simple_step": ("naviflow_tpu_torch/csrc/step.cu",
+    "fused_simple_step": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cu",
                           "naviflow_tpu/ops/pallas_step.py:364", "headline"),
+    "fused_outer_step[simplec]": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cu",
+                                  "naviflow_tpu/ops/pallas_step.py:364",
+                                  "algorithms63:simplec"),
+    "fused_outer_step[piso]": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cu",
+                               "naviflow_tpu/ops/pallas_step.py:364", "algorithms63:piso"),
+    "fused_outer_step[simpler]": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cu",
+                                  "naviflow_tpu/ops/pallas_step.py:364",
+                                  "algorithms63:simpler"),
+    "fused_assembly_pair": ("fused_assembly_pair", "naviflow_tpu_torch/csrc/assembly.cu",
+                            "naviflow_tpu/ops/pallas_assembly.py:294", "large_grid"),
+    "chebyshev_momentum_strips": ("chebyshev_momentum_strips",
+                                  "naviflow_tpu_torch/csrc/cheby.cu",
+                                  "naviflow_tpu/ops/pallas_cheby.py:192", "large_grid"),
 }
 
 
 def kernels_line(rows, paths):
-    """One entry per kernel.  The time, error and work are those of its
-    main-path shape (K2: both strip levels of one step, summed; K7: the u
-    and v solves at maxiter 20, averaged); the launches are those of the
-    path that runs it (K1-K3 the 1024^2 slice, K4 and K6 the headline to
-    1e-3, K5 and K7 the FMG run), with every path's count beside them."""
+    """One entry per kernel (and per K6 body).  The time, error and work are
+    those of its main-path shape (K2: both strip levels of one step, summed;
+    K7 and K9: the u and v solves, averaged; K8: with the Gershgorin maxima,
+    as SIMPLEC, PISO and SIMPLER call it); the launches are those of the
+    path that runs it (K1-K3 the 1024^2 slice, K4 and K6's simple body the
+    headline to 1e-3, K5 and K7 the FMG run, K8 and K9 the 2048^2 runs, the
+    other K6 bodies their 63^2 runs), with every path's count beside them."""
     out = []
-    for name, (src, replaces, path) in SOURCES.items():
+    for name, (counter, src, replaces, path) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name and r.get("main", True)
                 and not r.get("vertex")]
-        if name in ("strip_down", "strip_up"):
-            agg, k = sum, 1
-        else:
-            agg, k = sum, len(mine)
-        ms = agg(r["ms"] for r in mine) / k
-        plain_ms = agg(r["plain_ms"] for r in mine) / k
-        nbytes = agg(r["work"][0] for r in mine) / k
-        flops = agg(r["work"][1] for r in mine) / k
+        k = 1 if name in ("strip_down", "strip_up") else len(mine)
+        ms = sum(r["ms"] for r in mine) / k
+        plain_ms = sum(r["plain_ms"] for r in mine) / k
+        nbytes = sum(r["work"][0] for r in mine) / k
+        flops = sum(r["work"][1] for r in mine) / k
         b_ms, b_by = bound(nbytes, flops)
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
-                     launches=paths[path][name], max_abs_err=max(r["max_abs_err"] for r in mine),
+                     launches=paths[path][counter],
+                     max_abs_err=max(r["max_abs_err"] for r in mine),
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     launches_by_path={p: c[name] for p, c in paths.items()},
+                     launches_by_path={p: c[counter] for p, c in paths.items()},
                      bytes=nbytes, flops=flops)
         if all("barrier_bound_ms" in r for r in mine):
-            entry["grid_barriers"] = agg(r["grid_barriers"] for r in mine) / k
-            entry["barrier_bound_ms"] = agg(r["barrier_bound_ms"] for r in mine) / k
+            entry["grid_barriers"] = sum(r["grid_barriers"] for r in mine) / k
+            entry["barrier_bound_ms"] = sum(r["barrier_bound_ms"] for r in mine) / k
         out.append(entry)
     return out
 
@@ -990,6 +1379,9 @@ def main() -> int:
     rows.append(check_vertex_vcycle(inp, sync_ms))
     rows += check_step(dev, sync_ms)
     del big
+    rows += check_step_bodies(dev, sync_ms)
+    rows += check_assembly(dev)
+    rows += check_cheby(dev)
     for row in rows:
         emit(dict(phase="kernel", **{k: v for k, v in row.items() if k != "work"},
                   bytes=row["work"][0], flops=row["work"][1]))
@@ -999,14 +1391,19 @@ def main() -> int:
         return 1
 
     paths = {}
-    for phase, fn in (("slice", run_slice), ("headline", run_headline), ("fmg", run_fmg)):
+    for phase, fn in (("slice", run_slice), ("headline", run_headline), ("fmg", run_fmg),
+                      ("large_grid", run_large_grid), ("algorithms63", run_algorithms63)):
         row = fn(dev)
         emit(row)
         if not row["ok"]:
             print(f"chip_smoke: the {phase} run failed its checks", file=sys.stderr)
             return 1
-        paths[phase] = (row["launches"] if phase != "headline"
-                        else row["runs"]["auto_0.001"]["launches"])
+        if phase == "headline":
+            paths[phase] = row["runs"]["auto_0.001"]["launches"]
+        elif phase == "algorithms63":
+            paths.update({f"{phase}:{name}": c for name, c in row["paths"].items()})
+        else:
+            paths[phase] = row["launches"]
 
     kernels = kernels_line(rows, paths)
     unlaunched = [k["name"] for k in kernels if k["launches"] < 1]

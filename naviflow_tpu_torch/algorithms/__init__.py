@@ -1,2 +1,5 @@
 from .base import SolveDiagnostics, StepInfo, run_outer_loop
+from .piso import PISOConfig, piso_solve
 from .simple import SIMPLEConfig, simple_solve
+from .simplec import SIMPLECConfig, simplec_solve
+from .simpler import SIMPLERConfig, simpler_solve

@@ -55,6 +55,80 @@ class SIMPLEConfig:
     fold_poisson: str = "auto"
 
 
+def fused_step_ok(p, cfg, mom_cfg, pres_cfg, algo: str) -> bool:
+    """The whole-step kernel's gate (K6) for ``algo``: a CUDA state, the
+    kernel backend, and the reference's admission rule."""
+    return (_cuda.kernel_device(p)
+            and getattr(pres_cfg, "backend", "auto") in ("auto", "kernel")
+            and supports_fused_step(p.shape[0], p.shape[1], cfg, mom_cfg, pres_cfg, p.dtype,
+                                    algo=algo))
+
+
+def zero_carry(dt, dev):
+    """A 0-d zero of the state's dtype and device: the initial scalar carry
+    (the pressure residual's running maximum)."""
+    return torch.zeros((), dtype=dt, device=dev)
+
+
+def lagged_extra0(mesh, pres_cfg, cfg, dx, dy, rho, base0):
+    """The initial carry of a SIMPLE-family solve: ``base0(dtype, device)``
+    (a scalar or a tuple of them), followed by the lagged multigrid carry
+    ``(age, coarse)`` where the pressure config has one.  Returns
+    ``(extra0_fn, refresh_every)``; ``refresh_every`` is 0 without the
+    carry (no refresh step)."""
+    if not uses_lagged_mg(pres_cfg):
+        return base0, 0
+    nx, ny = mesh.get_dimensions()
+    mg_extra0 = make_lagged_mg(pres_cfg, dx=dx, dy=dy, rho=rho,
+                               variant=cfg.poisson_variant).extra0
+
+    def extra0_fn(dt, dev):
+        b = base0(dt, dev)
+        return (*b, mg_extra0(dt, nx, ny, dev)) if isinstance(b, tuple) else (
+            b, mg_extra0(dt, nx, ny, dev))
+
+    return extra0_fn, pres_cfg.coarse_rebuild_every
+
+
+def make_pressure_solve(*, dx, dy, rho, cfg, pres_cfg, lg):
+    """The pressure solve of a SIMPLE-family step: ``(u*, v*, d_u, d_v, p,
+    coarse, pc=None) -> (p', PressureSolveInfo)``.  The continuity RHS of
+    (u*, v*), the operator from d unless ``pc`` is given, then the lagged
+    multigrid solve on ``coarse`` (``lg``, where the pressure config has the
+    carry) or the dispatched solve from zeros."""
+    pin = cfg.poisson_variant == "reference"
+
+    def solve(u_star, v_star, d_u, d_v, p, coarse, pc=None):
+        b = pressure_rhs(u_star, v_star, dx=dx, dy=dy, rho=rho, pin=pin)
+        if pc is None:
+            pc = poisson_coefficients(d_u, d_v, dx=dx, dy=dy, rho=rho,
+                                      variant=cfg.poisson_variant)
+        if lg is not None:
+            return lg.solve(b, pc, d_u, d_v, p, coarse)
+        return dispatch_pressure_solve(b, pc, torch.zeros_like(p), pres_cfg, d_u=d_u, d_v=d_v,
+                                       dx=dx, dy=dy, rho=rho, variant=cfg.poisson_variant,
+                                       pin=pin)
+
+    return solve
+
+
+def build_family_solve(make_step, base0, mesh, fluid, bc, cfg, mom_cfg, pres_cfg, loop):
+    """The solve function of a SIMPLE-family algorithm from its step factory
+    ``make_step`` and its initial scalar carry ``base0(dtype, device)``,
+    with the lagged multigrid carry and its refresh step where the pressure
+    config has one."""
+    dx, dy = mesh.get_cell_sizes()
+    rho, mu = fluid.get_density(), fluid.get_viscosity()
+    common = dict(dx=dx, dy=dy, rho=rho, mu=mu, bc=bc, cfg=cfg, mom_cfg=mom_cfg,
+                  pres_cfg=pres_cfg)
+    extra0_fn, refresh_every = lagged_extra0(mesh, pres_cfg, cfg, dx, dy, rho, base0)
+    return build_solver(
+        make_step(**common), max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
+        dx=dx, dy=dy, extra0_fn=extra0_fn, loop=loop,
+        refresh_step=make_step(**common, coarse_mode="rebuild") if refresh_every else None,
+        refresh_every=refresh_every)
+
+
 def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
                      coarse_mode: str = "carry", lagged_rho: bool = False):
     """One SIMPLE outer iteration as a function (u, v, p, extra) -> ....
@@ -66,18 +140,11 @@ def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
     carries (age, coarse Stencil9 tuple).  ``coarse_mode``: 'carry' uses
     the carried coarse hierarchy, 'rebuild' rebuilds it from this
     iteration's d-coefficients (the refresh step)."""
-    pin = cfg.poisson_variant == "reference"
     lagged = uses_lagged_mg(pres_cfg)
-    if lagged:
-        lg = make_lagged_mg(pres_cfg, dx=dx, dy=dy, rho=rho, variant=cfg.poisson_variant)
-
-    def _fused_step_ok(p):
-        """The whole-step kernel's gate (K6): a CUDA state, the kernel
-        backend, and the reference's admission rule."""
-        return (_cuda.kernel_device(p)
-                and getattr(pres_cfg, "backend", "auto") in ("auto", "kernel")
-                and supports_fused_step(p.shape[0], p.shape[1], cfg, mom_cfg, pres_cfg,
-                                        p.dtype))
+    lg = (make_lagged_mg(pres_cfg, dx=dx, dy=dy, rho=rho, variant=cfg.poisson_variant)
+          if lagged else None)
+    pressure_solve = make_pressure_solve(dx=dx, dy=dy, rho=rho, cfg=cfg, pres_cfg=pres_cfg,
+                                         lg=lg)
 
     def step(u, v, p, extra):
         rho_pair = None
@@ -88,7 +155,7 @@ def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
         else:
             p_max_l2 = extra
 
-        if _fused_step_ok(p):
+        if fused_step_ok(p, cfg, mom_cfg, pres_cfg, "simple"):
             (u_new, v_new, p_new, p_max_new, u_norm, v_norm, p_rel,
              cycles, r_u, r_v, r_p) = fused_simple_step(
                 u, v, p, p_max_l2, dx=dx, dy=dy, rho=rho, mu=mu, bc=bc,
@@ -117,19 +184,10 @@ def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
             ((u_star, d_u, r_u, u_norm),
              (v_star, d_v, r_v, v_norm), pc) = res
 
-        b = pressure_rhs(u_star, v_star, dx=dx, dy=dy, rho=rho, pin=pin)
-        if pc is None:
-            pc = poisson_coefficients(d_u, d_v, dx=dx, dy=dy, rho=rho,
-                                      variant=cfg.poisson_variant)
+        coarse = None
         if lagged:
             coarse = lg.rebuild(d_u, d_v) if coarse_mode == "rebuild" else mg_extra[1]
-            p_prime, pinfo = lg.solve(b, pc, d_u, d_v, p, coarse)
-        else:
-            p_prime, pinfo = dispatch_pressure_solve(
-                b, pc, torch.zeros_like(p), pres_cfg,
-                d_u=d_u, d_v=d_v, dx=dx, dy=dy, rho=rho,
-                variant=cfg.poisson_variant, pin=pin,
-            )
+        p_prime, pinfo = pressure_solve(u_star, v_star, d_u, d_v, p, coarse, pc=pc)
 
         p_new = p_star + cfg.alpha_p * p_prime
         if cfg.overwrite_boundary_pressure:
@@ -161,28 +219,13 @@ def _build_solve(mesh, fluid, bc, cfg, mom_cfg, pres_cfg, loop, use_rho: bool):
     state the solve will run on."""
     dx, dy = mesh.get_cell_sizes()
     rho, mu = fluid.get_density(), fluid.get_viscosity()
-    nx, ny = mesh.get_dimensions()
     common = dict(dx=dx, dy=dy, rho=rho, mu=mu, bc=bc, cfg=cfg,
                   mom_cfg=mom_cfg, pres_cfg=pres_cfg, lagged_rho=use_rho)
-    step = make_simple_step(**common)
-    refresh_step, refresh_every = None, 0
 
     def scalar(v, dt, dev):
         return torch.full((), v, dtype=dt, device=dev)
 
-    if uses_lagged_mg(pres_cfg):
-        mg_extra0 = make_lagged_mg(
-            pres_cfg, dx=dx, dy=dy, rho=rho, variant=cfg.poisson_variant).extra0
-
-        def extra0_fn(dt, dev):
-            return (scalar(0.0, dt, dev), mg_extra0(dt, nx, ny, dev))
-
-        refresh_step = make_simple_step(**common, coarse_mode="rebuild")
-        refresh_every = pres_cfg.coarse_rebuild_every
-    else:
-        def extra0_fn(dt, dev):
-            return scalar(0.0, dt, dev)
-
+    extra0_fn, refresh_every = lagged_extra0(mesh, pres_cfg, cfg, dx, dy, rho, zero_carry)
     if use_rho:
         # first-iteration bounds: the conservative clamp ceiling rho = 0.999
         base_extra0 = extra0_fn
@@ -191,9 +234,11 @@ def _build_solve(mesh, fluid, bc, cfg, mom_cfg, pres_cfg, loop, use_rho: bool):
             return (base_extra0(dt, dev), (scalar(0.999, dt, dev), scalar(0.999, dt, dev)))
 
     return build_solver(
-        step, max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
-        dx=dx, dy=dy, extra0_fn=extra0_fn, loop=loop,
-        refresh_step=refresh_step, refresh_every=refresh_every,
+        make_simple_step(**common), max_iterations=cfg.max_iterations,
+        tolerance=cfg.tolerance, dx=dx, dy=dy, extra0_fn=extra0_fn, loop=loop,
+        refresh_step=(make_simple_step(**common, coarse_mode="rebuild") if refresh_every
+                      else None),
+        refresh_every=refresh_every,
     )
 
 

@@ -63,33 +63,6 @@ struct Params {
   float dx, dy, alpha, one_m_alpha, rho;
 };
 
-// Pressure-correction operator of cell (i, j).
-__device__ void pressure_cell(const Params& P, int i, int j) {
-  const int nx = P.nx, ny = P.ny;
-  const bool consistent = P.variant == 0;
-  float ae = (i < nx - 1) ? P.rho * d_u_face(P, i + 1, j, consistent) * P.dy : 0.f;
-  float aw = (i > 0) ? P.rho * d_u_face(P, i, j, consistent) * P.dy : 0.f;
-  float an = (j < ny - 1) ? P.rho * d_v_face(P, i, j + 1, consistent) * P.dx : 0.f;
-  float as = (j > 0) ? P.rho * d_v_face(P, i, j, consistent) * P.dx : 0.f;
-  float dg = 0.f;
-  if (P.variant == 2) {  // 'reference' boundary fold
-    if (i == 0) dg = dg + ae;
-    if (i == nx - 1) dg = dg + aw;
-    if (j == 0) dg = dg + an;
-    if (j == ny - 1) dg = dg + as;
-    if (i == 0) ae = 0.f;
-    if (i == nx - 1) aw = 0.f;
-    if (j == 0) an = 0.f;
-    if (j == ny - 1) as = 0.f;
-  }
-  const int64_t k = (int64_t)i * ny + j;
-  P.pe[k] = ae;
-  P.pw[k] = aw;
-  P.pn[k] = an;
-  P.ps[k] = as;
-  P.pdiag[k] = dg + ae + aw + an + as;
-}
-
 // One field's tile: assemble on the halo region, iterate, write owned faces.
 template <bool IS_U>
 __device__ void momentum_tile(const Params& P, float* smem, int ti0, int tj0) {
@@ -212,9 +185,11 @@ __global__ void __launch_bounds__(THREADS) asmcheby_kernel(Params P) {
   } else if (blockIdx.z == 1) {
     momentum_tile<false>(P, smem, ti0, tj0);
   } else {
+    float* const pc[5] = {P.pe, P.pw, P.pn, P.ps, P.pdiag};
     for (int k = threadIdx.x; k < TILE * TILE; k += blockDim.x) {
       const int i = ti0 + k / TILE, j = tj0 + k % TILE;
-      if (i < P.nx && j < P.ny) pressure_cell(P, i, j);
+      if (i < P.nx && j < P.ny)
+        pressure_cell_from_faces(P, P.variant, i, j, pc, (int64_t)i * P.ny + j);
     }
   }
 }

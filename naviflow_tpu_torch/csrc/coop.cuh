@@ -125,6 +125,57 @@ __device__ void nf_grid_reduce(NfCoop& C, NfDS (&v)[N], float (&out)[N]) {
   C.pending = false;
 }
 
+// max(a, b) that keeps a NaN of either side (jnp.max propagates NaN).
+__device__ __forceinline__ float nf_max_nan(float a, float b) {
+  return (b > a || b != b) ? b : a;
+}
+
+// The grid-wide maximum of N floats (one set per thread, NaN-propagating),
+// in the same ping-pong partial buffers as nf_grid_reduce; every thread of
+// every block returns the same N floats.  Every thread of the grid must call
+// it, after nf_settle; N <= NF_RED_SLOTS.  Ends with the grid in step.
+template <int N>
+__device__ void nf_grid_max(NfCoop& C, float (&v)[N], float (&out)[N]) {
+  __shared__ float warp_part[N][NF_THREADS / 32];
+  __shared__ float result[N];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float a = v[k];
+    for (int off = 16; off > 0; off >>= 1) a = nf_max_nan(a, __shfl_down_sync(0xffffffffu, a, off));
+    if (lane == 0) warp_part[k][warp] = a;
+  }
+  __syncthreads();
+  float* buf = C.red + (size_t)C.phase * NF_RED_SLOTS * NF_MAX_BLOCKS;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float a = warp_part[k][0];
+      for (int w = 1; w < n_warps; ++w) a = nf_max_nan(a, warp_part[k][w]);
+      buf[(size_t)blockIdx.x * NF_RED_SLOTS + k] = a;
+    }
+  }
+  C.grid.sync();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float a = buf[k];  // block 0's partial
+      for (int b = lane; b < (int)gridDim.x; b += 32)
+        a = nf_max_nan(a, buf[(size_t)b * NF_RED_SLOTS + k]);
+      for (int off = 16; off > 0; off >>= 1)
+        a = nf_max_nan(a, __shfl_down_sync(0xffffffffu, a, off));
+      if (lane == 0) result[k] = a;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < N; ++k) out[k] = result[k];
+  __syncthreads();  // `result` and `warp_part` are reused by the next call
+  C.phase ^= 1;
+  C.pending = false;
+}
+
 // Launch `kernel(params)` cooperatively: as many blocks as `cells` needs at
 // NF_THREADS a block, and no more than fit on the SMs at once.
 template <class Kernel, class Params>

@@ -185,9 +185,9 @@ __device__ inline NfDS nf_residual_pass(const NfLevel& F, float* r, int64_t star
 // The whole solve (K5; pallas_mg.mg_solve_value): from level 0's iterate,
 // `check_every` V-cycles per check until cycles >= max_cycles or
 // ||b - A p|| / ||b|| < tol (compensated norms), then the mean removed when
-// `mean_normalize`, and the final residual into r.  *cycles and *rel are
-// written by one thread; every block returns the same values.
-__device__ inline void nf_mg_solve(NfCoop& Cp, const NfMG& M, float* r, int max_cycles, int check_every,
+// `mean_normalize`, and the final residual into r.  *cycles and *rel (where
+// given) are written by one thread; every block returns the cycle count.
+__device__ inline int nf_mg_solve(NfCoop& Cp, const NfMG& M, float* r, int max_cycles, int check_every,
                             float tol, bool mean_normalize, int* cycles_out, float* rel_out) {
   const NfLevel& F = M.lv[0];
   const int64_t n = (int64_t)F.ni * F.nj;
@@ -227,6 +227,7 @@ __device__ inline void nf_mg_solve(NfCoop& Cp, const NfMG& M, float* r, int max_
     if (cycles_out) *cycles_out = k;
     if (rel_out) *rel_out = rel;
   }
+  return k;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 // Power-law momentum coefficients of one staggered face, from global
-// indices (ops/powerlaw.py, face by face).  Shared by K1 (asmcheby.cu) and
-// K6 (step.cu).  `Prm` is the kernel's parameter struct; it must hold the
+// indices (ops/powerlaw.py, face by face).  Shared by K1 (asmcheby.cu), K6
+// (step.cu) and K8 (assembly.cu).  `Prm` is the kernel's parameter struct; it must hold the
 // BC-applied fields u (nx+1, ny), v (nx, ny+1), p (nx, ny), the sizes nx,
 // ny, and the scalars cFu = 0.5 rho dy, cFv = 0.5 rho dx, De = mu dy / dx,
 // Dn = mu dx / dy, dx, dy and alpha.
@@ -105,4 +105,35 @@ __device__ float d_v_face(const Prm& P, int i, int j, bool consistent) {
   if (consistent && (i < 1 || i > P.nx - 2)) return 0.f;
   const float ap = relax_ap(P, v_coef(P, i, j).ap);
   return fabsf(ap) > 1e-12f ? P.dx / ap : 0.f;
+}
+
+// ops/poisson.poisson_coefficients of cell (i, j), its four d faces
+// recomputed from the coefficients; variant 0 consistent, 1 symmetric,
+// 2 reference.  Writes a_e, a_w, a_n, a_s, diag at index k of pc[0..4].
+// Needs P.rho besides the fields above.  Shared by K1 and K8.
+template <class Prm>
+__device__ void pressure_cell_from_faces(const Prm& P, int variant, int i, int j,
+                                         float* const* pc, int64_t k) {
+  const int nx = P.nx, ny = P.ny;
+  const bool consistent = variant == 0;
+  float ae = (i < nx - 1) ? P.rho * d_u_face(P, i + 1, j, consistent) * P.dy : 0.f;
+  float aw = (i > 0) ? P.rho * d_u_face(P, i, j, consistent) * P.dy : 0.f;
+  float an = (j < ny - 1) ? P.rho * d_v_face(P, i, j + 1, consistent) * P.dx : 0.f;
+  float as = (j > 0) ? P.rho * d_v_face(P, i, j, consistent) * P.dx : 0.f;
+  float dg = 0.f;
+  if (variant == 2) {  // 'reference' boundary fold
+    if (i == 0) dg = dg + ae;
+    if (i == nx - 1) dg = dg + aw;
+    if (j == 0) dg = dg + an;
+    if (j == ny - 1) dg = dg + as;
+    if (i == 0) ae = 0.f;
+    if (i == nx - 1) aw = 0.f;
+    if (j == 0) an = 0.f;
+    if (j == ny - 1) as = 0.f;
+  }
+  pc[0][k] = ae;
+  pc[1][k] = aw;
+  pc[2][k] = an;
+  pc[3][k] = as;
+  pc[4][k] = dg + ae + aw + an + as;
 }

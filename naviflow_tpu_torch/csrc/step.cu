@@ -1,28 +1,45 @@
-// K6: one whole SIMPLE outer step in one cooperative launch.
+// K6: one whole outer step of SIMPLE, SIMPLEC, PISO or SIMPLER in one
+// cooperative launch.
 //
 // Replaces naviflow_tpu/ops/pallas_step.py:fused_outer_step /
-// fused_simple_step (the "simple" body of _mk_step_kernel).  In order:
-//   velocity BCs -> power-law assembly + relaxation + d of both fields
-//   (powerlaw.cuh, shared with K1) -> masked BiCGSTAB of u, then of v, with
-//   compensated dots (krylov.cuh, K7's solve) -> BCs on u*, v* ->
-//   compensated unrelaxed residuals and their interior norms -> continuity
-//   RHS and the 5-point pressure-correction operator -> every Galerkin
-//   coarse operator (mg.cuh, K4's RAP; rebuilt every step) -> the whole
-//   multigrid solve from zeros, mean-normalised unless the variant is
-//   'reference' (mg.cuh, K5's solve) -> pressure and velocity corrections
-//   -> the pressure residual's relative norm.
-// Every norm and dot is a compensated grid reduction whose value every
-// block holds (coop.cuh), so the data-dependent loops stay grid-uniform.
+// fused_simple_step (the four bodies of _mk_step_kernel).  The parts, each a
+// device function below:
+//   momentum    power-law assembly + relaxation + d of both fields from the
+//               BC-applied velocities (powerlaw.cuh, shared with K1 and K8)
+//               -> masked BiCGSTAB of u, then of v, with compensated dots
+//               (krylov.cuh, K7's solve), or PISO's Jacobi corrector sweeps
+//               -> BCs on u*, v*; for the predictor, the compensated
+//               unrelaxed residuals and their interior norms
+//   pressure    continuity RHS and the 5-point pressure-correction operator
+//               -> every Galerkin coarse operator (mg.cuh, K4's RAP; rebuilt
+//               for every solve) -> the whole multigrid solve from zeros,
+//               mean-normalised unless the variant is 'reference' (mg.cuh,
+//               K5's solve)
+//   corrections p = p_base + a p' (and the boundary overwrite), then the
+//               velocity correction and BCs
+// and the bodies (pallas_step.py:216-310):
+//   SIMPLE      momentum, pressure, corrections, p_rel of the residual
+//   SIMPLEC     momentum with d / alpha_u, pressure, optional 0.6/0.1 p'
+//               smoothing, corrections with the carried alpha_p, the
+//               max-abs field changes and the x0.95 alpha_p backoff
+//   PISO        momentum, then n_corrections x (pressure, corrections, and
+//               between corrections the unrelaxed momentum re-solve)
+//   SIMPLER     momentum, pressure -> p += p_bar, momentum at the new p,
+//               pressure -> corrections, ||p - p_old|| / sqrt(n)
+// Every norm, dot and maximum is a grid reduction whose value every block
+// holds (coop.cuh), so the data-dependent loops (Krylov, multigrid checks)
+// stay grid-uniform; PISO's correction count is a launch parameter.
 //
 // Bound on the H100: at the 63^2 headline every field is ~16 KB and the
 // working set ~0.5 MB (~8 MB at 255^2, the largest grid the gate admits),
-// all in L2; the step is a chain of dependent passes with up to ~400 grid
-// barriers (two Krylov solves of up to 20 iterations x 5, up to 6 V-cycles,
-// the RAP levels), so it is bound by grid-barrier latency and by the
-// levels small enough to run in block 0 alone, not by bytes or flops.
-// Design: coop.cuh's cooperative launch sized from occupancy x SM count,
-// grid-stride passes, multigrid levels of <= 1,024 cells in block 0 alone.
-// Scratch comes from the wrapper; nothing is allocated here.
+// all in L2; a step is a chain of dependent passes with ~150 grid barriers
+// per momentum pair and pressure solve, so it is bound by grid-barrier
+// latency and by the levels small enough to run in block 0 alone, not by
+// bytes or flops.  Design: coop.cuh's cooperative launch sized from
+// occupancy x SM count, grid-stride passes, multigrid levels of <= 1,024
+// cells in block 0 alone; one kernel instantiation per body, so each gets
+// its own register allocation.  Scratch comes from the wrapper; nothing is
+// allocated here.
 
 #include "krylov.cuh"
 #include "mg.cuh"
@@ -30,28 +47,37 @@
 
 namespace {
 
-struct StepParams {
-  // read by powerlaw.cuh: the BC-applied velocities and the pressure
+enum Algo { SIMPLE = 0, SIMPLEC = 1, PISO = 2, SIMPLER = 3 };
+
+// What powerlaw.cuh reads: the BC-applied velocities and the pressure the
+// coefficients are assembled from, and the relaxation factor.
+struct StepAsm {
   const float* u;
   const float* v;
   const float* p;
   int nx, ny;
-  float cFu, cFv, De, Dn, dx, dy, alpha, one_m_alpha, rho;
-  const float* u_in;
-  const float* v_in;
-  const float* pmax_in;
+  float cFu, cFv, De, Dn, dx, dy, alpha, one_m_alpha;
+};
+
+struct StepParams {
+  StepAsm A;               // the predictor's: ub, vb, the step's p, alpha_u
+  int nx, ny;
+  float rho;
+  const float *u_in, *v_in, *sc_in;
   float *u_out, *v_out, *p_out, *r_u, *r_v, *r_p, *sc_out;
   int* cyc_out;
-  float *ub, *vb;          // the BC-applied u, v (= u, v above)
+  float *ub, *vb;          // the BC-applied velocities the momentum step reads
   float *cu[8], *cv[8];    // a_e, a_w, a_n, a_s, a_p, src unrelaxed; a_p, src relaxed
   float *ustar, *vstar, *d_u, *d_v;
   float* kry;              // 6 Krylov vectors of the larger field
   float* pnew;             // p before the boundary overwrite
+  float* psm;              // SIMPLEC's smoothed p'
   float* fine[5];          // the pressure operator: c, e, w, n, s
   NfMG M;                  // lv[0]: fine operator, x = p', rhs = b
   float* red;
   int mom_maxiter, max_cycles, check_every, pin, variant, overwrite_p;
-  float mom_tol, mg_tol, alpha_p;
+  int n_corr, corr_exact, corr_sweeps, smooth_pp, dyn_alpha;
+  float mom_tol, mg_tol, alpha_p, alpha_u;
   int bc_vel[4];           // top, bottom, left, right: a VELOCITY side
   float bc_u[4], bc_v[4];
 };
@@ -78,29 +104,100 @@ __device__ float bc_v_val(const StepParams& P, int i, int j, float val) {
   return val;
 }
 
-// One field's faces: coefficients, relaxation and d.
+__device__ __forceinline__ float at2(const float* x, int ni, int nj, int i, int j) {
+  return (i >= 0 && i < ni && j >= 0 && j < nj) ? x[(int64_t)i * nj + j] : 0.f;
+}
+
+// ub, vb = the velocity BCs applied to (uin, vin).
+__device__ void apply_bcs(NfCoop& C, const StepParams& P, const float* uin, const float* vin) {
+  const int ny = P.ny;
+  const int64_t nu = (int64_t)(P.nx + 1) * ny, nv = (int64_t)P.nx * (ny + 1);
+  for (int64_t g = C.gtid; g < nu; g += C.gstride)
+    P.ub[g] = bc_u_val(P, (int)(g / ny), (int)(g % ny), uin[g]);
+  for (int64_t g = C.gtid; g < nv; g += C.gstride)
+    P.vb[g] = bc_v_val(P, (int)(g / (ny + 1)), (int)(g % (ny + 1)), vin[g]);
+  C.grid.sync();
+}
+
+// One field's faces: coefficients, relaxation and d / d_div.
 template <bool IS_U>
-__device__ void assemble_field(const StepParams& P, int64_t start, int64_t stride) {
+__device__ void assemble_field(const StepParams& P, const StepAsm& A, float d_div,
+                               int64_t start, int64_t stride) {
   const int NJ = IS_U ? P.ny : P.ny + 1;
   const int64_t n = IS_U ? (int64_t)(P.nx + 1) * P.ny : (int64_t)P.nx * (P.ny + 1);
   float* const* c = IS_U ? P.cu : P.cv;
-  const float* x = IS_U ? P.ub : P.vb;
+  const float* x = IS_U ? A.u : A.v;
   float* d = IS_U ? P.d_u : P.d_v;
   for (int64_t g = start; g < n; g += stride) {
     const int i = (int)(g / NJ), j = (int)(g % NJ);
-    const Coef k = IS_U ? u_coef(P, i, j) : v_coef(P, i, j);
-    const float apr = relax_ap(P, k.ap);
+    const Coef k = IS_U ? u_coef(A, i, j) : v_coef(A, i, j);
+    const float apr = relax_ap(A, k.ap);
     c[0][g] = k.ae; c[1][g] = k.aw; c[2][g] = k.an; c[3][g] = k.as;
     c[4][g] = k.ap; c[5][g] = k.src;
     c[6][g] = apr;
-    c[7][g] = k.src + P.one_m_alpha * apr * x[g];
+    c[7][g] = k.src + A.one_m_alpha * apr * x[g];
     const bool row = IS_U ? (i >= 1 && i <= P.nx - 1) : (j >= 1 && j <= P.ny - 1);
-    d[g] = (row && fabsf(apr) > 1e-12f) ? (IS_U ? P.dy : P.dx) / apr : 0.f;
+    const float dv = (row && fabsf(apr) > 1e-12f) ? (IS_U ? A.dy : A.dx) / apr : 0.f;
+    d[g] = dv / d_div;
   }
 }
 
-__device__ __forceinline__ float at2(const float* x, int ni, int nj, int i, int j) {
-  return (i >= 0 && i < ni && j >= 0 && j < nj) ? x[(int64_t)i * nj + j] : 0.f;
+// solvers/momentum._jacobi_sweeps of one field into x: `sweeps` sweeps of
+// x = (sum a_nb x_nb + src) / a_p on the solve mask, from x0, ping-ponging
+// between x and tmp so that the last sweep lands in x.
+__device__ void jacobi_field(NfCoop& C, float* const* c, const float* x0, float* x, float* tmp,
+                             int ni, int nj, int sweeps) {
+  const int64_t n = (int64_t)ni * nj;
+  const float* src = x0;
+  for (int s = 0; s < sweeps; ++s) {
+    float* dst = ((sweeps - 1 - s) % 2 == 0) ? x : tmp;
+    for (int64_t g = C.gtid; g < n; g += C.gstride) {
+      const int i = (int)(g / nj), j = (int)(g % nj);
+      const bool in = i >= 1 && i <= ni - 2 && j >= 1 && j <= nj - 2;
+      const float ap = c[6][g];
+      const float nb = c[0][g] * at2(src, ni, nj, i + 1, j) + c[1][g] * at2(src, ni, nj, i - 1, j) +
+                       c[2][g] * at2(src, ni, nj, i, j + 1) + c[3][g] * at2(src, ni, nj, i, j - 1);
+      dst[g] = in ? (nb + c[7][g]) / (ap == 0.f ? 1.f : ap) : src[g];
+    }
+    C.grid.sync();
+    src = dst;
+  }
+  if (sweeps == 0) {
+    for (int64_t g = C.gtid; g < n; g += C.gstride) x[g] = x0[g];
+    C.grid.sync();
+  }
+}
+
+// The momentum pair from ub, vb and A.p at relaxation A.alpha: coefficients,
+// d / d_div, both solves (BiCGSTAB, or `corr_sweeps` Jacobi sweeps), BCs on
+// u*, v*.
+__device__ void momentum_pair(NfCoop& C, const StepParams& P, const StepAsm& A, float d_div,
+                              bool jacobi) {
+  const int nx = P.nx, ny = P.ny;
+  const int64_t nu = (int64_t)(nx + 1) * ny, nv = (int64_t)nx * (ny + 1);
+  assemble_field<true>(P, A, d_div, C.gtid, C.gstride);
+  assemble_field<false>(P, A, d_div, C.gtid, C.gstride);
+  C.grid.sync();
+  if (jacobi) {
+    jacobi_field(C, P.cu, P.ub, P.ustar, P.kry, nx + 1, ny, P.corr_sweeps);
+    jacobi_field(C, P.cv, P.vb, P.vstar, P.kry, nx, ny + 1, P.corr_sweeps);
+  } else {
+    const int64_t nk = nu > nv ? nu : nv;
+    NfKrylov Ku = {P.cu[0], P.cu[1], P.cu[2], P.cu[3], P.cu[6], P.cu[7], P.ub, P.ustar,
+                   P.kry, P.kry + nk, P.kry + 2 * nk, P.kry + 3 * nk, P.kry + 4 * nk,
+                   P.kry + 5 * nk, nx + 1, ny, 1, 1, 1, 1};
+    nf_bicgstab_solve(C, Ku, P.mom_tol, P.mom_maxiter);
+    NfKrylov Kv = Ku;
+    Kv.ae = P.cv[0]; Kv.aw = P.cv[1]; Kv.an = P.cv[2]; Kv.as = P.cv[3];
+    Kv.ap = P.cv[6]; Kv.src = P.cv[7]; Kv.x0 = P.vb; Kv.x = P.vstar;
+    Kv.ni = nx; Kv.nj = ny + 1;
+    nf_bicgstab_solve(C, Kv, P.mom_tol, P.mom_maxiter);
+  }
+  for (int64_t g = C.gtid; g < nu; g += C.gstride)
+    P.ustar[g] = bc_u_val(P, (int)(g / ny), (int)(g % ny), P.ustar[g]);
+  for (int64_t g = C.gtid; g < nv; g += C.gstride)
+    P.vstar[g] = bc_v_val(P, (int)(g / (ny + 1)), (int)(g % (ny + 1)), P.vstar[g]);
+  C.grid.sync();
 }
 
 // solvers/momentum._unrelaxed_residual(compensated=True), one face:
@@ -124,6 +221,26 @@ __device__ float comp_residual(float* const* c, const float* x, int ni, int nj, 
   return s;
 }
 
+// The predictor's residual fields r_u, r_v and their interior norms^2.
+__device__ void momentum_residuals(NfCoop& C, const StepParams& P, float (&norms)[2]) {
+  const int nx = P.nx, ny = P.ny;
+  const int64_t nu = (int64_t)(nx + 1) * ny, nv = (int64_t)nx * (ny + 1);
+  NfDS acc[2] = {nf_ds_zero(), nf_ds_zero()};
+  for (int64_t g = C.gtid; g < nu; g += C.gstride) {
+    const int i = (int)(g / ny), j = (int)(g % ny);
+    const float r = comp_residual(P.cu, P.ustar, nx + 1, ny, i, j, g);
+    P.r_u[g] = (i >= 2 && i <= nx - 2 && j >= 1 && j <= ny - 2) ? r : 0.f;
+    if (i >= 1 && i <= nx - 1 && j >= 1 && j <= ny - 2) nf_ds_fma(acc[0], r, r);
+  }
+  for (int64_t g = C.gtid; g < nv; g += C.gstride) {
+    const int i = (int)(g / (ny + 1)), j = (int)(g % (ny + 1));
+    const float r = comp_residual(P.cv, P.vstar, nx, ny + 1, i, j, g);
+    P.r_v[g] = (i >= 1 && i <= nx - 2 && j >= 2 && j <= ny - 2) ? r : 0.f;
+    if (i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 1) nf_ds_fma(acc[1], r, r);
+  }
+  nf_grid_reduce<2>(C, acc, norms);
+}
+
 // ops/poisson.poisson_coefficients of cell (i, j) from the d fields, and
 // its signed 5-point stencil (ops/stencil9.from_poisson).
 __device__ void pressure_cell(const StepParams& P, int i, int j, int64_t g) {
@@ -135,10 +252,10 @@ __device__ void pressure_cell(const StepParams& P, int i, int j, int64_t g) {
   auto dv = [&](int a, int b) {
     return (consistent && (a == 0 || a == nx - 1)) ? 0.f : P.d_v[(int64_t)a * (ny + 1) + b];
   };
-  float ae = (i < nx - 1) ? P.rho * du(i + 1, j) * P.dy : 0.f;
-  float aw = (i > 0) ? P.rho * du(i, j) * P.dy : 0.f;
-  float an = (j < ny - 1) ? P.rho * dv(i, j + 1) * P.dx : 0.f;
-  float as = (j > 0) ? P.rho * dv(i, j) * P.dx : 0.f;
+  float ae = (i < nx - 1) ? P.rho * du(i + 1, j) * P.A.dy : 0.f;
+  float aw = (i > 0) ? P.rho * du(i, j) * P.A.dy : 0.f;
+  float an = (j < ny - 1) ? P.rho * dv(i, j + 1) * P.A.dx : 0.f;
+  float as = (j > 0) ? P.rho * dv(i, j) * P.A.dx : 0.f;
   float dg = 0.f;
   if (P.variant == 2) {  // 'reference' boundary fold
     if (i == 0) dg = dg + ae;
@@ -157,6 +274,28 @@ __device__ void pressure_cell(const StepParams& P, int i, int j, int64_t g) {
   P.fine[4][g] = -as;
 }
 
+// The pressure solve from u*, v*, d_u, d_v: RHS and operator, the RAP, the
+// multigrid solve from zeros into M.lv[0].x with its residual in r_p.
+// Returns the cycle count (the same in every block).
+__device__ int pressure_solve(NfCoop& C, const StepParams& P) {
+  const int nx = P.nx, ny = P.ny;
+  const int64_t np = (int64_t)nx * ny;
+  float* b = const_cast<float*>(P.M.lv[0].rhs);
+  for (int64_t g = C.gtid; g < np; g += C.gstride) {
+    const int i = (int)(g / ny), j = (int)(g % ny);
+    const float bu = (P.ustar[(int64_t)i * ny + j] - P.ustar[(int64_t)(i + 1) * ny + j]) * P.A.dy;
+    const float bv =
+        (P.vstar[(int64_t)i * (ny + 1) + j] - P.vstar[(int64_t)i * (ny + 1) + j + 1]) * P.A.dx;
+    b[g] = (P.pin && g == 0) ? 0.f : P.rho * (bu + bv);
+    pressure_cell(P, i, j, g);
+    P.M.lv[0].x[g] = 0.f;
+  }
+  C.grid.sync();
+  nf_galerkin_rap(C, P.M.lv, P.M.L);
+  return nf_mg_solve(C, P.M, P.r_p, P.max_cycles, P.check_every, P.mg_tol, !P.pin, nullptr,
+                     nullptr);
+}
+
 // core/bc.enforce_pressure_bcs of q at (i, j): the north, south, west,
 // east slabs copy their first interior neighbour, each step reading the
 // state the previous one left.
@@ -167,160 +306,200 @@ __device__ float enforced_p(const float* q, int nx, int ny, int i, int j) {
   return i == nx - 1 ? s3(nx - 2, j) : s3(i, j);
 }
 
+// p_out = pbase + a * pp (then the boundary overwrite, where configured);
+// pbase may be p_out itself.
+__device__ void update_pressure(NfCoop& C, const StepParams& P, const float* pbase, float a,
+                                const float* pp) {
+  const int64_t np = (int64_t)P.nx * P.ny;
+  float* dst = P.overwrite_p ? P.pnew : P.p_out;
+  for (int64_t g = C.gtid; g < np; g += C.gstride) dst[g] = pbase[g] + a * pp[g];
+  C.grid.sync();
+  if (P.overwrite_p) {
+    for (int64_t g = C.gtid; g < np; g += C.gstride)
+      P.p_out[g] = enforced_p(P.pnew, P.nx, P.ny, (int)(g / P.ny), (int)(g % P.ny));
+    C.grid.sync();
+  }
+}
+
+// solvers/velocity.update_velocity: u_out, v_out from u*, v*, pp and d.
+__device__ void update_velocity(NfCoop& C, const StepParams& P, const float* pp) {
+  const int nx = P.nx, ny = P.ny;
+  const int64_t nu = (int64_t)(nx + 1) * ny, nv = (int64_t)nx * (ny + 1);
+  for (int64_t g = C.gtid; g < nu; g += C.gstride) {
+    const int i = (int)(g / ny), j = (int)(g % ny);
+    float val = P.ustar[g];
+    if (i >= 1 && i <= nx - 1 && j >= 1 && j <= ny - 2)
+      val = val + P.d_u[g] * (pp[(int64_t)(i - 1) * ny + j] - pp[(int64_t)i * ny + j]);
+    P.u_out[g] = bc_u_val(P, i, j, val);
+  }
+  for (int64_t g = C.gtid; g < nv; g += C.gstride) {
+    const int i = (int)(g / (ny + 1)), j = (int)(g % (ny + 1));
+    float val = P.vstar[g];
+    if (i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 1)
+      val = val + P.d_v[g] * (pp[(int64_t)i * ny + j - 1] - pp[(int64_t)i * ny + j]);
+    P.v_out[g] = bc_v_val(P, i, j, val);
+  }
+  C.grid.sync();
+}
+
+// The compensated sum of squares of r_p over the interior cells.
+__device__ float interior_rp2(NfCoop& C, const StepParams& P) {
+  const int nx = P.nx, ny = P.ny;
+  NfDS acc[1] = {nf_ds_zero()};
+  for (int64_t g = C.gtid; g < (int64_t)nx * ny; g += C.gstride) {
+    const int i = (int)(g / ny), j = (int)(g % ny);
+    if (i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 2) nf_ds_fma(acc[0], P.r_p[g], P.r_p[g]);
+  }
+  float out[1];
+  nf_grid_reduce<1>(C, acc, out);
+  return out[0];
+}
+
+template <int ALGO>
 __global__ void __launch_bounds__(NF_THREADS) step_kernel(StepParams P) {
   NfCoop C = nf_coop(P.red);
   const int nx = P.nx, ny = P.ny;
   const int64_t nu = (int64_t)(nx + 1) * ny, nv = (int64_t)nx * (ny + 1),
                 np = (int64_t)nx * ny;
+  const float* pp = P.M.lv[0].x;  // p' (or p_bar) after each pressure solve
 
-  // 1. velocity BCs
-  for (int64_t g = C.gtid; g < nu; g += C.gstride)
-    P.ub[g] = bc_u_val(P, (int)(g / ny), (int)(g % ny), P.u_in[g]);
-  for (int64_t g = C.gtid; g < nv; g += C.gstride)
-    P.vb[g] = bc_v_val(P, (int)(g / (ny + 1)), (int)(g % (ny + 1)), P.v_in[g]);
-  C.grid.sync();
-
-  // 2. both fields' coefficients, relaxed systems and d
-  assemble_field<true>(P, C.gtid, C.gstride);
-  assemble_field<false>(P, C.gtid, C.gstride);
-  C.grid.sync();
-
-  // 3. the two momentum solves (K7's device solve)
-  const int64_t nk = nu > nv ? nu : nv;
-  NfKrylov Ku = {P.cu[0], P.cu[1], P.cu[2], P.cu[3], P.cu[6], P.cu[7], P.ub, P.ustar,
-                 P.kry, P.kry + nk, P.kry + 2 * nk, P.kry + 3 * nk, P.kry + 4 * nk, P.kry + 5 * nk,
-                 nx + 1, ny, 1, 1, 1, 1};
-  nf_bicgstab_solve(C, Ku, P.mom_tol, P.mom_maxiter);
-  NfKrylov Kv = Ku;
-  Kv.ae = P.cv[0]; Kv.aw = P.cv[1]; Kv.an = P.cv[2]; Kv.as = P.cv[3];
-  Kv.ap = P.cv[6]; Kv.src = P.cv[7]; Kv.x0 = P.vb; Kv.x = P.vstar;
-  Kv.ni = nx; Kv.nj = ny + 1;
-  nf_bicgstab_solve(C, Kv, P.mom_tol, P.mom_maxiter);
-
-  // 4. BCs on u*, v*
-  for (int64_t g = C.gtid; g < nu; g += C.gstride)
-    P.ustar[g] = bc_u_val(P, (int)(g / ny), (int)(g % ny), P.ustar[g]);
-  for (int64_t g = C.gtid; g < nv; g += C.gstride)
-    P.vstar[g] = bc_v_val(P, (int)(g / (ny + 1)), (int)(g % (ny + 1)), P.vstar[g]);
-  C.grid.sync();
-
-  // 5. residuals and their norms; continuity RHS and the pressure operator
+  // the predictor: relaxed momentum at the step's p; its residuals
+  apply_bcs(C, P, P.u_in, P.v_in);
+  momentum_pair(C, P, P.A, ALGO == SIMPLEC ? P.alpha_u : 1.f, false);
   float norms[2];
-  {
-    NfDS acc[2] = {nf_ds_zero(), nf_ds_zero()};
-    for (int64_t g = C.gtid; g < nu; g += C.gstride) {
-      const int i = (int)(g / ny), j = (int)(g % ny);
-      const float r = comp_residual(P.cu, P.ustar, nx + 1, ny, i, j, g);
-      P.r_u[g] = (i >= 2 && i <= nx - 2 && j >= 1 && j <= ny - 2) ? r : 0.f;
-      if (i >= 1 && i <= nx - 1 && j >= 1 && j <= ny - 2) nf_ds_fma(acc[0], r, r);
-    }
-    for (int64_t g = C.gtid; g < nv; g += C.gstride) {
-      const int i = (int)(g / (ny + 1)), j = (int)(g % (ny + 1));
-      const float r = comp_residual(P.cv, P.vstar, nx, ny + 1, i, j, g);
-      P.r_v[g] = (i >= 1 && i <= nx - 2 && j >= 2 && j <= ny - 2) ? r : 0.f;
-      if (i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 1) nf_ds_fma(acc[1], r, r);
-    }
-    float* b = const_cast<float*>(P.M.lv[0].rhs);
-    for (int64_t g = C.gtid; g < np; g += C.gstride) {
-      const int i = (int)(g / ny), j = (int)(g % ny);
-      const float bu = (P.ustar[(int64_t)i * ny + j] - P.ustar[(int64_t)(i + 1) * ny + j]) * P.dy;
-      const float bv =
-          (P.vstar[(int64_t)i * (ny + 1) + j] - P.vstar[(int64_t)i * (ny + 1) + j + 1]) * P.dx;
-      b[g] = (P.pin && g == 0) ? 0.f : P.rho * (bu + bv);
-      pressure_cell(P, i, j, g);
-      P.M.lv[0].x[g] = 0.f;
-    }
-    nf_grid_reduce<2>(C, acc, norms);
-  }
+  momentum_residuals(C, P, norms);
+  int cycles = pressure_solve(C, P);
+  float sc[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
 
-  // 6. the Galerkin hierarchy (K4's RAP) and 7. the multigrid solve (K5's)
-  nf_galerkin_rap(C, P.M.lv, P.M.L);
-  nf_mg_solve(C, P.M, P.r_p, P.max_cycles, P.check_every, P.mg_tol, !P.pin, P.cyc_out, nullptr);
-
-  // 8. corrections and the pressure residual norm
-  const float* pp = P.M.lv[0].x;
-  float pr[1];
-  {
-    NfDS acc[1] = {nf_ds_zero()};
-    float* pdst = P.overwrite_p ? P.pnew : P.p_out;
-    for (int64_t g = C.gtid; g < np; g += C.gstride) {
-      const int i = (int)(g / ny), j = (int)(g % ny);
-      pdst[g] = P.p[g] + P.alpha_p * pp[g];
-      if (i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 2) nf_ds_fma(acc[0], P.r_p[g], P.r_p[g]);
+  if constexpr (ALGO == SIMPLE) {
+    update_pressure(C, P, P.A.p, P.alpha_p, pp);
+    update_velocity(C, P, pp);
+    const float p_l2 = sqrtf(interior_rp2(C, P));
+    const float p_max = fmaxf(P.sc_in[0], p_l2);
+    sc[0] = p_max; sc[1] = sqrtf(norms[0]); sc[2] = sqrtf(norms[1]);
+    sc[3] = p_max > 0.f ? p_l2 / p_max : 1.f;
+  } else if constexpr (ALGO == SIMPLEC) {
+    if (P.smooth_pp) {  // algorithms/simplec._smooth_p_prime
+      for (int64_t g = C.gtid; g < np; g += C.gstride) {
+        const int i = (int)(g / ny), j = (int)(g % ny);
+        float s = 0.f;
+        if (i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 2)
+          s = 0.6f * pp[g] + 0.1f * (((pp[g + ny] + pp[g - ny]) + pp[g + 1]) + pp[g - 1]);
+        P.psm[g] = s;
+      }
+      C.grid.sync();
+      pp = P.psm;
     }
-    for (int64_t g = C.gtid; g < nu; g += C.gstride) {
-      const int i = (int)(g / ny), j = (int)(g % ny);
-      float val = P.ustar[g];
-      if (i >= 1 && i <= nx - 1 && j >= 1 && j <= ny - 2)
-        val = val + P.d_u[g] * (pp[(int64_t)(i - 1) * ny + j] - pp[(int64_t)i * ny + j]);
-      P.u_out[g] = bc_u_val(P, i, j, val);
-    }
-    for (int64_t g = C.gtid; g < nv; g += C.gstride) {
-      const int i = (int)(g / (ny + 1)), j = (int)(g % (ny + 1));
-      float val = P.vstar[g];
-      if (i >= 1 && i <= nx - 2 && j >= 1 && j <= ny - 1)
-        val = val + P.d_v[g] * (pp[(int64_t)i * ny + j - 1] - pp[(int64_t)i * ny + j]);
-      P.v_out[g] = bc_v_val(P, i, j, val);
-    }
-    nf_grid_reduce<1>(C, acc, pr);
-  }
-  if (P.overwrite_p)
+    const float alpha_p = P.sc_in[0], prev = P.sc_in[1];
+    update_pressure(C, P, P.A.p, alpha_p, pp);
+    update_velocity(C, P, pp);
+    float m[3] = {0.f, 0.f, 0.f};
+    for (int64_t g = C.gtid; g < nu; g += C.gstride)
+      m[0] = nf_max_nan(m[0], fabsf(P.u_out[g] - P.u_in[g]));
+    for (int64_t g = C.gtid; g < nv; g += C.gstride)
+      m[1] = nf_max_nan(m[1], fabsf(P.v_out[g] - P.v_in[g]));
     for (int64_t g = C.gtid; g < np; g += C.gstride)
-      P.p_out[g] = enforced_p(P.pnew, nx, ny, (int)(g / ny), (int)(g % ny));
+      m[2] = nf_max_nan(m[2], fabsf(P.p_out[g] - P.A.p[g]));
+    float res[3];
+    nf_grid_max<3>(C, m, res);
+    const float total = nf_max_nan(res[0], res[1]);
+    sc[0] = (P.dyn_alpha && total > prev) ? alpha_p * 0.95f : alpha_p;
+    sc[1] = total; sc[2] = res[0]; sc[3] = res[1]; sc[4] = res[2];
+  } else if constexpr (ALGO == PISO) {
+    StepAsm Ac = P.A;  // the corrector: unrelaxed, at the corrected pressure
+    Ac.p = P.p_out;
+    Ac.alpha = 1.f;
+    Ac.one_m_alpha = 0.f;
+    const float* pbase = P.A.p;
+    for (int k = 0; k < P.n_corr; ++k) {
+      if (k > 0) cycles += pressure_solve(C, P);
+      update_pressure(C, P, pbase, P.alpha_p, pp);
+      pbase = P.p_out;
+      update_velocity(C, P, pp);
+      if (k < P.n_corr - 1) {
+        apply_bcs(C, P, P.u_out, P.v_out);
+        momentum_pair(C, P, Ac, 1.f, !P.corr_exact);
+      }
+    }
+    const float p_l2 = sqrtf(interior_rp2(C, P));
+    const float p_max = fmaxf(P.sc_in[0], p_l2);
+    sc[0] = p_max; sc[1] = sqrtf(norms[0]); sc[2] = sqrtf(norms[1]);
+    sc[3] = p_max > 0.f ? p_l2 / p_max : 1.f;
+  } else {  // SIMPLER
+    update_pressure(C, P, P.A.p, 1.f, pp);  // p + p_bar
+    StepAsm A3 = P.A;  // ub, vb still hold the BC-applied step input
+    A3.p = P.p_out;
+    momentum_pair(C, P, A3, 1.f, false);
+    cycles += pressure_solve(C, P);
+    update_pressure(C, P, P.p_out, P.alpha_p, pp);
+    update_velocity(C, P, pp);
+    NfDS acc[1] = {nf_ds_zero()};
+    for (int64_t g = C.gtid; g < np; g += C.gstride) {
+      const float dp = P.p_out[g] - P.A.p[g];
+      nf_ds_fma(acc[0], dp, dp);
+    }
+    float s2[1];
+    nf_grid_reduce<1>(C, acc, s2);
+    sc[0] = P.sc_in[0]; sc[1] = sqrtf(norms[0]); sc[2] = sqrtf(norms[1]);
+    sc[3] = sqrtf(s2[0]) / (sqrtf((float)np) + 1e-30f);
+  }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    const float p_l2 = sqrtf(pr[0]);
-    const float p_max = fmaxf(P.pmax_in[0], p_l2);
-    P.sc_out[0] = p_max;
-    P.sc_out[1] = sqrtf(norms[0]);
-    P.sc_out[2] = sqrtf(norms[1]);
-    P.sc_out[3] = p_max > 0.f ? p_l2 / p_max : 1.f;
+    for (int k = 0; k < (ALGO == SIMPLEC ? 5 : 4); ++k) P.sc_out[k] = sc[k];
+    *P.cyc_out = cycles;
   }
 }
 
 }  // namespace
 
-// ptrs: u, v, p, p_max (1 float), then the outputs u', v', p', r_u, r_v,
-//       r_p, scalars (4 floats: p_max', u_norm, v_norm, p_rel), cycles
-//       (int32), then scratch: ub, vb, 8 u-coefficient arrays, 8
-//       v-coefficient arrays, u*, v*, d_u, d_v, Krylov (6 x the larger
-//       field), p before the overwrite, the fine operator (c, e, w, n, s),
-//       b, p'; then per coarse level 9 stencil arrays, x, rhs; then the
-//       reduction scratch
-// ip:   nx, ny, L, pre, post, coarsest, max_cycles, check_every,
-//       mom_maxiter, pin, variant, overwrite_p, bc_vel[4], then per level
-//       ni, nj
+// ptrs: u, v, p, the scalar carries (ops/step.py ALGO_SCALARS: 1 or 2
+//       floats), then the outputs u', v', p', r_u, r_v, r_p, scalars (4 or 5
+//       floats), cycles (int32), then scratch: ub, vb, 8 u-coefficient
+//       arrays, 8 v-coefficient arrays, u*, v*, d_u, d_v, Krylov (6 x the
+//       larger field), p before the overwrite, the smoothed p', the fine
+//       operator (c, e, w, n, s), b, p'; then per coarse level 9 stencil
+//       arrays, x, rhs; then the reduction scratch
+// ip:   algo (0 simple, 1 simplec, 2 piso, 3 simpler), nx, ny, L, pre, post,
+//       coarsest, max_cycles, check_every, mom_maxiter, pin, variant,
+//       overwrite_p, n_corrections, corrector_exact, corrector_sweeps,
+//       smooth_p_prime, dynamic_alpha_p, bc_vel[4], then per level ni, nj
 // fp:   cFu, cFv, De, Dn, dx, dy, alpha_u, 1 - alpha_u, rho, alpha_p,
 //       mom_tol, mg_tol, omega, bc_u[4], bc_v[4]
-NF_EXPORT int nf_fused_simple_step(const long long* ptrs, const int* ip, const float* fp,
-                                   void* stream) {
+NF_EXPORT int nf_fused_outer_step(const long long* ptrs, const int* ip, const float* fp,
+                                  void* stream) {
   StepParams P = {};
   int k = 0;
   auto next = [&]() { return reinterpret_cast<float*>(ptrs[k++]); };
-  P.u_in = next(); P.v_in = next(); P.p = next(); P.pmax_in = next();
+  const int algo = ip[0];
+  if (algo < SIMPLE || algo > SIMPLER) return (int)cudaErrorInvalidValue;
+  P.u_in = next(); P.v_in = next(); P.A.p = next(); P.sc_in = next();
   P.u_out = next(); P.v_out = next(); P.p_out = next();
   P.r_u = next(); P.r_v = next(); P.r_p = next(); P.sc_out = next();
   P.cyc_out = reinterpret_cast<int*>(next());
   P.ub = next(); P.vb = next();
-  P.u = P.ub; P.v = P.vb;
+  P.A.u = P.ub; P.A.v = P.vb;
   for (int a = 0; a < 8; ++a) P.cu[a] = next();
   for (int a = 0; a < 8; ++a) P.cv[a] = next();
   P.ustar = next(); P.vstar = next(); P.d_u = next(); P.d_v = next();
-  P.kry = next(); P.pnew = next();
+  P.kry = next(); P.pnew = next(); P.psm = next();
   for (int a = 0; a < 5; ++a) P.fine[a] = next();
   float* b = next();
   float* pprime = next();
-  P.nx = ip[0]; P.ny = ip[1];
-  const int L = ip[2];
+  P.nx = P.A.nx = ip[1];
+  P.ny = P.A.ny = ip[2];
+  const int L = ip[3];
   if (L < 1 || L > NF_MAX_LEVELS) return (int)cudaErrorInvalidValue;
   NfMG& M = P.M;
-  M.L = L; M.pre = ip[3]; M.post = ip[4]; M.coarsest = ip[5];
-  P.max_cycles = ip[6]; P.check_every = ip[7]; P.mom_maxiter = ip[8];
-  P.pin = ip[9]; P.variant = ip[10]; P.overwrite_p = ip[11];
+  M.L = L; M.pre = ip[4]; M.post = ip[5]; M.coarsest = ip[6];
+  P.max_cycles = ip[7]; P.check_every = ip[8]; P.mom_maxiter = ip[9];
+  P.pin = ip[10]; P.variant = ip[11]; P.overwrite_p = ip[12];
+  P.n_corr = ip[13]; P.corr_exact = ip[14]; P.corr_sweeps = ip[15];
+  P.smooth_pp = ip[16]; P.dyn_alpha = ip[17];
   if (P.check_every < 1) return (int)cudaErrorInvalidValue;
-  for (int a = 0; a < 4; ++a) P.bc_vel[a] = ip[12 + a];
+  if (algo == PISO && (P.n_corr < 1 || P.corr_sweeps < 0)) return (int)cudaErrorInvalidValue;
+  for (int a = 0; a < 4; ++a) P.bc_vel[a] = ip[18 + a];
   for (int l = 0; l < L; ++l) {
     NfLevel& lv = M.lv[l];
-    lv.ni = ip[16 + 2 * l]; lv.nj = ip[17 + 2 * l];
+    lv.ni = ip[22 + 2 * l]; lv.nj = ip[23 + 2 * l];
     if (l == 0) {
       for (int a = 0; a < 5; ++a) lv.st[a] = P.fine[a];
       lv.x = pprime; lv.rhs = b; lv.five = 1;
@@ -331,10 +510,18 @@ NF_EXPORT int nf_fused_simple_step(const long long* ptrs, const int* ip, const f
   }
   if (M.lv[0].ni != P.nx || M.lv[0].nj != P.ny) return (int)cudaErrorInvalidValue;
   P.red = next();
-  P.cFu = fp[0]; P.cFv = fp[1]; P.De = fp[2]; P.Dn = fp[3]; P.dx = fp[4]; P.dy = fp[5];
-  P.alpha = fp[6]; P.one_m_alpha = fp[7]; P.rho = fp[8]; P.alpha_p = fp[9];
+  P.A.cFu = fp[0]; P.A.cFv = fp[1]; P.A.De = fp[2]; P.A.Dn = fp[3];
+  P.A.dx = fp[4]; P.A.dy = fp[5];
+  P.A.alpha = P.alpha_u = fp[6]; P.A.one_m_alpha = fp[7]; P.rho = fp[8]; P.alpha_p = fp[9];
   P.mom_tol = fp[10]; P.mg_tol = fp[11]; M.omega = fp[12];
   for (int a = 0; a < 4; ++a) { P.bc_u[a] = fp[13 + a]; P.bc_v[a] = fp[17 + a]; }
   const int64_t nu = (int64_t)(P.nx + 1) * P.ny, nv = (int64_t)P.nx * (P.ny + 1);
-  return nf_coop_launch(step_kernel, P, nu > nv ? nu : nv, (cudaStream_t)stream);
+  const int64_t cells = nu > nv ? nu : nv;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (algo) {
+    case SIMPLE: return nf_coop_launch(step_kernel<SIMPLE>, P, cells, s);
+    case SIMPLEC: return nf_coop_launch(step_kernel<SIMPLEC>, P, cells, s);
+    case PISO: return nf_coop_launch(step_kernel<PISO>, P, cells, s);
+    default: return nf_coop_launch(step_kernel<SIMPLER>, P, cells, s);
+  }
 }

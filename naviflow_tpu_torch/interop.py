@@ -64,15 +64,15 @@ def coarse_tuple(coarse, *, dtype=None, device=None):
 
 
 def _port_config_classes():
-    from .algorithms.simple import SIMPLEConfig
+    from .algorithms import PISOConfig, SIMPLECConfig, SIMPLEConfig, SIMPLERConfig
     from .solvers.momentum import (ChebyshevMomentumConfig, JacobiMomentumConfig,
                                    KrylovMomentumConfig)
     from .solvers.multigrid import MultigridConfig
     from .solvers.pressure import RBGSPressureConfig
 
     return {c.__name__: c for c in (
-        SIMPLEConfig, ChebyshevMomentumConfig, JacobiMomentumConfig,
-        KrylovMomentumConfig, MultigridConfig, RBGSPressureConfig)}
+        SIMPLEConfig, SIMPLECConfig, PISOConfig, SIMPLERConfig, ChebyshevMomentumConfig,
+        JacobiMomentumConfig, KrylovMomentumConfig, MultigridConfig, RBGSPressureConfig)}
 
 
 def config(cfg):

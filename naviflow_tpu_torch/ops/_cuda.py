@@ -45,7 +45,8 @@ _ARGS = [ctypes.POINTER(ctypes.c_longlong),  # device pointers
          ctypes.c_void_p]                    # stream
 # C entry points (see csrc/*.cu for each one's pointer and parameter order)
 _KERNELS = ("nf_asmcheby_pair", "nf_strip_down", "nf_strip_up", "nf_fused_vcycle",
-            "nf_galerkin_levels", "nf_fused_mg_solve", "nf_bicgstab", "nf_fused_simple_step",
+            "nf_galerkin_levels", "nf_fused_mg_solve", "nf_bicgstab", "nf_fused_outer_step",
+            "nf_fused_assembly_pair", "nf_chebyshev_strips",
             "nf_grid_sync_probe")
 
 _lib = None

@@ -9,10 +9,12 @@ spacing / a_p_relaxed``, and the residual is the unrelaxed
 Ported: fixed-sweep Jacobi, fixed-degree Chebyshev and masked BiCGSTAB
 inner solves on the power-law scheme, the compensated residual, and the
 pair form :func:`solve_momentum_pair` with its merged kernel branch (K1,
-``ops/asmcheby.py``) driven by lagged Gershgorin maxima and its batched
-BiCGSTAB branch (:func:`_bicgstab_pair_masked`).  On a CUDA tensor a
-BiCGSTAB solve whose field fits the reference kernel's budget is one launch
-of K7 (``ops/krylov.py``).  Not yet ported (each raises
+``ops/asmcheby.py``) driven by lagged Gershgorin maxima, its one-pass
+assembly branch (K8, ``ops/assembly.py``) and its batched BiCGSTAB branch
+(:func:`_bicgstab_pair_masked`).  On a CUDA tensor a BiCGSTAB solve whose
+field fits the reference kernel's budget is one launch of K7
+(``ops/krylov.py``), and a large-grid Chebyshev solve outside K1 is one
+launch of K9 (``ops/cheby.py``) per field.  Not yet ported (each raises
 :class:`NotImplementedError`): the red-black GS, GMRES and IDR(s) inner
 solves (ROADMAP §1 item 2) and the 9-point QUICK/LUDS schemes (item 11).
 """
@@ -26,6 +28,8 @@ import torch
 from ..core.bc import BoundaryConditions, apply_velocity_bcs
 from ..ops import _cuda
 from ..ops.asmcheby import fused_asmcheby_pair, supports_asmcheby
+from ..ops.assembly import fused_assembly_pair, supports_fused_assembly
+from ..ops.cheby import chebyshev_momentum_strips, supports_cheby_strips
 from ..ops.compensated import compensated_linear_combination, compensated_norm, fold_dot
 from ..ops.krylov import bicgstab_momentum, supports_fused_bicgstab
 from ..ops.powerlaw import (
@@ -36,7 +40,6 @@ from ..ops.powerlaw import (
 )
 from ..ops.stencil import (StencilCoeffs, apply_stencil, interior_mask, neighbor_sum, pad2,
                            shift_e, shift_n, shift_s, shift_w)
-from ..ops.unported import not_ported, supports_cheby_strips, supports_fused_assembly
 
 BACKENDS = ("auto", "kernel", "composed")
 
@@ -361,14 +364,32 @@ def _unrelaxed_residual(x_star, c_un, *, is_u: bool, compensated: bool = False):
     return rf, norm
 
 
-def _refuse_cheby_strips(cfg, shape, dtype, device, c_rel):
-    """K9 gate: where the reference runs its strip Chebyshev kernel, refuse."""
+def _cheby_strips_applicable(cfg, shape, dtype, c_rel, device) -> bool:
+    """Gate of the Chebyshev solve + residual kernel (K9): five-point
+    systems on large CUDA grids, the plain residual."""
     if getattr(cfg, "kind", None) != "chebyshev" or _backend(cfg) == "composed":
-        return
-    if getattr(cfg, "compensated_residual", False) or not isinstance(c_rel, StencilCoeffs):
-        return
-    if supports_cheby_strips(shape, dtype, device):
-        raise not_ported("K9 chebyshev_momentum_strips", "§2 K9")
+        return False
+    if getattr(cfg, "compensated_residual", False):
+        return False
+    if not isinstance(c_rel, StencilCoeffs):
+        return False
+    return supports_cheby_strips(shape, dtype, device)
+
+
+def _cheby_strip_field(x0, c_un, c_rel, mask, cfg, *, is_u: bool, bounds=None):
+    """One field through K9.  Returns ``(x_star, r_field, r_norm)`` as the
+    composed path: the kernel's residual is zero exactly outside the norm
+    region, so its L2 is the interior norm, and the diagnostics field is a
+    further border mask of it."""
+    if bounds is None:
+        bounds = _chebyshev_bounds(c_rel, mask, cfg.bound_margin)
+    theta, delta, sigma1 = bounds
+    x_star, r_m = chebyshev_momentum_strips(x0, c_rel, c_un, theta=theta, delta=delta,
+                                            sigma1=sigma1, degree=cfg.degree)
+    margins = (2, 2, 1, 1) if is_u else (1, 1, 2, 2)
+    r_field = torch.where(interior_mask(r_m.shape, *margins, device=r_m.device), r_m,
+                          torch.zeros_like(r_m))
+    return x_star, r_field, torch.linalg.vector_norm(r_m)
 
 
 def solve_u_momentum(u, v, p, *, dx, dy, rho, mu, alpha, bc: BoundaryConditions, cfg,
@@ -385,7 +406,11 @@ def solve_u_momentum(u, v, p, *, dx, dy, rho, mu, alpha, bc: BoundaryConditions,
     d_u = d_pre if d_pre is not None else d_coefficient(c_rel.a_p, dy, is_u=True)
     bounds = (None if gersh_rho is None
               else _bounds_from_rho(gersh_rho, getattr(cfg, "bound_margin", 1.05)))
-    _refuse_cheby_strips(cfg, u.shape, u.dtype, u.device, c_rel)
+    if _cheby_strips_applicable(cfg, u.shape, u.dtype, c_rel, u.device):
+        u_star, r_field, r_norm = _cheby_strip_field(u, c_un, c_rel, mask, cfg, is_u=True,
+                                                     bounds=bounds)
+        u_star, _ = apply_velocity_bcs(u_star, v, bc)
+        return u_star, d_u, r_field, r_norm
     u_star = _inner_solve(u, c_rel, mask, cfg, bounds=bounds)
     u_star, _ = apply_velocity_bcs(u_star, v, bc)
     r_field, r_norm = _unrelaxed_residual(
@@ -408,7 +433,11 @@ def solve_v_momentum(u, v, p, *, dx, dy, rho, mu, alpha, bc: BoundaryConditions,
     d_v = d_pre if d_pre is not None else d_coefficient(c_rel.a_p, dx, is_u=False)
     bounds = (None if gersh_rho is None
               else _bounds_from_rho(gersh_rho, getattr(cfg, "bound_margin", 1.05)))
-    _refuse_cheby_strips(cfg, v.shape, v.dtype, v.device, c_rel)
+    if _cheby_strips_applicable(cfg, v.shape, v.dtype, c_rel, v.device):
+        v_star, r_field, r_norm = _cheby_strip_field(v, c_un, c_rel, mask, cfg, is_u=False,
+                                                     bounds=bounds)
+        _, v_star = apply_velocity_bcs(u, v_star, bc)
+        return v_star, d_v, r_field, r_norm
     v_star = _inner_solve(v, c_rel, mask, cfg, bounds=bounds)
     _, v_star = apply_velocity_bcs(u, v_star, bc)
     r_field, r_norm = _unrelaxed_residual(
@@ -483,16 +512,32 @@ def solve_momentum_pair(u, v, p, *, dx, dy, rho, mu, alpha,
         return ((u_star, d_u, r_u, u_norm), (v_star, d_v, r_v, v_norm),
                 pc, (rho_u_new, rho_v_new))
 
+    coeffs = None
+    rho_u = rho_v = d_u_f = d_v_f = pc_f = None
     if supports_fused_assembly(nxp1 - 1, ny, scheme, u.dtype, _backend(cfg), u.device):
-        raise not_ported("K8 fused_assembly_pair", "§2 K8")
+        # both fields' coefficients in one pass (K8); the Chebyshev bounds
+        # and, with the fold, d and the pressure operator come out of it
+        u, v = apply_velocity_bcs(u, v, bc)
+        want_bounds = (getattr(cfg, "kind", None) == "chebyshev"
+                       and getattr(cfg, "assembly_bounds", "auto") == "auto")
+        res = fused_assembly_pair(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu, alpha=alpha,
+                                  with_bounds=want_bounds, poisson_variant=poisson_variant)
+        coeffs, rest = res[:4], res[4:]
+        if want_bounds:
+            (rho_u, rho_v), rest = rest[:2], rest[2:]
+        if poisson_variant is not None:
+            d_u_f, d_v_f, pc_f = rest
     if _pair_krylov_applicable(cfg, u.shape, v.shape, u.dtype, scheme, u.device):
         # batched u+v BiCGSTAB: one Krylov loop for both systems
         ub, vb = apply_velocity_bcs(u, v, bc)
-        kw = dict(dx=dx, dy=dy, rho=rho, mu=mu, scheme=scheme)
-        cu_un = _assemble_coeffs(ub, vb, p, is_u=True, **kw)
-        cu_rel = relax_coefficients(cu_un, ub, alpha)
-        cv_un = _assemble_coeffs(ub, vb, p, is_u=False, **kw)
-        cv_rel = relax_coefficients(cv_un, vb, alpha)
+        if coeffs is not None:
+            cu_un, cu_rel, cv_un, cv_rel = coeffs
+        else:
+            kw = dict(dx=dx, dy=dy, rho=rho, mu=mu, scheme=scheme)
+            cu_un = _assemble_coeffs(ub, vb, p, is_u=True, **kw)
+            cu_rel = relax_coefficients(cu_un, ub, alpha)
+            cv_un = _assemble_coeffs(ub, vb, p, is_u=False, **kw)
+            cv_rel = relax_coefficients(cv_un, vb, alpha)
         u_star, v_star = _bicgstab_pair_masked(
             ub, cu_rel, _u_interior_mask(ub.shape, device=ub.device),
             vb, cv_rel, _v_interior_mask(vb.shape, device=vb.device),
@@ -501,15 +546,22 @@ def solve_momentum_pair(u, v, p, *, dx, dy, rho, mu, alpha,
         comp = getattr(cfg, "compensated_residual", False)
         r_u, u_norm = _unrelaxed_residual(u_star, cu_un, is_u=True, compensated=comp)
         r_v, v_norm = _unrelaxed_residual(v_star, cv_un, is_u=False, compensated=comp)
-        out_u = (u_star, d_coefficient(cu_rel.a_p, dy, is_u=True), r_u, u_norm)
-        out_v = (v_star, d_coefficient(cv_rel.a_p, dx, is_u=False), r_v, v_norm)
-        return (out_u, out_v) if poisson_variant is None else (out_u, out_v, None)
-    out_u = solve_u_momentum(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu,
-                             alpha=alpha, bc=bc, cfg=cfg)
-    out_v = solve_v_momentum(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu,
-                             alpha=alpha, bc=bc, cfg=cfg)
-    return ((out_u, out_v) if poisson_variant is None
-            else (out_u, out_v, None))
+        d_u = d_u_f if d_u_f is not None else d_coefficient(cu_rel.a_p, dy, is_u=True)
+        d_v = d_v_f if d_v_f is not None else d_coefficient(cv_rel.a_p, dx, is_u=False)
+        out_u = (u_star, d_u, r_u, u_norm)
+        out_v = (v_star, d_v, r_v, v_norm)
+        return (out_u, out_v) if poisson_variant is None else (out_u, out_v, pc_f)
+    kw = dict(dx=dx, dy=dy, rho=rho, mu=mu, alpha=alpha, bc=bc, cfg=cfg)
+    if coeffs is not None:
+        cu_un, cu_rel, cv_un, cv_rel = coeffs
+        out_u = solve_u_momentum(u, v, p, coeffs=(cu_un, cu_rel), gersh_rho=rho_u,
+                                 d_pre=d_u_f, **kw)
+        out_v = solve_v_momentum(u, v, p, coeffs=(cv_un, cv_rel), gersh_rho=rho_v,
+                                 d_pre=d_v_f, **kw)
+    else:
+        out_u = solve_u_momentum(u, v, p, **kw)
+        out_v = solve_v_momentum(u, v, p, **kw)
+    return (out_u, out_v) if poisson_variant is None else (out_u, out_v, pc_f)
 
 
 def _pair_krylov_applicable(cfg, u_shape, v_shape, dtype, scheme, device) -> bool:

@@ -50,7 +50,6 @@ from ..ops.stencil9 import (
 from ..ops.strip import strip_down, strip_up, supports_strip
 from ..ops.transfer import coarse_size, prolong_linear, restrict_full_weighting, restrict_inject
 from ..ops.transfer_cc import prolong_cc, restrict_cc
-from ..ops.unported import not_ported
 from .pressure import PressureSolveInfo
 
 
@@ -285,8 +284,10 @@ def multigrid_solve(
                                            mean_normalize=(variant != "reference"))
         return p, PressureSolveInfo(iterations=cycles, residual_field=r, rel_residual=rel)
     if getattr(cfg, "fine_layout", "auto") not in ("auto", "interleaved"):
-        raise not_ported("the colour-plane fine layout (ops/plane.py, K10 plane_strip_*)",
-                         "§2 K10")
+        raise NotImplementedError(
+            "the colour-plane fine layout (ops/plane.py, K10 plane_strip_*) has no CUDA port "
+            "yet (ROADMAP §2 K10); the JAX package would launch it here. Pass "
+            "fine_layout='auto' to run the interleaved layout instead.")
 
     bnorm = torch.linalg.vector_norm(b)
     safe_bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))

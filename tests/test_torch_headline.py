@@ -168,17 +168,22 @@ def test_fmg_dispatch_runs_k7_k5_k4(kernel_gates_open):
 
 
 def test_unported_step_bodies_raise():
+    """Every algorithm of the JAX package's step kernel has its body now;
+    an unknown algorithm, or a scalar carry of the wrong length, raises."""
+    from naviflow_tpu_torch.algorithms import SIMPLECConfig
+
     mesh, _, bc = _case(15)
     tbc = interop.boundary_conditions(bc)
     tm = interop.mesh(mesh)
     s = nt.initialize_state(tm, tbc, device="cpu")
-    kw = dict(dx=tm.dx, dy=tm.dy, rho=1.0, mu=0.01, bc=tbc, cfg=interop.config(SIMPLEConfig()),
+    kw = dict(dx=tm.dx, dy=tm.dy, rho=1.0, mu=0.01, bc=tbc, cfg=SIMPLECConfig(),
               mom_cfg=interop.config(MOM), pres_cfg=interop.config(PRES))
-    for algo in ("simplec", "piso", "simpler"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            step.fused_outer_step(algo, s.u, s.v, s.p, (0.0,), **kw)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="Unknown algorithm"):
         step.fused_outer_step("nope", s.u, s.v, s.p, (0.0,), **kw)
+    with pytest.raises(ValueError, match="scalar carries"):
+        step.fused_outer_step("simplec", s.u, s.v, s.p, (0.2,), **kw)
+    out = step.fused_outer_step("simplec", s.u, s.v, s.p, (0.2, float("inf")), **kw)
+    assert len(out[3]) == 5 and all(bool(torch.isfinite(x)) for x in out[3])
 
 
 def test_ghia_tables_and_errors_match_jax():

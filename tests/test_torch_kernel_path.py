@@ -5,8 +5,9 @@ With the CUDA gate forced open, a 64^2 float32 solve takes the path a
 momentum kernel (K1), and the peeled V-cycle with strip levels (K2) and a
 fused tail (K3); on CPU tensors every kernel wrapper runs its plain
 version.  The JAX package runs the same steps with its merged Pallas
-kernel forced, in interpret mode.  The gates for kernels the port does not
-have yet refuse with NotImplementedError.
+kernel forced, in interpret mode.  The gate of the one-pass assembly (K8)
+runs its wrapper; the colour-plane layout (K10), not ported yet, refuses
+with NotImplementedError.
 """
 
 import jax.numpy as jnp
@@ -25,7 +26,7 @@ import naviflow_tpu_torch as nt
 import naviflow_tpu_torch.solvers.momentum as tmom
 from naviflow_tpu_torch import interop
 from naviflow_tpu_torch.algorithms import simple_solve as port_simple_solve
-from naviflow_tpu_torch.ops import _cuda, asmcheby, mg, strip
+from naviflow_tpu_torch.ops import _cuda, asmcheby, assembly, mg, strip
 
 torch.set_num_threads(2)
 # no TF32 anywhere a float32 product could run (none does on these paths)
@@ -104,9 +105,10 @@ def test_forced_kernel_path_matches_jax_merged_kernel(kernel_gates_open, monkeyp
     np.testing.assert_allclose(td.u_res_history.numpy(), j_hist, rtol=1e-4)
 
 
-def test_unported_kernel_gates_refuse(kernel_gates_open):
-    """Where the reference would launch a kernel the port lacks, the port
-    raises; backend='composed' runs the composed path instead."""
+def test_unported_kernel_gates_refuse(kernel_gates_open, monkeypatch):
+    """Where the reference would launch a kernel the port has, the port goes
+    through its wrapper; where it would launch one the port lacks (K10), the
+    port raises."""
     from naviflow_tpu_torch.solvers.momentum import JacobiMomentumConfig
     from naviflow_tpu_torch.solvers.multigrid import MultigridConfig as TMG
     from naviflow_tpu_torch.solvers.multigrid import multigrid_solve
@@ -129,13 +131,29 @@ def test_unported_kernel_gates_refuse(kernel_gates_open):
     p, info = multigrid_solve(b, d_u, d_v, torch.zeros_like(b), TMG(backend="composed", max_cycles=2), **kw)
     assert torch.isfinite(p).all()
 
-    # K8: fused assembly at 384 x 256 with a non-merged momentum config
+    # K8, now ported: at 384 x 256 a non-merged momentum config assembles
+    # both fields in one pass through its wrapper (the plain version on the
+    # CPU), and solves as the composed path does
     mesh = nt.StructuredMesh(nx=384, ny=256)
     bc = nt.lid_driven_cavity(1.0)
     s = nt.initialize_state(mesh, bc, device="cpu")
     kw = dict(dx=mesh.dx, dy=mesh.dy, rho=1.0, mu=0.01, alpha=0.7, bc=bc)
-    with pytest.raises(NotImplementedError, match="K8"):
-        tmom.solve_momentum_pair(s.u, s.v, s.p, cfg=JacobiMomentumConfig(), **kw)
+    asm_calls = []
+    real_asm = assembly.fused_assembly_pair_plain
+    monkeypatch.setattr(assembly, "fused_assembly_pair_plain",
+                        lambda *a, **k: asm_calls.append(1) or real_asm(*a, **k))
+    got = tmom.solve_momentum_pair(s.u, s.v, s.p, cfg=JacobiMomentumConfig(), **kw)
+    assert asm_calls == [1]
+    want = (tmom.solve_u_momentum(s.u, s.v, s.p, cfg=JacobiMomentumConfig(), **kw)
+            + tmom.solve_v_momentum(s.u, s.v, s.p, cfg=JacobiMomentumConfig(), **kw))
+    for g, w in zip(got[0] + got[1], want):
+        assert torch.equal(g, w)
+
+    # K10 (the colour-plane fine layout) is not ported: refused
+    with pytest.raises(NotImplementedError, match="K10"):
+        multigrid_solve(b, d_u, d_v, torch.zeros_like(b),
+                        TMG(backend="composed", fine_layout="plane"), dx=1.0 / n, dy=1.0 / n,
+                        rho=1.0)
 
     # a lagged carry the helper does not admit is refused
     with pytest.raises(ValueError, match="lagged_rho_enabled"):
