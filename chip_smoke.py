@@ -13,15 +13,19 @@ result line:
 3. each kernel against its plain PyTorch version on the card, with the
    tolerance of the JAX package's test of that kernel and both times (CUDA
    events, turns plain / kernel / kernel / plain): K1, K2 and K3 at the
-   shapes the 1024^2 path gives them; K7 on the u and v systems of a 63^2
+   shapes the 1024^2 path gives them, and K1 again at 4096^2 with the
+   bounds the lagged carry gives steps 1 and 2; K7 on the u and v systems of a 63^2
    cavity state (maxiter 3 and 20); K4 on 63^2 and 255^2 vertex
    hierarchies; K5 on the 63^2 hierarchy at the headline configuration and
    at tolerance 1e-4 / 30 cycles; K6 over 3 chained 63^2 steps from rest
    and one 255^2 step; K3 on the 63^2 -> 7^2 vertex hierarchy; K8 at 2048^2
    (plain, with the Gershgorin maxima, and with each Poisson fold); K9 on
    the u and v systems of a 2048^2 cavity state (degree 4); K6's simplec,
-   piso and simpler bodies over 3 chained 63^2 steps from rest.  Beside
-   them the time of one grid-wide barrier at each kernel's grid size;
+   piso and simpler bodies over 3 chained 63^2 steps from rest; K10a/b at
+   the 4096^2 plane shapes (1/1 smoothing) and at 1024^2 (2/2); K11a at
+   63^2 (1 and 3 sweeps) and 256^2, K11b at 63^2, 256^2 and 48 x 96 with a
+   cuSPARSE SpMV of the same operator beside it.  Beside them the time of
+   one grid-wide barrier at each kernel's grid size;
 4. the 1024^2 slice: ``simple_solve`` at 1024^2, Re=100, with the bench's
    large-grid configuration (Chebyshev momentum of degree 4, one fixed
    V-cycle with 1/1 smoothing, 32 coarsest sweeps, coarse rebuild every 8
@@ -51,7 +55,18 @@ result line:
 8. SIMPLEC, PISO and SIMPLER at 63^2 with the headline configuration to
    1e-3, with the kernels and composed: one K6 launch per step and K4 once;
    iterations within 2% or 2 (SIMPLEC: 5%) of the composed run's and of the
-   JAX package's on the CPU (131 / 39 / 56).
+   JAX package's on the CPU (131 / 39 / 56);
+9. the 4096^2 plane layout: ``simple_solve`` at 4096^2, Re=100, with the
+   bench's large-grid configuration and ``fine_layout='plane'`` for 6 steps
+   (bench.py's large_grid_3), with the kernels, composed, with composed
+   momentum but the pressure kernels, and with no kernel but K1's lagged
+   carry (K1 swapped for its plain version), then in the interleaved layout
+   with the kernels: exact launches (K10a = K10b = K3 = K1 = 6, a K2 pair
+   per level the strip gate admits below the plane level); histories
+   finite; at every step the all-kernel run within 1e-3 of the lagged plain
+   run and the pressure-kernel run within 1e-3 of the composed run (the
+   all-kernel run's gap to the composed run, and the lagged plain run's,
+   are reported); both layouts' final residuals and ms per step.
 
 Then a JSON line with every kernel's launches, error, times and bound, the
 card's name and power limit, and, last, ``{"ok": true, "device": {...}}``.
@@ -77,6 +92,8 @@ NL = 2048  # the large-grid algorithms' grid (bench.py large-grid row)
 # headline configuration)
 LARGE_STEPS = {"simplec": 20, "piso": 10, "simpler": 10, "simple_bicgstab": 10}
 JAX_ITERATIONS_63 = {"simplec": 131, "piso": 39, "simpler": 56}
+NP = 4096  # the colour-plane layout's grid (bench.py large_grid_3)
+PLANE_STEPS = 6
 RE = 100.0
 SEED = 0
 REPS = 20  # timed launches per kernel measurement
@@ -111,23 +128,26 @@ def torch_sync():
     torch.cuda.synchronize()
 
 
-def time_pair(plain, kernel, reps=REPS):
-    """ms per call of each, in turns plain, kernel, kernel, plain."""
+def time_ms(fn, reps=REPS):
+    """ms per call of ``fn`` (CUDA events over ``reps`` calls, warmed up)."""
     import torch
 
-    def once(fn):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
         fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
-    p1, k1, k2, p2 = once(plain), once(kernel), once(kernel), once(plain)
+
+def time_pair(plain, kernel, reps=REPS):
+    """ms per call of each, in turns plain, kernel, kernel, plain."""
+    p1, k1 = time_ms(plain, reps), time_ms(kernel, reps)
+    k2, p2 = time_ms(kernel, reps), time_ms(plain, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -325,6 +345,22 @@ def count_applies():
         momentum._apply = real
 
 
+@contextlib.contextmanager
+def plain_k1():
+    """The SIMPLE path's K1 call (``solvers/momentum.solve_momentum_pair``)
+    swapped for K1's plain version: the lagged carry and its bounds stay as
+    they are, and no kernel runs for the momentum."""
+    from naviflow_tpu_torch.ops import asmcheby
+    from naviflow_tpu_torch.solvers import momentum
+
+    real = momentum.fused_asmcheby_pair
+    momentum.fused_asmcheby_pair = asmcheby.fused_asmcheby_pair_plain
+    try:
+        yield
+    finally:
+        momentum.fused_asmcheby_pair = real
+
+
 # ---------------------------------------------------------------------------
 # the 1024^2 kernels (K1, K2, K3)
 
@@ -350,52 +386,77 @@ def cavity_fields(n, dev):
     return u, v, p, dict(dx=mesh.dx, dy=mesh.dy, rho=1.0, mu=1.0 / RE)
 
 
-def check_asmcheby(dev):
+def check_asmcheby(dev, n=N, lagged=False):
+    """K1 against its plain version on a noisy n^2 cavity state, with the
+    bounds of the state's own assembly; with ``lagged``, with the bounds the
+    SIMPLE path's lagged carry gives its first two steps instead: the clamp
+    ceiling rho = 0.999 on the state (step 1), then the state's maxima on
+    the plain K1's output from it (step 2).  One row per call."""
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.core.bc import apply_velocity_bcs
     from naviflow_tpu_torch.ops import asmcheby
     from naviflow_tpu_torch.ops.powerlaw import relax_coefficients, u_momentum_coefficients
     from naviflow_tpu_torch.ops.powerlaw import v_momentum_coefficients
     from naviflow_tpu_torch.solvers.momentum import (_bounds_from_rho, _u_interior_mask,
                                                      _v_interior_mask)
 
-    u, v, p, kw = cavity_fields(N, dev)
+    u, v, p, kw = cavity_fields(n, dev)
     alpha, degree = 0.7, 4
-    rho_u = asmcheby._masked_ratio_max(
-        relax_coefficients(u_momentum_coefficients(u, v, p, **kw), u, alpha),
-        _u_interior_mask(u.shape, device=dev))
-    rho_v = asmcheby._masked_ratio_max(
-        relax_coefficients(v_momentum_coefficients(u, v, p, **kw), v, alpha),
-        _v_interior_mask(v.shape, device=dev))
-    args = dict(alpha=alpha, degree=degree, bounds_u=_bounds_from_rho(rho_u, 1.05),
-                bounds_v=_bounds_from_rho(rho_v, 1.05), poisson_variant="consistent", **kw)
-    got = asmcheby.fused_asmcheby_pair(u, v, p, **args)
-    want = asmcheby.fused_asmcheby_pair_plain(u, v, p, **args)
-    torch_sync()
-    # tolerances of tests/test_pallas_asmcheby.py, relative to each output's scale
-    names = ["u_star", "r_u", "v_star", "r_v", "d_u", "d_v"]
-    tols = [2e-5, 5e-5, 2e-5, 5e-5, 2e-5, 2e-5]
-    pairs = list(zip(got[:6], want[:6]))
-    for name in ("a_e", "a_w", "a_n", "a_s", "diag"):
-        names.append("pc." + name)
-        tols.append(2e-5)
-        pairs.append((getattr(got[6], name), getattr(want[6], name)))
-    names += ["rho_u", "rho_v"]
-    tols += [1e-6, 1e-6]
-    pairs += [(got[7], want[7]), (got[8], want[8])]
-    errs = {}
-    worst_abs, ok = 0.0, True
-    for name, tol, (g, w) in zip(names, tols, pairs):
-        a, r = max_err(g, w)
-        errs[name] = r
-        worst_abs = max(worst_abs, a)
-        ok &= r < tol
-    ms, plain_ms = time_pair(lambda: asmcheby.fused_asmcheby_pair_plain(u, v, p, **args),
-                             lambda: asmcheby.fused_asmcheby_pair(u, v, p, **args))
-    faces = 2 * N * (N + 1)
-    nbytes = 4 * (3 * faces + N * N + 4 * faces + 5 * N * N)  # u, v, p in; 6 fields + pc out
-    flops = faces * (70 + degree * (APPLY5 + 8) + 10) + 10 * N * N
-    return dict(name="fused_asmcheby_pair", shape=[N, N], degree=degree, ok=ok,
-                max_abs_err=worst_abs, rel_err=errs, ms=ms, plain_ms=plain_ms,
-                work=(nbytes, flops))
+
+    def args(rho_u, rho_v):
+        return dict(alpha=alpha, degree=degree, bounds_u=_bounds_from_rho(rho_u, 1.05),
+                    bounds_v=_bounds_from_rho(rho_v, 1.05), poisson_variant="consistent", **kw)
+
+    if lagged:
+        ceiling = torch.full((), 0.999, dtype=torch.float32, device=dev)
+        first = args(ceiling, ceiling)
+        out = asmcheby.fused_asmcheby_pair_plain(u, v, p, **first)
+        u2, v2 = apply_velocity_bcs(out[0], out[2], nt.lid_driven_cavity(1.0))
+        cases = [("lagged_step1", (u, v, p), first),
+                 ("lagged_step2", (u2, v2, p), args(out[7], out[8]))]
+    else:
+        rho_u = asmcheby._masked_ratio_max(
+            relax_coefficients(u_momentum_coefficients(u, v, p, **kw), u, alpha),
+            _u_interior_mask(u.shape, device=dev))
+        rho_v = asmcheby._masked_ratio_max(
+            relax_coefficients(v_momentum_coefficients(u, v, p, **kw), v, alpha),
+            _v_interior_mask(v.shape, device=dev))
+        cases = [("current", (u, v, p), args(rho_u, rho_v))]
+    rows = []
+    for bounds, fields, a in cases:
+        got = asmcheby.fused_asmcheby_pair(*fields, **a)
+        want = asmcheby.fused_asmcheby_pair_plain(*fields, **a)
+        torch_sync()
+        # tolerances of tests/test_pallas_asmcheby.py, relative to each
+        # output's scale
+        names = ["u_star", "r_u", "v_star", "r_v", "d_u", "d_v"]
+        tols = [2e-5, 5e-5, 2e-5, 5e-5, 2e-5, 2e-5]
+        pairs = list(zip(got[:6], want[:6]))
+        for name in ("a_e", "a_w", "a_n", "a_s", "diag"):
+            names.append("pc." + name)
+            tols.append(2e-5)
+            pairs.append((getattr(got[6], name), getattr(want[6], name)))
+        names += ["rho_u", "rho_v"]
+        tols += [1e-6, 1e-6]
+        pairs += [(got[7], want[7]), (got[8], want[8])]
+        errs = {}
+        worst_abs, ok = 0.0, True
+        for name, tol, (g, w) in zip(names, tols, pairs):
+            e_abs, e_rel = max_err(g, w)
+            errs[name] = e_rel
+            worst_abs = max(worst_abs, e_abs)
+            ok &= e_rel < tol
+        ms, plain_ms = time_pair(lambda: asmcheby.fused_asmcheby_pair_plain(*fields, **a),
+                                 lambda: asmcheby.fused_asmcheby_pair(*fields, **a))
+        faces = 2 * n * (n + 1)
+        nbytes = 4 * (3 * faces + n * n + 4 * faces + 5 * n * n)  # u, v, p in; 6 fields + pc out
+        flops = faces * (70 + degree * (APPLY5 + 8) + 10) + 10 * n * n
+        rows.append(dict(name="fused_asmcheby_pair", shape=[n, n], degree=degree, bounds=bounds,
+                         ok=ok, max_abs_err=worst_abs, rel_err=errs, ms=ms, plain_ms=plain_ms,
+                         main=n == N, work=(nbytes, flops)))
+    return rows
 
 
 def fine_levels(dev):
@@ -414,6 +475,17 @@ def fine_levels(dev):
     levels = build_levels(d_u, d_v, cfg, dx=1.0 / (N - 1), dy=1.0 / (N - 1), rho=1.0,
                           variant="consistent")
     return levels, cfg, rng
+
+
+def strip_close(g, w):
+    """tests/test_pallas_strip.py's and test_pallas_plane.py's rtol 1e-5,
+    atol 1e-4, on fields of magnitude ~100: the atol is those tests' noise
+    floor, so it scales with the field, 1e-4 * max|want| / 100 (the 512^2
+    Galerkin level's fields here are ~10x larger)."""
+    import torch
+
+    atol = max(1e-4, 1e-6 * float(w.abs().max()))
+    return bool(torch.allclose(g, w, rtol=1e-5, atol=atol))
 
 
 def check_strips(dev, levels, cfg, rng):
@@ -435,16 +507,8 @@ def check_strips(dev, levels, cfg, rng):
         want_up = strip.strip_up_plain(want_x, b, st, ec, cfg, five)
         torch_sync()
 
-        # tests/test_pallas_strip.py holds the strips to rtol 1e-5, atol 1e-4
-        # on fields of magnitude ~100; the atol is that test's noise floor, so
-        # it scales with the field: 1e-4 * max|want| / 100 (the 512^2
-        # Galerkin level's fields here are ~10x larger)
-        def close(g, w):
-            atol = max(1e-4, 1e-6 * float(w.abs().max()))
-            return bool(torch.allclose(g, w, rtol=1e-5, atol=atol))
-
-        down_ok = close(got_x, want_x) and close(got_rc, want_rc)
-        up_ok = close(got_up, want_up)
+        down_ok = strip_close(got_x, want_x) and strip_close(got_rc, want_rc)
+        up_ok = strip_close(got_up, want_up)
         ms_d, plain_d = time_pair(lambda: strip.strip_down_plain(p, b, st, cfg, five),
                                   lambda: strip.strip_down(p, b, st, cfg, five))
         ms_u, plain_u = time_pair(lambda: strip.strip_up_plain(want_x, b, st, ec, cfg, five),
@@ -896,11 +960,178 @@ def check_step_bodies(dev, sync_ms):
 
 
 # ---------------------------------------------------------------------------
+# the plane kernels (K10) and the whole-array Poisson kernels (K11)
+
+
+def plane_inputs(n, dev, seed):
+    """A consistent-variant n^2 fine stencil from seeded d-fields, split into
+    planes with a seeded b (``PlaneStencil5``); seeded R, B planes and a
+    coarse correction."""
+    import numpy as np
+    import torch
+
+    from naviflow_tpu_torch.ops.plane import PlaneStencil5, split_planes
+    from naviflow_tpu_torch.ops.poisson import poisson_coefficients
+    from naviflow_tpu_torch.ops.stencil9 import from_poisson
+
+    rng = np.random.default_rng(seed)
+
+    def rnd(shape, uniform=False):
+        a = rng.uniform(0.5, 1.5, shape) if uniform else rng.normal(size=shape)
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    pc = poisson_coefficients(rnd((n + 1, n), True), rnd((n, n + 1), True), dx=1.0 / n,
+                              dy=1.0 / n, rho=1.0, variant="consistent")
+    ps = PlaneStencil5(from_poisson(pc), rnd((n, n)))
+    R, B = split_planes(rnd((n, n)))
+    return ps, R, B, rnd((n // 2, n // 2))
+
+
+def check_plane(dev):
+    """K10 at the 4096^2 plane shapes (planes 4096 x 2048) with the bench's
+    1/1 smoothing, and at 1024^2 with 2/2 (the gate's maximum, the JAX
+    tests' configuration): ``strip_close`` on every output."""
+    import dataclasses
+
+    import torch
+
+    from naviflow_tpu_torch.ops import plane_strip
+
+    _, pres = large_grid_configs()
+    rows = []
+    for n, sweeps in ((NP, 1), (1024, 2)):
+        cfg = dataclasses.replace(pres, pre_smoothing=sweeps, post_smoothing=sweeps)
+        ps, R, B, ec = plane_inputs(n, dev, SEED + 2)
+        m, nc = R.shape
+        assert plane_strip.supports_plane_strip(m, nc, cfg, torch.float32)
+        got_d = plane_strip.plane_strip_down(R, B, ps, cfg)
+        want_d = plane_strip.plane_strip_down_plain(R, B, ps, cfg)
+        Rs, Bs = want_d[:2]
+        got_u = plane_strip.plane_strip_up(Rs, Bs, ps, ec, cfg)
+        want_u = plane_strip.plane_strip_up_plain(Rs, Bs, ps, ec, cfg)
+        torch_sync()
+        ms_d, plain_d = time_pair(lambda: plane_strip.plane_strip_down_plain(R, B, ps, cfg),
+                                  lambda: plane_strip.plane_strip_down(R, B, ps, cfg), reps=10)
+        ms_u, plain_u = time_pair(lambda: plane_strip.plane_strip_up_plain(Rs, Bs, ps, ec, cfg),
+                                  lambda: plane_strip.plane_strip_up(Rs, Bs, ps, ec, cfg), reps=10)
+        # per plane cell: a half-sweep update 8 operations, the normalised
+        # residual 10, the coarse row 3 per coarse cell, the prolongation
+        # and add 10; bytes: 14 planes + rc_zdiag in, 2 planes + rc out
+        # (down), 12 planes + ec in, 2 planes out (up)
+        cells = m * nc
+        works = {"down": (4 * 17 * cells, cells * (16 * sweeps + 21) + 3 * (cells // 2)),
+                 "up": (4 * (14 * cells + cells // 2), cells * (20 + 16 * sweeps))}
+        for name, got, want, ms, plain_ms in (("down", got_d, want_d, ms_d, plain_d),
+                                              ("up", got_u, want_u, ms_u, plain_u)):
+            errs = [max_err(g, w) for g, w in zip(got, want)]
+            rows.append(dict(name=f"plane_strip_{name}", shape=[m, nc], sweeps=sweeps,
+                             ok=all(strip_close(g, w) for g, w in zip(got, want)),
+                             max_abs_err=max(a for a, _ in errs),
+                             rel_err=max(r for _, r in errs),
+                             scale=max(float(w.abs().max()) for w in want), ms=ms,
+                             plain_ms=plain_ms, work=works[name], main=n == NP))
+        del ps, R, B, ec, got_d, want_d, got_u, want_u
+    return rows
+
+
+def poisson_system(nx, ny, dev, seed):
+    """tests/test_pallas.py's system: consistent-variant coefficients from
+    seeded d-fields, random p and b."""
+    import numpy as np
+    import torch
+
+    from naviflow_tpu_torch.ops.poisson import poisson_coefficients
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    c = poisson_coefficients(t(rng.random((nx + 1, ny)) + 0.2), t(rng.random((nx, ny + 1)) + 0.2),
+                             dx=0.05, dy=0.05, rho=1.0, variant="consistent")
+    return t(rng.normal(size=(nx, ny))), t(rng.normal(size=(nx, ny))), c
+
+
+def poisson_csr(c):
+    """The unpinned operator ``diag p - sum(a_nb p_nb)`` as a CSR matrix:
+    the library yardstick of K11b (cuSPARSE SpMV), built once, not timed."""
+    import torch
+
+    nx, ny = c.diag.shape
+    idx = torch.arange(nx * ny, device=c.diag.device).view(nx, ny)
+    rows, cols, vals = [idx.flatten()], [idx.flatten()], [c.diag.flatten()]
+    for a, di, dj in ((c.a_e, 1, 0), (c.a_w, -1, 0), (c.a_n, 0, 1), (c.a_s, 0, -1)):
+        i0, i1, j0, j1 = max(0, -di), nx - max(0, di), max(0, -dj), ny - max(0, dj)
+        rows.append(idx[i0:i1, j0:j1].flatten())
+        cols.append(idx[i0 + di:i1 + di, j0 + dj:j1 + dj].flatten())
+        vals.append(-a[i0:i1, j0:j1].flatten())
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                  torch.cat(vals), (nx * ny, nx * ny))
+    return coo.coalesce().to_sparse_csr()
+
+
+def check_poisson_kernels(dev):
+    """K11a at 63^2 (1 and 3 sweeps, omega 1.5) and 256^2 (3 sweeps), rtol
+    5e-4 / atol 2e-5; K11b at 63^2, 256^2 and 48 x 96, rtol / atol 1e-6
+    (tests/test_pallas.py's tolerances), with a cuSPARSE SpMV of the same
+    operator beside K11b.  Beside the CUDA-event times of back-to-back calls,
+    which at these sizes hold the host's launch time, each kernel's device
+    time from the profiler (``device_ms``; the SpMV's too).  No path of the JAX package calls K11: its
+    launches are counted over this phase's checking calls (returned)."""
+    import torch
+
+    from naviflow_tpu_torch.ops import kernels
+
+    reset_counts()
+    checks = []
+    for (nx, ny), sweeps in (((63, 63), 1), ((63, 63), 3), ((256, 256), 3)):
+        p, b, c = poisson_system(nx, ny, dev, SEED + 3)
+        checks.append(("rbgs_sweeps", (nx, ny), sweeps, p, b, c,
+                       kernels.rbgs_sweeps(p, b, c, n_sweeps=sweeps, omega=1.5),
+                       kernels.rbgs_sweeps_plain(p, b, c, sweeps, 1.5)))
+    for nx, ny in ((63, 63), (256, 256), (48, 96)):
+        p, b, c = poisson_system(nx, ny, dev, SEED + 4)
+        checks.append(("apply_poisson", (nx, ny), None, p, b, c,
+                       kernels.apply_poisson_kernel(p, c), kernels.apply_poisson_plain(p, c)))
+    torch_sync()
+    launches = counts()
+    rows = []
+    for name, (nx, ny), sweeps, p, b, c, got, want in checks:
+        a, r = max_err(got, want)
+        cells = nx * ny
+        if name == "rbgs_sweeps":
+            ok = bool(torch.allclose(got, want, rtol=5e-4, atol=2e-5))
+            kernel = lambda: kernels.rbgs_sweeps(p, b, c, n_sweeps=sweeps, omega=1.5)  # noqa: E731
+            ms, plain_ms = time_pair(lambda: kernels.rbgs_sweeps_plain(p, b, c, sweeps, 1.5),
+                                     kernel)
+            # p, b, 4 links, invd in; p out.  Per cell and sweep: the
+            # neighbour sum 7, (b + sum) * invd 2, the relaxation 3
+            row = dict(sweeps=sweeps, device_ms=device_ms(kernel),
+                       work=(4 * 8 * cells, 12 * sweeps * cells))
+        else:
+            ok = bool(torch.allclose(got, want, rtol=1e-6, atol=1e-6))
+            kernel = lambda: kernels.apply_poisson_kernel(p, c)  # noqa: E731
+            ms, plain_ms = time_pair(lambda: kernels.apply_poisson_plain(p, c), kernel)
+            A, x = poisson_csr(c), p.flatten()
+            spmv = A @ x
+            torch_sync()
+            spmv_ok = bool(torch.allclose(spmv.view(nx, ny), want, rtol=1e-5, atol=1e-5))
+            row = dict(library_ms=time_ms(lambda: A @ x), library_ok=spmv_ok,
+                       device_ms=device_ms(kernel), library_device_ms=device_ms(lambda: A @ x),
+                       work=(4 * 7 * cells, 9 * cells))
+            ok &= spmv_ok
+        rows.append(dict(name=name, shape=[nx, ny], ok=ok, max_abs_err=a, rel_err=r, ms=ms,
+                         plain_ms=plain_ms, main=nx == 256, **row))
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
 # main paths
 
 
 def counts():
-    from naviflow_tpu_torch.ops import asmcheby, assembly, cheby, krylov, mg, step, strip
+    from naviflow_tpu_torch.ops import (asmcheby, assembly, cheby, kernels, krylov, mg,
+                                        plane_strip, step, strip)
 
     return {"fused_asmcheby_pair": asmcheby.LAUNCHES,
             "strip_down": strip.STRIP_DOWN_LAUNCHES,
@@ -911,11 +1142,16 @@ def counts():
             "bicgstab_momentum": krylov.LAUNCHES,
             "fused_outer_step": step.LAUNCHES,
             "fused_assembly_pair": assembly.LAUNCHES,
-            "chebyshev_momentum_strips": cheby.LAUNCHES}
+            "chebyshev_momentum_strips": cheby.LAUNCHES,
+            "plane_strip_down": plane_strip.DOWN_LAUNCHES,
+            "plane_strip_up": plane_strip.UP_LAUNCHES,
+            "rbgs_sweeps": kernels.RBGS_LAUNCHES,
+            "apply_poisson": kernels.MATVEC_LAUNCHES}
 
 
 def reset_counts():
-    from naviflow_tpu_torch.ops import asmcheby, assembly, cheby, krylov, mg, step, strip
+    from naviflow_tpu_torch.ops import (asmcheby, assembly, cheby, kernels, krylov, mg,
+                                        plane_strip, step, strip)
 
     asmcheby.LAUNCHES = 0
     strip.STRIP_DOWN_LAUNCHES = 0
@@ -925,6 +1161,8 @@ def reset_counts():
     step.LAUNCHES = 0
     assembly.LAUNCHES = 0
     cheby.LAUNCHES = 0
+    plane_strip.DOWN_LAUNCHES = plane_strip.UP_LAUNCHES = 0
+    kernels.RBGS_LAUNCHES = kernels.MATVEC_LAUNCHES = 0
 
 
 def only(**nonzero):
@@ -965,6 +1203,7 @@ def run_slice(dev):
     _, _, ms_k2 = solve(dev, "auto")
     _, diag_c2, ms_c2 = solve(dev, "composed")
     hist = diag_k.total_res_history.double()
+    hist_c = diag_c1.total_res_history.double()
     finite = bool(torch.isfinite(hist).all()) and all(
         bool(torch.isfinite(getattr(state_k, k)).all()) for k in ("u", "v", "p"))
     falling = bool(hist[-1] < hist[0])
@@ -976,6 +1215,7 @@ def run_slice(dev):
     row = dict(phase="slice", grid=N, re=RE, steps=STEPS, launches=launches,
                launches_expected=want, residual_kernel=res_k, residual_composed=res_c,
                residual_gap=gap, residual_first=float(hist[0]), residual_last=float(hist[-1]),
+               history_gap=((hist - hist_c).abs() / hist_c.abs()).tolist(),
                finite=finite, falling=falling,
                ms_per_step_kernel=[ms_k1, ms_k2], ms_per_step_composed=[ms_c1, ms_c2],
                composed_repeat_residual=float(diag_c2.final_residual))
@@ -1000,6 +1240,16 @@ def solve_headline(dev, backend, tol, *, cycle_type="v", max_iterations=4000):
     return out, diag, time.perf_counter() - t0
 
 
+def device_kernels(prof):
+    """{kernel name: (device ms, launches)} of a torch.profiler run: the
+    device-side events only (a CPU op's self device time is the time of the
+    kernels it launched, which appear again under their own names)."""
+    from torch.autograd import DeviceType
+
+    return {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
 def profile_window(run, steps):
     """torch.profiler over ``run()`` (``steps`` kernel-path steps, warmed up
     by one call before): device busy time, the window, and the kernels by
@@ -1013,13 +1263,7 @@ def profile_window(run, steps):
             t0 = time.perf_counter()
             run()
             window_ms = (time.perf_counter() - t0) * 1e3
-        by_name = {}
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total", None)
-            if t is None:
-                t = getattr(e, "self_cuda_time_total", 0.0)
-            if t and t > 0:
-                by_name[e.key] = (t / 1e3, e.count)
+        by_name = device_kernels(prof)
         busy = sum(t for t, _ in by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
         return dict(steps=steps, window_ms=window_ms, device_busy_ms=busy,
@@ -1028,6 +1272,22 @@ def profile_window(run, steps):
     except Exception as e:  # the profiler is untried on this machine
         torch_sync()
         return dict(steps=steps, error=f"not measured: {e!r}"[:300])
+
+
+def device_ms(fn, reps=REPS):
+    """Device time per call of ``fn``: the summed device time of every kernel
+    ``reps`` calls launched (torch.profiler), without the host's launch
+    time that the CUDA-event times of back-to-back calls include."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch_sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch_sync()
+    return sum(t for t, _ in device_kernels(prof).values()) / reps
 
 
 def run_headline(dev):
@@ -1096,10 +1356,11 @@ def large_grid_configs(backend="auto"):
     return mom, pres
 
 
-def peeled_strip_levels(n, pres):
+def peeled_strip_levels(n, pres, plane=False):
     """How many fine levels of an n^2 even-grid hierarchy run as a K2 pair
     before the first tail the fused V-cycle (K3) admits (the rule of
-    solvers/multigrid._cycle0), from the gates alone."""
+    solvers/multigrid._cycle0), from the gates alone.  With ``plane``, the
+    finest level is K10's and the cycle below it starts at level 1."""
     import torch
 
     from naviflow_tpu_torch.ops import mg, strip
@@ -1110,6 +1371,8 @@ def peeled_strip_levels(n, pres):
         shapes.append((shapes[-1][0] // 2, shapes[-1][1] // 2))
     z = torch.zeros((1, 1), dtype=torch.float32)
     levels = [(Stencil9(*(z,) * 9), shp, lvl == 0, None) for lvl, shp in enumerate(shapes)]
+    if plane:
+        levels = levels[1:]
     k = next(k for k in range(1, len(levels)) if mg.supports_fused(levels[k:], pres))
     return sum(strip.supports_strip(*levels[lvl][1], levels[lvl][2], pres, torch.float32)
                for lvl in range(k))
@@ -1258,6 +1521,104 @@ def run_algorithms63(dev):
                 paths=paths)
 
 
+def run_plane(dev):
+    """SIMPLE at 4096^2 (bench.py's large_grid_3, 6 steps) with the
+    large-grid configuration in the colour-plane fine layout: with every
+    kernel; composed; with composed momentum and the pressure kernels (K10,
+    K2, K3); and with no kernel but K1's lagged carry (K1 swapped for its
+    plain version, the pressure composed), the same algorithm as the
+    all-kernel run; then in the interleaved layout with every kernel.  The
+    kernel runs go in turns plane, interleaved, interleaved, plane."""
+    import dataclasses
+
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+    from naviflow_tpu_torch.solvers.momentum import lagged_rho_enabled
+
+    mesh = nt.StructuredMesh(nx=NP, ny=NP)
+    fluid = nt.FluidProperties(density=1.0, reynolds_number=RE)
+    bc = nt.lid_driven_cavity(1.0)
+
+    def run(layout, backend="auto", pressure_backend=None, steps=PLANE_STEPS):
+        mom, _ = large_grid_configs(backend)
+        _, pres = large_grid_configs(pressure_backend or backend)
+        pres = dataclasses.replace(pres, fine_layout=layout)
+        state = nt.initialize_state(mesh, bc, device=dev)
+        torch_sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out, diag = simple_solve(mesh, fluid, bc, state,
+                                 SIMPLEConfig(max_iterations=steps, tolerance=0.0),
+                                 momentum=mom, pressure=pres, loop="fused")
+        torch_sync()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        return out, diag.total_res_history.double(), ms, counts()
+
+    def gaps(h, ref):
+        return ((h - ref).abs() / ref.abs()).tolist()
+
+    mom, pres = large_grid_configs()
+    s = PLANE_STEPS
+    k1 = lagged_rho_enabled(NP, NP, mom, fold_poisson=True, dtype=torch.float32, device=dev)
+    if k1:
+        momentum = dict(fused_asmcheby_pair=s)
+    else:
+        momentum = dict(fused_assembly_pair=s, chebyshev_momentum_strips=2 * s)
+    strips = {"plane": peeled_strip_levels(NP, pres, plane=True),
+              "interleaved": peeled_strip_levels(NP, pres)}
+    pressure = only(plane_strip_down=s, plane_strip_up=s, strip_down=strips["plane"] * s,
+                    strip_up=strips["plane"] * s, fused_vcycle=s)
+    want = {"plane": {**pressure, **momentum}, "plane_pressure": pressure,
+            "interleaved": only(strip_down=strips["interleaved"] * s,
+                                strip_up=strips["interleaved"] * s, fused_vcycle=s, **momentum),
+            "plane_composed": only(),
+            # where K1's gate refuses, this run's momentum takes K8 and K9
+            "plane_lagged_plain": only() if k1 else only(**momentum)}
+
+    run("plane", steps=2)  # warm-ups (allocator)
+    run("interleaved", steps=2)
+    state_k, hist, ms_p1, launches = run("plane")
+    _, hist_c, ms_c, launches_c = run("plane", "composed")
+    _, hist_pk, ms_pk, launches_pk = run("plane", "composed", "auto")
+    with plain_k1():
+        _, hist_lp, ms_lp, launches_lp = run("plane", "auto", "composed")
+    state_i, hist_i, ms_i1, launches_i = run("interleaved")
+    _, _, ms_i2, _ = run("interleaved")
+    _, _, ms_p2, _ = run("plane")
+    got = {"plane": launches, "plane_pressure": launches_pk, "interleaved": launches_i,
+           "plane_composed": launches_c, "plane_lagged_plain": launches_lp}
+    finite = all(bool(torch.isfinite(h).all())
+                 for h in (hist, hist_c, hist_pk, hist_lp, hist_i)) and all(
+        bool(torch.isfinite(getattr(st, k)).all()) for st in (state_k, state_i)
+        for k in ("u", "v", "p"))
+    # every kernel against the same algorithm with none (K1's lagged carry
+    # in both), and the pressure kernels against the composed path (the
+    # momentum composed in both); lag_gap is what the lagged carry alone
+    # moves, with no kernel on either side
+    kernel_gap = gaps(hist, hist_lp)
+    pressure_gap = gaps(hist_pk, hist_c)
+    row = dict(phase="plane", grid=NP, re=RE, steps=s, strip_levels=strips, launches=launches,
+               launches_by_run=got, launches_expected=want,
+               final_residual={"plane_kernel": float(hist[-1]), "plane_composed": float(hist_c[-1]),
+                               "plane_pressure_kernels": float(hist_pk[-1]),
+                               "plane_lagged_plain": float(hist_lp[-1]),
+                               "interleaved_kernel": float(hist_i[-1])},
+               kernel_gap=kernel_gap, pressure_gap=pressure_gap,
+               lag_gap=gaps(hist_lp, hist_c), composed_gap=gaps(hist, hist_c),
+               history_plane_kernel=hist.tolist(), history_plane_composed=hist_c.tolist(),
+               history_plane_pressure_kernels=hist_pk.tolist(),
+               history_plane_lagged_plain=hist_lp.tolist(),
+               history_interleaved_kernel=hist_i.tolist(), finite=finite,
+               ms_per_step={"plane_kernel": [ms_p1, ms_p2], "plane_composed": ms_c,
+                            "plane_pressure_kernels": ms_pk, "plane_lagged_plain": ms_lp,
+                            "interleaved_kernel": [ms_i1, ms_i2]})
+    row["ok"] = got == want and finite and max(kernel_gap) <= 1e-3 and max(pressure_gap) <= 1e-3
+    row["profile"] = profile_window(lambda: run("plane", steps=3), 3)
+    return row
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1293,6 +1654,15 @@ SOURCES = {
     "chebyshev_momentum_strips": ("chebyshev_momentum_strips",
                                   "naviflow_tpu_torch/csrc/cheby.cu",
                                   "naviflow_tpu/ops/pallas_cheby.py:192", "large_grid"),
+    "plane_strip_down": ("plane_strip_down", "naviflow_tpu_torch/csrc/plane.cu",
+                         "naviflow_tpu/ops/pallas_plane.py:266", "plane"),
+    "plane_strip_up": ("plane_strip_up", "naviflow_tpu_torch/csrc/plane.cu",
+                       "naviflow_tpu/ops/pallas_plane.py:299", "plane"),
+    # no path of the JAX package calls K11: its path is the kernel phase
+    "rbgs_sweeps": ("rbgs_sweeps", "naviflow_tpu_torch/csrc/poisson.cu",
+                    "naviflow_tpu/ops/pallas_kernels.py:121", "kernel_phase"),
+    "apply_poisson": ("apply_poisson", "naviflow_tpu_torch/csrc/poisson.cu",
+                      "naviflow_tpu/ops/pallas_kernels.py:138", "kernel_phase"),
 }
 
 
@@ -1300,10 +1670,13 @@ def kernels_line(rows, paths):
     """One entry per kernel (and per K6 body).  The time, error and work are
     those of its main-path shape (K2: both strip levels of one step, summed;
     K7 and K9: the u and v solves, averaged; K8: with the Gershgorin maxima,
-    as SIMPLEC, PISO and SIMPLER call it); the launches are those of the
-    path that runs it (K1-K3 the 1024^2 slice, K4 and K6's simple body the
-    headline to 1e-3, K5 and K7 the FMG run, K8 and K9 the 2048^2 runs, the
-    other K6 bodies their 63^2 runs), with every path's count beside them."""
+    as SIMPLEC, PISO and SIMPLER call it; K10 at 4096^2; K11 at 256^2); the
+    launches are those of the path that runs it (K1-K3 the 1024^2 slice, K4
+    and K6's simple body the headline to 1e-3, K5 and K7 the FMG run, K8 and
+    K9 the 2048^2 runs, the other K6 bodies their 63^2 runs, K10 the 4096^2
+    plane run, K11 the kernel phase's checking calls), with every path's
+    count beside them.  ``library_ms``: K11b's cuSPARSE SpMV; no other
+    kernel's function is one PyTorch call."""
     out = []
     for name, (counter, src, replaces, path) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name and r.get("main", True)
@@ -1314,12 +1687,17 @@ def kernels_line(rows, paths):
         nbytes = sum(r["work"][0] for r in mine) / k
         flops = sum(r["work"][1] for r in mine) / k
         b_ms, b_by = bound(nbytes, flops)
+        lib = [r["library_ms"] for r in mine if "library_ms" in r]
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=paths[path][counter],
                      max_abs_err=max(r["max_abs_err"] for r in mine),
-                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=sum(lib) / len(lib) if lib else None,
                      launches_by_path={p: c[counter] for p, c in paths.items()},
                      bytes=nbytes, flops=flops)
+        for key in ("device_ms", "library_device_ms"):  # K11's profiler times
+            if all(key in r for r in mine):
+                entry[key] = sum(r[key] for r in mine) / k
         if all("barrier_bound_ms" in r for r in mine):
             entry["grid_barriers"] = sum(r["grid_barriers"] for r in mine) / k
             entry["barrier_bound_ms"] = sum(r["barrier_bound_ms"] for r in mine) / k
@@ -1366,7 +1744,7 @@ def main() -> int:
             sync_cache[blocks] = grid_sync_ms(cells, dev)
         return sync_cache[blocks]
 
-    rows = [check_asmcheby(dev)]
+    rows = check_asmcheby(dev)
     levels, cfg, rng = fine_levels(dev)
     rows += check_strips(dev, levels, cfg, rng)
     rows.append(check_vcycle(dev, levels, cfg, rng, sync_ms))
@@ -1382,6 +1760,10 @@ def main() -> int:
     rows += check_step_bodies(dev, sync_ms)
     rows += check_assembly(dev)
     rows += check_cheby(dev)
+    rows += check_plane(dev)
+    rows += check_asmcheby(dev, NP, lagged=True)  # K1 at the plane run's 4096^2 shapes
+    k11_rows, k11_launches = check_poisson_kernels(dev)
+    rows += k11_rows
     for row in rows:
         emit(dict(phase="kernel", **{k: v for k, v in row.items() if k != "work"},
                   bytes=row["work"][0], flops=row["work"][1]))
@@ -1390,9 +1772,10 @@ def main() -> int:
         print("chip_smoke: a kernel disagrees with its plain version", file=sys.stderr)
         return 1
 
-    paths = {}
+    paths = {"kernel_phase": k11_launches}
     for phase, fn in (("slice", run_slice), ("headline", run_headline), ("fmg", run_fmg),
-                      ("large_grid", run_large_grid), ("algorithms63", run_algorithms63)):
+                      ("large_grid", run_large_grid), ("algorithms63", run_algorithms63),
+                      ("plane", run_plane)):
         row = fn(dev)
         emit(row)
         if not row["ok"]:
@@ -1408,7 +1791,8 @@ def main() -> int:
     kernels = kernels_line(rows, paths)
     unlaunched = [k["name"] for k in kernels if k["launches"] < 1]
     if unlaunched:
-        print(f"chip_smoke: never launched on their path: {unlaunched}", file=sys.stderr)
+        print(f"chip_smoke: never launched on their path (K11's path is the kernel phase, "
+              f"since no path of the JAX package calls it): {unlaunched}", file=sys.stderr)
         return 1
     emit({"kernels": kernels})
     print(card, flush=True)

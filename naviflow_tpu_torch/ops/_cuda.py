@@ -47,6 +47,7 @@ _ARGS = [ctypes.POINTER(ctypes.c_longlong),  # device pointers
 _KERNELS = ("nf_asmcheby_pair", "nf_strip_down", "nf_strip_up", "nf_fused_vcycle",
             "nf_galerkin_levels", "nf_fused_mg_solve", "nf_bicgstab", "nf_fused_outer_step",
             "nf_fused_assembly_pair", "nf_chebyshev_strips",
+            "nf_plane_strip_down", "nf_plane_strip_up", "nf_rbgs_sweeps", "nf_apply_poisson",
             "nf_grid_sync_probe")
 
 _lib = None

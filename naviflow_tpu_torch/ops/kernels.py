@@ -1,0 +1,102 @@
+"""K11: whole-array red-black SOR sweeps and the 5-point matvec of the
+unpinned pressure-correction operator (``rbgs_sweeps`` /
+``apply_poisson_kernel``).
+
+Replaces ``naviflow_tpu/ops/pallas_kernels.py:rbgs_sweeps_pallas`` (K11a)
+and ``:apply_poisson_pallas`` (K11b); the CUDA kernels are
+``csrc/poisson.cu`` (its header says what bounds them on the H100).
+
+Dispatch is the JAX wrappers' own rule (``_use_pallas``): a CUDA float32
+array of at most :data:`PALLAS_MAX_CELLS` cells goes to the kernel;
+anything else, a CPU tensor included, runs the plain version, as the JAX
+wrapper runs its jnp path.  No solve path calls these, as in the JAX
+package: they are held against their plain versions in ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _cuda
+from .poisson import PoissonCoeffs, apply_poisson, poisson_diagonal
+
+# The TPU kernels' whole-array VMEM limit (7 f32 arrays plus double
+# buffering in 16 MB), kept so that the port launches K11 exactly where the
+# reference does; not an H100 limit.
+PALLAS_MAX_CELLS = 256 * 256
+
+RBGS_LAUNCHES = 0  # K11a
+MATVEC_LAUNCHES = 0  # K11b
+
+
+def _use_kernel(p) -> bool:
+    return (_cuda.kernel_device(p) and p.dtype == torch.float32
+            and p.shape[0] * p.shape[1] <= PALLAS_MAX_CELLS)
+
+
+def rbgs_sweeps_plain(p, b, c: PoissonCoeffs, n_sweeps: int = 1, omega: float = 1.5):
+    """``n_sweeps`` iterations of ``solvers/pressure.rbgs_sweep(pin=False)``."""
+    from ..solvers.pressure import rbgs_sweep
+
+    for _ in range(n_sweeps):
+        p = rbgs_sweep(p, b, c, omega, pin=False)
+    return p
+
+
+def apply_poisson_plain(p, c: PoissonCoeffs):
+    return apply_poisson(p, c, pinned=False)
+
+
+def _arrays(c: PoissonCoeffs):
+    return [c.a_e, c.a_w, c.a_n, c.a_s]
+
+
+def _require(p, c: PoissonCoeffs, *others):
+    for k, a in enumerate([p, *others, *_arrays(c)]):
+        _cuda.require(a, p.shape, f"input [{k}]")
+
+
+def rbgs_sweeps(p, b, c: PoissonCoeffs, n_sweeps: int = 1, omega: float = 1.5):
+    """``n_sweeps`` red-black SOR sweeps (red = (i+j) even first), unpinned,
+    in one launch.  ``invd = 1 / poisson_diagonal(c, pinned=False)`` is
+    computed here, as in the JAX wrapper.  Only a CUDA float32 array of at
+    most :data:`PALLAS_MAX_CELLS` cells launches the kernel; any other input,
+    a larger CUDA array included, runs :func:`rbgs_sweeps_plain` (plain
+    PyTorch), and only ``RBGS_LAUNCHES`` tells the two apart."""
+    global RBGS_LAUNCHES
+    if not _use_kernel(p):
+        return rbgs_sweeps_plain(p, b, c, n_sweeps, omega)
+    invd = 1.0 / poisson_diagonal(c, pinned=False)
+    _require(p, c, b, invd)
+    out = torch.empty_like(p)
+    tensors = [p, b, *_arrays(c), invd, out]
+    ptrs = (ctypes.c_longlong * len(tensors))(*[t.data_ptr() for t in tensors])
+    ip = (ctypes.c_int * 3)(p.shape[0], p.shape[1], n_sweeps)
+    fp = (ctypes.c_float * 1)(omega)
+    _cuda.check(_cuda.library().nf_rbgs_sweeps(ptrs, ip, fp, _cuda.stream_of(p)),
+                "rbgs_sweeps")
+    RBGS_LAUNCHES += 1
+    return out
+
+
+def apply_poisson_kernel(p, c: PoissonCoeffs):
+    """The unpinned 5-point matvec ``diag * p - sum(a_nb * p_nb)``.  Only a
+    CUDA float32 array of at most :data:`PALLAS_MAX_CELLS` cells launches the
+    kernel; any other input, a larger CUDA array included, runs
+    :func:`apply_poisson_plain` (plain PyTorch), and only ``MATVEC_LAUNCHES``
+    tells the two apart."""
+    global MATVEC_LAUNCHES
+    if not _use_kernel(p):
+        return apply_poisson_plain(p, c)
+    _require(p, c, c.diag)
+    out = torch.empty_like(p)
+    tensors = [p, *_arrays(c), c.diag, out]
+    ptrs = (ctypes.c_longlong * len(tensors))(*[t.data_ptr() for t in tensors])
+    ip = (ctypes.c_int * 2)(p.shape[0], p.shape[1])
+    fp = (ctypes.c_float * 1)(0.0)
+    _cuda.check(_cuda.library().nf_apply_poisson(ptrs, ip, fp, _cuda.stream_of(p)),
+                "apply_poisson")
+    MATVEC_LAUNCHES += 1
+    return out

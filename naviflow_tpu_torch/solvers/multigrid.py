@@ -20,10 +20,17 @@ Kernel path (CUDA tensors, ``backend`` 'auto' or 'kernel'):
   first tail K3 admits runs as one launch.  At a 1024^2 grid that is levels
   0 and 1 as strips and 256^2 -> 4^2 as K3.
 
+With ``fine_layout='plane'`` the (even, five-point) finest level is held as
+its red and black colour planes for the whole solve (``ops/plane.py``): on
+the kernel path each cycle's fine level is one K10 ``plane_strip_down`` and
+one ``plane_strip_up`` launch (``ops/plane_strip.py``) where their gate
+admits it, and the levels below run through the same ``_cycle0`` (K2 strips
+and the K3 tail).  ``'auto'`` resolves to the interleaved layout, as in the
+JAX package.
+
 Not yet ported (each raises :class:`NotImplementedError`): rediscretized
 coarsening, cubic prolongation, the Jacobi, Chebyshev and bfloat16
-smoothers (ROADMAP §1 item 10), and the colour-plane fine layout
-(``ops/plane.py`` and K10, ROADMAP §2).
+smoothers (ROADMAP §1 item 10).
 """
 
 from __future__ import annotations
@@ -36,6 +43,9 @@ import torch
 from ..ops import _cuda
 from ..ops.mg import (fused_mg_solve, fused_vcycle, galerkin_levels, supports_fused,
                       supports_fused_rap)
+from ..ops.plane import (PlaneStencil5, merge_planes, plane_fine_down, plane_fine_up,
+                         plane_residual_norm, split_planes)
+from ..ops.plane_strip import plane_strip_down, plane_strip_up, supports_plane_strip
 from ..ops.poisson import poisson_coefficients
 from ..ops.stencil import index_grids
 from ..ops.stencil9 import (
@@ -78,7 +88,10 @@ class MultigridConfig:
     # (the algorithm layer owns the carry, algorithms/lagged.py)
     coarse_rebuild_every: int = 1
     backend: str = "auto"  # 'auto' | 'kernel' | 'composed'
-    fine_layout: str = "auto"  # 'auto' | 'interleaved' ('plane' not ported)
+    # 'plane': hold the (even, five-point) finest level as red/black colour
+    # planes across the whole solve; 'auto' resolves to 'interleaved' (the
+    # JAX package's choice, from its TPU timings)
+    fine_layout: str = "auto"  # 'auto' | 'interleaved' | 'plane'
     kind: str = "multigrid"
 
 
@@ -283,27 +296,62 @@ def multigrid_solve(
         p, r, cycles, rel = fused_mg_solve(p_start, b, levels, cfg,
                                            mean_normalize=(variant != "reference"))
         return p, PressureSolveInfo(iterations=cycles, residual_field=r, rel_residual=rel)
-    if getattr(cfg, "fine_layout", "auto") not in ("auto", "interleaved"):
-        raise NotImplementedError(
-            "the colour-plane fine layout (ops/plane.py, K10 plane_strip_*) has no CUDA port "
-            "yet (ROADMAP §2 K10); the JAX package would launch it here. Pass "
-            "fine_layout='auto' to run the interleaved layout instead.")
 
+    layout = getattr(cfg, "fine_layout", "auto")
+    if layout not in ("auto", "interleaved", "plane"):
+        raise ValueError(f"fine_layout {layout!r}: expected 'auto', 'interleaved' or 'plane'")
+    use_plane = (
+        layout == "plane"
+        and five_fine and len(levels) > 1
+        and cfg.cycle_type in ("v", "fmg") and cfg.smoother == "gs"
+        and cfg.omega == 1.0
+        and getattr(cfg, "smoother_dtype", "float32") == "float32"
+        and b.shape[0] % 2 == 0 and b.shape[1] % 2 == 0
+    )
     bnorm = torch.linalg.vector_norm(b)
     safe_bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
-    p = p_start
+    if use_plane:
+        # b and the stencil are split once per solve, the planes merged once
+        ps = PlaneStencil5(st_fine, b)
+        state = split_planes(p_start)
+        plane_kernel = _kernel_path(cfg, b) and supports_plane_strip(*state[0].shape, cfg,
+                                                                     b.dtype)
+
+        def one_cycle(R, B):
+            # the fine level in plane form (K10 on the kernel path), the
+            # levels below it as an ordinary cycle on the standard layout
+            if plane_kernel:
+                R, B, rc = plane_strip_down(R, B, ps, cfg)
+                ec = _cycle0(torch.zeros_like(rc), rc, levels[1:], cfg)
+                return plane_strip_up(R, B, ps, ec, cfg)
+            R, B, rc = plane_fine_down(R, B, ps, cfg.pre_smoothing)
+            ec = _cycle0(torch.zeros_like(rc), rc, levels[1:], cfg)
+            return plane_fine_up(R, B, ps, ec, cfg.post_smoothing)
+
+        def norm(R, B):
+            return plane_residual_norm(R, B, ps)
+    else:
+        state = (p_start,)
+
+        def one_cycle(p):
+            return (_cycle0(p, b, levels, cfg),)
+
+        def norm(p):
+            return torch.linalg.vector_norm(b - apply_five(p, st_fine, five_fine))
+
     if cfg.tolerance <= 0.0:
         for _ in range(cfg.max_cycles):
-            p = _cycle0(p, b, levels, cfg)
+            state = one_cycle(*state)
         cycles, rel = cfg.max_cycles, None
     else:
         cycles = 0
         rel = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
         while cycles < cfg.max_cycles and float(rel) >= cfg.tolerance:
             for _ in range(cfg.check_every):
-                p = _cycle0(p, b, levels, cfg)
-            rel = torch.linalg.vector_norm(b - apply_five(p, st_fine, five_fine)) / safe_bnorm
+                state = one_cycle(*state)
+            rel = norm(*state) / safe_bnorm
             cycles += cfg.check_every
+    p = merge_planes(*state) if use_plane else state[0]
     if variant != "reference":
         p = p - torch.mean(p)
     r = b - apply_five(p, st_fine, five_fine)

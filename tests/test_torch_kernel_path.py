@@ -6,8 +6,8 @@ momentum kernel (K1), and the peeled V-cycle with strip levels (K2) and a
 fused tail (K3); on CPU tensors every kernel wrapper runs its plain
 version.  The JAX package runs the same steps with its merged Pallas
 kernel forced, in interpret mode.  The gate of the one-pass assembly (K8)
-runs its wrapper; the colour-plane layout (K10), not ported yet, refuses
-with NotImplementedError.
+runs its wrapper, and the colour-plane layout (K10's) runs
+(``tests/test_torch_plane.py`` drives its kernel path).
 """
 
 import jax.numpy as jnp
@@ -106,9 +106,9 @@ def test_forced_kernel_path_matches_jax_merged_kernel(kernel_gates_open, monkeyp
 
 
 def test_unported_kernel_gates_refuse(kernel_gates_open, monkeypatch):
-    """Where the reference would launch a kernel the port has, the port goes
-    through its wrapper; where it would launch one the port lacks (K10), the
-    port raises."""
+    """Where the reference would launch a kernel, the port goes through its
+    wrapper; the plane fine layout runs; what the port refuses, it refuses
+    by name."""
     from naviflow_tpu_torch.solvers.momentum import JacobiMomentumConfig
     from naviflow_tpu_torch.solvers.multigrid import MultigridConfig as TMG
     from naviflow_tpu_torch.solvers.multigrid import multigrid_solve
@@ -149,11 +149,18 @@ def test_unported_kernel_gates_refuse(kernel_gates_open, monkeypatch):
     for g, w in zip(got[0] + got[1], want):
         assert torch.equal(g, w)
 
-    # K10 (the colour-plane fine layout) is not ported: refused
-    with pytest.raises(NotImplementedError, match="K10"):
-        multigrid_solve(b, d_u, d_v, torch.zeros_like(b),
-                        TMG(backend="composed", fine_layout="plane"), dx=1.0 / n, dy=1.0 / n,
-                        rho=1.0)
+    # K10's layout, now ported: fine_layout='plane' runs (composed here) and
+    # follows the interleaved solve, of which it is a re-association
+    mg_kw = dict(dx=1.0 / n, dy=1.0 / n, rho=1.0)
+    p_i, info_i = multigrid_solve(b, d_u, d_v, torch.zeros_like(b),
+                                  TMG(backend="composed", max_cycles=2), **mg_kw)
+    p_p, info_p = multigrid_solve(b, d_u, d_v, torch.zeros_like(b),
+                                  TMG(backend="composed", max_cycles=2, fine_layout="plane"),
+                                  **mg_kw)
+    assert info_p.iterations == info_i.iterations == 2 and torch.isfinite(p_p).all()
+    assert float((p_p - p_i).abs().max()) < 1e-4 * float(p_i.abs().max())
+    with pytest.raises(ValueError, match="fine_layout"):
+        multigrid_solve(b, d_u, d_v, torch.zeros_like(b), TMG(backend="composed", fine_layout="planes"), **mg_kw)
 
     # a lagged carry the helper does not admit is refused
     with pytest.raises(ValueError, match="lagged_rho_enabled"):
