@@ -9,7 +9,10 @@ result line:
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
 2. the kernel build: ``nvcc`` compiles ``naviflow_tpu_torch/csrc/*.cu`` for
-   sm_90a from the checkout, one process per source;
+   sm_90a from the checkout, one process per source; ptxas's registers and
+   spills of K6's instantiations, the thread-block cluster size each K6
+   body launches with, and one cluster barrier's time
+   (``nf_cluster_sync_probe``);
 3. each kernel against its plain PyTorch version on the card, with the
    tolerance of the JAX package's test of that kernel and both times (CUDA
    events, turns plain / kernel / kernel / plain): K1, K2 and K3 at the
@@ -24,8 +27,13 @@ result line:
    piso and simpler bodies over 3 chained 63^2 steps from rest; K10a/b at
    the 4096^2 plane shapes (1/1 smoothing) and at 1024^2 (2/2); K11a at
    63^2 (1 and 3 sweeps) and 256^2, K11b at 63^2, 256^2 and 48 x 96 with a
-   cuSPARSE SpMV of the same operator beside it.  Beside them the time of
-   one grid-wide barrier at each kernel's grid size;
+   cuSPARSE SpMV of the same operator beside it.  Every kernel's CUDA-event
+   time, its device time (``device_ms``: events around launches queued
+   behind a device-side sleep) and, for K6 and K11b, the host's time per
+   call; beside them the time of one
+   grid-wide barrier at each cooperative kernel's grid size; then K6's
+   phase split (``nf_fused_outer_step_phases``) for each body over 20
+   chained 63^2 steps;
 4. the 1024^2 slice: ``simple_solve`` at 1024^2, Re=100, with the bench's
    large-grid configuration (Chebyshev momentum of degree 4, one fixed
    V-cycle with 1/1 smoothing, 32 coarsest sweeps, coarse rebuild every 8
@@ -97,6 +105,7 @@ PLANE_STEPS = 6
 RE = 100.0
 SEED = 0
 REPS = 20  # timed launches per kernel measurement
+SLEEP_CYCLES = 60_000_000  # device_ms's head start: ~30 ms of the SM clock
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores.  bound_ms of a kernel is the
@@ -145,10 +154,11 @@ def time_ms(fn, reps=REPS):
 
 
 def time_pair(plain, kernel, reps=REPS):
-    """ms per call of each, in turns plain, kernel, kernel, plain."""
+    """ms per call of each, in turns plain, kernel, kernel, plain, and the
+    kernel's device time per call (``device_ms``)."""
     p1, k1 = time_ms(plain, reps), time_ms(kernel, reps)
     k2, p2 = time_ms(kernel, reps), time_ms(plain, reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return (k1 + k2) / 2, (p1 + p2) / 2, device_ms(kernel, reps)
 
 
 def max_err(got, want):
@@ -168,33 +178,86 @@ def bound(nbytes, flops):
 # grid-wide barriers: the unit of the whole-algorithm kernels' bound
 
 
-def grid_sync_ms(cells, dev):
-    """ms of one grid-wide barrier in a cooperative launch sized for
-    ``cells`` cells (nf_grid_sync_probe: 1 and 2001 barriers, the
-    difference over 2000)."""
+def barrier_ms(entry, first, dev):
+    """ms of one barrier of a probe entry (``ip``: ``first``, then the
+    barrier count): 1 and 2001 barriers, the difference over 2000."""
     import torch
 
     from naviflow_tpu_torch.ops import _cuda
 
-    lib = _cuda.library()
+    probe = getattr(_cuda.library(), entry)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def run(syncs, reps=5):
-        ip = (ctypes.c_int * 2)(cells, syncs)
+        ip = (ctypes.c_int * 2)(first, syncs)
         ptrs = (ctypes.c_longlong * 1)(0)
         fp = (ctypes.c_float * 1)(0.0)
-        _cuda.check(lib.nf_grid_sync_probe(ptrs, ip, fp, stream), "grid_sync_probe")
+        _cuda.check(probe(ptrs, ip, fp, stream), entry)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
-            _cuda.check(lib.nf_grid_sync_probe(ptrs, ip, fp, stream), "grid_sync_probe")
+            _cuda.check(probe(ptrs, ip, fp, stream), entry)
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
     return (run(2001) - run(1)) / 2000
+
+
+def grid_sync_ms(cells, dev):
+    """ms of one grid-wide barrier in a cooperative launch sized for
+    ``cells`` cells (nf_grid_sync_probe)."""
+    return barrier_ms("nf_grid_sync_probe", cells, dev)
+
+
+def cluster_sync_ms(size, dev):
+    """ms of one cluster barrier in one cluster of ``size`` CTAs of K6's
+    width (nf_cluster_sync_probe)."""
+    return barrier_ms("nf_cluster_sync_probe", size, dev)
+
+
+def k6_barriers(algo, cfg, meta, pres, k_total, cycles, psolves):
+    """The cluster barriers of one K6 step (csrc/step.cuh over
+    csrc/cluster.cuh), pass by pass: one after every pass over a global
+    level and every reduction; the coarse part of a V-cycle (the levels of
+    <= 1,024 cells, in rank 0 alone) ends in one.  ``k_total`` Krylov
+    iterations and ``cycles`` V-cycles over the step's ``psolves``
+    pressure solves."""
+    cells = [a * b for (a, b), _ in meta]
+    colors = [2 if five else 4 for _, five in meta]
+    L = len(cells)
+    Ls = next((lvl for lvl in range(1, L) if cells[lvl] <= 1024), L)
+    top = min(Ls, L - 1)
+    vcycle = sum((pres.pre_smoothing + pres.post_smoothing) * colors[lvl] + 2
+                 for lvl in range(top))
+    vcycle += 1 if Ls < L else pres.coarsest_sweeps * colors[-1]
+    # per solve: ||b||, the mean and its subtraction, the final residual;
+    # per check one residual norm
+    mean = 2 if cfg.poisson_variant != "reference" else 0
+    mg = psolves * (2 + mean) + cycles * vcycle + cycles // pres.check_every
+    pressure = psolves * (1 + (L - 1)) + mg  # RHS and operator, one RAP pass a level
+    update_p = 1 + int(cfg.overwrite_boundary_pressure)
+
+    def pair(krylov_solves=2, jacobi_sweeps=None):  # assembly, the solves, BCs on u*, v*
+        if jacobi_sweeps is not None:
+            return 1 + 2 * max(jacobi_sweeps, 1) + 1
+        return 1 + 3 * krylov_solves + 1
+
+    n = 2 + 1 + pair() + 1  # start and end, BCs, the predictor, its residual norms
+    n += 5 * k_total + pressure
+    if algo == "simple":
+        n += update_p + 1 + 1
+    elif algo == "simplec":
+        n += int(cfg.smooth_p_prime) + update_p + 1 + 1
+    elif algo == "piso":
+        sweeps = None if cfg.corrector == "exact" else cfg.corrector_sweeps
+        n += cfg.n_corrections * (update_p + 1) + 1
+        n += (cfg.n_corrections - 1) * (1 + pair(jacobi_sweeps=sweeps))
+    else:  # simpler
+        n += update_p + pair() + update_p + 1 + 1
+    return n
 
 
 class Barriers:
@@ -448,14 +511,15 @@ def check_asmcheby(dev, n=N, lagged=False):
             errs[name] = e_rel
             worst_abs = max(worst_abs, e_abs)
             ok &= e_rel < tol
-        ms, plain_ms = time_pair(lambda: asmcheby.fused_asmcheby_pair_plain(*fields, **a),
-                                 lambda: asmcheby.fused_asmcheby_pair(*fields, **a))
+        ms, plain_ms, dev_ms = time_pair(
+            lambda: asmcheby.fused_asmcheby_pair_plain(*fields, **a),
+            lambda: asmcheby.fused_asmcheby_pair(*fields, **a))
         faces = 2 * n * (n + 1)
         nbytes = 4 * (3 * faces + n * n + 4 * faces + 5 * n * n)  # u, v, p in; 6 fields + pc out
         flops = faces * (70 + degree * (APPLY5 + 8) + 10) + 10 * n * n
         rows.append(dict(name="fused_asmcheby_pair", shape=[n, n], degree=degree, bounds=bounds,
                          ok=ok, max_abs_err=worst_abs, rel_err=errs, ms=ms, plain_ms=plain_ms,
-                         main=n == N, work=(nbytes, flops)))
+                         device_ms=dev_ms, main=n == N, work=(nbytes, flops)))
     return rows
 
 
@@ -509,10 +573,11 @@ def check_strips(dev, levels, cfg, rng):
 
         down_ok = strip_close(got_x, want_x) and strip_close(got_rc, want_rc)
         up_ok = strip_close(got_up, want_up)
-        ms_d, plain_d = time_pair(lambda: strip.strip_down_plain(p, b, st, cfg, five),
-                                  lambda: strip.strip_down(p, b, st, cfg, five))
-        ms_u, plain_u = time_pair(lambda: strip.strip_up_plain(want_x, b, st, ec, cfg, five),
-                                  lambda: strip.strip_up(want_x, b, st, ec, cfg, five))
+        ms_d, plain_d, dev_d = time_pair(lambda: strip.strip_down_plain(p, b, st, cfg, five),
+                                         lambda: strip.strip_down(p, b, st, cfg, five))
+        ms_u, plain_u, dev_u = time_pair(
+            lambda: strip.strip_up_plain(want_x, b, st, ec, cfg, five),
+            lambda: strip.strip_up(want_x, b, st, ec, cfg, five))
         cells, a, taps = n * n, _apply_ops(five), (5 if five else 9)
         down_work = (4 * (cells * (2 + taps) + cells + cells // 4),
                      cells * (cfg.pre_smoothing * (a + GS_UPDATE) + a + 1) + 3 * cells)
@@ -523,12 +588,12 @@ def check_strips(dev, levels, cfg, rng):
                                          max_err(got_rc, want_rc)[0]),
                          rel_err=max(max_err(got_x, want_x)[1], max_err(got_rc, want_rc)[1]),
                          scale=float(want_x.abs().max()), ms=ms_d, plain_ms=plain_d,
-                         work=down_work))
+                         device_ms=dev_d, work=down_work))
         rows.append(dict(name="strip_up", shape=[n, n], five_point=five, ok=up_ok,
                          max_abs_err=max_err(got_up, want_up)[0],
                          rel_err=max_err(got_up, want_up)[1],
                          scale=float(want_up.abs().max()), ms=ms_u, plain_ms=plain_u,
-                         work=up_work))
+                         device_ms=dev_u, work=up_work))
     return rows
 
 
@@ -546,7 +611,7 @@ def check_vcycle(dev, levels, cfg, rng, sync_ms):
     want = mg.fused_vcycle_plain(p, b, tail, cfg)
     torch_sync()
     a, r = max_err(got, want)
-    ms, plain_ms = time_pair(lambda: mg.fused_vcycle_plain(p, b, tail, cfg),
+    ms, plain_ms, dev_ms = time_pair(lambda: mg.fused_vcycle_plain(p, b, tail, cfg),
                              lambda: mg.fused_vcycle(p, b, tail, cfg))
     meta = meta_of(tail)
     bar = Barriers()
@@ -555,7 +620,7 @@ def check_vcycle(dev, levels, cfg, rng, sync_ms):
     # tests/test_pallas.py: 1e-5 of the cycle output's scale
     return dict(name="fused_vcycle", shape=[n, n], levels=[m[0][0] for m in meta],
                 ok=r < 1e-5, max_abs_err=a, rel_err=r, ms=ms, plain_ms=plain_ms,
-                work=vcycle_work(meta, cfg), grid_barriers=bar.n,
+                device_ms=dev_ms, work=vcycle_work(meta, cfg), grid_barriers=bar.n,
                 barrier_bound_ms=bar.n * sync_ms(n * n))
 
 
@@ -628,14 +693,15 @@ def check_bicgstab(inp, sync_ms):
             torch_sync()
             iters = (applies[0] - 1) // 2
             a, r = max_err(got, want)
-            ms, plain_ms = time_pair(
+            ms, plain_ms, dev_ms = time_pair(
                 lambda: krylov.bicgstab_momentum_plain(x0, c, tol=1e-6, maxiter=maxiter),
                 lambda: krylov.bicgstab_momentum(x0, c, tol=1e-6, maxiter=maxiter))
             bar = Barriers()
             bar.bicgstab(iters)
             rows.append(dict(name="bicgstab_momentum", field=field, shape=list(x0.shape),
                              maxiter=maxiter, iterations=iters, ok=r < 1e-4, max_abs_err=a,
-                             rel_err=r, ms=ms, plain_ms=plain_ms, work=bicgstab_work(n, iters),
+                             rel_err=r, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                             work=bicgstab_work(n, iters),
                              grid_barriers=bar.n, barrier_bound_ms=bar.n * sync_ms(n),
                              main=maxiter == 20))
     return rows
@@ -658,14 +724,15 @@ def check_rap(hier, sync_ms):
             for name in ("c", "e", "w", "n", "s", "ne", "nw", "se", "sw"):
                 a, r = max_err(getattr(g, name), getattr(w, name))
                 worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
-        ms, plain_ms = time_pair(lambda: mg.galerkin_levels_plain(fine, shapes, True),
+        ms, plain_ms, dev_ms = time_pair(lambda: mg.galerkin_levels_plain(fine, shapes, True),
                                  lambda: mg.galerkin_levels(fine, shapes, True))
         bar = Barriers()
         bar.rap(meta)
         bar.settle()
         rows.append(dict(name="galerkin_levels", shape=[n, n], levels=[s[0] for s in shapes],
                          ok=worst_rel < 1e-5, max_abs_err=worst_abs, rel_err=worst_rel, ms=ms,
-                         plain_ms=plain_ms, work=rap_work(meta), grid_barriers=bar.n,
+                         plain_ms=plain_ms, device_ms=dev_ms, work=rap_work(meta),
+                         grid_barriers=bar.n,
                          barrier_bound_ms=bar.n * sync_ms(shapes[1][0] * shapes[1][1]),
                          main=n == NH))
     return rows
@@ -692,14 +759,14 @@ def check_mg_solve(inp, sync_ms):
         a, e = max_err(p, pw)
         cycles = int(cycw)
         ok = int(cyc) == cycles and e < 1e-4 and abs(float(rel) - float(relw)) < 1e-5
-        ms, plain_ms = time_pair(lambda: mg.fused_mg_solve_plain(p0, b, levels, cfg),
+        ms, plain_ms, dev_ms = time_pair(lambda: mg.fused_mg_solve_plain(p0, b, levels, cfg),
                                  lambda: mg.fused_mg_solve(p0, b, levels, cfg))
         bar = Barriers()
         bar.mg_solve(meta, cfg, cycles)
         rows.append(dict(name="fused_mg_solve", shape=list(b.shape), tolerance=cfg.tolerance,
                          max_cycles=cfg.max_cycles, cycles=int(cyc), cycles_plain=cycles,
                          rel=float(rel), rel_plain=float(relw), ok=ok, max_abs_err=a,
-                         rel_err=e, ms=ms, plain_ms=plain_ms,
+                         rel_err=e, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
                          work=mg_solve_work(meta, cfg, cycles), grid_barriers=bar.n,
                          barrier_bound_ms=bar.n * sync_ms(b.numel()),
                          main=cfg.tolerance == inp["pres"].tolerance))
@@ -719,20 +786,34 @@ def check_vertex_vcycle(inp, sync_ms):
     want = mg.fused_vcycle_plain(p, b, levels, cfg)
     torch_sync()
     a, r = max_err(got, want)
-    ms, plain_ms = time_pair(lambda: mg.fused_vcycle_plain(p, b, levels, cfg),
+    ms, plain_ms, dev_ms = time_pair(lambda: mg.fused_vcycle_plain(p, b, levels, cfg),
                              lambda: mg.fused_vcycle(p, b, levels, cfg))
     bar = Barriers()
     bar.vcycle(meta, cfg)
     bar.settle()
     return dict(name="fused_vcycle", shape=list(b.shape), levels=[m[0][0] for m in meta],
                 vertex=True, ok=r < 1e-5, max_abs_err=a, rel_err=r, ms=ms, plain_ms=plain_ms,
-                work=vcycle_work(meta, cfg), grid_barriers=bar.n,
+                device_ms=dev_ms, work=vcycle_work(meta, cfg), grid_barriers=bar.n,
                 barrier_bound_ms=bar.n * sync_ms(b.numel()))
 
 
-def check_step(dev, sync_ms):
+def host_ms(fn, reps=REPS):
+    """The host's time per call of ``fn``: the host clock over ``reps``
+    back-to-back calls, no synchronise inside (a launch's enqueue)."""
+    fn()
+    torch_sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch_sync()
+    return t
+
+
+def check_step(dev, cl_ms):
     """K6: three chained 63^2 steps from rest and one 255^2 step; u, v, p
-    within 2e-4, equal cycle counts (tests/test_pallas.py's K6 tolerances)."""
+    within 2e-4, equal cycle counts (tests/test_pallas.py's K6 tolerances).
+    ``cl_ms``: one cluster barrier's time (``cluster_sync_ms``)."""
     import torch
 
     import naviflow_tpu_torch as nt
@@ -766,25 +847,22 @@ def check_step(dev, sync_ms):
             u, v, p, pm = want[0], want[1], want[2], want[3][0]
         u, v, p, pm = ins
         reps = REPS if n == NH else 5
-        ms, plain_ms = time_pair(
-            lambda: step.fused_outer_step_plain("simple", u, v, p, (pm,), **kw),
-            lambda: step.fused_outer_step("simple", u, v, p, (pm,), **kw), reps=reps)
+
+        def kernel():
+            step.fused_outer_step("simple", u, v, p, (pm,), **kw)
+
+        ms, plain_ms, dev_ms = time_pair(
+            lambda: step.fused_outer_step_plain("simple", u, v, p, (pm,), **kw), kernel,
+            reps=reps)
         shapes = step.step_shapes(n, n, pres)
         meta = [(shp, lvl == 0) for lvl, shp in enumerate(shapes)]
-        bar = Barriers()
-        bar.grid(2)
-        bar.bicgstab(0)
-        bar.bicgstab(0)
-        bar.n += 5 * k_total
-        bar.grid(2)
-        bar.rap(meta)
-        bar.mg_solve(meta, pres, cycles)
-        bar.grid()
+        bar = k6_barriers("simple", sc, meta, pres, k_total, cycles, 1)
         rows.append(dict(name="fused_simple_step", shape=[n, n], chained_steps=chain,
                          cycles=cycles, krylov_iterations=k_total, ok=ok,
                          max_abs_err=worst_abs, rel_err=worst_rel, ms=ms, plain_ms=plain_ms,
-                         work=step_work(n, meta, pres, k_total, cycles), grid_barriers=bar.n,
-                         barrier_bound_ms=bar.n * sync_ms((n + 1) * n), main=n == NH))
+                         device_ms=dev_ms, host_ms=host_ms(kernel, reps),
+                         work=step_work(n, meta, pres, k_total, cycles), cluster_barriers=bar,
+                         barrier_bound_ms=bar * cl_ms, main=n == NH))
     return rows
 
 
@@ -826,8 +904,9 @@ def check_assembly(dev):
             for g, w in fold:
                 worst_abs = max(worst_abs, max_err(g, w)[0])
                 ok &= bool(torch.allclose(g, w, rtol=1e-6, atol=1e-9))
-        ms, plain_ms = time_pair(lambda: assembly.fused_assembly_pair_plain(u, v, p, **args),
-                                 lambda: assembly.fused_assembly_pair(u, v, p, **args), reps=10)
+        ms, plain_ms, dev_ms = time_pair(
+            lambda: assembly.fused_assembly_pair_plain(u, v, p, **args),
+            lambda: assembly.fused_assembly_pair(u, v, p, **args), reps=10)
         # u, v, p in; 16 coefficient arrays out (+ d_u, d_v, 5 operator arrays)
         nbytes = 4 * (faces + cells + 8 * faces)
         flops = faces * 80
@@ -836,7 +915,7 @@ def check_assembly(dev):
             flops += cells * (4 * 80 + 20)
         rows.append(dict(name="fused_assembly_pair", shape=[NL, NL], with_bounds=bounds,
                          poisson_variant=variant, ok=ok, max_abs_err=worst_abs, ms=ms,
-                         plain_ms=plain_ms, work=(nbytes, flops),
+                         plain_ms=plain_ms, device_ms=dev_ms, work=(nbytes, flops),
                          main=bounds and variant is None))
     return rows
 
@@ -863,67 +942,36 @@ def check_cheby(dev):
         want = cheby.chebyshev_momentum_strips_plain(x0, c_rel, c_un, **args)
         torch_sync()
         errs = [max_err(g, w) for g, w in zip(got, want)]
-        ms, plain_ms = time_pair(
+        ms, plain_ms, dev_ms = time_pair(
             lambda: cheby.chebyshev_momentum_strips_plain(x0, c_rel, c_un, **args),
             lambda: cheby.chebyshev_momentum_strips(x0, c_rel, c_un, **args), reps=10)
         n = x0.numel()
         rows.append(dict(name="chebyshev_momentum_strips", field=field, shape=list(x0.shape),
                          degree=degree, ok=all(r < 2e-5 for _, r in errs),
                          max_abs_err=max(a for a, _ in errs), rel_err=[r for _, r in errs],
-                         ms=ms, plain_ms=plain_ms,
+                         ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
                          work=(4 * 11 * n, n * (degree * (APPLY5 + 8) + APPLY5 + 1))))
     return rows
 
 
-def body_barriers(meta, pres, k_total, cycles, pairs, jacobi_pairs, sweeps, psolves):
-    """The grid-wide barriers of one K6 body (csrc/step.cu), pass by pass."""
-    bar = Barriers()
-    for pair in range(pairs + jacobi_pairs):
-        bar.grid(2)  # BCs, assembly
-        if pair < pairs:
-            bar.bicgstab(0)
-            bar.bicgstab(0)
-        else:
-            bar.grid(2 * max(sweeps, 1))
-        bar.grid()  # BCs on u*, v*
-    bar.n += 5 * k_total
-    bar.grid()  # the predictor's residual norms
-    for _ in range(psolves):
-        bar.grid()  # RHS and operator
-        bar.rap(meta)
-    bar.mg_solve(meta, pres, cycles)
-    bar.n += (psolves - 1) * 4  # the other solves' norm, mean and residual passes
-    bar.grid(2 * psolves + 2)  # pressure and velocity updates, the final norm
-    return bar.n
-
-
-def check_step_bodies(dev, sync_ms):
+def check_step_bodies(dev, cl_ms):
     """K6's simplec, piso and simpler bodies: three chained 63^2 steps from
     rest, u, v, p within 2e-4, equal cycle counts, the scalar results within
     2e-4 (the simple body's tolerances, tests/test_pallas.py)."""
-    import torch
-
     import naviflow_tpu_torch as nt
-    from naviflow_tpu_torch.algorithms import PISOConfig, SIMPLECConfig, SIMPLERConfig
     from naviflow_tpu_torch.ops import step
 
     rows = []
     mesh, _, bc = cavity_case(NH)
-    mom, pres = headline_configs()
+    _, pres = headline_configs()
     shapes = step.step_shapes(NH, NH, pres)
     meta = [(shp, lvl == 0) for lvl, shp in enumerate(shapes)]
-    for algo, cfg, n_solves in (("simplec", SIMPLECConfig(), 2), ("piso", PISOConfig(), 2),
-                                ("simpler", SIMPLERConfig(), 4)):
-        assert step.supports_fused_step(NH, NH, cfg, mom, pres, torch.float32, algo=algo)
-        kw = dict(dx=mesh.dx, dy=mesh.dy, rho=1.0, mu=1.0 / RE, bc=bc, cfg=cfg, mom_cfg=mom,
-                  pres_cfg=pres)
+    for algo, (cfg, kw, sc0, carry) in body_cases(dev).items():
+        if algo == "simple":
+            continue
+        n_solves = 4 if algo == "simpler" else 2
         s = nt.initialize_state(mesh, bc, device=dev)
-
-        def scalar(x):
-            return torch.full((), x, device=dev)
-
-        sc = (scalar(cfg.alpha_p), scalar(float("inf"))) if algo == "simplec" else (scalar(0.0),)
-        u, v, p = s.u, s.v, s.p
+        u, v, p, sc = s.u, s.v, s.p, sc0
         worst_abs = worst_rel = 0.0
         ok = True
         for _ in range(3):
@@ -940,23 +988,90 @@ def check_step_bodies(dev, sync_ms):
             ok &= int(got[4]) == int(want[4])
             ins = (u, v, p, sc)
             cycles, k_total = int(want[4]), (applies[0] - n_solves) // 2
-            u, v, p = want[0], want[1], want[2]
-            sc = tuple(want[3][:2]) if algo == "simplec" else (want[3][0],)
+            u, v, p, sc = want[0], want[1], want[2], carry(want[3])
         u, v, p, sc = ins
-        ms, plain_ms = time_pair(lambda: step.fused_outer_step_plain(algo, u, v, p, sc, **kw),
-                                 lambda: step.fused_outer_step(algo, u, v, p, sc, **kw), reps=5)
+
+        def kernel():
+            step.fused_outer_step(algo, u, v, p, sc, **kw)
+
+        ms, plain_ms, dev_ms = time_pair(
+            lambda: step.fused_outer_step_plain(algo, u, v, p, sc, **kw), kernel, reps=5)
         pairs = 2 if algo == "simpler" else 1
         jacobi_pairs = cfg.n_corrections - 1 if algo == "piso" else 0
         psolves = cfg.n_corrections if algo == "piso" else 1 + (algo == "simpler")
-        n_bar = body_barriers(meta, pres, k_total, cycles, pairs, jacobi_pairs,
-                              getattr(cfg, "corrector_sweeps", 0), psolves)
+        bar = k6_barriers(algo, cfg, meta, pres, k_total, cycles, psolves)
         rows.append(dict(name=f"fused_outer_step[{algo}]", shape=[NH, NH], chained_steps=3,
                          cycles=cycles, krylov_iterations=k_total, ok=ok,
                          max_abs_err=worst_abs, rel_err=worst_rel, ms=ms, plain_ms=plain_ms,
+                         device_ms=dev_ms, host_ms=host_ms(kernel),
                          work=step_work(NH, meta, pres, k_total, cycles,
                                         pairs + jacobi_pairs, psolves),
-                         grid_barriers=n_bar, barrier_bound_ms=n_bar * sync_ms((NH + 1) * NH)))
+                         cluster_barriers=bar, barrier_bound_ms=bar * cl_ms))
     return rows
+
+
+def body_cases(dev):
+    """K6's four bodies at 63^2 with the headline configuration: algo ->
+    (config, the kernel's keyword arguments, the scalar carries from rest,
+    the carries a step's scalar results give the next step)."""
+    import torch
+
+    from naviflow_tpu_torch.algorithms import (PISOConfig, SIMPLECConfig, SIMPLEConfig,
+                                               SIMPLERConfig)
+
+    mesh, _, bc = cavity_case(NH)
+    mom, pres = headline_configs()
+    out = {}
+    for algo, cfg in (("simple", SIMPLEConfig()), ("simplec", SIMPLECConfig()),
+                      ("piso", PISOConfig()), ("simpler", SIMPLERConfig())):
+        kw = dict(dx=mesh.dx, dy=mesh.dy, rho=1.0, mu=1.0 / RE, bc=bc, cfg=cfg, mom_cfg=mom,
+                  pres_cfg=pres)
+        if algo == "simplec":
+            sc0 = (torch.full((), cfg.alpha_p, device=dev), torch.full((), math.inf, device=dev))
+            carry = lambda res: tuple(res[:2])  # noqa: E731
+        else:
+            sc0 = (torch.zeros((), device=dev),)
+            carry = lambda res: (res[0],)  # noqa: E731
+        out[algo] = (cfg, kw, sc0, carry)
+    return out
+
+
+def k6_phases(dev, steps=20):
+    """K6's phase split (``nf_fused_outer_step_phases``, phase timers read by
+    thread 0 of block 0 from %globaltimer) over ``steps`` chained kernel
+    steps from rest for each body at 63^2: ms per step of each phase and
+    the phase count per step, the sum, and the CUDA-event time of the same
+    steps through the untimed kernel (``fused_outer_step``)."""
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.ops import step
+
+    mesh, _, bc = cavity_case(NH)
+    rows = {}
+    for algo, (cfg, kw, sc0, carry) in body_cases(dev).items():
+        s = nt.initialize_state(mesh, bc, device=dev)
+        u, v, p, sc = s.u, s.v, s.p, sc0
+        ins = []
+        total = {name: [0.0, 0] for name in step.PHASE_NAMES}
+        for _ in range(steps):
+            ins.append((u, v, p, sc))
+            out, ph = step.fused_outer_step_phases(algo, u, v, p, sc, **kw)
+            for name, (ms, count) in ph.items():
+                total[name][0] += ms
+                total[name][1] += count
+            u, v, p, sc = out[0], out[1], out[2], carry(out[3])
+        box = iter(ins * 2)
+
+        def one():
+            a, b, c, d = next(box)
+            step.fused_outer_step(algo, a, b, c, d, **kw)
+
+        one()
+        event = time_ms(one, reps=steps)
+        split = {name: ms / steps for name, (ms, _) in total.items()}
+        rows[algo] = dict(phases_ms=split,
+                          phase_counts={name: c / steps for name, (_, c) in total.items()},
+                          sum_ms=sum(split.values()), event_ms=event)
+    return dict(phase="k6_phases", grid=NH, steps=steps, bodies=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -1010,10 +1125,12 @@ def check_plane(dev):
         got_u = plane_strip.plane_strip_up(Rs, Bs, ps, ec, cfg)
         want_u = plane_strip.plane_strip_up_plain(Rs, Bs, ps, ec, cfg)
         torch_sync()
-        ms_d, plain_d = time_pair(lambda: plane_strip.plane_strip_down_plain(R, B, ps, cfg),
-                                  lambda: plane_strip.plane_strip_down(R, B, ps, cfg), reps=10)
-        ms_u, plain_u = time_pair(lambda: plane_strip.plane_strip_up_plain(Rs, Bs, ps, ec, cfg),
-                                  lambda: plane_strip.plane_strip_up(Rs, Bs, ps, ec, cfg), reps=10)
+        ms_d, plain_d, dev_d = time_pair(
+            lambda: plane_strip.plane_strip_down_plain(R, B, ps, cfg),
+            lambda: plane_strip.plane_strip_down(R, B, ps, cfg), reps=10)
+        ms_u, plain_u, dev_u = time_pair(
+            lambda: plane_strip.plane_strip_up_plain(Rs, Bs, ps, ec, cfg),
+            lambda: plane_strip.plane_strip_up(Rs, Bs, ps, ec, cfg), reps=10)
         # per plane cell: a half-sweep update 8 operations, the normalised
         # residual 10, the coarse row 3 per coarse cell, the prolongation
         # and add 10; bytes: 14 planes + rc_zdiag in, 2 planes + rc out
@@ -1021,15 +1138,17 @@ def check_plane(dev):
         cells = m * nc
         works = {"down": (4 * 17 * cells, cells * (16 * sweeps + 21) + 3 * (cells // 2)),
                  "up": (4 * (14 * cells + cells // 2), cells * (20 + 16 * sweeps))}
-        for name, got, want, ms, plain_ms in (("down", got_d, want_d, ms_d, plain_d),
-                                              ("up", got_u, want_u, ms_u, plain_u)):
+        for name, got, want, ms, plain_ms, dev_ms in (
+                ("down", got_d, want_d, ms_d, plain_d, dev_d),
+                ("up", got_u, want_u, ms_u, plain_u, dev_u)):
             errs = [max_err(g, w) for g, w in zip(got, want)]
             rows.append(dict(name=f"plane_strip_{name}", shape=[m, nc], sweeps=sweeps,
                              ok=all(strip_close(g, w) for g, w in zip(got, want)),
                              max_abs_err=max(a for a, _ in errs),
                              rel_err=max(r for _, r in errs),
                              scale=max(float(w.abs().max()) for w in want), ms=ms,
-                             plain_ms=plain_ms, work=works[name], main=n == NP))
+                             plain_ms=plain_ms, device_ms=dev_ms, work=works[name],
+                             main=n == NP))
         del ps, R, B, ec, got_d, want_d, got_u, want_u
     return rows
 
@@ -1076,7 +1195,8 @@ def check_poisson_kernels(dev):
     (tests/test_pallas.py's tolerances), with a cuSPARSE SpMV of the same
     operator beside K11b.  Beside the CUDA-event times of back-to-back calls,
     which at these sizes hold the host's launch time, each kernel's device
-    time from the profiler (``device_ms``; the SpMV's too).  No path of the JAX package calls K11: its
+    time (``device_ms``; the SpMV's too) and K11b's host
+    time per call (``host_ms``).  No path of the JAX package calls K11: its
     launches are counted over this phase's checking calls (returned)."""
     import torch
 
@@ -1102,26 +1222,25 @@ def check_poisson_kernels(dev):
         if name == "rbgs_sweeps":
             ok = bool(torch.allclose(got, want, rtol=5e-4, atol=2e-5))
             kernel = lambda: kernels.rbgs_sweeps(p, b, c, n_sweeps=sweeps, omega=1.5)  # noqa: E731
-            ms, plain_ms = time_pair(lambda: kernels.rbgs_sweeps_plain(p, b, c, sweeps, 1.5),
-                                     kernel)
+            ms, plain_ms, dev_ms = time_pair(
+                lambda: kernels.rbgs_sweeps_plain(p, b, c, sweeps, 1.5), kernel)
             # p, b, 4 links, invd in; p out.  Per cell and sweep: the
             # neighbour sum 7, (b + sum) * invd 2, the relaxation 3
-            row = dict(sweeps=sweeps, device_ms=device_ms(kernel),
-                       work=(4 * 8 * cells, 12 * sweeps * cells))
+            row = dict(sweeps=sweeps, work=(4 * 8 * cells, 12 * sweeps * cells))
         else:
             ok = bool(torch.allclose(got, want, rtol=1e-6, atol=1e-6))
             kernel = lambda: kernels.apply_poisson_kernel(p, c)  # noqa: E731
-            ms, plain_ms = time_pair(lambda: kernels.apply_poisson_plain(p, c), kernel)
+            ms, plain_ms, dev_ms = time_pair(lambda: kernels.apply_poisson_plain(p, c), kernel)
             A, x = poisson_csr(c), p.flatten()
             spmv = A @ x
             torch_sync()
             spmv_ok = bool(torch.allclose(spmv.view(nx, ny), want, rtol=1e-5, atol=1e-5))
             row = dict(library_ms=time_ms(lambda: A @ x), library_ok=spmv_ok,
-                       device_ms=device_ms(kernel), library_device_ms=device_ms(lambda: A @ x),
+                       library_device_ms=device_ms(lambda: A @ x), host_ms=host_ms(kernel),
                        work=(4 * 7 * cells, 9 * cells))
             ok &= spmv_ok
         rows.append(dict(name=name, shape=[nx, ny], ok=ok, max_abs_err=a, rel_err=r, ms=ms,
-                         plain_ms=plain_ms, main=nx == 256, **row))
+                         plain_ms=plain_ms, device_ms=dev_ms, main=nx == 256, **row))
     return rows, launches
 
 
@@ -1254,40 +1373,44 @@ def profile_window(run, steps):
     """torch.profiler over ``run()`` (``steps`` kernel-path steps, warmed up
     by one call before): device busy time, the window, and the kernels by
     device time."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     run()  # warm-up
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            window_ms = (time.perf_counter() - t0) * 1e3
-        by_name = device_kernels(prof)
-        busy = sum(t for t, _ in by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        return dict(steps=steps, window_ms=window_ms, device_busy_ms=busy,
-                    idle_share=1.0 - busy / window_ms if window_ms > 0 else None,
-                    top=[dict(name=k[:80], ms=t, calls=c) for k, (t, c) in top])
-    except Exception as e:  # the profiler is untried on this machine
-        torch_sync()
-        return dict(steps=steps, error=f"not measured: {e!r}"[:300])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_kernels(prof)
+    busy = sum(t for t, _ in by_name.values())
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(steps=steps, window_ms=window_ms, device_busy_ms=busy,
+                idle_share=1.0 - busy / window_ms,
+                top=[dict(name=k[:80], ms=t, calls=c) for k, (t, c) in top])
 
 
 def device_ms(fn, reps=REPS):
-    """Device time per call of ``fn``: the summed device time of every kernel
-    ``reps`` calls launched (torch.profiler), without the host's launch
-    time that the CUDA-event times of back-to-back calls include."""
+    """Device time per call of ``fn``: CUDA events around ``reps`` calls
+    queued behind a device-side sleep, so that the device runs them back to
+    back and the host's launch time, which the event times of back-to-back
+    calls include, is hidden (the sleep outlasts the host's enqueueing;
+    no kernel wrapper synchronises).  The profiler's per-kernel sums are
+    not used here: on the H100 they missed launches (sums below a kernel's
+    byte bound, 0 for some K6 bodies)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch_sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch_sync()
-    return sum(t for t, _ in device_kernels(prof).values()) / reps
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch_sync()
+    return start.elapsed_time(end) / reps
 
 
 def run_headline(dev):
@@ -1639,14 +1762,14 @@ SOURCES = {
                        "naviflow_tpu/ops/pallas_mg.py:512", "fmg"),
     "bicgstab_momentum": ("bicgstab_momentum", "naviflow_tpu_torch/csrc/krylov.cu",
                           "naviflow_tpu/ops/pallas_krylov.py:142", "fmg"),
-    "fused_simple_step": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cu",
+    "fused_simple_step": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cuh",
                           "naviflow_tpu/ops/pallas_step.py:364", "headline"),
-    "fused_outer_step[simplec]": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cu",
+    "fused_outer_step[simplec]": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cuh",
                                   "naviflow_tpu/ops/pallas_step.py:364",
                                   "algorithms63:simplec"),
-    "fused_outer_step[piso]": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cu",
+    "fused_outer_step[piso]": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cuh",
                                "naviflow_tpu/ops/pallas_step.py:364", "algorithms63:piso"),
-    "fused_outer_step[simpler]": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cu",
+    "fused_outer_step[simpler]": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cuh",
                                   "naviflow_tpu/ops/pallas_step.py:364",
                                   "algorithms63:simpler"),
     "fused_assembly_pair": ("fused_assembly_pair", "naviflow_tpu_torch/csrc/assembly.cu",
@@ -1695,12 +1818,12 @@ def kernels_line(rows, paths):
                      library_ms=sum(lib) / len(lib) if lib else None,
                      launches_by_path={p: c[counter] for p, c in paths.items()},
                      bytes=nbytes, flops=flops)
-        for key in ("device_ms", "library_device_ms"):  # K11's profiler times
+        # device times (every kernel), K11b's SpMV's and the host times per
+        # call (K6, K11b); the barrier bound (K3-K7; K6 in cluster barriers)
+        for key in ("device_ms", "library_device_ms", "host_ms", "grid_barriers",
+                    "cluster_barriers", "barrier_bound_ms"):
             if all(key in r for r in mine):
                 entry[key] = sum(r[key] for r in mine) / k
-        if all("barrier_bound_ms" in r for r in mine):
-            entry["grid_barriers"] = sum(r["grid_barriers"] for r in mine) / k
-            entry["barrier_bound_ms"] = sum(r["barrier_bound_ms"] for r in mine) / k
         out.append(entry)
     return out
 
@@ -1733,8 +1856,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.library()
+    from naviflow_tpu_torch.ops import step
+
+    clusters = {algo: step.cluster_size(algo, dev) for algo in step.ALGO_SCALARS}
+    # ptxas's report of K6's instantiations: registers, spills, shared memory
+    ptxas = [line.strip() for line in _cuda.build_log.get("step.cu", "").splitlines()
+             if "registers" in line or "spill" in line]
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              nvcc_seconds=_cuda.build_seconds, library=_cuda.library_path().name))
+              nvcc_seconds=_cuda.build_seconds, library=_cuda.library_path().name,
+              k6_cluster_size=clusters, k6_threads_per_cta=512, step_ptxas=ptxas))
+    # one cluster barrier at K6's size (its bound's unit) and at 8 CTAs
+    cl_by_size = {size: cluster_sync_ms(size, dev) for size in sorted({8, clusters["simple"]})}
+    cl_ms = cl_by_size[clusters["simple"]]
+    emit(dict(phase="cluster_barrier", cluster_size=clusters["simple"], ms=cl_ms,
+              ms_by_size={str(k): v for k, v in cl_by_size.items()}))
 
     sync_cache = {}
 
@@ -1755,9 +1890,9 @@ def main() -> int:
     rows += check_rap([(NH, inp["levels"]), (NH_BIG, big["levels"])], sync_ms)
     rows += check_mg_solve(inp, sync_ms)
     rows.append(check_vertex_vcycle(inp, sync_ms))
-    rows += check_step(dev, sync_ms)
+    rows += check_step(dev, cl_ms)
     del big
-    rows += check_step_bodies(dev, sync_ms)
+    rows += check_step_bodies(dev, cl_ms)
     rows += check_assembly(dev)
     rows += check_cheby(dev)
     rows += check_plane(dev)
@@ -1771,6 +1906,7 @@ def main() -> int:
     if not all(r["ok"] for r in rows):
         print("chip_smoke: a kernel disagrees with its plain version", file=sys.stderr)
         return 1
+    emit(k6_phases(dev))
 
     paths = {"kernel_phase": k11_launches}
     for phase, fn in (("slice", run_slice), ("headline", run_headline), ("fmg", run_fmg),

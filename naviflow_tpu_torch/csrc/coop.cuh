@@ -176,6 +176,15 @@ __device__ void nf_grid_max(NfCoop& C, float (&v)[N], float (&out)[N]) {
   C.pending = false;
 }
 
+// The context-generic names of the barrier and the sum (krylov.cuh's solve
+// is written over them; cluster.cuh gives the cluster's).
+__device__ __forceinline__ void nf_sync(NfCoop& C) { C.grid.sync(); }
+
+template <int N>
+__device__ __forceinline__ void nf_reduce(NfCoop& C, NfDS (&v)[N], float (&out)[N]) {
+  nf_grid_reduce<N>(C, v, out);
+}
+
 // Launch `kernel(params)` cooperatively: as many blocks as `cells` needs at
 // NF_THREADS a block, and no more than fit on the SMs at once.
 template <class Kernel, class Params>

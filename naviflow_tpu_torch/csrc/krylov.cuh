@@ -8,11 +8,13 @@
 // on the nodes inside the mask (margins lo_i, hi_i, lo_j, hi_j); the matrix
 // is the 5-point momentum stencil, zero outside the mask; neighbours are
 // read with bounds checks (zero outside the array) where the TPU rolled.
-// Every dot is a compensated (Dot2) sum over the grid from nf_grid_reduce,
-// so every block computes the same scalars and leaves the loop together.
-// Per iteration: five passes and five grid barriers (p; v = A p with
-// (rhat, v); s; t = A s with (t, t) and (t, s); x and r with (r, r) and
-// (rhat, r)).
+// Every dot is a compensated (Dot2) sum over the grid from nf_reduce, so
+// every block computes the same scalars and leaves the loop together.
+// Per iteration: five passes and five barriers (p; v = A p with (rhat, v);
+// s; t = A s with (t, t) and (t, s); x and r with (r, r) and (rhat, r)).
+// The solve is written once for both execution contexts: a cooperative grid
+// (NfCoop, coop.cuh: K7) and a thread-block cluster (NfCluster, cluster.cuh:
+// K6); each gives gtid / gstride, nf_sync, nf_reduce and nf_settle.
 #pragma once
 
 #include "coop.cuh"
@@ -43,8 +45,9 @@ __device__ __forceinline__ float nf_kry_A(const NfKrylov& K, const float* x, int
 }
 
 // The whole solve; writes K.x (mask ? x : x0).  Every thread of the grid
-// calls it; it begins and ends with the grid in step.
-__device__ inline void nf_bicgstab_solve(NfCoop& C, const NfKrylov& K, float tol, int maxiter) {
+// (or cluster) calls it; it begins and ends with the grid in step.
+template <class Ctx>
+__device__ inline void nf_bicgstab_solve(Ctx& C, const NfKrylov& K, float tol, int maxiter) {
   const int64_t n = (int64_t)K.ni * K.nj;
   const float eps = 1.17549435e-38f * 1e6f;  // finfo(float32).tiny * 1e6
   nf_settle(C);
@@ -52,7 +55,7 @@ __device__ inline void nf_bicgstab_solve(NfCoop& C, const NfKrylov& K, float tol
     const int i = (int)(g / K.nj), j = (int)(g % K.nj);
     K.x[g] = nf_kry_in(K, i, j) ? K.x0[g] : 0.f;
   }
-  C.grid.sync();
+  nf_sync(C);
   float sc[3];
   {
     NfDS acc[3] = {nf_ds_zero(), nf_ds_zero(), nf_ds_zero()};
@@ -65,7 +68,7 @@ __device__ inline void nf_bicgstab_solve(NfCoop& C, const NfKrylov& K, float tol
       nf_ds_fma(acc[1], r, r);
       nf_ds_fma(acc[2], r, r);  // (rhat, r) with rhat = r
     }
-    nf_grid_reduce<3>(C, acc, sc);
+    nf_reduce<3>(C, acc, sc);
   }
   const float bnorm = sqrtf(sc[0]);
   const float tb = tol * fmaxf(bnorm, 1e-30f);
@@ -79,7 +82,7 @@ __device__ inline void nf_bicgstab_solve(NfCoop& C, const NfKrylov& K, float tol
         good ? (rho_new / (rho == 0.f ? 1.f : rho)) * (alpha / (omega == 0.f ? 1.f : omega)) : 0.f;
     for (int64_t g = C.gtid; g < n; g += C.gstride)
       K.p[g] = K.r[g] + beta * (K.p[g] - omega * K.v[g]);
-    C.grid.sync();
+    nf_sync(C);
     float dn[1];
     {
       NfDS acc[1] = {nf_ds_zero()};
@@ -88,12 +91,12 @@ __device__ inline void nf_bicgstab_solve(NfCoop& C, const NfKrylov& K, float tol
         K.v[g] = vv;
         nf_ds_fma(acc[0], K.rhat[g], vv);
       }
-      nf_grid_reduce<1>(C, acc, dn);
+      nf_reduce<1>(C, acc, dn);
     }
     good = good && fabsf(dn[0]) > eps;
     alpha = good ? rho_new / (dn[0] == 0.f ? 1.f : dn[0]) : 0.f;
     for (int64_t g = C.gtid; g < n; g += C.gstride) K.s[g] = K.r[g] - alpha * K.v[g];
-    C.grid.sync();
+    nf_sync(C);
     float ts[2];
     {
       NfDS acc[2] = {nf_ds_zero(), nf_ds_zero()};
@@ -103,7 +106,7 @@ __device__ inline void nf_bicgstab_solve(NfCoop& C, const NfKrylov& K, float tol
         nf_ds_fma(acc[0], tv, tv);
         nf_ds_fma(acc[1], tv, K.s[g]);
       }
-      nf_grid_reduce<2>(C, acc, ts);
+      nf_reduce<2>(C, acc, ts);
     }
     omega = ts[0] > eps ? ts[1] / (ts[0] == 0.f ? 1.f : ts[0]) : 0.f;
     {
@@ -116,7 +119,7 @@ __device__ inline void nf_bicgstab_solve(NfCoop& C, const NfKrylov& K, float tol
         nf_ds_fma(acc[1], K.rhat[g], r);
       }
       float nr[2];
-      nf_grid_reduce<2>(C, acc, nr);
+      nf_reduce<2>(C, acc, nr);
       rr = nr[0];
       rho = rho_new;
       rho_new = nr[1];
@@ -127,5 +130,5 @@ __device__ inline void nf_bicgstab_solve(NfCoop& C, const NfKrylov& K, float tol
     const int i = (int)(g / K.nj), j = (int)(g % K.nj);
     if (!nf_kry_in(K, i, j)) K.x[g] = K.x0[g];
   }
-  C.grid.sync();
+  nf_sync(C);
 }

@@ -90,11 +90,11 @@ __global__ void __launch_bounds__(MATVEC_THREADS) matvec_kernel(Params P) {
   P.out[g] = P.d[g] * P.p[g] - P.ae[g] * v.e - P.aw[g] * v.w - P.an[g] * v.n - P.as[g] * v.s;
 }
 
-Params params(const long long* ptrs, const int* ip, bool with_b) {
+Params params(const long long* ptrs, const int* ip) {
   Params P = {};
   int k = 0;
   P.p = reinterpret_cast<const float*>(ptrs[k++]);
-  if (with_b) P.b = reinterpret_cast<const float*>(ptrs[k++]);
+  P.b = reinterpret_cast<const float*>(ptrs[k++]);
   P.ae = reinterpret_cast<const float*>(ptrs[k++]);
   P.aw = reinterpret_cast<const float*>(ptrs[k++]);
   P.an = reinterpret_cast<const float*>(ptrs[k++]);
@@ -111,16 +111,19 @@ Params params(const long long* ptrs, const int* ip, bool with_b) {
 // ptrs: p, b, a_e, a_w, a_n, a_s, invd, out;  ip: nx, ny, n_sweeps;  fp: omega
 NF_EXPORT int nf_rbgs_sweeps(const long long* ptrs, const int* ip, const float* fp,
                              void* stream) {
-  const Params P = params(ptrs, ip, true);
+  const Params P = params(ptrs, ip);
   rbgs_kernel<<<1, RBGS_THREADS, 0, (cudaStream_t)stream>>>(P, ip[2], fp[0]);
   return (int)cudaGetLastError();
 }
 
-// ptrs: p, a_e, a_w, a_n, a_s, diag, out;  ip: nx, ny
-NF_EXPORT int nf_apply_poisson(const long long* ptrs, const int* ip, const float* fp,
-                               void* stream) {
-  (void)fp;
-  const Params P = params(ptrs, ip, false);
+// One argument per pointer and integer (the lean call of ops/_cuda.py: the
+// wrapper builds no host array per call).
+NF_EXPORT int nf_apply_poisson(const float* p, const float* ae, const float* aw,
+                               const float* an, const float* as, const float* diag, float* out,
+                               int nx, int ny, void* stream) {
+  Params P = {};
+  P.p = p; P.ae = ae; P.aw = aw; P.an = an; P.as = as; P.d = diag; P.out = out;
+  P.nx = nx; P.ny = ny;
   const int64_t cells = (int64_t)P.nx * P.ny;
   const int blocks = (int)((cells + MATVEC_THREADS - 1) / MATVEC_THREADS);
   matvec_kernel<<<blocks, MATVEC_THREADS, 0, (cudaStream_t)stream>>>(P);

@@ -8,7 +8,10 @@ and flags; later uses load the same file.  The library is loaded with
 ``ctypes``: each C entry point takes a host array of device pointers (as
 64-bit integers), host arrays of integer and float parameters, and the
 stream as ``c_void_p``; it returns ``cudaGetLastError()`` after its launch, and :func:`check`
-raises on a non-zero code.  A failed ``nvcc`` raises with its stderr.
+raises on a non-zero code.  A failed ``nvcc`` raises with its stderr.  The
+entries of :data:`_SIGNATURES` have their own argument lists: K11b's
+(the lean call) takes one ``c_void_p`` or ``c_int`` per argument, so a call
+builds no host array.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -37,6 +40,8 @@ NVCC_FLAGS = (
     # PyTorch versions they are held against, op by op
     "-fmad=false",
     "-lineinfo",
+    # registers, shared memory and spills of every kernel, kept in build_log
+    "-Xptxas", "-v",
 )
 
 _ARGS = [ctypes.POINTER(ctypes.c_longlong),  # device pointers
@@ -46,13 +51,18 @@ _ARGS = [ctypes.POINTER(ctypes.c_longlong),  # device pointers
 # C entry points (see csrc/*.cu for each one's pointer and parameter order)
 _KERNELS = ("nf_asmcheby_pair", "nf_strip_down", "nf_strip_up", "nf_fused_vcycle",
             "nf_galerkin_levels", "nf_fused_mg_solve", "nf_bicgstab", "nf_fused_outer_step",
+            "nf_fused_outer_step_phases",
             "nf_fused_assembly_pair", "nf_chebyshev_strips",
-            "nf_plane_strip_down", "nf_plane_strip_up", "nf_rbgs_sweeps", "nf_apply_poisson",
-            "nf_grid_sync_probe")
+            "nf_plane_strip_down", "nf_plane_strip_up", "nf_rbgs_sweeps",
+            "nf_grid_sync_probe", "nf_cluster_sync_probe")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"nf_apply_poisson": [_P] * 7 + [_I, _I, _P],  # p, 4 links, diag, out; nx, ny
+               "nf_step_cluster_size": [_I, ctypes.POINTER(_I)]}     # algo; the size out
 
 _lib = None
 _lock = threading.Lock()
 build_seconds = None  # wall time of this process's nvcc run (None: cached)
+build_log = {}  # source name -> nvcc's stderr (ptxas's report) of this process's build
 
 
 def kernel_device(x) -> bool:
@@ -86,7 +96,8 @@ def library_path() -> Path:
 
 
 def _run(cmds):
-    """Run the commands concurrently; raise with the stderr of a failure."""
+    """Run the commands concurrently; raise with the stderr of a failure,
+    else return each command's stderr."""
     procs = []
     try:
         for cmd in cmds:
@@ -97,13 +108,15 @@ def _run(cmds):
             proc.kill()
         raise RuntimeError(f"nvcc not found ({cmds[0][0]}); set CUDA_HOME or put nvcc "
                            "on PATH") from e
-    failed = []
+    failed, errs = [], []
     for cmd, proc in procs:
         _, err = proc.communicate()
+        errs.append(err)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return errs
 
 
 def _build(out: Path):
@@ -113,8 +126,9 @@ def _build(out: Path):
     sources = sorted(CSRC.glob("*.cu"))
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     t0 = time.perf_counter()
-    _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-          for src, obj in zip(sources, objs)])
+    errs = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                 for src, obj in zip(sources, objs)])
+    build_log.update({src.name: err for src, err in zip(sources, errs)})
     tmp = out.with_name(f"{tag}.tmp.so")
     _run([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, out)
@@ -124,8 +138,11 @@ def _build(out: Path):
 
 
 def library():
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (the lock is taken only
+    until it is loaded)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             path = library_path()
@@ -134,6 +151,9 @@ def library():
             lib = ctypes.CDLL(str(path))
             for name in _KERNELS:
                 getattr(lib, name).argtypes = _ARGS
+                getattr(lib, name).restype = ctypes.c_int
+            for name, args in _SIGNATURES.items():
+                getattr(lib, name).argtypes = args
                 getattr(lib, name).restype = ctypes.c_int
             lib.nf_error_string.argtypes = [ctypes.c_int]
             lib.nf_error_string.restype = ctypes.c_char_p
@@ -149,8 +169,23 @@ def check(err: int, what: str):
 
 
 def stream_of(x) -> int:
-    """The raw handle of PyTorch's current stream on ``x``'s device."""
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``x``'s device (read
+    from PyTorch's per-device current-stream state: no Stream object is
+    built, and a stream switched by the caller is followed)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+def require_all(arrays, shape, what: str):
+    """:func:`require` of every array against one shape, as one test per
+    array on the common path; an array that fails gets the full checks,
+    which raise with the reason."""
+    shape = torch.Size(shape)
+    for a in arrays:
+        if not (a.is_cuda and a.dtype is torch.float32 and a.shape == shape
+                and a.is_contiguous()):
+            for k, b in enumerate(arrays):
+                require(b, shape, f"{what} [{k}]")
+            return
 
 
 def require(x, shape, name: str):

@@ -53,9 +53,19 @@ def _arrays(c: PoissonCoeffs):
     return [c.a_e, c.a_w, c.a_n, c.a_s]
 
 
+# The coefficient set last held to the checks, and the shape it was held to:
+# a solve applies one operator to many iterates, so its arrays are checked
+# once per set (a tensor changed in place since is not checked again) and
+# the iterate every call.  The one reference keeps one set alive.
+_CHECKED = (None, None)
+
+
 def _require(p, c: PoissonCoeffs, *others):
-    for k, a in enumerate([p, *others, *_arrays(c)]):
-        _cuda.require(a, p.shape, f"input [{k}]")
+    global _CHECKED
+    _cuda.require_all([p, *others], p.shape, "input")
+    if _CHECKED[0] is not c or _CHECKED[1] != p.shape:
+        _cuda.require_all([*_arrays(c), c.diag], p.shape, "coefficients")
+        _CHECKED = (c, p.shape)
 
 
 def rbgs_sweeps(p, b, c: PoissonCoeffs, n_sweeps: int = 1, omega: float = 1.5):
@@ -90,13 +100,12 @@ def apply_poisson_kernel(p, c: PoissonCoeffs):
     global MATVEC_LAUNCHES
     if not _use_kernel(p):
         return apply_poisson_plain(p, c)
-    _require(p, c, c.diag)
+    _require(p, c)
     out = torch.empty_like(p)
-    tensors = [p, *_arrays(c), c.diag, out]
-    ptrs = (ctypes.c_longlong * len(tensors))(*[t.data_ptr() for t in tensors])
-    ip = (ctypes.c_int * 2)(p.shape[0], p.shape[1])
-    fp = (ctypes.c_float * 1)(0.0)
-    _cuda.check(_cuda.library().nf_apply_poisson(ptrs, ip, fp, _cuda.stream_of(p)),
-                "apply_poisson")
+    # the lean call: one argument per pointer and integer, no host array
+    _cuda.check(_cuda.library().nf_apply_poisson(
+        p.data_ptr(), c.a_e.data_ptr(), c.a_w.data_ptr(), c.a_n.data_ptr(), c.a_s.data_ptr(),
+        c.diag.data_ptr(), out.data_ptr(), p.shape[0], p.shape[1], _cuda.stream_of(p)),
+        "apply_poisson")
     MATVEC_LAUNCHES += 1
     return out

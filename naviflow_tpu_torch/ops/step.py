@@ -1,10 +1,10 @@
 """K6: one whole outer step of SIMPLE, SIMPLEC, PISO or SIMPLER as one
-kernel launch.
+kernel launch: one thread-block cluster.
 
 Replaces ``naviflow_tpu/ops/pallas_step.py:fused_outer_step`` /
 ``fused_simple_step`` (its four step bodies); the CUDA kernel is
-``csrc/step.cu`` (its header says the order of each step, what bounds it on
-the H100 and how the grid stays in step).
+``csrc/step.cuh`` over ``csrc/cluster.cuh`` (their headers say the order of
+each step, what bounds it on the H100 and how the cluster stays in step).
 
 Each body differs from its composed ``algorithms/<algo>.make_<algo>_step``
 as the reference kernel does: the momentum solves use compensated dots and
@@ -30,8 +30,7 @@ import torch
 
 from . import _cuda
 from .compensated import fold_norm2
-from .mg import (RED_FLOATS, _padded_bytes, fused_mg_solve_plain, galerkin_levels_plain,
-                 supports_fused)
+from .mg import _padded_bytes, fused_mg_solve_plain, galerkin_levels_plain, supports_fused
 from .poisson import poisson_coefficients, pressure_rhs
 from .stencil9 import Stencil9, from_poisson
 
@@ -53,10 +52,35 @@ ALGO_SCALARS = {
 }
 
 _VARIANTS = {"consistent": 0, "symmetric": 1, "reference": 2}
-_ALGOS = {"simple": 0, "simplec": 1, "piso": 2, "simpler": 3}  # csrc/step.cu ALGO
+_ALGOS = {"simple": 0, "simplec": 1, "piso": 2, "simpler": 3}  # csrc/step.cuh Algo
 _SIDES = ("top", "bottom", "left", "right")
 
-LAUNCHES = 0
+LAUNCHES = 0  # fused_outer_step's launches (not the timed instantiation's)
+
+# csrc/coop.cuh NF_SMALL_CELLS: K6 keeps the coarse levels this small in
+# shared memory (csrc/cluster.cuh), the wrapper allocates none for them
+SMALL_CELLS = 1024
+N_IO = 12  # launch_slots: the inputs and outputs, filled in per call
+_NAMES = ("c", "e", "w", "n", "s", "ne", "nw", "se", "sw")
+_KW = ("dx", "dy", "rho", "mu", "bc", "cfg", "mom_cfg", "pres_cfg")
+
+# csrc/cluster.cuh NfPhase, in order: the phases of nf_fused_outer_step_phases
+PHASE_NAMES = ("bcs_assembly", "u_bicgstab", "v_bicgstab", "residual_norms", "rhs_operator",
+               "rap", "mg_fine", "mg_coarse", "corrections", "final_norms")
+
+
+N_TIMERS = 2 * len(PHASE_NAMES) + 1
+
+
+def decode_phases(buf):
+    """The phase-timer buffer of ``nf_fused_outer_step_phases`` (per phase
+    the summed ns, then per phase the count, then the last stamp) as
+    ``{name: (ms, count)}``."""
+    vals = [int(x) for x in buf]
+    n = len(PHASE_NAMES)
+    if len(vals) != N_TIMERS:
+        raise ValueError(f"expected {N_TIMERS} timer slots, got {len(vals)}")
+    return {name: (vals[k] / 1e6, vals[n + k]) for k, name in enumerate(PHASE_NAMES)}
 
 
 def step_shapes(nx: int, ny: int, pres_cfg):
@@ -207,6 +231,53 @@ def fused_outer_step_plain(algo, u, v, p, scalars, *, dx, dy, rho, mu, bc, cfg, 
     return u_new, v_new, p_new, sc_out, cycles, r_u, r_v, r_p
 
 
+def launch_slots(algo, nx, ny, shapes, timers: bool = False):
+    """The pointer slots of ``nf_fused_outer_step`` (``_phases`` with
+    ``timers``) in the order ``csrc/step.cuh``'s ``launch_step`` reads them:
+    ``(name, shape, dtype)`` each.  The first :data:`N_IO` are the inputs
+    and outputs, the rest scratch; a coarse level of at most
+    :data:`SMALL_CELLS` cells has no slots (it lives in shared memory)."""
+    n_in, n_out = ALGO_SCALARS[algo]
+    f32 = torch.float32
+    us, vs, ps = (nx + 1, ny), (nx, ny + 1), (nx, ny)
+    nk = max((nx + 1) * ny, nx * (ny + 1))
+    slots = [("u", us, f32), ("v", vs, f32), ("p", ps, f32), ("scalars_in", (n_in,), f32),
+             ("u_out", us, f32), ("v_out", vs, f32), ("p_out", ps, f32),
+             ("r_u", us, f32), ("r_v", vs, f32), ("r_p", ps, f32),
+             ("scalars_out", (n_out,), f32), ("cycles", (1,), torch.int32),
+             ("ub", us, f32), ("vb", vs, f32)]
+    slots += [(f"cu{k}", us, f32) for k in range(8)] + [(f"cv{k}", vs, f32) for k in range(8)]
+    slots += [("u_star", us, f32), ("v_star", vs, f32), ("d_u", us, f32), ("d_v", vs, f32),
+              ("krylov", (6 * nk,), f32), ("p_before_bcs", ps, f32), ("p_prime_smoothed", ps, f32)]
+    slots += [(f"fine_{k}", ps, f32) for k in _NAMES[:5]] + [("b", ps, f32), ("p_prime", ps, f32)]
+    for lvl, (ni, nj) in enumerate(shapes[1:], 1):
+        if ni * nj > SMALL_CELLS:
+            slots += [(f"level{lvl}_{k}", (ni, nj), f32) for k in _NAMES + ("x", "rhs")]
+    if timers:
+        slots.append(("timers", (N_TIMERS,), torch.int64))
+    return slots
+
+
+def launch_params(algo, nx, ny, shapes, *, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg):
+    """``(ip, fp)``, the integer and float parameters of the C entry in
+    ``csrc/step.cuh``'s order."""
+    sides = [bc.side(name) for name in _SIDES]
+    ip = [_ALGOS[algo], nx, ny, len(shapes), pres_cfg.pre_smoothing, pres_cfg.post_smoothing,
+          pres_cfg.coarsest_sweeps, pres_cfg.max_cycles, pres_cfg.check_every,
+          mom_cfg.max_iterations, int(cfg.poisson_variant == "reference"),
+          _VARIANTS[cfg.poisson_variant], int(cfg.overwrite_boundary_pressure),
+          getattr(cfg, "n_corrections", 0), int(getattr(cfg, "corrector", "") == "exact"),
+          getattr(cfg, "corrector_sweeps", 0), int(getattr(cfg, "smooth_p_prime", False)),
+          int(getattr(cfg, "dynamic_alpha_p", False))]
+    ip += [int(s.kind.value == "velocity") for s in sides]
+    ip += [n for shp in shapes for n in shp]
+    fp = [0.5 * rho * dy, 0.5 * rho * dx, mu * dy / dx, mu * dx / dy, dx, dy,
+          cfg.alpha_u, 1.0 - cfg.alpha_u, rho, cfg.alpha_p, mom_cfg.tolerance,
+          pres_cfg.tolerance, pres_cfg.omega]
+    fp += [s.u for s in sides] + [s.v for s in sides]
+    return ip, fp
+
+
 def fused_outer_step(algo, u, v, p, scalars, *, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg):
     """One outer iteration of ``algo`` as one kernel launch (always-fresh
     coarse operators).  ``scalars`` is the algorithm's scalar carry (see
@@ -217,60 +288,118 @@ def fused_outer_step(algo, u, v, p, scalars, *, dx, dy, rho, mu, bc, cfg, mom_cf
     if not u.is_cuda:
         return fused_outer_step_plain(algo, u, v, p, scalars, dx=dx, dy=dy, rho=rho, mu=mu,
                                       bc=bc, cfg=cfg, mom_cfg=mom_cfg, pres_cfg=pres_cfg)
+    out = _launch(algo, u, v, p, scalars, None, dx=dx, dy=dy, rho=rho, mu=mu, bc=bc, cfg=cfg,
+                  mom_cfg=mom_cfg, pres_cfg=pres_cfg)
+    LAUNCHES += 1
+    return out
+
+
+def fused_outer_step_phases(algo, u, v, p, scalars, *, dx, dy, rho, mu, bc, cfg, mom_cfg,
+                            pres_cfg):
+    """:func:`fused_outer_step` through the instantiation with phase timers
+    (``nf_fused_outer_step_phases``), a measurement aid: CUDA tensors only,
+    not counted in ``LAUNCHES``.  Returns the step's outputs and
+    :func:`decode_phases` of its timers (after a synchronise)."""
+    _check_algo(algo, scalars)
+    timers = torch.zeros(N_TIMERS, dtype=torch.int64, device=u.device)
+    out = _launch(algo, u, v, p, scalars, timers, dx=dx, dy=dy, rho=rho, mu=mu, bc=bc, cfg=cfg,
+                  mom_cfg=mom_cfg, pres_cfg=pres_cfg)
+    return out, decode_phases(timers.cpu())
+
+
+def cluster_size(algo: str, device=None) -> int:
+    """The thread-block cluster size K6's ``algo`` body launches with on
+    ``device`` (16 where one such cluster fits on the card, else 8)."""
+    with torch.cuda.device(device):
+        size = ctypes.c_int(0)
+        _cuda.check(_cuda.library().nf_step_cluster_size(_ALGOS[algo], ctypes.byref(size)),
+                    "step_cluster_size")
+    return size.value
+
+
+# Launch state reused across calls (the wrapper's host time per call is part
+# of every 63^2 step): per (device, stream, algo, shapes, timers) the scratch
+# tensors and the pointer array with their slots filled; per configuration
+# the level shapes and the parameter arrays.  The inputs and the outputs
+# (u', v', p', r_*, scalars, cycles: one fresh buffer a call, which the
+# caller keeps across steps) are filled in per call.
+_SCRATCH = {}
+_PARAMS = {}
+_CACHE_MAX = 32
+
+
+def _params(algo, nx, ny, kw):
+    key = (algo, nx, ny) + tuple(kw[k] for k in _KW)
+    got = _PARAMS.get(key)
+    if got is None:
+        if kw["cfg"].poisson_variant not in _VARIANTS:
+            raise ValueError(f"Unknown poisson operator variant: {kw['cfg'].poisson_variant}")
+        if algo == "piso" and kw["cfg"].corrector not in ("jacobi", "exact"):
+            raise ValueError(f"Unknown PISO corrector: {kw['cfg'].corrector}")
+        shapes = step_shapes(nx, ny, kw["pres_cfg"])
+        ip, fp = launch_params(algo, nx, ny, shapes, **kw)
+        if len(_PARAMS) >= _CACHE_MAX:
+            _PARAMS.clear()
+        got = _PARAMS[key] = (shapes, (ctypes.c_int * len(ip))(*ip),
+                              (ctypes.c_float * len(fp))(*fp))
+    return got
+
+
+def _scratch(algo, nx, ny, shapes, timed, dev, stream):
+    key = (dev, stream, algo, nx, ny, tuple(shapes), timed)
+    got = _SCRATCH.get(key)
+    if got is None:
+        slots = launch_slots(algo, nx, ny, shapes, timed)
+        keep = [torch.empty(shape, dtype=dtype, device=dev)
+                for _, shape, dtype in slots[N_IO:len(slots) - timed]]
+        ptrs = (ctypes.c_longlong * len(slots))(*([0] * N_IO + [t.data_ptr() for t in keep]))
+        outs = [(shape, dtype) for _, shape, dtype in slots[4:N_IO]]
+        if len(_SCRATCH) >= _CACHE_MAX:
+            _SCRATCH.clear()
+        got = _SCRATCH[key] = (keep, ptrs, outs, [math.prod(s) for s, _ in outs])
+    return got
+
+
+def _scalars_ptr(scalars, dev):
+    """The device address of the scalar carries, and the tensor holding
+    them: the carries themselves where they are consecutive float32
+    elements on ``dev`` (the last step's results), else a fresh stack."""
+    first = scalars[0]
+    if all(torch.is_tensor(s) and s.device == dev and s.dtype == torch.float32
+           and s.numel() == 1 for s in scalars):
+        addr = first.data_ptr()
+        if all(s.data_ptr() == addr + 4 * k for k, s in enumerate(scalars)):
+            return addr, first
+    held = torch.stack([torch.as_tensor(s, dtype=torch.float32, device=dev).reshape(())
+                        for s in scalars])
+    return held.data_ptr(), held
+
+
+def _launch(algo, u, v, p, scalars, timers, **kw):
     nx, ny = p.shape
     _cuda.require(u, (nx + 1, ny), "u")
     _cuda.require(v, (nx, ny + 1), "v")
     _cuda.require(p, (nx, ny), "p")
-    if cfg.poisson_variant not in _VARIANTS:
-        raise ValueError(f"Unknown poisson operator variant: {cfg.poisson_variant}")
-    if algo == "piso" and cfg.corrector not in ("jacobi", "exact"):
-        raise ValueError(f"Unknown PISO corrector: {cfg.corrector}")
     dev = u.device
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    n_out = ALGO_SCALARS[algo][1]
-    sc_in = torch.stack([torch.as_tensor(s, dtype=torch.float32, device=dev).reshape(())
-                         for s in scalars])
-    shapes = step_shapes(nx, ny, pres_cfg)
-    nk = max((nx + 1) * ny, nx * (ny + 1))
-    outs = [empty(nx + 1, ny), empty(nx, ny + 1), empty(nx, ny),      # u', v', p'
-            empty(nx + 1, ny), empty(nx, ny + 1), empty(nx, ny),      # r_u, r_v, r_p
-            empty(n_out), empty(1, dtype=torch.int32)]                # scalars, cycles
-    scratch = ([empty(nx + 1, ny), empty(nx, ny + 1)]                 # ub, vb
-               + [empty(nx + 1, ny) for _ in range(8)]                # u coefficients
-               + [empty(nx, ny + 1) for _ in range(8)]                # v coefficients
-               + [empty(nx + 1, ny), empty(nx, ny + 1),               # u*, v*
-                  empty(nx + 1, ny), empty(nx, ny + 1),               # d_u, d_v
-                  empty(6 * nk), empty(nx, ny), empty(nx, ny)]        # Krylov, p before BCs, p'~
-               + [empty(nx, ny) for _ in range(7)])                   # fine operator, b, p'
-    coarse = [empty(ni, nj) for ni, nj in shapes[1:] for _ in range(11)]
-    red = empty(RED_FLOATS)
-    keep = [sc_in, *outs, *scratch, *coarse, red]
-    ptrs = [u.data_ptr(), v.data_ptr(), p.data_ptr()] + [t.data_ptr() for t in keep]
-    sides = [bc.side(name) for name in _SIDES]
-    vel = [int(s.kind.value == "velocity") for s in sides]
-    ip = [_ALGOS[algo], nx, ny, len(shapes), pres_cfg.pre_smoothing, pres_cfg.post_smoothing,
-          pres_cfg.coarsest_sweeps, pres_cfg.max_cycles, pres_cfg.check_every,
-          mom_cfg.max_iterations, int(cfg.poisson_variant == "reference"),
-          _VARIANTS[cfg.poisson_variant], int(cfg.overwrite_boundary_pressure),
-          getattr(cfg, "n_corrections", 0), int(getattr(cfg, "corrector", "") == "exact"),
-          getattr(cfg, "corrector_sweeps", 0), int(getattr(cfg, "smooth_p_prime", False)),
-          int(getattr(cfg, "dynamic_alpha_p", False)), *vel]
-    ip += [n for shp in shapes for n in shp]
-    fp = [0.5 * rho * dy, 0.5 * rho * dx, mu * dy / dx, mu * dx / dy, dx, dy,
-          cfg.alpha_u, 1.0 - cfg.alpha_u, rho, cfg.alpha_p, mom_cfg.tolerance,
-          pres_cfg.tolerance, pres_cfg.omega]
-    fp += [s.u for s in sides] + [s.v for s in sides]
-    c_ptrs = (ctypes.c_longlong * len(ptrs))(*ptrs)
-    c_ip = (ctypes.c_int * len(ip))(*ip)
-    c_fp = (ctypes.c_float * len(fp))(*fp)
-    _cuda.check(_cuda.library().nf_fused_outer_step(c_ptrs, c_ip, c_fp, _cuda.stream_of(u)),
-                "fused_outer_step")
-    LAUNCHES += 1
-    u2, v2, p2, r_u, r_v, r_p, sc, cyc = outs
-    return u2, v2, p2, tuple(sc[k] for k in range(n_out)), cyc[0], r_u, r_v, r_p
+    stream = _cuda.stream_of(u)
+    shapes, c_ip, c_fp = _params(algo, nx, ny, kw)
+    _, ptrs, outs, sizes = _scratch(algo, nx, ny, shapes, timers is not None, dev, stream)
+    sc_addr, sc_held = _scalars_ptr(scalars, dev)  # held until the launch is enqueued
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    ptrs[0], ptrs[1], ptrs[2], ptrs[3] = u.data_ptr(), v.data_ptr(), p.data_ptr(), sc_addr
+    addr = flat.data_ptr()
+    for k, n in enumerate(sizes):
+        ptrs[4 + k] = addr
+        addr += 4 * n
+    entry = "nf_fused_outer_step"
+    if timers is not None:
+        ptrs[len(ptrs) - 1] = timers.data_ptr()
+        entry = "nf_fused_outer_step_phases"
+    _cuda.check(getattr(_cuda.library(), entry)(ptrs, c_ip, c_fp, stream), entry)
+    parts = flat.split(sizes)
+    u2, v2, p2, r_u, r_v, r_p = (t.view(shape) for t, (shape, _) in zip(parts[:6], outs))
+    cyc = parts[7].view(torch.int32)
+    return u2, v2, p2, parts[6].unbind(0), cyc[0], r_u, r_v, r_p
 
 
 def fused_simple_step(u, v, p, p_max_l2, *, dx, dy, rho, mu, bc, simple_cfg, mom_cfg,

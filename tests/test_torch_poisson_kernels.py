@@ -67,9 +67,10 @@ class _FakeLibrary:
     def nf_rbgs_sweeps(self):
         return self._record("rbgs", 8, 3)
 
-    @property
-    def nf_apply_poisson(self):
-        return self._record("matvec", 7, 2)
+    def nf_apply_poisson(self, *args):
+        """The lean call: 7 pointers, nx, ny, the stream."""
+        self.calls.append(("matvec", 7, tuple(args[7:9])))
+        return 0
 
 
 @pytest.fixture
@@ -92,7 +93,7 @@ def test_dispatch_rule(fake_card):
     (_, _, _), (p, b, c) = _system(256, 256)
     kernels.rbgs_sweeps(p, b, c, n_sweeps=3, omega=1.5)
     kernels.apply_poisson_kernel(p, c)
-    assert fake_card.calls == [("rbgs", 8, (256, 256, 3), 1.5), ("matvec", 7, (256, 256), 0.0)]
+    assert fake_card.calls == [("rbgs", 8, (256, 256, 3), 1.5), ("matvec", 7, (256, 256))]
     assert (kernels.RBGS_LAUNCHES, kernels.MATVEC_LAUNCHES) == (r0 + 1, m0 + 1)
 
     # 257 x 256 cells, and float64 at 63^2: the plain version, no launch
@@ -118,3 +119,27 @@ def test_cpu_tensors_run_plain():
                        kernels.rbgs_sweeps_plain(p, b, c, 2, 1.5))
     assert torch.equal(kernels.apply_poisson_kernel(p, c), kernels.apply_poisson_plain(p, c))
     assert (kernels.RBGS_LAUNCHES, kernels.MATVEC_LAUNCHES) == (r0, m0)
+
+
+def test_coefficients_checked_once_per_set(fake_card, monkeypatch):
+    """The lean call checks the iterate every call and a coefficient set's
+    arrays once (the operator of a solve is applied to many iterates); a set
+    with an array the kernel does not take still raises."""
+    checked = []
+
+    def require(x, shape, name):
+        checked.append(name)
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}")
+
+    monkeypatch.setattr(_cuda, "require", require)
+    (_, _, _), (p, _, c) = _system(48, 96)
+    for _ in range(3):
+        kernels.apply_poisson_kernel(p, c)
+    assert sum(name.startswith("coefficients") for name in checked) == 5
+    assert sum(name.startswith("input") for name in checked) == 3
+    bad = type(c)(c.a_e[:, :-1], c.a_w, c.a_n, c.a_s, c.diag)
+    with pytest.raises(ValueError, match="coefficients"):
+        kernels.apply_poisson_kernel(p, bad)
+    with pytest.raises(ValueError, match="coefficients"):  # still, on the next call
+        kernels.apply_poisson_kernel(p, bad)
