@@ -10,8 +10,8 @@ result line:
    versions;
 2. the kernel build: ``nvcc`` compiles ``naviflow_tpu_torch/csrc/*.cu`` for
    sm_90a from the checkout, one process per source; ptxas's registers and
-   spills of K6's instantiations, the thread-block cluster size each K6
-   body launches with, and one cluster barrier's time
+   spills of K6's, K3's and K9's kernels, the thread-block cluster size each
+   K6 body and K3 launch with, and one cluster barrier's time
    (``nf_cluster_sync_probe``);
 3. each kernel against its plain PyTorch version on the card, with the
    tolerance of the JAX package's test of that kernel and both times (CUDA
@@ -29,11 +29,13 @@ result line:
    63^2 (1 and 3 sweeps) and 256^2, K11b at 63^2, 256^2 and 48 x 96 with a
    cuSPARSE SpMV of the same operator beside it.  Every kernel's CUDA-event
    time, its device time (``device_ms``: events around launches queued
-   behind a device-side sleep) and, for K6 and K11b, the host's time per
-   call; beside them the time of one
-   grid-wide barrier at each cooperative kernel's grid size; then K6's
-   phase split (``nf_fused_outer_step_phases``) for each body over 20
-   chained 63^2 steps;
+   behind a device-side sleep) and, for K3, K6, K9 and K11b, the host's
+   time per call; beside them the time of one grid-wide barrier at each
+   cooperative kernel's grid size (K4, K5, K7) and the cluster-barrier
+   bound (K3, K6); then K6's phase split (``nf_fused_outer_step_phases``)
+   for each body over 20 chained 63^2 steps, and K3's
+   (``nf_fused_vcycle_phases``) on the 256^2 tail and the 63^2 vertex
+   hierarchy over 20 calls;
 4. the 1024^2 slice: ``simple_solve`` at 1024^2, Re=100, with the bench's
    large-grid configuration (Chebyshev momentum of degree 4, one fixed
    V-cycle with 1/1 smoothing, 32 coarsest sweeps, coarse rebuild every 8
@@ -48,7 +50,9 @@ result line:
    composed: every kernel-run step is one K6 launch, K4 runs once (the
    lagged carry's setup rebuild) and nothing else launches; kernel and
    composed outer iterations within 2% or 2; Ghia infinity error below 0.10
-   at 1e-5; a ``torch.profiler`` window of 20 kernel steps;
+   at 1e-5; the device's idle share over 20 kernel steps
+   (``profile_window``: busy time from CUDA events around each step
+   replayed behind a device-side sleep, the profiler's sum beside it);
 6. the FMG run: the same case with ``cycle_type='fmg'`` (which the K6 gate
    refuses) for 40 steps: launches K7 = 80, K5 = 40, K4 = 1 + 5 refreshes,
    nothing else; residual finite, falling, within 5% of the composed run;
@@ -597,7 +601,50 @@ def check_strips(dev, levels, cfg, rng):
     return rows
 
 
-def check_vcycle(dev, levels, cfg, rng, sync_ms):
+def k3_barriers(meta, cfg):
+    """The cluster barriers of one K3 launch (csrc/vcycle.cuh): one after
+    the input copy; per level in global memory (level 0 and the levels of
+    more than 1,024 cells) one per colour pass of its pre- and
+    post-smoothing, one after the restriction below it and one after the
+    prolongation into it; then one after rank 0's shared-memory part where
+    there are such levels, else one per colour pass of the coarsest
+    sweeps."""
+    from naviflow_tpu_torch.ops import mg
+
+    colors = [2 if five else 4 for _, five in meta]
+    first, _ = mg.vcycle_layout([shp for shp, _ in meta])
+    top = min(first, len(meta) - 1)
+    n = 1 + sum((cfg.pre_smoothing + cfg.post_smoothing) * colors[lvl] + 2
+                for lvl in range(top))
+    return n + (1 if first < len(meta) else cfg.coarsest_sweeps * colors[-1])
+
+
+def vcycle_row(p, b, levels, cfg, cl_ms, **extra):
+    """K3 on one hierarchy against its plain version: 1e-5 of the cycle
+    output's scale (tests/test_pallas.py), the times, the host's time per
+    call and the cluster-barrier bound."""
+    from naviflow_tpu_torch.ops import mg
+
+    got = mg.fused_vcycle(p, b, levels, cfg)
+    want = mg.fused_vcycle_plain(p, b, levels, cfg)
+    torch_sync()
+    a, r = max_err(got, want)
+
+    def kernel():
+        mg.fused_vcycle(p, b, levels, cfg)
+
+    ms, plain_ms, dev_ms = time_pair(lambda: mg.fused_vcycle_plain(p, b, levels, cfg), kernel)
+    meta = meta_of(levels)
+    bar = k3_barriers(meta, cfg)
+    return dict(name="fused_vcycle", shape=list(b.shape), levels=[m[0][0] for m in meta],
+                ok=r < 1e-5, max_abs_err=a, rel_err=r, ms=ms, plain_ms=plain_ms,
+                device_ms=dev_ms, host_ms=host_ms(kernel), work=vcycle_work(meta, cfg),
+                cluster_barriers=bar, barrier_bound_ms=bar * cl_ms, **extra)
+
+
+def check_vcycle(dev, levels, cfg, rng, cl_ms):
+    """K3 on the 256^2 -> 4^2 tail of the 1024^2 hierarchy; returns the row
+    and the tail's inputs (for ``k3_phases``)."""
     import torch
 
     from naviflow_tpu_torch.ops import mg
@@ -606,22 +653,7 @@ def check_vcycle(dev, levels, cfg, rng, sync_ms):
     n = tail[0][1][0]
     assert mg.supports_fused(tail, cfg) and not mg.supports_fused(levels[1:], cfg)
     b = torch.as_tensor(rng.normal(size=(n, n)), dtype=torch.float32, device=dev)
-    p = torch.zeros_like(b)
-    got = mg.fused_vcycle(p, b, tail, cfg)
-    want = mg.fused_vcycle_plain(p, b, tail, cfg)
-    torch_sync()
-    a, r = max_err(got, want)
-    ms, plain_ms, dev_ms = time_pair(lambda: mg.fused_vcycle_plain(p, b, tail, cfg),
-                             lambda: mg.fused_vcycle(p, b, tail, cfg))
-    meta = meta_of(tail)
-    bar = Barriers()
-    bar.vcycle(meta, cfg)
-    bar.settle()
-    # tests/test_pallas.py: 1e-5 of the cycle output's scale
-    return dict(name="fused_vcycle", shape=[n, n], levels=[m[0][0] for m in meta],
-                ok=r < 1e-5, max_abs_err=a, rel_err=r, ms=ms, plain_ms=plain_ms,
-                device_ms=dev_ms, work=vcycle_work(meta, cfg), grid_barriers=bar.n,
-                barrier_bound_ms=bar.n * sync_ms(n * n))
+    return vcycle_row(torch.zeros_like(b), b, tail, cfg, cl_ms), (tail, cfg, b)
 
 
 # ---------------------------------------------------------------------------
@@ -773,28 +805,12 @@ def check_mg_solve(inp, sync_ms):
     return rows
 
 
-def check_vertex_vcycle(inp, sync_ms):
+def check_vertex_vcycle(inp, cl_ms):
     """K3 on the 63^2 -> 7^2 vertex hierarchy: 1e-5 of the cycle output."""
     import torch
 
-    from naviflow_tpu_torch.ops import mg
-
-    levels, b, cfg = inp["levels"], inp["b"], inp["pres"]
-    meta = meta_of(levels)
-    p = torch.zeros_like(b)
-    got = mg.fused_vcycle(p, b, levels, cfg)
-    want = mg.fused_vcycle_plain(p, b, levels, cfg)
-    torch_sync()
-    a, r = max_err(got, want)
-    ms, plain_ms, dev_ms = time_pair(lambda: mg.fused_vcycle_plain(p, b, levels, cfg),
-                             lambda: mg.fused_vcycle(p, b, levels, cfg))
-    bar = Barriers()
-    bar.vcycle(meta, cfg)
-    bar.settle()
-    return dict(name="fused_vcycle", shape=list(b.shape), levels=[m[0][0] for m in meta],
-                vertex=True, ok=r < 1e-5, max_abs_err=a, rel_err=r, ms=ms, plain_ms=plain_ms,
-                device_ms=dev_ms, work=vcycle_work(meta, cfg), grid_barriers=bar.n,
-                barrier_bound_ms=bar.n * sync_ms(b.numel()))
+    b = inp["b"]
+    return vcycle_row(torch.zeros_like(b), b, inp["levels"], inp["pres"], cl_ms, vertex=True)
 
 
 def host_ms(fn, reps=REPS):
@@ -942,14 +958,18 @@ def check_cheby(dev):
         want = cheby.chebyshev_momentum_strips_plain(x0, c_rel, c_un, **args)
         torch_sync()
         errs = [max_err(g, w) for g, w in zip(got, want)]
+        def kernel():
+            cheby.chebyshev_momentum_strips(x0, c_rel, c_un, **args)
+
         ms, plain_ms, dev_ms = time_pair(
-            lambda: cheby.chebyshev_momentum_strips_plain(x0, c_rel, c_un, **args),
-            lambda: cheby.chebyshev_momentum_strips(x0, c_rel, c_un, **args), reps=10)
+            lambda: cheby.chebyshev_momentum_strips_plain(x0, c_rel, c_un, **args), kernel,
+            reps=10)
         n = x0.numel()
         rows.append(dict(name="chebyshev_momentum_strips", field=field, shape=list(x0.shape),
                          degree=degree, ok=all(r < 2e-5 for _, r in errs),
                          max_abs_err=max(a for a, _ in errs), rel_err=[r for _, r in errs],
                          ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                         host_ms=host_ms(kernel, 10),
                          work=(4 * 11 * n, n * (degree * (APPLY5 + 8) + APPLY5 + 1))))
     return rows
 
@@ -1072,6 +1092,43 @@ def k6_phases(dev, steps=20):
                           phase_counts={name: c / steps for name, (_, c) in total.items()},
                           sum_ms=sum(split.values()), event_ms=event)
     return dict(phase="k6_phases", grid=NH, steps=steps, bodies=rows)
+
+
+def k3_phases(cases, reps=REPS):
+    """K3's phase split (``nf_fused_vcycle_phases``: %globaltimer stamps
+    taken by thread 0 of the first CTA) for each ``(name, levels, cfg, b)``
+    hierarchy: ms per V-cycle of the levels of more than 1,024 cells going
+    down (their smoothing and restriction, the last into the first smaller
+    level), the smaller levels above the coarsest (both ways), the coarsest
+    sweeps, and the large levels going up (prolongation and smoothing);
+    their sum; and the untimed kernel's CUDA-event and device time
+    (``device_ms``) over as many calls."""
+    import torch
+
+    from naviflow_tpu_torch.ops import mg
+
+    rows = {}
+    for name, levels, cfg, b in cases:
+        p = torch.zeros_like(b)
+        mg.fused_vcycle_phases(p, b, levels, cfg)  # warm-up
+        total = {k: [0.0, 0] for k in mg.VC_PHASE_NAMES}
+        for _ in range(reps):
+            _, ph = mg.fused_vcycle_phases(p, b, levels, cfg)
+            for k, (ms, count) in ph.items():
+                total[k][0] += ms
+                total[k][1] += count
+        split = {k: ms / reps for k, (ms, _) in total.items()}
+
+        def run():
+            mg.fused_vcycle(p, b, levels, cfg)
+
+        event, dev_ms = time_ms(run, reps), device_ms(run, reps)
+        parts = sum(split.values())
+        rows[name] = dict(levels=[lv[1][0] for lv in levels], phases_ms=split,
+                          phase_counts={k: c / reps for k, (_, c) in total.items()},
+                          sum_ms=parts, event_ms=event, device_ms=dev_ms,
+                          sum_over_event=parts / event, sum_over_device=parts / dev_ms)
+    return dict(phase="k3_phases", reps=reps, hierarchies=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -1369,24 +1426,155 @@ def device_kernels(prof):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
 
 
+# aten operators that make the host wait for the device (a read of a value,
+# or an output whose size depends on the data)
+_HOST_WAITS = {"_local_scalar_dense", "nonzero", "masked_select", "_unique2", "unique_dim",
+               "unique_consecutive", "equal"}
+
+
+def _host_waits(func, args, kwargs):
+    """True for an operator that makes the host wait for the device: the
+    ones above and copies between the host and the device (a copy from
+    pageable host memory waits for the stream too)."""
+    import torch
+
+    name = func.__name__.split(".")[0]
+    if name in _HOST_WAITS:
+        return True
+    if name == "_to_copy":
+        dev = kwargs.get("device")
+        return dev is not None and torch.device(dev).type != args[0].device.type
+    if name == "copy_":
+        return args[0].device.type != args[1].device.type
+    return False
+
+
+
+def queued_segments(sleeps=None, ops=128):
+    """A ``TorchDispatchMode`` that splits the work a run enqueues into
+    segments, each queued behind a device-side sleep (``torch.cuda._sleep``)
+    and spanned by CUDA events: a segment ends before an operator that makes
+    the host wait for the device (and at ``torch.cuda.synchronize``), or
+    before the operator after ``ops`` of them, so the host enqueues a whole
+    segment (the kernel wrappers' launches between operators included)
+    while the device sleeps, and the span is the segment's device time
+    without the gaps in which the device waited for the host; the host waits
+    for each segment before the next.  Segment k
+    sleeps ``sleeps[k]`` ms (1 ms without ``sleeps``, 50 beyond it).
+    ``.spans`` holds ``(start, end, host enqueue ms, sleep ms)`` per segment
+    (read after a synchronise); a segment whose enqueue outlasted its sleep
+    spans an upper bound."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    real_sync = torch.cuda.synchronize
+
+    class Segments(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.spans, self.count, self.open = [], 0, None
+
+        def begin(self):
+            k = len(self.spans)
+            sleep_ms = 1.0 if sleeps is None else (sleeps[k] if k < len(sleeps) else 50.0)
+            torch.cuda._sleep(int(sleep_ms * 2e6))  # ~2 GHz SM clock; slower sleeps longer
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.open, self.count = (start, time.perf_counter(), sleep_ms), 0
+
+        def end(self):
+            start, t0, sleep_ms = self.open
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.spans.append((start, end, (time.perf_counter() - t0) * 1e3, sleep_ms))
+            self.open = None
+            # the host waits for each segment, so it never runs ahead into
+            # the launch queue's limit and its enqueueing of the next segment
+            # starts with that segment's sleep
+            real_sync()
+
+        def synchronize(self, *a, **k):
+            self.end()
+            real_sync(*a, **k)
+            self.begin()
+
+        def __enter__(self):
+            out = super().__enter__()
+            torch.cuda.synchronize = self.synchronize
+            self.begin()
+            return out
+
+        def __exit__(self, *exc):
+            self.end()
+            torch.cuda.synchronize = real_sync
+            return super().__exit__(*exc)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if _host_waits(func, args, kwargs):
+                self.end()
+                out = func(*args, **kwargs)
+                self.begin()
+                return out
+            if self.count >= ops:
+                self.end()
+                self.begin()
+            self.count += 1
+            return func(*args, **kwargs)
+
+    return Segments()
+
+
 def profile_window(run, steps):
-    """torch.profiler over ``run()`` (``steps`` kernel-path steps, warmed up
-    by one call before): device busy time, the window, and the kernels by
-    device time."""
+    """The device's idle share over ``run()`` (``steps`` outer steps, warmed
+    up by one call before): the window is the host clock over one run; the
+    busy time is the same run's device time, replayed in segments behind
+    device-side sleeps (``queued_segments``): a first replay times the
+    host's enqueueing of each segment, a second sleeps three times that
+    plus 2 ms before each and sums the segments' spans; ``idle_share`` = 1 -
+    busy / window.  Where a segment's enqueue outlasted its sleep all the
+    same, its span holds at most that overrun of waiting (``overrun_ms``,
+    the sum): the busy time lies between ``device_busy_ms - overrun_ms`` and
+    ``device_busy_ms``.  Beside it, from a fourth run under ``torch.profiler``, the
+    profiler's sum of device-side kernel time (``profiler_busy_ms``, which
+    missed launches on the H100) and its idle share over its own window
+    (the profiler's host overhead lengthens it), and the kernels by that
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
-    run()  # warm-up
+    run()  # warm-up (the first use of a dispatch mode also loads modules)
+    with queued_segments():
+        run()
+    torch_sync()
+    t0 = time.perf_counter()
+    run()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    first = queued_segments()
+    with first:
+        run()
+    torch_sync()
+    seg = queued_segments(sleeps=[3.0 * host + 2.0 for _, _, host, _ in first.spans])
+    with seg:
+        run()
+    torch_sync()
+    spans = [(start.elapsed_time(end), host, sleep) for start, end, host, sleep in seg.spans]
+    busy = sum(span for span, _, _ in spans)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
-        window_ms = (time.perf_counter() - t0) * 1e3
+        prof_window_ms = (time.perf_counter() - t0) * 1e3
     by_name = device_kernels(prof)
-    busy = sum(t for t, _ in by_name.values())
-    if busy <= 0:
-        raise RuntimeError("the profiler saw no device time")
+    prof_busy = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(steps=steps, window_ms=window_ms, device_busy_ms=busy,
-                idle_share=1.0 - busy / window_ms,
+                idle_share=1.0 - busy / window_ms, segments=len(spans),
+                segments_first_replay=len(first.spans),
+                segments_over_sleep=sum(host >= sleep for _, host, sleep in spans),
+                overrun_ms=sum(max(host - sleep, 0.0) for _, host, sleep in spans),
+                max_segment_ms=max(span for span, _, _ in spans),
+                sleep_ms=sum(sleep for _, _, sleep in spans),
+                profiler_window_ms=prof_window_ms, profiler_busy_ms=prof_busy,
+                profiler_idle_share=1.0 - prof_busy / prof_window_ms,
                 top=[dict(name=k[:80], ms=t, calls=c) for k, (t, c) in top])
 
 
@@ -1858,13 +2046,18 @@ def main() -> int:
     _cuda.library()
     from naviflow_tpu_torch.ops import step
 
+    from naviflow_tpu_torch.ops import mg
+
     clusters = {algo: step.cluster_size(algo, dev) for algo in step.ALGO_SCALARS}
-    # ptxas's report of K6's instantiations: registers, spills, shared memory
-    ptxas = [line.strip() for line in _cuda.build_log.get("step.cu", "").splitlines()
-             if "registers" in line or "spill" in line]
+    # ptxas's report of K6's, K3's and K9's kernels: registers, spills,
+    # shared memory
+    ptxas = {src: [line.strip() for line in _cuda.build_log.get(src, "").splitlines()
+                   if "registers" in line or "spill" in line]
+             for src in ("step.cu", "mg.cu", "cheby.cu")}
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=_cuda.build_seconds, library=_cuda.library_path().name,
-              k6_cluster_size=clusters, k6_threads_per_cta=512, step_ptxas=ptxas))
+              k6_cluster_size=clusters, k3_cluster_size=mg.vcycle_cluster_size(dev),
+              cluster_threads_per_cta=512, ptxas=ptxas))
     # one cluster barrier at K6's size (its bound's unit) and at 8 CTAs
     cl_by_size = {size: cluster_sync_ms(size, dev) for size in sorted({8, clusters["simple"]})}
     cl_ms = cl_by_size[clusters["simple"]]
@@ -1882,14 +2075,15 @@ def main() -> int:
     rows = check_asmcheby(dev)
     levels, cfg, rng = fine_levels(dev)
     rows += check_strips(dev, levels, cfg, rng)
-    rows.append(check_vcycle(dev, levels, cfg, rng, sync_ms))
+    row, tail = check_vcycle(dev, levels, cfg, rng, cl_ms)
+    rows.append(row)
     del levels
     inp = odd_inputs(NH, dev, steps=5)
     big = odd_inputs(NH_BIG, dev, steps=0)
     rows += check_bicgstab(inp, sync_ms)
     rows += check_rap([(NH, inp["levels"]), (NH_BIG, big["levels"])], sync_ms)
     rows += check_mg_solve(inp, sync_ms)
-    rows.append(check_vertex_vcycle(inp, sync_ms))
+    rows.append(check_vertex_vcycle(inp, cl_ms))
     rows += check_step(dev, cl_ms)
     del big
     rows += check_step_bodies(dev, cl_ms)
@@ -1907,6 +2101,8 @@ def main() -> int:
         print("chip_smoke: a kernel disagrees with its plain version", file=sys.stderr)
         return 1
     emit(k6_phases(dev))
+    emit(k3_phases([("tail256", *tail), ("vertex63", inp["levels"], inp["pres"], inp["b"])]))
+    del tail, inp
 
     paths = {"kernel_phase": k11_launches}
     for phase, fn in (("slice", run_slice), ("headline", run_headline), ("fmg", run_fmg),

@@ -1,8 +1,9 @@
 // K3, K4, K5: the multigrid kernels over a whole level hierarchy, each one
-// cooperative launch over the device code of mg.cuh.
+// launch.
 //
-// K3 nf_fused_vcycle    one V-cycle; replaces
-//                       naviflow_tpu/ops/pallas_mg.py:fused_vcycle.
+// K3 nf_fused_vcycle    one V-cycle, in one thread-block cluster over the
+//                       device code of vcycle.cuh (its header says how);
+//                       replaces naviflow_tpu/ops/pallas_mg.py:fused_vcycle.
 // K4 nf_galerkin_levels every Galerkin coarse stencil of a vertex
 //                       hierarchy; replaces pallas_mg.py:galerkin_levels_pallas.
 // K5 nf_fused_mg_solve  the whole solve: cycles, compensated convergence
@@ -12,22 +13,38 @@
 // Bound on the H100: a hierarchy the gate admits (<= 255^2 for K4/K5, the
 // 256^2 -> 4^2 tail for K3) holds at most ~8 MB, so it lives in the 50 MB
 // L2 and the kernels are bound by their dependent passes (one per colour,
-// residual, transfer and RAP level) and the grid-wide barriers between
-// them, not by HBM.  Design (coop.cuh): as many blocks as fit at once,
-// grid-stride passes ending in grid.sync(), levels of <= 1,024 cells in
-// block 0 alone, so the coarsest sweeps cost no grid barriers; the
+// residual, transfer and RAP level) and the barriers between them, not by
+// HBM.  K4 and K5 (coop.cuh): cooperative launches of as many blocks as fit
+// at once, grid-stride passes ending in grid.sync(), levels of <= 1,024
+// cells in block 0 alone, so the coarsest sweeps cost no grid barriers; the
 // convergence scalars of K5 come from nf_grid_reduce, identical in every
 // block, so every block takes the same number of cycles.  Level 0's iterate
-// is the output buffer; coarser iterates and right-hand sides are scratch
-// from the wrapper.
+// is the output buffer; coarser iterates and right-hand sides of the levels
+// in global memory are scratch from the wrapper.
 
-#include "mg.cuh"
+#include "vcycle.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(NF_THREADS) vcycle_kernel(NfMG M) {
-  NfCoop C = nf_coop(nullptr);
-  nf_vcycle(C, M);
+// K3: one V-cycle in one thread-block cluster (vcycle.cuh); PH adds the
+// phase timers (nf_fused_vcycle_phases, a measurement aid).
+struct VcParams {
+  NfMG M;
+  const float* p_in;
+  unsigned long long* ph;
+  int Ls;
+};
+
+template <bool PH>
+__global__ void __launch_bounds__(NF_CL_THREADS, 1) vcycle_kernel(VcParams P) {
+  extern __shared__ __align__(16) float vc_dyn[];
+  nf_vc_cycle<PH>(P.M, P.Ls, P.p_in, vc_dyn, P.ph);
+}
+
+template <bool PH>
+NfClusterCfg& vcycle_cfg() {
+  static NfClusterCfg cfg = {};
+  return cfg;
 }
 
 struct SolveParams {
@@ -56,7 +73,8 @@ __global__ void __launch_bounds__(NF_THREADS) rap_kernel(RapParams P) {
   nf_galerkin_rap(C, P.lv, P.L);
 }
 
-// `n` grid-wide barriers and nothing else: the unit of the K3-K7 bound.
+// `n` grid-wide barriers and nothing else: the unit of K4's, K5's and K7's
+// bound.
 __global__ void __launch_bounds__(NF_THREADS) sync_probe_kernel(int n) {
   cg::grid_group grid = cg::this_grid();
   for (int i = 0; i < n; ++i) grid.sync();
@@ -78,18 +96,51 @@ int read_levels(NfMG& M, const long long* ptrs, const int* ip, int L) {
 
 }  // namespace
 
-// ptrs: per level, 9 stencil pointers, x, rhs (level 0: x = output already
-//       holding p, rhs = b)
-// ip:   L, pre, post, coarsest, then per level ni, nj, five
+// ptrs: per level 11 pointers (9 stencil pointers, 0 for absent corners;
+//       x, rhs: level 0's output and b, 0 for the levels in shared memory,
+//       scratch for the other coarse levels), then the input iterate p,
+//       then (PH) the timer buffer
+// ip:   NfVcIp: L, pre, post, coarsest, Ls (the first level in shared
+//       memory: the first below level 0 of <= NF_SMALL_CELLS cells, L if
+//       none), then per level ni, nj, five
 // fp:   omega
+template <bool PH>
+int launch_vcycle(const long long* ptrs, const int* ip, const float* fp, void* stream) {
+  VcParams P = {};
+  const int L = ip[VC_IP_L];
+  int err = read_levels(P.M, ptrs, ip + VC_IP_LEVELS, L);
+  if (err) return err;
+  P.M.pre = ip[VC_IP_PRE]; P.M.post = ip[VC_IP_POST]; P.M.coarsest = ip[VC_IP_COARSEST];
+  P.M.omega = fp[0];
+  int cells[NF_MAX_LEVELS], Ls = L;
+  for (int l = 0; l < L; ++l) cells[l] = P.M.lv[l].ni * P.M.lv[l].nj;
+  for (int l = L - 1; l >= 1 && cells[l] <= NF_SMALL_CELLS; --l) Ls = l;
+  if (ip[VC_IP_LS] != Ls) return (int)cudaErrorInvalidValue;
+  P.Ls = Ls;
+  P.p_in = reinterpret_cast<const float*>(ptrs[11 * L]);
+  P.ph = PH ? reinterpret_cast<unsigned long long*>(ptrs[11 * L + 1]) : nullptr;
+  const size_t smem = sizeof(float) * (size_t)nf_vc_smem_floats(cells, L, Ls);
+  int size = 0;
+  err = nf_cluster_size(vcycle_kernel<PH>, vcycle_cfg<PH>(), size);
+  if (err) return err;
+  return nf_cluster_launch(vcycle_kernel<PH>, size, P, smem, (cudaStream_t)stream);
+}
+
 NF_EXPORT int nf_fused_vcycle(const long long* ptrs, const int* ip, const float* fp,
                               void* stream) {
-  NfMG M = {};
-  int err = read_levels(M, ptrs, ip + 4, ip[0]);
-  if (err) return err;
-  M.pre = ip[1]; M.post = ip[2]; M.coarsest = ip[3]; M.omega = fp[0];
-  return nf_coop_launch(vcycle_kernel, M, (int64_t)M.lv[0].ni * M.lv[0].nj,
-                        (cudaStream_t)stream);
+  return launch_vcycle<false>(ptrs, ip, fp, stream);
+}
+
+// The cluster size K3 launches with on the current device (its untimed or
+// timed instantiation; chosen at the first launch or here), into *size.
+NF_EXPORT int nf_vcycle_cluster_size(int timed, int* size) {
+  return timed ? nf_cluster_size(vcycle_kernel<true>, vcycle_cfg<true>(), *size)
+               : nf_cluster_size(vcycle_kernel<false>, vcycle_cfg<false>(), *size);
+}
+
+NF_EXPORT int nf_fused_vcycle_phases(const long long* ptrs, const int* ip, const float* fp,
+                                     void* stream) {
+  return launch_vcycle<true>(ptrs, ip, fp, stream);
 }
 
 // ptrs: per level 11 pointers as nf_fused_vcycle, then r, cycles (int32),

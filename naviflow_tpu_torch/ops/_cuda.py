@@ -50,6 +50,7 @@ _ARGS = [ctypes.POINTER(ctypes.c_longlong),  # device pointers
          ctypes.c_void_p]                    # stream
 # C entry points (see csrc/*.cu for each one's pointer and parameter order)
 _KERNELS = ("nf_asmcheby_pair", "nf_strip_down", "nf_strip_up", "nf_fused_vcycle",
+            "nf_fused_vcycle_phases",
             "nf_galerkin_levels", "nf_fused_mg_solve", "nf_bicgstab", "nf_fused_outer_step",
             "nf_fused_outer_step_phases",
             "nf_fused_assembly_pair", "nf_chebyshev_strips",
@@ -57,7 +58,8 @@ _KERNELS = ("nf_asmcheby_pair", "nf_strip_down", "nf_strip_up", "nf_fused_vcycle
             "nf_grid_sync_probe", "nf_cluster_sync_probe")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"nf_apply_poisson": [_P] * 7 + [_I, _I, _P],  # p, 4 links, diag, out; nx, ny
-               "nf_step_cluster_size": [_I, ctypes.POINTER(_I)]}     # algo; the size out
+               "nf_step_cluster_size": [_I, ctypes.POINTER(_I)],     # algo; the size out
+               "nf_vcycle_cluster_size": [_I, ctypes.POINTER(_I)]}   # timed; the size out
 
 _lib = None
 _lock = threading.Lock()

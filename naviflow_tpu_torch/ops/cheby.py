@@ -27,8 +27,9 @@ from .stencil import apply_stencil
 H = 16
 _CAP_CELLS = 384 * 1024
 
-_TILE = 32  # csrc/cheby.cu TILE
-
+# the C entry's pointer slots, in its order (csrc/cheby.cu nf_chebyshev_strips)
+SLOTS = ("x0", "a_e", "a_w", "a_n", "a_s", "a_p", "src", "a_p_un", "src_un", "theta", "delta",
+         "sigma1", "x_star", "r")
 LAUNCHES = 0  # kernel launches since the last reset (the CPU path never counts)
 
 
@@ -58,6 +59,26 @@ def chebyshev_momentum_strips_plain(x0, c_rel, c_un, *, theta, delta, sigma1, de
     return x, torch.where(mask, r, torch.zeros_like(r))
 
 
+# The launch's host arrays, reused across calls: the pointer slots (filled
+# per call), the integer parameters per shape and degree, the unused float.
+_PTRS = (ctypes.c_longlong * len(SLOTS))()
+_IP = {}
+_FP = (ctypes.c_float * 1)(0.0)
+
+
+def _scalar_ptrs(scalars, dev):
+    """Device addresses of the interval scalars, and the tensor holding them
+    where they had to be made: float32 one-element tensors on ``dev`` are
+    passed as they are (the solver's 0-d results), anything else is stacked
+    into a fresh tensor."""
+    if all(torch.is_tensor(s) and s.device == dev and s.dtype == torch.float32
+           and s.numel() == 1 for s in scalars):
+        return [s.data_ptr() for s in scalars], None
+    held = torch.stack([torch.as_tensor(s, dtype=torch.float32, device=dev).reshape(())
+                        for s in scalars])
+    return [held[k].data_ptr() for k in range(len(scalars))], held
+
+
 def chebyshev_momentum_strips(x0, c_rel, c_un, *, theta, delta, sigma1, degree: int):
     """Chebyshev solve of one momentum field and its unrelaxed residual.
 
@@ -73,20 +94,20 @@ def chebyshev_momentum_strips(x0, c_rel, c_un, *, theta, delta, sigma1, degree: 
     ni, nj = x0.shape
     if degree < 1 or degree + 1 > H:
         raise ValueError(f"degree {degree}: the kernel needs 1 <= degree <= {H - 1}")
-    arrays = [x0, c_rel.a_e, c_rel.a_w, c_rel.a_n, c_rel.a_s, c_rel.a_p, c_rel.src,
-              c_un.a_p, c_un.src]
-    for name, a in zip(("x0", "a_e", "a_w", "a_n", "a_s", "a_p", "src", "a_p_un", "src_un"),
-                       arrays):
-        _cuda.require(a, (ni, nj), name)
+    arrays = (x0, c_rel.a_e, c_rel.a_w, c_rel.a_n, c_rel.a_s, c_rel.a_p, c_rel.src,
+              c_un.a_p, c_un.src)
+    _cuda.require_all(arrays, (ni, nj), "chebyshev_momentum_strips inputs")
     dev = x0.device
-    bounds = torch.stack([torch.as_tensor(s, dtype=torch.float32, device=dev).reshape(())
-                          for s in (theta, delta, sigma1)])
-    x_star = torch.empty_like(x0)
-    r_m = torch.empty_like(x0)
-    ptrs = [a.data_ptr() for a in (*arrays, bounds, x_star, r_m)]
-    ip = [ni, nj, degree, -(-nj // _TILE), -(-ni // _TILE)]
-    _cuda.check(_cuda.library().nf_chebyshev_strips(
-        (ctypes.c_longlong * len(ptrs))(*ptrs), (ctypes.c_int * len(ip))(*ip),
-        (ctypes.c_float * 1)(0.0), _cuda.stream_of(x0)), "chebyshev_momentum_strips")
+    scalars, held = _scalar_ptrs((theta, delta, sigma1), dev)  # held until enqueued
+    x_star, r_m = torch.empty((2, ni, nj), dtype=torch.float32, device=dev)  # one allocation
+    ptrs = _PTRS
+    ptrs[:] = [a.data_ptr() for a in arrays] + scalars + [x_star.data_ptr(), r_m.data_ptr()]
+    ip = _IP.get((ni, nj, degree))
+    if ip is None:
+        if len(_IP) >= 32:
+            _IP.clear()
+        ip = _IP[(ni, nj, degree)] = (ctypes.c_int * 3)(ni, nj, degree)
+    _cuda.check(_cuda.library().nf_chebyshev_strips(ptrs, ip, _FP, _cuda.stream_of(x0)),
+                "chebyshev_momentum_strips")
     LAUNCHES += 1
     return x_star, r_m

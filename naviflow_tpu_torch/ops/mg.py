@@ -8,10 +8,13 @@
   convergence checks, mean normalisation and residual (replaces
   ``pallas_mg.py:fused_mg_solve``).
 
-The CUDA kernels are ``csrc/mg.cu`` over the device code of ``csrc/mg.cuh``
-(cooperative launches with grid-wide barriers between passes; the header
-says what bounds them on the H100).  Each wrapper runs its plain PyTorch
-version on a CPU tensor and launches its kernel, or raises, on a CUDA one.
+The CUDA kernels are ``csrc/mg.cu``: K3 one thread-block cluster over the
+device code of ``csrc/vcycle.cuh`` (the levels of <= 1,024 cells in one
+CTA's shared memory, the coarsest in one warp's registers), K4 and K5
+cooperative launches with grid-wide barriers between passes over
+``csrc/mg.cuh``; the sources say what bounds them on the H100.  Each
+wrapper runs its plain PyTorch version on a CPU tensor and launches its
+kernel, or raises, on a CUDA one.
 
 The gates are the reference's admission rules, with their TPU VMEM
 budgets kept so that the port splits the work as the reference does; they
@@ -122,27 +125,153 @@ def fused_vcycle_plain(p, b, levels, cfg):
     return _cycle(p, b, levels, 0, cfg)
 
 
+# K3's launch (csrc/vcycle.cuh): the integer parameters before the
+# per-level (ni, nj, five) triples (NfVcIp), the cells a level may have to
+# live in rank 0's shared memory (coop.cuh NF_SMALL_CELLS), the dynamic
+# shared memory a cluster launch may ask for (cluster.cuh NF_CL_SMEM_MAX)
+VC_IP = ("levels", "pre", "post", "coarsest", "first_shared")
+SMALL_CELLS = 1024
+SMEM_MAX = 96 * 1024
+
+
+def vcycle_layout(shapes):
+    """``(Ls, smem_bytes)`` of K3's launch for level ``shapes`` (finest
+    first): ``Ls`` is the first level below level 0 from which every level
+    has at most ``SMALL_CELLS`` cells (``len(shapes)`` if none), the levels
+    that live in shared memory; the bytes are their storage (nine stencil
+    arrays, x and rhs each) and the residual scratch of ``Ls``'s size
+    (csrc/vcycle.cuh ``nf_vc_smem_floats``)."""
+    cells = [a * b for a, b in shapes]
+    first = len(cells)
+    for lvl in range(len(cells) - 1, 0, -1):
+        if cells[lvl] > SMALL_CELLS:
+            break
+        first = lvl
+    if first == len(cells):
+        return first, 0
+    return first, 4 * (cells[first] + 11 * sum(cells[first:]))
+
+
+class _VcLaunch:
+    """K3's launch state for one hierarchy layout: the pointer array (the
+    stencils of the last hierarchy, the global coarse levels' scratch; the
+    per-call slots filled per call), the parameter arrays and the scratch."""
+
+    def __init__(self, levels, cfg, dev, timed):
+        _check_hierarchy(levels)
+        shapes = [tuple(shp) for _, shp, _, _ in levels]
+        first, smem = vcycle_layout(shapes)
+        if smem > SMEM_MAX:
+            raise ValueError(f"fused_vcycle: {smem} bytes of shared memory for the levels "
+                             f"from {shapes[first]}, more than {SMEM_MAX}")
+        L = self.L = len(levels)
+        self.scratch = [torch.empty((2, *shapes[lvl]), dtype=torch.float32, device=dev)
+                        for lvl in range(1, first)]
+        self.ptrs = (ctypes.c_longlong * (11 * L + 1 + int(timed)))()
+        for lvl, xr in enumerate(self.scratch, start=1):
+            self.ptrs[11 * lvl + 9] = xr[0].data_ptr()
+            self.ptrs[11 * lvl + 10] = xr[1].data_ptr()
+        ip = [L, cfg.pre_smoothing, cfg.post_smoothing, cfg.coarsest_sweeps, first]
+        ip += [n for shp, (_, _, five, _) in zip(shapes, levels) for n in (*shp, int(five))]
+        self.ip = (ctypes.c_int * len(ip))(*ip)
+        self.fp = (ctypes.c_float * 1)(cfg.omega)
+        self.stencils = None
+
+    def set_stencils(self, levels):
+        """Point the stencil slots at ``levels``' arrays (checked), unless
+        they hold this hierarchy's already (the same frozen Stencil9s)."""
+        sts = [st for st, _, _, _ in levels]
+        if self.stencils is not None and all(a is b for a, b in zip(sts, self.stencils)):
+            return
+        slots = []
+        for lvl, (st, shp, five, _) in enumerate(levels):
+            arrays = _stencil_arrays(st, five)
+            _cuda.require_all(arrays, shp, f"level {lvl} stencil")
+            slots.append([a.data_ptr() for a in arrays] + [0] * (9 - len(arrays)))
+        for lvl, row in enumerate(slots):
+            self.ptrs[11 * lvl:11 * lvl + 9] = row
+        self.stencils = sts
+
+
+_VC = {}
+_CACHE_MAX = 32
+
+
+def _vc_launch(p, b, levels, cfg, timers=None):
+    """One K3 launch (the timed instantiation where ``timers`` is given):
+    returns level 0's iterate after the cycle, a fresh tensor."""
+    dev, stream = p.device, _cuda.stream_of(p)
+    timed = timers is not None
+    key = (dev, stream, tuple(tuple(lv[1]) + (bool(lv[2]),) for lv in levels),
+           cfg.pre_smoothing, cfg.post_smoothing, cfg.coarsest_sweeps, cfg.omega, timed)
+    st = _VC.get(key)
+    if st is None:
+        if len(_VC) >= _CACHE_MAX:
+            _VC.clear()
+        st = _VC[key] = _VcLaunch(levels, cfg, dev, timed)
+    st.set_stencils(levels)
+    _cuda.require_all((p, b), levels[0][1], "fused_vcycle p, b")
+    out = torch.empty_like(p)
+    ptrs, L = st.ptrs, st.L
+    ptrs[9], ptrs[10], ptrs[11 * L] = out.data_ptr(), b.data_ptr(), p.data_ptr()
+    entry = "nf_fused_vcycle"
+    if timed:
+        ptrs[11 * L + 1] = timers.data_ptr()
+        entry = "nf_fused_vcycle_phases"
+    _cuda.check(getattr(_cuda.library(), entry)(ptrs, st.ip, st.fp, stream), entry)
+    return out
+
+
 def fused_vcycle(p, b, levels, cfg):
     """One V-cycle at level 0 of ``levels`` (drop-in for
-    ``multigrid._cycle(p, b, levels, 0, cfg)``), as one kernel launch."""
+    ``multigrid._cycle(p, b, levels, 0, cfg)``), as one kernel launch.  The
+    launch state is reused across calls with the same level layout and
+    configuration; the stencil pointers are refilled when the hierarchy
+    changes."""
     global LAUNCHES
     if not p.is_cuda:
         return fused_vcycle_plain(p, b, levels, cfg)
     if cfg.cycle_type not in ("v", "fmg") or cfg.smoother != "gs":
         raise ValueError("fused_vcycle implements Gauss-Seidel V-cycles only")
-    _check_hierarchy(levels)
-    out = p.clone()  # level 0's iterate, updated in place by the kernel
-    _cuda.require(b, out.shape, "b")
-    keep = [out]  # every buffer must outlive the launch call
-    ptrs, lv_ip = pack_levels(levels, out, b, keep)
-    ip = [len(levels), cfg.pre_smoothing, cfg.post_smoothing, cfg.coarsest_sweeps] + lv_ip
-    c_ptrs = (ctypes.c_longlong * len(ptrs))(*ptrs)
-    c_ip = (ctypes.c_int * len(ip))(*ip)
-    c_fp = (ctypes.c_float * 1)(cfg.omega)
-    _cuda.check(_cuda.library().nf_fused_vcycle(c_ptrs, c_ip, c_fp, _cuda.stream_of(p)),
-                "fused_vcycle")
+    out = _vc_launch(p, b, levels, cfg)
     LAUNCHES += 1
     return out
+
+
+def vcycle_cluster_size(device=None) -> int:
+    """The thread-block cluster size K3 launches with on ``device`` (16
+    where one such cluster fits on the card, else 8)."""
+    with torch.cuda.device(device):
+        size = ctypes.c_int(0)
+        _cuda.check(_cuda.library().nf_vcycle_cluster_size(0, ctypes.byref(size)),
+                    "vcycle_cluster_size")
+    return size.value
+
+
+# the phases of nf_fused_vcycle_phases (csrc/vcycle.cuh NfVcPhase), in order
+VC_PHASE_NAMES = ("down", "small", "coarsest", "up")
+N_VC_TIMERS = 2 * len(VC_PHASE_NAMES) + 1
+
+
+def decode_vcycle_phases(buf):
+    """The phase-timer buffer of ``nf_fused_vcycle_phases`` (per phase the
+    summed ns, then per phase the count, then the last stamp) as
+    ``{name: (ms, count)}``."""
+    vals = [int(x) for x in buf]
+    n = len(VC_PHASE_NAMES)
+    if len(vals) != N_VC_TIMERS:
+        raise ValueError(f"expected {N_VC_TIMERS} timer slots, got {len(vals)}")
+    return {name: (vals[k] / 1e6, vals[n + k]) for k, name in enumerate(VC_PHASE_NAMES)}
+
+
+def fused_vcycle_phases(p, b, levels, cfg):
+    """:func:`fused_vcycle` through the instantiation with phase timers
+    (``nf_fused_vcycle_phases``), a measurement aid: CUDA tensors only, not
+    counted in ``LAUNCHES``.  Returns the cycle's output and
+    :func:`decode_vcycle_phases` of its timers (after a synchronise)."""
+    timers = torch.zeros(N_VC_TIMERS, dtype=torch.int64, device=p.device)
+    out = _vc_launch(p, b, levels, cfg, timers)
+    return out, decode_vcycle_phases(timers.cpu())
 
 
 def galerkin_levels_plain(fine_st: Stencil9, shapes, fine_five: bool):
