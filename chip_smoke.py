@@ -11,16 +11,18 @@ result line:
 2. the kernel build: ``nvcc`` compiles ``naviflow_tpu_torch/csrc/*.cu`` for
    sm_90a from the checkout, one process per source; ptxas's registers and
    spills of K6's, K3's and K9's kernels, the thread-block cluster size each
-   K6 body and K3 launch with, and one cluster barrier's time
-   (``nf_cluster_sync_probe``);
+   K6 body, K3, K5 and K7 launch with, and one cluster barrier's time at
+   each size (``nf_cluster_sync_probe``);
 3. each kernel against its plain PyTorch version on the card, with the
    tolerance of the JAX package's test of that kernel and both times (CUDA
    events, turns plain / kernel / kernel / plain): K1, K2 and K3 at the
    shapes the 1024^2 path gives them, and K1 again at 4096^2 with the
-   bounds the lagged carry gives steps 1 and 2; K7 on the u and v systems of a 63^2
-   cavity state (maxiter 3 and 20); K4 on 63^2 and 255^2 vertex
-   hierarchies; K5 on the 63^2 hierarchy at the headline configuration and
-   at tolerance 1e-4 / 30 cycles; K6 over 3 chained 63^2 steps from rest
+   bounds the lagged carry gives steps 1 and 2; K7 on the u and v systems
+   of a 63^2 cavity state (maxiter 3 and 20) and of a 255^2 one (maxiter
+   20); K4 on 63^2 and 255^2 vertex hierarchies; K5 on the 63^2 hierarchy
+   at the headline configuration and at tolerance 1e-4 / 30 cycles, and on
+   a 255^2 vertex and a 256^2 cell-centred hierarchy at the headline
+   configuration; K6 over 3 chained 63^2 steps from rest
    and one 255^2 step; K3 on the 63^2 -> 7^2 vertex hierarchy; K8 at 2048^2
    (plain, with the Gershgorin maxima, and with each Poisson fold); K9 on
    the u and v systems of a 2048^2 cavity state (degree 4); K6's simplec,
@@ -29,10 +31,10 @@ result line:
    63^2 (1 and 3 sweeps) and 256^2, K11b at 63^2, 256^2 and 48 x 96 with a
    cuSPARSE SpMV of the same operator beside it.  Every kernel's CUDA-event
    time, its device time (``device_ms``: events around launches queued
-   behind a device-side sleep) and, for K3, K6, K9 and K11b, the host's
-   time per call; beside them the time of one grid-wide barrier at each
-   cooperative kernel's grid size (K4, K5, K7) and the cluster-barrier
-   bound (K3, K6); then K6's phase split (``nf_fused_outer_step_phases``)
+   behind a device-side sleep) and, for K3, K5, K6, K7, K9 and K11b, the
+   host's time per call; beside them the time of one grid-wide barrier at
+   K4's grid size and the cluster-barrier bound (K3, K5, K6, K7); then
+   K6's phase split (``nf_fused_outer_step_phases``)
    for each body over 20 chained 63^2 steps, and K3's
    (``nf_fused_vcycle_phases``) on the 256^2 tail and the 63^2 vertex
    hierarchy over 20 calls;
@@ -56,6 +58,9 @@ result line:
 6. the FMG run: the same case with ``cycle_type='fmg'`` (which the K6 gate
    refuses) for 40 steps: launches K7 = 80, K5 = 40, K4 = 1 + 5 refreshes,
    nothing else; residual finite, falling, within 5% of the composed run;
+   the step's split (``fmg_split``: host and device ms per step of K7, K5,
+   K4 and the composed FMG bootstrap, and the rest of the host's time) and
+   the device's idle share over 8 steps (``profile_window``);
 7. the 2048^2 large-grid path: SIMPLEC (20 steps), PISO, SIMPLER and SIMPLE
    with the bench's BiCGSTAB momentum (10 steps each) at Re=100 with the
    bench's large-grid configuration, with the kernels and composed: launches
@@ -82,11 +87,14 @@ result line:
 
 Then a JSON line with every kernel's launches, error, times and bound, the
 card's name and power limit, and, last, ``{"ok": true, "device": {...}}``.
-Needs no network and no JAX; there is no CPU path.
+Needs no network and no JAX; there is no CPU path.  With ``--ab TAG`` it
+runs one side of an A/B of K7 and K5 between two trees instead
+(``ab_side``).
 """
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import math
 import subprocess
@@ -265,10 +273,9 @@ def k6_barriers(algo, cfg, meta, pres, k_total, cycles, psolves):
 
 
 class Barriers:
-    """Counts the grid-wide barriers of the device code in csrc/coop.cuh,
-    krylov.cuh and mg.cuh, pass by pass (NF_PASS: a pass over <= 1,024
-    cells runs in block 0 alone and owes one barrier before the next
-    grid-wide pass)."""
+    """Counts the grid-wide barriers of K4's cooperative launch (csrc/coop.cuh,
+    mg.cuh), pass by pass (NF_PASS: a pass over <= 1,024 cells runs in block
+    0 alone and owes one barrier before the next grid-wide pass)."""
 
     SMALL = 1024
 
@@ -286,42 +293,9 @@ class Barriers:
             self.settle()
             self.n += 1
 
-    def grid(self, k=1):  # grid passes and reductions: one barrier each
-        self.settle()
-        self.n += k
-
-    def smooth(self, cells, five, sweeps):
-        for _ in range(sweeps * (2 if five else 4)):
-            self.pass_(cells)
-
-    def vcycle(self, meta, cfg):
-        cells = [a * b for (a, b), _ in meta]
-        fives = [five for _, five in meta]
-        for lvl in range(len(cells) - 1):
-            self.smooth(cells[lvl], fives[lvl], cfg.pre_smoothing)
-            self.pass_(cells[lvl + 1])
-        self.smooth(cells[-1], fives[-1], cfg.coarsest_sweeps)
-        for lvl in range(len(cells) - 2, -1, -1):
-            self.pass_(cells[lvl])
-            self.smooth(cells[lvl], fives[lvl], cfg.post_smoothing)
-
-    def mg_solve(self, meta, cfg, cycles, mean_normalize=True):
-        self.grid()  # ||b||
-        for _ in range(cycles // cfg.check_every):
-            for _ in range(cfg.check_every):
-                self.vcycle(meta, cfg)
-            self.grid()  # residual norm
-        self.settle()
-        if mean_normalize:
-            self.grid(2)  # mean, subtract
-        self.grid()  # final residual
-
     def rap(self, meta):
         for (a, b), _ in meta[1:]:
             self.pass_(a * b)
-
-    def bicgstab(self, iterations):
-        self.grid(3 + 5 * iterations)
 
 
 # ---------------------------------------------------------------------------
@@ -601,10 +575,10 @@ def check_strips(dev, levels, cfg, rng):
     return rows
 
 
-def k3_barriers(meta, cfg):
-    """The cluster barriers of one K3 launch (csrc/vcycle.cuh): one after
-    the input copy; per level in global memory (level 0 and the levels of
-    more than 1,024 cells) one per colour pass of its pre- and
+def vcycle_barriers(meta, cfg):
+    """The cluster barriers of one V-cycle of K3 and K5 (csrc/vcycle.cuh
+    ``nf_vc_passes``): per level in global memory (level 0 and the levels
+    of more than 1,024 cells) one per colour pass of its pre- and
     post-smoothing, one after the restriction below it and one after the
     prolongation into it; then one after rank 0's shared-memory part where
     there are such levels, else one per colour pass of the coarsest
@@ -614,9 +588,29 @@ def k3_barriers(meta, cfg):
     colors = [2 if five else 4 for _, five in meta]
     first, _ = mg.vcycle_layout([shp for shp, _ in meta])
     top = min(first, len(meta) - 1)
-    n = 1 + sum((cfg.pre_smoothing + cfg.post_smoothing) * colors[lvl] + 2
-                for lvl in range(top))
+    n = sum((cfg.pre_smoothing + cfg.post_smoothing) * colors[lvl] + 2 for lvl in range(top))
     return n + (1 if first < len(meta) else cfg.coarsest_sweeps * colors[-1])
+
+
+def k3_barriers(meta, cfg):
+    """One K3 launch: the barrier after the input copy, then the cycle's."""
+    return 1 + vcycle_barriers(meta, cfg)
+
+
+def k5_barriers(meta, cfg, cycles, mean_normalize=True):
+    """One K5 launch (``nf_vc_mg_solve``): the first barrier (its wait
+    before the first reduction) and ||b||'s reduction; the cycles' and one
+    reduction per check; the mean's reduction and the barrier after its
+    subtraction; the last barrier."""
+    checks = cycles // cfg.check_every
+    return 2 + cycles * vcycle_barriers(meta, cfg) + checks + 2 * int(mean_normalize) + 1
+
+
+def k7_barriers(iterations):
+    """One launch of K7's band kernel (csrc/krylov.cu): the first barrier
+    and the setup's reduction, three reductions an iteration, the last
+    barrier."""
+    return 3 + 3 * iterations
 
 
 def vcycle_row(p, b, levels, cfg, cl_ms, **extra):
@@ -709,33 +703,48 @@ def odd_inputs(n, dev, steps):
     return dict(u=u, v=v, cu=cu, cv=cv, levels=levels, b=b, pres=pres)
 
 
-def check_bicgstab(inp, sync_ms):
-    """K7 on the u and v systems, maxiter 3 and 20: 1e-4 of the field
-    (tests/test_pallas.py's K7 tolerance)."""
+def check_bicgstab(inputs, cl_ms, sync_ms):
+    """K7 on the u and v systems of each ``(n, odd_inputs)``, maxiter 3 and
+    20 at 63^2 and 20 above: 1e-4 of the field (tests/test_pallas.py's K7
+    tolerance).  ``cl_ms``: one cluster barrier's time at K7's size (the
+    band kernel's bound); ``sync_ms(cells)``: one grid barrier's (the
+    cooperative grid kernel's, larger fields)."""
     from naviflow_tpu_torch.ops import krylov
 
     rows = []
-    for field in ("u", "v"):
-        x0, c = inp[field], inp["c" + field]
-        n = x0.numel()
-        for maxiter in (3, 20):
-            got = krylov.bicgstab_momentum(x0, c, tol=1e-6, maxiter=maxiter)
-            with count_applies() as applies:
-                want = krylov.bicgstab_momentum_plain(x0, c, tol=1e-6, maxiter=maxiter)
-            torch_sync()
-            iters = (applies[0] - 1) // 2
-            a, r = max_err(got, want)
-            ms, plain_ms, dev_ms = time_pair(
-                lambda: krylov.bicgstab_momentum_plain(x0, c, tol=1e-6, maxiter=maxiter),
-                lambda: krylov.bicgstab_momentum(x0, c, tol=1e-6, maxiter=maxiter))
-            bar = Barriers()
-            bar.bicgstab(iters)
-            rows.append(dict(name="bicgstab_momentum", field=field, shape=list(x0.shape),
-                             maxiter=maxiter, iterations=iters, ok=r < 1e-4, max_abs_err=a,
-                             rel_err=r, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
-                             work=bicgstab_work(n, iters),
-                             grid_barriers=bar.n, barrier_bound_ms=bar.n * sync_ms(n),
-                             main=maxiter == 20))
+    for n, inp in inputs:
+        for field in ("u", "v"):
+            x0, c = inp[field], inp["c" + field]
+            for maxiter in ((3, 20) if n == NH else (20,)):
+                def kernel(x0=x0, c=c, maxiter=maxiter):
+                    return krylov.bicgstab_momentum(x0, c, tol=1e-6, maxiter=maxiter)
+
+                def plain(x0=x0, c=c, maxiter=maxiter):
+                    return krylov.bicgstab_momentum_plain(x0, c, tol=1e-6, maxiter=maxiter)
+
+                got = kernel()
+                with count_applies() as applies:
+                    want = plain()
+                torch_sync()
+                iters = (applies[0] - 1) // 2
+                a, r = max_err(got, want)
+                ms, plain_ms, dev_ms = time_pair(plain, kernel)
+                _, band, smem = krylov.band_layout(tuple(x0.shape),
+                                                   krylov.cluster_size(x0.device))
+                row = dict(name="bicgstab_momentum", field=field, shape=list(x0.shape),
+                           maxiter=maxiter, iterations=iters,
+                           kernel="cluster" if band else "grid", smem_bytes=smem,
+                           ok=r < 1e-4, max_abs_err=a, rel_err=r, ms=ms, plain_ms=plain_ms,
+                           device_ms=dev_ms, host_ms=host_ms(kernel),
+                           work=bicgstab_work(x0.numel(), iters),
+                           main=n == NH and maxiter == 20)
+                if band:
+                    bar = k7_barriers(iters)
+                    row.update(cluster_barriers=bar, barrier_bound_ms=bar * cl_ms)
+                else:
+                    bar = 3 + 5 * iters  # krylov.cuh: 3 in the setup, 5 an iteration
+                    row.update(grid_barriers=bar, barrier_bound_ms=bar * sync_ms(x0.numel()))
+                rows.append(row)
     return rows
 
 
@@ -770,38 +779,56 @@ def check_rap(hier, sync_ms):
     return rows
 
 
-def check_mg_solve(inp, sync_ms):
-    """K5 at the headline configuration and at tolerance 1e-4 / 30 cycles:
-    equal cycle counts, p within 1e-4, rel within 1e-5 (tests/test_pallas.py's
-    K5 tolerances)."""
-    import dataclasses
+def even_hierarchy(n, dev, cfg):
+    """A cell-centred n^2 hierarchy (5-point level 0, composed Galerkin
+    levels) from seeded d-fields, and a seeded zero-mean right-hand side."""
+    import numpy as np
+    import torch
 
+    from naviflow_tpu_torch.solvers.multigrid import build_levels
+
+    rng = np.random.default_rng(SEED + 2)
+    d_u = torch.as_tensor(rng.uniform(0.5, 1.5, (n + 1, n)), dtype=torch.float32, device=dev)
+    d_v = torch.as_tensor(rng.uniform(0.5, 1.5, (n, n + 1)), dtype=torch.float32, device=dev)
+    levels = build_levels(d_u, d_v, cfg, dx=1.0 / n, dy=1.0 / n, rho=1.0, variant="consistent")
+    b = torch.as_tensor(rng.normal(size=(n, n)), dtype=torch.float32, device=dev)
+    return levels, b - b.mean()
+
+
+def check_mg_solve(cases, cl_ms):
+    """K5 on each ``(label, levels, b, configs)``: equal cycle counts, p
+    within 1e-4, rel within 1e-5 (tests/test_pallas.py's K5 tolerances).
+    ``cl_ms``: one cluster barrier's time at K5's size."""
     import torch
 
     from naviflow_tpu_torch.ops import mg
 
-    levels, b = inp["levels"], inp["b"]
-    meta = meta_of(levels)
     rows = []
-    for cfg in (inp["pres"], dataclasses.replace(inp["pres"], tolerance=1e-4, max_cycles=30)):
-        p0 = torch.zeros_like(b)
-        p, r, cyc, rel = mg.fused_mg_solve(p0, b, levels, cfg)
-        pw, rw, cycw, relw = mg.fused_mg_solve_plain(p0, b, levels, cfg)
-        torch_sync()
-        a, e = max_err(p, pw)
-        cycles = int(cycw)
-        ok = int(cyc) == cycles and e < 1e-4 and abs(float(rel) - float(relw)) < 1e-5
-        ms, plain_ms, dev_ms = time_pair(lambda: mg.fused_mg_solve_plain(p0, b, levels, cfg),
-                                 lambda: mg.fused_mg_solve(p0, b, levels, cfg))
-        bar = Barriers()
-        bar.mg_solve(meta, cfg, cycles)
-        rows.append(dict(name="fused_mg_solve", shape=list(b.shape), tolerance=cfg.tolerance,
-                         max_cycles=cfg.max_cycles, cycles=int(cyc), cycles_plain=cycles,
-                         rel=float(rel), rel_plain=float(relw), ok=ok, max_abs_err=a,
-                         rel_err=e, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
-                         work=mg_solve_work(meta, cfg, cycles), grid_barriers=bar.n,
-                         barrier_bound_ms=bar.n * sync_ms(b.numel()),
-                         main=cfg.tolerance == inp["pres"].tolerance))
+    for label, levels, b, cfgs in cases:
+        meta = meta_of(levels)
+        for cfg in cfgs:
+            p0 = torch.zeros_like(b)
+
+            def kernel(cfg=cfg, p0=p0):
+                return mg.fused_mg_solve(p0, b, levels, cfg)
+
+            p, r, cyc, rel = kernel()
+            pw, rw, cycw, relw = mg.fused_mg_solve_plain(p0, b, levels, cfg)
+            torch_sync()
+            a, e = max_err(p, pw)
+            cycles = int(cycw)
+            ok = int(cyc) == cycles and e < 1e-4 and abs(float(rel) - float(relw)) < 1e-5
+            ms, plain_ms, dev_ms = time_pair(
+                lambda cfg=cfg, p0=p0: mg.fused_mg_solve_plain(p0, b, levels, cfg), kernel)
+            bar = k5_barriers(meta, cfg, cycles)
+            rows.append(dict(name="fused_mg_solve", hierarchy=label, shape=list(b.shape),
+                             levels=[m[0][0] for m in meta], tolerance=cfg.tolerance,
+                             max_cycles=cfg.max_cycles, cycles=int(cyc), cycles_plain=cycles,
+                             rel=float(rel), rel_plain=float(relw), ok=ok, max_abs_err=a,
+                             rel_err=e, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                             host_ms=host_ms(kernel), work=mg_solve_work(meta, cfg, cycles),
+                             cluster_barriers=bar, barrier_bound_ms=bar * cl_ms,
+                             main=label == "vertex63" and cfg is cfgs[0]))
     return rows
 
 
@@ -1525,30 +1552,12 @@ def queued_segments(sleeps=None, ops=128):
     return Segments()
 
 
-def profile_window(run, steps):
-    """The device's idle share over ``run()`` (``steps`` outer steps, warmed
-    up by one call before): the window is the host clock over one run; the
-    busy time is the same run's device time, replayed in segments behind
-    device-side sleeps (``queued_segments``): a first replay times the
-    host's enqueueing of each segment, a second sleeps three times that
-    plus 2 ms before each and sums the segments' spans; ``idle_share`` = 1 -
-    busy / window.  Where a segment's enqueue outlasted its sleep all the
-    same, its span holds at most that overrun of waiting (``overrun_ms``,
-    the sum): the busy time lies between ``device_busy_ms - overrun_ms`` and
-    ``device_busy_ms``.  Beside it, from a fourth run under ``torch.profiler``, the
-    profiler's sum of device-side kernel time (``profiler_busy_ms``, which
-    missed launches on the H100) and its idle share over its own window
-    (the profiler's host overhead lengthens it), and the kernels by that
-    time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    run()  # warm-up (the first use of a dispatch mode also loads modules)
-    with queued_segments():
-        run()
-    torch_sync()
-    t0 = time.perf_counter()
-    run()
-    window_ms = (time.perf_counter() - t0) * 1e3
+def device_busy(run):
+    """The device time of ``run()``, replayed in segments behind device-side
+    sleeps (``queued_segments``): a first replay times the host's enqueueing
+    of each segment, a second sleeps three times that plus 2 ms before each
+    and sums the segments' spans.  Returns ``(busy_ms, spans)``, the spans as
+    ``(device ms, host enqueue ms, sleep ms)``."""
     first = queued_segments()
     with first:
         run()
@@ -1558,7 +1567,31 @@ def profile_window(run, steps):
         run()
     torch_sync()
     spans = [(start.elapsed_time(end), host, sleep) for start, end, host, sleep in seg.spans]
-    busy = sum(span for span, _, _ in spans)
+    return sum(span for span, _, _ in spans), spans
+
+
+def profile_window(run, steps):
+    """The device's idle share over ``run()`` (``steps`` outer steps, warmed
+    up by one call before): the window is the host clock over one run; the
+    busy time is the same run's device time (``device_busy``);
+    ``idle_share`` = 1 - busy / window.  Where a segment's enqueue
+    outlasted its sleep all the same, its span holds at most that overrun of
+    waiting (``overrun_ms``, the sum): the busy time lies between
+    ``device_busy_ms - overrun_ms`` and ``device_busy_ms``.  Beside it, from
+    a fourth run under ``torch.profiler``, the profiler's sum of device-side
+    kernel time (``profiler_busy_ms``, which missed launches on the H100)
+    and its idle share over its own window (the profiler's host overhead
+    lengthens it), and the kernels by that time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # warm-up (the first use of a dispatch mode also loads modules)
+    with queued_segments():
+        run()
+    torch_sync()
+    t0 = time.perf_counter()
+    run()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    busy, spans = device_busy(run)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -1568,7 +1601,6 @@ def profile_window(run, steps):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(steps=steps, window_ms=window_ms, device_busy_ms=busy,
                 idle_share=1.0 - busy / window_ms, segments=len(spans),
-                segments_first_replay=len(first.spans),
                 segments_over_sleep=sum(host >= sleep for _, host, sleep in spans),
                 overrun_ms=sum(max(host - sleep, 0.0) for _, host, sleep in spans),
                 max_segment_ms=max(span for span, _, _ in spans),
@@ -1630,6 +1662,66 @@ def run_headline(dev):
                     lambda: solve_headline(dev, "auto", 0.0, max_iterations=20), 20), ok=ok)
 
 
+@contextlib.contextmanager
+def fmg_parts():
+    """Time the parts of the 63^2 FMG step on the host, and keep their
+    arguments: K7 (``solvers.momentum.bicgstab_momentum``), K5 and K4 (the
+    names ``solvers.multigrid`` calls) and the composed FMG bootstrap
+    (``multigrid._fmg``).  Yields ``{part: [host ms, calls, [args, ...]]}``
+    (the host clock inside each call, which enqueues and does not wait)."""
+    from naviflow_tpu_torch.solvers import momentum, multigrid
+
+    parts, saved = {}, []
+    for module, name, part in ((momentum, "bicgstab_momentum", "K7"),
+                               (multigrid, "fused_mg_solve", "K5"),
+                               (multigrid, "galerkin_levels", "K4"),
+                               (multigrid, "_fmg", "fmg_bootstrap")):
+        real = getattr(module, name)
+        entry = parts[part] = [0.0, 0, []]
+
+        def timed(*a, _real=real, _entry=entry, **k):
+            t0 = time.perf_counter()
+            out = _real(*a, **k)
+            _entry[0] += (time.perf_counter() - t0) * 1e3
+            _entry[1] += 1
+            _entry[2].append((a, k))
+            return out
+
+        setattr(module, name, timed)
+        saved.append((module, name, real))
+    try:
+        yield parts
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+
+
+def fmg_split(dev, steps=FMG_STEPS, replayed=8):
+    """Where a 63^2 FMG step's time goes: one kernel run of ``steps`` steps
+    with ``fmg_parts`` (host ms per step inside K7's, K5's and K4's wrappers
+    and the composed bootstrap, and the rest: the host clock of the run
+    less those), then the device ms per step of each part from its
+    recorded calls replayed behind device-side sleeps (``device_busy``; the
+    bootstrap from its first ``replayed`` calls)."""
+    from naviflow_tpu_torch.ops import krylov, mg
+    from naviflow_tpu_torch.solvers import multigrid
+
+    with fmg_parts() as parts:
+        _, _, wall = solve_headline(dev, "auto", 0.0, cycle_type="fmg", max_iterations=steps)
+    wall_ms = wall * 1e3 / steps
+    calls = {"K7": krylov.bicgstab_momentum, "K5": mg.fused_mg_solve,
+             "K4": mg.galerkin_levels, "fmg_bootstrap": multigrid._fmg}
+    out = {}
+    for part, (host, n, args) in parts.items():
+        fn = calls[part]
+        kept = args[:replayed] if part == "fmg_bootstrap" else args
+        busy, _ = device_busy(lambda: [fn(*a, **k) for a, k in kept])
+        out[part] = dict(calls_per_step=n / steps, host_ms_per_step=host / steps,
+                         device_ms_per_step=busy / len(kept) * n / steps if kept else 0.0)
+    rest = wall_ms - sum(v["host_ms_per_step"] for v in out.values())
+    return dict(ms_per_step=wall_ms, parts=out, rest_host_ms_per_step=rest)
+
+
 def run_fmg(dev):
     import torch
 
@@ -1648,11 +1740,15 @@ def run_fmg(dev):
     refreshes = math.ceil(FMG_STEPS / 8)
     want = only(bicgstab_momentum=2 * FMG_STEPS, fused_mg_solve=FMG_STEPS,
                 galerkin_levels=1 + refreshes)
+    profile_steps = 8
     return dict(phase="fmg", grid=NH, steps=FMG_STEPS, launches=launches,
                 launches_expected=want, residual_kernel=res_k, residual_composed=res_c,
                 residual_gap=gap, residual_first=float(hist[0]), residual_last=float(hist[-1]),
                 finite=finite, falling=falling, ms_per_step_kernel=wall_k * 1e3 / FMG_STEPS,
-                ms_per_step_composed=wall_c * 1e3 / FMG_STEPS,
+                ms_per_step_composed=wall_c * 1e3 / FMG_STEPS, split=fmg_split(dev),
+                profile=profile_window(
+                    lambda: solve_headline(dev, "auto", 0.0, cycle_type="fmg",
+                                           max_iterations=profile_steps), profile_steps),
                 ok=launches == want and finite and falling and gap <= 0.05)
 
 
@@ -2016,6 +2112,44 @@ def kernels_line(rows, paths):
     return out
 
 
+def ab_side(dev, tag, sizes=(NH, 95, 127, NH_BIG, 511)):
+    """One side of an A/B of K7 and K5 between two trees, through the tree's
+    own wrappers: K7 on each n^2 cavity's u and v systems (``odd_inputs``
+    from rest, maxiter 20), K5 on the 63^2 and 255^2 vertex hierarchies of
+    the same states and on the 256^2 cell-centred one (the headline
+    configuration); device and event times and the error against the plain
+    version.  Run it in turns A, B, B, A, each from a tree's root:
+    ``PYTHONPATH=. python3 -P <this file> --ab TAG`` (``-P``: the tree on
+    PYTHONPATH, not this file's directory, supplies the package)."""
+    import torch
+
+    from naviflow_tpu_torch.ops import krylov, mg
+
+    def row(fn, plain, **key):
+        got, want = fn(), plain()
+        got, want = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+        a, r = max_err(got, want)
+        emit(dict(phase="ab", tag=tag, **key, max_abs_err=a, rel_err=r, ms=time_ms(fn),
+                  device_ms=device_ms(fn), device_ms_again=device_ms(fn)))
+
+    for n in sizes:
+        inp = odd_inputs(n, dev, steps=0)
+        for field in ("u", "v"):
+            x0, c = inp[field], inp["c" + field]
+            row(lambda: krylov.bicgstab_momentum(x0, c, tol=1e-6, maxiter=20),
+                lambda: krylov.bicgstab_momentum_plain(x0, c, tol=1e-6, maxiter=20),
+                kernel="K7", n=n, field=field, shape=list(x0.shape))
+        if n in (NH, NH_BIG):
+            cases = [(f"vertex{n}", inp["levels"], inp["b"])]
+            if n == NH_BIG:
+                cases.append(("cell256", *even_hierarchy(256, dev, inp["pres"])))
+            for label, levels, b in cases:
+                p0 = torch.zeros_like(b)
+                row(lambda: mg.fused_mg_solve(p0, b, levels, inp["pres"]),
+                    lambda: mg.fused_mg_solve_plain(p0, b, levels, inp["pres"]),
+                    kernel="K5", hierarchy=label)
+
+
 def main() -> int:
     try:
         import torch
@@ -2041,25 +2175,29 @@ def main() -> int:
     emit(dict(phase="device", nvidia_smi=card, torch=torch.__version__,
               cuda=torch.version.cuda, python=sys.version.split()[0],
               name=torch.cuda.get_device_name(0), count=torch.cuda.device_count()))
+    if sys.argv[1:2] == ["--ab"]:
+        ab_side(dev, sys.argv[2] if len(sys.argv) > 2 else "")
+        return 0
 
     t0 = time.perf_counter()
     _cuda.library()
-    from naviflow_tpu_torch.ops import step
-
-    from naviflow_tpu_torch.ops import mg
+    from naviflow_tpu_torch.ops import krylov, mg, step
 
     clusters = {algo: step.cluster_size(algo, dev) for algo in step.ALGO_SCALARS}
-    # ptxas's report of K6's, K3's and K9's kernels: registers, spills,
-    # shared memory
+    k3_size, k5_size = mg.vcycle_cluster_size(dev), mg.mg_solve_cluster_size(dev)
+    k7_size = krylov.cluster_size(dev)
+    # ptxas's report of K6's, K3's, K5's, K7's and K9's kernels: registers,
+    # spills, shared memory
     ptxas = {src: [line.strip() for line in _cuda.build_log.get(src, "").splitlines()
                    if "registers" in line or "spill" in line]
-             for src in ("step.cu", "mg.cu", "cheby.cu")}
+             for src in ("step.cu", "mg.cu", "krylov.cu", "cheby.cu")}
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=_cuda.build_seconds, library=_cuda.library_path().name,
-              k6_cluster_size=clusters, k3_cluster_size=mg.vcycle_cluster_size(dev),
-              cluster_threads_per_cta=512, ptxas=ptxas))
-    # one cluster barrier at K6's size (its bound's unit) and at 8 CTAs
-    cl_by_size = {size: cluster_sync_ms(size, dev) for size in sorted({8, clusters["simple"]})}
+              k6_cluster_size=clusters, k3_cluster_size=k3_size, k5_cluster_size=k5_size,
+              k7_cluster_size=k7_size, cluster_threads_per_cta=512, ptxas=ptxas))
+    # one cluster barrier at each kernel's size (its bound's unit) and at 8
+    cl_by_size = {size: cluster_sync_ms(size, dev)
+                  for size in sorted({8, clusters["simple"], k3_size, k5_size, k7_size})}
     cl_ms = cl_by_size[clusters["simple"]]
     emit(dict(phase="cluster_barrier", cluster_size=clusters["simple"], ms=cl_ms,
               ms_by_size={str(k): v for k, v in cl_by_size.items()}))
@@ -2075,15 +2213,22 @@ def main() -> int:
     rows = check_asmcheby(dev)
     levels, cfg, rng = fine_levels(dev)
     rows += check_strips(dev, levels, cfg, rng)
-    row, tail = check_vcycle(dev, levels, cfg, rng, cl_ms)
+    row, tail = check_vcycle(dev, levels, cfg, rng, cl_by_size[k3_size])
     rows.append(row)
     del levels
     inp = odd_inputs(NH, dev, steps=5)
     big = odd_inputs(NH_BIG, dev, steps=0)
-    rows += check_bicgstab(inp, sync_ms)
+    rows += check_bicgstab([(NH, inp), (NH_BIG, big)], cl_by_size[k7_size], sync_ms)
     rows += check_rap([(NH, inp["levels"]), (NH_BIG, big["levels"])], sync_ms)
-    rows += check_mg_solve(inp, sync_ms)
-    rows.append(check_vertex_vcycle(inp, cl_ms))
+    pres = inp["pres"]
+    even_levels, even_b = even_hierarchy(256, dev, pres)
+    rows += check_mg_solve(
+        [("vertex63", inp["levels"], inp["b"],
+          (pres, dataclasses.replace(pres, tolerance=1e-4, max_cycles=30))),
+         ("vertex255", big["levels"], big["b"], (pres,)),
+         ("cell256", even_levels, even_b, (pres,))], cl_by_size[k5_size])
+    del even_levels, even_b
+    rows.append(check_vertex_vcycle(inp, cl_by_size[k3_size]))
     rows += check_step(dev, cl_ms)
     del big
     rows += check_step_bodies(dev, cl_ms)

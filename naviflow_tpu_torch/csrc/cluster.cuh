@@ -25,7 +25,7 @@
 //     which writes the CTA's partial into rank 0's shared memory; then one
 //     cluster barrier; then warp 0 of every CTA combines the partials in the
 //     same fixed order, so every steering scalar is bit-identical in every
-//     CTA (the partials ping-pong between two buffers, as coop.cuh's).  One
+//     CTA (the partials ping-pong between two buffers).  One
 //     partial per CTA: rank 0's shared memory serves few remote reads.
 // Every CTA ends with a cluster barrier: no CTA exits while another may
 // still read rank 0's shared memory.
@@ -69,6 +69,17 @@ __device__ __forceinline__ NfCluster nf_cluster(float* dyn) {
 
 __device__ __forceinline__ void nf_sync(NfCluster&) { cg::this_cluster().sync(); }
 __device__ __forceinline__ void nf_settle(NfCluster&) {}
+
+// The cluster barrier split in two, for the launch's first one: arrive at
+// the start (relaxed: it orders no memory access), wait just before the
+// first access to another CTA's shared memory, so that every CTA has
+// started by then and the wait costs little.  Every thread calls both.
+__device__ __forceinline__ void nf_cl_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void nf_cl_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
 
 // This CTA's sum of N double-single partials (one set per thread), in
 // warp 0: each warp's by shuffles, then the warps' by shuffles in warp 0.
@@ -234,8 +245,10 @@ __device__ inline void nf_cl_levels(const NfMG& M, int Ls, float* dyn, NfLevel* 
   }
 }
 
-// One colour of Gauss-Seidel over the cells of that colour only (the update
-// of nf_smooth_pass: same-colour cells are never neighbours).
+// One colour of Gauss-Seidel over the cells of that colour only, in place
+// (same-colour cells are never neighbours, so this is a true GS update):
+// x += omega ((rhs - offdiag) / diag - x), colour (i + j) & 1 on 5-point
+// levels, ((i & 1) << 1) | (j & 1) on 9-point ones.
 __device__ inline void nf_cl_color_pass(const NfLevel& L, int color, float omega, int start,
                                         int stride) {
   int n, half = 0, oi = 0, oj = 0, cj = 0;
@@ -320,8 +333,8 @@ __device__ inline void nf_cl_coarse(const NfMG& M, const NfLevel* lv, int Ls, fl
   }
 }
 
-// One V-cycle from level 0 (mg.cuh's nf_vcycle, the same passes in the same
-// order): the global levels over the cluster, the shared-memory levels
+// One V-cycle from level 0 (mg.cuh's passes in the plain cycle's order): the
+// global levels over the cluster, the shared-memory levels
 // Ls..L-1 in rank 0 alone.  The two sides of the coarse part are stamped
 // as the multigrid's fine and coarse phases.
 template <bool PH>
@@ -349,12 +362,12 @@ __device__ void nf_cl_vcycle(NfCluster& C, const NfMG& M, const NfLevel* lv, int
   }
 }
 
-// The whole solve (mg.cuh's nf_mg_solve over the cluster): from level 0's
-// iterate, `check_every` V-cycles per check until cycles >= max_cycles or
-// ||b - A p|| / ||b|| < tol (compensated norms), the mean removed when
-// `mean_normalize`, the final residual into r.  `scratch`: rank 0's
-// residual scratch.  Returns the cycle count
-// (the same in every CTA).
+// K6's multigrid solve (the loop of solvers/multigrid.multigrid_solve):
+// from level 0's iterate, `check_every` V-cycles per check until cycles >=
+// max_cycles or ||b - A p|| / ||b|| < tol (compensated norms), the mean
+// removed when `mean_normalize`, the final residual into r.  `scratch`:
+// rank 0's residual scratch.  Returns the cycle count (the same in every
+// CTA).
 template <bool PH>
 __device__ int nf_cl_mg_solve(NfCluster& C, const NfMG& M, const NfLevel* lv, int Ls,
                               float* scratch, float* r, int max_cycles, int check_every,

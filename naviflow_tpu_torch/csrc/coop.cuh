@@ -1,21 +1,24 @@
-// Cooperative-launch helpers shared by the whole-algorithm kernels (K3-K7).
+// Cooperative-launch helpers of K4 (nf_galerkin_levels) and of K7's
+// large-field kernel (krylov.cu), and the reduction slot count and
+// NaN-keeping maximum that cluster.cuh's reductions share.
 //
 // A kernel of this family runs as one cooperative launch of as many blocks
 // as fit on the SMs at once.  Its work is a sequence of passes; a pass over
-// more than NF_SMALL_CELLS cells loops over them with a grid stride and ends
-// in a grid-wide barrier (cooperative_groups grid.sync()), a pass over a
-// smaller level runs in block 0 alone between __syncthreads() and the other
-// blocks go on to the next barrier (`pending` records that one is owed).
+// more than NF_SMALL_CELLS cells loops over them with a grid stride and
+// ends in a grid-wide barrier (cooperative_groups grid.sync()), a pass over
+// a smaller level runs in block 0 alone between __syncthreads() and the
+// other blocks go on to the next barrier (`pending` records that one is
+// owed).  The grid-sync probe (mg.cu) times one such barrier.
 //
-// Grid-uniform control flow: the data-dependent loops (BiCGSTAB's stopping
-// rule, the multigrid check loop) must take the same branch in every block,
-// or blocks leave a loop while others wait at a barrier.  So every scalar
-// that steers a loop comes from nf_grid_reduce: each block writes its
-// partial sums, one barrier, then every block combines all partials in the
-// same fixed order with the same instructions, and so holds bit-identical
-// scalars.  The partials live in a ping-pong pair of buffers: a block may
-// write the next reduction's partials while a slower block still reads the
-// last one's, never the same buffer.
+// Grid-uniform control flow: a data-dependent loop (BiCGSTAB's stopping
+// rule) must take the same branch in every block, or blocks leave the loop
+// while others wait at a barrier.  So every scalar that steers it comes
+// from nf_grid_reduce: each block writes its partial sums, one barrier,
+// then every block combines all partials in the same fixed order with the
+// same instructions, and so holds bit-identical scalars.  The partials live
+// in a ping-pong pair of buffers: a block may write the next reduction's
+// partials while a slower block still reads the last one's, never the same
+// buffer.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -128,52 +131,6 @@ __device__ void nf_grid_reduce(NfCoop& C, NfDS (&v)[N], float (&out)[N]) {
 // max(a, b) that keeps a NaN of either side (jnp.max propagates NaN).
 __device__ __forceinline__ float nf_max_nan(float a, float b) {
   return (b > a || b != b) ? b : a;
-}
-
-// The grid-wide maximum of N floats (one set per thread, NaN-propagating),
-// in the same ping-pong partial buffers as nf_grid_reduce; every thread of
-// every block returns the same N floats.  Every thread of the grid must call
-// it, after nf_settle; N <= NF_RED_SLOTS.  Ends with the grid in step.
-template <int N>
-__device__ void nf_grid_max(NfCoop& C, float (&v)[N], float (&out)[N]) {
-  __shared__ float warp_part[N][NF_THREADS / 32];
-  __shared__ float result[N];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    float a = v[k];
-    for (int off = 16; off > 0; off >>= 1) a = nf_max_nan(a, __shfl_down_sync(0xffffffffu, a, off));
-    if (lane == 0) warp_part[k][warp] = a;
-  }
-  __syncthreads();
-  float* buf = C.red + (size_t)C.phase * NF_RED_SLOTS * NF_MAX_BLOCKS;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float a = warp_part[k][0];
-      for (int w = 1; w < n_warps; ++w) a = nf_max_nan(a, warp_part[k][w]);
-      buf[(size_t)blockIdx.x * NF_RED_SLOTS + k] = a;
-    }
-  }
-  C.grid.sync();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float a = buf[k];  // block 0's partial
-      for (int b = lane; b < (int)gridDim.x; b += 32)
-        a = nf_max_nan(a, buf[(size_t)b * NF_RED_SLOTS + k]);
-      for (int off = 16; off > 0; off >>= 1)
-        a = nf_max_nan(a, __shfl_down_sync(0xffffffffu, a, off));
-      if (lane == 0) result[k] = a;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < N; ++k) out[k] = result[k];
-  __syncthreads();  // `result` and `warp_part` are reused by the next call
-  C.phase ^= 1;
-  C.pending = false;
 }
 
 // The context-generic names of the barrier and the sum (krylov.cuh's solve

@@ -1,5 +1,7 @@
-// Device code of the masked BiCGSTAB momentum solve (K7; the whole-step
-// kernel K6 calls it for both velocity fields).
+// Device code of the masked BiCGSTAB momentum solve: the whole-step kernel
+// K6 calls it for both velocity fields, over its cluster; K7 (krylov.cu)
+// for a field whose band does not fit its cluster kernel, over a
+// cooperative grid.
 //
 // The algebra, the breakdown guards and the stopping rule are those of
 // solvers/momentum._bicgstab_masked with compensated dots
@@ -13,11 +15,11 @@
 // Per iteration: five passes and five barriers (p; v = A p with (rhat, v);
 // s; t = A s with (t, t) and (t, s); x and r with (r, r) and (rhat, r)).
 // The solve is written once for both execution contexts: a cooperative grid
-// (NfCoop, coop.cuh: K7) and a thread-block cluster (NfCluster, cluster.cuh:
-// K6); each gives gtid / gstride, nf_sync, nf_reduce and nf_settle.
+// (NfCoop, coop.cuh) and a thread-block cluster (NfCluster, cluster.cuh);
+// each gives gtid / gstride, nf_sync, nf_reduce and nf_settle.
 #pragma once
 
-#include "coop.cuh"
+#include "cluster.cuh"
 
 struct NfKrylov {
   const float *ae, *aw, *an, *as, *ap, *src;  // relaxed system (StencilCoeffs)

@@ -7,20 +7,23 @@
 // K4 nf_galerkin_levels every Galerkin coarse stencil of a vertex
 //                       hierarchy; replaces pallas_mg.py:galerkin_levels_pallas.
 // K5 nf_fused_mg_solve  the whole solve: cycles, compensated convergence
-//                       checks, mean normalisation and residual; replaces
-//                       pallas_mg.py:fused_mg_solve.
+//                       checks, mean normalisation and residual, in one
+//                       thread-block cluster on K3's cycle (vcycle.cuh's
+//                       nf_vc_mg_solve); replaces pallas_mg.py:fused_mg_solve.
 //
-// Bound on the H100: a hierarchy the gate admits (<= 255^2 for K4/K5, the
-// 256^2 -> 4^2 tail for K3) holds at most ~8 MB, so it lives in the 50 MB
-// L2 and the kernels are bound by their dependent passes (one per colour,
-// residual, transfer and RAP level) and the barriers between them, not by
-// HBM.  K4 and K5 (coop.cuh): cooperative launches of as many blocks as fit
-// at once, grid-stride passes ending in grid.sync(), levels of <= 1,024
-// cells in block 0 alone, so the coarsest sweeps cost no grid barriers; the
-// convergence scalars of K5 come from nf_grid_reduce, identical in every
-// block, so every block takes the same number of cycles.  Level 0's iterate
-// is the output buffer; coarser iterates and right-hand sides of the levels
-// in global memory are scratch from the wrapper.
+// Bound on the H100: a hierarchy the gate admits (<= 255^2 vertex, 256^2
+// cell-centred for K4/K5, the 256^2 -> 4^2 tail for K3) holds at most
+// ~8 MB, so it lives in the 50 MB L2 and the kernels are bound by their
+// dependent passes (one per colour, residual, transfer and RAP level) and
+// the barriers between them, not by HBM.  K3 and K5: one cluster of 16
+// CTAs (8 where 16 do not fit) with hardware cluster barriers (0.71 us)
+// between the passes over the large levels, the levels of <= 1,024 cells
+// in rank 0's shared memory, the coarsest in one warp's registers.  K4
+// (coop.cuh): one cooperative launch of as many blocks as fit at once,
+// grid-stride passes ending in grid.sync(), levels of <= 1,024 cells in
+// block 0 alone.  Level 0's iterate is the output buffer; the iterates and
+// right-hand sides of the coarse levels in global memory are scratch from
+// the wrapper.
 
 #include "vcycle.cuh"
 
@@ -47,20 +50,26 @@ NfClusterCfg& vcycle_cfg() {
   return cfg;
 }
 
+// K5: the whole solve in one thread-block cluster (vcycle.cuh).
 struct SolveParams {
   NfMG M;
+  const float* p_in;
   float* r;
   int* cycles;
   float* rel;
-  float* red;
-  int max_cycles, check_every, mean_normalize;
+  int Ls, max_cycles, check_every, mean_normalize;
   float tol;
 };
 
-__global__ void __launch_bounds__(NF_THREADS) mg_solve_kernel(SolveParams P) {
-  NfCoop C = nf_coop(P.red);
-  nf_mg_solve(C, P.M, P.r, P.max_cycles, P.check_every, P.tol, P.mean_normalize != 0, P.cycles,
-              P.rel);
+__global__ void __launch_bounds__(NF_CL_THREADS, 1) mg_solve_kernel(SolveParams P) {
+  extern __shared__ __align__(16) float ms_dyn[];
+  nf_vc_mg_solve(P.M, P.Ls, P.p_in, P.r, P.max_cycles, P.check_every, P.tol,
+                 P.mean_normalize != 0, P.cycles, P.rel, ms_dyn);
+}
+
+NfClusterCfg& mg_solve_cfg() {
+  static NfClusterCfg cfg = {};
+  return cfg;
 }
 
 struct RapParams {
@@ -73,8 +82,7 @@ __global__ void __launch_bounds__(NF_THREADS) rap_kernel(RapParams P) {
   nf_galerkin_rap(C, P.lv, P.L);
 }
 
-// `n` grid-wide barriers and nothing else: the unit of K4's, K5's and K7's
-// bound.
+// `n` grid-wide barriers and nothing else: the unit of K4's bound.
 __global__ void __launch_bounds__(NF_THREADS) sync_probe_kernel(int n) {
   cg::grid_group grid = cg::this_grid();
   for (int i = 0; i < n; ++i) grid.sync();
@@ -94,6 +102,23 @@ int read_levels(NfMG& M, const long long* ptrs, const int* ip, int L) {
   return 0;
 }
 
+// The cycle parameters of K3's and K5's launches (NfVcIp; fp[0] omega) for
+// the levels read_levels read into M; the first level in shared memory,
+// checked against ip's, into *Ls, and the floats those levels take into
+// *small.
+int read_cycle(NfMG& M, const int* ip, const float* fp, int* Ls, int64_t* small) {
+  const int L = M.L;
+  M.pre = ip[VC_IP_PRE]; M.post = ip[VC_IP_POST]; M.coarsest = ip[VC_IP_COARSEST];
+  M.omega = fp[0];
+  int cells[NF_MAX_LEVELS];
+  *Ls = L;
+  for (int l = 0; l < L; ++l) cells[l] = M.lv[l].ni * M.lv[l].nj;
+  for (int l = L - 1; l >= 1 && cells[l] <= NF_SMALL_CELLS; --l) *Ls = l;
+  if (ip[VC_IP_LS] != *Ls) return (int)cudaErrorInvalidValue;
+  *small = nf_vc_smem_floats(cells, L, *Ls);
+  return 0;
+}
+
 }  // namespace
 
 // ptrs: per level 11 pointers (9 stencil pointers, 0 for absent corners;
@@ -108,18 +133,13 @@ template <bool PH>
 int launch_vcycle(const long long* ptrs, const int* ip, const float* fp, void* stream) {
   VcParams P = {};
   const int L = ip[VC_IP_L];
+  int64_t small = 0;
   int err = read_levels(P.M, ptrs, ip + VC_IP_LEVELS, L);
+  if (!err) err = read_cycle(P.M, ip, fp, &P.Ls, &small);
   if (err) return err;
-  P.M.pre = ip[VC_IP_PRE]; P.M.post = ip[VC_IP_POST]; P.M.coarsest = ip[VC_IP_COARSEST];
-  P.M.omega = fp[0];
-  int cells[NF_MAX_LEVELS], Ls = L;
-  for (int l = 0; l < L; ++l) cells[l] = P.M.lv[l].ni * P.M.lv[l].nj;
-  for (int l = L - 1; l >= 1 && cells[l] <= NF_SMALL_CELLS; --l) Ls = l;
-  if (ip[VC_IP_LS] != Ls) return (int)cudaErrorInvalidValue;
-  P.Ls = Ls;
   P.p_in = reinterpret_cast<const float*>(ptrs[11 * L]);
   P.ph = PH ? reinterpret_cast<unsigned long long*>(ptrs[11 * L + 1]) : nullptr;
-  const size_t smem = sizeof(float) * (size_t)nf_vc_smem_floats(cells, L, Ls);
+  const size_t smem = sizeof(float) * (size_t)small;
   int size = 0;
   err = nf_cluster_size(vcycle_kernel<PH>, vcycle_cfg<PH>(), size);
   if (err) return err;
@@ -143,27 +163,38 @@ NF_EXPORT int nf_fused_vcycle_phases(const long long* ptrs, const int* ip, const
   return launch_vcycle<true>(ptrs, ip, fp, stream);
 }
 
-// ptrs: per level 11 pointers as nf_fused_vcycle, then r, cycles (int32),
-//       rel, reduction scratch
-// ip:   L, pre, post, coarsest, max_cycles, check_every, mean_normalize,
-//       then per level ni, nj, five
+// ptrs: per level 11 pointers as nf_fused_vcycle (level 0's x: the output
+//       p), then the input iterate p0, r, cycles (int32), rel
+// ip:   NfMsIp: NfVcIp's five, then max_cycles, check_every,
+//       mean_normalize, then per level ni, nj, five
 // fp:   omega, tolerance
 NF_EXPORT int nf_fused_mg_solve(const long long* ptrs, const int* ip, const float* fp,
                                 void* stream) {
   SolveParams P = {};
-  const int L = ip[0];
-  int err = read_levels(P.M, ptrs, ip + 7, L);
+  const int L = ip[VC_IP_L];
+  int64_t small = 0;
+  int err = read_levels(P.M, ptrs, ip + MS_IP_LEVELS, L);
+  if (!err) err = read_cycle(P.M, ip, fp, &P.Ls, &small);
   if (err) return err;
-  P.M.pre = ip[1]; P.M.post = ip[2]; P.M.coarsest = ip[3]; P.M.omega = fp[0];
-  P.max_cycles = ip[4]; P.check_every = ip[5]; P.mean_normalize = ip[6];
+  P.max_cycles = ip[MS_IP_MAX_CYCLES];
+  P.check_every = ip[MS_IP_CHECK_EVERY];
+  P.mean_normalize = ip[MS_IP_MEAN];
   if (P.check_every < 1) return (int)cudaErrorInvalidValue;
   P.tol = fp[1];
-  P.r = reinterpret_cast<float*>(ptrs[11 * L]);
-  P.cycles = reinterpret_cast<int*>(ptrs[11 * L + 1]);
-  P.rel = reinterpret_cast<float*>(ptrs[11 * L + 2]);
-  P.red = reinterpret_cast<float*>(ptrs[11 * L + 3]);
-  return nf_coop_launch(mg_solve_kernel, P, (int64_t)P.M.lv[0].ni * P.M.lv[0].nj,
-                        (cudaStream_t)stream);
+  P.p_in = reinterpret_cast<const float*>(ptrs[11 * L]);
+  P.r = reinterpret_cast<float*>(ptrs[11 * L + 1]);
+  P.cycles = reinterpret_cast<int*>(ptrs[11 * L + 2]);
+  P.rel = reinterpret_cast<float*>(ptrs[11 * L + 3]);
+  const size_t smem = sizeof(float) * (size_t)(NF_CL_RED_FLOATS + small);
+  int size = 0;
+  err = nf_cluster_size(mg_solve_kernel, mg_solve_cfg(), size);
+  if (err) return err;
+  return nf_cluster_launch(mg_solve_kernel, size, P, smem, (cudaStream_t)stream);
+}
+
+// The cluster size K5 launches with on the current device, into *size.
+NF_EXPORT int nf_mg_solve_cluster_size(int* size) {
+  return nf_cluster_size(mg_solve_kernel, mg_solve_cfg(), *size);
 }
 
 // ptrs: the fine stencil (9 pointers, 0 for absent corners), then 9 output

@@ -1,7 +1,7 @@
-// Device code of the multigrid kernels: the V-cycle (K3), the whole solve
-// (K5) and the vertex Galerkin RAP (K4), over a hierarchy of levels held in
-// device memory.  The whole-step kernel K6 (step.cu) calls the same
-// functions.
+// Device code of the multigrid kernels over a hierarchy of levels held in
+// device memory: the cell updates, residuals and transfers that K3's and
+// K5's cluster cycle (vcycle.cuh) and K6's (cluster.cuh) are built from,
+// and the vertex Galerkin RAP of K4 (a cooperative launch, coop.cuh).
 //
 // Per level, finest to coarsest: Gauss-Seidel pre-smoothing (red-black on
 // 5-point levels, four colours on 9-point Galerkin levels), the residual,
@@ -60,20 +60,6 @@ __device__ __forceinline__ float nf_residual(const NfLevel& L, int i, int j) {
     ax = ax + L.st[5][g] * nf_at(x, L, i + 1, j + 1) + L.st[6][g] * nf_at(x, L, i - 1, j + 1) +
          L.st[7][g] * nf_at(x, L, i + 1, j - 1) + L.st[8][g] * nf_at(x, L, i - 1, j - 1);
   return L.rhs[g] - ax;
-}
-
-// One colour pass of Gauss-Seidel (same-colour cells are never neighbours,
-// so the in-place update is a true GS update).
-__device__ inline void nf_smooth_pass(const NfLevel& L, int color, float omega, int64_t start,
-                               int64_t stride) {
-  const int64_t n = (int64_t)L.ni * L.nj;
-  for (int64_t g = start; g < n; g += stride) {
-    const int i = (int)(g / L.nj), j = (int)(g % L.nj);
-    const int c = L.five ? ((i + j) & 1) : (((i & 1) << 1) | (j & 1));
-    if (c != color) continue;
-    const float pnew = (L.rhs[g] - nf_offdiag(L, i, j, g)) * nf_inv_diag(L.st[0][g]);
-    L.x[g] = L.x[g] + omega * (pnew - L.x[g]);
-  }
 }
 
 // Coarse right-hand side = restricted fine residual; coarse iterate = 0.
@@ -144,31 +130,6 @@ __device__ inline void nf_prolong_pass(const NfLevel& F, const NfLevel& C, int64
   }
 }
 
-__device__ inline void nf_smooth(NfCoop& Cp, const NfLevel& F, int sweeps, float omega) {
-  const int64_t cells = (int64_t)F.ni * F.nj;
-  const int colors = F.five ? 2 : 4;
-  for (int s = 0; s < sweeps; ++s)
-    for (int c = 0; c < colors; ++c) NF_PASS(Cp, cells, nf_smooth_pass(F, c, omega, start, stride));
-}
-
-// One V-cycle from level 0: level 0's iterate x is updated in place.
-__device__ inline void nf_vcycle(NfCoop& Cp, const NfMG& M) {
-  const int L = M.L;
-  for (int l = 0; l < L - 1; ++l) {
-    const NfLevel& F = M.lv[l];
-    const NfLevel& C = M.lv[l + 1];
-    nf_smooth(Cp, F, M.pre, M.omega);
-    NF_PASS(Cp, (int64_t)C.ni * C.nj, nf_restrict_pass(F, C, start, stride));
-  }
-  nf_smooth(Cp, M.lv[L - 1], M.coarsest, M.omega);
-  for (int l = L - 2; l >= 0; --l) {
-    const NfLevel& F = M.lv[l];
-    const NfLevel& C = M.lv[l + 1];
-    NF_PASS(Cp, (int64_t)F.ni * F.nj, nf_prolong_pass(F, C, start, stride));
-    nf_smooth(Cp, F, M.post, M.omega);
-  }
-}
-
 // r = b - A x on level 0 into `r` (if given), and the partial compensated
 // sum of r^2 over this thread's cells.
 __device__ inline NfDS nf_residual_pass(const NfLevel& F, float* r, int64_t start, int64_t stride) {
@@ -180,54 +141,6 @@ __device__ inline NfDS nf_residual_pass(const NfLevel& F, float* r, int64_t star
     nf_ds_fma(acc, rr, rr);
   }
   return acc;
-}
-
-// The whole solve (K5; pallas_mg.mg_solve_value): from level 0's iterate,
-// `check_every` V-cycles per check until cycles >= max_cycles or
-// ||b - A p|| / ||b|| < tol (compensated norms), then the mean removed when
-// `mean_normalize`, and the final residual into r.  *cycles and *rel (where
-// given) are written by one thread; every block returns the cycle count.
-__device__ inline int nf_mg_solve(NfCoop& Cp, const NfMG& M, float* r, int max_cycles, int check_every,
-                            float tol, bool mean_normalize, int* cycles_out, float* rel_out) {
-  const NfLevel& F = M.lv[0];
-  const int64_t n = (int64_t)F.ni * F.nj;
-  float bn[1];
-  {
-    nf_settle(Cp);
-    NfDS acc[1] = {nf_ds_zero()};
-    for (int64_t g = Cp.gtid; g < n; g += Cp.gstride) nf_ds_fma(acc[0], F.rhs[g], F.rhs[g]);
-    nf_grid_reduce<1>(Cp, acc, bn);
-  }
-  const float bnorm = sqrtf(bn[0]);
-  const float safe_b = bnorm > 0.f ? bnorm : 1.f;
-  int k = 0;
-  float rel = __int_as_float(0x7f800000);  // +inf
-  while (k < max_cycles && rel >= tol) {
-    for (int c = 0; c < check_every; ++c) nf_vcycle(Cp, M);
-    nf_settle(Cp);
-    NfDS acc[1] = {nf_residual_pass(F, nullptr, Cp.gtid, Cp.gstride)};
-    float r2[1];
-    nf_grid_reduce<1>(Cp, acc, r2);
-    rel = sqrtf(r2[0]) / safe_b;
-    k += check_every;
-  }
-  nf_settle(Cp);
-  if (mean_normalize) {
-    NfDS acc[1] = {nf_ds_zero()};
-    for (int64_t g = Cp.gtid; g < n; g += Cp.gstride) nf_ds_addf(acc[0], F.x[g]);
-    float sum[1];
-    nf_grid_reduce<1>(Cp, acc, sum);
-    const float mean = sum[0] / (float)n;
-    for (int64_t g = Cp.gtid; g < n; g += Cp.gstride) F.x[g] = F.x[g] - mean;
-    Cp.grid.sync();
-  }
-  nf_residual_pass(F, r, Cp.gtid, Cp.gstride);
-  Cp.grid.sync();
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    if (cycles_out) *cycles_out = k;
-    if (rel_out) *rel_out = rel;
-  }
-  return k;
 }
 
 // ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@
 //               -> every Galerkin coarse operator (cluster.cuh's RAP, entry
 //               by entry K4's sums; rebuilt for every solve) -> the whole
 //               multigrid solve from zeros, mean-normalised unless the
-//               variant is 'reference' (cluster.cuh, K5's passes)
+//               variant is 'reference' (cluster.cuh's nf_cl_mg_solve)
 //   corrections p = p_base + a p' (and the boundary overwrite), then the
 //               velocity correction and BCs
 // and the bodies (pallas_step.py:216-310):

@@ -1,13 +1,12 @@
-// K3 on Hopper: one V-cycle in ONE thread-block cluster (cluster.cuh's
-// execution model, as K6).
+// K3 and K5 on Hopper: one V-cycle (K3) and the whole multigrid solve (K5),
+// each in ONE thread-block cluster (cluster.cuh's execution model, as K6).
 //
-// The hierarchy it takes: 9-point Galerkin levels (four colours) below a
+// The hierarchy they take: 9-point Galerkin levels (four colours) below a
 // 5- or 9-point level 0 (red-black on 5-point levels), cell-centred
 // (nf == 2 nc) or vertex (nf == 2 nc + 1) transfer pairs, f32.  Every cell
 // update, residual and transfer is mg.cuh's, with the same operands in the
-// same order, so the cycle's output is the one of mg.cuh's nf_vcycle (K5's
-// cycle, unchanged).  What differs is where each pass runs and what it
-// reads:
+// same order as the plain cycle (solvers/multigrid._cycle) composes them.
+// Where each pass runs and what it reads:
 //   * levels 0..Ls-1 (level 0 and every level of more than NF_SMALL_CELLS
 //     cells) stay in global memory (the L2 at the sizes the gate admits);
 //     their passes are grid-strided over the cluster and end in a cluster
@@ -17,7 +16,9 @@
 //   * levels Ls..L-1 live in rank 0's dynamic shared memory.  Their
 //     stencils are inputs (the composed Galerkin rebuild writes them), so
 //     rank 0 copies them in with cp.async at the start of the launch, and
-//     the copies land while the large levels are smoothed.  Rank 0 runs
+//     the copies land while the large levels are smoothed (K5 copies them
+//     once per solve: its cycles reuse them, and each cycle's restriction
+//     rewrites the levels' x and rhs there).  Rank 0 runs
 //     their passes alone between __syncthreads(); a vertex restriction
 //     stores the fine residual once (nf_cl_restrict_local), a cell-centred
 //     one reads each fine residual once anyway (the 2x2 mean);
@@ -32,6 +33,13 @@
 // before any CTA touches rank 0's shared memory and its last after the
 // last such access, so no CTA reads it before rank 0 starts or after it
 // exits.
+//
+// K5 adds the solve loop of solvers/multigrid.multigrid_solve around the
+// cycle: ||b||, each check's residual norm and the mean are cluster.cuh's
+// nf_reduce (compensated double-single sums, bit-identical in every CTA,
+// so every CTA leaves the check loop together); its partials take the
+// first NF_CL_RED_FLOATS floats of the dynamic shared memory, the levels
+// follow them.
 #pragma once
 
 #include "cluster.cuh"
@@ -47,6 +55,8 @@ constexpr int NF_VC_REG_CELLS = 32 * NF_VC_SLOTS;
 
 // The C entry's integer parameters, in order (then per level ni, nj, five).
 enum NfVcIp { VC_IP_L = 0, VC_IP_PRE, VC_IP_POST, VC_IP_COARSEST, VC_IP_LS, VC_IP_LEVELS };
+// K5's: NfVcIp's first five, then its own three (then per level ni, nj, five).
+enum NfMsIp { MS_IP_MAX_CYCLES = VC_IP_LEVELS, MS_IP_CHECK_EVERY, MS_IP_MEAN, MS_IP_LEVELS };
 
 template <bool PH>
 __device__ __forceinline__ void nf_vc_stamp(unsigned long long* buf, int phase) {
@@ -230,21 +240,14 @@ __device__ void nf_vc_coarse(const NfMG& M, const NfLevel* lv, int Ls, float* r,
   nf_vc_stamp<PH>(ph, VC_SMALL);
 }
 
-// One V-cycle: level 0's iterate (the output) from p_in.
+// The passes of one V-cycle on level 0's iterate in place, over the
+// cluster (the copy-in done): the large levels down, rank 0's part (its
+// stencil copies waited for: at once after the first time), the large
+// levels up.
 template <bool PH>
-__device__ void nf_vc_cycle(const NfMG& M, int Ls, const float* p_in, float* dyn,
-                            unsigned long long* ph) {
-  __shared__ NfLevel lv[NF_MAX_LEVELS];
-  __shared__ float* scratch_s;
-  NfCluster C = nf_cluster(dyn);
+__device__ void nf_vc_passes(NfCluster& C, const NfMG& M, const NfLevel* lv, int Ls, float* r,
+                             unsigned long long* ph) {
   const int L = M.L;
-  nf_vc_stamp<PH>(ph, -1);
-  if (threadIdx.x == 0) nf_vc_levels(M, Ls, dyn, lv, &scratch_s);
-  __syncthreads();
-  if (C.rank == 0) nf_vc_load_start(M, Ls, lv);
-  const int64_t n0 = (int64_t)M.lv[0].ni * M.lv[0].nj;
-  for (int64_t g = C.gtid; g < n0; g += C.gstride) M.lv[0].x[g] = p_in[g];
-  nf_sync(C);
   const int top = Ls < L - 1 ? Ls : L - 1;  // global levels with a coarser one below
   for (int l = 0; l < top; ++l) {
     nf_cl_smooth(C, lv[l], M.pre, M.omega);
@@ -255,7 +258,7 @@ __device__ void nf_vc_cycle(const NfMG& M, int Ls, const float* p_in, float* dyn
   if (Ls < L) {
     if (C.rank == 0) {
       nf_vc_load_wait();
-      nf_vc_coarse<PH>(M, lv, Ls, scratch_s, ph);
+      nf_vc_coarse<PH>(M, lv, Ls, r, ph);
     }
     nf_sync(C);
   } else {
@@ -268,4 +271,80 @@ __device__ void nf_vc_cycle(const NfMG& M, int Ls, const float* p_in, float* dyn
     nf_cl_smooth(C, lv[l], M.post, M.omega);
     nf_vc_stamp<PH>(ph, VC_UP);
   }
+}
+
+// One V-cycle (K3): level 0's iterate (the output) from p_in.
+template <bool PH>
+__device__ void nf_vc_cycle(const NfMG& M, int Ls, const float* p_in, float* dyn,
+                            unsigned long long* ph) {
+  __shared__ NfLevel lv[NF_MAX_LEVELS];
+  __shared__ float* scratch_s;
+  NfCluster C = nf_cluster(dyn);
+  nf_vc_stamp<PH>(ph, -1);
+  if (threadIdx.x == 0) nf_vc_levels(M, Ls, dyn, lv, &scratch_s);
+  __syncthreads();
+  if (C.rank == 0) nf_vc_load_start(M, Ls, lv);
+  const int64_t n0 = (int64_t)M.lv[0].ni * M.lv[0].nj;
+  for (int64_t g = C.gtid; g < n0; g += C.gstride) M.lv[0].x[g] = p_in[g];
+  nf_sync(C);
+  nf_vc_passes<PH>(C, M, lv, Ls, scratch_s, ph);
+}
+
+// The whole solve (K5; pallas_mg.mg_solve_value): level 0's iterate (the
+// output) from p_in, then `check_every` V-cycles per check while
+// cycles < max_cycles and ||b - A p|| / ||b|| >= tol (compensated norms),
+// then the mean removed when `mean_normalize`, and the final residual into
+// r.  *cycles and *rel are written by one thread.  The partials of the
+// reductions take dyn[0, NF_CL_RED_FLOATS), the levels in rank 0's shared
+// memory the floats after them.
+__device__ inline void nf_vc_mg_solve(const NfMG& M, int Ls, const float* p_in, float* r,
+                                      int max_cycles, int check_every, float tol,
+                                      bool mean_normalize, int* cycles_out, float* rel_out,
+                                      float* dyn) {
+  __shared__ NfLevel lv[NF_MAX_LEVELS];
+  __shared__ float* scratch_s;
+  nf_cl_arrive_relaxed();  // waited for before the first reduction writes to rank 0
+  NfCluster C = nf_cluster(dyn);
+  if (threadIdx.x == 0) nf_vc_levels(M, Ls, dyn + NF_CL_RED_FLOATS, lv, &scratch_s);
+  __syncthreads();
+  if (C.rank == 0) nf_vc_load_start(M, Ls, lv);
+  const NfLevel& F = M.lv[0];
+  const int64_t n = (int64_t)F.ni * F.nj;
+  float bn[1];
+  {
+    NfDS acc[1] = {nf_ds_zero()};
+    for (int64_t g = C.gtid; g < n; g += C.gstride) {
+      F.x[g] = p_in[g];
+      nf_ds_fma(acc[0], F.rhs[g], F.rhs[g]);
+    }
+    nf_cl_wait();
+    nf_reduce<1>(C, acc, bn);  // its barrier also publishes the copy-in
+  }
+  const float bnorm = sqrtf(bn[0]);
+  const float safe_b = bnorm > 0.f ? bnorm : 1.f;
+  int k = 0;
+  float rel = __int_as_float(0x7f800000);  // +inf
+  while (k < max_cycles && rel >= tol) {
+    for (int c = 0; c < check_every; ++c) nf_vc_passes<false>(C, M, lv, Ls, scratch_s, nullptr);
+    NfDS acc[1] = {nf_residual_pass(F, nullptr, C.gtid, C.gstride)};
+    float r2[1];
+    nf_reduce<1>(C, acc, r2);
+    rel = sqrtf(r2[0]) / safe_b;
+    k += check_every;
+  }
+  if (mean_normalize) {
+    NfDS acc[1] = {nf_ds_zero()};
+    for (int64_t g = C.gtid; g < n; g += C.gstride) nf_ds_addf(acc[0], F.x[g]);
+    float sum[1];
+    nf_reduce<1>(C, acc, sum);
+    const float mean = sum[0] / (float)n;
+    for (int64_t g = C.gtid; g < n; g += C.gstride) F.x[g] = F.x[g] - mean;
+    nf_sync(C);
+  }
+  nf_residual_pass(F, r, C.gtid, C.gstride);
+  if (C.rank == 0 && threadIdx.x == 0) {
+    *cycles_out = k;
+    *rel_out = rel;
+  }
+  nf_sync(C);  // no CTA exits while another may still read rank 0's partials
 }

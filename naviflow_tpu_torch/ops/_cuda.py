@@ -59,7 +59,9 @@ _KERNELS = ("nf_asmcheby_pair", "nf_strip_down", "nf_strip_up", "nf_fused_vcycle
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"nf_apply_poisson": [_P] * 7 + [_I, _I, _P],  # p, 4 links, diag, out; nx, ny
                "nf_step_cluster_size": [_I, ctypes.POINTER(_I)],     # algo; the size out
-               "nf_vcycle_cluster_size": [_I, ctypes.POINTER(_I)]}   # timed; the size out
+               "nf_vcycle_cluster_size": [_I, ctypes.POINTER(_I)],   # timed; the size out
+               "nf_mg_solve_cluster_size": [ctypes.POINTER(_I)],     # the size out
+               "nf_bicgstab_cluster_size": [ctypes.POINTER(_I)]}     # the size out
 
 _lib = None
 _lock = threading.Lock()

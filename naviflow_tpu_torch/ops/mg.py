@@ -8,13 +8,14 @@
   convergence checks, mean normalisation and residual (replaces
   ``pallas_mg.py:fused_mg_solve``).
 
-The CUDA kernels are ``csrc/mg.cu``: K3 one thread-block cluster over the
-device code of ``csrc/vcycle.cuh`` (the levels of <= 1,024 cells in one
-CTA's shared memory, the coarsest in one warp's registers), K4 and K5
-cooperative launches with grid-wide barriers between passes over
-``csrc/mg.cuh``; the sources say what bounds them on the H100.  Each
-wrapper runs its plain PyTorch version on a CPU tensor and launches its
-kernel, or raises, on a CUDA one.
+The CUDA kernels are ``csrc/mg.cu``: K3 and K5 one thread-block cluster
+each over the device code of ``csrc/vcycle.cuh`` (the levels of <= 1,024
+cells in one CTA's shared memory, the coarsest in one warp's registers;
+K5's convergence checks are cluster reductions), K4 a cooperative launch
+with grid-wide barriers between passes over ``csrc/mg.cuh``; the sources
+say what bounds them on the H100.  Each wrapper runs its plain PyTorch
+version on a CPU tensor and launches its kernel, or raises, on a CUDA one;
+K3's and K5's keep their host arrays and scratch per hierarchy layout.
 
 The gates are the reference's admission rules, with their TPU VMEM
 budgets kept so that the port splits the work as the reference does; they
@@ -36,9 +37,6 @@ from .transfer import prolong_linear, restrict_full_weighting
 VMEM_BUDGET_BYTES = 8 * 2**20
 
 _MAX_LEVELS = 16  # csrc/mg.cuh NF_MAX_LEVELS
-# reduction scratch of the cooperative kernels (csrc/coop.cuh: 2 buffers x
-# NF_RED_SLOTS x NF_MAX_BLOCKS floats)
-RED_FLOATS = 2 * 8 * 1024
 
 LAUNCHES = 0  # K3
 RAP_LAUNCHES = 0  # K4
@@ -96,29 +94,6 @@ def _stencil_arrays(st, five):
     return [getattr(st, k) for k in (_NAMES[:5] if five else _NAMES)]
 
 
-def pack_levels(levels, x0, b, keep):
-    """Device pointers and integer parameters of a hierarchy, in the order
-    of ``csrc/mg.cuh`` (per level: 9 stencil pointers, 0 for absent
-    corners, then x and rhs; ni, nj, five).  Level 0's iterate is ``x0``
-    (updated in place) and its right-hand side ``b``; coarser iterates and
-    right-hand sides are scratch appended to ``keep``."""
-    ptrs, ip = [], []
-    for lvl, (st, (ni, nj), five, _) in enumerate(levels):
-        arrays = _stencil_arrays(st, five)
-        for k, a in enumerate(arrays):
-            _cuda.require(a, (ni, nj), f"level {lvl} stencil[{k}]")
-        if lvl == 0:
-            x, rhs = x0, b
-        else:
-            x = torch.empty((ni, nj), dtype=torch.float32, device=x0.device)
-            rhs = torch.empty_like(x)
-            keep += [x, rhs]
-        ptrs += [a.data_ptr() for a in arrays] + [0] * (9 - len(arrays))
-        ptrs += [x.data_ptr(), rhs.data_ptr()]
-        ip += [ni, nj, int(five)]
-    return ptrs, ip
-
-
 def fused_vcycle_plain(p, b, levels, cfg):
     from ..solvers.multigrid import _cycle
 
@@ -132,6 +107,11 @@ def fused_vcycle_plain(p, b, levels, cfg):
 VC_IP = ("levels", "pre", "post", "coarsest", "first_shared")
 SMALL_CELLS = 1024
 SMEM_MAX = 96 * 1024
+# K5's integer parameters after VC_IP's (NfMsIp); the floats of the
+# cluster reductions' partials before its levels (cluster.cuh
+# NF_CL_RED_FLOATS: two buffers of NF_RED_SLOTS floats for each of 16 CTAs)
+MS_IP = ("max_cycles", "check_every", "mean_normalize")
+CL_RED_FLOATS = 2 * 8 * 16
 
 
 def vcycle_layout(shapes):
@@ -152,29 +132,40 @@ def vcycle_layout(shapes):
     return first, 4 * (cells[first] + 11 * sum(cells[first:]))
 
 
-class _VcLaunch:
-    """K3's launch state for one hierarchy layout: the pointer array (the
-    stencils of the last hierarchy, the global coarse levels' scratch; the
-    per-call slots filled per call), the parameter arrays and the scratch."""
+def mg_solve_layout(shapes):
+    """``(Ls, smem_bytes)`` of K5's launch: K3's levels after the
+    reductions' partials."""
+    first, nbytes = vcycle_layout(shapes)
+    return first, 4 * CL_RED_FLOATS + nbytes
 
-    def __init__(self, levels, cfg, dev, timed):
+
+class _VcLaunch:
+    """K3's or K5's launch state for one hierarchy layout: the pointer array
+    (the stencils of the last hierarchy, the global coarse levels' scratch;
+    ``tail`` per-call slots after the levels'), the parameter arrays (the
+    ``ip_tail`` integers after NfVcIp's five, the floats ``fp``) and the
+    scratch."""
+
+    def __init__(self, levels, cfg, dev, tail, ip_tail=(), fp=None, solve=False):
         _check_hierarchy(levels)
         shapes = [tuple(shp) for _, shp, _, _ in levels]
-        first, smem = vcycle_layout(shapes)
+        first, smem = (mg_solve_layout if solve else vcycle_layout)(shapes)
         if smem > SMEM_MAX:
-            raise ValueError(f"fused_vcycle: {smem} bytes of shared memory for the levels "
-                             f"from {shapes[first]}, more than {SMEM_MAX}")
+            raise ValueError(f"{'fused_mg_solve' if solve else 'fused_vcycle'}: {smem} bytes "
+                             f"of shared memory for the levels from {shapes[first]}, more "
+                             f"than {SMEM_MAX}")
         L = self.L = len(levels)
         self.scratch = [torch.empty((2, *shapes[lvl]), dtype=torch.float32, device=dev)
                         for lvl in range(1, first)]
-        self.ptrs = (ctypes.c_longlong * (11 * L + 1 + int(timed)))()
+        self.ptrs = (ctypes.c_longlong * (11 * L + tail))()
         for lvl, xr in enumerate(self.scratch, start=1):
             self.ptrs[11 * lvl + 9] = xr[0].data_ptr()
             self.ptrs[11 * lvl + 10] = xr[1].data_ptr()
-        ip = [L, cfg.pre_smoothing, cfg.post_smoothing, cfg.coarsest_sweeps, first]
+        ip = [L, cfg.pre_smoothing, cfg.post_smoothing, cfg.coarsest_sweeps, first, *ip_tail]
         ip += [n for shp, (_, _, five, _) in zip(shapes, levels) for n in (*shp, int(five))]
         self.ip = (ctypes.c_int * len(ip))(*ip)
-        self.fp = (ctypes.c_float * 1)(cfg.omega)
+        fp = (cfg.omega,) if fp is None else fp
+        self.fp = (ctypes.c_float * len(fp))(*fp)
         self.stencils = None
 
     def set_stencils(self, levels):
@@ -194,7 +185,22 @@ class _VcLaunch:
 
 
 _VC = {}
+_SOLVE = {}
 _CACHE_MAX = 32
+
+
+def _layout_key(levels, cfg):
+    return (tuple(tuple(lv[1]) + (bool(lv[2]),) for lv in levels),
+            cfg.pre_smoothing, cfg.post_smoothing, cfg.coarsest_sweeps, cfg.omega)
+
+
+def _cached(cache, key, make):
+    st = cache.get(key)
+    if st is None:
+        if len(cache) >= _CACHE_MAX:
+            cache.clear()
+        st = cache[key] = make()
+    return st
 
 
 def _vc_launch(p, b, levels, cfg, timers=None):
@@ -202,13 +208,8 @@ def _vc_launch(p, b, levels, cfg, timers=None):
     returns level 0's iterate after the cycle, a fresh tensor."""
     dev, stream = p.device, _cuda.stream_of(p)
     timed = timers is not None
-    key = (dev, stream, tuple(tuple(lv[1]) + (bool(lv[2]),) for lv in levels),
-           cfg.pre_smoothing, cfg.post_smoothing, cfg.coarsest_sweeps, cfg.omega, timed)
-    st = _VC.get(key)
-    if st is None:
-        if len(_VC) >= _CACHE_MAX:
-            _VC.clear()
-        st = _VC[key] = _VcLaunch(levels, cfg, dev, timed)
+    st = _cached(_VC, (dev, stream, timed) + _layout_key(levels, cfg),
+                 lambda: _VcLaunch(levels, cfg, dev, 1 + int(timed)))
     st.set_stencils(levels)
     _cuda.require_all((p, b), levels[0][1], "fused_vcycle p, b")
     out = torch.empty_like(p)
@@ -343,30 +344,39 @@ def fused_mg_solve_plain(p0, b, levels, cfg, *, mean_normalize: bool = True):
 def fused_mg_solve(p0, b, levels, cfg, *, mean_normalize: bool = True):
     """The whole ``multigrid_solve`` loop as one kernel launch.  Returns
     ``(p, r_field, cycles, rel)`` with the scalars as 0-d tensors (int32
-    and float) on the device.  Gate with :func:`supports_fused`."""
+    and float) on the device.  Gate with :func:`supports_fused`.  The
+    launch state is reused across calls with the same level layout and
+    configuration; the stencil pointers are refilled when the hierarchy
+    changes."""
     global SOLVE_LAUNCHES
     if not p0.is_cuda:
         return fused_mg_solve_plain(p0, b, levels, cfg, mean_normalize=mean_normalize)
     if cfg.cycle_type not in ("v", "fmg") or cfg.smoother != "gs":
         raise ValueError("fused_mg_solve implements Gauss-Seidel V-cycles only")
-    _check_hierarchy(levels)
-    p = p0.clone()
-    _cuda.require(p, levels[0][1], "p0")
-    _cuda.require(b, levels[0][1], "b")
-    dev = p.device
-    r = torch.empty_like(p)
-    cycles = torch.empty((), dtype=torch.int32, device=dev)
-    rel = torch.empty((), dtype=torch.float32, device=dev)
-    red = torch.empty((RED_FLOATS,), dtype=torch.float32, device=dev)
-    keep = [p, r, cycles, rel, red]
-    ptrs, lv_ip = pack_levels(levels, p, b, keep)
-    ptrs += [r.data_ptr(), cycles.data_ptr(), rel.data_ptr(), red.data_ptr()]
-    ip = [len(levels), cfg.pre_smoothing, cfg.post_smoothing, cfg.coarsest_sweeps,
-          cfg.max_cycles, cfg.check_every, int(mean_normalize)] + lv_ip
-    c_ptrs = (ctypes.c_longlong * len(ptrs))(*ptrs)
-    c_ip = (ctypes.c_int * len(ip))(*ip)
-    c_fp = (ctypes.c_float * 2)(cfg.omega, cfg.tolerance)
-    _cuda.check(_cuda.library().nf_fused_mg_solve(c_ptrs, c_ip, c_fp, _cuda.stream_of(p)),
+    dev, stream = p0.device, _cuda.stream_of(p0)
+    ip_tail = (cfg.max_cycles, cfg.check_every, int(mean_normalize))
+    fp = (cfg.omega, cfg.tolerance)
+    st = _cached(_SOLVE, (dev, stream, ip_tail, cfg.tolerance) + _layout_key(levels, cfg),
+                 lambda: _VcLaunch(levels, cfg, dev, 4, ip_tail, fp, solve=True))
+    st.set_stencils(levels)
+    _cuda.require_all((p0, b), levels[0][1], "fused_mg_solve p0, b")
+    p, r = torch.empty((2, *p0.shape), dtype=torch.float32, device=dev)  # one allocation
+    scalars = torch.empty(2, dtype=torch.int32, device=dev)  # cycles, then rel's bits
+    ptrs, L = st.ptrs, st.L
+    ptrs[9], ptrs[10] = p.data_ptr(), b.data_ptr()
+    ptrs[11 * L:11 * L + 4] = [p0.data_ptr(), r.data_ptr(), scalars.data_ptr(),
+                               scalars.data_ptr() + 4]
+    _cuda.check(_cuda.library().nf_fused_mg_solve(ptrs, st.ip, st.fp, stream),
                 "fused_mg_solve")
     SOLVE_LAUNCHES += 1
-    return p, r, cycles, rel
+    return p, r, scalars[0], scalars.view(torch.float32)[1]
+
+
+def mg_solve_cluster_size(device=None) -> int:
+    """The thread-block cluster size K5 launches with on ``device`` (16
+    where one such cluster fits on the card, else 8)."""
+    with torch.cuda.device(device):
+        size = ctypes.c_int(0)
+        _cuda.check(_cuda.library().nf_mg_solve_cluster_size(ctypes.byref(size)),
+                    "mg_solve_cluster_size")
+    return size.value
