@@ -10,9 +10,11 @@ result line:
    versions;
 2. the kernel build: ``nvcc`` compiles ``naviflow_tpu_torch/csrc/*.cu`` for
    sm_90a from the checkout, one process per source; ptxas's registers and
-   spills of K6's, K3's and K9's kernels, the thread-block cluster size each
-   K6 body, K3, K5 and K7 launch with, and one cluster barrier's time at
-   each size (``nf_cluster_sync_probe``);
+   spills of K1's, K2's, K6's, K3's, K5's, K7's and K9's kernels, K1's
+   resident blocks an SM at degree 4 and strip_down's at each (points,
+   sweeps), the thread-block cluster size each K6 body, K3, K5 and K7
+   launch with, and one cluster barrier's time at each size
+   (``nf_cluster_sync_probe``);
 3. each kernel against its plain PyTorch version on the card, with the
    tolerance of the JAX package's test of that kernel and both times (CUDA
    events, turns plain / kernel / kernel / plain): K1, K2 and K3 at the
@@ -31,13 +33,15 @@ result line:
    63^2 (1 and 3 sweeps) and 256^2, K11b at 63^2, 256^2 and 48 x 96 with a
    cuSPARSE SpMV of the same operator beside it.  Every kernel's CUDA-event
    time, its device time (``device_ms``: events around launches queued
-   behind a device-side sleep) and, for K3, K5, K6, K7, K9 and K11b, the
-   host's time per call; beside them the time of one grid-wide barrier at
+   behind a device-side sleep) and, for K1, K2a, K3, K5, K6, K7, K9 and
+   K11b, the host's time per call; beside them the time of one grid-wide barrier at
    K4's grid size and the cluster-barrier bound (K3, K5, K6, K7); then
    K6's phase split (``nf_fused_outer_step_phases``)
-   for each body over 20 chained 63^2 steps, and K3's
+   for each body over 20 chained 63^2 steps, K3's
    (``nf_fused_vcycle_phases``) on the 256^2 tail and the 63^2 vertex
-   hierarchy over 20 calls;
+   hierarchy over 20 calls, and K1's (``nf_asmcheby_pair_phases``: its
+   assembly, Chebyshev steps, residual / d / writes and pressure operator)
+   at 1024^2 and 4096^2 over 20 calls;
 4. the 1024^2 slice: ``simple_solve`` at 1024^2, Re=100, with the bench's
    large-grid configuration (Chebyshev momentum of degree 4, one fixed
    V-cycle with 1/1 smoothing, 32 coarsest sweeps, coarse rebuild every 8
@@ -85,11 +89,13 @@ result line:
    all-kernel run's gap to the composed run, and the lagged plain run's,
    are reported); both layouts' final residuals and ms per step.
 
-Then a JSON line with every kernel's launches, error, times and bound, the
-card's name and power limit, and, last, ``{"ok": true, "device": {...}}``.
-Needs no network and no JAX; there is no CPU path.  With ``--ab TAG`` it
-runs one side of an A/B of K7 and K5 between two trees instead
-(``ab_side``).
+Then a JSON line with every kernel's launches, error, times and bound (K2:
+each level's too, and the launches a step), the card's name and power
+limit, and, last, ``{"ok": true, "device": {...}}``.  Needs no network and
+no JAX; there is no CPU path.  With ``--ab TAG`` it runs one side of an A/B
+between two trees instead (``ab_side``: K1, K2a, K7 and K5, or those
+``--kernels`` names; ``--save DIR`` keeps K1's and K2a's outputs), and with
+``--ab-compare DIR A B`` it compares two saved sides output by output.
 """
 
 import contextlib
@@ -216,6 +222,16 @@ def barrier_ms(entry, first, dev):
         return start.elapsed_time(end) / reps
 
     return (run(2001) - run(1)) / 2000
+
+
+def blocks_per_sm(entry, *args):
+    """The resident blocks an SM a kernel's occupancy query reports (an
+    ``nf_*_blocks_per_sm`` entry: its arguments, then the count out)."""
+    from naviflow_tpu_torch.ops import _cuda
+
+    out = ctypes.c_int(0)
+    _cuda.check(getattr(_cuda.library(), entry)(*args, ctypes.byref(out)), entry)
+    return out.value
 
 
 def grid_sync_ms(cells, dev):
@@ -427,6 +443,33 @@ def cavity_fields(n, dev):
     return u, v, p, dict(dx=mesh.dx, dy=mesh.dy, rho=1.0, mu=1.0 / RE)
 
 
+def k1_args(kw, rho_u, rho_v):
+    """K1's keyword arguments on the main path (degree 4, alpha 0.7, the
+    consistent operator) with the bounds of the raw maxima rho_u, rho_v."""
+    from naviflow_tpu_torch.solvers.momentum import _bounds_from_rho
+
+    return dict(alpha=0.7, degree=4, bounds_u=_bounds_from_rho(rho_u, 1.05),
+                bounds_v=_bounds_from_rho(rho_v, 1.05), poisson_variant="consistent", **kw)
+
+
+def asmcheby_current(dev, n):
+    """A noisy n^2 cavity state (``cavity_fields``) and K1's arguments with
+    the bounds of the state's own assembly."""
+    from naviflow_tpu_torch.ops import asmcheby
+    from naviflow_tpu_torch.ops.powerlaw import relax_coefficients, u_momentum_coefficients
+    from naviflow_tpu_torch.ops.powerlaw import v_momentum_coefficients
+    from naviflow_tpu_torch.solvers.momentum import _u_interior_mask, _v_interior_mask
+
+    u, v, p, kw = cavity_fields(n, dev)
+    rho_u = asmcheby._masked_ratio_max(
+        relax_coefficients(u_momentum_coefficients(u, v, p, **kw), u, 0.7),
+        _u_interior_mask(u.shape, device=dev))
+    rho_v = asmcheby._masked_ratio_max(
+        relax_coefficients(v_momentum_coefficients(u, v, p, **kw), v, 0.7),
+        _v_interior_mask(v.shape, device=dev))
+    return (u, v, p), k1_args(kw, rho_u, rho_v)
+
+
 def check_asmcheby(dev, n=N, lagged=False):
     """K1 against its plain version on a noisy n^2 cavity state, with the
     bounds of the state's own assembly; with ``lagged``, with the bounds the
@@ -438,33 +481,18 @@ def check_asmcheby(dev, n=N, lagged=False):
     import naviflow_tpu_torch as nt
     from naviflow_tpu_torch.core.bc import apply_velocity_bcs
     from naviflow_tpu_torch.ops import asmcheby
-    from naviflow_tpu_torch.ops.powerlaw import relax_coefficients, u_momentum_coefficients
-    from naviflow_tpu_torch.ops.powerlaw import v_momentum_coefficients
-    from naviflow_tpu_torch.solvers.momentum import (_bounds_from_rho, _u_interior_mask,
-                                                     _v_interior_mask)
 
-    u, v, p, kw = cavity_fields(n, dev)
-    alpha, degree = 0.7, 4
-
-    def args(rho_u, rho_v):
-        return dict(alpha=alpha, degree=degree, bounds_u=_bounds_from_rho(rho_u, 1.05),
-                    bounds_v=_bounds_from_rho(rho_v, 1.05), poisson_variant="consistent", **kw)
-
+    degree = 4
     if lagged:
+        u, v, p, kw = cavity_fields(n, dev)
         ceiling = torch.full((), 0.999, dtype=torch.float32, device=dev)
-        first = args(ceiling, ceiling)
+        first = k1_args(kw, ceiling, ceiling)
         out = asmcheby.fused_asmcheby_pair_plain(u, v, p, **first)
         u2, v2 = apply_velocity_bcs(out[0], out[2], nt.lid_driven_cavity(1.0))
         cases = [("lagged_step1", (u, v, p), first),
-                 ("lagged_step2", (u2, v2, p), args(out[7], out[8]))]
+                 ("lagged_step2", (u2, v2, p), k1_args(kw, out[7], out[8]))]
     else:
-        rho_u = asmcheby._masked_ratio_max(
-            relax_coefficients(u_momentum_coefficients(u, v, p, **kw), u, alpha),
-            _u_interior_mask(u.shape, device=dev))
-        rho_v = asmcheby._masked_ratio_max(
-            relax_coefficients(v_momentum_coefficients(u, v, p, **kw), v, alpha),
-            _v_interior_mask(v.shape, device=dev))
-        cases = [("current", (u, v, p), args(rho_u, rho_v))]
+        cases = [("current", *asmcheby_current(dev, n))]
     rows = []
     for bounds, fields, a in cases:
         got = asmcheby.fused_asmcheby_pair(*fields, **a)
@@ -489,15 +517,19 @@ def check_asmcheby(dev, n=N, lagged=False):
             errs[name] = e_rel
             worst_abs = max(worst_abs, e_abs)
             ok &= e_rel < tol
+        def kernel():
+            asmcheby.fused_asmcheby_pair(*fields, **a)
+
         ms, plain_ms, dev_ms = time_pair(
-            lambda: asmcheby.fused_asmcheby_pair_plain(*fields, **a),
-            lambda: asmcheby.fused_asmcheby_pair(*fields, **a))
-        faces = 2 * n * (n + 1)
-        nbytes = 4 * (3 * faces + n * n + 4 * faces + 5 * n * n)  # u, v, p in; 6 fields + pc out
+            lambda: asmcheby.fused_asmcheby_pair_plain(*fields, **a), kernel)
+        faces = 2 * n * (n + 1)  # both fields' faces
+        # u, v, p in; x*, r and d of both fields, the 5 pc arrays, the 2 maxima out
+        nbytes = 4 * (faces + n * n + 3 * faces + 5 * n * n + 2)
         flops = faces * (70 + degree * (APPLY5 + 8) + 10) + 10 * n * n
         rows.append(dict(name="fused_asmcheby_pair", shape=[n, n], degree=degree, bounds=bounds,
                          ok=ok, max_abs_err=worst_abs, rel_err=errs, ms=ms, plain_ms=plain_ms,
-                         device_ms=dev_ms, main=n == N, work=(nbytes, flops)))
+                         device_ms=dev_ms, host_ms=host_ms(kernel), main=n == N,
+                         work=(nbytes, flops)))
     return rows
 
 
@@ -551,8 +583,11 @@ def check_strips(dev, levels, cfg, rng):
 
         down_ok = strip_close(got_x, want_x) and strip_close(got_rc, want_rc)
         up_ok = strip_close(got_up, want_up)
+        def down():
+            strip.strip_down(p, b, st, cfg, five)
+
         ms_d, plain_d, dev_d = time_pair(lambda: strip.strip_down_plain(p, b, st, cfg, five),
-                                         lambda: strip.strip_down(p, b, st, cfg, five))
+                                         down)
         ms_u, plain_u, dev_u = time_pair(
             lambda: strip.strip_up_plain(want_x, b, st, ec, cfg, five),
             lambda: strip.strip_up(want_x, b, st, ec, cfg, five))
@@ -566,7 +601,7 @@ def check_strips(dev, levels, cfg, rng):
                                          max_err(got_rc, want_rc)[0]),
                          rel_err=max(max_err(got_x, want_x)[1], max_err(got_rc, want_rc)[1]),
                          scale=float(want_x.abs().max()), ms=ms_d, plain_ms=plain_d,
-                         device_ms=dev_d, work=down_work))
+                         device_ms=dev_d, host_ms=host_ms(down), work=down_work))
         rows.append(dict(name="strip_up", shape=[n, n], five_point=five, ok=up_ok,
                          max_abs_err=max_err(got_up, want_up)[0],
                          rel_err=max_err(got_up, want_up)[1],
@@ -1156,6 +1191,37 @@ def k3_phases(cases, reps=REPS):
                           sum_ms=parts, event_ms=event, device_ms=dev_ms,
                           sum_over_event=parts / event, sum_over_device=parts / dev_ms)
     return dict(phase="k3_phases", reps=reps, hierarchies=rows)
+
+
+def k1_phases(dev, sizes=(N, NP), reps=REPS):
+    """K1's phase split (``nf_asmcheby_pair_phases``: %globaltimer stamps
+    taken by thread 0 of block 0 after each phase of each of its tiles,
+    behind a block barrier) at each n^2 (``asmcheby_current``, degree 4):
+    block 0's ms per call in the assembly, the Chebyshev steps, the
+    residual / d / writes (each summed over both fields) and the pressure
+    operator, their sum, block 0's tiles per call, and the untimed kernel's
+    device time (``device_ms``) over as many calls.  Block 0 walks one of
+    the resident blocks' share of the tiles, so its sum approaches the
+    device time where the tiles divide evenly."""
+    from naviflow_tpu_torch.ops import asmcheby
+
+    rows = {}
+    for n in sizes:
+        fields, a = asmcheby_current(dev, n)
+        asmcheby.fused_asmcheby_pair_phases(*fields, **a)  # warm-up
+        total = {k: [0.0, 0] for k in asmcheby.PHASE_NAMES}
+        for _ in range(reps):
+            _, ph = asmcheby.fused_asmcheby_pair_phases(*fields, **a)
+            for k, (ms, count) in ph.items():
+                total[k][0] += ms
+                total[k][1] += count
+        split = {k: ms / reps for k, (ms, _) in total.items()}
+        dev_ms = device_ms(lambda: asmcheby.fused_asmcheby_pair(*fields, **a), reps)
+        parts = sum(split.values())
+        rows[str(n)] = dict(phases_ms=split, tiles=total["pressure"][1] / reps, sum_ms=parts,
+                            device_ms=dev_ms, sum_over_device=parts / dev_ms)
+        del fields, a
+    return dict(phase="k1_phases", degree=4, reps=reps, grids=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -2075,7 +2141,9 @@ SOURCES = {
 
 def kernels_line(rows, paths):
     """One entry per kernel (and per K6 body).  The time, error and work are
-    those of its main-path shape (K2: both strip levels of one step, summed;
+    those of its main-path shape (K2: both strip levels of one step, summed,
+    with each level's own times and bound under ``levels`` and the launches
+    a step of its path under ``launches_per_step``;
     K7 and K9: the u and v solves, averaged; K8: with the Gershgorin maxima,
     as SIMPLEC, PISO and SIMPLER call it; K10 at 4096^2; K11 at 256^2); the
     launches are those of the path that runs it (K1-K3 the 1024^2 slice, K4
@@ -2108,38 +2176,96 @@ def kernels_line(rows, paths):
                     "cluster_barriers", "barrier_bound_ms"):
             if all(key in r for r in mine):
                 entry[key] = sum(r[key] for r in mine) / k
+        if name in ("strip_down", "strip_up"):
+            entry["launches_per_step"] = paths[path][counter] / STEPS
+            entry["levels"] = []
+            for r in mine:
+                lb_ms, lb_by = bound(*r["work"])
+                entry["levels"].append(dict(
+                    shape=r["shape"], five_point=r["five_point"], ms=r["ms"],
+                    device_ms=r["device_ms"], plain_ms=r["plain_ms"], bound_ms=lb_ms,
+                    bound_by=lb_by, **({"host_ms": r["host_ms"]} if "host_ms" in r else {})))
         out.append(entry)
     return out
 
 
-def ab_side(dev, tag, sizes=(NH, 95, 127, NH_BIG, 511)):
-    """One side of an A/B of K7 and K5 between two trees, through the tree's
-    own wrappers: K7 on each n^2 cavity's u and v systems (``odd_inputs``
-    from rest, maxiter 20), K5 on the 63^2 and 255^2 vertex hierarchies of
-    the same states and on the 256^2 cell-centred one (the headline
-    configuration); device and event times and the error against the plain
-    version.  Run it in turns A, B, B, A, each from a tree's root:
-    ``PYTHONPATH=. python3 -P <this file> --ab TAG`` (``-P``: the tree on
-    PYTHONPATH, not this file's directory, supplies the package)."""
+AB_KERNELS = ("K1", "K2a", "K7", "K5")
+
+
+def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG, 511)):
+    """One side of an A/B between two trees, through the tree's own
+    wrappers, of the ``kernels`` named: K1 at 1024^2 and 4096^2
+    (``asmcheby_current``) and K2a on both strip levels of the 1024^2
+    hierarchy (``fine_levels``), each output's error against the plain
+    version; K7 on each n^2 cavity's u and v systems (``odd_inputs`` from
+    rest, maxiter 20), K5 on the 63^2 and 255^2 vertex hierarchies of the
+    same states and on the 256^2 cell-centred one (the headline
+    configuration), the error of the first output; device and event times
+    of each.  With ``save``, K1's and K2a's outputs go to ``save/TAG.pt``
+    for ``ab_compare``.  Run it in turns A, B, B, A, each from a tree's
+    root: ``PYTHONPATH=. python3 -P <this file> --ab TAG`` (``-P``: the tree
+    on PYTHONPATH, not this file's directory, supplies the package)."""
+    from pathlib import Path
+
     import torch
 
-    from naviflow_tpu_torch.ops import krylov, mg
+    from naviflow_tpu_torch.ops import asmcheby, krylov, mg, strip
+
+    saved = {}
+
+    def timed(fn, **key):
+        emit(dict(phase="ab", tag=tag, **key, ms=time_ms(fn), device_ms=device_ms(fn),
+                  device_ms_again=device_ms(fn)))
 
     def row(fn, plain, **key):
         got, want = fn(), plain()
         got, want = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
         a, r = max_err(got, want)
-        emit(dict(phase="ab", tag=tag, **key, max_abs_err=a, rel_err=r, ms=time_ms(fn),
-                  device_ms=device_ms(fn), device_ms_again=device_ms(fn)))
+        timed(fn, **key, max_abs_err=a, rel_err=r)
 
-    for n in sizes:
+    def outputs(name, tensors, want):
+        errs = {k: max_err(g, w)[1] for (k, g), w in zip(tensors.items(), want)}
+        if save:
+            saved[name] = {k: g.detach().cpu() for k, g in tensors.items()}
+        return errs
+
+    if "K1" in kernels:
+        names = ("u_star", "r_u", "v_star", "r_v", "d_u", "d_v", "pe", "pw", "pn", "ps",
+                 "pdiag", "rho_u", "rho_v")
+        for n in (N, NP):
+            fields, a = asmcheby_current(dev, n)
+
+            def flat(out):
+                pc = out[6]
+                return (*out[:6], pc.a_e, pc.a_w, pc.a_n, pc.a_s, pc.diag, out[7], out[8])
+
+            got = flat(asmcheby.fused_asmcheby_pair(*fields, **a))
+            want = flat(asmcheby.fused_asmcheby_pair_plain(*fields, **a))
+            errs = outputs(f"K1_{n}", dict(zip(names, got)), want)
+            del got, want
+            timed(lambda: asmcheby.fused_asmcheby_pair(*fields, **a), kernel="K1", n=n,
+                  rel_err=errs, max_rel_err=max(errs.values()))
+            del fields, a
+    if "K2a" in kernels:
+        levels, cfg, rng = fine_levels(dev)
+        for lvl in (0, 1):
+            st, (n, _), five, _ = levels[lvl]
+            p, b = (torch.as_tensor(rng.normal(size=(n, n)), dtype=torch.float32, device=dev)
+                    for _ in range(2))
+            got = strip.strip_down(p, b, st, cfg, five)
+            errs = outputs(f"K2a_{n}", dict(zip(("p", "rc"), got)),
+                           strip.strip_down_plain(p, b, st, cfg, five))
+            timed(lambda: strip.strip_down(p, b, st, cfg, five), kernel="K2a", n=n,
+                  five_point=five, rel_err=errs, max_rel_err=max(errs.values()))
+        del levels
+    for n in sizes if {"K7", "K5"} & set(kernels) else ():
         inp = odd_inputs(n, dev, steps=0)
-        for field in ("u", "v"):
+        for field in ("u", "v") if "K7" in kernels else ():
             x0, c = inp[field], inp["c" + field]
             row(lambda: krylov.bicgstab_momentum(x0, c, tol=1e-6, maxiter=20),
                 lambda: krylov.bicgstab_momentum_plain(x0, c, tol=1e-6, maxiter=20),
                 kernel="K7", n=n, field=field, shape=list(x0.shape))
-        if n in (NH, NH_BIG):
+        if n in (NH, NH_BIG) and "K5" in kernels:
             cases = [(f"vertex{n}", inp["levels"], inp["b"])]
             if n == NH_BIG:
                 cases.append(("cell256", *even_hierarchy(256, dev, inp["pres"])))
@@ -2148,9 +2274,47 @@ def ab_side(dev, tag, sizes=(NH, 95, 127, NH_BIG, 511)):
                 row(lambda: mg.fused_mg_solve(p0, b, levels, inp["pres"]),
                     lambda: mg.fused_mg_solve_plain(p0, b, levels, inp["pres"]),
                     kernel="K5", hierarchy=label)
+    if save:
+        Path(save).mkdir(parents=True, exist_ok=True)
+        torch.save(saved, Path(save) / f"{tag}.pt")
+
+
+def ab_compare(save, tag_a, tag_b):
+    """The saved outputs of two ``ab_side`` runs, output by output: whether
+    they are bit-equal, how many elements differ and by how much at most."""
+    from pathlib import Path
+
+    import torch
+
+    a = torch.load(Path(save) / f"{tag_a}.pt")
+    b = torch.load(Path(save) / f"{tag_b}.pt")
+    for case in sorted(set(a) & set(b)):
+        for name, x in a[case].items():
+            y = b[case][name]
+            bits_x = x.contiguous().view(torch.int32)
+            bits_y = y.contiguous().view(torch.int32)
+            emit(dict(phase="ab_compare", a=tag_a, b=tag_b, case=case, output=name,
+                      bit_equal=bool(torch.equal(bits_x, bits_y)),
+                      differing=int((bits_x != bits_y).sum()),
+                      max_abs_diff=float((x.double() - y.double()).abs().max()),
+                      scale=float(x.double().abs().max())))
+
+
+def parse_args(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of naviflow_tpu_torch on one GPU.")
+    ap.add_argument("--ab", metavar="TAG", help="run one side of an A/B (ab_side) and stop")
+    ap.add_argument("--kernels", default=",".join(AB_KERNELS),
+                    help="the A/B's kernels, comma-separated (default: %(default)s)")
+    ap.add_argument("--save", metavar="DIR", help="keep the A/B's K1 and K2a outputs here")
+    ap.add_argument("--ab-compare", nargs=3, metavar=("DIR", "TAG_A", "TAG_B"),
+                    help="compare two saved A/B sides output by output and stop")
+    return ap.parse_args(argv)
 
 
 def main() -> int:
+    args = parse_args(sys.argv[1:])
     try:
         import torch
     except ImportError as e:
@@ -2175,8 +2339,11 @@ def main() -> int:
     emit(dict(phase="device", nvidia_smi=card, torch=torch.__version__,
               cuda=torch.version.cuda, python=sys.version.split()[0],
               name=torch.cuda.get_device_name(0), count=torch.cuda.device_count()))
-    if sys.argv[1:2] == ["--ab"]:
-        ab_side(dev, sys.argv[2] if len(sys.argv) > 2 else "")
+    if args.ab_compare:
+        ab_compare(*args.ab_compare)
+        return 0
+    if args.ab is not None:
+        ab_side(dev, args.ab, tuple(args.kernels.split(",")), args.save)
         return 0
 
     t0 = time.perf_counter()
@@ -2186,15 +2353,20 @@ def main() -> int:
     clusters = {algo: step.cluster_size(algo, dev) for algo in step.ALGO_SCALARS}
     k3_size, k5_size = mg.vcycle_cluster_size(dev), mg.mg_solve_cluster_size(dev)
     k7_size = krylov.cluster_size(dev)
-    # ptxas's report of K6's, K3's, K5's, K7's and K9's kernels: registers,
-    # spills, shared memory
+    # ptxas's report of K1's, K2's, K6's, K3's, K5's, K7's and K9's kernels:
+    # registers, spills, shared memory
     ptxas = {src: [line.strip() for line in _cuda.build_log.get(src, "").splitlines()
                    if "registers" in line or "spill" in line]
-             for src in ("step.cu", "mg.cu", "krylov.cu", "cheby.cu")}
+             for src in ("asmcheby.cu", "strip.cu", "step.cu", "mg.cu", "krylov.cu",
+                         "cheby.cu")}
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=_cuda.build_seconds, library=_cuda.library_path().name,
               k6_cluster_size=clusters, k3_cluster_size=k3_size, k5_cluster_size=k5_size,
-              k7_cluster_size=k7_size, cluster_threads_per_cta=512, ptxas=ptxas))
+              k7_cluster_size=k7_size, cluster_threads_per_cta=512,
+              k1_blocks_per_sm=blocks_per_sm("nf_asmcheby_blocks_per_sm", 4),
+              strip_down_blocks_per_sm={f"{pts}pt_{sw}": blocks_per_sm(
+                  "nf_strip_down_blocks_per_sm", int(pts == 5), sw)
+                  for pts in (5, 9) for sw in (1, 2)}, ptxas=ptxas))
     # one cluster barrier at each kernel's size (its bound's unit) and at 8
     cl_by_size = {size: cluster_sync_ms(size, dev)
                   for size in sorted({8, clusters["simple"], k3_size, k5_size, k7_size})}
@@ -2248,6 +2420,7 @@ def main() -> int:
     emit(k6_phases(dev))
     emit(k3_phases([("tail256", *tail), ("vertex63", inp["levels"], inp["pres"], inp["b"])]))
     del tail, inp
+    emit(k1_phases(dev))
 
     paths = {"kernel_phase": k11_launches}
     for phase, fn in (("slice", run_slice), ("headline", run_headline), ("fmg", run_fmg),

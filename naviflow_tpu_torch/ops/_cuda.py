@@ -49,8 +49,8 @@ _ARGS = [ctypes.POINTER(ctypes.c_longlong),  # device pointers
          ctypes.POINTER(ctypes.c_float),     # float parameters
          ctypes.c_void_p]                    # stream
 # C entry points (see csrc/*.cu for each one's pointer and parameter order)
-_KERNELS = ("nf_asmcheby_pair", "nf_strip_down", "nf_strip_up", "nf_fused_vcycle",
-            "nf_fused_vcycle_phases",
+_KERNELS = ("nf_asmcheby_pair", "nf_asmcheby_pair_phases", "nf_strip_down", "nf_strip_up",
+            "nf_fused_vcycle", "nf_fused_vcycle_phases",
             "nf_galerkin_levels", "nf_fused_mg_solve", "nf_bicgstab", "nf_fused_outer_step",
             "nf_fused_outer_step_phases",
             "nf_fused_assembly_pair", "nf_chebyshev_strips",
@@ -61,7 +61,9 @@ _SIGNATURES = {"nf_apply_poisson": [_P] * 7 + [_I, _I, _P],  # p, 4 links, diag,
                "nf_step_cluster_size": [_I, ctypes.POINTER(_I)],     # algo; the size out
                "nf_vcycle_cluster_size": [_I, ctypes.POINTER(_I)],   # timed; the size out
                "nf_mg_solve_cluster_size": [ctypes.POINTER(_I)],     # the size out
-               "nf_bicgstab_cluster_size": [ctypes.POINTER(_I)]}     # the size out
+               "nf_bicgstab_cluster_size": [ctypes.POINTER(_I)],     # the size out
+               "nf_asmcheby_blocks_per_sm": [_I, ctypes.POINTER(_I)],  # degree; blocks out
+               "nf_strip_down_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)]}  # five, sweeps; out
 
 _lib = None
 _lock = threading.Lock()
@@ -177,6 +179,24 @@ def stream_of(x) -> int:
     from PyTorch's per-device current-stream state: no Stream object is
     built, and a stream switched by the caller is followed)."""
     return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+def scalar_ptrs(scalars, dev):
+    """Device addresses of the scalars a kernel reads from device memory,
+    and the tensor holding them where they had to be made (keep it until
+    the launch is enqueued): float32 one-element tensors on ``dev`` are
+    passed as they are (the solvers' 0-d results); Python numbers are
+    copied to the card in one tensor; anything else is stacked into one."""
+    if all(torch.is_tensor(s) and s.device == dev and s.dtype == torch.float32
+           and s.numel() == 1 for s in scalars):
+        return [s.data_ptr() for s in scalars], None
+    if not any(torch.is_tensor(s) for s in scalars):
+        held = torch.tensor([float(s) for s in scalars], dtype=torch.float32, device=dev)
+    else:
+        held = torch.stack([torch.as_tensor(s, dtype=torch.float32, device=dev).reshape(())
+                            for s in scalars])
+    base = held.data_ptr()
+    return [base + 4 * k for k in range(len(scalars))], held
 
 
 def require_all(arrays, shape, what: str):

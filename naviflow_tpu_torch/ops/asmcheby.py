@@ -1,8 +1,10 @@
 """K1: merged assembly + lagged-bound Chebyshev momentum solve of both fields.
 
 Replaces ``naviflow_tpu/ops/pallas_asmcheby.py:fused_asmcheby_pair``; the
-CUDA kernel is ``csrc/asmcheby.cu`` (its header says what bounds it on the
-H100 and how the 2-D halo tiles deal with that).
+CUDA kernel is ``csrc/asmcheby.cuh`` (its header says what bounds it on the
+H100 and how its persistent 2-D halo tiles deal with that), its entry
+points ``csrc/asmcheby.cu`` and, with phase timers,
+``csrc/asmcheby_phases.cu``.
 
 One call assembles each field's power-law coefficients, relaxes them, runs
 ``degree`` Chebyshev steps with the given (lagged) interval scalars,
@@ -13,12 +15,15 @@ conservative ``rho = 0.999`` (``algorithms/simple.py``).
 
 On a CPU tensor :func:`fused_asmcheby_pair` runs
 :func:`fused_asmcheby_pair_plain`, the composed PyTorch version; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises.  A launch allocates one buffer for
+all its outputs and runs no other PyTorch operator: the interval scalars
+are read by address, and the Gershgorin maxima come out of the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -34,8 +39,63 @@ PAD = 16  # the TPU window halo: the gate keeps degree + 1 <= PAD
 # admits exactly the grids the reference admits; not an H100 limit.
 _CAP_CELLS = 224 * 1024
 
-_TILE = 32  # csrc/asmcheby.cu TILE
 _VARIANTS = {"consistent": 0, "symmetric": 1, "reference": 2}
+
+# csrc/asmcheby.cuh's launch shape: persistent blocks of 512 threads, one
+# an SM, over regions of 64 x 64 faces (an owned tile and a halo of
+# degree + 1 on every side)
+THREADS = 512
+RI = RJ = 64
+
+
+def tile_shape(degree: int):
+    """The owned tile of a region at ``degree``: (rows, columns)."""
+    return RI - 2 * (degree + 1), RJ - 2 * (degree + 1)
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory of one block: the two iterate buffers (a zero
+    border) and eight region arrays."""
+    return 4 * (2 * (RI + 2) * (RJ + 2) + 8 * RI * RJ)
+
+
+# the C entry's pointer slots, in its order (csrc/asmcheby.cuh launch_asmcheby)
+SLOTS = ("u", "v", "p", "theta_u", "delta_u", "sigma1_u", "theta_v", "delta_v", "sigma1_v",
+         "u_star", "r_u", "v_star", "r_v", "d_u", "d_v", "pe", "pw", "pn", "ps", "pdiag",
+         "gmax")
+N_IN = 9  # the slots before the outputs
+# the timed instantiation's phases (csrc/asmcheby.cuh K1Phase); its timer
+# buffer holds the summed ns of each, then each one's count, then the last stamp
+PHASE_NAMES = ("assembly", "chebyshev", "residual", "pressure")
+N_TIMERS = 2 * len(PHASE_NAMES) + 1
+_ALIGN = 64  # floats: every output starts on a 256-byte boundary of the one buffer
+
+
+def output_layout(nx: int, ny: int):
+    """``[(offset, shape)]`` of each output in the one buffer, in SLOTS'
+    order from ``u_star``; the buffer's length last."""
+    shapes = ([(nx + 1, ny)] * 2 + [(nx, ny + 1)] * 2 + [(nx + 1, ny), (nx, ny + 1)]
+              + [(nx, ny)] * 5 + [(2,)])
+    out, off = [], 0
+    for shape in shapes:
+        out.append((off, shape))
+        off += -(-math.prod(shape) // _ALIGN) * _ALIGN
+    return out, off
+
+
+class _Launch:
+    """The host arrays of one (device, stream, shape, degree, variant,
+    physics) launch: the pointer slots (inputs refilled per call), the
+    integer and float parameters, the output layout."""
+
+    def __init__(self, nx, ny, degree, variant, floats):
+        self.layout, self.total = output_layout(nx, ny)
+        self.ptrs = (ctypes.c_longlong * (len(SLOTS) + 1))()  # + the timer buffer
+        self.ip = (ctypes.c_int * 4)(nx, ny, degree, variant)
+        self.fp = (ctypes.c_float * 9)(*floats)
+
+
+_LAUNCH = {}
 
 LAUNCHES = 0  # kernel launches since the last reset (the CPU path never counts)
 
@@ -95,52 +155,86 @@ def fused_asmcheby_pair_plain(u, v, p, *, dx, dy, rho, mu, alpha, degree,
             _masked_ratio_max(cu_rel, mask_u), _masked_ratio_max(cv_rel, mask_v))
 
 
+def _launch(u, v, p, dx, dy, rho, mu, alpha, degree, bounds_u, bounds_v, poisson_variant,
+            timers=None):
+    nxp1, ny = u.shape
+    nx = nxp1 - 1
+    _cuda.require_all((u,), (nx + 1, ny), "u")
+    _cuda.require_all((v,), (nx, ny + 1), "v")
+    _cuda.require_all((p,), (nx, ny), "p")
+    if degree < 1 or degree + 1 > PAD:
+        raise ValueError(f"degree {degree}: the kernel needs 1 <= degree <= {PAD - 1}")
+    if poisson_variant not in _VARIANTS:
+        raise ValueError(f"Unknown poisson operator variant: {poisson_variant}")
+    dev, stream = u.device, _cuda.stream_of(u)
+    floats = (0.5 * rho * dy, 0.5 * rho * dx, mu * dy / dx, mu * dx / dy, dx, dy, alpha,
+              1.0 - alpha, rho)
+    key = (dev, stream, nx, ny, degree, poisson_variant, floats)
+    st = _LAUNCH.get(key)
+    if st is None:
+        if len(_LAUNCH) >= 32:
+            _LAUNCH.clear()
+        st = _LAUNCH[key] = _Launch(nx, ny, degree, _VARIANTS[poisson_variant], floats)
+    scalars, held = _cuda.scalar_ptrs((*bounds_u, *bounds_v), dev)  # held until enqueued
+    buf = torch.empty(st.total, dtype=torch.float32, device=dev)  # every output
+    base = buf.data_ptr()
+    ptrs = st.ptrs
+    ptrs[:N_IN] = [u.data_ptr(), v.data_ptr(), p.data_ptr(), *scalars]
+    ptrs[N_IN:len(SLOTS)] = [base + 4 * off for off, _ in st.layout]
+    entry = "nf_asmcheby_pair"
+    if timers is not None:
+        ptrs[len(SLOTS)] = timers.data_ptr()
+        entry = "nf_asmcheby_pair_phases"
+    _cuda.check(getattr(_cuda.library(), entry)(ptrs, st.ip, st.fp, stream), entry)
+    outs = [buf.as_strided(shape, (shape[1], 1), off) for off, shape in st.layout[:-1]]
+    g = st.layout[-1][0]
+    u_star, r_u, v_star, r_v, d_u, d_v, pe, pw, pn, ps, pdiag = outs
+    pc = PoissonCoeffs(a_e=pe, a_w=pw, a_n=pn, a_s=ps, diag=pdiag)
+    return (u_star, r_u, v_star, r_v, d_u, d_v, pc, buf.as_strided((), (), g),
+            buf.as_strided((), (), g + 1))
+
+
 def fused_asmcheby_pair(u, v, p, *, dx, dy, rho, mu, alpha, degree,
                         bounds_u, bounds_v, poisson_variant="consistent"):
     """Assemble + Chebyshev-solve both momentum fields in one launch.
 
     ``u, v``: BC-applied staggered fields; ``bounds_u``/``bounds_v``:
-    ``(theta, delta, sigma1)`` interval scalars.  Returns ``(u_star, r_u,
-    v_star, r_v, d_u, d_v, pc, rho_u, rho_v)``: the ``r`` fields are the
-    unrelaxed residuals, zero outside each field's solve mask, ``pc`` the
-    :class:`PoissonCoeffs`, and ``rho_u/rho_v`` the fresh masked Gershgorin
-    ratio maxima (0-d tensors)."""
+    ``(theta, delta, sigma1)`` interval scalars (0-d tensors on the card, or
+    numbers).  Returns ``(u_star, r_u, v_star, r_v, d_u, d_v, pc, rho_u,
+    rho_v)``: the ``r`` fields are the unrelaxed residuals, zero outside
+    each field's solve mask, ``pc`` the :class:`PoissonCoeffs`, and
+    ``rho_u/rho_v`` the fresh masked Gershgorin ratio maxima (0-d tensors).
+    On the card every output is a view of one fresh buffer."""
     global LAUNCHES
     if not u.is_cuda:
         return fused_asmcheby_pair_plain(
             u, v, p, dx=dx, dy=dy, rho=rho, mu=mu, alpha=alpha, degree=degree,
             bounds_u=bounds_u, bounds_v=bounds_v, poisson_variant=poisson_variant)
-    nxp1, ny = u.shape
-    nx = nxp1 - 1
-    _cuda.require(u, (nx + 1, ny), "u")
-    _cuda.require(v, (nx, ny + 1), "v")
-    _cuda.require(p, (nx, ny), "p")
-    if degree < 1 or degree + 1 > PAD:
-        raise ValueError(f"degree {degree}: the kernel needs 1 <= degree <= {PAD - 1}")
-    if poisson_variant not in _VARIANTS:
-        raise ValueError(f"Unknown poisson operator variant: {poisson_variant}")
-    dev = u.device
-    bounds = torch.stack([torch.as_tensor(s, dtype=torch.float32, device=dev).reshape(())
-                          for s in (*bounds_u, *bounds_v)])
-    gx = -(-(ny + 1) // _TILE)
-    gy = -(-(nx + 1) // _TILE)
-
-    def empty(shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    outs = [empty((nx + 1, ny)), empty((nx + 1, ny)), empty((nx, ny + 1)),
-            empty((nx, ny + 1)), empty((nx + 1, ny)), empty((nx, ny + 1))]
-    outs += [empty((nx, ny)) for _ in range(5)]
-    outs += [empty((gy * gx,)), empty((gy * gx,))]
-    ptrs = (ctypes.c_longlong * 17)(
-        *[t.data_ptr() for t in (u, v, p, bounds, *outs)])
-    ip = (ctypes.c_int * 6)(nx, ny, degree, _VARIANTS[poisson_variant], gx, gy)
-    fp = (ctypes.c_float * 9)(0.5 * rho * dy, 0.5 * rho * dx, mu * dy / dx,
-                              mu * dx / dy, dx, dy, alpha, 1.0 - alpha, rho)
-    lib = _cuda.library()
-    _cuda.check(lib.nf_asmcheby_pair(ptrs, ip, fp, _cuda.stream_of(u)),
-                "fused_asmcheby_pair")
+    out = _launch(u, v, p, dx, dy, rho, mu, alpha, degree, bounds_u, bounds_v,
+                  poisson_variant)
     LAUNCHES += 1
-    u_star, r_u, v_star, r_v, d_u, d_v, pe, pw, pn, ps, pdiag, gu, gv = outs
-    pc = PoissonCoeffs(a_e=pe, a_w=pw, a_n=pn, a_s=ps, diag=pdiag)
-    return u_star, r_u, v_star, r_v, d_u, d_v, pc, torch.max(gu), torch.max(gv)
+    return out
+
+
+def decode_phases(buf):
+    """The timer buffer of ``nf_asmcheby_pair_phases`` (per phase the summed
+    ns, then per phase the count, then the last stamp) as ``{name: (ms,
+    count)}``."""
+    vals = [int(x) for x in buf]
+    n = len(PHASE_NAMES)
+    if len(vals) != N_TIMERS:
+        raise ValueError(f"expected {N_TIMERS} timer slots, got {len(vals)}")
+    return {name: (vals[k] / 1e6, vals[n + k]) for k, name in enumerate(PHASE_NAMES)}
+
+
+def fused_asmcheby_pair_phases(u, v, p, *, dx, dy, rho, mu, alpha, degree,
+                               bounds_u, bounds_v, poisson_variant="consistent"):
+    """:func:`fused_asmcheby_pair` through the instantiation with phase
+    timers (``nf_asmcheby_pair_phases``; thread 0 of block 0 stamps
+    %globaltimer after each phase of each of its tiles), a measurement aid:
+    CUDA tensors only, not counted in ``LAUNCHES``.  Returns the outputs and
+    :func:`decode_phases` of the timers (after a synchronise)."""
+    timers = torch.zeros(N_TIMERS, dtype=torch.int64, device=u.device)
+    out = _launch(u, v, p, dx, dy, rho, mu, alpha, degree, bounds_u, bounds_v,
+                  poisson_variant, timers)
+    return out, decode_phases(timers.cpu())

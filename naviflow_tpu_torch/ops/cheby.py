@@ -66,19 +66,6 @@ _IP = {}
 _FP = (ctypes.c_float * 1)(0.0)
 
 
-def _scalar_ptrs(scalars, dev):
-    """Device addresses of the interval scalars, and the tensor holding them
-    where they had to be made: float32 one-element tensors on ``dev`` are
-    passed as they are (the solver's 0-d results), anything else is stacked
-    into a fresh tensor."""
-    if all(torch.is_tensor(s) and s.device == dev and s.dtype == torch.float32
-           and s.numel() == 1 for s in scalars):
-        return [s.data_ptr() for s in scalars], None
-    held = torch.stack([torch.as_tensor(s, dtype=torch.float32, device=dev).reshape(())
-                        for s in scalars])
-    return [held[k].data_ptr() for k in range(len(scalars))], held
-
-
 def chebyshev_momentum_strips(x0, c_rel, c_un, *, theta, delta, sigma1, degree: int):
     """Chebyshev solve of one momentum field and its unrelaxed residual.
 
@@ -98,7 +85,7 @@ def chebyshev_momentum_strips(x0, c_rel, c_un, *, theta, delta, sigma1, degree: 
               c_un.a_p, c_un.src)
     _cuda.require_all(arrays, (ni, nj), "chebyshev_momentum_strips inputs")
     dev = x0.device
-    scalars, held = _scalar_ptrs((theta, delta, sigma1), dev)  # held until enqueued
+    scalars, held = _cuda.scalar_ptrs((theta, delta, sigma1), dev)  # held until enqueued
     x_star, r_m = torch.empty((2, ni, nj), dtype=torch.float32, device=dev)  # one allocation
     ptrs = _PTRS
     ptrs[:] = [a.data_ptr() for a in arrays] + scalars + [x_star.data_ptr(), r_m.data_ptr()]

@@ -2,7 +2,9 @@
 
 Replaces ``naviflow_tpu/ops/pallas_strip.py:strip_down`` / ``strip_up``;
 the CUDA kernels are ``csrc/strip.cu`` (its header says what bounds them on
-the H100 and how the 2-D halo tiles deal with that).
+the H100 and how the 2-D halo tiles deal with that: strip_down stages its
+tile's arrays in shared memory by 16-byte ``cp.async`` and runs each colour
+pass on that colour's cells only).
 
 * :func:`strip_down`: ``cfg.pre_smoothing`` Gauss-Seidel sweeps, the
   residual, and its full cell-centred restriction, in one launch.
@@ -34,6 +36,54 @@ _CAP_NINE = 384 * 1024
 
 STRIP_DOWN_LAUNCHES = 0
 STRIP_UP_LAUNCHES = 0
+
+# csrc/strip.cu's tiles: TILE rows of owned cells by TILE (strip_up) or
+# DOWN_TILE_J (strip_down) columns; strip_down's threads a block
+TILE = 32
+DOWN_TILE_J = 64
+
+
+def down_threads(five: bool) -> int:
+    """strip_down's threads a block on a 5- or 9-point level."""
+    return 512 if five else 1024
+
+
+# the C entries' pointer slots (csrc/strip.cu nf_strip_down / nf_strip_up),
+# the stencil's corners on 9-point levels only
+_ST5 = ("c", "e", "w", "n", "s")
+_ST9 = _ST5 + ("ne", "nw", "se", "sw")
+
+
+def down_slots(five: bool):
+    return ("p", "b", *(_ST5 if five else _ST9), "p_out", "rc")
+
+
+def down_region(five: bool, sweeps: int):
+    """strip_down's staged region: (rows, columns, halo H, column margin M):
+    TILE + 2 H rows and DOWN_TILE_J + 2 M columns, M = H rounded up to a
+    multiple of 4 (the rows' 16-byte chunks), H = colours x sweeps + 1."""
+    h = (2 if five else 4) * sweeps + 1
+    m = -(-h // 4) * 4
+    return TILE + 2 * h, DOWN_TILE_J + 2 * m, h, m
+
+
+def down_smem_bytes(five: bool, sweeps: int) -> int:
+    """strip_down's dynamic shared memory: p, b and the stencil arrays."""
+    rows, cols, _, _ = down_region(five, sweeps)
+    return 4 * ((5 if five else 9) + 2) * rows * cols
+
+
+class _Down:
+    """strip_down's host arrays for one (device, stream, shape, five, sweeps,
+    omega): the pointer slots (refilled per call) and the parameters."""
+
+    def __init__(self, nx, ny, five, sweeps, omega):
+        self.ptrs = (ctypes.c_longlong * len(down_slots(five)))()
+        self.ip = (ctypes.c_int * 4)(nx, ny, int(five), sweeps)
+        self.fp = (ctypes.c_float * 1)(omega)
+
+
+_DOWN = {}
 
 
 def _strip_rows(nx: int, ny: int, five: bool = True) -> int:
@@ -102,16 +152,23 @@ def strip_down(p, b, st: Stencil9, cfg, five: bool = True):
     if not p.is_cuda:
         return strip_down_plain(p, b, st, cfg, five)
     nx, ny, arrays = _check(p, b, st, cfg, five)
-    p_sm = torch.empty_like(p)
-    rc = torch.empty((nx // 2, ny // 2), dtype=p.dtype, device=p.device)
-    tensors = [p, b, *arrays, p_sm, rc]
-    ptrs = (ctypes.c_longlong * len(tensors))(*[t.data_ptr() for t in tensors])
-    ip = (ctypes.c_int * 4)(nx, ny, int(five), cfg.pre_smoothing)
-    fp = (ctypes.c_float * 1)(cfg.omega)
-    _cuda.check(_cuda.library().nf_strip_down(ptrs, ip, fp, _cuda.stream_of(p)),
-                "strip_down")
+    stream = _cuda.stream_of(p)
+    key = (p.device, stream, nx, ny, five, cfg.pre_smoothing, cfg.omega)
+    h = _DOWN.get(key)
+    if h is None:
+        if len(_DOWN) >= 32:
+            _DOWN.clear()
+        h = _DOWN[key] = _Down(nx, ny, five, cfg.pre_smoothing, cfg.omega)
+    # both outputs from one fresh buffer (a kept pair would be overwritten
+    # under a caller still holding the last call's result)
+    buf = torch.empty(nx * ny + (nx // 2) * (ny // 2), dtype=p.dtype, device=p.device)
+    base = buf.data_ptr()
+    h.ptrs[:] = [p.data_ptr(), b.data_ptr(), *[a.data_ptr() for a in arrays], base,
+                 base + 4 * nx * ny]
+    _cuda.check(_cuda.library().nf_strip_down(h.ptrs, h.ip, h.fp, stream), "strip_down")
     STRIP_DOWN_LAUNCHES += 1
-    return p_sm, rc
+    return (buf.as_strided((nx, ny), (ny, 1), 0),
+            buf.as_strided((nx // 2, ny // 2), (ny // 2, 1), nx * ny))
 
 
 def strip_up(p, b, st: Stencil9, ec, cfg, five: bool = True):
