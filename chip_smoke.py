@@ -10,11 +10,11 @@ result line:
    versions;
 2. the kernel build: ``nvcc`` compiles ``naviflow_tpu_torch/csrc/*.cu`` for
    sm_90a from the checkout, one process per source; ptxas's registers and
-   spills of K1's, K2's, K6's, K3's, K5's, K7's and K9's kernels, K1's
-   resident blocks an SM at degree 4 and strip_down's at each (points,
-   sweeps), the thread-block cluster size each K6 body, K3, K5 and K7
-   launch with, and one cluster barrier's time at each size
-   (``nf_cluster_sync_probe``);
+   spills of K1's, K2's, K6's, K3's, K5's, K7's and K9's kernels (each
+   strip_up instance's and K4's by name), K1's resident blocks an SM at
+   degree 4 and strip_down's and strip_up's at each (points, sweeps), the
+   thread-block cluster size each K6 body, K3, K4, K5 and K7 launch with,
+   and one cluster barrier's time at each size (``nf_cluster_sync_probe``);
 3. each kernel against its plain PyTorch version on the card, with the
    tolerance of the JAX package's test of that kernel and both times (CUDA
    events, turns plain / kernel / kernel / plain): K1, K2 and K3 at the
@@ -33,9 +33,9 @@ result line:
    63^2 (1 and 3 sweeps) and 256^2, K11b at 63^2, 256^2 and 48 x 96 with a
    cuSPARSE SpMV of the same operator beside it.  Every kernel's CUDA-event
    time, its device time (``device_ms``: events around launches queued
-   behind a device-side sleep) and, for K1, K2a, K3, K5, K6, K7, K9 and
-   K11b, the host's time per call; beside them the time of one grid-wide barrier at
-   K4's grid size and the cluster-barrier bound (K3, K5, K6, K7); then
+   behind a device-side sleep) and, for K1-K7, K9 and K11b, the host's time
+   per call; beside them the cluster-barrier bound (K3-K7; K7's cooperative
+   kernel on the 255^2 fields: the grid-barrier bound); then
    K6's phase split (``nf_fused_outer_step_phases``)
    for each body over 20 chained 63^2 steps, K3's
    (``nf_fused_vcycle_phases``) on the 256^2 tail and the 63^2 vertex
@@ -93,8 +93,9 @@ Then a JSON line with every kernel's launches, error, times and bound (K2:
 each level's too, and the launches a step), the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``.  Needs no network and
 no JAX; there is no CPU path.  With ``--ab TAG`` it runs one side of an A/B
-between two trees instead (``ab_side``: K1, K2a, K7 and K5, or those
-``--kernels`` names; ``--save DIR`` keeps K1's and K2a's outputs), and with
+between two trees instead (``ab_side``: K1, K2a, K2b, K7, K5, K4 and K6's
+phase split, or those ``--kernels`` names; ``--save DIR`` keeps K1's, K2a's, K2b's and
+K4's outputs), and with
 ``--ab-compare DIR A B`` it compares two saved sides output by output.
 """
 
@@ -103,6 +104,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -234,6 +236,34 @@ def blocks_per_sm(entry, *args):
     return out.value
 
 
+def ptxas_kernels(src, kernel):
+    """ptxas's registers and spills of each instance of ``kernel`` in
+    ``src``'s build log, by ``kernel<template arguments>``."""
+    from naviflow_tpu_torch.ops import _cuda
+
+    out, name = {}, None
+    for line in _cuda.build_log.get(src, "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: |$)",
+                      line)
+        if m:
+            name = None
+            if kernel in m.group(1):  # a template's instance: kernel<arguments>
+                k = re.search(kernel + r"I((?:L[a-z]+\d+E)+)E", m.group(1))
+                args = re.findall(r"L[a-z]+(\d+)E", k.group(1)) if k else []
+                name = f"{kernel}<{','.join(args)}>" if args else kernel
+            continue
+        if name is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", line)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if regs:
+            out.setdefault(name, {})["registers"] = int(regs.group(1))
+        if spills:
+            out.setdefault(name, {}).update(spill_stores=int(spills.group(1)),
+                                            spill_loads=int(spills.group(2)))
+    return out
+
+
 def grid_sync_ms(cells, dev):
     """ms of one grid-wide barrier in a cooperative launch sized for
     ``cells`` cells (nf_grid_sync_probe)."""
@@ -286,32 +316,6 @@ def k6_barriers(algo, cfg, meta, pres, k_total, cycles, psolves):
     else:  # simpler
         n += update_p + pair() + update_p + 1 + 1
     return n
-
-
-class Barriers:
-    """Counts the grid-wide barriers of K4's cooperative launch (csrc/coop.cuh,
-    mg.cuh), pass by pass (NF_PASS: a pass over <= 1,024 cells runs in block
-    0 alone and owes one barrier before the next grid-wide pass)."""
-
-    SMALL = 1024
-
-    def __init__(self):
-        self.n, self.pending = 0, False
-
-    def settle(self):
-        if self.pending:
-            self.n, self.pending = self.n + 1, False
-
-    def pass_(self, cells):
-        if cells <= self.SMALL:
-            self.pending = True
-        else:
-            self.settle()
-            self.n += 1
-
-    def rap(self, meta):
-        for (a, b), _ in meta[1:]:
-            self.pass_(a * b)
 
 
 # ---------------------------------------------------------------------------
@@ -588,9 +592,11 @@ def check_strips(dev, levels, cfg, rng):
 
         ms_d, plain_d, dev_d = time_pair(lambda: strip.strip_down_plain(p, b, st, cfg, five),
                                          down)
+        def up():
+            strip.strip_up(want_x, b, st, ec, cfg, five)
+
         ms_u, plain_u, dev_u = time_pair(
-            lambda: strip.strip_up_plain(want_x, b, st, ec, cfg, five),
-            lambda: strip.strip_up(want_x, b, st, ec, cfg, five))
+            lambda: strip.strip_up_plain(want_x, b, st, ec, cfg, five), up)
         cells, a, taps = n * n, _apply_ops(five), (5 if five else 9)
         down_work = (4 * (cells * (2 + taps) + cells + cells // 4),
                      cells * (cfg.pre_smoothing * (a + GS_UPDATE) + a + 1) + 3 * cells)
@@ -606,7 +612,7 @@ def check_strips(dev, levels, cfg, rng):
                          max_abs_err=max_err(got_up, want_up)[0],
                          rel_err=max_err(got_up, want_up)[1],
                          scale=float(want_up.abs().max()), ms=ms_u, plain_ms=plain_u,
-                         device_ms=dev_u, work=up_work))
+                         device_ms=dev_u, host_ms=host_ms(up), work=up_work))
     return rows
 
 
@@ -783,16 +789,21 @@ def check_bicgstab(inputs, cl_ms, sync_ms):
     return rows
 
 
-def check_rap(hier, sync_ms):
+def check_rap(hier, cl_ms):
     """K4 on each hierarchy: every coarse stencil entry within 1e-5 of its
-    array's scale (tests/test_pallas.py's K4 tolerance)."""
+    array's scale (tests/test_pallas.py's K4 tolerance).  ``cl_ms``: one
+    cluster barrier's time at K4's size; one barrier a coarse level."""
     from naviflow_tpu_torch.ops import mg
 
     rows = []
     for n, levels in hier:
         shapes, meta = [lv[1] for lv in levels], meta_of(levels)
         fine = levels[0][0]
-        got = mg.galerkin_levels(fine, shapes, True)
+
+        def kernel(fine=fine, shapes=shapes):
+            return mg.galerkin_levels(fine, shapes, True)
+
+        got = kernel()
         want = mg.galerkin_levels_plain(fine, shapes, True)
         torch_sync()
         worst_abs = worst_rel = 0.0
@@ -801,16 +812,13 @@ def check_rap(hier, sync_ms):
                 a, r = max_err(getattr(g, name), getattr(w, name))
                 worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
         ms, plain_ms, dev_ms = time_pair(lambda: mg.galerkin_levels_plain(fine, shapes, True),
-                                 lambda: mg.galerkin_levels(fine, shapes, True))
-        bar = Barriers()
-        bar.rap(meta)
-        bar.settle()
+                                         kernel)
+        bar = len(shapes) - 1
         rows.append(dict(name="galerkin_levels", shape=[n, n], levels=[s[0] for s in shapes],
                          ok=worst_rel < 1e-5, max_abs_err=worst_abs, rel_err=worst_rel, ms=ms,
-                         plain_ms=plain_ms, device_ms=dev_ms, work=rap_work(meta),
-                         grid_barriers=bar.n,
-                         barrier_bound_ms=bar.n * sync_ms(shapes[1][0] * shapes[1][1]),
-                         main=n == NH))
+                         plain_ms=plain_ms, device_ms=dev_ms, host_ms=host_ms(kernel),
+                         work=rap_work(meta), cluster_barriers=bar,
+                         barrier_bound_ms=bar * cl_ms, main=n == NH))
     return rows
 
 
@@ -2170,8 +2178,8 @@ def kernels_line(rows, paths):
                      library_ms=sum(lib) / len(lib) if lib else None,
                      launches_by_path={p: c[counter] for p, c in paths.items()},
                      bytes=nbytes, flops=flops)
-        # device times (every kernel), K11b's SpMV's and the host times per
-        # call (K6, K11b); the barrier bound (K3-K7; K6 in cluster barriers)
+        # device times (every kernel), K11b's SpMV's, the host times per
+        # call (K1-K7, K9, K11b) and the barrier bounds (K3-K7)
         for key in ("device_ms", "library_device_ms", "host_ms", "grid_barriers",
                     "cluster_barriers", "barrier_bound_ms"):
             if all(key in r for r in mine):
@@ -2189,20 +2197,23 @@ def kernels_line(rows, paths):
     return out
 
 
-AB_KERNELS = ("K1", "K2a", "K7", "K5")
+AB_KERNELS = ("K1", "K2a", "K2b", "K7", "K5", "K4", "K6")
 
 
 def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG, 511)):
     """One side of an A/B between two trees, through the tree's own
     wrappers, of the ``kernels`` named: K1 at 1024^2 and 4096^2
-    (``asmcheby_current``) and K2a on both strip levels of the 1024^2
-    hierarchy (``fine_levels``), each output's error against the plain
-    version; K7 on each n^2 cavity's u and v systems (``odd_inputs`` from
-    rest, maxiter 20), K5 on the 63^2 and 255^2 vertex hierarchies of the
-    same states and on the 256^2 cell-centred one (the headline
-    configuration), the error of the first output; device and event times
-    of each.  With ``save``, K1's and K2a's outputs go to ``save/TAG.pt``
-    for ``ab_compare``.  Run it in turns A, B, B, A, each from a tree's
+    (``asmcheby_current``) and K2a and K2b on both strip levels of the
+    1024^2 hierarchy (``fine_levels``), each output's error against the
+    plain version; K7 on each n^2 cavity's u and v systems (``odd_inputs``
+    from rest, maxiter 20), K5 on the 63^2 and 255^2 vertex hierarchies of
+    the same states and on the 256^2 cell-centred one (the headline
+    configuration), the error of the first output; K4 on the same 63^2 and
+    255^2 vertex hierarchies, every output's error; device, event and host
+    times of each; K6's phase split (``k6_phases``: each body's RAP phase
+    and event ms a step).  With ``save``, K1's, K2a's, K2b's and K4's outputs (K4:
+    all nine arrays of every coarse level) go to ``save/TAG.pt`` for
+    ``ab_compare``.  Run it in turns A, B, B, A, each from a tree's
     root: ``PYTHONPATH=. python3 -P <this file> --ab TAG`` (``-P``: the tree
     on PYTHONPATH, not this file's directory, supplies the package)."""
     from pathlib import Path
@@ -2215,7 +2226,7 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
 
     def timed(fn, **key):
         emit(dict(phase="ab", tag=tag, **key, ms=time_ms(fn), device_ms=device_ms(fn),
-                  device_ms_again=device_ms(fn)))
+                  device_ms_again=device_ms(fn), host_ms=host_ms(fn)))
 
     def row(fn, plain, **key):
         got, want = fn(), plain()
@@ -2258,7 +2269,25 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
             timed(lambda: strip.strip_down(p, b, st, cfg, five), kernel="K2a", n=n,
                   five_point=five, rel_err=errs, max_rel_err=max(errs.values()))
         del levels
-    for n in sizes if {"K7", "K5"} & set(kernels) else ():
+    if "K2b" in kernels:
+        levels, cfg, rng = fine_levels(dev)
+        for lvl in (0, 1):
+            st, (n, _), five, _ = levels[lvl]
+            p, b, ec = (torch.as_tensor(rng.normal(size=shp), dtype=torch.float32, device=dev)
+                        for shp in ((n, n), (n, n), (n // 2, n // 2)))
+            errs = outputs(f"K2b_{n}", {"p": strip.strip_up(p, b, st, ec, cfg, five)},
+                           [strip.strip_up_plain(p, b, st, ec, cfg, five)])
+            timed(lambda: strip.strip_up(p, b, st, ec, cfg, five), kernel="K2b", n=n,
+                  five_point=five, rel_err=errs, max_rel_err=max(errs.values()))
+        del levels
+    # K7 at every size, K5 and K4 on the 63^2 and 255^2 hierarchies
+    if "K7" in kernels:
+        odd_sizes = sizes
+    elif {"K5", "K4"} & set(kernels):
+        odd_sizes = (NH, NH_BIG)
+    else:
+        odd_sizes = ()
+    for n in odd_sizes:
         inp = odd_inputs(n, dev, steps=0)
         for field in ("u", "v") if "K7" in kernels else ():
             x0, c = inp[field], inp["c" + field]
@@ -2274,6 +2303,24 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
                 row(lambda: mg.fused_mg_solve(p0, b, levels, inp["pres"]),
                     lambda: mg.fused_mg_solve_plain(p0, b, levels, inp["pres"]),
                     kernel="K5", hierarchy=label)
+        if n in (NH, NH_BIG) and "K4" in kernels:
+            fine, shapes = inp["levels"][0][0], [lv[1] for lv in inp["levels"]]
+            names = ("c", "e", "w", "n", "s", "ne", "nw", "se", "sw")
+
+            def flat(out):
+                return {f"l{lvl}_{k}": getattr(st, k)
+                        for lvl, st in enumerate(out, start=1) for k in names}
+
+            want = flat(mg.galerkin_levels_plain(fine, shapes, True))
+            errs = outputs(f"K4_{n}", flat(mg.galerkin_levels(fine, shapes, True)),
+                           list(want.values()))
+            timed(lambda: mg.galerkin_levels(fine, shapes, True), kernel="K4", n=n,
+                  max_rel_err=max(errs.values()))
+    if "K6" in kernels:
+        for algo, body in k6_phases(dev)["bodies"].items():
+            emit(dict(phase="ab", tag=tag, kernel="K6", algo=algo,
+                      rap_ms=body["phases_ms"]["rap"], sum_ms=body["sum_ms"],
+                      event_ms=body["event_ms"]))
     if save:
         Path(save).mkdir(parents=True, exist_ok=True)
         torch.save(saved, Path(save) / f"{tag}.pt")
@@ -2307,7 +2354,8 @@ def parse_args(argv):
     ap.add_argument("--ab", metavar="TAG", help="run one side of an A/B (ab_side) and stop")
     ap.add_argument("--kernels", default=",".join(AB_KERNELS),
                     help="the A/B's kernels, comma-separated (default: %(default)s)")
-    ap.add_argument("--save", metavar="DIR", help="keep the A/B's K1 and K2a outputs here")
+    ap.add_argument("--save", metavar="DIR",
+                    help="keep the A/B's K1, K2a, K2b and K4 outputs here")
     ap.add_argument("--ab-compare", nargs=3, metavar=("DIR", "TAG_A", "TAG_B"),
                     help="compare two saved A/B sides output by output and stop")
     return ap.parse_args(argv)
@@ -2352,7 +2400,7 @@ def main() -> int:
 
     clusters = {algo: step.cluster_size(algo, dev) for algo in step.ALGO_SCALARS}
     k3_size, k5_size = mg.vcycle_cluster_size(dev), mg.mg_solve_cluster_size(dev)
-    k7_size = krylov.cluster_size(dev)
+    k4_size, k7_size = mg.galerkin_cluster_size(dev), krylov.cluster_size(dev)
     # ptxas's report of K1's, K2's, K6's, K3's, K5's, K7's and K9's kernels:
     # registers, spills, shared memory
     ptxas = {src: [line.strip() for line in _cuda.build_log.get(src, "").splitlines()
@@ -2361,15 +2409,20 @@ def main() -> int:
                          "cheby.cu")}
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=_cuda.build_seconds, library=_cuda.library_path().name,
-              k6_cluster_size=clusters, k3_cluster_size=k3_size, k5_cluster_size=k5_size,
-              k7_cluster_size=k7_size, cluster_threads_per_cta=512,
+              k6_cluster_size=clusters, k3_cluster_size=k3_size, k4_cluster_size=k4_size,
+              k5_cluster_size=k5_size, k7_cluster_size=k7_size, cluster_threads_per_cta=512,
               k1_blocks_per_sm=blocks_per_sm("nf_asmcheby_blocks_per_sm", 4),
-              strip_down_blocks_per_sm={f"{pts}pt_{sw}": blocks_per_sm(
-                  "nf_strip_down_blocks_per_sm", int(pts == 5), sw)
-                  for pts in (5, 9) for sw in (1, 2)}, ptxas=ptxas))
+              **{f"{side}_blocks_per_sm": {f"{pts}pt_{sw}": blocks_per_sm(
+                  f"nf_{side}_blocks_per_sm", int(pts == 5), sw)
+                  for pts in (5, 9) for sw in sweeps}
+                 for side, sweeps in (("strip_down", (1, 2)), ("strip_up", (0, 1, 2)))},
+              ptxas=ptxas, ptxas_by_kernel={
+                  **ptxas_kernels("strip.cu", "strip_up_kernel"),
+                  **ptxas_kernels("mg.cu", "galerkin_kernel")}))
     # one cluster barrier at each kernel's size (its bound's unit) and at 8
     cl_by_size = {size: cluster_sync_ms(size, dev)
-                  for size in sorted({8, clusters["simple"], k3_size, k5_size, k7_size})}
+                  for size in sorted({8, clusters["simple"], k3_size, k4_size, k5_size,
+                                      k7_size})}
     cl_ms = cl_by_size[clusters["simple"]]
     emit(dict(phase="cluster_barrier", cluster_size=clusters["simple"], ms=cl_ms,
               ms_by_size={str(k): v for k, v in cl_by_size.items()}))
@@ -2391,7 +2444,7 @@ def main() -> int:
     inp = odd_inputs(NH, dev, steps=5)
     big = odd_inputs(NH_BIG, dev, steps=0)
     rows += check_bicgstab([(NH, inp), (NH_BIG, big)], cl_by_size[k7_size], sync_ms)
-    rows += check_rap([(NH, inp["levels"]), (NH_BIG, big["levels"])], sync_ms)
+    rows += check_rap([(NH, inp["levels"]), (NH_BIG, big["levels"])], cl_by_size[k4_size])
     pres = inp["pres"]
     even_levels, even_b = even_hierarchy(256, dev, pres)
     rows += check_mg_solve(

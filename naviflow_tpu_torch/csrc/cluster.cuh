@@ -16,9 +16,10 @@
 //     each of them for every coarse cell it feeds); the fine -> first
 //     coarse restriction writes into rank 0's storage, and the prolongation
 //     back reads from it, through DSMEM;
-//   * the Galerkin RAP of every coarse level is spread over the cluster, one
-//     (coarse cell, offset) entry per work item, written straight into the
-//     level's storage, one cluster barrier per level; the transfer weights
+//   * the Galerkin RAP of every coarse level (K4's too) is spread over the
+//     cluster, one (coarse cell, offset) entry per work item, the nine of a
+//     cell on neighbouring lanes, written straight into the level's
+//     storage, one cluster barrier per level; the transfer weights
 //     are the vertex taps themselves (1 and 1/2, the boundary slab copied)
 //     with no per-tap branch;
 //   * a reduction combines each CTA's warps by a shuffle in its warp 0,
@@ -54,7 +55,8 @@ struct NfCluster {
 };
 
 // The cluster context of this thread; `dyn` is the dynamic shared memory,
-// whose first NF_CL_RED_FLOATS floats hold the partials.
+// whose first NF_CL_RED_FLOATS floats hold the partials (null: a kernel
+// with no reduction).
 __device__ __forceinline__ NfCluster nf_cluster(float* dyn) {
   cg::cluster_group cl = cg::this_cluster();
   NfCluster C;
@@ -62,13 +64,12 @@ __device__ __forceinline__ NfCluster nf_cluster(float* dyn) {
   C.size = (int)cl.num_blocks();
   C.gtid = (int64_t)C.rank * blockDim.x + threadIdx.x;
   C.gstride = (int64_t)C.size * blockDim.x;
-  C.red = cl.map_shared_rank(dyn, 0);
+  C.red = dyn ? cl.map_shared_rank(dyn, 0) : nullptr;
   C.phase = 0;
   return C;
 }
 
 __device__ __forceinline__ void nf_sync(NfCluster&) { cg::this_cluster().sync(); }
-__device__ __forceinline__ void nf_settle(NfCluster&) {}
 
 // The cluster barrier split in two, for the launch's first one: arrive at
 // the start (relaxed: it orders no memory access), wait just before the
@@ -408,17 +409,27 @@ __device__ int nf_cl_mg_solve(NfCluster& C, const NfMG& M, const NfLevel* lv, in
 }
 
 // ---------------------------------------------------------------------------
-// The vertex Galerkin RAP over the cluster (mg.cuh's nf_rap_pass, entry by
-// entry the same sums in the same order).  The prolongation weight of fine
-// line 2I - 1 + e (e = 0..4) to coarse line I + d, for a coarse line I of
-// nc and a coarse neighbour I + d inside the grid:
+// The vertex Galerkin RAP over the cluster (K4's and K6's): A_c = R A P
+// entry by entry.  With the per-axis full weighting w = (1/4, 1/2, 1/4) on
+// fine rows 2I..2I+2 and the bilinear prolongation weights p(i, I') of
+// ops/transfer.prolong_linear, the coarse entry of (I, J) at neighbour
+// offset (di, dj) is
+//   sum_{a, b in 0..2} w_a w_b sum_{taps k} S_k(2I+a, 2J+b)
+//       * p(2I+a+ka, I+di) * p(2J+b+kb, J+dj),
+// fine neighbours outside the grid contributing zero (the zero-filled
+// shifts of ops/stencil9.apply9), coarse neighbours outside the grid giving
+// a zero entry: 81 fine-point/tap pairs an entry, in f32, no comb and no
+// matrix product (the TPU's comb + MXU form needed Precision.HIGHEST).
+// The prolongation weight of fine line 2I - 1 + e (e = 0..4) to coarse
+// line I + d, for a coarse line I of nc and a coarse neighbour I + d
+// inside the grid:
 //   d = -1: (1, 1/2, 0, 0, 0)
 //   d =  0: (0, 1/2, 1, 1/2, 0), the 1/2 at e = 1 a 1 where I = 0 (fine
 //           line 0 copies coarse line 0) and the 1/2 at e = 3 a 1 where
 //           I = nc - 1 (the last fine line copies the last coarse line)
 //   d = +1: (0, 0, 0, 1/2, 1)
-// (ops/transfer.prolong_linear); a fine neighbour off the grid always meets
-// a zero weight.  A zero weight adds an exact zero, so no tap needs a branch.
+// A fine neighbour off the grid always meets a zero weight, and a zero
+// weight adds an exact zero, so no tap needs a branch.
 
 __device__ __forceinline__ void nf_cl_axis_weights(int I, int d, int nc, float (&w)[5]) {
   w[0] = d == -1 ? 1.f : 0.f;
@@ -428,8 +439,11 @@ __device__ __forceinline__ void nf_cl_axis_weights(int I, int d, int nc, float (
   w[4] = d == 1 ? 1.f : 0.f;
 }
 
-// Entries (offset o, coarse cell g) of level C from level F, o-major work
-// items over [start, 9 * cells) with `stride`.
+// Entries (coarse cell g, offset o) of level C from level F, cell-major
+// work items over [start, 9 * cells) with `stride`: the nine entries of a
+// cell on neighbouring lanes read the same fine points (one request serves
+// them; offset-major items, o = w / cells, were 1.2x slower in K4 and 2.5x
+// in K6, whose levels live in rank 0's shared memory).
 __device__ inline void nf_cl_rap_pass(const NfLevel& F, const NfLevel& C, int64_t start,
                                       int64_t stride) {
   constexpr int KI[9] = {0, 1, -1, 0, 0, 1, -1, 1, -1};
@@ -438,8 +452,8 @@ __device__ inline void nf_cl_rap_pass(const NfLevel& F, const NfLevel& C, int64_
   const int taps = F.five ? 5 : 9;
   const int64_t cells = (int64_t)C.ni * C.nj;
   for (int64_t w = start; w < 9 * cells; w += stride) {
-    const int o = (int)(w / cells);
-    const int64_t g = w - o * cells;
+    const int64_t g = w / 9;
+    const int o = (int)(w - 9 * g);
     const int I = (int)(g / C.nj), J = (int)(g % C.nj);
     const int Ic = I + KI[o], Jc = J + KJ[o];
     float val = 0.f;

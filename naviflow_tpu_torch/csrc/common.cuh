@@ -36,16 +36,25 @@ __device__ __forceinline__ float nf_inv_diag(float c) {
   return 1.f / (fabsf(c) < 1e-15f ? 1.f : c);
 }
 
+// The cell-centred bilinear mix of a fine cell's coarse cell (I, J) and its
+// clamped neighbours Ia (axis 0) and Ja (axis 1): axis 0 first, then axis
+// 1, as ops/transfer_cc.prolong_cc.
+__device__ __forceinline__ float nf_prolong_mix(float e_IJ, float e_IaJ, float e_IJa,
+                                                float e_IaJa) {
+  const float t0 = 0.75f * e_IJ + 0.25f * e_IaJ;
+  const float t1 = 0.75f * e_IJa + 0.25f * e_IaJa;
+  return 0.75f * t0 + 0.25f * t1;
+}
+
 // Cell-centred bilinear prolongation of coarse field ec (nci x ncj) at fine
-// cell (i, j): axis 0 first, then axis 1, as ops/transfer_cc.prolong_cc.
+// cell (i, j).
 __device__ __forceinline__ float nf_prolong_cc(const float* __restrict__ ec,
                                                int nci, int ncj, int i, int j) {
   const int I = i >> 1, J = j >> 1;
   const int Ia = (i & 1) ? min(I + 1, nci - 1) : max(I - 1, 0);
   const int Ja = (j & 1) ? min(J + 1, ncj - 1) : max(J - 1, 0);
-  const float t0 = 0.75f * ec[(int64_t)I * ncj + J] + 0.25f * ec[(int64_t)Ia * ncj + J];
-  const float t1 = 0.75f * ec[(int64_t)I * ncj + Ja] + 0.25f * ec[(int64_t)Ia * ncj + Ja];
-  return 0.75f * t0 + 0.25f * t1;
+  return nf_prolong_mix(ec[(int64_t)I * ncj + J], ec[(int64_t)Ia * ncj + J],
+                        ec[(int64_t)I * ncj + Ja], ec[(int64_t)Ia * ncj + Ja]);
 }
 
 // Knuth TwoSum: s + e == a + b exactly (needs -fmad=false, NVCC_FLAGS).

@@ -1,14 +1,11 @@
-// Cooperative-launch helpers of K4 (nf_galerkin_levels) and of K7's
-// large-field kernel (krylov.cu), and the reduction slot count and
+// Cooperative-launch helpers of K7's large-field kernel (krylov.cu) and of
+// the grid-barrier probe (mg.cu), and the reduction slot count and
 // NaN-keeping maximum that cluster.cuh's reductions share.
 //
 // A kernel of this family runs as one cooperative launch of as many blocks
-// as fit on the SMs at once.  Its work is a sequence of passes; a pass over
-// more than NF_SMALL_CELLS cells loops over them with a grid stride and
-// ends in a grid-wide barrier (cooperative_groups grid.sync()), a pass over
-// a smaller level runs in block 0 alone between __syncthreads() and the
-// other blocks go on to the next barrier (`pending` records that one is
-// owed).  The grid-sync probe (mg.cu) times one such barrier.
+// as fit on the SMs at once.  Its work is a sequence of grid-strided passes,
+// each ending in a grid-wide barrier (cooperative_groups grid.sync()).  The
+// grid-sync probe (mg.cu) times one such barrier.
 //
 // Grid-uniform control flow: a data-dependent loop (BiCGSTAB's stopping
 // rule) must take the same branch in every block, or blocks leave the loop
@@ -35,50 +32,20 @@ constexpr int NF_RED_SLOTS = 8;  // floats per block and reduction: 4 double-sin
 struct NfCoop {
   cg::grid_group grid;
   int64_t gtid, gstride;
-  bool pending;  // block 0 wrote without a grid barrier since
-  float* red;    // 2 x NF_RED_SLOTS x NF_MAX_BLOCKS floats (the wrapper's scratch)
-  int phase;     // which half of `red` the next reduction writes
+  float* red;  // 2 x NF_RED_SLOTS x NF_MAX_BLOCKS floats (the wrapper's scratch)
+  int phase;   // which half of `red` the next reduction writes
 };
 
 __device__ __forceinline__ NfCoop nf_coop(float* red) {
-  NfCoop C{cg::this_grid(), 0, 0, false, red, 0};
+  NfCoop C{cg::this_grid(), 0, 0, red, 0};
   C.gtid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   C.gstride = (int64_t)gridDim.x * blockDim.x;
   return C;
 }
 
-// The barrier owed to block 0's last small pass, before a grid-wide one.
-__device__ __forceinline__ void nf_settle(NfCoop& C) {
-  if (C.pending) {
-    C.grid.sync();
-    C.pending = false;
-  }
-}
-
-// One pass over `cells` cells (uniform over the grid): block 0 alone for
-// small levels, the whole grid otherwise.  CALL sees `start` and `stride`.
-#define NF_PASS(C, cells, CALL)                    \
-  do {                                             \
-    if ((cells) <= NF_SMALL_CELLS) {               \
-      if (blockIdx.x == 0) {                       \
-        const int64_t start = threadIdx.x;         \
-        const int64_t stride = blockDim.x;         \
-        CALL;                                      \
-        __syncthreads();                           \
-      }                                            \
-      (C).pending = true;                          \
-    } else {                                       \
-      nf_settle(C);                                \
-      const int64_t start = (C).gtid;              \
-      const int64_t stride = (C).gstride;          \
-      CALL;                                        \
-      (C).grid.sync();                             \
-    }                                              \
-  } while (0)
-
 // Sum N double-single partials (one set per thread) over the whole grid;
 // every thread of every block returns the same N floats.  Every thread of
-// the grid must call it, after nf_settle.  Ends with the grid in step.
+// the grid must call it.  Ends with the grid in step.
 template <int N>
 __device__ void nf_grid_reduce(NfCoop& C, NfDS (&v)[N], float (&out)[N]) {
   __shared__ NfDS warp_part[N][NF_THREADS / 32];
@@ -125,7 +92,6 @@ __device__ void nf_grid_reduce(NfCoop& C, NfDS (&v)[N], float (&out)[N]) {
   for (int k = 0; k < N; ++k) out[k] = result[k];
   __syncthreads();  // `result` and `warp_part` are reused by the next call
   C.phase ^= 1;
-  C.pending = false;
 }
 
 // max(a, b) that keeps a NaN of either side (jnp.max propagates NaN).

@@ -16,7 +16,7 @@
 // s; t = A s with (t, t) and (t, s); x and r with (r, r) and (rhat, r)).
 // The solve is written once for both execution contexts: a cooperative grid
 // (NfCoop, coop.cuh) and a thread-block cluster (NfCluster, cluster.cuh);
-// each gives gtid / gstride, nf_sync, nf_reduce and nf_settle.
+// each gives gtid / gstride, nf_sync and nf_reduce.
 #pragma once
 
 #include "cluster.cuh"
@@ -52,7 +52,6 @@ template <class Ctx>
 __device__ inline void nf_bicgstab_solve(Ctx& C, const NfKrylov& K, float tol, int maxiter) {
   const int64_t n = (int64_t)K.ni * K.nj;
   const float eps = 1.17549435e-38f * 1e6f;  // finfo(float32).tiny * 1e6
-  nf_settle(C);
   for (int64_t g = C.gtid; g < n; g += C.gstride) {
     const int i = (int)(g / K.nj), j = (int)(g % K.nj);
     K.x[g] = nf_kry_in(K, i, j) ? K.x0[g] : 0.f;

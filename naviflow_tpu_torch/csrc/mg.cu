@@ -1,29 +1,32 @@
 // K3, K4, K5: the multigrid kernels over a whole level hierarchy, each one
-// launch.
+// launch of one thread-block cluster.
 //
-// K3 nf_fused_vcycle    one V-cycle, in one thread-block cluster over the
-//                       device code of vcycle.cuh (its header says how);
-//                       replaces naviflow_tpu/ops/pallas_mg.py:fused_vcycle.
+// K3 nf_fused_vcycle    one V-cycle over the device code of vcycle.cuh (its
+//                       header says how); replaces
+//                       naviflow_tpu/ops/pallas_mg.py:fused_vcycle.
 // K4 nf_galerkin_levels every Galerkin coarse stencil of a vertex
-//                       hierarchy; replaces pallas_mg.py:galerkin_levels_pallas.
+//                       hierarchy, cluster.cuh's RAP (K6's); replaces
+//                       pallas_mg.py:galerkin_levels_pallas.
 // K5 nf_fused_mg_solve  the whole solve: cycles, compensated convergence
-//                       checks, mean normalisation and residual, in one
-//                       thread-block cluster on K3's cycle (vcycle.cuh's
-//                       nf_vc_mg_solve); replaces pallas_mg.py:fused_mg_solve.
+//                       checks, mean normalisation and residual, on K3's
+//                       cycle (vcycle.cuh's nf_vc_mg_solve); replaces
+//                       pallas_mg.py:fused_mg_solve.
 //
 // Bound on the H100: a hierarchy the gate admits (<= 255^2 vertex, 256^2
 // cell-centred for K4/K5, the 256^2 -> 4^2 tail for K3) holds at most
 // ~8 MB, so it lives in the 50 MB L2 and the kernels are bound by their
 // dependent passes (one per colour, residual, transfer and RAP level) and
-// the barriers between them, not by HBM.  K3 and K5: one cluster of 16
-// CTAs (8 where 16 do not fit) with hardware cluster barriers (0.71 us)
-// between the passes over the large levels, the levels of <= 1,024 cells
-// in rank 0's shared memory, the coarsest in one warp's registers.  K4
-// (coop.cuh): one cooperative launch of as many blocks as fit at once,
-// grid-stride passes ending in grid.sync(), levels of <= 1,024 cells in
-// block 0 alone.  Level 0's iterate is the output buffer; the iterates and
-// right-hand sides of the coarse levels in global memory are scratch from
-// the wrapper.
+// the barriers between them, not by HBM.  Each is one cluster of 16 CTAs
+// (8 where 16 do not fit) with hardware cluster barriers (0.71 us) between
+// the passes.  K3 and K5 keep the levels of <= 1,024 cells in rank 0's
+// shared memory and the coarsest in one warp's registers; level 0's
+// iterate is the output buffer, the iterates and right-hand sides of the
+// coarse levels in global memory are scratch from the wrapper.  K4 spreads
+// each coarse level's (cell, offset) entries over the whole cluster, with
+// no branch at a tap, and ends each level in one cluster barrier: (L - 1)
+// barriers.  The cooperative launch it replaced ran every level of <= 1,024
+// cells in one block of 256 threads, with two branching weight lookups a
+// tap, about 250x its barrier bound at 63^2.
 
 #include "vcycle.cuh"
 
@@ -72,17 +75,24 @@ NfClusterCfg& mg_solve_cfg() {
   return cfg;
 }
 
+// K4: every coarse level's entries over the cluster, one barrier a level.
 struct RapParams {
   NfLevel lv[NF_MAX_LEVELS];
   int L;
 };
 
-__global__ void __launch_bounds__(NF_THREADS) rap_kernel(RapParams P) {
-  NfCoop C = nf_coop(nullptr);
-  nf_galerkin_rap(C, P.lv, P.L);
+__global__ void __launch_bounds__(NF_CL_THREADS, 1) galerkin_kernel(RapParams P) {
+  NfCluster C = nf_cluster(nullptr);
+  nf_cl_galerkin_rap(C, P.lv, P.L);
 }
 
-// `n` grid-wide barriers and nothing else: the unit of K4's bound.
+NfClusterCfg& galerkin_cfg() {
+  static NfClusterCfg cfg = {};
+  return cfg;
+}
+
+// `n` grid-wide barriers and nothing else: the unit of the bound of K7's
+// cooperative kernel (krylov.cu).
 __global__ void __launch_bounds__(NF_THREADS) sync_probe_kernel(int n) {
   cg::grid_group grid = cg::this_grid();
   for (int i = 0; i < n; ++i) grid.sync();
@@ -198,7 +208,7 @@ NF_EXPORT int nf_mg_solve_cluster_size(int* size) {
 }
 
 // ptrs: the fine stencil (9 pointers, 0 for absent corners), then 9 output
-//       arrays per coarse level
+//       arrays per coarse level (c, e, w, n, s, ne, nw, se, sw)
 // ip:   L (levels, fine included), fine_five, then per level ni, nj
 NF_EXPORT int nf_galerkin_levels(const long long* ptrs, const int* ip, const float* fp,
                                  void* stream) {
@@ -206,19 +216,25 @@ NF_EXPORT int nf_galerkin_levels(const long long* ptrs, const int* ip, const flo
   RapParams P = {};
   P.L = ip[0];
   if (P.L < 2 || P.L > NF_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  int64_t cells = 0;
   for (int l = 0; l < P.L; ++l) {
     NfLevel& lv = P.lv[l];
     for (int k = 0; k < 9; ++k) lv.st[k] = reinterpret_cast<const float*>(ptrs[9 * l + k]);
     lv.ni = ip[2 + 2 * l]; lv.nj = ip[3 + 2 * l];
     lv.five = l == 0 ? ip[1] : 0;
-    if (l == 1) cells = (int64_t)lv.ni * lv.nj;
   }
-  return nf_coop_launch(rap_kernel, P, cells, (cudaStream_t)stream);
+  int size = 0;
+  const int err = nf_cluster_size(galerkin_kernel, galerkin_cfg(), size);
+  if (err) return err;
+  return nf_cluster_launch(galerkin_kernel, size, P, 0, (cudaStream_t)stream);
+}
+
+// The cluster size K4 launches with on the current device, into *size.
+NF_EXPORT int nf_galerkin_cluster_size(int* size) {
+  return nf_cluster_size(galerkin_kernel, galerkin_cfg(), *size);
 }
 
 // A measurement aid, not a kernel of the solver: `syncs` grid-wide barriers
-// in one cooperative launch sized, as the kernels above, for `cells` cells.
+// in one cooperative launch sized, as K7's grid kernel, for `cells` cells.
 // ip: cells, syncs
 NF_EXPORT int nf_grid_sync_probe(const long long* ptrs, const int* ip, const float* fp,
                                  void* stream) {

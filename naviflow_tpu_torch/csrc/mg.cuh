@@ -1,7 +1,7 @@
 // Device code of the multigrid kernels over a hierarchy of levels held in
 // device memory: the cell updates, residuals and transfers that K3's and
-// K5's cluster cycle (vcycle.cuh) and K6's (cluster.cuh) are built from,
-// and the vertex Galerkin RAP of K4 (a cooperative launch, coop.cuh).
+// K5's cluster cycle (vcycle.cuh) and K6's (cluster.cuh) are built from.
+// (The vertex Galerkin RAP of K4 and K6 is cluster.cuh's.)
 //
 // Per level, finest to coarsest: Gauss-Seidel pre-smoothing (red-black on
 // 5-point levels, four colours on 9-point Galerkin levels), the residual,
@@ -141,72 +141,4 @@ __device__ inline NfDS nf_residual_pass(const NfLevel& F, float* r, int64_t star
     nf_ds_fma(acc, rr, rr);
   }
   return acc;
-}
-
-// ---------------------------------------------------------------------------
-// Vertex Galerkin RAP (K4): A_c = R A P entry by entry.
-//
-// With the per-axis full weighting w = (1/4, 1/2, 1/4) on fine rows 2I..2I+2
-// and the bilinear prolongation weights p(i, I') of nf_vertex_taps, the
-// coarse entry of (I, J) at neighbour offset (di, dj) is
-//   sum_{a, b in 0..2} w_a w_b sum_{taps k} S_k(2I+a, 2J+b)
-//       * p(2I+a+ka, I+di) * p(2J+b+kb, J+dj),
-// fine neighbours outside the grid contributing zero (the zero-filled
-// shifts of ops/stencil9.apply9), coarse neighbours outside the grid giving
-// a zero entry.  81 fine-point/tap pairs per entry, in f32; no comb, no
-// matrix product (the TPU's comb + MXU form needed Precision.HIGHEST).
-
-__device__ __forceinline__ float nf_pweight(int i, int nf, int I, int nc) {
-  if (i < 0 || i >= nf || I < 0 || I >= nc) return 0.f;
-  int a, b;
-  float w0, w1;
-  nf_vertex_taps(i, nc, a, b, w0, w1);
-  if (w1 == 0.f) return I == a ? 1.f : 0.f;
-  return (I == a || I == b) ? 0.5f : 0.f;
-}
-
-__device__ inline void nf_rap_pass(const NfLevel& F, const NfLevel& C, int64_t start, int64_t stride) {
-  constexpr int KI[9] = {0, 1, -1, 0, 0, 1, -1, 1, -1};
-  constexpr int KJ[9] = {0, 0, 0, 1, -1, 1, 1, -1, -1};
-  constexpr float W[3] = {0.25f, 0.5f, 0.25f};
-  const int taps = F.five ? 5 : 9;
-  const int64_t n = (int64_t)C.ni * C.nj;
-  for (int64_t g = start; g < n; g += stride) {
-    const int I = (int)(g / C.nj), J = (int)(g % C.nj);
-#pragma unroll 1
-    for (int o = 0; o < 9; ++o) {
-      const int Ic = I + KI[o], Jc = J + KJ[o];
-      float val = 0.f;
-      if (Ic >= 0 && Ic < C.ni && Jc >= 0 && Jc < C.nj) {
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const int fi = 2 * I + a;
-          float row = 0.f;
-#pragma unroll
-          for (int b = 0; b < 3; ++b) {
-            const int fj = 2 * J + b;
-            const int64_t fg = (int64_t)fi * F.nj + fj;
-            float s = 0.f;
-#pragma unroll
-            for (int k = 0; k < 9; ++k) {
-              if (k >= taps) break;
-              const float pi = nf_pweight(fi + KI[k], F.ni, Ic, C.ni);
-              const float pj = nf_pweight(fj + KJ[k], F.nj, Jc, C.nj);
-              if (pi != 0.f && pj != 0.f) s = s + F.st[k][fg] * (pi * pj);
-            }
-            row = row + W[b] * s;
-          }
-          val = val + W[a] * row;
-        }
-      }
-      const_cast<float*>(C.st[o])[g] = val;
-    }
-  }
-}
-
-// Every coarse stencil of the vertex hierarchy lv[0..L-1] (lv[0] holds the
-// fine stencil; lv[1..]'s st[] are the outputs, all nine arrays).
-__device__ inline void nf_galerkin_rap(NfCoop& Cp, const NfLevel* lv, int L) {
-  for (int l = 1; l < L; ++l)
-    NF_PASS(Cp, (int64_t)lv[l].ni * lv[l].nj, nf_rap_pass(lv[l - 1], lv[l], start, stride));
 }

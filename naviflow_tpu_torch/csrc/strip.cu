@@ -9,131 +9,56 @@
 //         `sweeps` Gauss-Seidel sweeps.
 // Red-black colours (i + j) % 2 on 5-point levels, four colours
 // (i % 2, j % 2) on 9-point Galerkin levels, always from GLOBAL indices.
-// Both take 2-D tiles of owned cells (up: TILE x TILE; down: TILE x
-// DOWN_TJ) with a halo of (colours x sweeps (+ 1 for the residual)) cells
-// on every side.  Each colour pass
-// updates the region shrunk by one more ring, so the owned cells see
-// exactly the global sweep; cells outside the grid hold 0 and are never
-// updated (the zero padding of the composed shifts) — nothing reads
+// Both take 2-D tiles of TILE x DOWN_TJ owned cells with a halo of H =
+// colours x sweeps cells (+ 1 for down's residual) on every side.  Each
+// colour pass updates the region shrunk by one more ring, so the owned
+// cells see exactly the global sweep; cells outside the grid hold 0 and are
+// never updated (the zero padding of the composed shifts) — nothing reads
 // outside an allocation.
 //
 // Bound on the H100: bytes.  down reads p, b and the 5 or 9 stencil arrays
 // and writes p and the coarse residual (8.25 / 12.25 arrays of a level's
-// size), 0.0103 ms at 1024^2 5-point and 0.0038 at 512^2 9-point.
-// down's design: the tile's region of all 7 or 11 arrays is staged into
-// shared memory at once by 16-byte cp.async (the levels' rows are 16-byte
-// aligned, so the region's first column is rounded down to a multiple of
-// 4; 4-byte copies where an array is not aligned), p on the whole region,
-// b and the stencil less its outer ring, which no pass updates; so every
-// request of the tile is in flight together and nothing is read from
-// global memory twice by a block; each colour pass then runs on the cells of its colour only
-// (column first + 2m on 5-point levels, the (i % 2, j % 2) quarter on
-// 9-point ones: no lane idles), one block barrier a pass; the residual and
-// its restriction come from shared memory.  Tiles are 32 x 64 cells: the
-// 1024^2 5-point level is 512 tiles of 76.6 KB at 512 threads, three an SM;
-// the 512^2 9-point level is 128 tiles of 148 KB at 1024 threads, one an
-// SM, in one wave.  On the H100 these beat 32 x 32 tiles at 256 threads
-// (the columns' 16-byte margins cost less on wider tiles, and a 9-point
-// tile's passes are bound by shared-memory requests, which more warps keep
-// in flight); a persistent double-buffered variant, a residual stored
-// before its restriction and a padded 9-point pitch were slower.
+// size), 0.0103 ms at 1024^2 5-point and 0.0038 at 512^2 9-point; up reads
+// p, b, the stencil and the coarse correction and writes p, the same
+// bytes.  Both kernels run one design: the tile's region of all 7 or 11
+// arrays is staged into shared memory at once by 16-byte cp.async (the
+// levels' rows are 16-byte aligned, so the region's first column is rounded
+// down to a multiple of 4, the column margin M = H rounded up to 4; 4-byte
+// copies where an array is not aligned), p on the whole region, b and the
+// stencil less its outer ring, which no pass updates; so every request of
+// the tile is in flight together and nothing is read from global memory
+// twice by a block; each colour pass then runs on the cells of its colour
+// only (column first + 2m on 5-point levels, the (i % 2, j % 2) quarter on
+// 9-point ones: no lane idles), one block barrier a pass; the owned cells
+// are stored as float4.  down's residual and its restriction come from
+// shared memory.  up's coarse correction arrives with p, a box of the
+// coarse rows and columns the region's prolongation reads (16-byte copies,
+// the clamp kept on global coarse indices), in a first copy group; b and
+// the stencil follow in a second, and arrive while the prolongation is
+// added to p in shared memory (the box beat ec read from L2 during the
+// add, and two groups one, by 4-16% on the H100).  Tiles are 32 x 64
+// cells: the 1024^2 5-point level is 512 tiles at 512 threads, three an
+// SM; the 512^2 9-point level is 128 tiles at 1024 threads, one an SM, in
+// one wave.  On the H100 these beat 32 x 32 tiles at 256 threads (the
+// columns' 16-byte margins cost less on wider tiles, and a 9-point tile's
+// passes are bound by shared-memory requests, which more warps keep in
+// flight); a persistent double-buffered variant, a residual stored before
+// its restriction and a padded 9-point pitch were slower for down.
 // Every value comes from the same operations in the same order as the
 // composed sweep (the update of a cell, the residual's sum, the
-// restriction's pairs).
-// up keeps the first design: p (+ the prolonged correction) in shared
-// memory, the stencil and b re-read from global memory on every pass.
+// restriction's pairs, the prolongation's axis-0-first taps).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int TILE = 32;
-constexpr int THREADS = 256;
-
-struct Params {
-  const float* p;
-  const float* b;
-  const float* st[9];  // c, e, w, n, s, ne, nw, se, sw (corners unused on 5-point)
-  const float* ec;     // coarse correction (up only)
-  float* out_p;
-  float* out_rc;       // coarse residual (down only)
-  int nx, ny, sweeps, halo;
-  float omega;
-};
-
-template <int NS>
-__device__ __forceinline__ float offdiag(const Params& P, const float* sp, int k, int RJ,
-                                         int64_t g) {
-  float off = P.st[1][g] * sp[k + RJ] + P.st[2][g] * sp[k - RJ] + P.st[3][g] * sp[k + 1] +
-              P.st[4][g] * sp[k - 1];
-  if (NS == 9)
-    off = off + P.st[5][g] * sp[k + RJ + 1] + P.st[6][g] * sp[k - RJ + 1] +
-          P.st[7][g] * sp[k + RJ - 1] + P.st[8][g] * sp[k - RJ - 1];
-  return off;
-}
-
-// Load p (+ prolongated ec when `up`) on the region; cells off the grid hold 0.
-template <bool UP>
-__device__ void load_region(const Params& P, float* sp, int i0r, int j0r, int RI, int RJ) {
-  for (int k = threadIdx.x; k < RI * RJ; k += blockDim.x) {
-    const int gi = i0r + k / RJ, gj = j0r + k % RJ;
-    float val = 0.f;
-    if (gi >= 0 && gi < P.nx && gj >= 0 && gj < P.ny) {
-      val = P.p[(int64_t)gi * P.ny + gj];
-      if (UP) val = val + nf_prolong_cc(P.ec, P.nx / 2, P.ny / 2, gi, gj);
-    }
-    sp[k] = val;
-  }
-  __syncthreads();
-}
-
-// All colour passes of all sweeps; pass n updates region rows/cols [n, R-n).
-template <int NS>
-__device__ void smooth_region(const Params& P, float* sp, int i0r, int j0r, int RI, int RJ) {
-  const int colors = NS == 5 ? 2 : 4;
-  int pass = 0;
-  for (int s = 0; s < P.sweeps; ++s) {
-    for (int c = 0; c < colors; ++c) {
-      ++pass;
-      const int ni = RI - 2 * pass, nj = RJ - 2 * pass;
-      for (int k = threadIdx.x; k < ni * nj; k += blockDim.x) {
-        const int a = pass + k / nj, bb = pass + k % nj;
-        const int gi = i0r + a, gj = j0r + bb;
-        if (gi < 0 || gi >= P.nx || gj < 0 || gj >= P.ny) continue;
-        const int color = NS == 5 ? ((gi + gj) & 1) : (((gi & 1) << 1) | (gj & 1));
-        if (color != c) continue;
-        const int64_t g = (int64_t)gi * P.ny + gj;
-        const int kk = a * RJ + bb;
-        const float pnew = (P.b[g] - offdiag<NS>(P, sp, kk, RJ, g)) * nf_inv_diag(P.st[0][g]);
-        sp[kk] = sp[kk] + P.omega * (pnew - sp[kk]);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-template <int NS>
-__global__ void __launch_bounds__(THREADS) strip_up_kernel(Params P) {
-  extern __shared__ float sp[];
-  const int H = P.halo, RI = TILE + 2 * H, RJ = TILE + 2 * H;
-  const int ti0 = blockIdx.y * TILE, tj0 = blockIdx.x * TILE;
-  load_region<true>(P, sp, ti0 - H, tj0 - H, RI, RJ);
-  smooth_region<NS>(P, sp, ti0 - H, tj0 - H, RI, RJ);
-  for (int k = threadIdx.x; k < TILE * TILE; k += blockDim.x) {
-    const int gi = ti0 + k / TILE, gj = tj0 + k % TILE;
-    if (gi < P.nx && gj < P.ny)
-      P.out_p[(int64_t)gi * P.ny + gj] = sp[(H + k / TILE) * RJ + H + k % TILE];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// strip_down: the staged tile
-
 // The staged region of one (points, sweeps) instance: an owned tile of
 // TILE rows by DOWN_TJ columns, TILE + 2 H rows by DOWN_TJ + 2 M columns
 // of each of p, b and the NS stencil arrays, M = H rounded up to a
 // multiple of 4 (16-byte rows); 512 threads on 5-point levels, 1024 on
-// 9-point ones.
+// 9-point ones.  down's halo has the residual's ring, up's does not; up
+// adds the box of the coarse correction.
+constexpr int TILE = 32;
 constexpr int DOWN_TJ = 64;
 __host__ __device__ constexpr int down_threads(int ns) { return ns == 5 ? 512 : 1024; }
 __host__ __device__ constexpr int down_colors(int ns) { return ns == 5 ? 2 : 4; }
@@ -153,13 +78,115 @@ __host__ __device__ constexpr int down_smem_floats(int ns, int sweeps) {
   return (ns + 2) * down_rows(ns, sweeps) * down_cols(ns, sweeps);
 }
 
-struct DownParams {
+__host__ __device__ constexpr int up_halo(int ns, int sweeps) { return down_colors(ns) * sweeps; }
+__host__ __device__ constexpr int up_margin(int ns, int sweeps) {
+  return (up_halo(ns, sweeps) + 3) / 4 * 4;
+}
+__host__ __device__ constexpr int up_rows(int ns, int sweeps) {
+  return TILE + 2 * up_halo(ns, sweeps);
+}
+__host__ __device__ constexpr int up_cols(int ns, int sweeps) {
+  return DOWN_TJ + 2 * up_margin(ns, sweeps);
+}
+// the coarse correction's box: coarse rows ti0 / 2 - H / 2 - 1 ..
+// ti0 / 2 + TILE / 2 + H / 2, columns from tj0 / 2 + up_box_col0 (a multiple
+// of 4) over up_box_cols (the clamp's neighbours included)
+__host__ __device__ constexpr int up_box_rows(int ns, int sweeps) {
+  return TILE / 2 + up_halo(ns, sweeps) + 2;
+}
+__host__ __device__ constexpr int up_box_col0(int ns, int sweeps) {
+  return -((up_halo(ns, sweeps) / 2 + 1 + 3) / 4 * 4);
+}
+__host__ __device__ constexpr int up_box_cols(int ns, int sweeps) {
+  return (DOWN_TJ / 2 + up_halo(ns, sweeps) / 2 + 1 + 3) / 4 * 4 - up_box_col0(ns, sweeps);
+}
+// p alone at 0 sweeps (no pass reads b or the stencil)
+__host__ __device__ constexpr int up_arrays(int ns, int sweeps) { return sweeps ? ns + 2 : 1; }
+__host__ __device__ constexpr int up_smem_floats(int ns, int sweeps) {
+  return up_arrays(ns, sweeps) * up_rows(ns, sweeps) * up_cols(ns, sweeps) +
+         up_box_rows(ns, sweeps) * up_box_cols(ns, sweeps);
+}
+
+// The compile-time shape of one instance's staged region.
+template <int NS, int SWEEPS, bool UP>
+struct Region {
+  static constexpr int THREADS = down_threads(NS), COLORS = down_colors(NS), TJ = DOWN_TJ;
+  static constexpr int H = UP ? up_halo(NS, SWEEPS) : down_halo(NS, SWEEPS);
+  static constexpr int M = UP ? up_margin(NS, SWEEPS) : down_margin(NS, SWEEPS);
+  static constexpr int RI = TILE + 2 * H, W = TJ + 2 * M, PLANE = RI * W;
+  static constexpr int A = UP ? up_arrays(NS, SWEEPS) : NS + 2;  // staged arrays
+  // b and the stencil only where a pass or the residual reads them: the
+  // region less its outer ring, that ring's columns rounded out to 16-byte
+  // chunks
+  static constexpr int QLO = (M - H + 1) / 4 * 4, QHI = (M + TJ + H - 1 + 3) / 4 * 4;
+};
+
+struct StripParams {
   const float* a[11];  // p, b, stencil c, e, w, n, s, ne, nw, se, sw (no corners on 5-point)
+  const float* ec;     // coarse correction (up)
   float* out_p;
-  float* out_rc;       // coarse residual
+  float* out_rc;       // coarse residual (down)
   int nx, ny, vec;     // vec: every array 16-byte aligned and ny % 4 == 0
+  int ec_vec;          // ec 16-byte aligned and (ny / 2) % 4 == 0
   float omega;
 };
+
+__device__ __forceinline__ void cp16(unsigned dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(unsigned dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// Issue the copies of arrays [A0, A1) of region R of the tile whose slot
+// (0, 0) is cell (i0, j0): p (array 0) on the whole region, zeros off the
+// grid; b and the stencil on rows 1..RI-2, columns QLO..QHI-1.
+template <class R, int A0, int A1>
+__device__ __forceinline__ void stage_region(const StripParams& P, unsigned base, int i0, int j0) {
+  const int nx = P.nx, ny = P.ny;
+  if (P.vec) {  // 16-byte chunks: j0 and ny are multiples of 4, so a chunk is on or off the grid
+    constexpr int CH = R::W / 4;
+    for (int k = threadIdx.x; k < R::RI * CH; k += R::THREADS) {
+      const int r = k / CH, q = 4 * (k % CH);
+      const int gi = i0 + r, gj = j0 + q;
+      const bool in = gi >= 0 && gi < nx && gj >= 0 && gj < ny;
+      const int64_t g = in ? (int64_t)gi * ny + gj : 0;
+      const unsigned dst = base + 4u * (r * R::W + q);
+      const bool ring = !(r >= 1 && r < R::RI - 1 && q >= R::QLO && q < R::QHI);
+#pragma unroll
+      for (int a = A0; a < A1; ++a)
+        if (a == 0 || !ring) cp16(dst + 4u * a * R::PLANE, P.a[a] + g, in);
+    }
+  } else {
+    for (int k = threadIdx.x; k < R::PLANE; k += R::THREADS) {
+      const int r = k / R::W, q = k % R::W;
+      const int gi = i0 + r, gj = j0 + q;
+      const bool in = gi >= 0 && gi < nx && gj >= 0 && gj < ny;
+      const int64_t g = in ? (int64_t)gi * ny + gj : 0;
+      const unsigned dst = base + 4u * k;
+      const bool ring = !(r >= 1 && r < R::RI - 1 && q >= R::QLO && q < R::QHI);
+#pragma unroll
+      for (int a = A0; a < A1; ++a)
+        if (a == 0 || !ring) cp4(dst + 4u * a * R::PLANE, P.a[a] + g, in);
+    }
+  }
+}
+
+__device__ __forceinline__ void commit_staged() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are pending, then a block barrier.
+template <int N>
+__device__ __forceinline__ void wait_staged() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  __syncthreads();
+}
 
 // One Gauss-Seidel update of region slot k (the expression of the composed
 // sweep); `s` is the staged region: p, b, then the stencil arrays.
@@ -188,152 +215,209 @@ __device__ __forceinline__ float down_residual(const float* s, int k) {
   return s[PLANE + k] - ax;
 }
 
-template <int NS, int SWEEPS>
-__global__ void __launch_bounds__(down_threads(NS)) strip_down_kernel(DownParams P) {
-  constexpr int DT = down_threads(NS);
-  constexpr int H = down_halo(NS, SWEEPS), M = down_margin(NS, SWEEPS);
-  constexpr int RI = down_rows(NS, SWEEPS), W = down_cols(NS, SWEEPS), PLANE = RI * W;
-  constexpr int A = NS + 2, COLORS = down_colors(NS), TJ = DOWN_TJ;
-  extern __shared__ __align__(16) float s[];
-  const int nx = P.nx, ny = P.ny;
-  const int ti0 = blockIdx.y * TILE, tj0 = blockIdx.x * TJ;
-  const int i0 = ti0 - H, j0 = tj0 - M;  // the cell of region slot (0, 0)
-  const unsigned base = (unsigned)__cvta_generic_to_shared(s);
-
-  // the region of p, zeros off the grid; b and the stencil only where a
-  // pass or the residual reads them: the region less its outer ring (QLO,
-  // QHI: that ring's columns rounded out to 16-byte chunks)
-  constexpr int QLO = (M - H + 1) / 4 * 4, QHI = (M + TJ + H - 1 + 3) / 4 * 4;
-  if (P.vec) {  // 16-byte chunks: j0 and ny are multiples of 4, so a chunk is on or off the grid
-    constexpr int CH = W / 4;
-    for (int k = threadIdx.x; k < RI * CH; k += DT) {
-      const int r = k / CH, q = 4 * (k % CH);
-      const int gi = i0 + r, gj = j0 + q;
-      const bool in = gi >= 0 && gi < nx && gj >= 0 && gj < ny;
-      const int64_t g = in ? (int64_t)gi * ny + gj : 0;
-      const unsigned dst = base + 4u * (r * W + q);
-      const int arrays = (r >= 1 && r < RI - 1 && q >= QLO && q < QHI) ? A : 1;
+// The colour passes on their colour's cells only.  The tile starts on an
+// even row and column and M is a multiple of 4, so a slot's global
+// parities are (r + H, q): pass n updates rows [n, RI - n) and the
+// region's logical columns [M - H + n, M + TJ + H - n), both of even
+// length.  A block barrier ends each pass.
+template <class R, int NS, int SWEEPS>
+__device__ __forceinline__ void smooth_region(const StripParams& P, float* s, int i0, int j0) {
+  constexpr int H = R::H, M = R::M, RI = R::RI, W = R::W, TJ = R::TJ;
 #pragma unroll
-      for (int a = 0; a < A; ++a)
-        if (a < arrays)
-          asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst + 4u * a * PLANE),
-                       "l"(P.a[a] + g), "r"(in ? 16 : 0)
-                       : "memory");
-    }
-  } else {
-    for (int k = threadIdx.x; k < PLANE; k += DT) {
-      const int r = k / W, q = k % W;
-      const int gi = i0 + r, gj = j0 + q;
-      const bool in = gi >= 0 && gi < nx && gj >= 0 && gj < ny;
-      const int64_t g = in ? (int64_t)gi * ny + gj : 0;
-      const unsigned dst = base + 4u * k;
-      const int arrays = (r >= 1 && r < RI - 1 && q >= QLO && q < QHI) ? A : 1;
-#pragma unroll
-      for (int a = 0; a < A; ++a)
-        if (a < arrays)
-          asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst + 4u * a * PLANE),
-                       "l"(P.a[a] + g), "r"(in ? 4 : 0)
-                       : "memory");
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-
-  // colour passes on their colour's cells only.  ti0 and tj0 are even and
-  // M a multiple of 4, so a slot's global parities are (r + H, q): pass n
-  // updates rows [n, RI - n) and the region's logical columns
-  // [M - H + n, M + TJ + H - n), both of even length.
-#pragma unroll
-  for (int n = 1; n <= COLORS * SWEEPS; ++n) {
-    const int c = (n - 1) % COLORS;
+  for (int n = 1; n <= R::COLORS * SWEEPS; ++n) {
+    const int c = (n - 1) % R::COLORS;
     const int ni = RI - 2 * n, nj = TJ + 2 * H - 2 * n, q_lo = M - H + n;
     if constexpr (NS == 5) {  // (gi + gj) % 2 == c: every other column of each row
       const int per = nj / 2;
-      for (int k = threadIdx.x; k < ni * per; k += DT) {
+      for (int k = threadIdx.x; k < ni * per; k += R::THREADS) {
         const int r = n + k / per, q0 = q_lo + 2 * (k % per);
         const int q = q0 + ((c + r + H + q0) & 1);
         const int gi = i0 + r, gj = j0 + q;
-        if (gi < 0 || gi >= nx || gj < 0 || gj >= ny) continue;
-        down_update<NS, PLANE, W>(s, r * W + q, P.omega);
+        if (gi < 0 || gi >= P.nx || gj < 0 || gj >= P.ny) continue;
+        down_update<NS, R::PLANE, W>(s, r * W + q, P.omega);
       }
     } else {  // (gi % 2, gj % 2) == (c / 2, c % 2): every other row and column
       const int rows = ni / 2, cols = nj / 2;
       const int r_first = n + (((c >> 1) + H + n) & 1), q_first = q_lo + (((c & 1) + q_lo) & 1);
-      for (int k = threadIdx.x; k < rows * cols; k += DT) {
+      for (int k = threadIdx.x; k < rows * cols; k += R::THREADS) {
         const int r = r_first + 2 * (k / cols), q = q_first + 2 * (k % cols);
         const int gi = i0 + r, gj = j0 + q;
-        if (gi < 0 || gi >= nx || gj < 0 || gj >= ny) continue;
-        down_update<NS, PLANE, W>(s, r * W + q, P.omega);
+        if (gi < 0 || gi >= P.nx || gj < 0 || gj >= P.ny) continue;
+        down_update<NS, R::PLANE, W>(s, r * W + q, P.omega);
       }
     }
     __syncthreads();
   }
+}
 
-  // the owned cells
+// The owned cells of the region's p into out_p (float4 where P.vec).
+template <class R>
+__device__ __forceinline__ void store_owned(const StripParams& P, const float* s, int ti0,
+                                            int tj0) {
+  constexpr int TJ = R::TJ;
   if (P.vec) {
-    for (int k = threadIdx.x; k < TILE * TJ / 4; k += DT) {
+    for (int k = threadIdx.x; k < TILE * TJ / 4; k += R::THREADS) {
       const int r = k / (TJ / 4), q = 4 * (k % (TJ / 4));
       const int gi = ti0 + r, gj = tj0 + q;
-      if (gi < nx && gj < ny)
-        *reinterpret_cast<float4*>(P.out_p + (int64_t)gi * ny + gj) =
-            *reinterpret_cast<const float4*>(s + (H + r) * W + M + q);
+      if (gi < P.nx && gj < P.ny)
+        *reinterpret_cast<float4*>(P.out_p + (int64_t)gi * P.ny + gj) =
+            *reinterpret_cast<const float4*>(s + (R::H + r) * R::W + R::M + q);
     }
   } else {
-    for (int k = threadIdx.x; k < TILE * TJ; k += DT) {
+    for (int k = threadIdx.x; k < TILE * TJ; k += R::THREADS) {
       const int gi = ti0 + k / TJ, gj = tj0 + k % TJ;
-      if (gi < nx && gj < ny) P.out_p[(int64_t)gi * ny + gj] = s[(H + k / TJ) * W + M + k % TJ];
+      if (gi < P.nx && gj < P.ny)
+        P.out_p[(int64_t)gi * P.ny + gj] = s[(R::H + k / TJ) * R::W + R::M + k % TJ];
     }
   }
+}
+
+template <int NS, int SWEEPS>
+__global__ void __launch_bounds__(down_threads(NS)) strip_down_kernel(StripParams P) {
+  using R = Region<NS, SWEEPS, false>;
+  constexpr int H = R::H, M = R::M, W = R::W, PLANE = R::PLANE, TJ = R::TJ;
+  extern __shared__ __align__(16) float s[];
+  const int ti0 = blockIdx.y * TILE, tj0 = blockIdx.x * TJ;
+  const int i0 = ti0 - H, j0 = tj0 - M;  // the cell of region slot (0, 0)
+  stage_region<R, 0, R::A>(P, (unsigned)__cvta_generic_to_shared(s), i0, j0);
+  commit_staged();
+  wait_staged<0>();
+  smooth_region<R, NS, SWEEPS>(P, s, i0, j0);
+  store_owned<R>(P, s, ti0, tj0);
   // residual of the owned cells, restricted 2x2 (axis 0 first, as
   // ops/transfer_cc.restrict_cc), a coarse cell a thread at a time
   constexpr int TC = TJ / 2;
-  for (int k = threadIdx.x; k < TILE / 2 * TC; k += DT) {
+  for (int k = threadIdx.x; k < TILE / 2 * TC; k += R::THREADS) {
     const int gi = ti0 + 2 * (k / TC), gj = tj0 + 2 * (k % TC);
-    if (gi >= nx || gj >= ny) continue;
+    if (gi >= P.nx || gj >= P.ny) continue;
     const int kk = (H + 2 * (k / TC)) * W + M + 2 * (k % TC);
     const float r00 = down_residual<NS, PLANE, W>(s, kk);
     const float r10 = down_residual<NS, PLANE, W>(s, kk + W);
     const float r01 = down_residual<NS, PLANE, W>(s, kk + 1);
     const float r11 = down_residual<NS, PLANE, W>(s, kk + W + 1);
-    P.out_rc[(int64_t)(gi / 2) * (ny / 2) + gj / 2] =
+    P.out_rc[(int64_t)(gi / 2) * (P.ny / 2) + gj / 2] =
         0.5f * (0.5f * (r00 + r10) + 0.5f * (r01 + r11));
   }
 }
 
-using DownKernel = void (*)(DownParams);
+// up's coarse box (BR rows x BW columns from coarse cell (I0, J0), J0 a
+// multiple of 4): 16-byte chunks where P.ec_vec (ncj a multiple of 4, so
+// a chunk is on or off the grid), 4-byte copies otherwise; zeros off the
+// grid, which the clamp never reads.
+template <int BR, int BW, int THREADS>
+__device__ __forceinline__ void stage_box(const StripParams& P, unsigned base, int I0, int J0) {
+  const int nci = P.nx / 2, ncj = P.ny / 2;
+  if (P.ec_vec) {
+    constexpr int CH = BW / 4;
+    for (int k = threadIdx.x; k < BR * CH; k += THREADS) {
+      const int r = k / CH, q = 4 * (k % CH);
+      const int gi = I0 + r, gj = J0 + q;
+      const bool in = gi >= 0 && gi < nci && gj >= 0 && gj < ncj;
+      cp16(base + 4u * (r * BW + q), P.ec + (in ? (int64_t)gi * ncj + gj : 0), in);
+    }
+  } else {
+    for (int k = threadIdx.x; k < BR * BW; k += THREADS) {
+      const int gi = I0 + k / BW, gj = J0 + k % BW;
+      const bool in = gi >= 0 && gi < nci && gj >= 0 && gj < ncj;
+      cp4(base + 4u * k, P.ec + (in ? (int64_t)gi * ncj + gj : 0), in);
+    }
+  }
+}
 
-DownKernel down_kernel_of(bool five, int sweeps) {
-  static const DownKernel k[2][3] = {
-      {strip_down_kernel<9, 0>, strip_down_kernel<9, 1>, strip_down_kernel<9, 2>},
-      {strip_down_kernel<5, 0>, strip_down_kernel<5, 1>, strip_down_kernel<5, 2>}};
-  return sweeps >= 0 && sweeps <= 2 ? k[five ? 1 : 0][sweeps] : nullptr;
+template <int NS, int SWEEPS>
+__global__ void __launch_bounds__(down_threads(NS)) strip_up_kernel(StripParams P) {
+  using R = Region<NS, SWEEPS, true>;
+  constexpr int H = R::H, M = R::M, W = R::W, TJ = R::TJ;
+  constexpr int BR = up_box_rows(NS, SWEEPS), BW = up_box_cols(NS, SWEEPS);
+  extern __shared__ __align__(16) float s[];
+  float* box = s + R::A * R::PLANE;
+  const int ti0 = blockIdx.y * TILE, tj0 = blockIdx.x * TJ;
+  const int i0 = ti0 - H, j0 = tj0 - M;  // the cell of region slot (0, 0)
+  const int I0 = ti0 / 2 - H / 2 - 1, J0 = tj0 / 2 + up_box_col0(NS, SWEEPS);
+  const unsigned base = (unsigned)__cvta_generic_to_shared(s);
+  // two copy groups: p and the box, then b and the stencil, which arrive
+  // while the prolongation is added
+  stage_region<R, 0, 1>(P, base, i0, j0);
+  stage_box<BR, BW, R::THREADS>(P, base + 4u * R::A * R::PLANE, I0, J0);
+  commit_staged();
+  stage_region<R, 1, R::A>(P, base, i0, j0);
+  commit_staged();
+  wait_staged<1>();
+
+  // p + the prolonged correction on the logical region's cells (rows
+  // [0, RI), columns [M - H, M + TJ + H): every cell a pass reads), as
+  // nf_prolong_cc: the coarse cell and its clamped neighbour on each axis,
+  // axis 0 first
+  const int nci = P.nx / 2, ncj = P.ny / 2;
+  constexpr int LW = TJ + 2 * H;
+  for (int k = threadIdx.x; k < R::RI * LW; k += R::THREADS) {
+    const int r = k / LW, q = M - H + k % LW;
+    const int gi = i0 + r, gj = j0 + q;
+    if (gi < 0 || gi >= P.nx || gj < 0 || gj >= P.ny) continue;
+    const int I = gi >> 1, J = gj >> 1;
+    const int Ia = (gi & 1) ? min(I + 1, nci - 1) : max(I - 1, 0);
+    const int Ja = (gj & 1) ? min(J + 1, ncj - 1) : max(J - 1, 0);
+    const int bI = (I - I0) * BW, bIa = (Ia - I0) * BW, bJ = J - J0, bJa = Ja - J0;
+    s[r * W + q] = s[r * W + q] + nf_prolong_mix(box[bI + bJ], box[bIa + bJ], box[bI + bJa],
+                                                  box[bIa + bJa]);
+  }
+  wait_staged<0>();
+  smooth_region<R, NS, SWEEPS>(P, s, i0, j0);
+  store_owned<R>(P, s, ti0, tj0);
+}
+
+using Kernel = void (*)(StripParams);
+
+// [up][five][sweeps]
+const Kernel kKernels[2][2][3] = {
+    {{strip_down_kernel<9, 0>, strip_down_kernel<9, 1>, strip_down_kernel<9, 2>},
+     {strip_down_kernel<5, 0>, strip_down_kernel<5, 1>, strip_down_kernel<5, 2>}},
+    {{strip_up_kernel<9, 0>, strip_up_kernel<9, 1>, strip_up_kernel<9, 2>},
+     {strip_up_kernel<5, 0>, strip_up_kernel<5, 1>, strip_up_kernel<5, 2>}}};
+
+Kernel kernel_of(bool up, bool five, int sweeps) {
+  return sweeps >= 0 && sweeps <= 2 ? kKernels[up][five ? 1 : 0][sweeps] : nullptr;
+}
+
+size_t smem_bytes(bool up, int ns, int sweeps) {
+  return sizeof(float) * (up ? up_smem_floats(ns, sweeps) : down_smem_floats(ns, sweeps));
 }
 
 // The shared memory of every instance, set once per device.
-bool g_down_ready[16];
-
-cudaError_t down_setup(int device) {
+cudaError_t setup(int device) {
+  static bool ready[16];
   if (device < 0 || device >= 16) return cudaErrorInvalidDevice;
-  if (g_down_ready[device]) return cudaSuccess;
-  for (int five = 0; five < 2; ++five)
-    for (int sweeps = 0; sweeps <= 2; ++sweeps) {
-      const int smem = (int)sizeof(float) * down_smem_floats(five ? 5 : 9, sweeps);
-      const cudaError_t err =
-          cudaFuncSetAttribute((const void*)down_kernel_of(five, sweeps),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-    }
-  g_down_ready[device] = true;
+  if (ready[device]) return cudaSuccess;
+  for (int up = 0; up < 2; ++up)
+    for (int five = 0; five < 2; ++five)
+      for (int sweeps = 0; sweeps <= 2; ++sweeps) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            (const void*)kKernels[up][five][sweeps], cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem_bytes(up, five ? 5 : 9, sweeps));
+        if (err != cudaSuccess) return err;
+      }
+  ready[device] = true;
   return cudaSuccess;
 }
 
+// Launch one instance over the level's tiles.
+int launch(bool up, const StripParams& P, int ns, int sweeps, void* stream) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = setup(device);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((P.ny + DOWN_TJ - 1) / DOWN_TJ, (P.nx + TILE - 1) / TILE);
+  kernel_of(up, ns == 5, sweeps)<<<grid, down_threads(ns), smem_bytes(up, ns, sweeps),
+                                   (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
+}
+
 int launch_down(const long long* ptrs, const int* ip, const float* fp, void* stream) {
-  DownParams P = {};
+  StripParams P = {};
   const int nx = ip[0], ny = ip[1], five = ip[2], sweeps = ip[3];
   const int ns = five ? 5 : 9;
-  const DownKernel k = down_kernel_of(five, sweeps);
-  if (k == nullptr || nx % 2 || ny % 2) return (int)cudaErrorInvalidValue;
+  if (kernel_of(false, five, sweeps) == nullptr || nx % 2 || ny % 2)
+    return (int)cudaErrorInvalidValue;
   bool aligned = ny % 4 == 0;
   for (int a = 0; a < ns + 2; ++a) {
     P.a[a] = reinterpret_cast<const float*>(ptrs[a]);
@@ -343,37 +427,39 @@ int launch_down(const long long* ptrs, const int* ip, const float* fp, void* str
   P.out_rc = reinterpret_cast<float*>(ptrs[ns + 3]);
   P.nx = nx; P.ny = ny; P.omega = fp[0];
   P.vec = aligned && ptrs[ns + 2] % 16 == 0;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = down_setup(device);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((ny + DOWN_TJ - 1) / DOWN_TJ, (nx + TILE - 1) / TILE);
-  const size_t smem = sizeof(float) * down_smem_floats(ns, sweeps);
-  k<<<grid, down_threads(ns), smem, (cudaStream_t)stream>>>(P);
-  return (int)cudaGetLastError();
+  return launch(false, P, ns, sweeps, stream);
 }
 
-// ---------------------------------------------------------------------------
-// strip_up
-
 int launch_up(const long long* ptrs, const int* ip, const float* fp, void* stream) {
-  Params P = {};
+  StripParams P = {};
   const int nx = ip[0], ny = ip[1], five = ip[2], sweeps = ip[3];
   const int ns = five ? 5 : 9;
-  P.p = reinterpret_cast<const float*>(ptrs[0]);
-  P.b = reinterpret_cast<const float*>(ptrs[1]);
-  for (int k = 0; k < ns; ++k) P.st[k] = reinterpret_cast<const float*>(ptrs[2 + k]);
-  P.ec = reinterpret_cast<const float*>(ptrs[2 + ns]);
-  P.out_p = reinterpret_cast<float*>(ptrs[3 + ns]);
-  P.nx = nx; P.ny = ny; P.sweeps = sweeps; P.omega = fp[0];
-  P.halo = (five ? 2 : 4) * sweeps;
-  const int R = TILE + 2 * P.halo;
-  const size_t smem = sizeof(float) * R * R;
-  dim3 grid((ny + TILE - 1) / TILE, (nx + TILE - 1) / TILE);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (five) strip_up_kernel<5><<<grid, THREADS, smem, s>>>(P);
-  else strip_up_kernel<9><<<grid, THREADS, smem, s>>>(P);
-  return (int)cudaGetLastError();
+  if (kernel_of(true, five, sweeps) == nullptr || nx % 2 || ny % 2)
+    return (int)cudaErrorInvalidValue;
+  bool aligned = ny % 4 == 0;
+  for (int a = 0; a < ns + 2; ++a) {
+    P.a[a] = reinterpret_cast<const float*>(ptrs[a]);
+    aligned = aligned && ptrs[a] % 16 == 0;
+  }
+  P.ec = reinterpret_cast<const float*>(ptrs[ns + 2]);
+  P.out_p = reinterpret_cast<float*>(ptrs[ns + 3]);
+  P.nx = nx; P.ny = ny; P.omega = fp[0];
+  P.vec = aligned && ptrs[ns + 3] % 16 == 0;
+  P.ec_vec = ptrs[ns + 2] % 16 == 0 && (ny / 2) % 4 == 0;
+  return launch(true, P, ns, sweeps, stream);
+}
+
+// The resident blocks an SM of one instance on the current device.
+int blocks_per_sm(bool up, int five, int sweeps, int* out) {
+  const Kernel k = kernel_of(up, five, sweeps);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = setup(device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, down_threads(five ? 5 : 9),
+                                                        smem_bytes(up, five ? 5 : 9, sweeps));
+  return (int)err;
 }
 
 }  // namespace
@@ -387,19 +473,16 @@ NF_EXPORT int nf_strip_down(const long long* ptrs, const int* ip, const float* f
 // The resident blocks an SM of strip_down's (five, sweeps) instance on the
 // current device (a measurement aid: chip_smoke.py's build line).
 NF_EXPORT int nf_strip_down_blocks_per_sm(int five, int sweeps, int* out) {
-  const DownKernel k = down_kernel_of(five, sweeps);
-  if (k == nullptr) return (int)cudaErrorInvalidValue;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = down_setup(device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, k, down_threads(five ? 5 : 9), sizeof(float) * down_smem_floats(five ? 5 : 9, sweeps));
-  return (int)err;
+  return blocks_per_sm(false, five, sweeps, out);
 }
 
-// ptrs: p, b, stencil (5 or 9), ec, out_p;  ip: nx, ny, five, sweeps;  fp: omega
+// ptrs: p, b, stencil (5 or 9), ec, out_p;  ip: nx, ny, five, sweeps (0..2);  fp: omega
 NF_EXPORT int nf_strip_up(const long long* ptrs, const int* ip, const float* fp,
                           void* stream) {
   return launch_up(ptrs, ip, fp, stream);
+}
+
+// The same for strip_up's instances.
+NF_EXPORT int nf_strip_up_blocks_per_sm(int five, int sweeps, int* out) {
+  return blocks_per_sm(true, five, sweeps, out);
 }

@@ -63,7 +63,9 @@ _SIGNATURES = {"nf_apply_poisson": [_P] * 7 + [_I, _I, _P],  # p, 4 links, diag,
                "nf_mg_solve_cluster_size": [ctypes.POINTER(_I)],     # the size out
                "nf_bicgstab_cluster_size": [ctypes.POINTER(_I)],     # the size out
                "nf_asmcheby_blocks_per_sm": [_I, ctypes.POINTER(_I)],  # degree; blocks out
-               "nf_strip_down_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)]}  # five, sweeps; out
+               "nf_galerkin_cluster_size": [ctypes.POINTER(_I)],     # the size out
+               "nf_strip_down_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)],  # five, sweeps; out
+               "nf_strip_up_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)]}    # five, sweeps; out
 
 _lib = None
 _lock = threading.Lock()

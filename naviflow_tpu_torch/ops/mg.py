@@ -8,14 +8,15 @@
   convergence checks, mean normalisation and residual (replaces
   ``pallas_mg.py:fused_mg_solve``).
 
-The CUDA kernels are ``csrc/mg.cu``: K3 and K5 one thread-block cluster
-each over the device code of ``csrc/vcycle.cuh`` (the levels of <= 1,024
+The CUDA kernels are ``csrc/mg.cu``, one thread-block cluster each: K3
+and K5 over the device code of ``csrc/vcycle.cuh`` (the levels of <= 1,024
 cells in one CTA's shared memory, the coarsest in one warp's registers;
-K5's convergence checks are cluster reductions), K4 a cooperative launch
-with grid-wide barriers between passes over ``csrc/mg.cuh``; the sources
-say what bounds them on the H100.  Each wrapper runs its plain PyTorch
-version on a CPU tensor and launches its kernel, or raises, on a CUDA one;
-K3's and K5's keep their host arrays and scratch per hierarchy layout.
+K5's convergence checks are cluster reductions), K4 over
+``csrc/cluster.cuh``'s RAP (K6's: every coarse level's entries spread over
+the cluster, one cluster barrier a level); the sources say what bounds them
+on the H100.  Each wrapper runs its plain PyTorch version on a CPU tensor
+and launches its kernel, or raises, on a CUDA one, and keeps its host
+arrays (K3's and K5's with their scratch) per hierarchy layout.
 
 The gates are the reference's admission rules, with their TPU VMEM
 budgets kept so that the port splits the work as the reference does; they
@@ -286,37 +287,81 @@ def galerkin_levels_plain(fine_st: Stencil9, shapes, fine_five: bool):
     return out
 
 
+# K4's outputs: the nine arrays of every coarse level in one buffer, level
+# by level, each array starting on a 256-byte boundary (RAP_ALIGN floats)
+RAP_ALIGN = 64
+
+
+def rap_layout(shapes):
+    """K4's output buffer for the vertex hierarchy ``shapes`` (finest
+    first): per coarse level ``(offset, pitch)`` in floats (its nine arrays
+    at ``offset + k * pitch``, ``pitch`` its cell count rounded up to
+    ``RAP_ALIGN``), and the buffer's length."""
+    levels, n = [], 0
+    for ni, nj in shapes[1:]:
+        pitch = -(-ni * nj // RAP_ALIGN) * RAP_ALIGN
+        levels.append((n, pitch))
+        n += 9 * pitch
+    return levels, n
+
+
+class _Rap:
+    """K4's host arrays for one (device, stream, shapes, fine_five): the
+    pointer slots (the fine stencil's and the outputs', refilled per call),
+    the parameters and the output layout."""
+
+    def __init__(self, shapes, fine_five):
+        if len(shapes) < 2 or len(shapes) > _MAX_LEVELS:
+            raise ValueError(f"galerkin_levels takes 2..{_MAX_LEVELS} shapes")
+        for (nf, mf), (nc, mc) in zip(shapes, shapes[1:]):
+            if (nf, mf) != (2 * nc + 1, 2 * mc + 1):
+                raise ValueError(f"galerkin_levels: {(nf, mf)} -> {(nc, mc)} is not a vertex "
+                                 "pair")
+        self.levels, self.floats = rap_layout(shapes)
+        self.offsets = [4 * (off + k * pitch) for off, pitch in self.levels for k in range(9)]
+        self.ptrs = (ctypes.c_longlong * (9 * len(shapes)))()
+        ip = [len(shapes), int(fine_five)] + [n for shp in shapes for n in shp]
+        self.ip = (ctypes.c_int * len(ip))(*ip)
+        self.fp = (ctypes.c_float * 1)(0.0)
+
+
+_RAP = {}
+
+
 def galerkin_levels(fine_st: Stencil9, shapes, fine_five: bool):
     """Every Galerkin coarse stencil of the vertex hierarchy ``shapes``
     (finest first) in one launch.  Returns one :class:`Stencil9` per coarse
-    level; the kernel computes each coarse entry directly from the fine
-    stencil and the transfer weights in f32 (no comb, no matrix product)."""
+    level, views of one fresh buffer (:func:`rap_layout`); the kernel
+    computes each coarse entry directly from the fine stencil and the
+    transfer weights in f32 (no comb, no matrix product)."""
     global RAP_LAUNCHES
     if not fine_st.c.is_cuda:
         return galerkin_levels_plain(fine_st, shapes, fine_five)
-    shapes = [tuple(s) for s in shapes]
-    if len(shapes) < 2 or len(shapes) > _MAX_LEVELS:
-        raise ValueError(f"galerkin_levels takes 2..{_MAX_LEVELS} shapes")
-    for (nf, mf), (nc, mc) in zip(shapes, shapes[1:]):
-        if (nf, mf) != (2 * nc + 1, 2 * mc + 1):
-            raise ValueError(f"galerkin_levels: {(nf, mf)} -> {(nc, mc)} is not a vertex pair")
-    arrays = _stencil_arrays(fine_st, fine_five)
-    for k, a in enumerate(arrays):
-        _cuda.require(a, shapes[0], f"fine stencil[{k}]")
+    shapes = tuple(tuple(s) for s in shapes)
     dev = fine_st.c.device
-    outs = [[torch.empty(shp, dtype=torch.float32, device=dev) for _ in range(9)]
-            for shp in shapes[1:]]
-    ptrs = [a.data_ptr() for a in arrays] + [0] * (9 - len(arrays))
-    ptrs += [t.data_ptr() for lvl in outs for t in lvl]
-    ip = [len(shapes), int(fine_five)] + [n for shp in shapes for n in shp]
-    c_ptrs = (ctypes.c_longlong * len(ptrs))(*ptrs)
-    c_ip = (ctypes.c_int * len(ip))(*ip)
-    c_fp = (ctypes.c_float * 1)(0.0)
-    _cuda.check(_cuda.library().nf_galerkin_levels(c_ptrs, c_ip, c_fp,
-                                                   _cuda.stream_of(fine_st.c)),
+    stream = _cuda.stream_of(fine_st.c)
+    h = _cached(_RAP, (dev, stream, shapes, bool(fine_five)), lambda: _Rap(shapes, fine_five))
+    arrays = _stencil_arrays(fine_st, fine_five)
+    _cuda.require_all(arrays, shapes[0], "fine stencil")
+    buf = torch.empty(h.floats, dtype=torch.float32, device=dev)
+    base = buf.data_ptr()
+    h.ptrs[:] = ([a.data_ptr() for a in arrays] + [0] * (9 - len(arrays))
+                 + [base + off for off in h.offsets])
+    _cuda.check(_cuda.library().nf_galerkin_levels(h.ptrs, h.ip, h.fp, stream),
                 "galerkin_levels")
     RAP_LAUNCHES += 1
-    return [Stencil9(**dict(zip(_NAMES, lvl))) for lvl in outs]
+    return [Stencil9(*buf.as_strided((9, ni, nj), (pitch, nj, 1), off).unbind(0))
+            for (off, pitch), (ni, nj) in zip(h.levels, shapes[1:])]
+
+
+def galerkin_cluster_size(device=None) -> int:
+    """The thread-block cluster size K4 launches with on ``device`` (16
+    where one such cluster fits on the card, else 8)."""
+    with torch.cuda.device(device):
+        size = ctypes.c_int(0)
+        _cuda.check(_cuda.library().nf_galerkin_cluster_size(ctypes.byref(size)),
+                    "galerkin_cluster_size")
+    return size.value
 
 
 def fused_mg_solve_plain(p0, b, levels, cfg, *, mean_normalize: bool = True):
