@@ -11,7 +11,7 @@ result line:
 2. the kernel build: ``nvcc`` compiles ``naviflow_tpu_torch/csrc/*.cu`` for
    sm_90a from the checkout, one process per source; ptxas's registers and
    spills of K1's, K2's, K6's, K3's, K5's, K7's and K9's kernels (each
-   strip_up instance's and K4's by name), K1's resident blocks an SM at
+   strip_up instance's, K4's and K11's by name), K1's resident blocks an SM at
    degree 4 and strip_down's and strip_up's at each (points, sweeps), the
    thread-block cluster size each K6 body, K3, K4, K5 and K7 launch with,
    and one cluster barrier's time at each size (``nf_cluster_sync_probe``);
@@ -30,11 +30,13 @@ result line:
    the u and v systems of a 2048^2 cavity state (degree 4); K6's simplec,
    piso and simpler bodies over 3 chained 63^2 steps from rest; K10a/b at
    the 4096^2 plane shapes (1/1 smoothing) and at 1024^2 (2/2); K11a at
-   63^2 (1 and 3 sweeps) and 256^2, K11b at 63^2, 256^2 and 48 x 96 with a
-   cuSPARSE SpMV of the same operator beside it.  Every kernel's CUDA-event
-   time, its device time (``device_ms``: events around launches queued
-   behind a device-side sleep) and, for K1-K7, K9 and K11b, the host's time
-   per call; beside them the cluster-barrier bound (K3-K7; K7's cooperative
+   63^2 (1 and 3 sweeps), 256^2 (1, 3 and 6: two launches), 48 x 96,
+   255 x 257, 1024 x 64 and 64 x 1024 (3), K11b at 63^2, 256^2, 48 x 96 and
+   255 x 257 with a cuSPARSE SpMV of the same operator and the device time
+   of an empty launch (``launch_floor_ms``) beside it.  Every kernel's
+   CUDA-event time, its device time (``device_ms``: events around launches
+   queued behind a device-side sleep) and the host's time per call; beside
+   them the cluster-barrier bound (K3-K7; K7's cooperative
    kernel on the 255^2 fields: the grid-barrier bound); then
    K6's phase split (``nf_fused_outer_step_phases``)
    for each body over 20 chained 63^2 steps, K3's
@@ -93,10 +95,10 @@ Then a JSON line with every kernel's launches, error, times and bound (K2:
 each level's too, and the launches a step), the card's name and power
 limit, and, last, ``{"ok": true, "device": {...}}``.  Needs no network and
 no JAX; there is no CPU path.  With ``--ab TAG`` it runs one side of an A/B
-between two trees instead (``ab_side``: K1, K2a, K2b, K7, K5, K4 and K6's
-phase split, or those ``--kernels`` names; ``--save DIR`` keeps K1's, K2a's, K2b's and
-K4's outputs), and with
-``--ab-compare DIR A B`` it compares two saved sides output by output.
+between two trees instead (``ab_side``: K1, K2a, K2b, K7, K5, K4, K6's
+phase split, K11a and K11b, or those ``--kernels`` names; ``--save DIR``
+keeps K1's, K2a's, K2b's, K4's and K11's outputs), and with ``--ab-compare
+DIR A B`` it compares two saved sides output by output.
 """
 
 import contextlib
@@ -990,9 +992,12 @@ def check_assembly(dev):
             for g, w in fold:
                 worst_abs = max(worst_abs, max_err(g, w)[0])
                 ok &= bool(torch.allclose(g, w, rtol=1e-6, atol=1e-9))
+
+        def kernel():
+            assembly.fused_assembly_pair(u, v, p, **args)
+
         ms, plain_ms, dev_ms = time_pair(
-            lambda: assembly.fused_assembly_pair_plain(u, v, p, **args),
-            lambda: assembly.fused_assembly_pair(u, v, p, **args), reps=10)
+            lambda: assembly.fused_assembly_pair_plain(u, v, p, **args), kernel, reps=10)
         # u, v, p in; 16 coefficient arrays out (+ d_u, d_v, 5 operator arrays)
         nbytes = 4 * (faces + cells + 8 * faces)
         flops = faces * 80
@@ -1001,7 +1006,8 @@ def check_assembly(dev):
             flops += cells * (4 * 80 + 20)
         rows.append(dict(name="fused_assembly_pair", shape=[NL, NL], with_bounds=bounds,
                          poisson_variant=variant, ok=ok, max_abs_err=worst_abs, ms=ms,
-                         plain_ms=plain_ms, device_ms=dev_ms, work=(nbytes, flops),
+                         plain_ms=plain_ms, device_ms=dev_ms, host_ms=host_ms(kernel, 10),
+                         work=(nbytes, flops),
                          main=bounds and variant is None))
     return rows
 
@@ -1283,12 +1289,16 @@ def check_plane(dev):
         got_u = plane_strip.plane_strip_up(Rs, Bs, ps, ec, cfg)
         want_u = plane_strip.plane_strip_up_plain(Rs, Bs, ps, ec, cfg)
         torch_sync()
+        def down():
+            plane_strip.plane_strip_down(R, B, ps, cfg)
+
+        def up():
+            plane_strip.plane_strip_up(Rs, Bs, ps, ec, cfg)
+
         ms_d, plain_d, dev_d = time_pair(
-            lambda: plane_strip.plane_strip_down_plain(R, B, ps, cfg),
-            lambda: plane_strip.plane_strip_down(R, B, ps, cfg), reps=10)
+            lambda: plane_strip.plane_strip_down_plain(R, B, ps, cfg), down, reps=10)
         ms_u, plain_u, dev_u = time_pair(
-            lambda: plane_strip.plane_strip_up_plain(Rs, Bs, ps, ec, cfg),
-            lambda: plane_strip.plane_strip_up(Rs, Bs, ps, ec, cfg), reps=10)
+            lambda: plane_strip.plane_strip_up_plain(Rs, Bs, ps, ec, cfg), up, reps=10)
         # per plane cell: a half-sweep update 8 operations, the normalised
         # residual 10, the coarse row 3 per coarse cell, the prolongation
         # and add 10; bytes: 14 planes + rc_zdiag in, 2 planes + rc out
@@ -1296,17 +1306,17 @@ def check_plane(dev):
         cells = m * nc
         works = {"down": (4 * 17 * cells, cells * (16 * sweeps + 21) + 3 * (cells // 2)),
                  "up": (4 * (14 * cells + cells // 2), cells * (20 + 16 * sweeps))}
-        for name, got, want, ms, plain_ms, dev_ms in (
-                ("down", got_d, want_d, ms_d, plain_d, dev_d),
-                ("up", got_u, want_u, ms_u, plain_u, dev_u)):
+        for name, got, want, ms, plain_ms, dev_ms, fn in (
+                ("down", got_d, want_d, ms_d, plain_d, dev_d, down),
+                ("up", got_u, want_u, ms_u, plain_u, dev_u, up)):
             errs = [max_err(g, w) for g, w in zip(got, want)]
             rows.append(dict(name=f"plane_strip_{name}", shape=[m, nc], sweeps=sweeps,
                              ok=all(strip_close(g, w) for g, w in zip(got, want)),
                              max_abs_err=max(a for a, _ in errs),
                              rel_err=max(r for _, r in errs),
                              scale=max(float(w.abs().max()) for w in want), ms=ms,
-                             plain_ms=plain_ms, device_ms=dev_ms, work=works[name],
-                             main=n == NP))
+                             plain_ms=plain_ms, device_ms=dev_ms, host_ms=host_ms(fn, 10),
+                             work=works[name], main=n == NP))
         del ps, R, B, ec, got_d, want_d, got_u, want_u
     return rows
 
@@ -1347,58 +1357,93 @@ def poisson_csr(c):
     return coo.coalesce().to_sparse_csr()
 
 
+# K11a's cases (shape, sweeps) and K11b's shapes; K11a's 256^2 at RB_S_MAX + 2
+# sweeps runs two launches
+K11A_CASES = (((63, 63), 1), ((63, 63), 3), ((256, 256), 1), ((256, 256), 3),
+              ((256, 256), 6), ((48, 96), 3), ((255, 257), 3), ((1024, 64), 3),
+              ((64, 1024), 3))
+K11B_SHAPES = ((63, 63), (256, 256), (48, 96), (255, 257))
+
+
+def launch_floor_ms(dev, blocks, threads):
+    """Device ms of one launch of an empty kernel of ``blocks`` x
+    ``threads`` (``nf_launch_floor_probe``, timed by ``device_ms``): the
+    floor under a small kernel's device time."""
+    import torch
+
+    from naviflow_tpu_torch.ops import _cuda
+
+    lib, stream = _cuda.library(), _cuda.stream_of(torch.empty(0, device=dev))
+
+    def probe():
+        _cuda.check(lib.nf_launch_floor_probe(blocks, threads, stream), "launch_floor_probe")
+
+    return device_ms(probe)
+
+
 def check_poisson_kernels(dev):
-    """K11a at 63^2 (1 and 3 sweeps, omega 1.5) and 256^2 (3 sweeps), rtol
-    5e-4 / atol 2e-5; K11b at 63^2, 256^2 and 48 x 96, rtol / atol 1e-6
-    (tests/test_pallas.py's tolerances), with a cuSPARSE SpMV of the same
-    operator beside K11b.  Beside the CUDA-event times of back-to-back calls,
-    which at these sizes hold the host's launch time, each kernel's device
-    time (``device_ms``; the SpMV's too) and K11b's host
-    time per call (``host_ms``).  No path of the JAX package calls K11: its
-    launches are counted over this phase's checking calls (returned)."""
+    """K11a at ``K11A_CASES`` (omega 1.5), rtol 5e-4 / atol 2e-5; K11b at
+    ``K11B_SHAPES``, rtol / atol 1e-6 (tests/test_pallas.py's tolerances),
+    with a cuSPARSE SpMV of the same operator beside K11b.  Beside the
+    CUDA-event times of back-to-back calls, which at these sizes hold the
+    host's launch time, each kernel's device time (``device_ms``; the
+    SpMV's too), its host time per call (``host_ms``) and, beside K11b, the
+    device time of an empty launch of its 256^2 grid (``launch_floor_ms``).
+    No path of the JAX package calls K11: its launches are counted over
+    this phase's checking calls (returned) and must be
+    ceil(sweeps / RBGS_S_MAX) a K11a call and one a K11b call."""
     import torch
 
     from naviflow_tpu_torch.ops import kernels
 
     reset_counts()
     checks = []
-    for (nx, ny), sweeps in (((63, 63), 1), ((63, 63), 3), ((256, 256), 3)):
+    for (nx, ny), sweeps in K11A_CASES:
         p, b, c = poisson_system(nx, ny, dev, SEED + 3)
         checks.append(("rbgs_sweeps", (nx, ny), sweeps, p, b, c,
                        kernels.rbgs_sweeps(p, b, c, n_sweeps=sweeps, omega=1.5),
                        kernels.rbgs_sweeps_plain(p, b, c, sweeps, 1.5)))
-    for nx, ny in ((63, 63), (256, 256), (48, 96)):
+    for nx, ny in K11B_SHAPES:
         p, b, c = poisson_system(nx, ny, dev, SEED + 4)
         checks.append(("apply_poisson", (nx, ny), None, p, b, c,
                        kernels.apply_poisson_kernel(p, c), kernels.apply_poisson_plain(p, c)))
     torch_sync()
     launches = counts()
+    want = only(rbgs_sweeps=sum(-(-s // kernels.RBGS_S_MAX) for _, s in K11A_CASES),
+                apply_poisson=len(K11B_SHAPES))
+    floor = {"256x256": launch_floor_ms(dev, 256, 256), "1x32": launch_floor_ms(dev, 1, 32)}
+    emit(dict(phase="launch_floor", ms=floor, launches=launches, launches_expected=want))
     rows = []
-    for name, (nx, ny), sweeps, p, b, c, got, want in checks:
-        a, r = max_err(got, want)
+    for name, (nx, ny), sweeps, p, b, c, got, want_out in checks:
+        a, r = max_err(got, want_out)
         cells = nx * ny
         if name == "rbgs_sweeps":
-            ok = bool(torch.allclose(got, want, rtol=5e-4, atol=2e-5))
+            ok = bool(torch.allclose(got, want_out, rtol=5e-4, atol=2e-5))
             kernel = lambda: kernels.rbgs_sweeps(p, b, c, n_sweeps=sweeps, omega=1.5)  # noqa: E731
             ms, plain_ms, dev_ms = time_pair(
                 lambda: kernels.rbgs_sweeps_plain(p, b, c, sweeps, 1.5), kernel)
-            # p, b, 4 links, invd in; p out.  Per cell and sweep: the
-            # neighbour sum 7, (b + sum) * invd 2, the relaxation 3
-            row = dict(sweeps=sweeps, work=(4 * 8 * cells, 12 * sweeps * cells))
+            # p, b, 4 links, diag in; p out.  Per cell and sweep: the
+            # neighbour sum 7, (b + sum) * invd 2, the relaxation 3; per
+            # cell invd's guard and division 2
+            row = dict(sweeps=sweeps, launches=-(-sweeps // kernels.RBGS_S_MAX),
+                       work=(4 * 8 * cells, (12 * sweeps + 2) * cells),
+                       main=(nx, ny) == (256, 256) and sweeps == 3)
         else:
-            ok = bool(torch.allclose(got, want, rtol=1e-6, atol=1e-6))
+            ok = bool(torch.allclose(got, want_out, rtol=1e-6, atol=1e-6))
             kernel = lambda: kernels.apply_poisson_kernel(p, c)  # noqa: E731
             ms, plain_ms, dev_ms = time_pair(lambda: kernels.apply_poisson_plain(p, c), kernel)
             A, x = poisson_csr(c), p.flatten()
             spmv = A @ x
             torch_sync()
-            spmv_ok = bool(torch.allclose(spmv.view(nx, ny), want, rtol=1e-5, atol=1e-5))
+            spmv_ok = bool(torch.allclose(spmv.view(nx, ny), want_out, rtol=1e-5, atol=1e-5))
             row = dict(library_ms=time_ms(lambda: A @ x), library_ok=spmv_ok,
-                       library_device_ms=device_ms(lambda: A @ x), host_ms=host_ms(kernel),
-                       work=(4 * 7 * cells, 9 * cells))
+                       library_device_ms=device_ms(lambda: A @ x),
+                       launch_floor_ms=floor["256x256"],
+                       work=(4 * 7 * cells, 9 * cells), main=(nx, ny) == (256, 256))
             ok &= spmv_ok
-        rows.append(dict(name=name, shape=[nx, ny], ok=ok, max_abs_err=a, rel_err=r, ms=ms,
-                         plain_ms=plain_ms, device_ms=dev_ms, main=nx == 256, **row))
+        rows.append(dict(name=name, shape=[nx, ny], ok=ok and launches == want,
+                         max_abs_err=a, rel_err=r, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                         host_ms=host_ms(kernel), **row))
     return rows, launches
 
 
@@ -2178,10 +2223,10 @@ def kernels_line(rows, paths):
                      library_ms=sum(lib) / len(lib) if lib else None,
                      launches_by_path={p: c[counter] for p, c in paths.items()},
                      bytes=nbytes, flops=flops)
-        # device times (every kernel), K11b's SpMV's, the host times per
-        # call (K1-K7, K9, K11b) and the barrier bounds (K3-K7)
-        for key in ("device_ms", "library_device_ms", "host_ms", "grid_barriers",
-                    "cluster_barriers", "barrier_bound_ms"):
+        # device times (every kernel), K11b's SpMV's and launch floor, the
+        # host times per call (every kernel) and the barrier bounds (K3-K7)
+        for key in ("device_ms", "library_device_ms", "launch_floor_ms", "host_ms",
+                    "grid_barriers", "cluster_barriers", "barrier_bound_ms"):
             if all(key in r for r in mine):
                 entry[key] = sum(r[key] for r in mine) / k
         if name in ("strip_down", "strip_up"):
@@ -2197,7 +2242,10 @@ def kernels_line(rows, paths):
     return out
 
 
-AB_KERNELS = ("K1", "K2a", "K2b", "K7", "K5", "K4", "K6")
+AB_KERNELS = ("K1", "K2a", "K2b", "K7", "K5", "K4", "K6", "K11a", "K11b")
+# K11a's A/B cases (shape, sweeps) and K11b's shapes
+AB_K11A = (((63, 63), 1), ((63, 63), 3), ((256, 256), 3), ((256, 256), 6))
+AB_K11B = ((63, 63), (256, 256), (48, 96))
 
 
 def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG, 511)):
@@ -2209,18 +2257,19 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
     from rest, maxiter 20), K5 on the 63^2 and 255^2 vertex hierarchies of
     the same states and on the 256^2 cell-centred one (the headline
     configuration), the error of the first output; K4 on the same 63^2 and
-    255^2 vertex hierarchies, every output's error; device, event and host
+    255^2 vertex hierarchies, every output's error; K11a at ``AB_K11A`` and
+    K11b at ``AB_K11B`` (``poisson_system``'s inputs); device, event and host
     times of each; K6's phase split (``k6_phases``: each body's RAP phase
-    and event ms a step).  With ``save``, K1's, K2a's, K2b's and K4's outputs (K4:
-    all nine arrays of every coarse level) go to ``save/TAG.pt`` for
-    ``ab_compare``.  Run it in turns A, B, B, A, each from a tree's
+    and event ms a step).  With ``save``, K1's, K2a's, K2b's, K4's and K11's
+    outputs (K4: all nine arrays of every coarse level) go to
+    ``save/TAG.pt`` for ``ab_compare``.  Run it in turns A, B, B, A, each from a tree's
     root: ``PYTHONPATH=. python3 -P <this file> --ab TAG`` (``-P``: the tree
     on PYTHONPATH, not this file's directory, supplies the package)."""
     from pathlib import Path
 
     import torch
 
-    from naviflow_tpu_torch.ops import asmcheby, krylov, mg, strip
+    from naviflow_tpu_torch.ops import asmcheby, kernels as k11, krylov, mg, strip
 
     saved = {}
 
@@ -2316,6 +2365,21 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
                            list(want.values()))
             timed(lambda: mg.galerkin_levels(fine, shapes, True), kernel="K4", n=n,
                   max_rel_err=max(errs.values()))
+    if "K11a" in kernels:
+        for (nx, ny), sweeps in AB_K11A:
+            p, b, c = poisson_system(nx, ny, dev, SEED + 3)
+            errs = outputs(f"K11a_{nx}x{ny}_{sweeps}",
+                           {"p": k11.rbgs_sweeps(p, b, c, n_sweeps=sweeps, omega=1.5)},
+                           [k11.rbgs_sweeps_plain(p, b, c, sweeps, 1.5)])
+            timed(lambda: k11.rbgs_sweeps(p, b, c, n_sweeps=sweeps, omega=1.5), kernel="K11a",
+                  shape=[nx, ny], sweeps=sweeps, max_rel_err=max(errs.values()))
+    if "K11b" in kernels:
+        for nx, ny in AB_K11B:
+            p, _, c = poisson_system(nx, ny, dev, SEED + 4)
+            errs = outputs(f"K11b_{nx}x{ny}", {"out": k11.apply_poisson_kernel(p, c)},
+                           [k11.apply_poisson_plain(p, c)])
+            timed(lambda: k11.apply_poisson_kernel(p, c), kernel="K11b", shape=[nx, ny],
+                  max_rel_err=max(errs.values()))
     if "K6" in kernels:
         for algo, body in k6_phases(dev)["bodies"].items():
             emit(dict(phase="ab", tag=tag, kernel="K6", algo=algo,
@@ -2355,7 +2419,7 @@ def parse_args(argv):
     ap.add_argument("--kernels", default=",".join(AB_KERNELS),
                     help="the A/B's kernels, comma-separated (default: %(default)s)")
     ap.add_argument("--save", metavar="DIR",
-                    help="keep the A/B's K1, K2a, K2b and K4 outputs here")
+                    help="keep the A/B's K1, K2a, K2b, K4 and K11 outputs here")
     ap.add_argument("--ab-compare", nargs=3, metavar=("DIR", "TAG_A", "TAG_B"),
                     help="compare two saved A/B sides output by output and stop")
     return ap.parse_args(argv)
@@ -2418,7 +2482,9 @@ def main() -> int:
                  for side, sweeps in (("strip_down", (1, 2)), ("strip_up", (0, 1, 2)))},
               ptxas=ptxas, ptxas_by_kernel={
                   **ptxas_kernels("strip.cu", "strip_up_kernel"),
-                  **ptxas_kernels("mg.cu", "galerkin_kernel")}))
+                  **ptxas_kernels("mg.cu", "galerkin_kernel"),
+                  **ptxas_kernels("poisson.cu", "rbgs_tile_kernel"),
+                  **ptxas_kernels("poisson.cu", "matvec_kernel")}))
     # one cluster barrier at each kernel's size (its bound's unit) and at 8
     cl_by_size = {size: cluster_sync_ms(size, dev)
                   for size in sorted({8, clusters["simple"], k3_size, k4_size, k5_size,

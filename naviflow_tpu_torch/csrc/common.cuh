@@ -30,6 +30,98 @@ __device__ __forceinline__ float nf_block_max(float v) {
   return v;  // valid in thread 0
 }
 
+// cp.async copies of one float (4 bytes) or four (16 bytes, both addresses
+// 16-byte aligned) from global into shared memory; `in` false fills the
+// slot with zeros and reads nothing (the zero padding off a grid).
+__device__ __forceinline__ void nf_cp16(unsigned dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void nf_cp4(unsigned dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void nf_commit_staged() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups are pending, then a block barrier.
+template <int N>
+__device__ __forceinline__ void nf_wait_staged() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  __syncthreads();
+}
+
+// The staged tiles of K2 (strip.cu) and K11a (poisson.cu).  A region type R
+// gives the block's THREADS, the owned tile's TI x TJ cells, the halo H,
+// the column margin M (H rounded up to 4: 16-byte rows), the region's RI x
+// W slots (PLANE = RI * W a staged array), and the inner columns
+// [QLO, QHI) that arrays after the first are staged on; the parameters P
+// give the arrays a[], the output out_p, nx, ny and vec (every array
+// 16-byte aligned and ny % 4 == 0).
+
+// Issue the copies of arrays [A0, A1) of region R of the tile whose slot
+// (0, 0) is cell (i0, j0): array 0 (p) on the whole region, zeros off the
+// grid; the others on rows 1..RI-2, columns QLO..QHI-1.
+template <class R, int A0, int A1, class Params>
+__device__ __forceinline__ void nf_stage_region(const Params& P, unsigned base, int i0,
+                                                int j0) {
+  const int nx = P.nx, ny = P.ny;
+  if (P.vec) {  // 16-byte chunks: j0 and ny are multiples of 4, so a chunk is on or off the grid
+    constexpr int CH = R::W / 4;
+    for (int k = threadIdx.x; k < R::RI * CH; k += R::THREADS) {
+      const int r = k / CH, q = 4 * (k % CH);
+      const int gi = i0 + r, gj = j0 + q;
+      const bool in = gi >= 0 && gi < nx && gj >= 0 && gj < ny;
+      const int64_t g = in ? (int64_t)gi * ny + gj : 0;
+      const unsigned dst = base + 4u * (r * R::W + q);
+      const bool ring = !(r >= 1 && r < R::RI - 1 && q >= R::QLO && q < R::QHI);
+#pragma unroll
+      for (int a = A0; a < A1; ++a)
+        if (a == 0 || !ring) nf_cp16(dst + 4u * a * R::PLANE, P.a[a] + g, in);
+    }
+  } else {
+    for (int k = threadIdx.x; k < R::PLANE; k += R::THREADS) {
+      const int r = k / R::W, q = k % R::W;
+      const int gi = i0 + r, gj = j0 + q;
+      const bool in = gi >= 0 && gi < nx && gj >= 0 && gj < ny;
+      const int64_t g = in ? (int64_t)gi * ny + gj : 0;
+      const unsigned dst = base + 4u * k;
+      const bool ring = !(r >= 1 && r < R::RI - 1 && q >= R::QLO && q < R::QHI);
+#pragma unroll
+      for (int a = A0; a < A1; ++a)
+        if (a == 0 || !ring) nf_cp4(dst + 4u * a * R::PLANE, P.a[a] + g, in);
+    }
+  }
+}
+
+// The owned cells of the region's p (the first plane of s) into out_p
+// (float4 where P.vec).
+template <class R, class Params>
+__device__ __forceinline__ void nf_store_owned(const Params& P, const float* s, int ti0,
+                                               int tj0) {
+  constexpr int TI = R::TI, TJ = R::TJ;
+  if (P.vec) {
+    for (int k = threadIdx.x; k < TI * TJ / 4; k += R::THREADS) {
+      const int r = k / (TJ / 4), q = 4 * (k % (TJ / 4));
+      const int gi = ti0 + r, gj = tj0 + q;
+      if (gi < P.nx && gj < P.ny)
+        *reinterpret_cast<float4*>(P.out_p + (int64_t)gi * P.ny + gj) =
+            *reinterpret_cast<const float4*>(s + (R::H + r) * R::W + R::M + q);
+    }
+  } else {
+    for (int k = threadIdx.x; k < TI * TJ; k += R::THREADS) {
+      const int gi = ti0 + k / TJ, gj = tj0 + k % TJ;
+      if (gi < P.nx && gj < P.ny)
+        P.out_p[(int64_t)gi * P.ny + gj] = s[(R::H + k / TJ) * R::W + R::M + k % TJ];
+    }
+  }
+}
+
 // The diagonal guard shared by the multigrid smoothers
 // (ops/stencil9.stencil9_diagonal): |c| < 1e-15 counts as 1.
 __device__ __forceinline__ float nf_inv_diag(float c) {

@@ -10,6 +10,9 @@ __global__ void __launch_bounds__(NF_CL_THREADS, 1) cluster_sync_probe_kernel(in
   for (int i = 0; i < n; ++i) cl.sync();
 }
 
+// Nothing: the floor of one launch's device time.
+__global__ void launch_floor_probe_kernel() {}
+
 }  // namespace
 
 NF_EXPORT int nf_fused_outer_step(const long long* ptrs, const int* ip, const float* fp,
@@ -43,4 +46,11 @@ NF_EXPORT int nf_cluster_sync_probe(const long long* ptrs, const int* ip, const 
   if (err != cudaSuccess) return (int)err;
   const int syncs = ip[1];
   return nf_cluster_launch(cluster_sync_probe_kernel, ip[0], syncs, 0, (cudaStream_t)stream);
+}
+
+// A measurement aid, not a kernel of the solver: one launch of the empty
+// kernel over `blocks` blocks of `threads` threads.
+NF_EXPORT int nf_launch_floor_probe(int blocks, int threads, void* stream) {
+  launch_floor_probe_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }

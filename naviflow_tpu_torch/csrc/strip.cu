@@ -110,7 +110,8 @@ __host__ __device__ constexpr int up_smem_floats(int ns, int sweeps) {
 // The compile-time shape of one instance's staged region.
 template <int NS, int SWEEPS, bool UP>
 struct Region {
-  static constexpr int THREADS = down_threads(NS), COLORS = down_colors(NS), TJ = DOWN_TJ;
+  static constexpr int THREADS = down_threads(NS), COLORS = down_colors(NS);
+  static constexpr int TI = TILE, TJ = DOWN_TJ;
   static constexpr int H = UP ? up_halo(NS, SWEEPS) : down_halo(NS, SWEEPS);
   static constexpr int M = UP ? up_margin(NS, SWEEPS) : down_margin(NS, SWEEPS);
   static constexpr int RI = TILE + 2 * H, W = TJ + 2 * M, PLANE = RI * W;
@@ -130,63 +131,6 @@ struct StripParams {
   int ec_vec;          // ec 16-byte aligned and (ny / 2) % 4 == 0
   float omega;
 };
-
-__device__ __forceinline__ void cp16(unsigned dst, const float* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(unsigned dst, const float* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(in ? 4 : 0)
-               : "memory");
-}
-
-// Issue the copies of arrays [A0, A1) of region R of the tile whose slot
-// (0, 0) is cell (i0, j0): p (array 0) on the whole region, zeros off the
-// grid; b and the stencil on rows 1..RI-2, columns QLO..QHI-1.
-template <class R, int A0, int A1>
-__device__ __forceinline__ void stage_region(const StripParams& P, unsigned base, int i0, int j0) {
-  const int nx = P.nx, ny = P.ny;
-  if (P.vec) {  // 16-byte chunks: j0 and ny are multiples of 4, so a chunk is on or off the grid
-    constexpr int CH = R::W / 4;
-    for (int k = threadIdx.x; k < R::RI * CH; k += R::THREADS) {
-      const int r = k / CH, q = 4 * (k % CH);
-      const int gi = i0 + r, gj = j0 + q;
-      const bool in = gi >= 0 && gi < nx && gj >= 0 && gj < ny;
-      const int64_t g = in ? (int64_t)gi * ny + gj : 0;
-      const unsigned dst = base + 4u * (r * R::W + q);
-      const bool ring = !(r >= 1 && r < R::RI - 1 && q >= R::QLO && q < R::QHI);
-#pragma unroll
-      for (int a = A0; a < A1; ++a)
-        if (a == 0 || !ring) cp16(dst + 4u * a * R::PLANE, P.a[a] + g, in);
-    }
-  } else {
-    for (int k = threadIdx.x; k < R::PLANE; k += R::THREADS) {
-      const int r = k / R::W, q = k % R::W;
-      const int gi = i0 + r, gj = j0 + q;
-      const bool in = gi >= 0 && gi < nx && gj >= 0 && gj < ny;
-      const int64_t g = in ? (int64_t)gi * ny + gj : 0;
-      const unsigned dst = base + 4u * k;
-      const bool ring = !(r >= 1 && r < R::RI - 1 && q >= R::QLO && q < R::QHI);
-#pragma unroll
-      for (int a = A0; a < A1; ++a)
-        if (a == 0 || !ring) cp4(dst + 4u * a * R::PLANE, P.a[a] + g, in);
-    }
-  }
-}
-
-__device__ __forceinline__ void commit_staged() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups are pending, then a block barrier.
-template <int N>
-__device__ __forceinline__ void wait_staged() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-  __syncthreads();
-}
 
 // One Gauss-Seidel update of region slot k (the expression of the composed
 // sweep); `s` is the staged region: p, b, then the stencil arrays.
@@ -250,28 +194,6 @@ __device__ __forceinline__ void smooth_region(const StripParams& P, float* s, in
   }
 }
 
-// The owned cells of the region's p into out_p (float4 where P.vec).
-template <class R>
-__device__ __forceinline__ void store_owned(const StripParams& P, const float* s, int ti0,
-                                            int tj0) {
-  constexpr int TJ = R::TJ;
-  if (P.vec) {
-    for (int k = threadIdx.x; k < TILE * TJ / 4; k += R::THREADS) {
-      const int r = k / (TJ / 4), q = 4 * (k % (TJ / 4));
-      const int gi = ti0 + r, gj = tj0 + q;
-      if (gi < P.nx && gj < P.ny)
-        *reinterpret_cast<float4*>(P.out_p + (int64_t)gi * P.ny + gj) =
-            *reinterpret_cast<const float4*>(s + (R::H + r) * R::W + R::M + q);
-    }
-  } else {
-    for (int k = threadIdx.x; k < TILE * TJ; k += R::THREADS) {
-      const int gi = ti0 + k / TJ, gj = tj0 + k % TJ;
-      if (gi < P.nx && gj < P.ny)
-        P.out_p[(int64_t)gi * P.ny + gj] = s[(R::H + k / TJ) * R::W + R::M + k % TJ];
-    }
-  }
-}
-
 template <int NS, int SWEEPS>
 __global__ void __launch_bounds__(down_threads(NS)) strip_down_kernel(StripParams P) {
   using R = Region<NS, SWEEPS, false>;
@@ -279,11 +201,11 @@ __global__ void __launch_bounds__(down_threads(NS)) strip_down_kernel(StripParam
   extern __shared__ __align__(16) float s[];
   const int ti0 = blockIdx.y * TILE, tj0 = blockIdx.x * TJ;
   const int i0 = ti0 - H, j0 = tj0 - M;  // the cell of region slot (0, 0)
-  stage_region<R, 0, R::A>(P, (unsigned)__cvta_generic_to_shared(s), i0, j0);
-  commit_staged();
-  wait_staged<0>();
+  nf_stage_region<R, 0, R::A>(P, (unsigned)__cvta_generic_to_shared(s), i0, j0);
+  nf_commit_staged();
+  nf_wait_staged<0>();
   smooth_region<R, NS, SWEEPS>(P, s, i0, j0);
-  store_owned<R>(P, s, ti0, tj0);
+  nf_store_owned<R>(P, s, ti0, tj0);
   // residual of the owned cells, restricted 2x2 (axis 0 first, as
   // ops/transfer_cc.restrict_cc), a coarse cell a thread at a time
   constexpr int TC = TJ / 2;
@@ -313,13 +235,13 @@ __device__ __forceinline__ void stage_box(const StripParams& P, unsigned base, i
       const int r = k / CH, q = 4 * (k % CH);
       const int gi = I0 + r, gj = J0 + q;
       const bool in = gi >= 0 && gi < nci && gj >= 0 && gj < ncj;
-      cp16(base + 4u * (r * BW + q), P.ec + (in ? (int64_t)gi * ncj + gj : 0), in);
+      nf_cp16(base + 4u * (r * BW + q), P.ec + (in ? (int64_t)gi * ncj + gj : 0), in);
     }
   } else {
     for (int k = threadIdx.x; k < BR * BW; k += THREADS) {
       const int gi = I0 + k / BW, gj = J0 + k % BW;
       const bool in = gi >= 0 && gi < nci && gj >= 0 && gj < ncj;
-      cp4(base + 4u * k, P.ec + (in ? (int64_t)gi * ncj + gj : 0), in);
+      nf_cp4(base + 4u * k, P.ec + (in ? (int64_t)gi * ncj + gj : 0), in);
     }
   }
 }
@@ -337,12 +259,12 @@ __global__ void __launch_bounds__(down_threads(NS)) strip_up_kernel(StripParams 
   const unsigned base = (unsigned)__cvta_generic_to_shared(s);
   // two copy groups: p and the box, then b and the stencil, which arrive
   // while the prolongation is added
-  stage_region<R, 0, 1>(P, base, i0, j0);
+  nf_stage_region<R, 0, 1>(P, base, i0, j0);
   stage_box<BR, BW, R::THREADS>(P, base + 4u * R::A * R::PLANE, I0, J0);
-  commit_staged();
-  stage_region<R, 1, R::A>(P, base, i0, j0);
-  commit_staged();
-  wait_staged<1>();
+  nf_commit_staged();
+  nf_stage_region<R, 1, R::A>(P, base, i0, j0);
+  nf_commit_staged();
+  nf_wait_staged<1>();
 
   // p + the prolonged correction on the logical region's cells (rows
   // [0, RI), columns [M - H, M + TJ + H): every cell a pass reads), as
@@ -361,9 +283,9 @@ __global__ void __launch_bounds__(down_threads(NS)) strip_up_kernel(StripParams 
     s[r * W + q] = s[r * W + q] + nf_prolong_mix(box[bI + bJ], box[bIa + bJ], box[bI + bJa],
                                                   box[bIa + bJa]);
   }
-  wait_staged<0>();
+  nf_wait_staged<0>();
   smooth_region<R, NS, SWEEPS>(P, s, i0, j0);
-  store_owned<R>(P, s, ti0, tj0);
+  nf_store_owned<R>(P, s, ti0, tj0);
 }
 
 using Kernel = void (*)(StripParams);

@@ -9,9 +9,9 @@ and flags; later uses load the same file.  The library is loaded with
 64-bit integers), host arrays of integer and float parameters, and the
 stream as ``c_void_p``; it returns ``cudaGetLastError()`` after its launch, and :func:`check`
 raises on a non-zero code.  A failed ``nvcc`` raises with its stderr.  The
-entries of :data:`_SIGNATURES` have their own argument lists: K11b's
-(the lean call) takes one ``c_void_p`` or ``c_int`` per argument, so a call
-builds no host array.
+entries of :data:`_SIGNATURES` have their own argument lists: K11a's and
+K11b's (the lean call) take one ``c_void_p``, ``c_int`` or ``c_float`` per
+argument, so a call builds no host array.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -54,10 +54,13 @@ _KERNELS = ("nf_asmcheby_pair", "nf_asmcheby_pair_phases", "nf_strip_down", "nf_
             "nf_galerkin_levels", "nf_fused_mg_solve", "nf_bicgstab", "nf_fused_outer_step",
             "nf_fused_outer_step_phases",
             "nf_fused_assembly_pair", "nf_chebyshev_strips",
-            "nf_plane_strip_down", "nf_plane_strip_up", "nf_rbgs_sweeps",
+            "nf_plane_strip_down", "nf_plane_strip_up",
             "nf_grid_sync_probe", "nf_cluster_sync_probe")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"nf_apply_poisson": [_P] * 7 + [_I, _I, _P],  # p, 4 links, diag, out; nx, ny
+               # p, b, 4 links, diag, out; nx, ny, n_sweeps; omega
+               "nf_rbgs_sweeps": [_P] * 8 + [_I, _I, _I, ctypes.c_float, _P],
+               "nf_launch_floor_probe": [_I, _I, _P],                # blocks, threads
                "nf_step_cluster_size": [_I, ctypes.POINTER(_I)],     # algo; the size out
                "nf_vcycle_cluster_size": [_I, ctypes.POINTER(_I)],   # timed; the size out
                "nf_mg_solve_cluster_size": [ctypes.POINTER(_I)],     # the size out

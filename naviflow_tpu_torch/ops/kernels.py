@@ -15,17 +15,19 @@ package: they are held against their plain versions in ``chip_smoke.py``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _cuda
-from .poisson import PoissonCoeffs, apply_poisson, poisson_diagonal
+from .poisson import PoissonCoeffs, apply_poisson
 
 # The TPU kernels' whole-array VMEM limit (7 f32 arrays plus double
 # buffering in 16 MB), kept so that the port launches K11 exactly where the
 # reference does; not an H100 limit.
 PALLAS_MAX_CELLS = 256 * 256
+
+# sweeps a K11a launch: csrc/poisson.cu's RB_S_MAX, the number of its
+# kernel's instances (a call of more sweeps refuses)
+RBGS_S_MAX = 4
 
 RBGS_LAUNCHES = 0  # K11a
 MATVEC_LAUNCHES = 0  # K11b
@@ -69,25 +71,37 @@ def _require(p, c: PoissonCoeffs, *others):
 
 
 def rbgs_sweeps(p, b, c: PoissonCoeffs, n_sweeps: int = 1, omega: float = 1.5):
-    """``n_sweeps`` red-black SOR sweeps (red = (i+j) even first), unpinned,
-    in one launch.  ``invd = 1 / poisson_diagonal(c, pinned=False)`` is
-    computed here, as in the JAX wrapper.  Only a CUDA float32 array of at
-    most :data:`PALLAS_MAX_CELLS` cells launches the kernel; any other input,
-    a larger CUDA array included, runs :func:`rbgs_sweeps_plain` (plain
-    PyTorch), and only ``RBGS_LAUNCHES`` tells the two apart."""
+    """``n_sweeps`` red-black SOR sweeps (red = (i+j) even first), unpinned.
+    The kernel computes ``invd = 1 / poisson_diagonal(c, pinned=False)``
+    itself, so a call allocates only its output and, above
+    :data:`RBGS_S_MAX` sweeps, a second buffer.  Only a CUDA float32 array
+    of at most :data:`PALLAS_MAX_CELLS` cells launches the kernel: one C call
+    and one launch for each :data:`RBGS_S_MAX` sweeps or fewer, ping-ponging
+    between the two buffers so that the last lands in the output (no sweep
+    returns a copy); any other input, a larger CUDA array included, runs
+    :func:`rbgs_sweeps_plain` (plain PyTorch), and only ``RBGS_LAUNCHES``
+    tells the two apart."""
     global RBGS_LAUNCHES
     if not _use_kernel(p):
         return rbgs_sweeps_plain(p, b, c, n_sweeps, omega)
-    invd = 1.0 / poisson_diagonal(c, pinned=False)
-    _require(p, c, b, invd)
-    out = torch.empty_like(p)
-    tensors = [p, b, *_arrays(c), invd, out]
-    ptrs = (ctypes.c_longlong * len(tensors))(*[t.data_ptr() for t in tensors])
-    ip = (ctypes.c_int * 3)(p.shape[0], p.shape[1], n_sweeps)
-    fp = (ctypes.c_float * 1)(omega)
-    _cuda.check(_cuda.library().nf_rbgs_sweeps(ptrs, ip, fp, _cuda.stream_of(p)),
-                "rbgs_sweeps")
-    RBGS_LAUNCHES += 1
+    if n_sweeps < 1:
+        return p.clone()
+    _require(p, c, b)
+    launches = -(-n_sweeps // RBGS_S_MAX)
+    out = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+    tmp = torch.empty(p.shape, dtype=p.dtype, device=p.device) if launches > 1 else None
+    lib, stream = _cuda.library(), _cuda.stream_of(p)
+    src = p
+    for m in range(launches):
+        dst = out if (launches - 1 - m) % 2 == 0 else tmp
+        # the lean call: one argument per pointer and parameter, no host array
+        _cuda.check(lib.nf_rbgs_sweeps(
+            src.data_ptr(), b.data_ptr(), c.a_e.data_ptr(), c.a_w.data_ptr(),
+            c.a_n.data_ptr(), c.a_s.data_ptr(), c.diag.data_ptr(), dst.data_ptr(),
+            p.shape[0], p.shape[1], min(RBGS_S_MAX, n_sweeps - m * RBGS_S_MAX), omega, stream),
+            "rbgs_sweeps")
+        RBGS_LAUNCHES += 1
+        src = dst
     return out
 
 

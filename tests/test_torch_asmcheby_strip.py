@@ -367,7 +367,12 @@ def test_k2a_staged_region_and_shared_memory(five, sweeps):
     assert h == (2 if five else 4) * sweeps + 1 and m % 4 == 0 and m - h < 4
     nbytes = 4 * funcs["down_smem_floats"](ns, sweeps)
     assert strip.down_smem_bytes(five, sweeps) == nbytes <= BLOCK_SMEM
-    assert "cp.async.cg.shared.global [%0], [%1], 16, %2;" in src
+    # the region is staged by the copy code K2 shares with K11a (common.cuh)
+    assert "nf_stage_region<R, 0, R::A>(P, (unsigned)__cvta_generic_to_shared(s), i0, j0);" in src
+    common = _src("common.cuh")
+    assert "cp.async.cg.shared.global [%0], [%1], 16, %2;" in common
+    assert "nf_cp16(dst + 4u * a * R::PLANE, P.a[a] + g, in);" in _body(
+        common, "__device__ __forceinline__ void nf_stage_region(")
     if sweeps == 1:
         assert nbytes == (76608 if five else 147840)
         blocks = 3 if five else 1

@@ -52,20 +52,16 @@ def test_rbgs_plain_matches_pallas(n_sweeps):
 
 class _FakeLibrary:
     """Records each C call's integer and float parameters and pointer
-    count in place of the CUDA library."""
+    count in place of the CUDA library (both are lean calls)."""
 
     def __init__(self):
         self.calls = []
 
-    def _record(self, name, n_ptrs, n_ints):
-        def call(ptrs, ip, fp, stream):
-            self.calls.append((name, n_ptrs, tuple(ip[k] for k in range(n_ints)), fp[0]))
-            return 0
-        return call
-
-    @property
-    def nf_rbgs_sweeps(self):
-        return self._record("rbgs", 8, 3)
+    def nf_rbgs_sweeps(self, *args):
+        """The lean call: 8 pointers, nx, ny, the launch's sweeps, omega,
+        the stream."""
+        self.calls.append(("rbgs", 8, tuple(args[8:11]), args[11]))
+        return 0
 
     def nf_apply_poisson(self, *args):
         """The lean call: 7 pointers, nx, ny, the stream."""
