@@ -54,11 +54,11 @@ result line:
 5. the 63^2 headline: ``simple_solve`` at 63^2, Re=100, with the bench's
    headline configuration (BiCGSTAB momentum to 1e-6 in <= 20 iterations;
    V-cycles to 1e-2, <= 6, checked every 2, 8 coarsest sweeps, coarse
-   rebuild every 8 steps) to 1e-3 and to 1e-5, with the kernels and
-   composed: every kernel-run step is one K6 launch, K4 runs once (the
-   lagged carry's setup rebuild) and nothing else launches; kernel and
-   composed outer iterations within 2% or 2; Ghia infinity error below 0.10
-   at 1e-5; the device's idle share over 20 kernel steps
+   rebuild every 8 steps) to 1e-3 and to 1e-5 with the kernels, and to
+   1e-3 composed: every kernel-run step is one K6 launch, K4 runs once (the
+   lagged carry's setup rebuild) and nothing else launches; kernel outer
+   iterations within 2% or 2 of the composed run's (1e-3) and of the JAX
+   package's on the CPU (56 / 568); Ghia infinity error below 0.10 at 1e-5; the device's idle share over 20 kernel steps
    (``profile_window``: busy time from CUDA events around each step
    replayed behind a device-side sleep, the profiler's sum beside it);
 6. the FMG run: the same case with ``cycle_type='fmg'`` (which the K6 gate
@@ -89,7 +89,30 @@ result line:
    finite; at every step the all-kernel run within 1e-3 of the lagged plain
    run and the pressure-kernel run within 1e-3 of the composed run (the
    all-kernel run's gap to the composed run, and the lagged plain run's,
-   are reported); both layouts' final residuals and ms per step.
+   are reported); both layouts' final residuals and ms per step;
+10. the grid-sequenced continuation (bench.py's ``BENCH_MODE=seq``):
+    ``grid_sequence_solve`` at 1024^2, Re=1000, to 1e-5 over the ladder
+    32 -> 1024 with BiCGSTAB momentum (1e-6, <= 25 iterations), V-cycles to
+    1e-2 (<= 8, checked every 2, 32 coarsest sweeps, coarse rebuild every 8)
+    and ``loop='chunked:300'``: every level converges, the Ghia infinity
+    error is below 0.10, K7, K8, K5, K2 and K3 launch and no other kernel;
+    each level's iterations, seconds, ms per step and launches; the device's
+    idle share over 8 fine-level steps; then the 128 -> 32 ladder, 40 steps a
+    level, with the kernels and composed: each level's final residual within
+    5% (the largest per-step gap reported);
+11. MGCG at 1024^2, Re=1000, 10 steps from rest (CG to 1e-5 preconditioned
+    by one V-cycle, 2/2 smoothing, 32 coarsest sweeps), with the kernels and
+    composed: exact launches (K8 a step; a K2 pair per peeled level and one
+    K3 per preconditioner application); the CG iterations of each step;
+    final residual within 5% of the composed run's;
+12. the pressure-solver zoo at 64^2 and 63^2, Re=100, 20 steps: CG,
+    BiCGSTAB and GMRES with and without Jacobi preconditioning, Jacobi and
+    direct pressure, multigrid with the Jacobi, Chebyshev and bfloat16
+    smoothers, injection restriction and (63^2) rediscretized coarsening with
+    cubic prolongation, and the Gauss-Seidel multigrid baseline under the
+    'fused', 'host' and 'chunked:7' loops: each card run within 5% of the
+    same run on the CPU in float64; no K2, K3, K5 or K6 launch off the
+    Gauss-Seidel multigrid, at least one on it.
 
 Then a JSON line with every kernel's launches, error, times and bound (K2:
 each level's too, and the launches a step), the card's name and power
@@ -122,8 +145,31 @@ NL = 2048  # the large-grid algorithms' grid (bench.py large-grid row)
 # headline configuration)
 LARGE_STEPS = {"simplec": 20, "piso": 10, "simpler": 10, "simple_bicgstab": 10}
 JAX_ITERATIONS_63 = {"simplec": 131, "piso": 39, "simpler": 56}
+# the same package's SIMPLE headline counts to 1e-3 and 1e-5: bench.py's
+# record BENCH_r05.json (outer_iterations 56, validated.outer_iterations
+# 568; its fused and composed runs alike), which the JAX package in float32
+# on the CPU also gives; the composed run here goes to 1e-3 only, its 568
+# steps to 1e-5 took 84-113 s of the script
+JAX_ITERATIONS_HEADLINE = {1e-3: 56, 1e-5: 568}
 NP = 4096  # the colour-plane layout's grid (bench.py large_grid_3)
 PLANE_STEPS = 6
+# the grid-sequenced continuation (bench.py _bench_sequenced, BENCH_MODE=seq)
+NS = 1024
+RE_SEQ = 1000.0
+SEQ_CHECK_GRID = 128  # the kernels-against-composed ladder 128 -> 32
+SEQ_CHECK_STEPS = 40
+PROFILE_STEPS = 8
+SEQ_PROFILE_LEVELS = (32, 64, 128, 256, 512)  # idle share over their first steps
+# The path-level comparisons' limit on relative gaps (final residuals, a
+# residual history's steps, the u, v, p fields) and on the relative gap of
+# the inner-iteration totals where a rounding moves each step's count
+# (BiCGSTAB pressure, MGCG at 1024^2); each lies between the sound runs'
+# largest reading and a control's (PERF.md §6).
+GAP_LIMIT = 1e-3
+ITER_TOTAL_LIMIT = 0.10
+MGCG_STEPS = 10
+SOLVER_GRIDS = (64, 63)
+SOLVER_STEPS = 20
 RE = 100.0
 SEED = 0
 REPS = 20  # timed launches per kernel measurement
@@ -1759,7 +1805,7 @@ def run_headline(dev):
     solve_headline(dev, "auto", 1e-3, max_iterations=4)  # warm-up
     runs, ok = {}, True
     for tol in (1e-3, 1e-5):
-        for backend in ("auto", "composed"):
+        for backend in ("auto", "composed") if tol == 1e-3 else ("auto",):
             reset_counts()
             state, diag, wall = solve_headline(dev, backend, tol)
             launches = counts()
@@ -1773,8 +1819,11 @@ def run_headline(dev):
                 ms_per_step=wall * 1e3 / max(it, 1), ghia_infinity_error=err,
                 launches=launches, launches_expected=want, launches_ok=launches == want)
             ok &= launches == want and bool(diag.converged)
-        k, c = runs[f"auto_{tol:g}"], runs[f"composed_{tol:g}"]
-        ok &= abs(k["iterations"] - c["iterations"]) <= max(2, 0.02 * c["iterations"])
+        k, want_it = runs[f"auto_{tol:g}"]["iterations"], JAX_ITERATIONS_HEADLINE[tol]
+        ok &= abs(k - want_it) <= max(2, 0.02 * want_it)
+        if tol == 1e-3:
+            c = runs["composed_0.001"]["iterations"]
+            ok &= abs(k - c) <= max(2, 0.02 * c)
     ok &= runs["auto_1e-05"]["ghia_infinity_error"] < 0.10
     return dict(phase="headline", grid=NH, re=RE, runs=runs,
                 profile=profile_window(
@@ -2143,6 +2192,383 @@ def run_plane(dev):
     row["ok"] = got == want and finite and max(kernel_gap) <= 1e-3 and max(pressure_gap) <= 1e-3
     row["profile"] = profile_window(lambda: run("plane", steps=3), 3)
     return row
+
+
+def sequenced_configs(backend="auto"):
+    """bench.py's sequenced configuration (_bench_sequenced)."""
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig
+    from naviflow_tpu_torch.solvers import KrylovMomentumConfig, MultigridConfig
+
+    cfg = SIMPLEConfig(max_iterations=20000, tolerance=1e-5)
+    mom = KrylovMomentumConfig(tolerance=1e-6, max_iterations=25, backend=backend)
+    pres = MultigridConfig(tolerance=1e-2, max_cycles=8, cycle_type="v", check_every=2,
+                           coarsest_sweeps=32, coarse_rebuild_every=8, backend=backend)
+    return cfg, mom, pres
+
+
+def rel_gap(got, want):
+    """max |got - want| / max |want|, in float64 on the CPU."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def field_gaps(got, want):
+    """The relative gaps of two flow states' u, v and p: p less its mean
+    and without the four corner cells, which have no face link in the
+    pressure operator (their values are a null-space component that a
+    smoother may move, bfloat16's by O(1), with no effect on u and v)."""
+    import torch
+
+    def connected(p):
+        p = p.detach().double().cpu()
+        keep = torch.ones_like(p, dtype=torch.bool)
+        keep[0, 0] = keep[0, -1] = keep[-1, 0] = keep[-1, -1] = False
+        return p[keep] - p[keep].mean()
+
+    return dict(u=rel_gap(got.u, want.u), v=rel_gap(got.v, want.v),
+                p=rel_gap(connected(got.p), connected(want.p)))
+
+
+def sequence(dev, n, cfg, mom, pres):
+    """``grid_sequence_solve`` of the n^2 Re=1000 cavity through the port
+    (ladder down to 32^2, loop 'chunked:300'); returns the fine state, the
+    per-level rows (iterations, converged, wall seconds, ms a step, the
+    launches of each kernel, the residual history), the total seconds and
+    each level's call (mesh, fluid, bc, the state it started from and the
+    keywords), to replay a level's first steps."""
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import grid_sequence_solve, simple_solve
+
+    mesh = nt.StructuredMesh(nx=n, ny=n)
+    fluid = nt.FluidProperties(density=1.0, reynolds_number=RE_SEQ)
+    bc = nt.lid_driven_cavity(1.0)
+    levels, calls = [], {}
+
+    def timed(mesh, fluid, bc, state, cfg, **kw):
+        calls[mesh.nx] = (mesh, fluid, bc, state, kw)
+        before = counts()
+        torch_sync()
+        t0 = time.perf_counter()
+        out, diag = simple_solve(mesh, fluid, bc, state, cfg, **kw)
+        torch_sync()
+        wall = time.perf_counter() - t0
+        it = int(diag.iterations)
+        levels.append(dict(nx=mesh.nx, iterations=it, converged=bool(diag.converged),
+                           final_residual=float(diag.final_residual), wall_s=wall,
+                           ms_per_step=wall * 1e3 / max(it, 1),
+                           launches={k: v - before[k] for k, v in counts().items()
+                                     if v - before[k]},
+                           history=diag.total_res_history[:it].double().cpu()))
+        return out, diag
+
+    torch_sync()
+    t0 = time.perf_counter()
+    state, _, _ = grid_sequence_solve(mesh, fluid, bc, timed, cfg, momentum=mom,
+                                      pressure=pres, loop="chunked:300", device=dev)
+    torch_sync()
+    return state, levels, time.perf_counter() - t0, calls
+
+
+def ladder_gaps(got, want):
+    """Each level's relative gap of the final residual and the largest of
+    its residual history's steps, and the fine states' field gaps, of two
+    ``sequence`` runs of one ladder."""
+    (state_g, levels_g), (state_w, levels_w) = got, want
+    gaps = []
+    for lg, lw in zip(levels_g, levels_w):
+        hg, hw = lg["history"], lw["history"]
+        gaps.append(dict(nx=lg["nx"], final_gap=abs(lg["final_residual"] - lw["final_residual"])
+                         / lw["final_residual"],
+                         max_step_gap=float(((hg - hw).abs() / hw.abs()).max())))
+    fields = field_gaps(state_g, state_w)
+    largest = max([g[k] for g in gaps for k in ("final_gap", "max_step_gap")]
+                  + list(fields.values()))
+    return dict(levels=gaps, fields=fields, largest=largest)
+
+
+def run_sequenced(dev):
+    """The grid-sequenced 1024^2 Re=1000 solve to 1e-5 (bench.py's
+    BENCH_MODE=seq configuration) through the port with every kernel: each
+    level's iterations, convergence, seconds and launches; the Ghia error
+    of the fine state; the device's idle share over 8 fine-level steps and
+    over each coarse level's first 8 steps.  Then the 128 -> 32 ladder, 40
+    steps a level, with the kernels and composed: each level's final
+    residual and every step of its history, and the fine fields, within
+    ``GAP_LIMIT``; and a control (the kernels with a V-cycle tolerance of
+    2e-2 in place of 1e-2) that must exceed it."""
+    import dataclasses
+
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import simple_solve
+    from naviflow_tpu_torch.postprocessing.validation import infinity_norm_error
+
+    cfg, mom, pres = sequenced_configs()
+    reset_counts()
+    state, levels, wall, calls = sequence(dev, NS, cfg, mom, pres)
+    launches = counts()
+    mesh = nt.StructuredMesh(nx=NS, ny=NS)
+    err = infinity_norm_error(state.u, state.v, mesh, int(RE_SEQ))
+    finite = all(bool(torch.isfinite(getattr(state, k)).all()) for k in ("u", "v", "p"))
+    # the kernels the gates send this ladder to (K7 <= 256^2, K8 >= 384^2,
+    # K5 where a whole hierarchy fits, K2 strips and the K3 tail at 512^2 and
+    # 1024^2) and none of the others
+    on_path = ("bicgstab_momentum", "fused_assembly_pair", "strip_down", "strip_up",
+               "fused_vcycle", "fused_mg_solve")
+    launched_ok = (all(launches[k] > 0 for k in on_path)
+                   and all(v == 0 for k, v in launches.items() if k not in on_path))
+
+    fluid = nt.FluidProperties(density=1.0, reynolds_number=RE_SEQ)
+    bc = nt.lid_driven_cavity(1.0)
+    steps = dataclasses.replace(cfg, max_iterations=PROFILE_STEPS, tolerance=0.0)
+    profile = profile_window(
+        lambda: simple_solve(mesh, fluid, bc, state, steps, momentum=mom, pressure=pres,
+                             loop="chunked:300"), PROFILE_STEPS)
+    # each coarse level's first steps from the state prolonged onto it
+    # (its busiest: K7 and K5 run near their caps there)
+    coarse_profiles = {}
+    for nx in SEQ_PROFILE_LEVELS:
+        m, f, b, start, kw = calls[nx]
+        prof = profile_window(lambda: simple_solve(m, f, b, start, steps, **kw), PROFILE_STEPS)
+        prof["ms_per_step"] = prof["window_ms"] / PROFILE_STEPS
+        prof["device_busy_ms_per_step"] = prof["device_busy_ms"] / PROFILE_STEPS
+        coarse_profiles[str(nx)] = prof
+    del calls
+
+    # kernels against composed on the 128 -> 32 ladder, 40 steps a level
+    runs = {}
+    for name, backend, tol in (("auto", "auto", pres.tolerance),
+                               ("composed", "composed", pres.tolerance),
+                               ("control", "auto", 2e-2)):
+        c, m, p = sequenced_configs(backend)
+        st, lv, w, _ = sequence(dev, SEQ_CHECK_GRID,
+                                dataclasses.replace(c, max_iterations=SEQ_CHECK_STEPS), m,
+                                dataclasses.replace(p, tolerance=tol))
+        runs[name] = (st, lv, w)
+    sound = ladder_gaps(runs["auto"][:2], runs["composed"][:2])
+    control = ladder_gaps(runs["control"][:2], runs["composed"][:2])
+    for lv in levels + [lv for run in runs.values() for lv in run[1]]:
+        lv.pop("history")
+    row = dict(phase="sequenced", grid=NS, re=RE_SEQ, tolerance=cfg.tolerance,
+               loop="chunked:300", ladder=[lv["nx"] for lv in levels], levels=levels,
+               wall_s=wall, ghia_infinity_error=err, finite=finite, launches=launches,
+               launched_on_path=on_path, profile=profile, coarse_profiles=coarse_profiles,
+               cross_check=dict(grid=SEQ_CHECK_GRID, steps_per_level=SEQ_CHECK_STEPS,
+                                kernel=runs["auto"][1], composed=runs["composed"][1],
+                                wall_s={k: v[2] for k, v in runs.items()}, gaps=sound,
+                                limit=GAP_LIMIT, control_tolerance=2e-2, control=control,
+                                control_detected=control["largest"] > GAP_LIMIT))
+    row["ok"] = (all(lv["converged"] for lv in levels) and len(levels) == 6 and err < 0.10
+                 and finite and launched_ok and sound["largest"] <= GAP_LIMIT
+                 and control["largest"] > GAP_LIMIT)
+    return row
+
+
+def run_mgcg(dev):
+    """SIMPLE at 1024^2, Re=1000, with multigrid-preconditioned CG pressure
+    (tolerance 1e-5, one V-cycle with 2/2 smoothing and 32 coarsest sweeps
+    a preconditioner application) and the sequenced run's momentum, 10
+    steps from rest, with the kernels and composed: every application is a
+    K2 pair per peeled level and one K3 on the tail; ms a step, the CG
+    iterations of each step.  Held to the composed run: the final residual
+    and the u, v, p fields within ``GAP_LIMIT``, the CG iterations' total
+    within ``ITER_TOTAL_LIMIT`` (a rounding moves a step's count by up to
+    3 near float32's floor at this size); a control (CG to 1e-3) must fail
+    that."""
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+    from naviflow_tpu_torch.solvers import (KrylovMomentumConfig, MGCGPressureConfig,
+                                            MultigridConfig)
+
+    mesh = nt.StructuredMesh(nx=NS, ny=NS)
+    fluid = nt.FluidProperties(density=1.0, reynolds_number=RE_SEQ)
+    bc = nt.lid_driven_cavity(1.0)
+
+    def run(backend, steps=MGCG_STEPS, tolerance=1e-5):
+        mom = KrylovMomentumConfig(tolerance=1e-6, max_iterations=25, backend=backend)
+        pres = MGCGPressureConfig(tolerance=tolerance, max_iterations=50, mg=MultigridConfig(
+            pre_smoothing=2, post_smoothing=2, coarsest_sweeps=32, backend=backend))
+        state = nt.initialize_state(mesh, bc, device=dev)
+        torch_sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out, diag = simple_solve(mesh, fluid, bc, state,
+                                 SIMPLEConfig(max_iterations=steps, tolerance=0.0),
+                                 momentum=mom, pressure=pres)
+        torch_sync()
+        return out, diag, (time.perf_counter() - t0) * 1e3 / steps, counts(), pres.mg
+
+    def gaps(state, diag, ref_state, ref_diag):
+        res, ref = float(diag.final_residual), float(ref_diag.final_residual)
+        total = sum(diag.inner_iters_history[:MGCG_STEPS].tolist())
+        ref_total = sum(ref_diag.inner_iters_history[:MGCG_STEPS].tolist())
+        out = dict(residual_gap=abs(res - ref) / ref, fields=field_gaps(state, ref_state),
+                   pcg_total=total, pcg_total_gap=abs(total - ref_total) / ref_total)
+        out["ok"] = (max(out["residual_gap"], *out["fields"].values()) <= GAP_LIMIT
+                     and out["pcg_total_gap"] <= ITER_TOTAL_LIMIT)
+        return out
+
+    run("auto", steps=1)  # warm-up
+    state_k, diag_k, ms_k, launches, mg_cfg = run("auto")
+    state_c, diag_c, ms_c, launches_c, _ = run("composed")
+    state_x, diag_x, _, _, _ = run("auto", tolerance=1e-3)
+    pcg = diag_k.inner_iters_history[:MGCG_STEPS].tolist()
+    applications = sum(pcg) + MGCG_STEPS  # M(r0), then one an iteration
+    peeled = peeled_strip_levels(NS, mg_cfg)
+    want = only(fused_assembly_pair=MGCG_STEPS, strip_down=peeled * applications,
+                strip_up=peeled * applications, fused_vcycle=applications)
+    hist_k = diag_k.total_res_history.double()
+    hist_c = diag_c.total_res_history.double()
+    finite = bool(torch.isfinite(hist_k).all()) and all(
+        bool(torch.isfinite(getattr(state_k, k)).all()) for k in ("u", "v", "p"))
+    sound = gaps(state_k, diag_k, state_c, diag_c)
+    control = gaps(state_x, diag_x, state_c, diag_c)
+    return dict(phase="mgcg", grid=NS, re=RE_SEQ, steps=MGCG_STEPS, pcg_iterations=pcg,
+                pcg_iterations_composed=diag_c.inner_iters_history[:MGCG_STEPS].tolist(),
+                preconditioner_applications=applications, peeled_strip_levels=peeled,
+                launches=launches, launches_expected=want, launches_composed=launches_c,
+                k2_pairs_per_pcg_iteration=launches["strip_down"] / max(sum(pcg), 1),
+                k3_per_pcg_iteration=launches["fused_vcycle"] / max(sum(pcg), 1),
+                ms_per_step_kernel=ms_k, ms_per_step_composed=ms_c,
+                residual_kernel=float(diag_k.final_residual),
+                residual_composed=float(diag_c.final_residual), gaps=sound,
+                history_gap=((hist_k - hist_c).abs() / hist_c.abs()).tolist(), finite=finite,
+                limits=dict(gap=GAP_LIMIT, iter_total=ITER_TOTAL_LIMIT),
+                control=dict(tolerance=1e-3, **control, detected=not control["ok"]),
+                ok=launches == want and launches_c == only() and finite and sound["ok"]
+                and not control["ok"])
+
+
+def solver_configs(n):
+    """Each newly ported pressure configuration of the solvers phase (name ->
+    (pressure config, loop)), the Gauss-Seidel multigrid baseline first."""
+    import dataclasses
+
+    from naviflow_tpu_torch.solvers import (BiCGSTABPressureConfig, CGPressureConfig,
+                                            DirectPressureConfig, GMRESPressureConfig,
+                                            JacobiPressureConfig)
+
+    _, gs = headline_configs()
+    out = {"mg_gs": (gs, "fused")}
+    # CG and BiCGSTAB reach 1e-3 within their caps at 64^2; GMRES(20) and
+    # Jacobi stall far longer and stop at theirs (each iteration is host-bound)
+    for cls, cap in ((CGPressureConfig, 150), (BiCGSTABPressureConfig, 150),
+                     (GMRESPressureConfig, 60)):
+        for pre in ("jacobi", "none"):
+            out[f"{cls().kind}_{pre}"] = (cls(tolerance=1e-3, max_iterations=cap,
+                                              preconditioner=pre), "fused")
+    out["jacobi"] = (JacobiPressureConfig(tolerance=1e-2, max_iterations=100, check_every=10),
+                     "fused")
+    out["direct"] = (DirectPressureConfig(), "fused")
+    for name, kw in (("mg_jacobi", dict(smoother="jacobi", omega=0.8)),
+                     ("mg_chebyshev", dict(smoother="chebyshev")),
+                     ("mg_bf16", dict(smoother_dtype="bfloat16")),
+                     ("mg_inject", dict(restriction="inject"))):
+        out[name] = (dataclasses.replace(gs, **kw), "fused")
+    if n % 2:
+        out["mg_cubic_rediscretize"] = (
+            dataclasses.replace(gs, prolongation="cubic", coarsening="rediscretize"), "fused")
+    out["loop_host"] = (gs, "host")
+    out["loop_chunked7"] = (gs, "chunked:7")
+    return out
+
+
+def solver_controls():
+    """The solvers phase's controls on the first grid (name -> (the
+    configuration whose CPU float64 run it is held to, how its pressure
+    configuration is changed)): CG stopped at 1e-2 in place of 1e-3, and
+    Jacobi pressure with half its sweeps.  Each must fail the checks."""
+    import dataclasses
+
+    return {"cg_jacobi_tol1e-2": ("cg_jacobi", lambda p: dataclasses.replace(p, tolerance=1e-2)),
+            "jacobi_half_sweeps": ("jacobi",
+                                   lambda p: dataclasses.replace(p, max_iterations=50))}
+
+
+def run_solvers(dev):
+    """SIMPLE at 64^2 and 63^2, Re=100, 20 steps from rest, with each newly
+    ported pressure configuration (CG, BiCGSTAB and GMRES with and without
+    Jacobi preconditioning, Jacobi and direct pressure, multigrid with the
+    Jacobi, Chebyshev and bfloat16 smoothers, injection restriction and
+    (63^2) rediscretized coarsening with cubic prolongation) and with the
+    'host' and 'chunked:7' loops: each card run (float32) against the same
+    run on the CPU in float64: the final residual and the u, v, p fields
+    within ``GAP_LIMIT``, and the inner iterations of every step equal
+    (BiCGSTAB, whose count a rounding moves by up to 20 a step: their
+    total within ``ITER_TOTAL_LIMIT``); the controls (``solver_controls``)
+    must fail that.  The configurations other than the Gauss-Seidel
+    multigrid launch none of K2, K3, K5 and K6, and the Gauss-Seidel ones
+    do."""
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+
+    gs_kernels = ("strip_down", "strip_up", "fused_vcycle", "fused_mg_solve",
+                  "fused_outer_step")
+    mom, _ = headline_configs()
+    cfg = SIMPLEConfig(max_iterations=SOLVER_STEPS, tolerance=0.0)
+    runs, ok, total = {}, True, {k: 0 for k in counts()}
+
+    def solve(mesh, fluid, bc, pres, loop, where, dtype):
+        state = nt.initialize_state(mesh, bc, dtype=dtype, device=where)
+        torch_sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out, diag = simple_solve(mesh, fluid, bc, state, cfg, momentum=mom, pressure=pres,
+                                 loop=loop)
+        torch_sync()
+        return out, diag, (time.perf_counter() - t0) * 1e3 / SOLVER_STEPS, counts()
+
+    def held(name, card, cpu):
+        (sk, dk, _, _), (sc, dc, _, _) = card, cpu
+        res_k, res_c = float(dk.final_residual), float(dc.final_residual)
+        inner_k = dk.inner_iters_history[:SOLVER_STEPS].tolist()
+        inner_c = dc.inner_iters_history[:SOLVER_STEPS].tolist()
+        out = dict(iterations=int(dk.iterations), inner_iterations=inner_k,
+                   inner_iterations_cpu=inner_c, residual_card_f32=res_k,
+                   residual_cpu_f64=res_c, residual_gap=abs(res_k - res_c) / res_c,
+                   fields=field_gaps(sk, sc),
+                   inner_total_gap=abs(sum(inner_k) - sum(inner_c)) / sum(inner_c))
+        inner_ok = (out["inner_total_gap"] <= ITER_TOTAL_LIMIT if name.startswith("bicgstab")
+                    else inner_k == inner_c)
+        out["held"] = (max(out["residual_gap"], *out["fields"].values()) <= GAP_LIMIT
+                       and inner_ok and out["iterations"] == SOLVER_STEPS)
+        return out
+
+    controls = {}
+    for n in SOLVER_GRIDS:
+        mesh, fluid, bc = cavity_case(n)
+        configs = solver_configs(n)
+        for name, (pres, loop) in configs.items():
+            card = solve(mesh, fluid, bc, pres, loop, dev, torch.float32)
+            cpu = solve(mesh, fluid, bc, pres, loop, "cpu", torch.float64)
+            launches = card[3]
+            gs = sum(launches[k] for k in gs_kernels)
+            gs_ok = gs > 0 if name.startswith(("mg_gs", "loop_")) else gs == 0
+            for k, v in launches.items():
+                total[k] += v
+            row = held(name, card, cpu)
+            row.update(ms_per_step_card=card[2], ms_per_step_cpu=cpu[2],
+                       launches={k: v for k, v in launches.items() if v}, gs_kernels_ok=gs_ok,
+                       ok=row["held"] and gs_ok)
+            runs[f"{n}:{name}"] = row
+            ok &= row["ok"]
+            if n == SOLVER_GRIDS[0]:
+                for cname, (base, change) in solver_controls().items():
+                    if base == name:
+                        c = held(base, solve(mesh, fluid, bc, change(pres), loop, dev,
+                                             torch.float32), cpu)
+                        controls[f"{n}:{cname}"] = dict(c, detected=not c["held"])
+                        ok &= not c["held"]
+    largest = {k: max(max(r[k] if k != "fields" else max(r[k].values()) for r in runs.values()),
+                      0.0) for k in ("residual_gap", "fields", "inner_total_gap")}
+    return dict(phase="solvers", grids=SOLVER_GRIDS, re=RE, steps=SOLVER_STEPS, runs=runs,
+                largest=largest, limits=dict(gap=GAP_LIMIT, iter_total=ITER_TOTAL_LIMIT),
+                controls=controls, launches=total, ok=ok)
 
 
 # ---------------------------------------------------------------------------
@@ -2544,7 +2970,8 @@ def main() -> int:
     paths = {"kernel_phase": k11_launches}
     for phase, fn in (("slice", run_slice), ("headline", run_headline), ("fmg", run_fmg),
                       ("large_grid", run_large_grid), ("algorithms63", run_algorithms63),
-                      ("plane", run_plane)):
+                      ("plane", run_plane), ("sequenced", run_sequenced), ("mgcg", run_mgcg),
+                      ("solvers", run_solvers)):
         row = fn(dev)
         emit(row)
         if not row["ok"]:

@@ -1,5 +1,12 @@
 from .base import SolveDiagnostics, StepInfo, run_outer_loop
 from .piso import PISOConfig, piso_solve
+from .sequencing import (
+    build_ladder,
+    grid_sequence_solve,
+    prolong_state,
+    reynolds_continuation_solve,
+    sequenced_continuation_solve,
+)
 from .simple import SIMPLEConfig, simple_solve
 from .simplec import SIMPLECConfig, simplec_solve
 from .simpler import SIMPLERConfig, simpler_solve

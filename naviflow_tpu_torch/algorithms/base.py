@@ -4,14 +4,22 @@
 Each algorithm supplies ``step(u, v, p, extra) -> (u, v, p, extra,
 StepInfo)``; the loop here owns convergence (``max(u_norm, v_norm) <= tol``,
 read back on the host after every outer iteration), the history buffers and
-the final diagnostics.  The JAX ``lax.while_loop`` becomes a Python loop;
-``loop='fused'`` keeps its name and semantics.  The 'host' and 'chunked'
-loop modes are not ported yet (ROADMAP §1 item 7).
+the final diagnostics.  The JAX ``lax.while_loop`` becomes a Python loop.
+The three loop modes keep their names and iteration semantics:
+
+* ``'fused'``: stop at the first iteration with ``total <= tol``;
+* ``'chunked[:K]'`` (K = 400 by default): fused chunks of up to K
+  iterations, the lagged refresh at every chunk start, the stall detector
+  and ``on_chunk`` between chunks;
+* ``'host'``: ``check_every = 10`` iterations run unconditionally between
+  checks (so it may overshoot convergence by up to 9), the stall detector
+  after each check.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -52,7 +60,7 @@ class SolveDiagnostics:
 
 def build_solver(step, *, max_iterations, tolerance, dx, dy, extra0_fn, loop: str,
                  refresh_step=None, refresh_every: int = 0):
-    """Return ``solve(u0, v0, p0)`` for the requested loop mode.
+    """Return ``solve(u0, v0, p0, on_chunk=None)`` for the requested loop mode.
 
     ``extra0_fn(dtype, device)`` builds the initial algorithm carry.
     ``refresh_step``/``refresh_every``: a periodic-variant step (the lagged
@@ -60,21 +68,26 @@ def build_solver(step, *, max_iterations, tolerance, dx, dy, extra0_fn, loop: st
     ``refresh_every``-iteration block, i.e. at iterations 0, K, 2K, ..."""
     if loop == "auto":
         loop = "fused"
-    if loop == "host" or loop.startswith("chunked"):
-        raise NotImplementedError(
-            f"loop={loop!r} is not ported yet (ROADMAP §1 item 7); use 'fused'")
-    if loop != "fused":
-        raise ValueError(f"Unknown loop mode: {loop}")
+    common = dict(max_iterations=max_iterations, tolerance=tolerance, dx=dx, dy=dy,
+                  refresh_step=refresh_step, refresh_every=refresh_every)
+    if loop in ("fused", "host"):
+        run = run_outer_loop if loop == "fused" else run_outer_loop_host
 
-    def solve(u0, v0, p0, on_chunk=None):
-        if on_chunk is not None:
-            raise ValueError("on_chunk requires loop='chunked[:K]'")
-        return run_outer_loop(
-            step, u0, v0, p0, extra0_fn(u0.dtype, u0.device),
-            max_iterations=max_iterations, tolerance=tolerance, dx=dx, dy=dy,
-            refresh_step=refresh_step, refresh_every=refresh_every)
+        def solve(u0, v0, p0, on_chunk=None):
+            if on_chunk is not None:
+                raise ValueError("on_chunk requires loop='chunked[:K]'")
+            return run(step, u0, v0, p0, extra0_fn(u0.dtype, u0.device), **common)
 
-    return solve
+        return solve
+    if loop.startswith("chunked"):
+        chunk = int(loop.split(":")[1]) if ":" in loop else 400
+
+        def solve(u0, v0, p0, on_chunk=None):
+            return run_outer_loop_chunked(step, u0, v0, p0, extra0_fn(u0.dtype, u0.device),
+                                          chunk=chunk, on_chunk=on_chunk, **common)
+
+        return solve
+    raise ValueError(f"Unknown loop mode: {loop}")
 
 
 def init_carry(u0, v0, p0, extra0, n: int):
@@ -133,6 +146,28 @@ def finalize(c, *, tolerance, dx, dy):
     return FlowState(u=c["u"], v=c["v"], p=c["p"]), diag
 
 
+def _going(c, limit, tolerance) -> bool:
+    """The fused loop's condition: below ``limit`` and not converged (a
+    non-finite residual stops it too)."""
+    return c["it"] < limit and bool(c["total"] > tolerance)
+
+
+def _run_to(c, limit, *, tolerance, body, body_r, refresh_every):
+    """Iterate ``c`` as the fused loop does until ``limit`` or convergence;
+    with ``body_r``, every block starts with one refresh iteration followed
+    by up to ``refresh_every - 1`` plain ones."""
+    if body_r is None:
+        while _going(c, limit, tolerance):
+            c = body(c)
+        return c
+    while _going(c, limit, tolerance):
+        c = body_r(c)
+        inner = min(c["it"] + (refresh_every - 1), limit)
+        while _going(c, inner, tolerance):
+            c = body(c)
+    return c
+
+
 def run_outer_loop(
     step: Callable,
     u0,
@@ -154,20 +189,121 @@ def run_outer_loop(
     followed by up to ``refresh_every - 1`` plain ones."""
     n = max_iterations
     c = init_carry(u0, v0, p0, extra0, n)
-    body = make_body(step)
-
-    def going(c, limit):
-        return c["it"] < limit and bool(c["total"] > tolerance)
-
-    if refresh_step is None:
-        while going(c, n):
-            c = body(c)
-        return finalize(c, tolerance=tolerance, dx=dx, dy=dy)
-
-    body_r = make_body(refresh_step)
-    while going(c, n):
-        c = body_r(c)
-        limit = min(c["it"] + (refresh_every - 1), n)
-        while going(c, limit):
-            c = body(c)
+    body_r = make_body(refresh_step) if refresh_step is not None else None
+    c = _run_to(c, n, tolerance=tolerance, body=make_body(step), body_r=body_r,
+                refresh_every=refresh_every)
     return finalize(c, tolerance=tolerance, dx=dx, dy=dy)
+
+
+class _StallDetector:
+    """Residual change < 0.1% over a ~``window``-iteration span: stalled
+    (logged in the diagnostics, the solve goes on).
+
+    The host and chunked loops sample the residual once per
+    ``sample_every`` iterations, so the window is tracked in samples:
+    ``ceil(window / sample_every) + 1`` of them span >= ``window``
+    iterations.  ``update`` returns the current verdict, re-evaluated at
+    every sample."""
+
+    def __init__(self, window: int = 50, sample_every: int = 10):
+        self.n_samples = max(2, -(-window // max(sample_every, 1)) + 1)
+        self.recent: list = []
+        self.stalled = False
+
+    def update(self, total: float) -> bool:
+        self.recent.append(total)
+        if len(self.recent) > self.n_samples:
+            self.recent = self.recent[-self.n_samples:]
+        if len(self.recent) == self.n_samples:
+            lo, hi = min(self.recent), max(self.recent)
+            avg = sum(self.recent) / len(self.recent)
+            self.stalled = avg > 0 and (hi - lo) / avg < 1e-3
+        return self.stalled
+
+
+def _finalize_stall(c, detector, *, tolerance, dx, dy):
+    state, diag = finalize(c, tolerance=tolerance, dx=dx, dy=dy)
+    if detector.stalled:
+        diag = dataclasses.replace(diag, stalled=True)
+    return state, diag
+
+
+def run_outer_loop_chunked(
+    step: Callable,
+    u0,
+    v0,
+    p0,
+    extra0: Any,
+    *,
+    max_iterations: int,
+    tolerance: float,
+    dx: float,
+    dy: float,
+    chunk: int = 400,
+    on_chunk=None,
+    refresh_step=None,
+    refresh_every: int = 0,
+):
+    """Chunks of up to ``chunk`` iterations, each run as the fused loop
+    runs (stopping at the first converged iteration), with the refresh at
+    every chunk start and every ``refresh_every`` iterations within it.
+
+    Between chunks: the stall detector's sample, then
+    ``on_chunk(iteration, total, carry)`` (returning ``False`` stops the
+    solve), then the stop on convergence, ``max_iterations`` or a
+    non-finite residual.  Loop mode string: ``"chunked"`` or
+    ``"chunked:<K>"``."""
+    n = max_iterations
+    body = make_body(step)
+    body_r = make_body(refresh_step) if refresh_step is not None else None
+    c = init_carry(u0, v0, p0, extra0, n)
+    detector = _StallDetector(sample_every=chunk)
+    while True:
+        c = _run_to(c, min(c["it"] + chunk, n), tolerance=tolerance, body=body,
+                    body_r=body_r, refresh_every=refresh_every)
+        total = float(c["total"])
+        it = c["it"]
+        detector.update(total)
+        if on_chunk is not None and on_chunk(it, total, c) is False:
+            break
+        if total <= tolerance or it >= n or not math.isfinite(total):
+            break
+    return _finalize_stall(c, detector, tolerance=tolerance, dx=dx, dy=dy)
+
+
+def run_outer_loop_host(
+    step: Callable,
+    u0,
+    v0,
+    p0,
+    extra0: Any,
+    *,
+    max_iterations: int,
+    tolerance: float,
+    dx: float,
+    dy: float,
+    check_every: int = 10,
+    refresh_step=None,
+    refresh_every: int = 0,
+):
+    """Host-driven loop: ``check_every`` iterations run unconditionally
+    between residual checks (the refresh step where ``(done + i) %
+    refresh_every == 0``); stop on convergence or a non-finite residual,
+    else sample the stall detector."""
+    n = max_iterations
+    body = make_body(step)
+    body_r = make_body(refresh_step) if refresh_step is not None else None
+    c = init_carry(u0, v0, p0, extra0, n)
+    done = 0
+    detector = _StallDetector(sample_every=check_every)
+    while done < n:
+        k = min(check_every, n - done)
+        for i in range(k):
+            refresh = body_r is not None and (done + i) % refresh_every == 0
+            c = body_r(c) if refresh else body(c)
+        done += k
+        total = float(c["total"])
+        if total <= tolerance or not math.isfinite(total):
+            break
+        detector.update(total)
+    return _finalize_stall(c, detector, tolerance=tolerance, dx=dx, dy=dy)

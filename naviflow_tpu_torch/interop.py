@@ -5,9 +5,10 @@ anything ``numpy.asarray`` reads, dataclasses by their field names — so this
 module imports neither JAX nor ``naviflow_tpu``.  With them both packages
 compute the same thing from the same inputs in the tests.
 
-Config classes map by name onto the port's classes with the same fields;
-``backend='pallas'`` becomes ``'kernel'`` and ``backend='xla'`` becomes
-``'composed'``.
+Config classes map by name onto the port's classes with the same fields
+(a field that is itself a config, such as ``MGCGPressureConfig.mg``, is
+converted too); ``backend='pallas'`` becomes ``'kernel'`` and
+``backend='xla'`` becomes ``'composed'``.
 """
 
 from __future__ import annotations
@@ -65,14 +66,13 @@ def coarse_tuple(coarse, *, dtype=None, device=None):
 
 def _port_config_classes():
     from .algorithms import PISOConfig, SIMPLECConfig, SIMPLEConfig, SIMPLERConfig
+    from .solvers.dispatch import PRESSURE_CONFIG_TYPES
     from .solvers.momentum import (ChebyshevMomentumConfig, JacobiMomentumConfig,
                                    KrylovMomentumConfig)
-    from .solvers.multigrid import MultigridConfig
-    from .solvers.pressure import RBGSPressureConfig
 
     return {c.__name__: c for c in (
         SIMPLEConfig, SIMPLECConfig, PISOConfig, SIMPLERConfig, ChebyshevMomentumConfig,
-        JacobiMomentumConfig, KrylovMomentumConfig, MultigridConfig, RBGSPressureConfig)}
+        JacobiMomentumConfig, KrylovMomentumConfig, *PRESSURE_CONFIG_TYPES)}
 
 
 def config(cfg):
@@ -86,6 +86,8 @@ def config(cfg):
         val = getattr(cfg, f.name)
         if f.name == "backend":
             val = _BACKENDS.get(val, val)
+        elif dataclasses.is_dataclass(val) and not isinstance(val, type):
+            val = config(val)
         kw[f.name] = val
     return classes[name](**kw)
 

@@ -168,3 +168,9 @@ def gs4_sweep(p, b, st: Stencil9, omega: float = 1.0):
             p = quarter(p, (ii % 2 == a) & (jj % 2 == bpar))
     return p
 
+
+
+def jacobi9_sweep(p, b, st: Stencil9, omega: float = 0.8):
+    """One damped-Jacobi sweep: p + omega D^-1 (b - A p)."""
+    r = b - apply9(p, st)
+    return p + omega * r / stencil9_diagonal(st)

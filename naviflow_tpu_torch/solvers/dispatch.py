@@ -1,16 +1,36 @@
 """Pressure-solver dispatch for the algorithm layer (port of
-``naviflow_tpu/solvers/dispatch.py``).  The Krylov pressure solvers are not
-ported yet (ROADMAP §1 item 10)."""
+``naviflow_tpu/solvers/dispatch.py``)."""
 
 from __future__ import annotations
 
+from .krylov import (
+    BiCGSTABPressureConfig,
+    CGPressureConfig,
+    GMRESPressureConfig,
+    MGCGPressureConfig,
+    solve_pressure_krylov,
+)
 from .multigrid import MultigridConfig, multigrid_solve
-from .pressure import RBGSPressureConfig, solve_pressure
+from .pressure import (
+    DirectPressureConfig,
+    JacobiPressureConfig,
+    RBGSPressureConfig,
+    solve_pressure,
+)
 
 STATIONARY_KINDS = ("jacobi", "rbgs", "direct")
 KRYLOV_KINDS = ("cg", "bicgstab", "gmres", "mgcg")
 
-PRESSURE_CONFIG_TYPES = (RBGSPressureConfig, MultigridConfig)
+PRESSURE_CONFIG_TYPES = (
+    DirectPressureConfig,
+    JacobiPressureConfig,
+    RBGSPressureConfig,
+    CGPressureConfig,
+    BiCGSTABPressureConfig,
+    GMRESPressureConfig,
+    MGCGPressureConfig,
+    MultigridConfig,
+)
 
 
 def dispatch_pressure_solve(
@@ -20,9 +40,9 @@ def dispatch_pressure_solve(
     if cfg.kind in STATIONARY_KINDS:
         return solve_pressure(b, pc, p0, cfg, pin=pin)
     if cfg.kind in KRYLOV_KINDS:
-        raise NotImplementedError(
-            f"{cfg.kind} pressure solve: solvers/krylov.py is not ported yet "
-            "(ROADMAP §1 item 10)")
+        return solve_pressure_krylov(
+            b, pc, p0, cfg, d_u=d_u, d_v=d_v, dx=dx, dy=dy, rho=rho, variant=variant
+        )
     if cfg.kind == "multigrid":
         return multigrid_solve(
             b, d_u, d_v, p0, cfg, dx=dx, dy=dy, rho=rho, variant=variant

@@ -1,11 +1,15 @@
 """Geometric multigrid for the pressure-correction equation (port of
 ``naviflow_tpu/solvers/multigrid.py``).
 
-Exact Galerkin coarse operators (``ops/stencil9.galerkin_coarsen``),
-red-black SOR on the 5-point finest level, four-colour GS on the 9-point
-Galerkin levels; vertex-centred transfers (``ops/transfer.py``) on odd
-grids, cell-centred ones (``ops/transfer_cc.py``) on even grids; V, W and
-FMG cycles.
+Exact Galerkin coarse operators (``ops/stencil9.galerkin_coarsen``), or
+with ``coarsening='rediscretize'`` coarse 5-point operators rebuilt from
+harmonically restricted d-fields; red-black SOR on 5-point levels and
+four-colour GS on 9-point ones, or the damped-Jacobi or Chebyshev
+smoothers, in the state's dtype or (``smoother_dtype='bfloat16'``) on the
+error equation in bfloat16; vertex-centred transfers (``ops/transfer.py``,
+linear or cubic prolongation) on odd grids, cell-centred ones
+(``ops/transfer_cc.py``) on even grids; V, W and FMG cycles; and
+:func:`make_preconditioner`, the cycles MGCG applies.
 
 Kernel path (CUDA tensors, ``backend`` 'auto' or 'kernel'):
 * the coarse hierarchy of an odd grid comes from one launch of K4
@@ -28,9 +32,9 @@ admits it, and the levels below run through the same ``_cycle0`` (K2 strips
 and the K3 tail).  ``'auto'`` resolves to the interleaved layout, as in the
 JAX package.
 
-Not yet ported (each raises :class:`NotImplementedError`): rediscretized
-coarsening, cubic prolongation, the Jacobi, Chebyshev and bfloat16
-smoothers (ROADMAP §1 item 10).
+The kernels' gates take only Gauss-Seidel in float32 with the default
+transfers: every other smoother, ``smoother_dtype`` and prolongation runs
+composed, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -55,11 +59,15 @@ from ..ops.stencil9 import (
     from_poisson,
     galerkin_coarsen,
     gs4_sweep,
+    jacobi9_sweep,
     stencil9_diagonal,
 )
 from ..ops.strip import strip_down, strip_up, supports_strip
-from ..ops.transfer import coarse_size, prolong_linear, restrict_full_weighting, restrict_inject
+from ..ops.transfer import (coarse_size, prolong_cubic, prolong_linear,
+                            restrict_d_coefficients, restrict_full_weighting,
+                            restrict_inject)
 from ..ops.transfer_cc import prolong_cc, restrict_cc
+from .chebyshev import chebyshev_smooth, estimate_lambda_max
 from .pressure import PressureSolveInfo
 
 
@@ -73,16 +81,20 @@ class MultigridConfig:
     pre_smoothing: int = 2
     post_smoothing: int = 2
     cycle_type: str = "v"  # 'v' | 'w' | 'fmg'
-    smoother: str = "gs"  # 'gs' ('jacobi', 'chebyshev' not ported)
+    smoother: str = "gs"  # 'gs' (red-black / four-colour) | 'jacobi' | 'chebyshev'
     omega: float = 1.0
     cheby_degree: int = 4
     cheby_theta: float = 30.0
     coarsest_grid_size: int = 7
     coarsest_sweeps: int = 64
     restriction: str = "full_weighting"  # 'full_weighting' | 'inject'
+    # 'bfloat16': the smoothing sweeps run on the float32 error equation in
+    # bfloat16 (residuals, transfers and corrections stay float32)
     smoother_dtype: str = "float32"
-    prolongation: str = "linear"  # 'linear' ('cubic' not ported)
-    coarsening: str = "galerkin"
+    # correction prolongation on odd grids; 'cubic' requires
+    # coarsening='rediscretize'
+    prolongation: str = "linear"  # 'linear' | 'cubic'
+    coarsening: str = "galerkin"  # 'galerkin' | 'rediscretize'
     check_every: int = 1
     # rebuild the coarse Galerkin operators only every K outer iterations
     # (the algorithm layer owns the carry, algorithms/lagged.py)
@@ -117,18 +129,39 @@ def _rb2_sweep(p, b, st: Stencil9, omega: float):
 
 
 def _smooth(p, b, st: Stencil9, cfg, n, five_point: bool, lam=None):
-    """``n`` Gauss-Seidel sweeps: red-black on 5-point levels, four-colour on
-    9-point levels (float32 or float64 as the state is)."""
-    if cfg.smoother != "gs" or getattr(cfg, "smoother_dtype", "float32") != "float32":
-        raise NotImplementedError(
-            f"smoother={cfg.smoother!r}, smoother_dtype={cfg.smoother_dtype!r}: only "
-            "Gauss-Seidel in the state's dtype is ported (ROADMAP §1 item 10)")
+    """``n`` smoothing sweeps.  With ``smoother_dtype='bfloat16'`` on a
+    float32 level they run on the error equation A e = r from e = 0 in
+    bfloat16 (the same affine map as n sweeps on A p = b from p), and e is
+    added to p in float32."""
+    if (getattr(cfg, "smoother_dtype", "float32") in ("bfloat16", "bf16")
+            and p.dtype == torch.float32 and n > 0):
+        r = b - apply_five(p, st, five_point)
+        st16 = Stencil9(*(getattr(st, f.name).to(torch.bfloat16)
+                          for f in dataclasses.fields(Stencil9)))
+        e = torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device)
+        e = _smooth_core(e, r.to(torch.bfloat16), st16, cfg, n, five_point, lam)
+        return p + e.to(p.dtype)
     return _smooth_core(p, b, st, cfg, n, five_point, lam)
 
 
 def _smooth_core(p, b, st: Stencil9, cfg, n, five_point: bool, lam=None):
+    """Red-black SOR on 5-point levels and four-colour GS on 9-point ones,
+    damped Jacobi (omega capped at 0.9), or one Chebyshev application of
+    degree ``max(cheby_degree, n)``."""
+    if cfg.smoother == "chebyshev":
+        return chebyshev_smooth(p, b, st, lam, degree=max(cfg.cheby_degree, n),
+                                theta=cfg.cheby_theta)
+    if cfg.smoother == "jacobi":
+        def fn(q):
+            return jacobi9_sweep(q, b, st, min(cfg.omega, 0.9))
+    elif five_point:
+        def fn(q):
+            return _rb2_sweep(q, b, st, cfg.omega)
+    else:
+        def fn(q):
+            return gs4_sweep(q, b, st, cfg.omega)
     for _ in range(n):
-        p = _rb2_sweep(p, b, st, cfg.omega) if five_point else gs4_sweep(p, b, st, cfg.omega)
+        p = fn(p)
     return p
 
 
@@ -143,12 +176,14 @@ def _level_transfers(nx, ny, cfg):
     (2^k - 1) grids, cell-centred on even ones.  Returns
     ``(restrict_fn, prolong_fn, (nxc, nyc))``."""
     if nx % 2 == 1 and ny % 2 == 1:
-        if cfg.prolongation != "linear":
-            raise NotImplementedError(
-                f"prolongation={cfg.prolongation!r}: only 'linear' is ported "
-                "(ROADMAP §1 item 10)")
-        return (lambda r: _restrict(r, cfg), prolong_linear,
-                (coarse_size(nx), coarse_size(ny)))
+        pf = prolong_linear
+        if cfg.prolongation == "cubic":
+            if cfg.coarsening != "rediscretize":
+                raise ValueError(
+                    "prolongation='cubic' requires coarsening='rediscretize' "
+                    "(its 4-wide support breaks the Galerkin comb recovery)")
+            pf = prolong_cubic
+        return (lambda r: _restrict(r, cfg), pf, (coarse_size(nx), coarse_size(ny)))
     if nx % 2 == 0 and ny % 2 == 0:
         return restrict_cc, prolong_cc, (nx // 2, ny // 2)
     raise ValueError(f"mixed-parity grid ({nx}, {ny}) cannot be coarsened")
@@ -156,15 +191,27 @@ def _level_transfers(nx, ny, cfg):
 
 def build_levels(d_u, d_v, cfg: MultigridConfig, *, dx, dy, rho, variant):
     """List of (Stencil9, (nx, ny), five_point, lam_max) finest -> coarsest
-    (``lam_max`` is None: the Chebyshev smoother is not ported)."""
+    (``lam_max`` only for the Chebyshev smoother, else None)."""
     nx, ny = d_u.shape[0] - 1, d_v.shape[1] - 1
-    if cfg.coarsening != "galerkin":
-        raise NotImplementedError(
-            f"coarsening={cfg.coarsening!r}: rediscretized coarsening is not "
-            "ported yet (ROADMAP §1 item 10)")
+    need_lam = cfg.smoother == "chebyshev"
+
+    def lam_of(st, shape):
+        return estimate_lambda_max(st, shape) if need_lam else None
+
     fine = from_poisson(
         poisson_coefficients(d_u, d_v, dx=dx, dy=dy, rho=rho, variant=variant))
-    levels = [(fine, (nx, ny), True, None)]
+    levels = [(fine, (nx, ny), True, lam_of(fine, (nx, ny)))]
+    if cfg.coarsening == "rediscretize":
+        while min(nx, ny) > cfg.coarsest_grid_size:
+            d_u, d_v = restrict_d_coefficients(d_u, d_v)
+            nx, ny = coarse_size(nx), coarse_size(ny)
+            dx, dy = 2 * dx, 2 * dy
+            st = from_poisson(
+                poisson_coefficients(d_u, d_v, dx=dx, dy=dy, rho=rho, variant=variant))
+            levels.append((st, (nx, ny), True, lam_of(st, (nx, ny))))
+        return levels
+    if cfg.coarsening != "galerkin":
+        raise ValueError(f"Unknown coarsening: {cfg.coarsening}")
     shapes = [(nx, ny)]
     while min(shapes[-1]) > cfg.coarsest_grid_size:
         shapes.append(_level_transfers(*shapes[-1], cfg)[2])
@@ -179,11 +226,11 @@ def build_levels(d_u, d_v, cfg: MultigridConfig, *, dx, dy, rho, variant):
     while cur < len(shapes) - 1 and not rap_ok(shapes[cur]):
         rf, pf, _ = _level_transfers(*shapes[cur], cfg)
         st = galerkin_coarsen(st, rf, pf, *shapes[cur + 1])
-        levels.append((st, shapes[cur + 1], False, None))
+        levels.append((st, shapes[cur + 1], False, lam_of(st, shapes[cur + 1])))
         cur += 1
     if cur < len(shapes) - 1:
         for stc, shp in zip(galerkin_levels(st, shapes[cur:], cur == 0), shapes[cur + 1:]):
-            levels.append((stc, shp, False, None))
+            levels.append((stc, shp, False, lam_of(stc, shp)))
     return levels
 
 
@@ -358,3 +405,18 @@ def multigrid_solve(
     if rel is None:
         rel = torch.linalg.vector_norm(r) / safe_bnorm
     return p, PressureSolveInfo(iterations=cycles, residual_field=r, rel_residual=rel)
+
+
+def make_preconditioner(levels, cfg: MultigridConfig, n_cycles: int = 1):
+    """M^{-1} r ~= ``n_cycles`` multigrid cycles from a zero guess (the
+    preconditioner of MGCG), each through :func:`_cycle0`: on the kernel
+    path a K3 launch, or K2 strips and a K3 tail, where the gates admit
+    the hierarchy."""
+
+    def apply_M(r):
+        e = torch.zeros_like(r)
+        for _ in range(n_cycles):
+            e = _cycle0(e, r, levels, cfg)
+        return e
+
+    return apply_M

@@ -296,7 +296,12 @@ def test_kernel_gates_match_jax_rules():
             nf.solvers.JacobiMomentumConfig()]
     pres = [JMG(tolerance=1e-2, max_cycles=6, check_every=2, coarsest_sweeps=8,
                 coarse_rebuild_every=8), JMG(cycle_type="fmg"), JMG(smoother="jacobi"),
-            nf.solvers.RBGSPressureConfig()]
+            nf.solvers.RBGSPressureConfig(), JMG(smoother="chebyshev"),
+            JMG(smoother_dtype="bfloat16"), JMG(restriction="inject"),
+            JMG(prolongation="cubic", coarsening="rediscretize"),
+            nf.solvers.CGPressureConfig(), nf.solvers.BiCGSTABPressureConfig(),
+            nf.solvers.GMRESPressureConfig(), nf.solvers.MGCGPressureConfig(),
+            nf.solvers.JacobiPressureConfig(), nf.solvers.DirectPressureConfig()]
     for n in (31, 63, 127, 255, 511):
         for jm in moms:
             for jp in pres:

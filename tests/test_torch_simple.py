@@ -8,7 +8,6 @@ import textwrap
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import naviflow_tpu as nf
@@ -96,15 +95,6 @@ def test_convergence_stop_matches_jax():
     assert _rel(ts.u, js.u) < 1e-9
     np.testing.assert_array_equal(td.inner_iters_history.numpy(),
                                   np.asarray(jd.inner_iters_history))
-
-
-@pytest.mark.parametrize("loop", ["host", "chunked:10"])
-def test_unported_loop_modes_raise(loop):
-    mesh = nt.StructuredMesh(nx=8, ny=8)
-    bc = nt.lid_driven_cavity(1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_simple_solve(mesh, nt.FluidProperties(reynolds_number=10), bc,
-                          nt.initialize_state(mesh, bc, device="cpu"), loop=loop)
 
 
 def test_port_imports_without_jax():
