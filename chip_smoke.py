@@ -113,6 +113,23 @@ result line:
     'fused', 'host' and 'chunked:7' loops: each card run within 5% of the
     same run on the CPU in float64; no K2, K3, K5 or K6 launch off the
     Gauss-Seidel multigrid, at least one on it.
+13. the 9-point QUICK path (``run_quick``): ``benchmarks/scale_runs.py``'s
+    511^2 QUICK configuration at Re=1000, 40 steps from rest, with the
+    kernels and composed: launches exactly what the gates admit (K4 a step,
+    K3 a V-cycle; none of K1, K6, K7, K8, K9, which refuse 9-point
+    momentum); every step's residual and the u, v, p fields within 1e-3 of
+    composed, LUDS in place of QUICK failing that; ms a step, idle share
+    over 8 steps;
+    then 63^2 Re=100 QUICK to 1e-5 (BiCGSTAB momentum to 1e-9, <= 150
+    iterations; the headline's V-cycles: K4 at the carry's builds, K5 a
+    step), Ghia below 0.10, and LUDS to 1e-3;
+14. the distributed solver (``run_distributed``) on a 1x1 mesh over NCCL
+    in one process: bench.py's 64^2 parity check of SIMPLE and SIMPLEC
+    against the single-device solves (max |du|, |dv| < 1e-4), then 1024^2
+    SIMPLE, 10 steps, Chebyshev momentum and MGCG pressure, held to the
+    single-device run of the same algorithm at 1e-3 (CG totals within
+    10%), a control (CG to 1e-2) failing; ms and CG iterations a step,
+    collectives a step by kind, the idle share, and no kernel launch.
 
 Then a JSON line with every kernel's launches, error, times and bound (K2:
 each level's too, and the launches a step), the card's name and power
@@ -171,6 +188,13 @@ MGCG_STEPS = 10
 SOLVER_GRIDS = (64, 63)
 SOLVER_STEPS = 20
 RE = 100.0
+# the quick phase: benchmarks/scale_runs.py's 511^2 QUICK configuration at
+# its schedule's first Reynolds number (per_re(1000): alpha_p 0.25 * 0.6)
+NQ, RE_Q, QUICK_STEPS, QUICK_ALPHA_P = 511, 1000.0, 40, 0.15
+# the distributed phase: bench.py's 64^2 parity check, then 1024^2
+NB, BENCH_DIST_STEPS = 64, 5
+ND, DIST_STEPS, DIST_PROFILE_STEPS = 1024, 10, 1
+BENCH_DIST_LIMIT = 1e-4  # bench.py _distributed_check's limit on max |du|, |dv|
 SEED = 0
 REPS = 20  # timed launches per kernel measurement
 SLEEP_CYCLES = 60_000_000  # device_ms's head start: ~30 ms of the SM clock
@@ -1735,7 +1759,7 @@ def device_busy(run):
     return sum(span for span, _, _ in spans), spans
 
 
-def profile_window(run, steps):
+def profile_window(run, steps, profiler=True):
     """The device's idle share over ``run()`` (``steps`` outer steps, warmed
     up by one call before): the window is the host clock over one run; the
     busy time is the same run's device time (``device_busy``);
@@ -1746,7 +1770,10 @@ def profile_window(run, steps):
     a fourth run under ``torch.profiler``, the profiler's sum of device-side
     kernel time (``profiler_busy_ms``, which missed launches on the H100)
     and its idle share over its own window (the profiler's host overhead
-    lengthens it), and the kernels by that time."""
+    lengthens it), and the kernels by that time.  ``profiler=False`` skips
+    that run, as the QUICK and distributed phases do: summing its trace of
+    the distributed phase's 1024^2 step (some 10^5 operators) took
+    minutes."""
     from torch.profiler import ProfilerActivity, profile
 
     run()  # warm-up (the first use of a dispatch mode also loads modules)
@@ -1757,6 +1784,14 @@ def profile_window(run, steps):
     run()
     window_ms = (time.perf_counter() - t0) * 1e3
     busy, spans = device_busy(run)
+    out = dict(steps=steps, window_ms=window_ms, device_busy_ms=busy,
+               idle_share=1.0 - busy / window_ms, segments=len(spans),
+               segments_over_sleep=sum(host >= sleep for _, host, sleep in spans),
+               overrun_ms=sum(max(host - sleep, 0.0) for _, host, sleep in spans),
+               max_segment_ms=max(span for span, _, _ in spans),
+               sleep_ms=sum(sleep for _, _, sleep in spans))
+    if not profiler:
+        return out
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -1764,13 +1799,7 @@ def profile_window(run, steps):
     by_name = device_kernels(prof)
     prof_busy = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return dict(steps=steps, window_ms=window_ms, device_busy_ms=busy,
-                idle_share=1.0 - busy / window_ms, segments=len(spans),
-                segments_over_sleep=sum(host >= sleep for _, host, sleep in spans),
-                overrun_ms=sum(max(host - sleep, 0.0) for _, host, sleep in spans),
-                max_segment_ms=max(span for span, _, _ in spans),
-                sleep_ms=sum(sleep for _, _, sleep in spans),
-                profiler_window_ms=prof_window_ms, profiler_busy_ms=prof_busy,
+    return dict(out, profiler_window_ms=prof_window_ms, profiler_busy_ms=prof_busy,
                 profiler_idle_share=1.0 - prof_busy / prof_window_ms,
                 top=[dict(name=k[:80], ms=t, calls=c) for k, (t, c) in top])
 
@@ -2571,6 +2600,424 @@ def run_solvers(dev):
                 controls=controls, launches=total, ok=ok)
 
 
+def quick_configs(backend="auto", vcycle_tol=1e-2):
+    """``benchmarks/scale_runs.py``'s 511^2 QUICK configuration
+    (``run_highre_511(scheme='quick')``) at Re=1000: BiCGSTAB momentum to
+    1e-6 in <= 30 iterations, V-cycles to ``vcycle_tol`` (<= 10, checked
+    every 2, 48 coarsest sweeps)."""
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig
+    from naviflow_tpu_torch.solvers import KrylovMomentumConfig, MultigridConfig
+
+    cfg = SIMPLEConfig(max_iterations=QUICK_STEPS, tolerance=0.0, alpha_p=QUICK_ALPHA_P,
+                       alpha_u=0.7)
+    mom = KrylovMomentumConfig(tolerance=1e-6, max_iterations=30, scheme="quick",
+                               backend=backend)
+    pres = MultigridConfig(tolerance=vcycle_tol, max_cycles=10, cycle_type="v", check_every=2,
+                           coarsest_sweeps=48, backend=backend)
+    return cfg, mom, pres
+
+
+def gate_launches(n, pres, steps, cycles):
+    """The launches the kernel gates admit for ``steps`` plain-V-cycle
+    multigrid solves (no coarse carry) of ``cycles`` cycles in all on an
+    n^2 float32 vertex hierarchy, with composed momentum: K4 a step from the
+    first level its gate takes, then K5 a step where the fused gate takes the
+    whole hierarchy, else per cycle a K3 on the first tail it takes and a K2
+    pair per peeled level the strip gate takes."""
+    import torch
+
+    from naviflow_tpu_torch.ops import mg, strip
+    from naviflow_tpu_torch.ops.stencil9 import Stencil9
+    from naviflow_tpu_torch.solvers.multigrid import _level_transfers, _tail_start
+
+    shapes = [(n, n)]
+    while min(shapes[-1]) > pres.coarsest_grid_size:
+        shapes.append(_level_transfers(*shapes[-1], pres)[2])
+    z = torch.zeros(1)
+    levels = [(Stencil9(*([z] * 9)), shp, k == 0, None) for k, shp in enumerate(shapes)]
+    want = {"galerkin_levels": steps * any(mg.supports_fused_rap(*shp, pres, torch.float32)
+                                           for shp in shapes[:-1])}
+    if mg.supports_fused(levels, pres):
+        want["fused_mg_solve"] = steps
+    else:
+        k = _tail_start(levels, pres)
+        if k is not None:
+            want["fused_vcycle"] = cycles
+            peeled = sum(strip.supports_strip(*shp, k_ == 0, pres, torch.float32)
+                         for k_, (_, shp, _, _) in enumerate(levels[:k]))
+            want["strip_down"] = want["strip_up"] = peeled * cycles
+    return only(**want)
+
+
+def history_gap(diag, ref, steps):
+    """The largest relative gap of two runs' per-step residuals."""
+    h = diag.total_res_history[:steps].double().cpu()
+    r = ref.total_res_history[:steps].double().cpu()
+    return float(((h - r).abs() / r.abs()).max())
+
+
+def run_quick(dev):
+    """The 9-point QUICK path on one device, float32.
+
+    (a) ``benchmarks/scale_runs.py``'s 511^2 QUICK configuration at Re=1000
+    from rest for 40 steps (``quick_configs``), with the kernels and with
+    ``backend='composed'``: the launches exactly what the gates admit
+    (``gate_launches``: K4 a step and K3 a cycle; no K1, K6, K7, K8 or K9:
+    every gate refuses 9-point momentum); every step's residual and the u,
+    v, p fields within ``GAP_LIMIT`` of the composed run; the control (the
+    same run with LUDS in place of QUICK) must fail that.  The V-cycles to
+    2e-2 are run and their gaps reported beside: on this path no looser
+    inner solve reached the limit on the CPU (V-cycles to 2e-2: 2.4e-4;
+    BiCGSTAB capped at 5 iterations: 2.8e-4; 2 coarsest sweeps: 9.2e-4).
+    ms a step and the device's idle share over 8 steps.
+    (b) 63^2 Re=100 QUICK with the JAX package's QUICK test momentum
+    (BiCGSTAB to 1e-9, <= 150 iterations) and the headline's V-cycle
+    pressure, to 1e-5: converged, Ghia's infinity error below 0.10, K4 at
+    the carry's builds and K5 a step; then LUDS to 1e-3."""
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+    from naviflow_tpu_torch.postprocessing.validation import infinity_norm_error
+    from naviflow_tpu_torch.solvers import KrylovMomentumConfig
+
+    mesh = nt.StructuredMesh(nx=NQ, ny=NQ)
+    fluid = nt.FluidProperties(density=1.0, reynolds_number=RE_Q)
+    bc = nt.lid_driven_cavity(1.0)
+
+    def run(backend="auto", vcycle_tol=1e-2, steps=QUICK_STEPS, scheme="quick"):
+        cfg, mom, pres = quick_configs(backend, vcycle_tol)
+        cfg = dataclasses.replace(cfg, max_iterations=steps)
+        mom = dataclasses.replace(mom, scheme=scheme)
+        state = nt.initialize_state(mesh, bc, device=dev)
+        torch_sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out, diag = simple_solve(mesh, fluid, bc, state, cfg, momentum=mom, pressure=pres)
+        torch_sync()
+        return out, diag, (time.perf_counter() - t0) * 1e3 / steps, counts()
+
+    def gaps(state, diag, ref_state, ref_diag):
+        out = dict(history=history_gap(diag, ref_diag, QUICK_STEPS),
+                   fields=field_gaps(state, ref_state))
+        out["ok"] = max(out["history"], *out["fields"].values()) <= GAP_LIMIT
+        return out
+
+    run(steps=1)  # warm-up
+    state_k, diag_k, ms_k, launches = run()
+    state_c, diag_c, ms_c, launches_c = run("composed")
+    state_x, diag_x, _, _ = run(scheme="luds")
+    state_y, diag_y, _, _ = run(vcycle_tol=2e-2)
+    cycles = diag_k.inner_iters_history[:QUICK_STEPS].tolist()
+    want = gate_launches(NQ, quick_configs()[2], QUICK_STEPS, sum(cycles))
+    hist = diag_k.total_res_history[:QUICK_STEPS].double()
+    finite = bool(torch.isfinite(hist).all()) and all(
+        bool(torch.isfinite(getattr(state_k, k)).all()) for k in ("u", "v", "p"))
+    sound, control = gaps(state_k, diag_k, state_c, diag_c), gaps(state_x, diag_x, state_c, diag_c)
+    looser = gaps(state_y, diag_y, state_c, diag_c)
+    full = dict(grid=NQ, re=RE_Q, steps=QUICK_STEPS, alpha_p=QUICK_ALPHA_P, scheme="quick",
+                launches=launches, launches_expected=want, launches_composed=launches_c,
+                vcycles=cycles, ms_per_step_kernel=ms_k, ms_per_step_composed=ms_c,
+                residual_first=float(hist[0]), residual_last=float(hist[-1]),
+                residual_composed=float(diag_c.final_residual), finite=finite, gaps=sound,
+                control=dict(scheme="luds", **control, detected=not control["ok"]),
+                vcycle_tolerance_2e_2=looser,
+                profile=profile_window(lambda: run(steps=PROFILE_STEPS), PROFILE_STEPS,
+                                       profiler=False))
+    full["ok"] = (launches == want and launches_c == only() and finite and sound["ok"]
+                  and not control["ok"])
+
+    mesh_s, fluid_s, bc_s = cavity_case(NH)
+    _, pres_s = headline_configs()
+    small = {}
+    for scheme, tol in (("quick", 1e-5), ("luds", 1e-3)):
+        mom = KrylovMomentumConfig(tolerance=1e-9, max_iterations=150, scheme=scheme)
+        state = nt.initialize_state(mesh_s, bc_s, device=dev)
+        torch_sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out, diag = simple_solve(mesh_s, fluid_s, bc_s, state,
+                                 SIMPLEConfig(max_iterations=4000, tolerance=tol),
+                                 momentum=mom, pressure=pres_s)
+        torch_sync()
+        wall = time.perf_counter() - t0
+        it = int(diag.iterations)
+        c = counts()
+        want_s = only(galerkin_levels=1 + math.ceil(it / pres_s.coarse_rebuild_every),
+                      fused_mg_solve=it)
+        err = infinity_norm_error(out.u, out.v, mesh_s, int(RE))
+        row = dict(tolerance=tol, iterations=it, converged=bool(diag.converged),
+                   final_residual=float(diag.final_residual), wall_s=wall,
+                   ms_per_step=wall * 1e3 / max(it, 1), ghia_infinity_error=err,
+                   launches=c, launches_expected=want_s)
+        row["ok"] = bool(diag.converged) and c == want_s and (scheme != "quick" or err < 0.10)
+        small[scheme] = row
+    return dict(phase="quick", full=full, small=dict(grid=NH, re=RE, **small),
+                launches=launches, launches_small=small["quick"]["launches"],
+                ok=full["ok"] and all(r["ok"] for r in small.values()))
+
+
+def dist_config(steps, **kw):
+    from naviflow_tpu_torch.parallel.dist_simple import DistributedConfig
+
+    return DistributedConfig(max_iterations=steps, tolerance=0.0, check_every=steps, **kw)
+
+
+def run_distributed(dev):
+    """The distributed solver (``parallel/``) on a 1x1 mesh over NCCL in
+    one process (``init_process_group('nccl', store=HashStore())``, world
+    size 1, destroyed when the phase ends; no fallback).
+
+    (c) bench.py's ``_distributed_check``: 64^2, 5 steps of SIMPLE and of
+    SIMPLEC (alpha_p 0.3), Jacobi momentum (2 sweeps), Jacobi-PCG pressure
+    (1e-6, <= 200), against the port's single-device ``simple_solve`` /
+    ``simplec_solve`` (``loop='fused'``): max |du|, |dv| below 1e-4.
+    (d) 1024^2, 10 steps of SIMPLE, Chebyshev momentum (degree 6), MGCG
+    pressure (1e-6, <= 60; one V-cycle of 2/2 GS, 32 coarsest sweeps, the
+    levels above 32^2 on the mesh): held to the single-device SIMPLE with
+    ``ChebyshevMomentumConfig(degree=6, merged_assembly='off')`` and that
+    MGCG (the same algorithm, ``tests/test_torch_distributed.py``; K1's
+    lagged bounds would not be) at ``GAP_LIMIT`` on every step's residual
+    and the fields, CG totals within ``ITER_TOTAL_LIMIT``; a control (CG to
+    1e-2) must fail that.  ms a step, CG iterations a step, collectives a
+    step by kind, the device's idle share; no kernel launches on this
+    path."""
+    import torch
+    import torch.distributed as dist
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import (SIMPLECConfig, SIMPLEConfig, simple_solve,
+                                               simplec_solve)
+    from naviflow_tpu_torch.parallel import decompose
+    from naviflow_tpu_torch.parallel.dist_simple import distributed_simple_solve
+    from naviflow_tpu_torch.parallel.sharding import make_device_mesh
+    from naviflow_tpu_torch.solvers import (CGPressureConfig, ChebyshevMomentumConfig,
+                                            JacobiMomentumConfig, MGCGPressureConfig,
+                                            MultigridConfig)
+
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        backend = dist.get_backend()
+        rm = make_device_mesh(device=dev)
+        lap("init")
+        mesh, fluid, bc = cavity_case(NB)
+        bench = {}
+        for algo, single, single_cfg in (
+                ("simple", simple_solve, SIMPLEConfig(max_iterations=BENCH_DIST_STEPS,
+                                                      tolerance=0.0)),
+                ("simplec", simplec_solve, SIMPLECConfig(max_iterations=BENCH_DIST_STEPS,
+                                                         tolerance=0.0, alpha_p=0.3))):
+            fd, dd = distributed_simple_solve(
+                mesh, fluid, bc, nt.initialize_state(mesh, bc, device=dev), rm,
+                dist_config(BENCH_DIST_STEPS, momentum_sweeps=2, pressure_solver="cg",
+                            pressure_tol=1e-6, pressure_max_iter=200, algorithm=algo))
+            fs, _ = single(mesh, fluid, bc, nt.initialize_state(mesh, bc, device=dev),
+                           single_cfg, momentum=JacobiMomentumConfig(n_sweeps=2),
+                           pressure=CGPressureConfig(tolerance=1e-6, max_iterations=200),
+                           loop="fused")
+            diff = max(float((fd.u - fs.u).abs().max()), float((fd.v - fs.v).abs().max()))
+            bench[algo] = dict(max_uv_diff=diff, final_residual=dd["final_residual"],
+                               ok=math.isfinite(diff) and diff < BENCH_DIST_LIMIT)
+        lap("bench_check")
+
+        mesh, _, bc = cavity_case(ND)
+        steps = DIST_STEPS
+
+        def run_dist(pressure_tol=1e-6, n=steps):
+            state = nt.initialize_state(mesh, bc, device=dev)
+            torch_sync()
+            reset_counts()
+            decompose.reset_collectives()
+            t0 = time.perf_counter()
+            out, diag = distributed_simple_solve(
+                mesh, fluid, bc, state, rm,
+                dist_config(n, momentum_solver="chebyshev", momentum_degree=6,
+                            pressure_solver="mgcg", pressure_tol=pressure_tol,
+                            pressure_max_iter=60, gather_cutoff=32))
+            torch_sync()
+            return (out, diag, (time.perf_counter() - t0) * 1e3 / n, counts(),
+                    dict(decompose.COLLECTIVES))
+
+        def run_single():
+            state = nt.initialize_state(mesh, bc, device=dev)
+            torch_sync()
+            reset_counts()
+            t0 = time.perf_counter()
+            out, diag = simple_solve(
+                mesh, fluid, bc, state, SIMPLEConfig(max_iterations=steps, tolerance=0.0),
+                momentum=ChebyshevMomentumConfig(degree=6, merged_assembly="off"),
+                pressure=MGCGPressureConfig(tolerance=1e-6, max_iterations=60, mg=MultigridConfig(
+                    pre_smoothing=2, post_smoothing=2, coarsest_sweeps=32)))
+            torch_sync()
+            return out, diag, (time.perf_counter() - t0) * 1e3 / steps, counts()
+
+        def held(state, diag, ref_state, ref_diag):
+            res = torch.tensor(diag["step_residuals"][:steps], dtype=torch.float64)
+            ref = ref_diag.total_res_history[:steps].double().cpu()
+            cg, cg_ref = sum(diag["inner_iterations"][:steps]), sum(
+                ref_diag.inner_iters_history[:steps].tolist())
+            out = dict(history=float(((res - ref).abs() / ref.abs()).max()),
+                       fields=field_gaps(state, ref_state),
+                       cg_total=cg, cg_total_gap=abs(cg - cg_ref) / cg_ref)
+            out["ok"] = (max(out["history"], *out["fields"].values()) <= GAP_LIMIT
+                         and out["cg_total_gap"] <= ITER_TOTAL_LIMIT)
+            return out
+
+        run_dist(n=1)  # warm-up
+        lap("warm_up")
+        state_d, diag_d, ms_d, launches_d, coll = run_dist()
+        lap("distributed")
+        state_s, diag_s, ms_s, launches_s = run_single()
+        lap("single_device")
+        state_x, diag_x, _, _, _ = run_dist(pressure_tol=1e-2)
+        lap("control")
+        sound = held(state_d, diag_d, state_s, diag_s)
+        control = held(state_x, diag_x, state_s, diag_s)
+        res = torch.tensor(diag_d["step_residuals"], dtype=torch.float64)
+        finite = bool(torch.isfinite(res).all()) and all(
+            bool(torch.isfinite(getattr(state_d, k)).all()) for k in ("u", "v", "p"))
+        full = dict(grid=ND, re=RE, steps=steps, mesh=list(rm.shape), ms_per_step=ms_d,
+                    ms_per_step_single_device=ms_s,
+                    cg_iterations=diag_d["inner_iterations"],
+                    cg_iterations_single_device=diag_s.inner_iters_history[:steps].tolist(),
+                    collectives=coll, collectives_per_step={k: v / steps for k, v in coll.items()},
+                    launches=launches_d, launches_single_device=launches_s,
+                    residual_first=float(res[0]), residual_last=float(res[-1]), finite=finite,
+                    gaps=sound, control=dict(pressure_tolerance=1e-2, **control,
+                                             detected=not control["ok"]),
+                    profile=profile_window(lambda: run_dist(n=DIST_PROFILE_STEPS),
+                                           DIST_PROFILE_STEPS, profiler=False))
+        lap("profile")
+        full["ok"] = (finite and sound["ok"] and not control["ok"] and launches_d == only())
+    finally:
+        dist.destroy_process_group()
+    return dict(phase="distributed", backend=backend, world_size=1, seconds_by_part=seconds,
+                bench_check=dict(grid=NB, steps=BENCH_DIST_STEPS, limit=BENCH_DIST_LIMIT, **bench),
+                full=full, launches=launches_d,
+                ok=backend == "nccl" and all(b["ok"] for b in bench.values()) and full["ok"])
+
+
+def run_multi_rank(rm):
+    """The distributed solver on ``rm``'s mesh of ranks, one process a card
+    (``--ranks``, under ``torchrun``): bench.py's 64^2 check (SIMPLE,
+    Jacobi momentum, CG pressure, 5 steps; max |du|, |dv| < 1e-4) and the
+    distributed phase's 1024^2 SIMPLE (Chebyshev momentum, MGCG, 10 steps),
+    each held on rank 0 to the single-device composed run of the same
+    algorithm (the 1024^2 run at ``GAP_LIMIT`` on every step and the
+    fields; the CG totals are reported, not held: float32 CG to 1e-6 stops
+    at its rounding floor, and a mesh of ranks sums in another order than
+    one device -- 35 against 28 over 3 steps at 64^2 on a 2x2 gloo mesh,
+    fields within 5e-7); every rank's state and
+    diagnostics the same (gathered checksums); ms a step and collectives a
+    step by kind (P2P batches now exchange halos)."""
+    import torch
+    import torch.distributed as dist
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+    from naviflow_tpu_torch.parallel import decompose
+    from naviflow_tpu_torch.parallel.dist_simple import distributed_simple_solve
+    from naviflow_tpu_torch.solvers import (CGPressureConfig, ChebyshevMomentumConfig,
+                                            JacobiMomentumConfig, MGCGPressureConfig,
+                                            MultigridConfig)
+
+    dev = rm.device
+    cases = {
+        "bench": (NB, BENCH_DIST_STEPS,
+                  dict(momentum_sweeps=2, pressure_solver="cg", pressure_tol=1e-6,
+                       pressure_max_iter=200),
+                  dict(momentum=JacobiMomentumConfig(n_sweeps=2),
+                       pressure=CGPressureConfig(tolerance=1e-6, max_iterations=200))),
+        "mgcg": (ND, DIST_STEPS,
+                 dict(momentum_solver="chebyshev", momentum_degree=6, pressure_solver="mgcg",
+                      pressure_tol=1e-6, pressure_max_iter=60, gather_cutoff=32),
+                 dict(momentum=ChebyshevMomentumConfig(degree=6, backend="composed"),
+                      pressure=MGCGPressureConfig(tolerance=1e-6, max_iterations=60,
+                                                  mg=MultigridConfig(
+                                                      pre_smoothing=2, post_smoothing=2,
+                                                      coarsest_sweeps=32,
+                                                      backend="composed")))),
+    }
+    out, ok = dict(phase="multi_rank", mesh=list(rm.shape), backend=dist.get_backend(rm.group),
+                   cards=[torch.cuda.get_device_name(dev)] if dev.type == "cuda" else []), True
+    for name, (n, steps, dkw, skw) in cases.items():
+        mesh, fluid, bc = cavity_case(n)
+        torch_sync()
+        decompose.reset_collectives()
+        t0 = time.perf_counter()
+        state, diag = distributed_simple_solve(mesh, fluid, bc,
+                                               nt.initialize_state(mesh, bc, device=dev), rm,
+                                               dist_config(steps, **dkw))
+        torch_sync()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        coll = dict(decompose.COLLECTIVES)
+        sums = torch.tensor([float(state.u.double().sum()), float(state.v.double().sum()),
+                             float(state.p.double().sum()), *diag["step_residuals"],
+                             *diag["inner_iterations"]], dtype=torch.float64, device=dev)
+        every = decompose.gather_blocks(sums[None, :], rm).reshape(rm.size, -1)
+        row = dict(grid=n, steps=steps, ms_per_step=ms, collectives=coll,
+                   collectives_per_step={k: v / steps for k, v in coll.items()},
+                   inner_iterations=diag["inner_iterations"],
+                   ranks_agree=bool((every == every[0]).all()))
+        if rm.rank == 0:
+            single, sdiag = simple_solve(mesh, fluid, bc,
+                                         nt.initialize_state(mesh, bc, device=dev),
+                                         SIMPLEConfig(max_iterations=steps, tolerance=0.0),
+                                         loop="fused", **skw)
+            res = torch.tensor(diag["step_residuals"], dtype=torch.float64)
+            ref = sdiag.total_res_history[:steps].double().cpu()
+            cg = sum(diag["inner_iterations"])
+            cg_ref = sum(sdiag.inner_iters_history[:steps].tolist())
+            row.update(max_uv_diff=max(float((state.u - single.u).abs().max()),
+                                       float((state.v - single.v).abs().max())),
+                       history=float(((res - ref).abs() / ref.abs()).max()),
+                       fields=field_gaps(state, single), cg_total=cg,
+                       cg_total_single_device=cg_ref)
+            row["cg_total_gap"] = abs(cg - cg_ref) / cg_ref
+            row["ok"] = row["ranks_agree"] and (
+                row["max_uv_diff"] < BENCH_DIST_LIMIT if name == "bench" else
+                max(row["history"], *row["fields"].values()) <= GAP_LIMIT)
+            ok &= row["ok"]
+        out[name] = row
+        decompose.psum(torch.zeros(1, device=dev), rm)  # the other ranks wait for rank 0
+    out["ok"] = ok
+    return out
+
+
+def ranks_main() -> int:
+    """``--ranks``: one rank of ``run_multi_rank`` (``torchrun
+    --nproc_per_node 4 chip_smoke.py --ranks``); rank 0 prints the card
+    and the result, and the exit code is rank 0's verdict on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from naviflow_tpu_torch.parallel.sharding import initialize_pod, make_device_mesh
+
+    if not initialize_pod(device="cuda"):
+        print("chip_smoke --ranks: run it under torchrun with more than one process",
+              file=sys.stderr)
+        return 2
+    try:
+        rm = make_device_mesh()
+        if rm.rank == 0:
+            print(nvidia_smi(), flush=True)
+        row = run_multi_rank(rm)
+        verdict = torch.tensor([1.0 if row["ok"] else 0.0], device=rm.device)
+        dist.broadcast(verdict, 0)
+        if rm.rank == 0:
+            emit(row)
+        return 0 if float(verdict) == 1.0 else 1
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2848,6 +3295,8 @@ def parse_args(argv):
                     help="keep the A/B's K1, K2a, K2b, K4 and K11 outputs here")
     ap.add_argument("--ab-compare", nargs=3, metavar=("DIR", "TAG_A", "TAG_B"),
                     help="compare two saved A/B sides output by output and stop")
+    ap.add_argument("--ranks", action="store_true",
+                    help="one rank of the multi-rank NCCL run (under torchrun) and stop")
     return ap.parse_args(argv)
 
 
@@ -2870,6 +3319,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ranks:
+        return ranks_main()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -2971,8 +3422,11 @@ def main() -> int:
     for phase, fn in (("slice", run_slice), ("headline", run_headline), ("fmg", run_fmg),
                       ("large_grid", run_large_grid), ("algorithms63", run_algorithms63),
                       ("plane", run_plane), ("sequenced", run_sequenced), ("mgcg", run_mgcg),
-                      ("solvers", run_solvers)):
+                      ("solvers", run_solvers), ("quick", run_quick),
+                      ("distributed", run_distributed)):
+        t_phase = time.perf_counter()
         row = fn(dev)
+        row["seconds"] = time.perf_counter() - t_phase
         emit(row)
         if not row["ok"]:
             print(f"chip_smoke: the {phase} run failed its checks", file=sys.stderr)
@@ -2981,6 +3435,8 @@ def main() -> int:
             paths[phase] = row["runs"]["auto_0.001"]["launches"]
         elif phase == "algorithms63":
             paths.update({f"{phase}:{name}": c for name, c in row["paths"].items()})
+        elif phase == "quick":
+            paths["quick"], paths["quick63"] = row["launches"], row["launches_small"]
         else:
             paths[phase] = row["launches"]
 

@@ -8,9 +8,9 @@ Semantics preserved exactly (staggered shapes u=(nx+1,ny), v=(nx,ny+1)):
    bottom -> u[:, 0], v[:, 0]; left -> u[0, :], v[0, :];
    right -> u[nx, :], v[nx-1, :].
 
-The window variant (``apply_velocity_bcs_window``, for domain-decomposed
-blocks) belongs to the distributed path and is not ported yet (ROADMAP §1
-item 13).
+The window variant :func:`apply_velocity_bcs_window` applies the same rule
+to a domain-decomposed block, with the boundary slabs as masks over global
+indices.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 from enum import Enum
 from typing import Optional
+
+import torch
 
 
 class BoundaryType(Enum):
@@ -123,6 +125,38 @@ def apply_velocity_bcs(u, v, bc: BoundaryConditions):
         elif name == "right":
             u[nx, :] = s.u
             v[nx - 1, :] = s.v
+    return u, v
+
+
+def apply_velocity_bcs_window(u_loc, v_loc, bc: BoundaryConditions, *, gi0, gj0, nx, ny):
+    """Window form of :func:`apply_velocity_bcs` for domain-decomposed
+    blocks: boundary slabs become masks over global indices.
+
+    ``u_loc``: (nxl+1, nyl) faces gi0.. x cells gj0..; ``v_loc``:
+    (nxl, nyl+1).  The same semantics as the global function (zero all
+    boundary slabs, then VELOCITY sides overwrite in top/bottom/left/right
+    order, corners owned by the velocity side).  ``gi0``/``gj0`` are ints.
+    """
+    dev = u_loc.device
+    GIu = gi0 + torch.arange(u_loc.shape[0], dtype=torch.int32, device=dev).view(-1, 1)
+    GJu = gj0 + torch.arange(u_loc.shape[1], dtype=torch.int32, device=dev).view(1, -1)
+    GIv = gi0 + torch.arange(v_loc.shape[0], dtype=torch.int32, device=dev).view(-1, 1)
+    GJv = gj0 + torch.arange(v_loc.shape[1], dtype=torch.int32, device=dev).view(1, -1)
+    u_masks = {"top": GJu == ny - 1, "bottom": GJu == 0, "left": GIu == 0,
+               "right": GIu == nx}
+    v_masks = {"top": GJv == ny, "bottom": GJv == 0, "left": GIv == 0,
+               "right": GIv == nx - 1}
+    zero = torch.zeros((), dtype=u_loc.dtype, device=dev)
+    u, v = u_loc, v_loc
+    for name in _SIDES:
+        u = torch.where(u_masks[name], zero, u)
+        v = torch.where(v_masks[name], zero, v)
+    for name in _SIDES:
+        s = bc.side(name)
+        if s.kind != BoundaryType.VELOCITY:
+            continue
+        u = torch.where(u_masks[name], torch.full((), s.u, dtype=u.dtype, device=dev), u)
+        v = torch.where(v_masks[name], torch.full((), s.v, dtype=v.dtype, device=dev), v)
     return u, v
 
 

@@ -22,6 +22,7 @@ from .core.bc import BoundaryConditions, BoundaryType, SideCondition
 from .core.fluid import FluidProperties
 from .core.mesh import StructuredMesh
 from .core.state import FlowState
+from .ops.highorder import MomentumCoeffs9
 from .ops.poisson import PoissonCoeffs
 from .ops.stencil import StencilCoeffs
 from .ops.stencil9 import Stencil9
@@ -47,6 +48,10 @@ def stencil_coeffs(c, *, dtype=None, device=None) -> StencilCoeffs:
     return _fields(c, StencilCoeffs, dtype, device)
 
 
+def momentum_coeffs9(c, *, dtype=None, device=None) -> MomentumCoeffs9:
+    return _fields(c, MomentumCoeffs9, dtype, device)
+
+
 def poisson_coeffs(c, *, dtype=None, device=None) -> PoissonCoeffs:
     return _fields(c, PoissonCoeffs, dtype, device)
 
@@ -66,13 +71,15 @@ def coarse_tuple(coarse, *, dtype=None, device=None):
 
 def _port_config_classes():
     from .algorithms import PISOConfig, SIMPLECConfig, SIMPLEConfig, SIMPLERConfig
+    from .parallel.dist_simple import DistributedConfig
     from .solvers.dispatch import PRESSURE_CONFIG_TYPES
     from .solvers.momentum import (ChebyshevMomentumConfig, JacobiMomentumConfig,
                                    KrylovMomentumConfig)
 
     return {c.__name__: c for c in (
-        SIMPLEConfig, SIMPLECConfig, PISOConfig, SIMPLERConfig, ChebyshevMomentumConfig,
-        JacobiMomentumConfig, KrylovMomentumConfig, *PRESSURE_CONFIG_TYPES)}
+        SIMPLEConfig, SIMPLECConfig, PISOConfig, SIMPLERConfig, DistributedConfig,
+        ChebyshevMomentumConfig, JacobiMomentumConfig, KrylovMomentumConfig,
+        *PRESSURE_CONFIG_TYPES)}
 
 
 def config(cfg):

@@ -7,16 +7,19 @@ spacing / a_p_relaxed``, and the residual is the unrelaxed
 ``r = src_un - A_un x`` with its L2 norm over interior nodes.
 
 Ported: fixed-sweep Jacobi, fixed-degree Chebyshev and masked BiCGSTAB
-inner solves on the power-law scheme, the compensated residual, and the
+inner solves on the power-law scheme and on the 9-point QUICK / LUDS /
+upwind schemes (``ops/highorder.py``), the compensated residual, and the
 pair form :func:`solve_momentum_pair` with its merged kernel branch (K1,
 ``ops/asmcheby.py``) driven by lagged Gershgorin maxima, its one-pass
 assembly branch (K8, ``ops/assembly.py``) and its batched BiCGSTAB branch
 (:func:`_bicgstab_pair_masked`).  On a CUDA tensor a BiCGSTAB solve whose
 field fits the reference kernel's budget is one launch of K7
 (``ops/krylov.py``), and a large-grid Chebyshev solve outside K1 is one
-launch of K9 (``ops/cheby.py``) per field.  Not yet ported (each raises
+launch of K9 (``ops/cheby.py``) per field.  Every kernel gate refuses a
+9-point system (K1, K7, K8, K9, the batched pair), as the JAX package's
+gates do; such a system runs composed.  Not yet ported (each raises
 :class:`NotImplementedError`): the red-black GS, GMRES and IDR(s) inner
-solves (ROADMAP §1 item 2) and the 9-point QUICK/LUDS schemes (item 11).
+solves (ROADMAP §1 item 2).
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ from ..ops.asmcheby import fused_asmcheby_pair, supports_asmcheby
 from ..ops.assembly import fused_assembly_pair, supports_fused_assembly
 from ..ops.cheby import chebyshev_momentum_strips, supports_cheby_strips
 from ..ops.compensated import compensated_linear_combination, compensated_norm, fold_dot
+from ..ops.highorder import (_OFFSETS, MomentumCoeffs9, apply_momentum9, neighbor_sum9,
+                             relax_coefficients9, shift, u_momentum_coefficients9,
+                             v_momentum_coefficients9)
 from ..ops.krylov import bicgstab_momentum, supports_fused_bicgstab
 from ..ops.powerlaw import (
     d_coefficient,
@@ -45,20 +51,25 @@ BACKENDS = ("auto", "kernel", "composed")
 
 
 def _apply(x, c):
-    return apply_stencil(x, c)
+    return apply_momentum9(x, c) if isinstance(c, MomentumCoeffs9) else apply_stencil(x, c)
 
 
 def _nbsum(x, c):
-    return neighbor_sum(x, c)
+    return neighbor_sum9(x, c) if isinstance(c, MomentumCoeffs9) else neighbor_sum(x, c)
 
 
 def _assemble_coeffs(u, v, p, *, dx, dy, rho, mu, scheme, is_u):
-    if scheme != "power_law":
-        raise NotImplementedError(
-            f"momentum scheme {scheme!r}: ops/highorder.py is not ported yet "
-            "(ROADMAP §1 item 11)")
-    fn = u_momentum_coefficients if is_u else v_momentum_coefficients
-    return fn(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu)
+    if scheme == "power_law":
+        fn = u_momentum_coefficients if is_u else v_momentum_coefficients
+        return fn(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu)
+    fn = u_momentum_coefficients9 if is_u else v_momentum_coefficients9
+    return fn(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu, scheme=scheme)
+
+
+def _relax(coeffs, field, alpha):
+    if isinstance(coeffs, MomentumCoeffs9):
+        return relax_coefficients9(coeffs, field, alpha)
+    return relax_coefficients(coeffs, field, alpha)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,8 +163,11 @@ def _bounds_from_rho(rho_raw, margin: float):
 def _chebyshev_bounds(c, mask, margin: float = 1.05):
     """Spectral interval for ``D^-1 A`` from Gershgorin: one global max."""
     safe_ap = torch.where(c.a_p == 0, torch.ones_like(c.a_p), c.a_p)
-    nb_abs = (torch.abs(c.a_e) + torch.abs(c.a_w)
-              + torch.abs(c.a_n) + torch.abs(c.a_s))
+    if isinstance(c, MomentumCoeffs9):
+        nb_abs = sum(torch.abs(getattr(c, name)) for name in _OFFSETS)
+    else:
+        nb_abs = (torch.abs(c.a_e) + torch.abs(c.a_w)
+                  + torch.abs(c.a_n) + torch.abs(c.a_s))
     ratio = torch.where(mask, nb_abs / safe_ap, torch.zeros_like(nb_abs))
     return _bounds_from_rho(torch.max(ratio), margin)
 
@@ -324,6 +338,7 @@ def _inner_solve(x0, c_rel, mask, cfg, bounds=None):
                                  cfg.bound_margin, bounds=bounds)
     if cfg.kind == "bicgstab":
         if (_backend(cfg) != "composed" and _cuda.kernel_device(x0)
+                and not isinstance(c_rel, MomentumCoeffs9)
                 and supports_fused_bicgstab(x0.shape, x0.dtype)):
             # the whole solve in one launch (K7), compensated dots
             return bicgstab_momentum(x0, c_rel, tol=cfg.tolerance, maxiter=cfg.max_iterations)
@@ -340,14 +355,20 @@ def _unrelaxed_residual(x_star, c_un, *, is_u: bool, compensated: bool = False):
     ``compensated``: the residual as an error-free transformation and the
     norm with compensated accumulation (``ops/compensated.py``)."""
     if compensated:
-        r, _ = compensated_linear_combination([
-            c_un.src,
-            (c_un.a_e, shift_e(x_star)),
-            (c_un.a_w, shift_w(x_star)),
-            (c_un.a_n, shift_n(x_star)),
-            (c_un.a_s, shift_s(x_star)),
-            (-c_un.a_p, x_star),
-        ])
+        if isinstance(c_un, MomentumCoeffs9):
+            terms = [c_un.src] + [(getattr(c_un, name), shift(x_star, di, dj))
+                                  for name, (di, dj) in _OFFSETS.items()] + [
+                (-c_un.a_p, x_star)]
+        else:
+            terms = [
+                c_un.src,
+                (c_un.a_e, shift_e(x_star)),
+                (c_un.a_w, shift_w(x_star)),
+                (c_un.a_n, shift_n(x_star)),
+                (c_un.a_s, shift_s(x_star)),
+                (-c_un.a_p, x_star),
+            ]
+        r, _ = compensated_linear_combination(terms)
     else:
         r = c_un.src - _apply(x_star, c_un)
     ni, nj = r.shape
@@ -401,7 +422,7 @@ def solve_u_momentum(u, v, p, *, dx, dy, rho, mu, alpha, bc: BoundaryConditions,
     else:
         c_un = _assemble_coeffs(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu,
                                 scheme=getattr(cfg, "scheme", "power_law"), is_u=True)
-        c_rel = relax_coefficients(c_un, u, alpha)
+        c_rel = _relax(c_un, u, alpha)
     mask = _u_interior_mask(u.shape, device=u.device)
     d_u = d_pre if d_pre is not None else d_coefficient(c_rel.a_p, dy, is_u=True)
     bounds = (None if gersh_rho is None
@@ -428,7 +449,7 @@ def solve_v_momentum(u, v, p, *, dx, dy, rho, mu, alpha, bc: BoundaryConditions,
     else:
         c_un = _assemble_coeffs(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu,
                                 scheme=getattr(cfg, "scheme", "power_law"), is_u=False)
-        c_rel = relax_coefficients(c_un, v, alpha)
+        c_rel = _relax(c_un, v, alpha)
     mask = _v_interior_mask(v.shape, device=v.device)
     d_v = d_pre if d_pre is not None else d_coefficient(c_rel.a_p, dx, is_u=False)
     bounds = (None if gersh_rho is None

@@ -234,6 +234,28 @@ def build_levels(d_u, d_v, cfg: MultigridConfig, *, dx, dy, rho, variant):
     return levels
 
 
+def levels_from_stencil(st: Stencil9, nx: int, ny: int, cfg: MultigridConfig):
+    """Continue Galerkin coarsening (composed) from an arbitrary 9-point
+    operator: the replicated tail of the distributed multigrid
+    (``parallel/dist_mg.py``), whose gathered stencil enters here as level
+    0.  ``five_point`` is False throughout (Galerkin levels are 9-point);
+    a mixed-parity level (a padded rectangular tail) ends the ladder."""
+    need_lam = cfg.smoother == "chebyshev"
+
+    def lam_of(s, shape):
+        return estimate_lambda_max(s, shape) if need_lam else None
+
+    levels = [(st, (nx, ny), False, lam_of(st, (nx, ny)))]
+    while min(nx, ny) > cfg.coarsest_grid_size:
+        if (nx % 2) != (ny % 2):
+            break
+        rf, pf, (nxc, nyc) = _level_transfers(nx, ny, cfg)
+        st = galerkin_coarsen(st, rf, pf, nxc, nyc)
+        levels.append((st, (nxc, nyc), False, lam_of(st, (nxc, nyc))))
+        nx, ny = nxc, nyc
+    return levels
+
+
 def _cycle(p, b, levels, lvl, cfg):
     """One V/W cycle at level ``lvl``."""
     st, (nx, ny), five, lam = levels[lvl]

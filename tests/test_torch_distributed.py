@@ -1,0 +1,276 @@
+"""The port's distributed SIMPLE / SIMPLEC / PISO (``parallel/dist_simple.py``)
+on meshes of gloo ranks, on the CPU (f64).
+
+* Every algorithm with every momentum kind (Jacobi, Chebyshev, BiCGSTAB
+  stopping early at its tolerance) and every pressure solver (Jacobi-PCG,
+  Chebyshev-PCG, RBGS, MGCG, MG, FMG), and the 9-point QUICK scheme, on a
+  2x2 mesh at 16^2 against the JAX package's ``distributed_simple_solve``
+  on a (2, 2) device mesh: every step's residual and the fields at rel
+  1e-10; the state the same bits on every rank; the pressure iterations of
+  every step equal to the same run on one rank.
+* A padded 30^2 grid on a 1x4 mesh (Jacobi-PCG and MGCG) against the JAX
+  package on a (1, 4) mesh; the chunked loop against the per-step loop.
+* Distributed QUICK against the single-device QUICK solve; the duplicated
+  shared faces bit-equal across neighbours after 10 steps.
+* Whether the single-device SIMPLE with Chebyshev momentum of degree 6 and
+  MGCG pressure runs the distributed Chebyshev + MGCG algorithm (64^2, one
+  rank): it does, to rounding, so the card's 1024^2 distributed run is
+  held to the single-device run.
+
+The rank bodies run in spawned processes (``tests/torch_ranks.py``), which
+import this module: it imports JAX only inside test functions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import naviflow_tpu_torch as nt
+from naviflow_tpu_torch.parallel.dist_simple import (DistributedConfig, aux_init,
+                                                     distributed_simple_solve,
+                                                     make_distributed_step)
+from naviflow_tpu_torch.parallel import decompose as d
+from naviflow_tpu_torch.parallel.sharding import make_device_mesh
+from torch_ranks import run_ranks
+
+torch.set_num_threads(2)
+
+N = 16
+STEPS = 5
+# the gather cutoff at 4: the 16^2 multigrid keeps 16^2 and 8^2 on the mesh
+BASE = dict(max_iterations=STEPS, tolerance=0.0, check_every=1, pressure_tol=1e-8,
+            pressure_max_iter=200, gather_cutoff=4)
+CASES = {
+    "simple-jacobi-chebcg": dict(),
+    "simple-jacobi-cg": dict(pressure_solver="cg"),
+    "simple-chebyshev-mgcg": dict(momentum_solver="chebyshev", pressure_solver="mgcg"),
+    "simple-bicgstab-cg": dict(momentum_solver="bicgstab", momentum_tol=1e-6,
+                               momentum_max_iter=40, pressure_solver="cg"),
+    "simple-jacobi-fmg": dict(pressure_solver="fmg", pressure_max_iter=4),
+    "simplec-jacobi-rbgs": dict(algorithm="simplec", pressure_solver="rbgs",
+                                pressure_max_iter=60),
+    "simplec-chebyshev-cg": dict(algorithm="simplec", momentum_solver="chebyshev",
+                                 pressure_solver="cg"),
+    "piso-jacobi-mg": dict(algorithm="piso", pressure_solver="mg", pressure_max_iter=6),
+    "piso-bicgstab-chebcg": dict(algorithm="piso", momentum_solver="bicgstab",
+                                 momentum_tol=1e-6, momentum_max_iter=40),
+    "simple-quick-cg": dict(scheme="quick", pressure_solver="cg"),
+}
+PADDED = {
+    "padded-jacobi-cg": dict(pressure_solver="cg"),
+    "padded-jacobi-mgcg": dict(pressure_solver="mgcg"),
+}
+SHARED_FACES = {"power_law": dict(pressure_solver="cg"),
+                "quick-bicgstab": dict(scheme="quick", momentum_solver="bicgstab",
+                                       pressure_solver="mgcg")}
+
+
+def _case(n):
+    return (nt.StructuredMesh(nx=n, ny=n), nt.FluidProperties(density=1.0, reynolds_number=100),
+            nt.lid_driven_cavity(1.0))
+
+
+def _solve(rm, n, kw, loop="per-step", steps=STEPS):
+    mesh, fluid, bc = _case(n)
+    cfg = DistributedConfig(**dict(BASE, **kw, max_iterations=steps))
+    state = nt.initialize_state(mesh, bc, dtype=torch.float64, device="cpu")
+    s, diag = distributed_simple_solve(mesh, fluid, bc, state, rm, cfg, loop=loop)
+    return dict(u=s.u, v=s.v, p=s.p, diag=diag)
+
+
+def _runs_body(rm, n, cases, chunked):
+    out = {name: _solve(rm, n, kw) for name, kw in cases.items()}
+    for name in chunked:
+        out[name + ":chunked"] = _solve(rm, n, dict(cases[name], check_every=4), "chunked",
+                                        steps=10)
+        out[name + ":per-step10"] = _solve(rm, n, dict(cases[name], check_every=4), steps=10)
+    return out
+
+
+def _faces_body(rm, n, steps):
+    """``steps`` distributed steps from rest; this rank's final blocks."""
+    mesh, fluid, bc = _case(n)
+    mx, my = rm.shape
+    dec = d.Decomp(nx=n, ny=n, mx=mx, my=my)
+    state = nt.initialize_state(mesh, bc, dtype=torch.float64, device="cpu")
+    out = {}
+    for name, kw in SHARED_FACES.items():
+        cfg = DistributedConfig(**dict(BASE, **kw))
+        dx, dy = mesh.get_cell_sizes()
+        step = make_distributed_step(rm, dec, bc, cfg, dx=dx, dy=dy, rho=1.0,
+                                     mu=fluid.get_viscosity())
+        u = d.block(d.to_blocked_u(state.u, mx, my), rm)
+        v = d.block(d.to_blocked_v(state.v, my, mx), rm)
+        p = d.block(d.to_blocked_p(state.p, mx, my), rm)
+        aux = aux_init(cfg, torch.float64)
+        for _ in range(steps):
+            u, v, p, *rest = step(u, v, p, *aux)
+            aux = tuple(rest[:-2])
+        out[name] = (u, v, (rm.bx, rm.by))
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh22(tmp_path_factory):
+    """Every case on one 2x2 spawn: the ranks' results, rank order."""
+    return run_ranks(_runs_body, (2, 2), tmp_path_factory.mktemp("mesh22"), N, CASES,
+                     ["simple-bicgstab-cg"], timeout=400)
+
+
+@pytest.fixture(scope="module")
+def mesh14(tmp_path_factory):
+    return run_ranks(_runs_body, (1, 4), tmp_path_factory.mktemp("mesh14"), 30, PADDED,
+                     ["padded-jacobi-cg"], timeout=300)
+
+
+@pytest.fixture(scope="module")
+def one_rank():
+    rm = make_device_mesh(device="cpu")
+    return {name: _solve(rm, N, kw) for name, kw in CASES.items()}
+
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.max(np.abs(got - want))) / float(np.max(np.abs(want)))
+
+
+def _jax_run(n, kw, shape):
+    import jax.numpy as jnp
+
+    import naviflow_tpu as nf
+    from naviflow_tpu.parallel.dist_simple import DistributedConfig as JDC
+    from naviflow_tpu.parallel.dist_simple import distributed_simple_solve as jsolve
+    from naviflow_tpu.parallel.sharding import make_device_mesh as jmesh
+
+    mesh = nf.StructuredMesh(nx=n, ny=n)
+    fluid = nf.FluidProperties(density=1.0, reynolds_number=100)
+    bc = nf.lid_driven_cavity(1.0)
+    return jsolve(mesh, fluid, bc, nf.initialize_state(mesh, bc, dtype=jnp.float64),
+                  jmesh(shape[0] * shape[1], shape=shape), JDC(**dict(BASE, **kw)),
+                  loop="per-step")
+
+
+def _held_to_jax(ranks, name, kw, n, shape):
+    js, jd = _jax_run(n, kw, shape)
+    got = ranks[0][name]
+    steps = np.asarray(got["diag"]["step_residuals"])
+    want = np.asarray(jd["residual_history"])  # check_every=1: one entry a step
+    assert steps.shape == want.shape == (STEPS,)
+    assert np.max(np.abs(steps - want) / want) < 1e-10, (steps, want)
+    for k in ("u", "v", "p"):
+        assert _rel(got[k].numpy(), getattr(js, k)) < 1e-10, k
+    for r in ranks[1:]:  # the global state is the same bits on every rank
+        for k in ("u", "v", "p"):
+            assert torch.equal(r[name][k], got[k])
+        assert r[name]["diag"] == got["diag"]
+    return got
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_distributed_matches_jax_2x2(name, mesh22, one_rank):
+    got = _held_to_jax(mesh22, name, CASES[name], N, (2, 2))
+    assert got["diag"]["inner_iterations"] == one_rank[name]["diag"]["inner_iterations"]
+    assert len(got["diag"]["inner_iterations"]) == STEPS
+
+
+@pytest.mark.parametrize("name", list(PADDED))
+def test_padded_grid_matches_jax_1x4(name, mesh14):
+    got = _held_to_jax(mesh14, name, PADDED[name], 30, (1, 4))
+    assert got["u"].shape == (31, 30) and got["v"].shape == (30, 31) and got["p"].shape == (30, 30)
+
+
+@pytest.mark.parametrize("fixture,name", [("mesh22", "simple-bicgstab-cg"),
+                                          ("mesh14", "padded-jacobi-cg")])
+def test_chunked_loop_matches_per_step(fixture, name, request):
+    """10 steps in chunks of 4 (the chunked loop runs on to 12, as the JAX
+    package's does) against 10 single steps: the first 10 steps' residuals
+    and pressure iterations identical."""
+    res = request.getfixturevalue(fixture)[0]
+    ch, ps = res[name + ":chunked"]["diag"], res[name + ":per-step10"]["diag"]
+    assert ch["iterations"] == 12 and ps["iterations"] == 10
+    assert ch["step_residuals"][:10] == ps["step_residuals"]
+    assert ch["inner_iterations"][:10] == ps["inner_iterations"]
+    assert len(ch["residual_history"]) == 3 and len(ps["residual_history"]) == 3
+
+
+def test_distributed_quick_matches_single_device(mesh22):
+    """The 2x2 QUICK run against the port's single-device QUICK SIMPLE with
+    the same Jacobi momentum and Jacobi-PCG pressure: every step's residual
+    and the fields at rel 1e-9, the same pressure iterations."""
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+    from naviflow_tpu_torch.solvers import CGPressureConfig, JacobiMomentumConfig
+
+    mesh, fluid, bc = _case(N)
+    s, diag = simple_solve(mesh, fluid, bc,
+                           nt.initialize_state(mesh, bc, dtype=torch.float64, device="cpu"),
+                           SIMPLEConfig(max_iterations=STEPS, tolerance=0.0),
+                           momentum=JacobiMomentumConfig(n_sweeps=2, scheme="quick"),
+                           pressure=CGPressureConfig(tolerance=1e-8, max_iterations=200))
+    got = mesh22[0]["simple-quick-cg"]
+    want = diag.total_res_history.numpy()[:STEPS]
+    assert np.max(np.abs(np.asarray(got["diag"]["step_residuals"]) - want) / want) < 1e-9
+    for k in ("u", "v", "p"):
+        assert _rel(got[k].numpy(), getattr(s, k).numpy()) < 1e-9, k
+    assert got["diag"]["inner_iterations"] == diag.inner_iters_history.numpy()[:STEPS].tolist()
+
+
+def test_shared_faces_bit_equal_after_10_steps(tmp_path):
+    """After 10 steps (power-law Jacobi + CG; QUICK BiCGSTAB + MGCG), each
+    u face on a block's x edge equals its x-neighbour's copy bit for bit,
+    and each v face on a y edge its y-neighbour's."""
+    res = run_ranks(_faces_body, (2, 2), tmp_path, 16, 10, timeout=200)
+    for name in SHARED_FACES:
+        blocks = {r[name][2]: r[name][:2] for r in res}
+        for by in range(2):
+            assert torch.equal(blocks[(0, by)][0][-1], blocks[(1, by)][0][0]), (name, by)
+        for bx in range(2):
+            assert torch.equal(blocks[(bx, 0)][1][:, -1], blocks[(bx, 1)][1][:, 0]), (name, bx)
+        assert float(torch.abs(blocks[(0, 0)][0][-1]).max()) > 0.0
+
+
+def test_single_device_mgcg_simple_is_the_distributed_algorithm():
+    """64^2, 10 steps from rest on one rank: the distributed SIMPLE with
+    Chebyshev momentum (degree 6) and MGCG pressure (one V-cycle, 2/2 GS,
+    32 coarsest sweeps, gather cutoff 32) against the single-device SIMPLE
+    with ``ChebyshevMomentumConfig(degree=6)`` and that ``MGCGPressureConfig``:
+    the same algorithm, every step's residual and the fields to 1e-12 and
+    the same CG iterations."""
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+    from naviflow_tpu_torch.solvers import (ChebyshevMomentumConfig, MGCGPressureConfig,
+                                            MultigridConfig)
+
+    n, steps = 64, 10
+    mesh, fluid, bc = _case(n)
+    fd, dd = distributed_simple_solve(
+        mesh, fluid, bc, nt.initialize_state(mesh, bc, dtype=torch.float64, device="cpu"),
+        make_device_mesh(device="cpu"),
+        DistributedConfig(max_iterations=steps, tolerance=0.0, momentum_solver="chebyshev",
+                          pressure_solver="mgcg", pressure_tol=1e-6, pressure_max_iter=60,
+                          gather_cutoff=32, check_every=steps))
+    fs, ds = simple_solve(
+        mesh, fluid, bc, nt.initialize_state(mesh, bc, dtype=torch.float64, device="cpu"),
+        SIMPLEConfig(max_iterations=steps, tolerance=0.0),
+        momentum=ChebyshevMomentumConfig(degree=6),
+        pressure=MGCGPressureConfig(tolerance=1e-6, max_iterations=60, mg=MultigridConfig(
+            pre_smoothing=2, post_smoothing=2, coarsest_sweeps=32)))
+    want = ds.total_res_history.numpy()[:steps]
+    assert np.max(np.abs(np.asarray(dd["step_residuals"]) - want) / want) < 1e-12
+    for k in ("u", "v", "p"):
+        assert _rel(getattr(fd, k).numpy(), getattr(fs, k).numpy()) < 1e-12, k
+    assert dd["inner_iterations"] == ds.inner_iters_history.numpy()[:steps].tolist()
+
+
+def test_interop_distributed_config():
+    """``interop.config`` maps the JAX ``DistributedConfig`` onto the port's:
+    the same fields and defaults."""
+    import dataclasses
+
+    from naviflow_tpu.parallel.dist_simple import DistributedConfig as JDC
+
+    from naviflow_tpu_torch import interop
+
+    assert [f.name for f in dataclasses.fields(JDC)] == [
+        f.name for f in dataclasses.fields(DistributedConfig)]
+    assert interop.config(JDC()) == DistributedConfig()
+    for kw in CASES.values():
+        assert interop.config(JDC(**dict(BASE, **kw))) == DistributedConfig(**dict(BASE, **kw))

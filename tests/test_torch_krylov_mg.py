@@ -293,7 +293,8 @@ def test_kernel_gates_match_jax_rules():
             assert mg.supports_fused(tlev, interop.config(jc)) == j_gate_fused(jlev, jc)
     sc = JSIMPLE()
     moms = [JKrylov(tolerance=1e-6, max_iterations=20), JKrylov(scheme="quick"),
-            nf.solvers.JacobiMomentumConfig()]
+            JKrylov(tolerance=1e-6, max_iterations=20, scheme="luds"),
+            nf.solvers.JacobiMomentumConfig(), nf.solvers.JacobiMomentumConfig(scheme="quick")]
     pres = [JMG(tolerance=1e-2, max_cycles=6, check_every=2, coarsest_sweeps=8,
                 coarse_rebuild_every=8), JMG(cycle_type="fmg"), JMG(smoother="jacobi"),
             nf.solvers.RBGSPressureConfig(), JMG(smoother="chebyshev"),
