@@ -62,7 +62,7 @@ result line:
    (``profile_window``: busy time from CUDA events around each step
    replayed behind a device-side sleep, the profiler's sum beside it);
 6. the FMG run: the same case with ``cycle_type='fmg'`` (which the K6 gate
-   refuses) for 40 steps: launches K7 = 80, K5 = 40, K4 = 1 + 5 refreshes,
+   refuses) for 20 steps: launches K7 = 40, K5 = 20, K4 = 1 + 3 refreshes,
    nothing else; residual finite, falling, within 5% of the composed run;
    the step's split (``fmg_split``: host and device ms per step of K7, K5,
    K4 and the composed FMG bootstrap, and the rest of the host's time) and
@@ -97,7 +97,7 @@ result line:
     and ``loop='chunked:300'``: every level converges, the Ghia infinity
     error is below 0.10, K7, K8, K5, K2 and K3 launch and no other kernel;
     each level's iterations, seconds, ms per step and launches; the device's
-    idle share over 8 fine-level steps; then the 128 -> 32 ladder, 40 steps a
+    idle share over 8 fine-level steps; then the 128 -> 32 ladder, 20 steps a
     level, with the kernels and composed: each level's final residual within
     5% (the largest per-step gap reported);
 11. MGCG at 1024^2, Re=1000, 10 steps from rest (CG to 1e-5 preconditioned
@@ -105,14 +105,19 @@ result line:
     composed: exact launches (K8 a step; a K2 pair per peeled level and one
     K3 per preconditioner application); the CG iterations of each step;
     final residual within 5% of the composed run's;
-12. the pressure-solver zoo at 64^2 and 63^2, Re=100, 20 steps: CG,
-    BiCGSTAB and GMRES with and without Jacobi preconditioning, Jacobi and
-    direct pressure, multigrid with the Jacobi, Chebyshev and bfloat16
-    smoothers, injection restriction and (63^2) rediscretized coarsening with
-    cubic prolongation, and the Gauss-Seidel multigrid baseline under the
-    'fused', 'host' and 'chunked:7' loops: each card run within 5% of the
-    same run on the CPU in float64; no K2, K3, K5 or K6 launch off the
-    Gauss-Seidel multigrid, at least one on it.
+12. the solver zoo at 64^2 and 63^2, Re=100: the pressure solvers (20
+    steps) CG, BiCGSTAB and GMRES with and without Jacobi preconditioning,
+    Jacobi and direct pressure, multigrid with the Jacobi, Chebyshev and
+    bfloat16 smoothers, injection restriction and (63^2) rediscretized
+    coarsening with cubic prolongation, and the Gauss-Seidel multigrid
+    baseline under the 'fused', 'host' and 'chunked:7' loops; the momentum
+    solvers (20 steps, Gauss-Seidel multigrid pressure) red-black GS, GMRES
+    and IDR(s), and (63^2) QUICK through GMRES: each card run within 1e-3
+    of the same run on the CPU in float64; no K2, K3, K5 or K6 launch off the
+    Gauss-Seidel multigrid, at least one on it; then SIMPLE at 1024^2 with
+    red-black GS momentum and bench.py's large-grid pressure, 10 steps:
+    K8 a step, a K2 pair per peeled level and one K3 a step, every step
+    within 1e-3 of the same run with composed pressure;
 13. the 9-point QUICK path (``run_quick``): ``benchmarks/scale_runs.py``'s
     511^2 QUICK configuration at Re=1000, 40 steps from rest, with the
     kernels and composed: launches exactly what the gates admit (K4 a step,
@@ -129,7 +134,25 @@ result line:
     SIMPLE, 10 steps, Chebyshev momentum and MGCG pressure, held to the
     single-device run of the same algorithm at 1e-3 (CG totals within
     10%), a control (CG to 1e-2) failing; ms and CG iterations a step,
-    collectives a step by kind, the idle share, and no kernel launch.
+    collectives a step by kind, and no kernel launch;
+15. the object API (``run_api``): the reference's driver pattern at 63^2
+    Re=100 with its constructors mapped onto the headline configuration,
+    ``SimpleSolver`` to 1e-5 with ``track_infinity_norm`` on the chunked
+    loop, bit-equal to ``simple_solve``, 568 iterations, K6 a step and K4
+    once, Ghia below 0.10; ``SimplecSolver``, ``PisoSolver`` and
+    ``SimplerSolver`` to 1e-3 in the algorithms63 phase's iterations;
+16. case batching (``run_batch``): ``batched_cavity_solve`` at 63^2, Re
+    100 / 400 / 1000, each case bit-equal to its single solve, K6 once per
+    iteration of every case;
+17. Newton-Krylov (``run_newton``): ``benchmarks/scale_runs.py``'s QUICK
+    pipeline at 255^2 Re=1000 (a SIMPLE warm start, then ``newton_solve``
+    to 1e-5): converged, Ghia below 0.10, K4 once a Newton step and K5 once
+    a preconditioner application; its captured tangent program against
+    ``torch.func.jvp``; the idle share over one Newton step of one GMRES
+    restart cycle; then the same pipeline at 63^2 against the port's CPU
+    float64 run (computed in a spawned process while the earlier phases
+    run): Newton iterations within one, u, v, p within 1e-3, and the
+    power-law residual in place of QUICK failing that.
 
 Then a JSON line with every kernel's launches, error, times and bound (K2:
 each level's too, and the launches a step), the card's name and power
@@ -155,7 +178,7 @@ N = 1024  # grid of the large-grid path (bench.py large-grid row)
 STEPS = 40
 NH = 63  # the headline grid (bench.py main)
 NH_BIG = 255  # the largest grid the K6 gate admits
-FMG_STEPS = 40
+FMG_STEPS = 20
 NL = 2048  # the large-grid algorithms' grid (bench.py large-grid row)
 # outer steps of each large-grid run, and of the 63^2 algorithm runs' JAX
 # counts to 1e-3 (the JAX package in float32 on the CPU, bench.py's
@@ -174,9 +197,9 @@ PLANE_STEPS = 6
 NS = 1024
 RE_SEQ = 1000.0
 SEQ_CHECK_GRID = 128  # the kernels-against-composed ladder 128 -> 32
-SEQ_CHECK_STEPS = 40
+SEQ_CHECK_STEPS = 20
 PROFILE_STEPS = 8
-SEQ_PROFILE_LEVELS = (32, 64, 128, 256, 512)  # idle share over their first steps
+SEQ_PROFILE_LEVELS = (32, 128)  # idle share over their first steps
 # The path-level comparisons' limit on relative gaps (final residuals, a
 # residual history's steps, the u, v, p fields) and on the relative gap of
 # the inner-iteration totals where a rounding moves each step's count
@@ -186,17 +209,32 @@ GAP_LIMIT = 1e-3
 ITER_TOTAL_LIMIT = 0.10
 MGCG_STEPS = 10
 SOLVER_GRIDS = (64, 63)
-SOLVER_STEPS = 20
+SOLVER_STEPS = 20  # the pressure zoo's steps
+MOMENTUM_STEPS = 20  # the momentum zoo's
 RE = 100.0
 # the quick phase: benchmarks/scale_runs.py's 511^2 QUICK configuration at
 # its schedule's first Reynolds number (per_re(1000): alpha_p 0.25 * 0.6)
 NQ, RE_Q, QUICK_STEPS, QUICK_ALPHA_P = 511, 1000.0, 40, 0.15
 # the distributed phase: bench.py's 64^2 parity check, then 1024^2
 NB, BENCH_DIST_STEPS = 64, 5
-ND, DIST_STEPS, DIST_PROFILE_STEPS = 1024, 10, 1
+ND, DIST_STEPS = 1024, 10
 BENCH_DIST_LIMIT = 1e-4  # bench.py _distributed_check's limit on max |du|, |dv|
+RBGS_LARGE_STEPS = 10  # the solvers phase's 1024^2 red-black GS momentum run
+# the newton phase: benchmarks/scale_runs.py's QUICK Newton pipeline
+# (run_newton_511) at Re=1000 on 255^2, and at 63^2 against the port's CPU
+# float64 run of the same pipeline, which takes minutes of one CPU core (the
+# preconditioner's composed multigrid), so a spawned process computes it
+# while the card runs the earlier phases (``start_newton_reference``)
+NN, NN_SMALL, RE_N = 255, 63, 1000.0
+NEWTON_WARM_STEPS = {NN: 300, NN_SMALL: 200}  # SIMPLE warm-start steps from rest
+NEWTON_REFERENCE_TIMEOUT = 900.0  # seconds the newton phase waits for it
+NEWTON_ITER_SLACK = 1  # Newton iterations of the card's 63^2 run: the reference's +-1
+BATCH_RE = (100.0, 400.0, 1000.0)  # the batch phase's cases (63^2, headline config)
+BATCH_TOLERANCE, BATCH_MAX_IT = 1e-3, 3000
+ALGORITHMS63_ITERATIONS = {}  # the algorithms63 phase's kernel runs (name -> iterations)
 SEED = 0
 REPS = 20  # timed launches per kernel measurement
+PLAIN_REPS = 4  # timed calls per turn of a kernel's plain version
 SLEEP_CYCLES = 60_000_000  # device_ms's head start: ~30 ms of the SM clock
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
@@ -210,8 +248,16 @@ F32_FLOPS_PER_S = 67e12
 APPLY5, APPLY9, DOT2, GS_UPDATE = 9, 17, 25, 3
 
 
+def _json_scalar(x):
+    """numpy scalars (a comparison's ``numpy.bool``, an ``np.float64``) as
+    Python ones."""
+    if hasattr(x, "item"):
+        return x.item()
+    raise TypeError(f"Object of type {type(x).__name__} is not JSON serializable")
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    print(json.dumps(obj, default=_json_scalar), flush=True)
 
 
 def nvidia_smi():
@@ -247,9 +293,11 @@ def time_ms(fn, reps=REPS):
 
 def time_pair(plain, kernel, reps=REPS):
     """ms per call of each, in turns plain, kernel, kernel, plain, and the
-    kernel's device time per call (``device_ms``)."""
-    p1, k1 = time_ms(plain, reps), time_ms(kernel, reps)
-    k2, p2 = time_ms(kernel, reps), time_ms(plain, reps)
+    kernel's device time per call (``device_ms``).  The plain version runs
+    ``PLAIN_REPS`` calls a turn: it is host-bound and up to 0.5 s a call
+    (K6's bodies), where the kernel takes 0.01-1 ms."""
+    p1, k1 = time_ms(plain, PLAIN_REPS), time_ms(kernel, reps)
+    k2, p2 = time_ms(kernel, reps), time_ms(plain, PLAIN_REPS)
     return (k1 + k2) / 2, (p1 + p2) / 2, device_ms(kernel, reps)
 
 
@@ -2121,6 +2169,7 @@ def run_algorithms63(dev):
         runs[name] = row
         ok &= row["ok"]
         paths[name] = launches
+        ALGORITHMS63_ITERATIONS[name] = it_k
     return dict(phase="algorithms63", grid=NH, re=RE, tolerance=1e-3, runs=runs, ok=ok,
                 paths=paths)
 
@@ -2320,8 +2369,8 @@ def run_sequenced(dev):
     BENCH_MODE=seq configuration) through the port with every kernel: each
     level's iterations, convergence, seconds and launches; the Ghia error
     of the fine state; the device's idle share over 8 fine-level steps and
-    over each coarse level's first 8 steps.  Then the 128 -> 32 ladder, 40
-    steps a level, with the kernels and composed: each level's final
+    over the first 8 steps of the 32^2 and 128^2 levels.  Then the 128 -> 32
+    ladder, 20 steps a level, with the kernels and composed: each level's final
     residual and every step of its history, and the fine fields, within
     ``GAP_LIMIT``; and a control (the kernels with a V-cycle tolerance of
     2e-2 in place of 1e-2) that must exceed it."""
@@ -2365,7 +2414,7 @@ def run_sequenced(dev):
         coarse_profiles[str(nx)] = prof
     del calls
 
-    # kernels against composed on the 128 -> 32 ladder, 40 steps a level
+    # kernels against composed on the 128 -> 32 ladder, 20 steps a level
     runs = {}
     for name, backend, tol in (("auto", "auto", pres.tolerance),
                                ("composed", "composed", pres.tolerance),
@@ -2517,20 +2566,82 @@ def solver_controls():
                                    lambda p: dataclasses.replace(p, max_iterations=50))}
 
 
+def momentum_configs(n):
+    """The momentum zoo of the solvers phase (name -> momentum config), run
+    with the Gauss-Seidel multigrid pressure: red-black GS, GMRES and
+    IDR(s) on the power-law scheme and, on the odd grid, GMRES on QUICK."""
+    from naviflow_tpu_torch.solvers import (GMRESMomentumConfig, IDRSMomentumConfig,
+                                            RBGSMomentumConfig)
+
+    out = {"mom_rbgs": RBGSMomentumConfig(n_sweeps=2),
+           "mom_gmres": GMRESMomentumConfig(tolerance=1e-6, max_iterations=40, restart=10),
+           "mom_idrs": IDRSMomentumConfig(tolerance=1e-6, max_iterations=30, s=4)}
+    if n % 2:
+        out["mom_gmres_quick"] = GMRESMomentumConfig(tolerance=1e-6, max_iterations=40,
+                                                     restart=10, scheme="quick")
+    return out
+
+
+def rbgs_large(dev, steps=RBGS_LARGE_STEPS):
+    """SIMPLE at 1024^2 with red-black GS momentum and bench.py's large-grid
+    pressure: the assembly gate (K8) admits the kind, as the JAX gate does,
+    and the pressure runs K2 on the peeled levels and K3 on the tail.  Held
+    step by step to the same run with composed pressure (K8 still runs: the
+    momentum config has no backend)."""
+    import dataclasses
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+    from naviflow_tpu_torch.solvers import RBGSMomentumConfig
+
+    mesh, fluid, bc = cavity_case(N)
+    mom = RBGSMomentumConfig(n_sweeps=2)
+    _, pres = large_grid_configs()
+
+    def run(backend):
+        state = nt.initialize_state(mesh, bc, device=dev)
+        torch_sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out, diag = simple_solve(mesh, fluid, bc, state,
+                                 SIMPLEConfig(max_iterations=steps, tolerance=0.0),
+                                 momentum=mom, pressure=dataclasses.replace(pres, backend=backend))
+        torch_sync()
+        return out, diag, (time.perf_counter() - t0) * 1e3 / steps, counts()
+
+    run("auto")  # warm-up
+    sk, dk, ms_k, launches = run("auto")
+    sc, dc, ms_c, launches_c = run("composed")
+    peeled = peeled_strip_levels(N, pres)
+    want = only(fused_assembly_pair=steps, strip_down=peeled * steps, strip_up=peeled * steps,
+                fused_vcycle=steps)
+    gap = history_gap(dk, dc, steps)
+    out = dict(grid=N, steps=steps, launches=launches, launches_expected=want,
+               launches_composed_pressure=launches_c, ms_per_step=ms_k,
+               ms_per_step_composed_pressure=ms_c, history_gap=gap,
+               fields=field_gaps(sk, sc), residual_first=float(dk.total_res_history[0]),
+               residual_last=float(dk.total_res_history[steps - 1]))
+    out["ok"] = (launches == want and launches_c == only(fused_assembly_pair=steps)
+                 and gap <= GAP_LIMIT and max(out["fields"].values()) <= GAP_LIMIT)
+    return out
+
+
 def run_solvers(dev):
-    """SIMPLE at 64^2 and 63^2, Re=100, 20 steps from rest, with each newly
-    ported pressure configuration (CG, BiCGSTAB and GMRES with and without
-    Jacobi preconditioning, Jacobi and direct pressure, multigrid with the
-    Jacobi, Chebyshev and bfloat16 smoothers, injection restriction and
-    (63^2) rediscretized coarsening with cubic prolongation) and with the
-    'host' and 'chunked:7' loops: each card run (float32) against the same
-    run on the CPU in float64: the final residual and the u, v, p fields
-    within ``GAP_LIMIT``, and the inner iterations of every step equal
-    (BiCGSTAB, whose count a rounding moves by up to 20 a step: their
-    total within ``ITER_TOTAL_LIMIT``); the controls (``solver_controls``)
-    must fail that.  The configurations other than the Gauss-Seidel
-    multigrid launch none of K2, K3, K5 and K6, and the Gauss-Seidel ones
-    do."""
+    """SIMPLE at 64^2 and 63^2, Re=100, from rest, with each newly ported
+    pressure configuration (``solver_configs``, 20 steps: CG, BiCGSTAB and
+    GMRES with and without Jacobi preconditioning, Jacobi and direct
+    pressure, multigrid with the Jacobi, Chebyshev and bfloat16 smoothers,
+    injection restriction and (63^2) rediscretized coarsening with cubic
+    prolongation, and the 'host' and 'chunked:7' loops) and with each newly
+    ported momentum solver (``momentum_configs``, 20 steps): each card run
+    (float32) against the same run on the CPU in float64: the final
+    residual and the u, v, p fields within ``GAP_LIMIT``, and the inner
+    iterations of every step equal (BiCGSTAB pressure, whose count a
+    rounding moves by up to 20 a step, and the GMRES and IDR(s) momentum
+    runs: their total within ``ITER_TOTAL_LIMIT``); the controls
+    (``solver_controls``) must fail that.  The configurations other than
+    the Gauss-Seidel multigrid launch none of K2, K3, K5 and K6, and the
+    Gauss-Seidel ones do.  Then ``rbgs_large`` (1024^2)."""
     import torch
 
     import naviflow_tpu_torch as nt
@@ -2538,50 +2649,55 @@ def run_solvers(dev):
 
     gs_kernels = ("strip_down", "strip_up", "fused_vcycle", "fused_mg_solve",
                   "fused_outer_step")
-    mom, _ = headline_configs()
-    cfg = SIMPLEConfig(max_iterations=SOLVER_STEPS, tolerance=0.0)
+    head_mom, gs = headline_configs()
     runs, ok, total = {}, True, {k: 0 for k in counts()}
 
-    def solve(mesh, fluid, bc, pres, loop, where, dtype):
+    def solve(mesh, fluid, bc, mom, pres, loop, where, dtype, steps):
         state = nt.initialize_state(mesh, bc, dtype=dtype, device=where)
         torch_sync()
         reset_counts()
         t0 = time.perf_counter()
-        out, diag = simple_solve(mesh, fluid, bc, state, cfg, momentum=mom, pressure=pres,
-                                 loop=loop)
+        out, diag = simple_solve(mesh, fluid, bc, state,
+                                 SIMPLEConfig(max_iterations=steps, tolerance=0.0),
+                                 momentum=mom, pressure=pres, loop=loop)
         torch_sync()
-        return out, diag, (time.perf_counter() - t0) * 1e3 / SOLVER_STEPS, counts()
+        return out, diag, (time.perf_counter() - t0) * 1e3 / steps, counts()
 
-    def held(name, card, cpu):
+    def held(name, card, cpu, steps):
         (sk, dk, _, _), (sc, dc, _, _) = card, cpu
         res_k, res_c = float(dk.final_residual), float(dc.final_residual)
-        inner_k = dk.inner_iters_history[:SOLVER_STEPS].tolist()
-        inner_c = dc.inner_iters_history[:SOLVER_STEPS].tolist()
+        inner_k = dk.inner_iters_history[:steps].tolist()
+        inner_c = dc.inner_iters_history[:steps].tolist()
         out = dict(iterations=int(dk.iterations), inner_iterations=inner_k,
                    inner_iterations_cpu=inner_c, residual_card_f32=res_k,
                    residual_cpu_f64=res_c, residual_gap=abs(res_k - res_c) / res_c,
                    fields=field_gaps(sk, sc),
                    inner_total_gap=abs(sum(inner_k) - sum(inner_c)) / sum(inner_c))
-        inner_ok = (out["inner_total_gap"] <= ITER_TOTAL_LIMIT if name.startswith("bicgstab")
+        inner_ok = (out["inner_total_gap"] <= ITER_TOTAL_LIMIT
+                    if name.startswith(("bicgstab", "mom_gmres", "mom_idrs"))
                     else inner_k == inner_c)
         out["held"] = (max(out["residual_gap"], *out["fields"].values()) <= GAP_LIMIT
-                       and inner_ok and out["iterations"] == SOLVER_STEPS)
+                       and inner_ok and out["iterations"] == steps)
         return out
 
     controls = {}
     for n in SOLVER_GRIDS:
         mesh, fluid, bc = cavity_case(n)
-        configs = solver_configs(n)
-        for name, (pres, loop) in configs.items():
-            card = solve(mesh, fluid, bc, pres, loop, dev, torch.float32)
-            cpu = solve(mesh, fluid, bc, pres, loop, "cpu", torch.float64)
+        cases = {name: (head_mom, pres, loop, SOLVER_STEPS)
+                 for name, (pres, loop) in solver_configs(n).items()}
+        cases.update({name: (mom, gs, "fused", MOMENTUM_STEPS)
+                      for name, mom in momentum_configs(n).items()})
+        for name, (mom, pres, loop, steps) in cases.items():
+            card = solve(mesh, fluid, bc, mom, pres, loop, dev, torch.float32, steps)
+            cpu = solve(mesh, fluid, bc, mom, pres, loop, "cpu", torch.float64, steps)
             launches = card[3]
-            gs = sum(launches[k] for k in gs_kernels)
-            gs_ok = gs > 0 if name.startswith(("mg_gs", "loop_")) else gs == 0
+            gs_launches = sum(launches[k] for k in gs_kernels)
+            gs_ok = (gs_launches > 0 if name.startswith(("mg_gs", "loop_", "mom_"))
+                     else gs_launches == 0)
             for k, v in launches.items():
                 total[k] += v
-            row = held(name, card, cpu)
-            row.update(ms_per_step_card=card[2], ms_per_step_cpu=cpu[2],
+            row = held(name, card, cpu, steps)
+            row.update(steps=steps, ms_per_step_card=card[2], ms_per_step_cpu=cpu[2],
                        launches={k: v for k, v in launches.items() if v}, gs_kernels_ok=gs_ok,
                        ok=row["held"] and gs_ok)
             runs[f"{n}:{name}"] = row
@@ -2589,15 +2705,350 @@ def run_solvers(dev):
             if n == SOLVER_GRIDS[0]:
                 for cname, (base, change) in solver_controls().items():
                     if base == name:
-                        c = held(base, solve(mesh, fluid, bc, change(pres), loop, dev,
-                                             torch.float32), cpu)
+                        c = held(base, solve(mesh, fluid, bc, mom, change(pres), loop, dev,
+                                             torch.float32, steps), cpu, steps)
                         controls[f"{n}:{cname}"] = dict(c, detected=not c["held"])
                         ok &= not c["held"]
     largest = {k: max(max(r[k] if k != "fields" else max(r[k].values()) for r in runs.values()),
                       0.0) for k in ("residual_gap", "fields", "inner_total_gap")}
-    return dict(phase="solvers", grids=SOLVER_GRIDS, re=RE, steps=SOLVER_STEPS, runs=runs,
-                largest=largest, limits=dict(gap=GAP_LIMIT, iter_total=ITER_TOTAL_LIMIT),
-                controls=controls, launches=total, ok=ok)
+    large = rbgs_large(dev)
+    for k, v in large["launches"].items():
+        total[k] += v
+    return dict(phase="solvers", grids=SOLVER_GRIDS, re=RE, steps=SOLVER_STEPS,
+                momentum_steps=MOMENTUM_STEPS, runs=runs, largest=largest,
+                limits=dict(gap=GAP_LIMIT, iter_total=ITER_TOTAL_LIMIT), controls=controls,
+                rbgs1024=large, launches=total, ok=ok and large["ok"])
+
+
+def newton_configs(scheme="quick"):
+    """``benchmarks/scale_runs.py``'s QUICK Newton pipeline at its target
+    Reynolds number (``run_newton_511``, ``per_re(re_target)``): the SIMPLE
+    warm start (alpha_p 0.18 x 0.6, alpha_u 0.6; BiCGSTAB QUICK momentum to
+    1e-6 in <= 30 iterations; V-cycles to 1e-2, <= 10, checked every 2, 48
+    coarsest sweeps), then ``NewtonConfig`` (1e-5, GMRES(60) to 1e-2 in <=
+    240 iterations, <= 30 steps) with the preconditioner's V-cycles to 1e-3
+    (<= 12, checked every 4, 48 coarsest sweeps).  ``scheme`` is Newton's
+    residual scheme (the warm start is QUICK)."""
+    from naviflow_tpu_torch.algorithms import NewtonConfig, SIMPLEConfig
+    from naviflow_tpu_torch.solvers import KrylovMomentumConfig, MultigridConfig
+
+    cfg = SIMPLEConfig(max_iterations=1, tolerance=0.0, alpha_p=0.18 * 0.6, alpha_u=0.6)
+    mom = KrylovMomentumConfig(tolerance=1e-6, max_iterations=30, scheme="quick")
+    pres = MultigridConfig(tolerance=1e-2, max_cycles=10, cycle_type="v", check_every=2,
+                           coarsest_sweeps=48)
+    ncfg = NewtonConfig(tolerance=1e-5, scheme=scheme, max_newton=30, gmres_tol=1e-2,
+                        gmres_restart=60, gmres_maxiter=240)
+    npres = MultigridConfig(tolerance=1e-3, max_cycles=12, check_every=4, coarsest_sweeps=48)
+    return cfg, mom, pres, ncfg, npres
+
+
+def newton_pipeline(n, device, dtype, scheme="quick", warm=None):
+    """The warm start (``NEWTON_WARM_STEPS[n]`` SIMPLE steps from rest, or
+    the given state) and then ``newton_solve`` of the n^2 Re=1000 cavity;
+    the launches are the Newton run's alone."""
+    import dataclasses
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import newton_solve, simple_solve
+    from naviflow_tpu_torch.postprocessing.validation import infinity_norm_error
+
+    cuda = torch_device_type(device) == "cuda"
+    mesh = nt.StructuredMesh(nx=n, ny=n)
+    fluid = nt.FluidProperties(density=1.0, reynolds_number=RE_N)
+    bc = nt.lid_driven_cavity(1.0)
+    cfg, mom, pres, ncfg, npres = newton_configs(scheme)
+    out = dict(grid=n, re=RE_N, scheme=scheme, warm_steps=NEWTON_WARM_STEPS[n])
+    if warm is None:
+        t0 = time.perf_counter()
+        warm, wdiag = simple_solve(
+            mesh, fluid, bc, nt.initialize_state(mesh, bc, dtype=dtype, device=device),
+            dataclasses.replace(cfg, max_iterations=NEWTON_WARM_STEPS[n]), momentum=mom,
+            pressure=pres)
+        if cuda:
+            torch_sync()
+        out.update(warm_s=time.perf_counter() - t0, warm_residual=float(wdiag.final_residual))
+    reset_counts()
+    t0 = time.perf_counter()
+    state, diag = newton_solve(mesh, fluid, bc, warm, ncfg, pressure=npres)
+    if cuda:
+        torch_sync()
+    wall = time.perf_counter() - t0
+    out.update(newton_s=wall, launches=counts(), iterations=diag.iterations,
+               converged=diag.converged, final_residual=diag.final_residual,
+               history=list(diag.residual_history), gmres_iterations=diag.gmres_iterations,
+               ms_per_gmres_iteration=wall * 1e3 / max(diag.gmres_iterations, 1),
+               ghia_infinity_error=infinity_norm_error(state.u, state.v, mesh, int(RE_N)))
+    return out, warm, state, (mesh, fluid, bc, ncfg, npres)
+
+
+def torch_device_type(device):
+    import torch
+
+    return torch.device(device).type
+
+
+def _newton_reference_worker(conn):
+    """The 63^2 pipeline on the CPU in float64, in a spawned process: sends
+    the final u, v, p (numpy), the Newton and GMRES iterations, the history
+    and the timings, or the traceback of a failure."""
+    import traceback
+
+    import torch
+
+    try:
+        torch.set_num_threads(1)  # one core: the card's phases run beside it
+        row, _, state, _ = newton_pipeline(NN_SMALL, "cpu", torch.float64)
+        row.pop("launches")
+        conn.send(dict(row, **{f: getattr(state, f).numpy() for f in ("u", "v", "p")}))
+    except Exception:
+        conn.send(dict(error=traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+_NEWTON_REFERENCE = []  # (process, connection) of the running reference
+
+
+def start_newton_reference():
+    """Start the newton phase's CPU float64 reference in a spawned process
+    (no CUDA in it); :func:`newton_reference` collects it."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_newton_reference_worker, args=(send,), daemon=True)
+    proc.start()
+    send.close()
+    _NEWTON_REFERENCE.append((proc, recv))
+
+
+def newton_reference(timeout=NEWTON_REFERENCE_TIMEOUT):
+    """The reference's result (started here if :func:`start_newton_reference`
+    was not called); the process is joined, or killed on a timeout."""
+    if not _NEWTON_REFERENCE:
+        start_newton_reference()
+    proc, recv = _NEWTON_REFERENCE.pop()
+    try:
+        if not recv.poll(timeout):
+            raise RuntimeError(f"the CPU float64 Newton reference took over {timeout} s")
+        out = recv.recv()
+    finally:
+        stop_newton_reference(proc)
+    if "error" in out:
+        raise RuntimeError(f"the CPU float64 Newton reference failed:\n{out['error']}")
+    return out
+
+
+def stop_newton_reference(proc=None):
+    """Join the reference's process (terminate it if it still runs)."""
+    procs = [proc] if proc is not None else [p for p, _ in _NEWTON_REFERENCE]
+    for p in procs:
+        p.join(timeout=5.0)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if proc is None:
+        _NEWTON_REFERENCE.clear()
+
+
+def run_api(dev):
+    """The reference's driver pattern through the object API at 63^2,
+    Re=100, with its constructors mapped onto bench.py's headline
+    configuration (``MultiGridSolver`` V-cycles to 1e-2, <= 6, checked
+    every 2, 8 coarsest sweeps, coarse rebuild every 8;
+    ``AMGMomentumSolver`` -> BiCGSTAB to 1e-6 in <= 20): ``SimpleSolver``
+    on the card (its default device) to 1e-5 with ``track_infinity_norm``
+    and the chunked loop, held bit for bit to the functional
+    ``simple_solve`` with the same config and loop, 568 iterations (the JAX
+    package's, ``BENCH_r05.json``), K6 a step and K4 once, the Ghia error
+    below 0.10, the profiler's iteration count and history; then
+    ``SimplecSolver``, ``PisoSolver`` and ``SimplerSolver`` to 1e-3 in the
+    iterations of the algorithms63 phase's kernel runs."""
+    import dataclasses
+
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch import api
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+
+    mesh, fluid, _ = cavity_case(NH)
+    pres = dataclasses.replace(api.MultiGridSolver(tolerance=1e-2, max_iterations=6),
+                               check_every=2, coarsest_sweeps=8, coarse_rebuild_every=8)
+    mom = api.AMGMomentumSolver(tolerance=1e-6, max_iterations=20)
+    headline = (mom, pres) == headline_configs()
+
+    def run_pattern(cls, tol, **kw):
+        algo = cls(mesh, fluid, pres, mom, api.StandardVelocityUpdater(), alpha_p=0.3,
+                   alpha_u=0.7)
+        algo.set_boundary_condition("top", "velocity", {"u": 1.0})
+        reset_counts()
+        t0 = time.perf_counter()
+        result = algo.solve(max_iterations=4000, tolerance=tol, **kw)
+        return algo, result, time.perf_counter() - t0, counts()
+
+    run_pattern(api.SimpleSolver, 1e-3)  # warm-up
+    algo, result, wall, launches = run_pattern(api.SimpleSolver, 1e-5,
+                                               track_infinity_norm=True, loop="chunked")
+    bc = algo.bc
+    state, diag = simple_solve(mesh, fluid, bc, nt.initialize_state(mesh, bc, device=dev),
+                               SIMPLEConfig(alpha_p=0.3, alpha_u=0.7, max_iterations=4000,
+                                            tolerance=1e-5),
+                               momentum=mom, pressure=pres, loop="chunked")
+    torch_sync()
+    it = result.iterations
+    bit_equal = (diag.iterations == it and all(
+        torch.equal(getattr(algo.state, k), getattr(state, k)) for k in ("u", "v", "p"))
+        and torch.equal(torch.as_tensor(result.residuals),
+                        diag.total_res_history[:it].cpu()))
+    inf_hist = result.get_history("infinity_norm_error")
+    prof = algo.profiler
+    want = only(fused_outer_step=it, galerkin_levels=1)
+    simple = dict(iterations=it, iterations_jax_cpu=JAX_ITERATIONS_HEADLINE[1e-5],
+                  converged=result.converged, wall_s=wall, ms_per_step=wall * 1e3 / max(it, 1),
+                  profiler_total_s=prof.total_time, bit_equal_to_functional=bit_equal,
+                  ghia_infinity_error=result.calculate_infinity_norm_error(),
+                  infinity_norm_history=[float(x) for x in inf_hist],
+                  profiler_iterations=prof.iterations,
+                  profiler_history_length=len(prof.convergence_info["residual_history"]),
+                  launches=launches, launches_expected=want)
+    ok = (headline and bit_equal and result.converged and it == JAX_ITERATIONS_HEADLINE[1e-5]
+          and launches == want and simple["ghia_infinity_error"] < 0.10
+          and prof.iterations == it and simple["profiler_history_length"] == it
+          and len(inf_hist) == -(-it // 400) + 1 and inf_hist[-1] < 0.10)
+    others = {}
+    for name, cls in (("simplec", api.SimplecSolver), ("piso", api.PisoSolver),
+                      ("simpler", api.SimplerSolver)):
+        _, res, w, launched = run_pattern(cls, 1e-3)
+        want_it = ALGORITHMS63_ITERATIONS.get(name, JAX_ITERATIONS_63[name])
+        others[name] = dict(iterations=res.iterations, iterations_algorithms63=want_it,
+                            converged=res.converged, wall_s=w, launches=launched)
+        ok &= (res.converged and res.iterations == want_it
+               and launched == only(fused_outer_step=res.iterations, galerkin_levels=1))
+    return dict(phase="api", grid=NH, re=RE, headline_configs=headline, simple=simple,
+                algorithms=others, launches=launches, ok=bool(ok))
+
+
+def run_batch(dev):
+    """``batched_cavity_solve`` at 63^2, Re 100 / 400 / 1000, with the
+    headline configuration to ``BATCH_TOLERANCE``: each case equal to its
+    single solve bit for bit, the cases' iteration counts all different,
+    K6 launched once per iteration of every case and K4 once per case."""
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, batched_cavity_solve, simple_solve
+
+    mesh, _, bc = cavity_case(NH)
+    mom, pres = headline_configs()
+    cfg = SIMPLEConfig(max_iterations=BATCH_MAX_IT, tolerance=BATCH_TOLERANCE)
+    torch_sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = batched_cavity_solve(mesh, BATCH_RE, bc, cfg, mom, pres, device=dev)
+    torch_sync()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    cases, ok = [], True
+    for re, (bs, bd) in zip(BATCH_RE, out):
+        fluid = nt.FluidProperties(density=1.0, reynolds_number=re)
+        ss, sd = simple_solve(mesh, fluid, bc, nt.initialize_state(mesh, bc, device=dev), cfg,
+                              momentum=mom, pressure=pres, loop="fused")
+        equal = (bd.iterations == sd.iterations
+                 and all(torch.equal(getattr(bs, k), getattr(ss, k)) for k in ("u", "v", "p"))
+                 and torch.equal(bd.total_res_history, sd.total_res_history))
+        cases.append(dict(re=re, iterations=bd.iterations, converged=bool(bd.converged),
+                          final_residual=float(bd.final_residual), bit_equal=equal))
+        ok &= equal and bool(bd.converged)
+    iters = [c["iterations"] for c in cases]
+    want = only(fused_outer_step=sum(iters), galerkin_levels=len(BATCH_RE))
+    ok &= launches == want and len(set(iters)) == len(iters)
+    return dict(phase="batch", grid=NH, reynolds=list(BATCH_RE), tolerance=BATCH_TOLERANCE,
+                cases=cases, wall_s=wall, ms_per_step=wall * 1e3 / sum(iters),
+                launches=launches, launches_expected=want, ok=ok)
+
+
+def tangent_graph_check(warm, mesh, fluid, bc, scheme):
+    """Newton's captured tangent program (one CUDA graph replay) against
+    ``torch.func.jvp`` of the same residual at the warm state, along a
+    seeded direction: the relative max gap."""
+    import torch
+
+    from naviflow_tpu_torch.algorithms import newton as tnewton
+    from naviflow_tpu_torch.core.bc import apply_velocity_bcs
+
+    su, sv, sp = (tuple(getattr(warm, f).shape) for f in ("u", "v", "p"))
+    kw = dict(dx=mesh.dx, dy=mesh.dy, rho=fluid.get_density(), mu=fluid.get_viscosity(),
+              bc=bc, scheme=scheme, su=su, sv=sv, sp=sp)
+    F = tnewton.make_residual(**kw)
+    w = tnewton._flatten(*apply_velocity_bcs(warm.u, warm.v, bc), warm.p)
+    z = torch.randn(w.shape, generator=torch.Generator().manual_seed(SEED)).to(w)
+    key = (su, sv, sp, kw["dx"], kw["dy"], kw["rho"], kw["mu"], bc, scheme, w.dtype, w.device)
+    linearize = tnewton._LINEARIZATIONS.get(key) or tnewton.split_linearization(F, w)
+    got = linearize(w)[1](z)
+    want = torch.func.jvp(F, (w,), (z,))[1]
+    torch_sync()
+    return dict(rel_err=rel_gap(got, want), bit_equal=bool(torch.equal(got, want)),
+                replays=tnewton.GraphedTangent.REPLAYS)
+
+
+def run_newton(dev):
+    """Newton-Krylov on the card: (a) ``newton_configs``' pipeline at 255^2
+    QUICK Re=1000: converged to 1e-5, Ghia below 0.10, K4 once per
+    linearization (the preconditioner's hierarchy) and K5 once per
+    preconditioner application (GMRES(m): m + 1 a restart cycle) and
+    nothing else; the idle share over one Newton step from the warm start;
+    (b) the same pipeline at 63^2 against the port's CPU float64 run
+    (``newton_reference``): Newton iterations within ``NEWTON_ITER_SLACK``,
+    u, v, p within ``GAP_LIMIT``; the control (the power-law residual in
+    place of QUICK from the same warm start) must fail that.  Beside (a),
+    ``tangent_graph_check``: the CUDA-graph tangent program against
+    ``torch.func.jvp`` within 1e-6."""
+    import dataclasses
+    import types
+
+    import torch
+
+    from naviflow_tpu_torch.algorithms import newton_solve
+
+    a, warm, state, (mesh, fluid, bc, ncfg, npres) = newton_pipeline(NN, dev, torch.float32)
+    k = a["gmres_iterations"]
+    a["launches_expected"] = only(galerkin_levels=a["iterations"],
+                                  fused_mg_solve=k + k // ncfg.gmres_restart)
+    a["finite"] = all(bool(torch.isfinite(getattr(state, f)).all()) for f in ("u", "v", "p"))
+    a["ok"] = (a["converged"] and a["finite"] and a["ghia_infinity_error"] < 0.10
+               and a["launches"] == a["launches_expected"])
+    a["tangent_graph"] = tangent_graph_check(warm, mesh, fluid, bc, ncfg.scheme)
+    a["ok"] &= a["tangent_graph"]["rel_err"] <= 1e-6
+    # one Newton step with one GMRES(60) restart cycle (a quarter of a full
+    # step's 240 iterations: the replay behind sleeps costs some 4x its host time)
+    one = dataclasses.replace(ncfg, max_newton=1, gmres_maxiter=ncfg.gmres_restart)
+    a["profile"] = profile_window(
+        lambda: newton_solve(mesh, fluid, bc, warm, one, pressure=npres), 1, profiler=False)
+    del warm, state
+
+    ref = newton_reference()
+    ref_state = types.SimpleNamespace(**{f: torch.from_numpy(ref[f]) for f in ("u", "v", "p")})
+    ref_it = ref["iterations"]
+
+    def held(row, st):
+        gaps = field_gaps(st, ref_state)
+        out = dict(iterations=row["iterations"], iterations_cpu_f64=ref_it, fields=gaps,
+                   converged=row["converged"])
+        out["held"] = (row["converged"] and abs(row["iterations"] - ref_it) <= NEWTON_ITER_SLACK
+                       and max(gaps.values()) <= GAP_LIMIT)
+        return out
+
+    b, warm_b, state_b, _ = newton_pipeline(NN_SMALL, dev, torch.float32)
+    b["held"] = held(b, state_b)
+    b["reference"] = {k: v for k, v in ref.items() if k not in ("u", "v", "p")}
+    c, _, state_c, _ = newton_pipeline(NN_SMALL, dev, torch.float32, scheme="power_law",
+                                       warm=warm_b)
+    c["held"] = held(c, state_c)
+    ok = a["ok"] and b["held"]["held"] and not c["held"]["held"]
+    return dict(phase="newton", full=a, small=b, control=dict(c, detected=not c["held"]["held"]),
+                limits=dict(gap=GAP_LIMIT, iterations=NEWTON_ITER_SLACK),
+                launches=a["launches"], ok=ok)
 
 
 def quick_configs(backend="auto", vcycle_tol=1e-2):
@@ -2891,10 +3342,7 @@ def run_distributed(dev):
                     launches=launches_d, launches_single_device=launches_s,
                     residual_first=float(res[0]), residual_last=float(res[-1]), finite=finite,
                     gaps=sound, control=dict(pressure_tolerance=1e-2, **control,
-                                             detected=not control["ok"]),
-                    profile=profile_window(lambda: run_dist(n=DIST_PROFILE_STEPS),
-                                           DIST_PROFILE_STEPS, profiler=False))
-        lap("profile")
+                                             detected=not control["ok"]))
         full["ok"] = (finite and sound["ok"] and not control["ok"] and launches_d == only())
     finally:
         dist.destroy_process_group()
@@ -3337,7 +3785,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.library()
-    from naviflow_tpu_torch.ops import krylov, mg, step
+    # the newton phase's CPU float64 reference runs beside the card's phases
+    start_newton_reference()
+    try:
+        return run_all(dev, card, t0)
+    finally:
+        stop_newton_reference()
+
+
+def run_all(dev, card, t0) -> int:
+    """Every phase after the build (``main``); the exit code."""
+    import torch
+
+    from naviflow_tpu_torch.ops import _cuda, krylov, mg, step
 
     clusters = {algo: step.cluster_size(algo, dev) for algo in step.ALGO_SCALARS}
     k3_size, k5_size = mg.vcycle_cluster_size(dev), mg.mg_solve_cluster_size(dev)
@@ -3423,7 +3883,8 @@ def main() -> int:
                       ("large_grid", run_large_grid), ("algorithms63", run_algorithms63),
                       ("plane", run_plane), ("sequenced", run_sequenced), ("mgcg", run_mgcg),
                       ("solvers", run_solvers), ("quick", run_quick),
-                      ("distributed", run_distributed)):
+                      ("distributed", run_distributed), ("api", run_api),
+                      ("batch", run_batch), ("newton", run_newton)):
         t_phase = time.perf_counter()
         row = fn(dev)
         row["seconds"] = time.perf_counter() - t_phase

@@ -1,4 +1,6 @@
 from .base import SolveDiagnostics, StepInfo, run_outer_loop
+from .batch import batched_cavity_solve
+from .newton import NewtonConfig, NewtonDiagnostics, newton_solve
 from .piso import PISOConfig, piso_solve
 from .sequencing import (
     build_ladder,

@@ -16,6 +16,7 @@ indices.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from enum import Enum
 from typing import Optional
 
@@ -92,40 +93,41 @@ def lid_driven_cavity(lid_velocity: float = 1.0) -> BoundaryConditions:
     )
 
 
+@functools.lru_cache(maxsize=64)
+def _velocity_slabs(nx, ny, bc: BoundaryConditions, u_dtype, v_dtype, device):
+    """``(mask_u, value_u, mask_v, value_v)``: the boundary nodes of u and
+    v and the value each ends with (zero, then each VELOCITY side's value
+    in ``_SIDES`` order, so a corner belongs to the later side), built
+    once per grid, conditions, dtype and device."""
+    out = []
+    for shape, dtype, slabs, comp in (
+            ((nx + 1, ny), u_dtype, {"top": (slice(None), ny - 1), "bottom": (slice(None), 0),
+                                     "left": (0, slice(None)), "right": (nx, slice(None))}, "u"),
+            ((nx, ny + 1), v_dtype, {"top": (slice(None), ny), "bottom": (slice(None), 0),
+                                     "left": (0, slice(None)), "right": (nx - 1, slice(None))},
+             "v")):
+        mask = torch.zeros(shape, dtype=torch.bool, device=device)
+        value = torch.zeros(shape, dtype=dtype, device=device)
+        for name in _SIDES:
+            mask[slabs[name]] = True
+        for name in _SIDES:
+            s = bc.side(name)
+            if s.kind == BoundaryType.VELOCITY:
+                value[slabs[name]] = getattr(s, comp)
+        out += [mask, value]
+    return tuple(out)
+
+
 def apply_velocity_bcs(u, v, bc: BoundaryConditions):
     """All boundaries are zeroed, then VELOCITY sides are overwritten
-    (corners owned by the velocity side).  Returns new tensors; never
-    mutates its inputs."""
+    (corners owned by the later side in ``_SIDES`` order).  Returns new
+    tensors, out of place (one ``where`` a field, so ``torch.func``
+    transforms and traces see no write into a tensor); never mutates its
+    inputs."""
     nxp1, ny = u.shape
-    nx = nxp1 - 1
-    u = u.clone()
-    v = v.clone()
-    # in place on the fresh copies
-    u[:, 0] = 0.0
-    u[:, ny - 1] = 0.0
-    u[0, :] = 0.0
-    u[nx, :] = 0.0
-    v[:, 0] = 0.0
-    v[:, ny] = 0.0
-    v[0, :] = 0.0
-    v[nx - 1, :] = 0.0
-    for name in _SIDES:
-        s = bc.side(name)
-        if s.kind != BoundaryType.VELOCITY:
-            continue
-        if name == "top":
-            u[:, ny - 1] = s.u
-            v[:, ny] = s.v
-        elif name == "bottom":
-            u[:, 0] = s.u
-            v[:, 0] = s.v
-        elif name == "left":
-            u[0, :] = s.u
-            v[0, :] = s.v
-        elif name == "right":
-            u[nx, :] = s.u
-            v[nx - 1, :] = s.v
-    return u, v
+    mask_u, value_u, mask_v, value_v = _velocity_slabs(nxp1 - 1, ny, bc, u.dtype, v.dtype,
+                                                       u.device)
+    return torch.where(mask_u, value_u, u), torch.where(mask_v, value_v, v)
 
 
 def apply_velocity_bcs_window(u_loc, v_loc, bc: BoundaryConditions, *, gi0, gj0, nx, ny):

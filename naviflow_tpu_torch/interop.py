@@ -70,16 +70,18 @@ def coarse_tuple(coarse, *, dtype=None, device=None):
 
 
 def _port_config_classes():
-    from .algorithms import PISOConfig, SIMPLECConfig, SIMPLEConfig, SIMPLERConfig
+    from .algorithms import (NewtonConfig, PISOConfig, SIMPLECConfig, SIMPLEConfig,
+                             SIMPLERConfig)
     from .parallel.dist_simple import DistributedConfig
     from .solvers.dispatch import PRESSURE_CONFIG_TYPES
-    from .solvers.momentum import (ChebyshevMomentumConfig, JacobiMomentumConfig,
-                                   KrylovMomentumConfig)
+    from .solvers.momentum import (ChebyshevMomentumConfig, GMRESMomentumConfig,
+                                   IDRSMomentumConfig, JacobiMomentumConfig,
+                                   KrylovMomentumConfig, RBGSMomentumConfig)
 
     return {c.__name__: c for c in (
-        SIMPLEConfig, SIMPLECConfig, PISOConfig, SIMPLERConfig, DistributedConfig,
+        SIMPLEConfig, SIMPLECConfig, PISOConfig, SIMPLERConfig, NewtonConfig, DistributedConfig,
         ChebyshevMomentumConfig, JacobiMomentumConfig, KrylovMomentumConfig,
-        *PRESSURE_CONFIG_TYPES)}
+        RBGSMomentumConfig, IDRSMomentumConfig, GMRESMomentumConfig, *PRESSURE_CONFIG_TYPES)}
 
 
 def config(cfg):

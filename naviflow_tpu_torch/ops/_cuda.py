@@ -76,13 +76,40 @@ build_seconds = None  # wall time of this process's nvcc run (None: cached)
 build_log = {}  # source name -> nvcc's stderr (ptxas's report) of this process's build
 
 
+def under_transform() -> bool:
+    """True inside a ``torch.func`` transform (``jvp``, ``vmap``, ...), a
+    forward-AD dual level or a ``make_fx`` trace (``torch.func.linearize``
+    traces with both).  A ``ctypes`` kernel has no rule there: it would
+    read the primal and drop the tangent or the trace."""
+    from torch.autograd import forward_ad
+
+    return (forward_ad._current_level >= 0
+            or torch._C._functorch.peek_interpreter_stack() is not None
+            or torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.PROXY) is not None)
+
+
+def refuse_under_transform(what: str):
+    """Raise where a kernel would run under a transform (no silent switch
+    to the plain version)."""
+    if under_transform():
+        raise RuntimeError(
+            f"{what}: a CUDA kernel cannot run under torch.func or forward-mode AD; "
+            "differentiate the plain PyTorch path (backend='composed', or the plain "
+            "assembly, as newton.make_residual does)")
+
+
 def kernel_device(x) -> bool:
-    """The port's kernel gate: the tensor (or device) is a CUDA one.
+    """The port's kernel gate: the tensor (or device) is a CUDA one.  It
+    raises on a CUDA device under a ``torch.func`` transform
+    (:func:`refuse_under_transform`).
 
     It takes the place of the JAX package's ``jax.default_backend() ==
     'tpu'`` test in every gate."""
     dev = x if isinstance(x, torch.device) else x.device
-    return dev.type == "cuda"
+    if dev.type != "cuda":
+        return False
+    refuse_under_transform("kernel gate")
+    return True
 
 
 def _nvcc() -> str:
@@ -150,8 +177,10 @@ def _build(out: Path):
 
 def library():
     """The loaded kernel library, built on first use (the lock is taken only
-    until it is loaded)."""
+    until it is loaded).  Every launch goes through it, so a launch under a
+    ``torch.func`` transform raises here."""
     global _lib
+    refuse_under_transform("kernel launch")
     if _lib is not None:
         return _lib
     with _lock:

@@ -8,6 +8,7 @@ north-south).  ``shift_e(x)[i, j] == x[i+1, j]`` (zero beyond the boundary).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -89,23 +90,47 @@ def _index(rows, cols):
     return one(rows), one(cols)
 
 
+@functools.lru_cache(maxsize=256)
+def _slab_mask(shape, rows, cols, device):
+    """The boolean mask of the slab ``[rows, cols]`` of an array of
+    ``shape`` (built once per shape, slab and device)."""
+    mask = torch.zeros(shape, dtype=torch.bool, device=device)
+    mask[_index(rows, cols)] = True
+    return mask
+
+
+def _on_slab(x, val, rows, cols):
+    """``val`` as it lands on the slab ``[rows, cols]`` of ``x``, broadcast
+    to ``x``'s shape (a view: the values off the slab are never read).  A
+    1-D ``val`` written into one row runs along axis 1, into one column
+    down axis 0, as in the JAX form."""
+    if not torch.is_tensor(val) or val.dim() == 0:
+        return val
+    if isinstance(rows, int) and cols is None:
+        return val.reshape(1, -1).expand(x.shape)
+    if isinstance(cols, int) and rows is None:
+        return val.reshape(-1, 1).expand(x.shape)
+    raise ValueError(f"a {val.dim()}-D value for the slab [{rows}, {cols}]")
+
+
 def where_set(x, val, *, rows=None, cols=None):
-    """``x.at[rows, cols].set(val)``: a copy of ``x`` with the slab set.
+    """``x.at[rows, cols].set(val)``: a copy of ``x`` with the slab set,
+    out of place (one ``where``, so ``torch.func`` transforms and traces
+    see no write into a tensor).
 
     ``rows``/``cols``: an int index, a ``(lo, hi)`` half-open range, or
-    ``None`` (whole axis).  A 1-D ``val`` written into one column runs down
-    axis 0, as in the JAX form.
+    ``None`` (whole axis); ``val`` a scalar, or a 1-D tensor along one
+    row or column.
     """
-    out = x.clone()
-    out[_index(rows, cols)] = val
-    return out
+    mask = _slab_mask(tuple(x.shape), rows, cols, x.device)
+    return torch.where(mask, _on_slab(x, val, rows, cols), x)
 
 
 def where_add(x, delta, *, rows=None, cols=None):
-    """``x.at[rows, cols].add(delta)``: a copy of ``x`` with the slab added to."""
-    out = x.clone()
-    out[_index(rows, cols)] += delta
-    return out
+    """``x.at[rows, cols].add(delta)``: a copy of ``x`` with the slab added
+    to, out of place (as :func:`where_set`)."""
+    mask = _slab_mask(tuple(x.shape), rows, cols, x.device)
+    return torch.where(mask, x + _on_slab(x, delta, rows, cols), x)
 
 
 def index_grids(shape, device=None):

@@ -15,8 +15,10 @@ the callers set ``allow_tf32 = False`` besides).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+import torch.nn.functional as F
 
 from .poisson import PoissonCoeffs
 from .stencil import index_grids, pad2, shift_e, shift_n, shift_s, shift_w
@@ -66,16 +68,25 @@ def from_poisson(pc: PoissonCoeffs) -> Stencil9:
 
 
 def apply9(x, st: Stencil9):
+    """The 9-point apply.  The eight shifted neighbours are views of one
+    zero-padded copy of ``x`` (the values of ``shift_e`` ... ``shift_sw``,
+    one pad in place of eight)."""
+    m, n = x.shape
+    xp = F.pad(x, (1, 1, 1, 1))
+
+    def at(di, dj):  # x[i+di, j+dj], zero outside
+        return xp[1 + di:1 + di + m, 1 + dj:1 + dj + n]
+
     return (
         st.c * x
-        + st.e * shift_e(x)
-        + st.w * shift_w(x)
-        + st.n * shift_n(x)
-        + st.s * shift_s(x)
-        + st.ne * shift_ne(x)
-        + st.nw * shift_nw(x)
-        + st.se * shift_se(x)
-        + st.sw * shift_sw(x)
+        + st.e * at(1, 0)
+        + st.w * at(-1, 0)
+        + st.n * at(0, 1)
+        + st.s * at(0, -1)
+        + st.ne * at(1, 1)
+        + st.nw * at(-1, 1)
+        + st.se * at(1, -1)
+        + st.sw * at(-1, -1)
     )
 
 
@@ -152,10 +163,16 @@ def stencil9_diagonal(st: Stencil9, floor: float = 1e-15):
     return torch.where(torch.abs(st.c) < floor, torch.ones_like(st.c), st.c)
 
 
+@functools.lru_cache(maxsize=64)
+def _four_colours(shape, device):
+    """The masks of the colours ``(i%2, j%2)`` = (0,0), (0,1), (1,0), (1,1)."""
+    ii, jj = index_grids(shape, device)
+    return tuple((ii % 2 == a) & (jj % 2 == bpar) for a in range(2) for bpar in range(2))
+
+
 def gs4_sweep(p, b, st: Stencil9, omega: float = 1.0):
     """One four-color Gauss-Seidel sweep (valid for any 9-point stencil);
     colours ``(i%2, j%2)`` in the order (0,0), (0,1), (1,0), (1,1)."""
-    ii, jj = index_grids(p.shape, p.device)
     inv_c = 1.0 / stencil9_diagonal(st)
 
     def quarter(p, color_mask):
@@ -163,9 +180,8 @@ def gs4_sweep(p, b, st: Stencil9, omega: float = 1.0):
         p_new = (b - off) * inv_c
         return torch.where(color_mask, p + omega * (p_new - p), p)
 
-    for a in range(2):
-        for bpar in range(2):
-            p = quarter(p, (ii % 2 == a) & (jj % 2 == bpar))
+    for color_mask in _four_colours(tuple(p.shape), p.device):
+        p = quarter(p, color_mask)
     return p
 
 

@@ -1,7 +1,10 @@
 from .momentum import (
     ChebyshevMomentumConfig,
+    GMRESMomentumConfig,
+    IDRSMomentumConfig,
     JacobiMomentumConfig,
     KrylovMomentumConfig,
+    RBGSMomentumConfig,
     solve_momentum_pair,
     solve_u_momentum,
     solve_v_momentum,

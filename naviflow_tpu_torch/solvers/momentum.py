@@ -6,9 +6,11 @@ residual_norm)``: the linear system solved is the relaxed one, ``d =
 spacing / a_p_relaxed``, and the residual is the unrelaxed
 ``r = src_un - A_un x`` with its L2 norm over interior nodes.
 
-Ported: fixed-sweep Jacobi, fixed-degree Chebyshev and masked BiCGSTAB
-inner solves on the power-law scheme and on the 9-point QUICK / LUDS /
-upwind schemes (``ops/highorder.py``), the compensated residual, and the
+Every inner solve of the JAX module is ported: fixed-sweep Jacobi,
+red-black Gauss-Seidel (SOR), fixed-degree Chebyshev, masked BiCGSTAB,
+restarted GMRES (``solvers/krylov.gmres_solve``) and IDR(s), on the
+power-law scheme and on the 9-point QUICK / LUDS / upwind schemes
+(``ops/highorder.py``), the compensated residual, and the
 pair form :func:`solve_momentum_pair` with its merged kernel branch (K1,
 ``ops/asmcheby.py``) driven by lagged Gershgorin maxima, its one-pass
 assembly branch (K8, ``ops/assembly.py``) and its batched BiCGSTAB branch
@@ -17,9 +19,17 @@ field fits the reference kernel's budget is one launch of K7
 (``ops/krylov.py``), and a large-grid Chebyshev solve outside K1 is one
 launch of K9 (``ops/cheby.py``) per field.  Every kernel gate refuses a
 9-point system (K1, K7, K8, K9, the batched pair), as the JAX package's
-gates do; such a system runs composed.  Not yet ported (each raises
-:class:`NotImplementedError`): the red-black GS, GMRES and IDR(s) inner
-solves (ROADMAP §1 item 2).
+gates do; such a system runs composed.  The assembly gate (K8) does not
+look at the momentum kind, as in the JAX package: RBGS, GMRES and IDR(s)
+solves on large power-law float32 grids take their coefficients from K8.
+
+IDR(s)'s shadow space: the JAX package draws it with
+``jax.random.normal(PRNGKey(0), ...)``, which PyTorch cannot reproduce.
+By default :func:`_idrs_masked` draws it from a ``torch.Generator``
+seeded 0 on the CPU and moves it to the field's device, so the card and
+the CPU use the same space; its iterates then differ from the JAX
+package's and agree with them only to the solve's tolerance.  Passing
+the JAX package's space (``shadow=``) reproduces its iterates.
 """
 
 from __future__ import annotations
@@ -44,8 +54,8 @@ from ..ops.powerlaw import (
     u_momentum_coefficients,
     v_momentum_coefficients,
 )
-from ..ops.stencil import (StencilCoeffs, apply_stencil, interior_mask, neighbor_sum, pad2,
-                           shift_e, shift_n, shift_s, shift_w)
+from ..ops.stencil import (StencilCoeffs, apply_stencil, index_grids, interior_mask,
+                           neighbor_sum, pad2, shift_e, shift_n, shift_s, shift_w)
 
 BACKENDS = ("auto", "kernel", "composed")
 
@@ -80,6 +90,16 @@ class JacobiMomentumConfig:
     scheme: str = "power_law"
     compensated_residual: bool = False
     kind: str = "jacobi"
+
+
+@dataclasses.dataclass(frozen=True)
+class RBGSMomentumConfig:
+    """Fixed-sweep red-black Gauss-Seidel (SOR) momentum solve."""
+
+    n_sweeps: int = 2
+    omega: float = 1.0
+    scheme: str = "power_law"
+    kind: str = "rbgs"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +143,32 @@ class KrylovMomentumConfig:
     kind: str = "bicgstab"
 
 
+@dataclasses.dataclass(frozen=True)
+class IDRSMomentumConfig:
+    """IDR(s) momentum solve (Sonneveld & van Gijzen), the biorthogonal
+    variant with van Gijzen's basis update ``U_k = U_{k:s} c + om v``."""
+
+    tolerance: float = 1e-7
+    max_iterations: int = 30  # outer G-space builds (~(s+1) matvecs each)
+    s: int = 4
+    angle: float = 0.7
+    scheme: str = "power_law"
+    kind: str = "idrs"
+
+
+@dataclasses.dataclass(frozen=True)
+class GMRESMomentumConfig:
+    """Matrix-free restarted GMRES(m) momentum solve with Jacobi right
+    preconditioning."""
+
+    tolerance: float = 1e-7
+    max_iterations: int = 40  # total Arnoldi steps
+    restart: int = 10
+    scheme: str = "power_law"
+    compensated_residual: bool = False
+    kind: str = "gmres"
+
+
 def _backend(cfg) -> str:
     b = getattr(cfg, "backend", "auto")
     if b not in BACKENDS:
@@ -145,6 +191,21 @@ def _jacobi_sweeps(x0, c, mask, n_sweeps: int):
     x = x0
     for _ in range(n_sweeps):
         x = torch.where(mask, (_nbsum(x, c) + c.src) / safe_ap, x)
+    return x
+
+
+def _rbgs_sweeps(x0, c, mask, n_sweeps: int, omega: float):
+    """Red-black Gauss-Seidel with SOR on masked nodes (red = (i+j) even
+    first).  On a 9-point system the two-colour split is only an
+    approximate Gauss-Seidel (the +-2 links join nodes of one colour)."""
+    ii, jj = index_grids(x0.shape, x0.device)
+    red = ((ii + jj) % 2 == 0) & mask
+    black = ((ii + jj) % 2 == 1) & mask
+    safe_ap = torch.where(c.a_p == 0, torch.ones_like(c.a_p), c.a_p)
+    x = x0
+    for _ in range(n_sweeps):
+        for color in (red, black):
+            x = torch.where(color, x + omega * ((_nbsum(x, c) + c.src) / safe_ap - x), x)
     return x
 
 
@@ -330,9 +391,102 @@ def _bicgstab_pair_masked(xu0, cu, mask_u, xv0, cv, mask_v, tol: float, maxiter:
     return xu, xv
 
 
+def _gmres_masked(x0, c, mask, tol: float, maxiter: int, restart: int):
+    """Restarted GMRES(m) on the masked momentum system with Jacobi right
+    preconditioning (one host read per restart cycle)."""
+    from .krylov import gmres_solve
+
+    mask_f = mask.to(x0.dtype)
+
+    def A(x):
+        return _apply(x, c) * mask_f
+
+    inv_d = torch.where(c.a_p == 0, torch.zeros_like(c.a_p), 1.0 / c.a_p) * mask_f
+
+    def M(r):
+        return r * inv_d
+
+    b = c.src * mask_f
+    x, _, _ = gmres_solve(b, A, M, x0 * mask_f, tol, maxiter, restart)
+    return torch.where(mask, x, x0)
+
+
+def idrs_shadow_space(s: int, shape, dtype, device):
+    """IDR(s)'s default shadow space: ``s`` standard-normal fields from a
+    ``torch.Generator`` seeded 0 on the CPU, moved to ``device`` (the same
+    numbers on every device)."""
+    g = torch.Generator().manual_seed(0)
+    return torch.randn((s,) + tuple(shape), generator=g, dtype=dtype).to(device)
+
+
+def _idrs_masked(x0, c, mask, tol: float, max_outer: int, s: int, angle: float,
+                 shadow=None):
+    """IDR(s) on the masked momentum system (see :class:`IDRSMomentumConfig`;
+    one host read per outer iteration).  ``shadow``: the ``(s,) +
+    x0.shape`` shadow space, by default :func:`idrs_shadow_space`."""
+    dtype = x0.dtype
+    mask_f = mask.to(dtype)
+
+    def A(x):
+        return _apply(x, c) * mask_f
+
+    def pdot(a, w):
+        return torch.sum(a * w)
+
+    def safe(d):
+        return torch.where(d == 0, torch.full_like(d, 1e-30), d)
+
+    b = c.src * mask_f
+    x = x0 * mask_f
+    r = b - A(x)
+    P = idrs_shadow_space(s, x0.shape, dtype, x0.device) if shadow is None else shadow
+    U = torch.zeros((s,) + tuple(x0.shape), dtype=dtype, device=x0.device)
+    G = torch.zeros_like(U)
+    Ms = torch.eye(s, dtype=dtype, device=x0.device)
+    om = torch.ones((), dtype=dtype, device=x0.device)
+    tolb = tol * torch.clamp(torch.linalg.vector_norm(b), min=1e-30)
+    zero = torch.zeros((), dtype=dtype, device=x0.device)
+    it = 0
+    while it < max_outer and bool(torch.linalg.vector_norm(r) >= tolb):
+        f = torch.stack([pdot(P[i], r) for i in range(s)])
+        for k in range(s):
+            ck = torch.linalg.solve_ex(Ms[k:, k:], f[k:])[0]
+            v = r - torch.tensordot(ck, G[k:], dims=1)
+            u_new = torch.tensordot(ck, U[k:], dims=1) + om * v
+            g_new = A(u_new)
+            for i in range(k):
+                alpha = pdot(P[i], g_new) / safe(Ms[i, i])
+                g_new = g_new - alpha * G[i]
+                u_new = u_new - alpha * U[i]
+            col = torch.stack([pdot(P[i], g_new) if i >= k else zero for i in range(s)])
+            Ms = Ms.clone()
+            Ms[:, k] = col
+            beta = f[k] / safe(Ms[k, k])
+            x = x + beta * u_new
+            r = r - beta * g_new
+            U, G = U.clone(), G.clone()
+            U[k], G[k] = u_new, g_new
+            if k < s - 1:
+                f = torch.cat([f[:k + 1], f[k + 1:] + -beta * Ms[k + 1:, k]])
+        # the dimension-reduction omega step
+        t = A(r)
+        nr = torch.linalg.vector_norm(r)
+        nt = torch.linalg.vector_norm(t)
+        ts = pdot(t, r)
+        rho = torch.abs(ts / torch.clamp(nt * nr, min=1e-30))
+        om = ts / torch.clamp(nt * nt, min=1e-30)
+        om = torch.where(rho < angle, om * angle / torch.clamp(rho, min=1e-30), om)
+        x = x + om * r
+        r = r - om * t
+        it += 1
+    return torch.where(mask, x, x0)
+
+
 def _inner_solve(x0, c_rel, mask, cfg, bounds=None):
     if cfg.kind == "jacobi":
         return _jacobi_sweeps(x0, c_rel, mask, cfg.n_sweeps)
+    if cfg.kind == "rbgs":
+        return _rbgs_sweeps(x0, c_rel, mask, cfg.n_sweeps, cfg.omega)
     if cfg.kind == "chebyshev":
         return _chebyshev_masked(x0, c_rel, mask, cfg.degree,
                                  cfg.bound_margin, bounds=bounds)
@@ -344,9 +498,11 @@ def _inner_solve(x0, c_rel, mask, cfg, bounds=None):
             return bicgstab_momentum(x0, c_rel, tol=cfg.tolerance, maxiter=cfg.max_iterations)
         return _bicgstab_masked(x0, c_rel, mask, cfg.tolerance, cfg.max_iterations,
                                 compensated_dots=getattr(cfg, "compensated_dots", False))
-    if cfg.kind in ("rbgs", "gmres", "idrs"):
-        raise NotImplementedError(
-            f"{cfg.kind} momentum solve is not ported yet (ROADMAP §1 item 2)")
+    if cfg.kind == "gmres":
+        return _gmres_masked(x0, c_rel, mask, cfg.tolerance, cfg.max_iterations, cfg.restart)
+    if cfg.kind == "idrs":
+        return _idrs_masked(x0, c_rel, mask, cfg.tolerance, cfg.max_iterations, cfg.s,
+                            cfg.angle)
     raise ValueError(f"Unknown momentum solver kind: {cfg.kind}")
 
 

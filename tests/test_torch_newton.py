@@ -1,0 +1,206 @@
+"""The port's Newton–Krylov solver (``algorithms/newton.py``) against the
+JAX package on the CPU (f64, the same inputs): the residual F, the
+Jacobian-vector products of ``torch.func.linearize`` and ``torch.func.jvp``
+against ``jax.jvp``,
+the SIMPLE-type preconditioner, the JAX package's 31^2 power-law Newton
+case from its own warm start (``tests/test_newton.py``; the QUICK case is
+``test_torch_newton_quick.py``, a file of its own so that the two long
+runs go to two test workers), the chunked GMRES against the monolithic
+solve, and the kernel gates' refusal under ``torch.func``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import naviflow_tpu as nf
+from naviflow_tpu.algorithms import NewtonConfig, SIMPLEConfig, newton_solve, simple_solve
+from naviflow_tpu.algorithms import newton as jn
+from naviflow_tpu.solvers import KrylovMomentumConfig
+from naviflow_tpu.solvers.multigrid import MultigridConfig
+
+from naviflow_tpu_torch import interop
+from naviflow_tpu_torch.algorithms import newton as tn
+from naviflow_tpu_torch.ops import _cuda
+
+torch.set_num_threads(2)
+
+MOM = KrylovMomentumConfig(tolerance=1e-10, max_iterations=100)
+PRES = MultigridConfig(tolerance=1e-8, max_cycles=40)
+
+
+def _T(x):
+    return torch.as_tensor(np.array(x), dtype=torch.float64)
+
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.max(np.abs(got - want))) / max(float(np.max(np.abs(want))), 1e-300)
+
+
+def _setup(nx=31, re=100.0):
+    mesh = nf.StructuredMesh(nx=nx, ny=nx)
+    fluid = nf.FluidProperties(density=1.0, reynolds_number=re)
+    bc = nf.lid_driven_cavity(1.0)
+    return mesh, fluid, bc, nf.initialize_state(mesh, bc, dtype=jnp.float64)
+
+
+def _warm(nx=31, re=100.0, steps=30, scheme="power_law"):
+    mesh, fluid, bc, state = _setup(nx, re)
+    mom = KrylovMomentumConfig(tolerance=1e-10, max_iterations=100, scheme=scheme)
+    warm, _ = simple_solve(mesh, fluid, bc, state, SIMPLEConfig(max_iterations=steps,
+                                                                tolerance=0.0),
+                           momentum=mom, pressure=PRES, loop="fused")
+    return mesh, fluid, bc, warm
+
+
+def _port(mesh, fluid, bc, state):
+    return (interop.mesh(mesh), interop.fluid(fluid), interop.boundary_conditions(bc),
+            interop.flow_state(state, dtype=torch.float64))
+
+
+def _pieces(scheme, nx=15, re=400.0):
+    """Both packages' residual and flat iterate at a warm state, and a
+    seeded direction."""
+    mesh, fluid, bc, warm = _warm(nx, re, steps=6, scheme=scheme)
+    dx, dy = mesh.get_cell_sizes()
+    shapes = dict(su=warm.u.shape, sv=warm.v.shape, sp=warm.p.shape)
+    kw = dict(dx=dx, dy=dy, rho=1.0, mu=fluid.get_viscosity(), scheme=scheme)
+    Fj = jn.make_residual(bc=bc, **kw, **shapes)
+    Ft = tn.make_residual(bc=interop.boundary_conditions(bc), **kw,
+                          **{k: tuple(v) for k, v in shapes.items()})
+    rng = np.random.default_rng(3)
+    w = np.asarray(jn._flatten(warm.u, warm.v, warm.p)) + 1e-3 * rng.normal(
+        size=sum(int(np.prod(s)) for s in shapes.values()))
+    z = rng.normal(size=w.shape)
+    return mesh, fluid, bc, warm, Fj, Ft, w, z, kw, shapes
+
+
+@pytest.mark.parametrize("scheme", ["power_law", "quick"])
+def test_residual_and_jvp_match_jax(scheme):
+    _, _, _, _, Fj, Ft, w, z, _, _ = _pieces(scheme)
+    np.testing.assert_allclose(Ft(_T(w)).numpy(), np.asarray(Fj(jnp.asarray(w))),
+                               rtol=1e-12, atol=1e-12 * float(np.max(np.abs(Fj(w)))))
+    Fj_w, jz = jax.jvp(Fj, (jnp.asarray(w),), (jnp.asarray(z),))
+    Fw, lin = torch.func.linearize(Ft, _T(w))
+    assert _rel(lin(_T(z)).numpy(), jz) <= 1e-10
+    assert _rel(Fw.numpy(), Fj_w) <= 1e-12
+    # the traced tangent program is torch.func.jvp's, next to the walls too
+    _, tz = torch.func.jvp(Ft, (_T(w),), (_T(z),))
+    assert _rel(lin(_T(z)).numpy(), tz.numpy()) <= 1e-14
+
+
+@pytest.mark.parametrize("scheme", ["power_law", "quick", "luds"])
+def test_split_linearization_is_the_jvp(scheme):
+    """The traced split (primal program once, tangent program per product)
+    gives ``torch.func.jvp``'s bits at an iterate other than the one it was
+    traced at, for more than one direction."""
+    _, _, _, _, _, Ft, w, z, _, _ = _pieces(scheme, nx=7)
+    lin = tn.split_linearization(Ft, _T(w))
+    rng = np.random.default_rng(11)
+    w2 = _T(w + 1e-2 * rng.normal(size=w.shape))
+    Fw, jvp = lin(w2)
+    for zz in (_T(z), _T(rng.normal(size=w.shape))):
+        ref_F, ref = torch.func.jvp(Ft, (w2,), (zz,))
+        assert torch.equal(jvp(zz), ref)
+    assert torch.equal(Fw, ref_F)
+
+
+@pytest.mark.parametrize("shift", [0.0, 2.0])
+def test_preconditioner_matches_jax(shift):
+    mesh, fluid, bc, warm, _, _, w, z, kw, shapes = _pieces("quick")
+    ap_shift = kw["dx"] * kw["dy"] * shift
+    pres = MultigridConfig(tolerance=1e-3, max_cycles=12, check_every=4)
+    u, v, p = jn._unflatten(jnp.asarray(w), **shapes)
+    Mj = jn.make_preconditioner(u, v, p, bc=bc, pres_cfg=pres, momentum_sweeps=2,
+                                ap_shift=ap_shift, **kw, **shapes)
+    tshapes = {k: tuple(s) for k, s in shapes.items()}
+    ut, vt, pt = tn._unflatten(_T(w), **tshapes)
+    Mt = tn.make_preconditioner(ut, vt, pt, bc=interop.boundary_conditions(bc),
+                                pres_cfg=interop.config(pres), momentum_sweeps=2,
+                                ap_shift=ap_shift, **kw, **tshapes)
+    assert _rel(Mt(_T(z)).numpy(), Mj(jnp.asarray(z))) <= 1e-10
+
+
+def test_power_law_newton_matches_jax():
+    """``tests/test_newton.py``'s first case (31^2 power-law, 30 SIMPLE
+    steps of warm start, Newton to 1e-10): the same Newton and GMRES
+    iteration counts, histories to rel 1e-6 above 1e-9, fields to 1e-9."""
+    mesh, fluid, bc, warm = _warm()
+    cfg = NewtonConfig(tolerance=1e-10, scheme="power_law", max_newton=25)
+    fj, dj = newton_solve(mesh, fluid, bc, warm, cfg)
+    ft, dt = tn.newton_solve(*_port(mesh, fluid, bc, warm), interop.config(cfg))
+    assert dj.converged and dt.converged
+    assert dt.iterations == dj.iterations and dt.gmres_iterations == dj.gmres_iterations
+    hj, ht = np.asarray(dj.residual_history), np.asarray(dt.residual_history)
+    above = hj > 1e-9
+    np.testing.assert_allclose(ht[above], hj[above], rtol=1e-6)
+    for name in ("u", "v", "p"):
+        assert float(np.max(np.abs(getattr(ft, name).numpy()
+                                   - np.asarray(getattr(fj, name))))) <= 1e-9, name
+
+
+def test_chunked_gmres_matches_monolithic():
+    """A restart cycle is a fresh Arnoldi from the current residual, so the
+    chunked solve is the monolithic one: the same Newton trajectory."""
+    mesh, fluid, bc, warm = _warm(nx=15, steps=20)
+    pres = interop.config(MultigridConfig(tolerance=1e-3, max_cycles=12, check_every=4,
+                                          coarsest_sweeps=8))
+    base = dict(tolerance=1e-9, scheme="power_law", max_newton=8, gmres_restart=10,
+                gmres_maxiter=30)
+    out = {chunk: tn.newton_solve(*_port(mesh, fluid, bc, warm),
+                                  tn.NewtonConfig(**base, gmres_chunk=chunk), pressure=pres)[1]
+           for chunk in (0, 1)}
+    assert out[0].converged and out[1].converged
+    assert out[0].iterations == out[1].iterations
+    assert out[0].gmres_iterations == out[1].gmres_iterations
+    np.testing.assert_allclose(out[1].residual_history, out[0].residual_history, rtol=1e-8)
+
+
+def test_kernel_gates_refuse_under_torch_func():
+    """A CUDA kernel has no forward-mode rule: under ``torch.func`` the
+    kernel gate and the launch path raise instead of switching to the
+    plain version."""
+    x = torch.ones(3, dtype=torch.float64)
+
+    def gate(t):
+        _cuda.kernel_device(torch.device("cuda"))
+        return t
+
+    def launch(t):
+        _cuda.library()
+        return t
+
+    for fn in (gate, launch):
+        with pytest.raises(RuntimeError, match="torch.func"):
+            torch.func.jvp(fn, (x,), (x,))
+        with pytest.raises(RuntimeError, match="torch.func"):
+            torch.func.vmap(fn)(x[:, None])
+        with torch.autograd.forward_ad.dual_level():
+            with pytest.raises(RuntimeError, match="torch.func"):
+                fn(x)
+    assert not _cuda.under_transform()
+    assert not _cuda.kernel_device(torch.device("cpu"))
+
+
+def test_newton_runs_on_the_card_by_default():
+    """``newton_solve`` runs on the state's device; the state is the
+    card's unless the caller asks for the CPU, and without a card that
+    raises."""
+    import naviflow_tpu_torch as nt
+
+    mesh = nt.StructuredMesh(nx=15, ny=15)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            nt.initialize_state(mesh, nt.lid_driven_cavity(1.0))
+    state = nt.initialize_state(mesh, nt.lid_driven_cavity(1.0), dtype=torch.float64,
+                                device="cpu")
+    out, diag = tn.newton_solve(mesh, nt.FluidProperties(density=1.0, reynolds_number=100),
+                                nt.lid_driven_cavity(1.0), state,
+                                tn.NewtonConfig(scheme="power_law", max_newton=1,
+                                                gmres_restart=5, gmres_maxiter=5),
+                                pressure=interop.config(MultigridConfig(
+                                    tolerance=1e-2, max_cycles=4, coarsest_sweeps=8)))
+    assert out.u.device.type == "cpu" and diag.iterations == 1
+    assert diag.gmres_iterations == 5 and diag.residual_history[1] < diag.residual_history[0]

@@ -99,13 +99,23 @@ def test_convergence_stop_matches_jax():
 
 def test_port_imports_without_jax():
     """The port never imports JAX: with ``jax`` blocked, importing the whole
-    package (every module) still works."""
+    package (every module, the object API, the result, the plots, the
+    profiler, Newton and batching among them) still works; with
+    ``matplotlib`` and ``h5py`` blocked too, as on the card's machine,
+    which has neither: the modules that use them import them when
+    called."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        sys.modules["jax"] = None
+        for blocked in ("jax", "matplotlib", "h5py"):
+            sys.modules[blocked] = None
         import naviflow_tpu_torch
-        for m in pkgutil.walk_packages(naviflow_tpu_torch.__path__, "naviflow_tpu_torch."):
-            importlib.import_module(m.name)
+        names = [m.name for m in pkgutil.walk_packages(naviflow_tpu_torch.__path__,
+                                                       "naviflow_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        for name in ("api", "algorithms.newton", "algorithms.batch", "postprocessing.result",
+                     "postprocessing.visualization", "utils.profiler"):
+            assert "naviflow_tpu_torch." + name in names, name
         assert not any(k == "jax" or k.startswith("jax.") or k.startswith("naviflow_tpu.")
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
