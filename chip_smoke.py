@@ -152,7 +152,28 @@ result line:
     restart cycle; then the same pipeline at 63^2 against the port's CPU
     float64 run (computed in a spawned process while the earlier phases
     run): Newton iterations within one, u, v, p within 1e-3, and the
-    power-law residual in place of QUICK failing that.
+    power-law residual in place of QUICK failing that;
+18. the command line (``run_cli``): ``naviflow_tpu_torch.cli.main``
+    in-process on the card, its JSON line read back: (a) ``run`` with the
+    CLI's defaults at 63^2 Re=100 to 1e-5, bit-equal to the direct
+    ``simple_solve`` with ``_make_solvers``' configs and its launches (K6 a
+    step, as the K6 gate admits those configs), iterations within 2% or 2
+    of the JAX package's CLI on the CPU (568), Ghia below 0.10; (b) its
+    ``--save`` to .npz and .vtk read back equal; (c) ``--checkpoint-dir``
+    (``chunked:100``, 300 iterations), then ``--resume`` to 600: each kept
+    checkpoint bit-equal to the direct chunked run's state at its
+    iteration; (d) ``sweep`` at Re 100 / 400 / 1000 to 1e-3 with and
+    without ``--vmap``: the rows equal to each other and to a direct
+    ``batched_cavity_solve``; (e) ``run --sequence`` at 255^2 to 1e-4:
+    converged, Ghia below 0.10, a direct ``grid_sequence_solve``'s
+    launches; (f) ``run --newton`` on 63^2 QUICK Re=1000 after 200 SIMPLE
+    steps: Newton converged, K4 a Newton step and K5 a preconditioner
+    application; (g) ``run --distributed`` on 64^2 on one rank: equal to
+    the direct call, no kernel; (h) ``utils.mg_debug.debug_vcycle``
+    bit-equal to the composed cycle on the 63^2 vertex, 256^2 and 1024^2
+    cell-centred hierarchies and within K3's / K2's tolerances of the
+    kernel cycle; (i) the ``operator_sanity`` and ``cavity_basic``
+    examples' ``run(args)``.
 
 Then a JSON line with every kernel's launches, error, times and bound (K2:
 each level's too, and the launches a step), the card's name and power
@@ -3469,6 +3490,465 @@ def ranks_main() -> int:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the command line (naviflow_tpu_torch.cli), called in-process
+
+# the JAX package's command line in float32 on the CPU, ``run --nx 63 --re
+# 100 --tolerance 1e-5`` (its defaults: SIMPLE, multigrid to 1e-3 in <= 30
+# cycles, BiCGSTAB momentum to 1e-6 in <= 60 iterations): 568 iterations,
+# Ghia 0.05474 (naviflow_tpu.cli._run_case)
+JAX_ITERATIONS_CLI = 568
+CLI_NX, CLI_TOL = 63, 1e-5
+CLI_CKPT = ("chunked:100", 300, 600)  # the checkpointed run's loop, then its resume's budget
+CLI_SWEEP_RE = ("100", "400", "1000")
+CLI_SEQ_NX, CLI_SEQ_TOL = 255, 1e-4
+CLI_NEWTON = ("--nx", "63", "--re", "1000", "--scheme", "quick", "--max-iterations", "200")
+CLI_DIST = ("--nx", "64", "--max-iterations", "50")
+WALL_KEYS = ("wall_seconds", "wall_seconds_batch", "batched")
+
+
+def cli_call(argv):
+    """``naviflow_tpu_torch.cli.main(argv)`` in-process on the card: its exit
+    code, the JSON objects it printed, and the host's seconds."""
+    import contextlib
+    import io
+
+    from naviflow_tpu_torch import cli
+
+    buf = io.StringIO()
+    torch_sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    torch_sync()
+    wall = time.perf_counter() - t0
+    return rc, [json.loads(line) for line in buf.getvalue().splitlines()], wall
+
+
+def cli_direct(argv, dev):
+    """The CLI's mesh, fluid, boundary conditions, configs and initial state
+    for ``argv``, built as a user calling the functional API would."""
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch import cli
+
+    args = cli._build_parser().parse_args(list(argv))
+    mom, pres = cli._make_solvers(args)
+    cfg_cls, solve = cli._algorithm(args)
+    cfg = cfg_cls(alpha_p=args.alpha_p, alpha_u=args.alpha_u,
+                  max_iterations=args.max_iterations, tolerance=args.tolerance)
+    nx = args.nx if isinstance(args.nx, int) else args.nx[0]  # sweep: the first case
+    mesh = nt.StructuredMesh(nx=nx, ny=nx)
+    re = args.re if isinstance(args.re, float) else args.re[0]
+    fluid = nt.FluidProperties(density=1.0, reynolds_number=re)
+    bc = nt.lid_driven_cavity(1.0)
+    return dict(args=args, mom=mom, pres=pres, cfg=cfg, solve=solve, mesh=mesh, fluid=fluid,
+                bc=bc, state=lambda: nt.initialize_state(mesh, bc, device=dev))
+
+
+def no_wall(row):
+    return {k: v for k, v in row.items() if k not in WALL_KEYS}
+
+
+def same_arrays(saved, state, names=("u", "v", "p")):
+    import numpy as np
+
+    return all(np.array_equal(saved[k], getattr(state, k).detach().cpu().numpy())
+               for k in names)
+
+
+def cli_run_default(dev, tmp):
+    """(a) ``run`` with the CLI's defaults at 63^2 to 1e-5, saved to .npz,
+    and (b) again saved to .vtk: both summaries the same, the .npz fields
+    and history bit-equal to the direct ``simple_solve`` with
+    ``_make_solvers``' configs, the .vtk text that of the direct result,
+    the same launches (K6 a step where its gate admits the configs)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from naviflow_tpu_torch.io import exporters
+    from naviflow_tpu_torch.ops.step import supports_fused_step
+    from naviflow_tpu_torch.postprocessing.result import SimulationResult, result_from_solve
+
+    argv = ("run", "--nx", str(CLI_NX), "--re", "100", "--tolerance", str(CLI_TOL))
+    npz, vtk = os.path.join(tmp, "a.npz"), os.path.join(tmp, "a.vtk")
+    reset_counts()
+    rc, out, wall = cli_call(argv + ("--save", npz))
+    launches = counts()
+    reset_counts()
+    rc_b, out_b, wall_b = cli_call(argv + ("--save", vtk))
+    launches_b = counts()
+    d = cli_direct(argv, dev)
+    gate = supports_fused_step(CLI_NX, CLI_NX, d["cfg"], d["mom"], d["pres"], torch.float32)
+    reset_counts()
+    torch_sync()
+    t0 = time.perf_counter()
+    state, diag = d["solve"](d["mesh"], d["fluid"], d["bc"], d["state"](), d["cfg"],
+                             momentum=d["mom"], pressure=d["pres"], loop=d["args"].loop)
+    torch_sync()
+    direct_s = time.perf_counter() - t0
+    direct = counts()
+    s = out[-1]
+    it = int(diag.iterations)
+    saved = np.load(npz)
+    bit_equal = (s["iterations"] == it and same_arrays(saved, state) and np.array_equal(
+        saved["residuals"], diag.total_res_history[:it].cpu().numpy()))
+    reread = SimulationResult.load_solution(npz)
+    want_vtk = exporters.export_vtk(result_from_solve(d["mesh"], d["fluid"], state, diag),
+                                    os.path.join(tmp, "direct.vtk"))
+    with open(vtk) as f, open(want_vtk) as g:
+        vtk_equal = f.read() == g.read()
+    want = only(fused_outer_step=it) if gate else direct
+    slack = max(2, int(0.02 * JAX_ITERATIONS_CLI))
+    row = dict(argv=list(argv), summary=s, k6_gate_admits=gate, wall_s=wall,
+               ms_per_step=wall * 1e3 / max(it, 1), direct_s=direct_s,
+               direct_ms_per_step=direct_s * 1e3 / max(it, 1),
+               iterations_jax_cpu=JAX_ITERATIONS_CLI, bit_equal_to_direct=bit_equal,
+               launches=launches, launches_direct=direct, launches_expected=want,
+               vtk=dict(summary_equal=no_wall(out_b[-1]) == no_wall(s), text_equal=vtk_equal,
+                        launches=launches_b, wall_s=wall_b),
+               npz_reread_equal=bool(all(np.array_equal(getattr(reread, k), saved[k])
+                                         for k in ("u", "v", "p"))))
+    row["ok"] = bool(rc == 0 and rc_b == 0 and len(out) == len(out_b) == 1 and bit_equal
+                     and launches == direct == want and launches_b == launches
+                     and s["converged"] and abs(it - JAX_ITERATIONS_CLI) <= slack
+                     and s["infinity_norm_error"] < 0.10 and row["vtk"]["summary_equal"]
+                     and vtk_equal and row["npz_reread_equal"])
+    return row
+
+
+def cli_checkpoints(dev, tmp):
+    """(c) ``--checkpoint-dir`` with ``CLI_CKPT``'s loop for its first
+    budget, then ``--resume`` to its second: the kept ``step_*``
+    directories, each bit-equal to the direct chunked run's state at that
+    iteration (the first run's to the uninterrupted run's, the resumed
+    run's to the direct run from the loaded checkpoint, as the CLI resumes
+    it; the resumed checkpoints' gap to the uninterrupted run is reported)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from naviflow_tpu_torch.io.checkpoint import load_checkpoint
+
+    loop, first, total = CLI_CKPT
+    ck = os.path.join(tmp, "ckpt")
+    base = ("run", "--nx", str(CLI_NX), "--re", "100", "--tolerance", str(CLI_TOL),
+            "--loop", loop, "--checkpoint-dir", ck)
+    d = cli_direct(base, dev)
+
+    def direct_run(state, budget, offset):
+        snaps = {}
+
+        def keep(it, total_res, carry):
+            snaps[offset + it] = tuple(carry[k].clone() for k in ("u", "v", "p"))
+
+        _, diag = d["solve"](d["mesh"], d["fluid"], d["bc"], state,
+                             dataclasses.replace(d["cfg"], max_iterations=budget),
+                             momentum=d["mom"], pressure=d["pres"], loop=loop, on_chunk=keep)
+        torch_sync()
+        return snaps, int(diag.iterations)
+
+    def steps():
+        return sorted(x for x in os.listdir(ck) if x.startswith("step_"))
+
+    def check(names, snaps):
+        out = {}
+        for name in names:
+            st, it, hist, _ = load_checkpoint(os.path.join(ck, name), device=dev)
+            want = snaps.get(it)
+            out[name] = dict(iteration=it, history_length=int(hist["total"].numel()),
+                             bit_equal=want is not None and all(
+                                 torch.equal(getattr(st, k), w)
+                                 for k, w in zip(("u", "v", "p"), want)))
+        return out
+
+    reset_counts()
+    rc1, out1, wall1 = cli_call(base + ("--max-iterations", str(first)))
+    launches1 = counts()
+    names1 = steps()
+    uninterrupted, it_full = direct_run(d["state"](), total, 0)
+    kept1 = check(names1, uninterrupted)
+    resume_from = load_checkpoint(os.path.join(ck, names1[-1]), device=dev)
+    reset_counts()
+    rc2, out2, wall2 = cli_call(base + ("--max-iterations", str(total), "--resume"))
+    launches2 = counts()
+    names2 = steps()
+    resumed, it_resumed = direct_run(resume_from[0], total - resume_from[1], resume_from[1])
+    # a checkpoint of the first run may still be kept after the resume
+    kept2 = check(names2, {**{i: s for i, s in uninterrupted.items() if i <= first}, **resumed})
+    for name, c in kept2.items():
+        full = uninterrupted.get(c["iteration"])
+        if full is not None and c["iteration"] > first:
+            st = load_checkpoint(os.path.join(ck, name), device=dev)[0]
+            c["gap_to_uninterrupted"] = {k: rel_gap(getattr(st, k), w)
+                                         for k, w in zip(("u", "v", "p"), full)}
+    n1, n2 = out1[-1]["iterations"], out2[-1]["iterations"]
+    row = dict(loop=loop, budgets=[first, total], first=dict(names=names1, checkpoints=kept1,
+                                                             iterations=n1, wall_s=wall1,
+                                                             launches=launches1),
+               resumed=dict(names=names2, checkpoints=kept2, iterations=n2, from_iteration=
+                            resume_from[1], direct_iterations=it_resumed, wall_s=wall2,
+                            converged=out2[-1]["converged"], launches=launches2),
+               uninterrupted_iterations=it_full)
+    row["ok"] = bool(rc1 == 0 and rc2 == 0 and n1 == first and resume_from[1] == first
+                     and len(names1) == 2 and len(names2) == 2
+                     and all(c["bit_equal"] for c in (*kept1.values(), *kept2.values()))
+                     and n2 == it_resumed and names2[-1] == f"step_{first + n2:08d}"
+                     and launches1 == only(fused_outer_step=n1)
+                     and launches2 == only(fused_outer_step=n2))
+    return row
+
+
+def cli_sweep(dev, tmp):
+    """(d) ``sweep`` over ``CLI_SWEEP_RE`` at 63^2 to 1e-3, case by case and
+    with ``--vmap``: the rows (apart from wall times) equal to each other
+    and to a direct ``batched_cavity_solve`` with the CLI's configs, each
+    with K6 a step."""
+    import os
+
+    from naviflow_tpu_torch.algorithms import batched_cavity_solve
+
+    argv = ("sweep", "--nx", str(CLI_NX), "--re", *CLI_SWEEP_RE, "--tolerance", "1e-3")
+    runs = {}
+    for tag, extra in (("each", ()), ("vmap", ("--vmap",))):
+        reset_counts()
+        rc, rows, wall = cli_call(argv + extra + ("--out", os.path.join(tmp, tag)))
+        runs[tag] = dict(rc=rc, rows=rows, wall_s=wall, launches=counts())
+    d = cli_direct(argv, dev)
+    res = [float(r) for r in CLI_SWEEP_RE]
+    reset_counts()
+    direct = batched_cavity_solve(d["mesh"], res, d["bc"], d["cfg"], d["mom"], d["pres"],
+                                  device=dev)
+    torch_sync()
+    direct_launches = counts()
+    cases = [dict(re=re, iterations=int(dg.iterations), converged=bool(dg.converged),
+                  final_residual=float(dg.final_residual)) for re, (_, dg) in zip(res, direct)]
+    each, vmap = runs["each"]["rows"], runs["vmap"]["rows"]
+    rows_equal = [no_wall(a) for a in each] == [no_wall(b) for b in vmap]
+    direct_equal = all(r["iterations"] == c["iterations"] and r["converged"] == c["converged"]
+                       and r["final_residual"] == c["final_residual"]
+                       for rows in (each, vmap) for r, c in zip(rows, cases))
+    want = only(fused_outer_step=sum(c["iterations"] for c in cases))
+    row = dict(argv=list(argv), rows=vmap, direct=cases, rows_equal=rows_equal,
+               direct_equal=direct_equal, wall_s={k: r["wall_s"] for k, r in runs.items()},
+               launches={k: r["launches"] for k, r in runs.items()},
+               launches_direct=direct_launches, launches_expected=want)
+    row["ok"] = bool(all(r["rc"] == 0 for r in runs.values()) and len(each) == len(vmap)
+                     == len(res) and rows_equal and direct_equal
+                     and all(r["launches"] == want for r in runs.values())
+                     and direct_launches == want)
+    return row
+
+
+def cli_sequence(dev):
+    """(e) ``run --sequence`` at 255^2 to 1e-4: converged, Ghia below 0.10,
+    the launches and the result of a direct ``grid_sequence_solve`` with
+    the CLI's configs."""
+    import torch
+
+    from naviflow_tpu_torch.algorithms import grid_sequence_solve
+
+    argv = ("run", "--sequence", "--nx", str(CLI_SEQ_NX), "--tolerance", str(CLI_SEQ_TOL))
+    reset_counts()
+    rc, out, wall = cli_call(argv)
+    launches = counts()
+    d = cli_direct(argv, dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, diag, levels = grid_sequence_solve(d["mesh"], d["fluid"], d["bc"], d["solve"], d["cfg"],
+                                          momentum=d["mom"], pressure=d["pres"],
+                                          loop=d["args"].loop, dtype=torch.float32, device=dev)
+    torch_sync()
+    direct_s = time.perf_counter() - t0
+    direct = counts()
+    s = out[-1]
+    row = dict(argv=list(argv), summary=s, levels=levels, wall_s=wall, direct_s=direct_s,
+               launches=launches, launches_direct=direct,
+               direct_final_residual=float(diag.final_residual))
+    row["ok"] = bool(rc == 0 and s["converged"] and s["infinity_norm_error"] < 0.10
+                     and launches == direct and s["iterations"] == int(diag.iterations)
+                     and s["final_residual"] == float(diag.final_residual))
+    return row
+
+
+def cli_newton(dev):
+    """(f) ``run --newton`` on 63^2 QUICK Re=1000 from 200 SIMPLE steps:
+    SIMPLE short of the tolerance, Newton converged.  Launches: the SIMPLE
+    steps' (the QUICK momentum composed, so each step builds its hierarchy
+    with one K4 and solves with one K5, as the CLI's multigrid config
+    passes both gates at 63^2), then Newton's: K4 one a Newton step and
+    K5 one a preconditioner application (GMRES(m): m + 1 a restart cycle),
+    nothing else."""
+    from naviflow_tpu_torch.algorithms import NewtonConfig
+
+    argv = ("run",) + CLI_NEWTON + ("--newton",)
+    reset_counts()
+    rc, out, wall = cli_call(argv)
+    launches = counts()
+    s = out[-1]
+    steps = cli_direct(argv, dev)["cfg"].max_iterations
+    k = s.get("newton_gmres_iterations", 0)
+    newton = s.get("newton_iterations", -1)
+    want = only(galerkin_levels=steps + newton,
+                fused_mg_solve=steps + k + k // NewtonConfig().gmres_restart)
+    row = dict(argv=list(argv), summary=s, wall_s=wall, launches=launches,
+               launches_expected=want, simple_steps=steps,
+               ms_per_gmres_iteration_upper=wall * 1e3 / max(k, 1))
+    row["ok"] = bool(rc == 0 and s["iterations"] == steps and s.get("newton_converged")
+                     and s["converged"] and launches == want)
+    return row
+
+
+def cli_distributed(dev, tmp):
+    """(g) ``run --distributed`` on 64^2 (50 steps) on the single rank:
+    the saved fields and the iterations equal to a direct
+    ``distributed_simple_solve`` with the CLI's mapped config on the
+    one-rank mesh; no kernel launch, as in the JAX package."""
+    import os
+
+    import numpy as np
+
+    from naviflow_tpu_torch import cli
+    from naviflow_tpu_torch.parallel.dist_simple import distributed_simple_solve
+    from naviflow_tpu_torch.parallel.sharding import make_device_mesh
+
+    npz = os.path.join(tmp, "dist.npz")
+    argv = ("run", "--distributed") + CLI_DIST
+    reset_counts()
+    rc, out, wall = cli_call(argv + ("--save", npz))
+    launches = counts()
+    d = cli_direct(argv, dev)
+    reset_counts()
+    final, diag = distributed_simple_solve(d["mesh"], d["fluid"], d["bc"], d["state"](),
+                                           make_device_mesh(device=dev),
+                                           cli._distributed_config(d["args"]))
+    torch_sync()
+    direct = counts()
+    s = out[-1]
+    equal = same_arrays(np.load(npz), final) and s["iterations"] == diag["iterations"]
+    row = dict(argv=list(argv), summary=s, wall_s=wall, equal_to_direct=equal,
+               launches=launches, launches_direct=direct)
+    row["ok"] = bool(rc == 0 and equal and s["device_mesh"] == {"x": 1, "y": 1}
+                     and launches == direct == only())
+    return row
+
+
+def cli_mg_debug(dev):
+    """(h) ``debug_vcycle`` bit-equal to the composed ``_cycle`` on the 63^2
+    vertex, 256^2 and 1024^2 cell-centred hierarchies, with 6 stages a
+    non-coarsest level and one for the coarsest; its final iterate against
+    ``_cycle0`` on the card (K3 on the first two, K2 strips and a K3 tail at
+    1024^2) within the kernel phase's K3 (1e-5 of the output) and K2
+    (``strip_close``) tolerances.  These launches compare and do not join
+    the phase's."""
+    import dataclasses
+
+    import torch
+
+    from naviflow_tpu_torch.solvers.multigrid import _cycle, _cycle0
+    from naviflow_tpu_torch.utils.mg_debug import debug_vcycle
+
+    inp = odd_inputs(NH, dev, steps=5)
+    pres = dataclasses.replace(inp["pres"], backend="auto")  # odd_inputs' is composed
+    levels1024, cfg1024, _ = fine_levels(dev)
+    even_levels, even_b = even_hierarchy(256, dev, pres)
+    rng = torch.Generator(device=dev).manual_seed(SEED)
+    b1024 = torch.randn(N, N, generator=rng, device=dev)
+    out, ok = {}, True
+    for label, levels, b, cfg, k2 in (("vertex63", inp["levels"], inp["b"], pres, False),
+                                      ("cell256", even_levels, even_b, pres, False),
+                                      ("cell1024", levels1024, b1024 - b1024.mean(), cfg1024,
+                                       True)):
+        p0 = torch.zeros_like(b)
+        want = _cycle(p0, b, levels, 0, cfg)
+        got, stages = debug_vcycle(p0, b, levels, cfg)
+        reset_counts()
+        kern = _cycle0(p0, b, levels, cfg)
+        torch_sync()
+        launched = counts()
+        a, r = max_err(kern, got)
+        close = strip_close(kern, got) if k2 else r < 1e-5
+        n = len(levels)
+        row = dict(levels=[lv[1][0] for lv in levels], stages=len(stages),
+                   bit_equal=bool(torch.equal(got, want)), kernel_max_abs_err=a,
+                   kernel_rel_err=r, kernel_close=close, launches=launched)
+        row["ok"] = (row["bit_equal"] and len(stages) == 6 * (n - 1) + 1 and close
+                     and launched["fused_vcycle"] == 1
+                     and launched["strip_down"] == launched["strip_up"] == (2 if k2 else 0))
+        out[label] = row
+        ok &= row["ok"]
+    return dict(hierarchies=out, ok=bool(ok))
+
+
+def cli_examples(dev):
+    """(i) ``operator_sanity`` and ``cavity_basic``'s ``run(args)`` on the
+    card, the latter to 1e-3 at 63^2 Re=100: the operator checks pass, the
+    solve converges and is finite."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from naviflow_tpu_torch.examples import cavity_basic, operator_sanity
+    from naviflow_tpu_torch.examples._common import parse
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = operator_sanity.run(operator_sanity.parse(["--device", "cuda"]))
+        reset_counts()
+        t0 = time.perf_counter()
+        result = cavity_basic.run(parse(argv=["--tolerance", "1e-3"]))
+        wall = time.perf_counter() - t0
+    launches = counts()
+    finite = all(bool(np.isfinite(getattr(result, k)).all()) for k in ("u", "v", "p"))
+    row = dict(operator_sanity=rows, cavity_basic=dict(
+        iterations=result.iterations, converged=result.converged, wall_s=wall,
+        ghia_infinity_error=result.calculate_infinity_norm_error(), finite=finite),
+        printed=buf.getvalue().splitlines(), launches=launches)
+    row["ok"] = bool(all(r["ok"] for r in rows) and result.converged and finite)
+    return row
+
+
+def run_cli(dev):
+    """The command line (``naviflow_tpu_torch.cli.main``) in-process on the
+    card, (a)-(g), then the multigrid debug recorder (h) and two examples
+    (i); ``launches`` sums the CLI runs' and the examples' counts."""
+    import tempfile
+
+    parts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (("run", lambda: cli_run_default(dev, tmp)),
+                         ("checkpoint", lambda: cli_checkpoints(dev, tmp)),
+                         ("sweep", lambda: cli_sweep(dev, tmp)),
+                         ("sequence", lambda: cli_sequence(dev)),
+                         ("newton", lambda: cli_newton(dev)),
+                         ("distributed", lambda: cli_distributed(dev, tmp)),
+                         ("mg_debug", lambda: cli_mg_debug(dev)),
+                         ("examples", lambda: cli_examples(dev))):
+            t0 = time.perf_counter()
+            parts[name] = fn()
+            parts[name]["seconds"] = time.perf_counter() - t0
+    launches = dict.fromkeys(counts(), 0)
+
+    def add(c):
+        for k, v in c.items():
+            launches[k] += v
+
+    r = parts
+    add(r["run"]["launches"])
+    add(r["run"]["vtk"]["launches"])
+    add(r["checkpoint"]["first"]["launches"])
+    add(r["checkpoint"]["resumed"]["launches"])
+    for c in r["sweep"]["launches"].values():
+        add(c)
+    for name in ("sequence", "newton", "distributed", "examples"):
+        add(r[name]["launches"])
+    return dict(phase="cli", **parts, launches=launches,
+                ok=all(p["ok"] for p in parts.values()))
+
+
 # line name -> (launch counter, source, the TPU kernel's pallas_call, the path
 # whose run counts its launches)
 SOURCES = {
@@ -3884,7 +4364,7 @@ def run_all(dev, card, t0) -> int:
                       ("plane", run_plane), ("sequenced", run_sequenced), ("mgcg", run_mgcg),
                       ("solvers", run_solvers), ("quick", run_quick),
                       ("distributed", run_distributed), ("api", run_api),
-                      ("batch", run_batch), ("newton", run_newton)):
+                      ("batch", run_batch), ("newton", run_newton), ("cli", run_cli)):
         t_phase = time.perf_counter()
         row = fn(dev)
         row["seconds"] = time.perf_counter() - t_phase

@@ -19,7 +19,7 @@ from .core.bc import (
     SideCondition,
     lid_driven_cavity,
 )
-from .core.state import FlowState, initialize_state
+from .core.state import FlowState, ScalarField, VectorField, initialize_state
 
 __version__ = "0.1.0"
 
@@ -32,5 +32,7 @@ __all__ = [
     "SideCondition",
     "lid_driven_cavity",
     "FlowState",
+    "ScalarField",
+    "VectorField",
     "initialize_state",
 ]

@@ -9,4 +9,4 @@ from .bc import (
     enforce_pressure_bcs,
     lid_driven_cavity,
 )
-from .state import FlowState, initialize_state
+from .state import FlowState, ScalarField, VectorField, initialize_state

@@ -1,0 +1,37 @@
+"""Matrix-free BiCGSTAB pressure solve (reference studies 02 + 08)."""
+
+import time
+
+import naviflow_tpu_torch as nt
+from naviflow_tpu_torch.api import (
+    MatrixFreeBiCGSTABSolver,
+    MatrixFreeMomentumSolver,
+    SimpleSolver,
+    StandardVelocityUpdater,
+)
+from naviflow_tpu_torch.examples._common import parse, report, save_plots
+
+
+def run(args):
+    mesh = nt.StructuredMesh(nx=args.nx, ny=args.nx)
+    fluid = nt.FluidProperties(density=1.0, reynolds_number=args.re)
+    algo = SimpleSolver(mesh, fluid,
+                        MatrixFreeBiCGSTABSolver(tolerance=1e-7, max_iterations=3000),
+                        MatrixFreeMomentumSolver(tolerance=1e-6, max_iterations=40),
+                        StandardVelocityUpdater(),
+                        alpha_p=args.alpha_p, alpha_u=args.alpha_u, device=args.device)
+    algo.set_boundary_condition("top", "velocity", {"u": 1.0})
+    t0 = time.time()
+    result = algo.solve(max_iterations=args.max_iterations, tolerance=args.tolerance,
+                        track_infinity_norm=True)
+    report("bicgstab", algo, result, t0)
+    return result
+
+
+def main(argv=None):
+    args = parse(default_nx=127, default_re=1000, argv=argv)
+    save_plots(f"bicgstab_{args.nx}_Re{int(args.re)}", run(args), args.outdir)
+
+
+if __name__ == "__main__":
+    main()

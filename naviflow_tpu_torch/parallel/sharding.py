@@ -90,6 +90,13 @@ class RankMesh:
     device: torch.device
     group: Optional[object] = None
 
+    axis_names = ("x", "y")  # the JAX mesh's axis names
+
+    @property
+    def named_shape(self) -> dict:
+        """``{'x': mx, 'y': my}``: the JAX package's ``dict(mesh.shape)``."""
+        return dict(zip(self.axis_names, self.shape))
+
     @property
     def rank(self) -> int:
         return self.bx * self.shape[1] + self.by

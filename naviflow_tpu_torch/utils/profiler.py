@@ -25,6 +25,16 @@ import numpy as np
 import torch
 
 
+def require_h5py(who: str):
+    """The ``h5py`` module; without it, an ``ImportError`` saying what to
+    install (the card's machine has no h5py)."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f"{who} writes HDF5 and needs h5py: pip install h5py") from e
+    return h5py
+
+
 def _sync():
     """Wait for the card's queued work (a no-op without CUDA)."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -159,10 +169,7 @@ class Profiler:
 
     # -- HDF5 export --------------------------------------------------------------------
     def save(self, filename: Optional[str] = None, profile_dir: str = "results/profiles") -> str:
-        try:
-            import h5py
-        except ImportError as e:
-            raise ImportError("Profiler.save writes HDF5 and needs h5py: pip install h5py") from e
+        h5py = require_h5py("Profiler.save")
 
         if filename is None:
             nx, ny = (self.mesh.get_dimensions() if self.mesh else (0, 0))

@@ -100,10 +100,11 @@ def test_convergence_stop_matches_jax():
 def test_port_imports_without_jax():
     """The port never imports JAX: with ``jax`` blocked, importing the whole
     package (every module, the object API, the result, the plots, the
-    profiler, Newton and batching among them) still works; with
-    ``matplotlib`` and ``h5py`` blocked too, as on the card's machine,
-    which has neither: the modules that use them import them when
-    called."""
+    profiler, Newton and batching, the command line, the checkpoints and
+    exporters, the multigrid debug recorder and the examples among them)
+    still works; with ``matplotlib`` and ``h5py`` blocked too, as on the
+    card's machine, which has neither: the modules that use them import
+    them when called."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for blocked in ("jax", "matplotlib", "h5py"):
@@ -114,7 +115,14 @@ def test_port_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         for name in ("api", "algorithms.newton", "algorithms.batch", "postprocessing.result",
-                     "postprocessing.visualization", "utils.profiler"):
+                     "postprocessing.visualization", "utils.profiler", "cli", "io.checkpoint",
+                     "io.exporters", "utils.mg_debug", "core.unstructured",
+                     "postprocessing.cylinder_flow", "examples._common",
+                     *("examples." + e for e in (
+                         "cavity_basic", "cavity_bicgstab", "cavity_gauss_seidel",
+                         "cavity_jacobi", "cavity_mgcg", "cavity_multigrid", "cavity_newton",
+                         "cavity_piso", "cavity_quick", "cavity_sequenced",
+                         "distributed_cavity", "operator_sanity", "profile_analysis"))):
             assert "naviflow_tpu_torch." + name in names, name
         assert not any(k == "jax" or k.startswith("jax.") or k.startswith("naviflow_tpu.")
                        for k, v in sys.modules.items() if v is not None)
