@@ -14,7 +14,9 @@ result line:
    strip_up instance's, K4's and K11's by name), K1's resident blocks an SM at
    degree 4 and strip_down's and strip_up's at each (points, sweeps), the
    thread-block cluster size each K6 body, K3, K4, K5 and K7 launch with,
-   and one cluster barrier's time at each size (``nf_cluster_sync_probe``);
+   how many clusters of each batched K6 body fit at once at 16 and 8 CTAs
+   (``step.max_active_clusters``), and one cluster barrier's time at each
+   size (``nf_cluster_sync_probe``);
 3. each kernel against its plain PyTorch version on the card, with the
    tolerance of the JAX package's test of that kernel and both times (CUDA
    events, turns plain / kernel / kernel / plain): K1, K2 and K3 at the
@@ -25,7 +27,10 @@ result line:
    at the headline configuration and at tolerance 1e-4 / 30 cycles, and on
    a 255^2 vertex and a 256^2 cell-centred hierarchy at the headline
    configuration; K6 over 3 chained 63^2 steps from rest
-   and one 255^2 step; K3 on the 63^2 -> 7^2 vertex hierarchy; K8 at 2048^2
+   and one 255^2 step; K6's batched entry at 63^2 (3 cases, 2 chained
+   steps) and 255^2 (4 cases, 1 step), each case also bit-equal to its
+   single launch, and a frozen case that must come back unchanged; K3 on
+   the 63^2 -> 7^2 vertex hierarchy; K8 at 2048^2
    (plain, with the Gershgorin maxima, and with each Poisson fold); K9 on
    the u and v systems of a 2048^2 cavity state (degree 4); K6's simplec,
    piso and simpler bodies over 3 chained 63^2 steps from rest; K10a/b at
@@ -141,9 +146,14 @@ result line:
     loop, bit-equal to ``simple_solve``, 568 iterations, K6 a step and K4
     once, Ghia below 0.10; ``SimplecSolver``, ``PisoSolver`` and
     ``SimplerSolver`` to 1e-3 in the algorithms63 phase's iterations;
-16. case batching (``run_batch``): ``batched_cavity_solve`` at 63^2, Re
-    100 / 400 / 1000, each case bit-equal to its single solve, K6 once per
-    iteration of every case;
+16. case batching (``run_batch``): ``batched_cavity_solve``, the lockstep
+    loop, at 63^2 (Re 100 / 400 / 1000, the 8-case sweep Re 100-1000 and Re
+    100 alone) and at 255^2 (4 cases) to 1e-3: each case bit-equal to its
+    single solve, one batched K6 launch a lockstep step (the largest
+    iteration count), no single K6 launch and K4 once a batch; beside each
+    batch the same cases one after another; ms a lockstep step at B = 1, 3,
+    8; the idle share over the 8-case loop; the batched K6's max active
+    clusters;
 17. Newton-Krylov (``run_newton``): ``benchmarks/scale_runs.py``'s QUICK
     pipeline at 255^2 Re=1000 (a SIMPLE warm start, then ``newton_solve``
     to 1e-5): converged, Ghia below 0.10, K4 once a Newton step and K5 once
@@ -164,7 +174,8 @@ result line:
     checkpoint bit-equal to the direct chunked run's state at its
     iteration; (d) ``sweep`` at Re 100 / 400 / 1000 to 1e-3 with and
     without ``--vmap``: the rows equal to each other and to a direct
-    ``batched_cavity_solve``; (e) ``run --sequence`` at 255^2 to 1e-4:
+    ``batched_cavity_solve``, ``--vmap`` one batched K6 launch a lockstep
+    step; (e) ``run --sequence`` at 255^2 to 1e-4:
     converged, Ghia below 0.10, a direct ``grid_sequence_solve``'s
     launches; (f) ``run --newton`` on 63^2 QUICK Re=1000 after 200 SIMPLE
     steps: Newton converged, K4 a Newton step and K5 a preconditioner
@@ -251,7 +262,12 @@ NEWTON_WARM_STEPS = {NN: 300, NN_SMALL: 200}  # SIMPLE warm-start steps from res
 NEWTON_REFERENCE_TIMEOUT = 900.0  # seconds the newton phase waits for it
 NEWTON_ITER_SLACK = 1  # Newton iterations of the card's 63^2 run: the reference's +-1
 BATCH_RE = (100.0, 400.0, 1000.0)  # the batch phase's cases (63^2, headline config)
+BATCH_RE8 = (100.0, 200.0, 300.0, 400.0, 500.0, 600.0, 800.0, 1000.0)  # its 8-case sweep
+BATCH_RE_BIG = (100.0, 400.0, 700.0, 1000.0)  # its 4 cases at NH_BIG
 BATCH_TOLERANCE, BATCH_MAX_IT = 1e-3, 3000
+# the kernel phase's batched K6 rows: (grid, the cases' Reynolds numbers,
+# chained steps from rest)
+BATCH_KERNEL_CASES = ((NH, (100.0, 400.0, 1000.0), 2), (NH_BIG, (100.0, 400.0, 700.0, 1000.0), 1))
 ALGORITHMS63_ITERATIONS = {}  # the algorithms63 phase's kernel runs (name -> iterations)
 SEED = 0
 REPS = 20  # timed launches per kernel measurement
@@ -1093,6 +1109,98 @@ def check_step(dev, cl_ms):
     return rows
 
 
+def check_step_batched(dev, cl_ms, max_clusters):
+    """K6's batched entry (one cluster a case): at 63^2 B = 3 over two
+    chained steps from rest and at 255^2 B = 4 over one, Re as
+    ``BATCH_KERNEL_CASES`` give them: every case within K6's tolerances of
+    the plain version (u, v, p within 2e-4, equal cycle counts) and bit-equal
+    to its single ``fused_outer_step`` launch in every output; then the last
+    step's inputs again with case 1 frozen (held: that step's results),
+    which must come back with its inputs and held results and leave the
+    other cases' outputs unchanged.  The bound: the cases' summed work
+    (each case's own Krylov iterations and cycles), and ceil(B /
+    ``max_clusters``) waves of the slowest case's barrier bound."""
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig
+    from naviflow_tpu_torch.ops import step
+
+    rows = []
+    for n, res, chain in BATCH_KERNEL_CASES:
+        mesh, _, bc = cavity_case(n)
+        mom, pres = headline_configs()
+        sc = SIMPLEConfig()
+        cases, mus = len(res), [1.0 / re for re in res]
+        kw = dict(dx=mesh.dx, dy=mesh.dy, rho=1.0, bc=bc, cfg=sc, mom_cfg=mom, pres_cfg=pres)
+        s = nt.initialize_state(mesh, bc, device=dev)
+        u, v, p = (torch.stack([x] * cases) for x in (s.u, s.v, s.p))
+        pm = torch.zeros((cases, 1), device=dev)
+        active = torch.ones(cases, dtype=torch.bool, device=dev)
+        worst_abs = worst_rel = 0.0
+        ok = bit_equal = True
+        for _ in range(chain):
+            got = step.fused_outer_step_batched("simple", u, v, p, pm, active, mu=mus, **kw)
+            work, cycles, krylov, bars = [0, 0], [], [], []
+            for b in range(cases):
+                one = step.fused_outer_step("simple", u[b], v[b], p[b], (pm[b, 0],), mu=mus[b],
+                                            **kw)
+                with count_applies() as applies:
+                    want = step.fused_outer_step_plain("simple", u[b], v[b], p[b], (pm[b, 0],),
+                                                       mu=mus[b], **kw)
+                torch_sync()
+                for g, w in zip(got[:3], want[:3]):
+                    a, r = max_err(g[b], w)
+                    worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+                    ok &= r < 2e-4
+                ok &= int(got[4][b]) == int(want[4])
+                bit_equal &= (all(torch.equal(g[b], o) for g, o in
+                                  zip(got[:3] + got[5:], one[:3] + one[5:]))
+                              and torch.equal(got[3][b], torch.stack(list(one[3])))
+                              and int(got[4][b]) == int(one[4]))
+                cycles.append(int(want[4]))
+                krylov.append((applies[0] - 2) // 2)
+                shapes = step.step_shapes(n, n, pres)
+                meta = [(shp, lvl == 0) for lvl, shp in enumerate(shapes)]
+                w_b = step_work(n, meta, pres, krylov[-1], cycles[-1])
+                work = [work[0] + w_b[0], work[1] + w_b[1]]
+                bars.append(k6_barriers("simple", sc, meta, pres, krylov[-1], cycles[-1], 1))
+            ins = (u, v, p, pm)
+            u, v, p, pm = got[0], got[1], got[2], got[3][:, :1]
+        u, v, p, pm = ins
+        frozen = active.clone()
+        frozen[1] = False
+        fz = step.fused_outer_step_batched("simple", u, v, p, pm, frozen, mu=mus,
+                                           held=(got[3], got[4], got[5], got[6], got[7]), **kw)
+        torch_sync()
+        frozen_ok = (all(torch.equal(a[1], x[1]) for a, x in zip(fz[:3], (u, v, p)))
+                     and torch.equal(fz[3][1, :1], pm[1])
+                     and torch.equal(fz[3][1, 1:], got[3][1, 1:])
+                     and int(fz[4][1]) == int(got[4][1])
+                     and all(torch.equal(a[1], g[1]) for a, g in zip(fz[5:], got[5:]))
+                     and all(torch.equal(a[b], g[b]) for a, g in zip(fz, got)
+                             for b in range(cases) if b != 1))
+        reps = REPS if n == NH else 5
+
+        def kernel():
+            step.fused_outer_step_batched("simple", u, v, p, pm, active, mu=mus, **kw)
+
+        ms, plain_ms, dev_ms = time_pair(
+            lambda: step.fused_outer_step_batched_plain("simple", u, v, p, pm, active, mu=mus,
+                                                        **kw), kernel, reps=reps)
+        waves = -(-cases // max_clusters)
+        rows.append(dict(name="fused_outer_step_batched", shape=[n, n], cases=cases,
+                         reynolds=list(res), chained_steps=chain, cycles=cycles,
+                         krylov_iterations=krylov, ok=ok and bit_equal and frozen_ok,
+                         bit_equal_to_single=bit_equal, frozen_case_ok=frozen_ok,
+                         max_abs_err=worst_abs, rel_err=worst_rel, ms=ms, plain_ms=plain_ms,
+                         device_ms=dev_ms, host_ms=host_ms(kernel, reps), work=tuple(work),
+                         max_active_clusters=max_clusters, waves=waves,
+                         cluster_barriers=max(bars), barrier_bound_ms=waves * max(bars) * cl_ms,
+                         main=n == NH))
+    return rows
+
+
 def check_assembly(dev):
     """K8 at 2048^2 from a seeded cavity state: plain, with the Gershgorin
     maxima, and with each Poisson fold; coefficients at rtol/atol 1e-5,
@@ -1602,6 +1710,7 @@ def counts():
             "fused_mg_solve": mg.SOLVE_LAUNCHES,
             "bicgstab_momentum": krylov.LAUNCHES,
             "fused_outer_step": step.LAUNCHES,
+            "fused_outer_step_batched": step.BATCH_LAUNCHES,
             "fused_assembly_pair": assembly.LAUNCHES,
             "chebyshev_momentum_strips": cheby.LAUNCHES,
             "plane_strip_down": plane_strip.DOWN_LAUNCHES,
@@ -1619,7 +1728,7 @@ def reset_counts():
     strip.STRIP_UP_LAUNCHES = 0
     mg.LAUNCHES = mg.RAP_LAUNCHES = mg.SOLVE_LAUNCHES = 0
     krylov.LAUNCHES = 0
-    step.LAUNCHES = 0
+    step.LAUNCHES = step.BATCH_LAUNCHES = 0
     assembly.LAUNCHES = 0
     cheby.LAUNCHES = 0
     plane_strip.DOWN_LAUNCHES = plane_strip.UP_LAUNCHES = 0
@@ -2950,43 +3059,104 @@ def run_api(dev):
                 algorithms=others, launches=launches, ok=bool(ok))
 
 
-def run_batch(dev):
-    """``batched_cavity_solve`` at 63^2, Re 100 / 400 / 1000, with the
-    headline configuration to ``BATCH_TOLERANCE``: each case equal to its
-    single solve bit for bit, the cases' iteration counts all different,
-    K6 launched once per iteration of every case and K4 once per case."""
+def batch_run(dev, n, res, cfg, algorithm="simple"):
+    """``batched_cavity_solve`` of ``algorithm`` at ``n``^2 over ``res`` with
+    the headline configuration from rest, then each case's single solve:
+    (state and diagnostics per case, the batch's wall seconds and launches,
+    the single solves' wall seconds, per case bit-equal in u, v, p and
+    ``total_res_history``)."""
     import torch
 
     import naviflow_tpu_torch as nt
-    from naviflow_tpu_torch.algorithms import SIMPLEConfig, batched_cavity_solve, simple_solve
+    from naviflow_tpu_torch import algorithms
 
-    mesh, _, bc = cavity_case(NH)
+    solve = getattr(algorithms, f"{algorithm}_solve")
+    mesh, _, bc = cavity_case(n)
     mom, pres = headline_configs()
-    cfg = SIMPLEConfig(max_iterations=BATCH_MAX_IT, tolerance=BATCH_TOLERANCE)
     torch_sync()
     reset_counts()
     t0 = time.perf_counter()
-    out = batched_cavity_solve(mesh, BATCH_RE, bc, cfg, mom, pres, device=dev)
+    out = algorithms.batched_cavity_solve(mesh, res, bc, cfg, mom, pres, algorithm=algorithm,
+                                          device=dev)
     torch_sync()
     wall = time.perf_counter() - t0
     launches = counts()
-    cases, ok = [], True
-    for re, (bs, bd) in zip(BATCH_RE, out):
-        fluid = nt.FluidProperties(density=1.0, reynolds_number=re)
-        ss, sd = simple_solve(mesh, fluid, bc, nt.initialize_state(mesh, bc, device=dev), cfg,
-                              momentum=mom, pressure=pres, loop="fused")
-        equal = (bd.iterations == sd.iterations
-                 and all(torch.equal(getattr(bs, k), getattr(ss, k)) for k in ("u", "v", "p"))
-                 and torch.equal(bd.total_res_history, sd.total_res_history))
-        cases.append(dict(re=re, iterations=bd.iterations, converged=bool(bd.converged),
-                          final_residual=float(bd.final_residual), bit_equal=equal))
-        ok &= equal and bool(bd.converged)
-    iters = [c["iterations"] for c in cases]
-    want = only(fused_outer_step=sum(iters), galerkin_levels=len(BATCH_RE))
-    ok &= launches == want and len(set(iters)) == len(iters)
-    return dict(phase="batch", grid=NH, reynolds=list(BATCH_RE), tolerance=BATCH_TOLERANCE,
-                cases=cases, wall_s=wall, ms_per_step=wall * 1e3 / sum(iters),
-                launches=launches, launches_expected=want, ok=ok)
+    equal, single_wall = [], 0.0
+    for re_, (bs, bd) in zip(res, out):
+        fluid = nt.FluidProperties(density=1.0, reynolds_number=re_)
+        state = nt.initialize_state(mesh, bc, device=dev)
+        torch_sync()
+        t0 = time.perf_counter()
+        ss, sd = solve(mesh, fluid, bc, state, cfg, momentum=mom, pressure=pres, loop="fused")
+        torch_sync()
+        single_wall += time.perf_counter() - t0
+        equal.append(bd.iterations == sd.iterations
+                     and all(torch.equal(getattr(bs, k), getattr(ss, k)) for k in ("u", "v", "p"))
+                     and torch.equal(bd.total_res_history, sd.total_res_history))
+    return out, wall, launches, single_wall, equal
+
+
+def run_batch(dev):
+    """``batched_cavity_solve`` (the lockstep loop, one batched K6 launch a
+    step) with the headline configuration to ``BATCH_TOLERANCE``: at 63^2
+    Re 100 / 400 / 1000 (``BATCH_RE``), the 8-case sweep (``BATCH_RE8``)
+    and Re 100 alone, and at 255^2 four cases (``BATCH_RE_BIG``).  Each case
+    bit-equal to its single ``simple_solve`` (u, v, p, ``total_res_history``)
+    and converged; then SIMPLEC, PISO and SIMPLER over ``BATCH_RE`` at 63^2
+    (the other K6 bodies' case axis) the same way; each batch's launches:
+    ``fused_outer_step_batched`` =
+    the largest iteration count, no single ``fused_outer_step``, K4 once
+    (the shared setup hierarchy); the cases' iteration counts not all equal.
+    Beside each batch the same cases solved one after another (wall
+    seconds); ms a lockstep step at B = 1, 3 and 8 (63^2); the device's idle
+    share over the 8-case loop (``profile_window``); the batched K6's max
+    active clusters at 16 and 8 CTAs; the card's name and power limit."""
+    from naviflow_tpu_torch import algorithms
+    from naviflow_tpu_torch.algorithms import batched_cavity_solve
+    from naviflow_tpu_torch.ops import step
+
+    mom, pres = headline_configs()
+    runs, ok = {}, True
+    for tag, n, res, algo in (("63x1", NH, BATCH_RE[:1], "simple"),
+                              ("63x3", NH, BATCH_RE, "simple"),
+                              ("63x8", NH, BATCH_RE8, "simple"),
+                              ("255x4", NH_BIG, BATCH_RE_BIG, "simple"),
+                              ("63x3:simplec", NH, BATCH_RE, "simplec"),
+                              ("63x3:piso", NH, BATCH_RE, "piso"),
+                              ("63x3:simpler", NH, BATCH_RE, "simpler")):
+        cfg = getattr(algorithms, f"{algo.upper()}Config")(max_iterations=BATCH_MAX_IT,
+                                                           tolerance=BATCH_TOLERANCE)
+        mesh, _, bc = cavity_case(n)
+        batched_cavity_solve(mesh, res, bc, dataclasses.replace(cfg, max_iterations=2), mom,
+                             pres, algorithm=algo, device=dev)  # warm-up: scratch, params
+        out, wall, launches, single_wall, equal = batch_run(dev, n, res, cfg, algo)
+        iters = [d.iterations for _, d in out]
+        want = only(fused_outer_step_batched=max(iters), galerkin_levels=1)
+        converged = all(bool(d.converged) for _, d in out)
+        runs[tag] = dict(grid=n, algorithm=algo, reynolds=list(res), iterations=iters,
+                         converged=converged,
+                         final_residual=[float(d.final_residual) for _, d in out],
+                         bit_equal=equal, wall_s=wall, ms_per_lockstep_step=wall * 1e3 / max(iters),
+                         sequential_wall_s=single_wall,
+                         sequential_ms_per_step=single_wall * 1e3 / sum(iters),
+                         launches=launches, launches_expected=want)
+        ok &= (all(equal) and converged and launches == want
+               and (len(res) == 1 or len(set(iters)) > 1))
+    ok &= len(set(runs["63x3"]["iterations"])) == len(BATCH_RE)
+    mesh, _, bc = cavity_case(NH)
+    cfg = algorithms.SIMPLEConfig(max_iterations=BATCH_MAX_IT, tolerance=BATCH_TOLERANCE)
+    profile = profile_window(
+        lambda: batched_cavity_solve(mesh, BATCH_RE8, bc, cfg, mom, pres, device=dev),
+        max(runs["63x8"]["iterations"]))
+    return dict(phase="batch", tolerance=BATCH_TOLERANCE, runs=runs,
+                ms_per_lockstep_step={str(len(r["reynolds"])): r["ms_per_lockstep_step"]
+                                      for t, r in runs.items()
+                                      if t in ("63x1", "63x3", "63x8")},
+                idle_profile_63x8=profile,
+                max_active_clusters={str(k): step.max_active_clusters("simple", k, dev)
+                                     for k in (16, 8)},
+                cluster_size=step.cluster_size("simple", dev), card=nvidia_smi(),
+                launches=runs["63x3"]["launches"], ok=ok)
 
 
 def tangent_graph_check(warm, mesh, fluid, bc, scheme):
@@ -3704,8 +3874,9 @@ def cli_checkpoints(dev, tmp):
 def cli_sweep(dev, tmp):
     """(d) ``sweep`` over ``CLI_SWEEP_RE`` at 63^2 to 1e-3, case by case and
     with ``--vmap``: the rows (apart from wall times) equal to each other
-    and to a direct ``batched_cavity_solve`` with the CLI's configs, each
-    with K6 a step."""
+    and to a direct ``batched_cavity_solve`` with the CLI's configs; case by
+    case K6 a step of every case, with ``--vmap`` (and the direct call) one
+    batched K6 launch a lockstep step."""
     import os
 
     from naviflow_tpu_torch.algorithms import batched_cavity_solve
@@ -3730,15 +3901,17 @@ def cli_sweep(dev, tmp):
     direct_equal = all(r["iterations"] == c["iterations"] and r["converged"] == c["converged"]
                        and r["final_residual"] == c["final_residual"]
                        for rows in (each, vmap) for r, c in zip(rows, cases))
-    want = only(fused_outer_step=sum(c["iterations"] for c in cases))
+    iters = [c["iterations"] for c in cases]
+    want = {"each": only(fused_outer_step=sum(iters)),
+            "vmap": only(fused_outer_step_batched=max(iters))}
     row = dict(argv=list(argv), rows=vmap, direct=cases, rows_equal=rows_equal,
                direct_equal=direct_equal, wall_s={k: r["wall_s"] for k, r in runs.items()},
                launches={k: r["launches"] for k, r in runs.items()},
                launches_direct=direct_launches, launches_expected=want)
     row["ok"] = bool(all(r["rc"] == 0 for r in runs.values()) and len(each) == len(vmap)
                      == len(res) and rows_equal and direct_equal
-                     and all(r["launches"] == want for r in runs.values())
-                     and direct_launches == want)
+                     and all(r["launches"] == want[k] for k, r in runs.items())
+                     and direct_launches == want["vmap"])
     return row
 
 
@@ -3976,6 +4149,9 @@ SOURCES = {
     "fused_outer_step[simpler]": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cuh",
                                   "naviflow_tpu/ops/pallas_step.py:364",
                                   "algorithms63:simpler"),
+    # K6 with the case axis: the batch phase's lockstep loop
+    "fused_outer_step_batched": ("fused_outer_step_batched", "naviflow_tpu_torch/csrc/step.cuh",
+                                 "naviflow_tpu/ops/pallas_step.py:364", "batch"),
     "fused_assembly_pair": ("fused_assembly_pair", "naviflow_tpu_torch/csrc/assembly.cu",
                             "naviflow_tpu/ops/pallas_assembly.py:294", "large_grid"),
     "chebyshev_momentum_strips": ("chebyshev_momentum_strips",
@@ -4002,10 +4178,12 @@ def kernels_line(rows, paths):
     as SIMPLEC, PISO and SIMPLER call it; K10 at 4096^2; K11 at 256^2); the
     launches are those of the path that runs it (K1-K3 the 1024^2 slice, K4
     and K6's simple body the headline to 1e-3, K5 and K7 the FMG run, K8 and
-    K9 the 2048^2 runs, the other K6 bodies their 63^2 runs, K10 the 4096^2
-    plane run, K11 the kernel phase's checking calls), with every path's
-    count beside them.  ``library_ms``: K11b's cuSPARSE SpMV; no other
-    kernel's function is one PyTorch call."""
+    K9 the 2048^2 runs, the other K6 bodies their 63^2 runs, batched K6 the
+    batch phase's 63^2 Re 100 / 400 / 1000 run (its time, error and work:
+    the kernel phase's 63^2 B = 3 row, with its cases, waves and the max
+    active clusters), K10 the 4096^2 plane run, K11 the kernel phase's
+    checking calls), with every path's count beside them.  ``library_ms``:
+    K11b's cuSPARSE SpMV; no other kernel's function is one PyTorch call."""
     out = []
     for name, (counter, src, replaces, path) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name and r.get("main", True)
@@ -4027,7 +4205,8 @@ def kernels_line(rows, paths):
         # device times (every kernel), K11b's SpMV's and launch floor, the
         # host times per call (every kernel) and the barrier bounds (K3-K7)
         for key in ("device_ms", "library_device_ms", "launch_floor_ms", "host_ms",
-                    "grid_barriers", "cluster_barriers", "barrier_bound_ms"):
+                    "grid_barriers", "cluster_barriers", "barrier_bound_ms", "cases",
+                    "max_active_clusters", "waves"):
             if all(key in r for r in mine):
                 entry[key] = sum(r[key] for r in mine) / k
         if name in ("strip_down", "strip_up"):
@@ -4280,17 +4459,26 @@ def run_all(dev, card, t0) -> int:
     from naviflow_tpu_torch.ops import _cuda, krylov, mg, step
 
     clusters = {algo: step.cluster_size(algo, dev) for algo in step.ALGO_SCALARS}
+    # how many clusters of the batched K6 fit at once, at 16 and 8 CTAs: a
+    # batch of more cases runs in waves
+    k6_max_clusters = {algo: {size: step.max_active_clusters(algo, size, dev) for size in (16, 8)}
+                       for algo in step.ALGO_SCALARS}
+    k6_clusters = k6_max_clusters["simple"]
     k3_size, k5_size = mg.vcycle_cluster_size(dev), mg.mg_solve_cluster_size(dev)
     k4_size, k7_size = mg.galerkin_cluster_size(dev), krylov.cluster_size(dev)
-    # ptxas's report of K1's, K2's, K6's, K3's, K5's, K7's and K9's kernels:
+    # ptxas's report of K1's, K2's, K6's (single and batched), K3's, K5's, K7's
+    # and K9's kernels:
     # registers, spills, shared memory
     ptxas = {src: [line.strip() for line in _cuda.build_log.get(src, "").splitlines()
                    if "registers" in line or "spill" in line]
-             for src in ("asmcheby.cu", "strip.cu", "step.cu", "mg.cu", "krylov.cu",
-                         "cheby.cu")}
+             for src in ("asmcheby.cu", "strip.cu", "step.cu", "step_batched.cu", "mg.cu",
+                         "krylov.cu", "cheby.cu")}
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=_cuda.build_seconds, library=_cuda.library_path().name,
-              k6_cluster_size=clusters, k3_cluster_size=k3_size, k4_cluster_size=k4_size,
+              k6_cluster_size=clusters,
+              k6_batched_max_active_clusters={a: {str(k): c for k, c in by.items()}
+                                              for a, by in k6_max_clusters.items()},
+              k3_cluster_size=k3_size, k4_cluster_size=k4_size,
               k5_cluster_size=k5_size, k7_cluster_size=k7_size, cluster_threads_per_cta=512,
               k1_blocks_per_sm=blocks_per_sm("nf_asmcheby_blocks_per_sm", 4),
               **{f"{side}_blocks_per_sm": {f"{pts}pt_{sw}": blocks_per_sm(
@@ -4338,6 +4526,7 @@ def run_all(dev, card, t0) -> int:
     del even_levels, even_b
     rows.append(check_vertex_vcycle(inp, cl_by_size[k3_size]))
     rows += check_step(dev, cl_ms)
+    rows += check_step_batched(dev, cl_ms, k6_clusters[clusters["simple"]])
     del big
     rows += check_step_bodies(dev, cl_ms)
     rows += check_assembly(dev)

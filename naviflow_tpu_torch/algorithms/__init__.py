@@ -1,4 +1,4 @@
-from .base import SolveDiagnostics, StepInfo, run_outer_loop
+from .base import SolveDiagnostics, StepInfo, run_outer_loop, run_outer_loop_batched
 from .batch import batched_cavity_solve
 from .newton import NewtonConfig, NewtonDiagnostics, newton_solve
 from .piso import PISOConfig, piso_solve

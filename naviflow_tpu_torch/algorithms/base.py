@@ -195,6 +195,93 @@ def run_outer_loop(
     return finalize(c, tolerance=tolerance, dx=dx, dy=dy)
 
 
+def case_info(info, b):
+    """Case ``b``'s slice of a batched :class:`StepInfo`."""
+    return StepInfo(*(x[b] for x in info))
+
+
+def run_outer_loop_batched(
+    step: Callable,
+    u0,
+    v0,
+    p0,
+    extra0: Any,
+    *,
+    max_iterations: int,
+    tolerance: float,
+    dx: float,
+    dy: float,
+    refresh_step=None,
+    refresh_every: int = 0,
+):
+    """:func:`run_outer_loop` for B cases in lockstep, the leading axis of
+    ``u0``, ``v0``, ``p0`` (the semantics of a vmapped ``lax.while_loop``):
+    before each step ``active = (it_b < limit) & (total_b > tolerance)`` on
+    the device (a non-finite residual stops its case), read on the host once
+    a step for all cases (``active.any()``); every active case has taken the
+    same number of steps, so the refresh blocks line up as in
+    :func:`_run_to`.  ``step(u, v, p, extra, active, info)`` (and
+    ``refresh_step``) steps every active case and hands each frozen one back
+    its state, ``extra`` and ``info`` (the last step's :class:`StepInfo`,
+    norms of shape (B,)); a case's history entries are written only while it
+    is active.  Returns per-case ``(state, diagnostics)``, each what
+    :func:`run_outer_loop` gives that case alone."""
+    n = max_iterations
+    cases, dtype, dev = u0.shape[0], u0.dtype, u0.device
+    inf = torch.full((cases,), float("inf"), dtype=dtype, device=dev)
+    c = dict(u=u0, v=v0, p=p0, extra=extra0, it=0,
+             it_b=torch.zeros((cases,), dtype=torch.int64, device=dev), total=inf,
+             info=StepInfo(u_norm=inf, v_norm=inf, p_norm=torch.zeros_like(inf),
+                           inner_iterations=torch.zeros((cases,), dtype=torch.int32, device=dev),
+                           r_u=torch.zeros_like(u0), r_v=torch.zeros_like(v0),
+                           r_p=torch.zeros_like(p0)),
+             # u, v, p and total residuals; the inner iterations
+             hist=torch.zeros((cases, 4, n), dtype=dtype, device=dev),
+             hist_inner=torch.zeros((cases, n), dtype=torch.int32, device=dev))
+
+    def make(fn):
+        def body(c, active):
+            u, v, p, extra, info = fn(c["u"], c["v"], c["p"], c["extra"], active, c["info"])
+            total = torch.maximum(info.u_norm, info.v_norm).to(dtype)
+            it = c["it"]
+            row = torch.stack([info.u_norm.to(dtype), info.v_norm.to(dtype),
+                               info.p_norm.to(dtype), total], 1)
+            c["hist"][:, :, it] = torch.where(active[:, None], row, c["hist"][:, :, it])
+            c["hist_inner"][:, it] = torch.where(active, info.inner_iterations.to(torch.int32),
+                                                 c["hist_inner"][:, it])
+            return dict(c, u=u, v=v, p=p, extra=extra, it=it + 1, it_b=c["it_b"] + active,
+                        total=total, info=info)
+
+        return body
+
+    body = make(step)
+    body_r = make(refresh_step) if refresh_step is not None else None
+
+    def going(c, limit):
+        """The active mask below ``limit``, or None where no case is."""
+        active = (c["it_b"] < limit) & (c["total"] > tolerance)
+        return active if bool(active.any()) else None
+
+    while (active := going(c, n)) is not None:
+        if body_r is None:
+            c = body(c, active)
+            continue
+        c = body_r(c, active)
+        inner = min(c["it"] + (refresh_every - 1), n)
+        while (active := going(c, inner)) is not None:
+            c = body(c, active)
+    out = []
+    for b, it in enumerate(c["it_b"].tolist()):
+        info = case_info(c["info"], b)
+        hist = c["hist"][b]
+        out.append(finalize(dict(u=c["u"][b], v=c["v"][b], p=c["p"][b], it=it,
+                                 total=c["total"][b], hist_u=hist[0], hist_v=hist[1],
+                                 hist_p=hist[2], hist_total=hist[3],
+                                 hist_inner=c["hist_inner"][b], r_u=info.r_u, r_v=info.r_v,
+                                 r_p=info.r_p), tolerance=tolerance, dx=dx, dy=dy))
+    return out
+
+
 class _StallDetector:
     """Residual change < 0.1% over a ~``window``-iteration span: stalled
     (logged in the diagnostics, the solve goes on).

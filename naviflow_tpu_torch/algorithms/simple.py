@@ -112,8 +112,9 @@ def make_pressure_solve(*, dx, dy, rho, cfg, pres_cfg, lg):
     return solve
 
 
-def build_family_solve(make_step, base0, mesh, fluid, bc, cfg, mom_cfg, pres_cfg, loop):
-    """The solve function of a SIMPLE-family algorithm from its step factory
+def family_parts(make_step, base0, mesh, fluid, bc, cfg, mom_cfg, pres_cfg):
+    """What a SIMPLE-family solve builds its loop from (``build_solver``'s
+    arguments but the loop mode), from the algorithm's step factory
     ``make_step`` and its initial scalar carry ``base0(dtype, device)``,
     with the lagged multigrid carry and its refresh step where the pressure
     config has one."""
@@ -122,11 +123,18 @@ def build_family_solve(make_step, base0, mesh, fluid, bc, cfg, mom_cfg, pres_cfg
     common = dict(dx=dx, dy=dy, rho=rho, mu=mu, bc=bc, cfg=cfg, mom_cfg=mom_cfg,
                   pres_cfg=pres_cfg)
     extra0_fn, refresh_every = lagged_extra0(mesh, pres_cfg, cfg, dx, dy, rho, base0)
-    return build_solver(
-        make_step(**common), max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
-        dx=dx, dy=dy, extra0_fn=extra0_fn, loop=loop,
+    return dict(
+        step=make_step(**common), max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
+        dx=dx, dy=dy, extra0_fn=extra0_fn,
         refresh_step=make_step(**common, coarse_mode="rebuild") if refresh_every else None,
         refresh_every=refresh_every)
+
+
+def build_family_solve(make_step, base0, mesh, fluid, bc, cfg, mom_cfg, pres_cfg, loop):
+    """The solve function of a SIMPLE-family algorithm (:func:`family_parts`
+    under the loop mode ``loop``)."""
+    return build_solver(**family_parts(make_step, base0, mesh, fluid, bc, cfg, mom_cfg,
+                                       pres_cfg), loop=loop)
 
 
 def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
@@ -213,10 +221,14 @@ def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
     return step
 
 
-def _build_solve(mesh, fluid, bc, cfg, mom_cfg, pres_cfg, loop, use_rho: bool):
-    """The solve function for one configuration.  ``use_rho`` is
-    :func:`~naviflow_tpu_torch.solvers.momentum.lagged_rho_enabled` of the
-    state the solve will run on."""
+def simple_parts(mesh, fluid, bc, cfg, mom_cfg, pres_cfg, *, dtype, device):
+    """What :func:`simple_solve` builds its loop from (``build_solver``'s
+    arguments but the loop mode) for a state of ``dtype`` on ``device``,
+    which decide :func:`~naviflow_tpu_torch.solvers.momentum.lagged_rho_enabled`."""
+    nx, ny = mesh.get_dimensions()
+    use_rho = lagged_rho_enabled(
+        nx, ny, mom_cfg, fold_poisson=getattr(cfg, "fold_poisson", "auto") == "auto",
+        dtype=dtype, device=device)
     dx, dy = mesh.get_cell_sizes()
     rho, mu = fluid.get_density(), fluid.get_viscosity()
     common = dict(dx=dx, dy=dy, rho=rho, mu=mu, bc=bc, cfg=cfg,
@@ -233,9 +245,9 @@ def _build_solve(mesh, fluid, bc, cfg, mom_cfg, pres_cfg, loop, use_rho: bool):
         def extra0_fn(dt, dev):
             return (base_extra0(dt, dev), (scalar(0.999, dt, dev), scalar(0.999, dt, dev)))
 
-    return build_solver(
-        make_simple_step(**common), max_iterations=cfg.max_iterations,
-        tolerance=cfg.tolerance, dx=dx, dy=dy, extra0_fn=extra0_fn, loop=loop,
+    return dict(
+        step=make_simple_step(**common), max_iterations=cfg.max_iterations,
+        tolerance=cfg.tolerance, dx=dx, dy=dy, extra0_fn=extra0_fn,
         refresh_step=(make_simple_step(**common, coarse_mode="rebuild") if refresh_every
                       else None),
         refresh_every=refresh_every,
@@ -255,9 +267,6 @@ def simple_solve(
 ) -> Tuple[FlowState, SolveDiagnostics]:
     """Run SIMPLE to convergence (or ``max_iterations``) on the device of
     ``state``; the caller's tensors are never modified."""
-    nx, ny = mesh.get_dimensions()
-    use_rho = lagged_rho_enabled(
-        nx, ny, momentum, fold_poisson=getattr(cfg, "fold_poisson", "auto") == "auto",
-        dtype=state.u.dtype, device=state.u.device)
-    fn = _build_solve(mesh, fluid, bc, cfg, momentum, pressure, loop, use_rho)
+    fn = build_solver(**simple_parts(mesh, fluid, bc, cfg, momentum, pressure,
+                                     dtype=state.u.dtype, device=state.u.device), loop=loop)
     return fn(state.u, state.v, state.p, on_chunk=on_chunk)

@@ -119,6 +119,16 @@ def make_simplec_step(*, dx, dy, rho, mu, bc, cfg: SIMPLECConfig, mom_cfg, pres_
     return step
 
 
+def simplec_carry0(cfg):
+    """SIMPLEC's initial scalar carry ``(dtype, device) -> (alpha_p, the
+    previous step's residual: none yet)``."""
+    def carry0(dt, dev):
+        return (torch.full((), cfg.alpha_p, dtype=dt, device=dev),
+                torch.full((), float("inf"), dtype=dt, device=dev))
+
+    return carry0
+
+
 def simplec_solve(
     mesh: StructuredMesh,
     fluid: FluidProperties,
@@ -132,10 +142,6 @@ def simplec_solve(
 ) -> Tuple[FlowState, SolveDiagnostics]:
     """Run SIMPLEC to convergence (or ``max_iterations``) on the device of
     ``state``; the caller's tensors are never modified."""
-    def carry0(dt, dev):  # alpha_p, and the previous step's residual (none yet)
-        return (torch.full((), cfg.alpha_p, dtype=dt, device=dev),
-                torch.full((), float("inf"), dtype=dt, device=dev))
-
-    fn = build_family_solve(make_simplec_step, carry0, mesh, fluid, bc, cfg, momentum, pressure,
-                            loop)
+    fn = build_family_solve(make_simplec_step, simplec_carry0(cfg), mesh, fluid, bc, cfg,
+                            momentum, pressure, loop)
     return fn(state.u, state.v, state.p, on_chunk=on_chunk)

@@ -53,8 +53,9 @@ def _build_parser():
     sweep.add_argument("--out", default="results", help="output directory")
     sweep.add_argument("--vmap", action="store_true",
                        help="batch all Reynolds numbers of each grid size "
-                            "(algorithms.batch.batched_cavity_solve: the cases "
-                            "one after another on the device)")
+                            "(algorithms.batch.batched_cavity_solve: the cases in "
+                            "one lockstep loop, one batched K6 launch a step where "
+                            "its gate admits the configuration)")
     return p
 
 
@@ -345,8 +346,8 @@ def _run_case(args, nx, re):
 
 def _run_batched(args, nx, res):
     """All Reynolds numbers at this grid size through
-    ``algorithms.batch.batched_cavity_solve`` (the cases one after another,
-    each its single solve's bits)."""
+    ``algorithms.batch.batched_cavity_solve`` (the cases in one lockstep
+    loop, each its single solve's bits)."""
     import naviflow_tpu_torch as nt
     from .algorithms import batched_cavity_solve
     from .postprocessing.result import result_from_solve

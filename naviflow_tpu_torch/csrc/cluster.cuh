@@ -1,4 +1,6 @@
-// K6's execution model on Hopper: the whole step in ONE thread-block cluster.
+// K6's execution model on Hopper: the whole step in ONE thread-block cluster
+// (a batched launch: one cluster a case, side by side; nothing here is
+// shared between clusters, since rank 0 and DSMEM are per cluster).
 //
 // A cluster of NF_CL_MAX (16, the non-portable size) or 8 CTAs is
 // co-scheduled on neighbouring SMs, has a hardware barrier
@@ -191,8 +193,8 @@ __device__ void nf_cl_max(NfCluster& C, float (&v)[N], float (&out)[N]) {
 }
 
 // ---------------------------------------------------------------------------
-// Phase timers (the nf_fused_outer_step_phases instantiation): thread 0 of
-// rank 0 reads %globaltimer at each phase boundary and adds the time since
+// Phase timers (the nf_fused_outer_step_phases instantiation, single-case
+// only: a batched launch has no timed instantiation): thread 0 of rank 0 reads %globaltimer at each phase boundary and adds the time since
 // the last boundary to its phase's slot.  buf: NF_PHASES sums of ns, then
 // NF_PHASES counts, then the last stamp (ops/step.py PHASE_NAMES).
 
@@ -492,18 +494,46 @@ __device__ inline void nf_cl_galerkin_rap(NfCluster& C, const NfLevel* lv, int L
 }
 
 // ---------------------------------------------------------------------------
-// The launch: one cluster of `size` CTAs of NF_CL_THREADS threads.  The
+// The launch: one cluster of `size` CTAs of NF_CL_THREADS threads (a
+// batched launch: one such cluster a case, `cases` of them along y).  The
 // size is chosen once per kernel and device (16 where the occupancy
-// calculator fits one such cluster, else 8), with the non-portable size
-// and NF_CL_SMEM_MAX bytes of dynamic shared memory allowed; later launches
-// reuse it.  Every failure is returned, nothing falls back.
+// calculator fits one such cluster, else 8; `only`: that size or none),
+// with the non-portable size and NF_CL_SMEM_MAX bytes of dynamic shared
+// memory allowed; later launches reuse it.  Every failure is returned,
+// nothing falls back.
 
 struct NfClusterCfg {
   int size[16];  // per device ordinal: 0 = not chosen yet
 };
 
+// How many clusters of `size` CTAs of `kernel` the current device holds at
+// once (its attributes set first; NF_CL_SMEM_MAX of dynamic shared memory
+// each), into `count`: a launch of more clusters runs in waves.
 template <class Kernel>
-inline int nf_cluster_size(Kernel kernel, NfClusterCfg& cfg, int& size) {
+inline int nf_max_active_clusters(Kernel kernel, int size, int& count) {
+  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               NF_CL_SMEM_MAX);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t lc = {};
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = size;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  lc.gridDim = dim3(size);
+  lc.blockDim = dim3(NF_CL_THREADS);
+  lc.dynamicSmemBytes = NF_CL_SMEM_MAX;
+  lc.attrs = at;
+  lc.numAttrs = 1;
+  count = 0;
+  return (int)cudaOccupancyMaxActiveClusters(&count, (const void*)kernel, &lc);
+}
+
+template <class Kernel>
+inline int nf_cluster_size(Kernel kernel, NfClusterCfg& cfg, int& size, int only = 0) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -512,48 +542,32 @@ inline int nf_cluster_size(Kernel kernel, NfClusterCfg& cfg, int& size) {
     size = cfg.size[device];
     return 0;
   }
-  err = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               NF_CL_SMEM_MAX);
-  if (err != cudaSuccess) return (int)err;
-  const int wants[2] = {NF_CL_MAX, 8};
-  for (int want : wants) {
-    cudaLaunchConfig_t lc = {};
-    cudaLaunchAttribute at[1];
-    at[0].id = cudaLaunchAttributeClusterDimension;
-    at[0].val.clusterDim.x = want;
-    at[0].val.clusterDim.y = 1;
-    at[0].val.clusterDim.z = 1;
-    lc.gridDim = dim3(want);
-    lc.blockDim = dim3(NF_CL_THREADS);
-    lc.dynamicSmemBytes = NF_CL_SMEM_MAX;
-    lc.attrs = at;
-    lc.numAttrs = 1;
+  const int wants[2] = {only > 0 ? only : NF_CL_MAX, 8};
+  for (int w = 0; w < (only > 0 ? 1 : 2); ++w) {
     int fit = 0;
-    err = cudaOccupancyMaxActiveClusters(&fit, (const void*)kernel, &lc);
-    if (err != cudaSuccess) return (int)err;
+    const int e = nf_max_active_clusters(kernel, wants[w], fit);
+    if (e) return e;
     if (fit >= 1) {
-      cfg.size[device] = size = want;
+      cfg.size[device] = size = wants[w];
       return 0;
     }
   }
-  return (int)cudaErrorLaunchOutOfResources;  // no cluster of 8 fits either
+  return (int)cudaErrorLaunchOutOfResources;  // no cluster of 8 (or `only`) fits
 }
 
-// One cluster of `size` CTAs (the attributes already set).
+// `cases` clusters of `size` CTAs (the attributes already set).
 template <class Kernel, class Params>
 inline int nf_cluster_launch(Kernel kernel, int size, const Params& params, size_t smem,
-                             cudaStream_t stream) {
-  if (smem > (size_t)NF_CL_SMEM_MAX) return (int)cudaErrorInvalidValue;
+                             cudaStream_t stream, int cases = 1) {
+  if (smem > (size_t)NF_CL_SMEM_MAX || cases < 1 || cases > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t lc = {};
   cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
   at[0].val.clusterDim.x = size;
   at[0].val.clusterDim.y = 1;
   at[0].val.clusterDim.z = 1;
-  lc.gridDim = dim3(size);
+  lc.gridDim = dim3(size, cases);
   lc.blockDim = dim3(NF_CL_THREADS);
   lc.dynamicSmemBytes = smem;
   lc.stream = stream;

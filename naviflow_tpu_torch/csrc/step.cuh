@@ -1,7 +1,9 @@
 // K6: one whole outer step of SIMPLE, SIMPLEC, PISO or SIMPLER in one
-// launch of one thread-block cluster (the device code and the launch; the
-// entry points are step.cu, and step_phases.cu with the phase timers, two
-// sources so that nvcc builds the two sets of instantiations in parallel).
+// launch of one thread-block cluster, or of B cases in one launch of B
+// clusters, one a case (the device code and the launch; the entry points
+// are step.cu, step_phases.cu with the phase timers and step_batched.cu
+// with the case axis, three sources so that nvcc builds the three sets of
+// instantiations in parallel).
 //
 // Replaces naviflow_tpu/ops/pallas_step.py:fused_outer_step /
 // fused_simple_step (the four bodies of _mk_step_kernel).  The parts, each a
@@ -44,12 +46,31 @@
 // one kernel instantiation per body (and per timer flag), so each gets its
 // own register allocation.  Scratch comes from the wrapper; nothing is
 // allocated here.
+//
+// The case axis (nf_fused_outer_step_batched, the lockstep loop of
+// algorithms/batch.py): a grid of (cluster size, B), case b = blockIdx.y.
+// Every per-case slot comes with its case stride; rank 0's thread 0 moves
+// each pointer of the case-0 view by b strides into a shared-memory copy
+// of the parameters, with the case's own viscous conductances (De, Dn,
+// rounded to float32 on the host as the single launch's are), and the body
+// runs on that view: the same code, the same cluster size and so the same
+// reductions as the single launch, so each case's bits are its single
+// launch's whatever B is.  A case whose active flag is false (frozen: it
+// has converged or reached its limit) leaves before the first cluster
+// barrier, every CTA of its cluster alike, after copying its inputs and
+// held results into its outputs.  B above the clusters the card holds at
+// once (nf_max_active_clusters) runs in waves.
 
 #pragma once
 
 #include "cluster.cuh"
 #include "krylov.cuh"
 #include "powerlaw.cuh"
+
+// step.cu: the single launch's cluster size for `algo` (the batched launch
+// takes the same, so that each case reduces in the same order; asked here so
+// that step_batched.cu does not build the single kernels again)
+NF_EXPORT int nf_step_cluster_size(int algo, int* size);
 
 namespace {
 
@@ -87,6 +108,19 @@ struct StepParams {
   float mom_tol, mg_tol, alpha_p, alpha_u;
   int bc_vel[4];           // top, bottom, left, right: a VELOCITY side
   float bc_u[4], bc_v[4];
+  // a batched launch's per-case extras (null in a single launch): what a
+  // frozen case returns beside its inputs (null: zeros), its active flag
+  // and its (De, Dn)
+  const float *sc_held, *ru_held, *rv_held, *rp_held;
+  const int* cyc_held;
+  const bool* active;
+  const float* visc;
+};
+
+// A batched launch's parameters: the case-0 view and, in the same layout,
+// each pointer's case stride in bytes.
+struct StepBatch {
+  StepParams P, S;
 };
 
 // core/bc.apply_velocity_bcs, one u face: walls zero, then VELOCITY sides in
@@ -375,7 +409,7 @@ __device__ float interior_rp2(NfCluster& C, const StepParams& P) {
 }
 
 template <int ALGO, bool PH>
-__global__ void __launch_bounds__(NF_CL_THREADS, 1) step_kernel(StepParams P) {
+__device__ __forceinline__ void step_body(const StepParams& P) {
   extern __shared__ float dyn[];  // rank 0's partials, scratch and small levels (cluster.cuh)
   __shared__ NfLevel lv[NF_MAX_LEVELS];
   NfCluster C = nf_cluster(dyn);
@@ -487,6 +521,91 @@ __global__ void __launch_bounds__(NF_CL_THREADS, 1) step_kernel(StepParams P) {
 }
 
 template <int ALGO, bool PH>
+__global__ void __launch_bounds__(NF_CL_THREADS, 1) step_kernel(StepParams P) {
+  step_body<ALGO, PH>(P);
+}
+
+template <class T>
+__device__ __forceinline__ void step_shift(T*& p, const void* stride, int b) {
+  p = reinterpret_cast<T*>(reinterpret_cast<intptr_t>(p) +
+                           (intptr_t)b * reinterpret_cast<intptr_t>(stride));
+}
+
+// Case b's view: every pointer of P moved by b times its stride in S.
+__device__ void step_case(StepParams& P, const StepParams& S, int b) {
+  step_shift(P.A.u, S.A.u, b); step_shift(P.A.v, S.A.v, b); step_shift(P.A.p, S.A.p, b);
+  step_shift(P.u_in, S.u_in, b); step_shift(P.v_in, S.v_in, b);
+  step_shift(P.sc_in, S.sc_in, b);
+  step_shift(P.u_out, S.u_out, b); step_shift(P.v_out, S.v_out, b);
+  step_shift(P.p_out, S.p_out, b);
+  step_shift(P.r_u, S.r_u, b); step_shift(P.r_v, S.r_v, b); step_shift(P.r_p, S.r_p, b);
+  step_shift(P.sc_out, S.sc_out, b); step_shift(P.cyc_out, S.cyc_out, b);
+  step_shift(P.ub, S.ub, b); step_shift(P.vb, S.vb, b);
+  for (int a = 0; a < 8; ++a) {
+    step_shift(P.cu[a], S.cu[a], b);
+    step_shift(P.cv[a], S.cv[a], b);
+  }
+  step_shift(P.ustar, S.ustar, b); step_shift(P.vstar, S.vstar, b);
+  step_shift(P.d_u, S.d_u, b); step_shift(P.d_v, S.d_v, b);
+  step_shift(P.kry, S.kry, b); step_shift(P.pnew, S.pnew, b); step_shift(P.psm, S.psm, b);
+  for (int a = 0; a < 5; ++a) step_shift(P.fine[a], S.fine[a], b);
+  for (int l = 0; l < P.M.L; ++l) {  // the shared-memory levels' pointers are null
+    for (int a = 0; a < 9; ++a) step_shift(P.M.lv[l].st[a], S.M.lv[l].st[a], b);
+    step_shift(P.M.lv[l].x, S.M.lv[l].x, b);
+    step_shift(P.M.lv[l].rhs, S.M.lv[l].rhs, b);
+  }
+  step_shift(P.sc_held, S.sc_held, b); step_shift(P.ru_held, S.ru_held, b);
+  step_shift(P.rv_held, S.rv_held, b); step_shift(P.rp_held, S.rp_held, b);
+  step_shift(P.cyc_held, S.cyc_held, b);
+  step_shift(P.active, S.active, b); step_shift(P.visc, S.visc, b);
+}
+
+// A frozen case: its state and scalar carries come back as they went in,
+// its other results as held (zeros where none are held).  No cluster
+// barrier: every CTA of the cluster takes this branch, and no CTA touches
+// another's shared memory.
+template <int ALGO>
+__device__ void step_frozen(const StepParams& P) {
+  constexpr int N_IN = ALGO == SIMPLEC ? 2 : 1, N_OUT = ALGO == SIMPLEC ? 5 : 4;
+  cg::cluster_group cl = cg::this_cluster();
+  const int64_t start = (int64_t)cl.block_rank() * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)cl.num_blocks() * blockDim.x;
+  const int64_t nu = (int64_t)(P.nx + 1) * P.ny, nv = (int64_t)P.nx * (P.ny + 1),
+                np = (int64_t)P.nx * P.ny;
+  for (int64_t g = start; g < nu; g += stride) {
+    P.u_out[g] = P.u_in[g];
+    P.r_u[g] = P.ru_held ? P.ru_held[g] : 0.f;
+  }
+  for (int64_t g = start; g < nv; g += stride) {
+    P.v_out[g] = P.v_in[g];
+    P.r_v[g] = P.rv_held ? P.rv_held[g] : 0.f;
+  }
+  for (int64_t g = start; g < np; g += stride) {
+    P.p_out[g] = P.A.p[g];
+    P.r_p[g] = P.rp_held ? P.rp_held[g] : 0.f;
+  }
+  if (start < N_OUT)
+    P.sc_out[start] = start < N_IN ? P.sc_in[start] : (P.sc_held ? P.sc_held[start] : 0.f);
+  if (start == 0) *P.cyc_out = P.cyc_held ? *P.cyc_held : 0;
+}
+
+template <int ALGO>
+__global__ void __launch_bounds__(NF_CL_THREADS, 1) step_kernel_batched(const StepBatch SB) {
+  __shared__ StepParams P;  // this case's view
+  if (threadIdx.x == 0) {
+    P = SB.P;
+    step_case(P, SB.S, (int)blockIdx.y);
+    P.A.De = P.visc[0];
+    P.A.Dn = P.visc[1];
+  }
+  __syncthreads();
+  if (*P.active)
+    step_body<ALGO, false>(P);
+  else
+    step_frozen<ALGO>(P);
+}
+
+template <int ALGO, bool PH>
 NfClusterCfg& step_cfg() {
   static NfClusterCfg cfg = {};
   return cfg;
@@ -500,6 +619,24 @@ int launch_algo(const StepParams& P, size_t smem, cudaStream_t s) {
   return nf_cluster_launch(step_kernel<ALGO, PH>, size, P, smem, s);
 }
 
+template <int ALGO>
+NfClusterCfg& step_batch_cfg() {
+  static NfClusterCfg cfg = {};
+  return cfg;
+}
+
+// `cases` clusters of the single launch's size (so its reduction order),
+// or an error where that size does not fit the batched kernel.
+template <int ALGO>
+int launch_algo_batched(const StepBatch& SB, int cases, size_t smem, cudaStream_t s) {
+  int size = 0, bsize = 0;
+  int err = nf_step_cluster_size(ALGO, &size);
+  if (!err) err = nf_cluster_size(step_kernel_batched<ALGO>, step_batch_cfg<ALGO>(), bsize, size);
+  if (err) return err;
+  if (bsize != size) return (int)cudaErrorLaunchOutOfResources;
+  return nf_cluster_launch(step_kernel_batched<ALGO>, size, SB, smem, s, cases);
+}
+
 // ptrs: u, v, p, the scalar carries (ops/step.py ALGO_SCALARS: 1 or 2
 //       floats), then the outputs u', v', p', r_u, r_v, r_p, scalars (4 or 5
 //       floats), cycles (int32), then scratch: ub, vb, 8 u-coefficient
@@ -508,79 +645,106 @@ int launch_algo(const StepParams& P, size_t smem, cudaStream_t s) {
 //       operator (c, e, w, n, s), b, p'; then per coarse level of more than
 //       NF_SMALL_CELLS cells 9 stencil arrays, x, rhs (the smaller levels
 //       live in shared memory); with the timers, the timer buffer
-//       (2 * NF_PHASES + 1 zeroed 64-bit integers)
+//       (2 * NF_PHASES + 1 zeroed 64-bit integers); batched, case 0's
+//       slots, then the held scalars (4 or 5 floats), r_u, r_v, r_p and
+//       cycles a frozen case returns (0: zeros), the active flags (bool)
+//       and (De, Dn) (2 floats), then every slot's case stride in bytes,
+//       in the same order
 // ip:   algo (0 simple, 1 simplec, 2 piso, 3 simpler), nx, ny, L, pre, post,
 //       coarsest, max_cycles, check_every, mom_maxiter, pin, variant,
 //       overwrite_p, n_corrections, corrector_exact, corrector_sweeps,
-//       smooth_p_prime, dynamic_alpha_p, bc_vel[4], then per level ni, nj
+//       smooth_p_prime, dynamic_alpha_p, bc_vel[4], then per level ni, nj;
+//       batched, then the case count
 // fp:   cFu, cFv, De, Dn, dx, dy, alpha_u, 1 - alpha_u, rho, alpha_p,
-//       mom_tol, mg_tol, omega, bc_u[4], bc_v[4]
-template <bool PH>
+//       mom_tol, mg_tol, omega, bc_u[4], bc_v[4] (batched: De and Dn are
+//       each case's own, from its slot)
+template <bool PH, bool BATCH = false>
 int launch_step(const long long* ptrs, const int* ip, const float* fp, void* stream) {
-  StepParams P = {};
+  StepBatch SB = {};
   int k = 0;
   auto next = [&]() { return reinterpret_cast<float*>(ptrs[k++]); };
   const int algo = ip[0];
   if (algo < SIMPLE || algo > SIMPLER) return (int)cudaErrorInvalidValue;
-  P.u_in = next(); P.v_in = next(); P.A.p = next(); P.sc_in = next();
-  P.u_out = next(); P.v_out = next(); P.p_out = next();
-  P.r_u = next(); P.r_v = next(); P.r_p = next(); P.sc_out = next();
-  P.cyc_out = reinterpret_cast<int*>(next());
-  P.ub = next(); P.vb = next();
-  P.A.u = P.ub; P.A.v = P.vb;
-  for (int a = 0; a < 8; ++a) P.cu[a] = next();
-  for (int a = 0; a < 8; ++a) P.cv[a] = next();
-  P.ustar = next(); P.vstar = next(); P.d_u = next(); P.d_v = next();
-  P.kry = next(); P.pnew = next(); P.psm = next();
-  for (int a = 0; a < 5; ++a) P.fine[a] = next();
-  float* b = next();
-  float* pprime = next();
-  P.nx = P.A.nx = ip[1];
-  P.ny = P.A.ny = ip[2];
-  const int L = ip[3];
-  if (L < 1 || L > NF_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  NfMG& M = P.M;
-  M.L = L; M.pre = ip[4]; M.post = ip[5]; M.coarsest = ip[6];
-  P.max_cycles = ip[7]; P.check_every = ip[8]; P.mom_maxiter = ip[9];
-  P.pin = ip[10]; P.variant = ip[11]; P.overwrite_p = ip[12];
-  P.n_corr = ip[13]; P.corr_exact = ip[14]; P.corr_sweeps = ip[15];
-  P.smooth_pp = ip[16]; P.dyn_alpha = ip[17];
-  if (P.check_every < 1) return (int)cudaErrorInvalidValue;
-  if (algo == PISO && (P.n_corr < 1 || P.corr_sweeps < 0)) return (int)cudaErrorInvalidValue;
-  for (int a = 0; a < 4; ++a) P.bc_vel[a] = ip[18 + a];
-  P.Ls = L;
   int64_t small_floats = 0;
-  for (int l = 0; l < L; ++l) {
-    NfLevel& lv = M.lv[l];
-    lv.ni = ip[22 + 2 * l]; lv.nj = ip[23 + 2 * l];
-    const int64_t cells = (int64_t)lv.ni * lv.nj;
-    if (l > 0 && (M.lv[l - 1].ni != 2 * lv.ni + 1 || M.lv[l - 1].nj != 2 * lv.nj + 1))
-      return (int)cudaErrorInvalidValue;  // vertex pairs only (odd grids)
-    if (l == 0) {
-      for (int a = 0; a < 5; ++a) lv.st[a] = P.fine[a];
-      lv.x = pprime; lv.rhs = b; lv.five = 1;
-    } else if (cells > NF_SMALL_CELLS) {
-      for (int a = 0; a < 9; ++a) lv.st[a] = next();
-      lv.x = next(); lv.rhs = next(); lv.five = 0;
-    } else {
-      small_floats += (P.Ls == L ? 12 : 11) * cells;  // the first also sizes the scratch
-      if (P.Ls == L) P.Ls = l;
+  // batched, a second pass reads the strides into SB.S through the same reads
+  for (int pass = 0; pass < (BATCH ? 2 : 1); ++pass) {
+    StepParams& P = pass == 0 ? SB.P : SB.S;
+    P.u_in = next(); P.v_in = next(); P.A.p = next(); P.sc_in = next();
+    P.u_out = next(); P.v_out = next(); P.p_out = next();
+    P.r_u = next(); P.r_v = next(); P.r_p = next(); P.sc_out = next();
+    P.cyc_out = reinterpret_cast<int*>(next());
+    P.ub = next(); P.vb = next();
+    P.A.u = P.ub; P.A.v = P.vb;
+    for (int a = 0; a < 8; ++a) P.cu[a] = next();
+    for (int a = 0; a < 8; ++a) P.cv[a] = next();
+    P.ustar = next(); P.vstar = next(); P.d_u = next(); P.d_v = next();
+    P.kry = next(); P.pnew = next(); P.psm = next();
+    for (int a = 0; a < 5; ++a) P.fine[a] = next();
+    float* b = next();
+    float* pprime = next();
+    P.nx = P.A.nx = ip[1];
+    P.ny = P.A.ny = ip[2];
+    const int L = ip[3];
+    if (L < 1 || L > NF_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+    NfMG& M = P.M;
+    M.L = L; M.pre = ip[4]; M.post = ip[5]; M.coarsest = ip[6];
+    P.max_cycles = ip[7]; P.check_every = ip[8]; P.mom_maxiter = ip[9];
+    P.pin = ip[10]; P.variant = ip[11]; P.overwrite_p = ip[12];
+    P.n_corr = ip[13]; P.corr_exact = ip[14]; P.corr_sweeps = ip[15];
+    P.smooth_pp = ip[16]; P.dyn_alpha = ip[17];
+    if (P.check_every < 1) return (int)cudaErrorInvalidValue;
+    if (algo == PISO && (P.n_corr < 1 || P.corr_sweeps < 0)) return (int)cudaErrorInvalidValue;
+    for (int a = 0; a < 4; ++a) P.bc_vel[a] = ip[18 + a];
+    P.Ls = L;
+    small_floats = 0;
+    for (int l = 0; l < L; ++l) {
+      NfLevel& lv = M.lv[l];
+      lv.ni = ip[22 + 2 * l]; lv.nj = ip[23 + 2 * l];
+      const int64_t cells = (int64_t)lv.ni * lv.nj;
+      if (l > 0 && (M.lv[l - 1].ni != 2 * lv.ni + 1 || M.lv[l - 1].nj != 2 * lv.nj + 1))
+        return (int)cudaErrorInvalidValue;  // vertex pairs only (odd grids)
+      if (l == 0) {
+        for (int a = 0; a < 5; ++a) lv.st[a] = P.fine[a];
+        lv.x = pprime; lv.rhs = b; lv.five = 1;
+      } else if (cells > NF_SMALL_CELLS) {
+        for (int a = 0; a < 9; ++a) lv.st[a] = next();
+        lv.x = next(); lv.rhs = next(); lv.five = 0;
+      } else {
+        small_floats += (P.Ls == L ? 12 : 11) * cells;  // the first also sizes the scratch
+        if (P.Ls == L) P.Ls = l;
+      }
     }
+    if (M.lv[0].ni != P.nx || M.lv[0].nj != P.ny) return (int)cudaErrorInvalidValue;
+    if (PH) P.ph = reinterpret_cast<unsigned long long*>(ptrs[k++]);
+    if (BATCH) {
+      P.sc_held = next(); P.ru_held = next(); P.rv_held = next(); P.rp_held = next();
+      P.cyc_held = reinterpret_cast<const int*>(next());
+      P.active = reinterpret_cast<const bool*>(next());
+      P.visc = next();
+    }
+    P.A.cFu = fp[0]; P.A.cFv = fp[1]; P.A.De = fp[2]; P.A.Dn = fp[3];
+    P.A.dx = fp[4]; P.A.dy = fp[5];
+    P.A.alpha = P.alpha_u = fp[6]; P.A.one_m_alpha = fp[7]; P.rho = fp[8]; P.alpha_p = fp[9];
+    P.mom_tol = fp[10]; P.mg_tol = fp[11]; M.omega = fp[12];
+    for (int a = 0; a < 4; ++a) { P.bc_u[a] = fp[13 + a]; P.bc_v[a] = fp[17 + a]; }
   }
-  if (M.lv[0].ni != P.nx || M.lv[0].nj != P.ny) return (int)cudaErrorInvalidValue;
-  if (PH) P.ph = reinterpret_cast<unsigned long long*>(ptrs[k++]);
-  P.A.cFu = fp[0]; P.A.cFv = fp[1]; P.A.De = fp[2]; P.A.Dn = fp[3];
-  P.A.dx = fp[4]; P.A.dy = fp[5];
-  P.A.alpha = P.alpha_u = fp[6]; P.A.one_m_alpha = fp[7]; P.rho = fp[8]; P.alpha_p = fp[9];
-  P.mom_tol = fp[10]; P.mg_tol = fp[11]; M.omega = fp[12];
-  for (int a = 0; a < 4; ++a) { P.bc_u[a] = fp[13 + a]; P.bc_v[a] = fp[17 + a]; }
   const size_t smem = (size_t)(NF_CL_RED_FLOATS + small_floats) * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (algo) {
-    case SIMPLE: return launch_algo<SIMPLE, PH>(P, smem, s);
-    case SIMPLEC: return launch_algo<SIMPLEC, PH>(P, smem, s);
-    case PISO: return launch_algo<PISO, PH>(P, smem, s);
-    default: return launch_algo<SIMPLER, PH>(P, smem, s);
+  if constexpr (BATCH) {
+    const int cases = ip[22 + 2 * SB.P.M.L];
+    switch (algo) {
+      case SIMPLE: return launch_algo_batched<SIMPLE>(SB, cases, smem, s);
+      case SIMPLEC: return launch_algo_batched<SIMPLEC>(SB, cases, smem, s);
+      case PISO: return launch_algo_batched<PISO>(SB, cases, smem, s);
+      default: return launch_algo_batched<SIMPLER>(SB, cases, smem, s);
+    }
+  } else {
+    switch (algo) {
+      case SIMPLE: return launch_algo<SIMPLE, PH>(SB.P, smem, s);
+      case SIMPLEC: return launch_algo<SIMPLEC, PH>(SB.P, smem, s);
+      case PISO: return launch_algo<PISO, PH>(SB.P, smem, s);
+      default: return launch_algo<SIMPLER, PH>(SB.P, smem, s);
+    }
   }
 }
 

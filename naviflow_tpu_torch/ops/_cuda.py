@@ -52,7 +52,7 @@ _ARGS = [ctypes.POINTER(ctypes.c_longlong),  # device pointers
 _KERNELS = ("nf_asmcheby_pair", "nf_asmcheby_pair_phases", "nf_strip_down", "nf_strip_up",
             "nf_fused_vcycle", "nf_fused_vcycle_phases",
             "nf_galerkin_levels", "nf_fused_mg_solve", "nf_bicgstab", "nf_fused_outer_step",
-            "nf_fused_outer_step_phases",
+            "nf_fused_outer_step_phases", "nf_fused_outer_step_batched",
             "nf_fused_assembly_pair", "nf_chebyshev_strips",
             "nf_plane_strip_down", "nf_plane_strip_up",
             "nf_grid_sync_probe", "nf_cluster_sync_probe")
@@ -62,6 +62,7 @@ _SIGNATURES = {"nf_apply_poisson": [_P] * 7 + [_I, _I, _P],  # p, 4 links, diag,
                "nf_rbgs_sweeps": [_P] * 8 + [_I, _I, _I, ctypes.c_float, _P],
                "nf_launch_floor_probe": [_I, _I, _P],                # blocks, threads
                "nf_step_cluster_size": [_I, ctypes.POINTER(_I)],     # algo; the size out
+               "nf_step_max_clusters": [_I, _I, ctypes.POINTER(_I)],  # algo, size; count out
                "nf_vcycle_cluster_size": [_I, ctypes.POINTER(_I)],   # timed; the size out
                "nf_mg_solve_cluster_size": [ctypes.POINTER(_I)],     # the size out
                "nf_bicgstab_cluster_size": [ctypes.POINTER(_I)],     # the size out

@@ -1,5 +1,8 @@
 """K6: one whole outer step of SIMPLE, SIMPLEC, PISO or SIMPLER as one
-kernel launch: one thread-block cluster.
+kernel launch: one thread-block cluster; or the step of B cases of one
+configuration as one launch of B clusters, one a case
+(:func:`fused_outer_step_batched`, the lockstep loop of
+``algorithms/batch.py``).
 
 Replaces ``naviflow_tpu/ops/pallas_step.py:fused_outer_step`` /
 ``fused_simple_step`` (its four step bodies); the CUDA kernel is
@@ -14,7 +17,14 @@ passes through), and each multigrid solve starts from zeros with the
 whole-solve kernel's compensated stopping norms, mean-normalised unless the
 Poisson variant is 'reference'.  PISO's Jacobi corrector keeps its plain
 sweeps.  :func:`fused_outer_step_plain` is that step composed, the CPU path
-and the kernel's oracle.
+and the kernel's oracle; :func:`fused_outer_step_batched_plain` runs it case
+by case.
+
+The batched launch gives each case its own viscosity (the one per-case
+scalar of a Reynolds sweep) as the single launch's float32 ``mu dy / dx``
+and ``mu dx / dy``, rounded on the host, and runs each case through the
+single launch's code at its cluster size: each case's outputs are those of
+:func:`fused_outer_step` on that case alone, bit for bit.
 
 The gate's budgets are the reference's TPU VMEM budgets, kept so that the
 port dispatches as the reference does; they are not H100 limits.
@@ -56,6 +66,7 @@ _ALGOS = {"simple": 0, "simplec": 1, "piso": 2, "simpler": 3}  # csrc/step.cuh A
 _SIDES = ("top", "bottom", "left", "right")
 
 LAUNCHES = 0  # fused_outer_step's launches (not the timed instantiation's)
+BATCH_LAUNCHES = 0  # fused_outer_step_batched's launches (one for B cases)
 
 # csrc/coop.cuh NF_SMALL_CELLS: K6 keeps the coarse levels this small in
 # shared memory (csrc/cluster.cuh), the wrapper allocates none for them
@@ -258,6 +269,21 @@ def launch_slots(algo, nx, ny, shapes, timers: bool = False):
     return slots
 
 
+def batched_launch_slots(algo, nx, ny, shapes):
+    """The slots of ``nf_fused_outer_step_batched``, per case: those of
+    :func:`launch_slots`, then what a frozen case returns beside its inputs
+    (its held scalar results, residual fields and cycles), its active flag
+    and its ``(De, Dn)``.  The C entry reads them as case 0's addresses,
+    then every slot's case stride in bytes in the same order."""
+    n_out = ALGO_SCALARS[algo][1]
+    f32 = torch.float32
+    us, vs, ps = (nx + 1, ny), (nx, ny + 1), (nx, ny)
+    return launch_slots(algo, nx, ny, shapes) + [
+        ("scalars_held", (n_out,), f32), ("r_u_held", us, f32), ("r_v_held", vs, f32),
+        ("r_p_held", ps, f32), ("cycles_held", (), torch.int32), ("active", (), torch.bool),
+        ("visc", (2,), f32)]
+
+
 def launch_params(algo, nx, ny, shapes, *, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg):
     """``(ip, fp)``, the integer and float parameters of the C entry in
     ``csrc/step.cuh``'s order."""
@@ -294,6 +320,72 @@ def fused_outer_step(algo, u, v, p, scalars, *, dx, dy, rho, mu, bc, cfg, mom_cf
     return out
 
 
+def _check_batch(algo, u, scalars, active, mu, held):
+    if algo not in ALGO_SCALARS:
+        raise ValueError(f"Unknown algorithm: {algo}")
+    n_in, n_out = ALGO_SCALARS[algo]
+    cases = u.shape[0]
+    if tuple(scalars.shape) != (cases, n_in):
+        raise ValueError(f"{algo}: expected scalar carries of shape ({cases}, {n_in}), "
+                         f"got {tuple(scalars.shape)}")
+    if len(mu) != cases or tuple(active.shape) != (cases,) or active.dtype != torch.bool:
+        raise ValueError(f"expected {cases} viscosities and a ({cases},) bool active mask")
+    if held is not None and len(held) != 5:
+        raise ValueError("held: (scalars_out, cycles, r_u, r_v, r_p)")
+
+
+def fused_outer_step_batched_plain(algo, u, v, p, scalars, active, *, mu, dx, dy, rho, bc, cfg,
+                                   mom_cfg, pres_cfg, held=None):
+    """:func:`fused_outer_step_batched` case by case through
+    :func:`fused_outer_step_plain` (the CPU path and the batched kernel's
+    oracle)."""
+    _check_batch(algo, u, scalars, active, mu, held)
+    n_in, n_out = ALGO_SCALARS[algo]
+    kw = dict(dx=dx, dy=dy, rho=rho, bc=bc, cfg=cfg, mom_cfg=mom_cfg, pres_cfg=pres_cfg)
+    outs = []
+    for b, on in enumerate(active.tolist()):
+        if on:
+            u2, v2, p2, sc, cyc, r_u, r_v, r_p = fused_outer_step_plain(
+                algo, u[b], v[b], p[b], tuple(scalars[b]), mu=mu[b], **kw)
+            sc = torch.stack([torch.as_tensor(x, dtype=p.dtype, device=p.device).reshape(())
+                              for x in sc])
+        else:  # frozen: the inputs, and the held results (or zeros)
+            h_sc, cyc, r_u, r_v, r_p = ((x[b] for x in held) if held is not None else
+                                        (torch.zeros(n_out, dtype=p.dtype, device=p.device), 0,
+                                         torch.zeros_like(u[b]), torch.zeros_like(v[b]),
+                                         torch.zeros_like(p[b])))
+            u2, v2, p2 = u[b], v[b], p[b]
+            sc = torch.cat([scalars[b].to(p.dtype), h_sc[n_in:].to(p.dtype)])
+        outs.append((u2, v2, p2, sc, torch.as_tensor(cyc, dtype=torch.int32, device=p.device),
+                     r_u, r_v, r_p))
+    return tuple(torch.stack(list(parts)) for parts in zip(*outs))
+
+
+def fused_outer_step_batched(algo, u, v, p, scalars, active, *, mu, dx, dy, rho, bc, cfg,
+                             mom_cfg, pres_cfg, held=None):
+    """The step of B cases of one configuration as one kernel launch, case b
+    with viscosity ``mu[b]``: ``u`` (B, nx+1, ny), ``v`` (B, nx, ny+1), ``p``
+    (B, nx, ny), ``scalars`` (B, n_in) (see ``ALGO_SCALARS``), ``active``
+    a (B,) bool tensor on the state's device.  Returns
+    :func:`fused_outer_step`'s outputs with a leading case axis: ``(u', v',
+    p', scalars_out (B, n_out), cycles (B,) int32, r_u, r_v, r_p)``.  An
+    active case's are :func:`fused_outer_step`'s on that case alone, bit
+    for bit.  A frozen case (``active`` false) gets its inputs back: its
+    state, its scalar carries in the first n_in results, and from ``held``
+    = ``(scalars_out, cycles, r_u, r_v, r_p)`` (a previous step's outputs)
+    its other results (zeros without ``held``).  Each case's slice of every
+    argument must be contiguous."""
+    global BATCH_LAUNCHES
+    _check_batch(algo, u, scalars, active, mu, held)
+    kw = dict(dx=dx, dy=dy, rho=rho, bc=bc, cfg=cfg, mom_cfg=mom_cfg, pres_cfg=pres_cfg)
+    if not u.is_cuda:
+        return fused_outer_step_batched_plain(algo, u, v, p, scalars, active, mu=mu,
+                                              held=held, **kw)
+    out = _launch_batched(algo, u, v, p, scalars, active, held, tuple(mu), kw)
+    BATCH_LAUNCHES += 1
+    return out
+
+
 def fused_outer_step_phases(algo, u, v, p, scalars, *, dx, dy, rho, mu, bc, cfg, mom_cfg,
                             pres_cfg):
     """:func:`fused_outer_step` through the instantiation with phase timers
@@ -315,6 +407,18 @@ def cluster_size(algo: str, device=None) -> int:
         _cuda.check(_cuda.library().nf_step_cluster_size(_ALGOS[algo], ctypes.byref(size)),
                     "step_cluster_size")
     return size.value
+
+
+def max_active_clusters(algo: str, size: int, device=None) -> int:
+    """How many clusters of ``size`` CTAs of K6's batched ``algo`` body the
+    card on ``device`` holds at once: a batch of more cases runs in
+    waves."""
+    with torch.cuda.device(device):
+        count = ctypes.c_int(0)
+        _cuda.check(_cuda.library().nf_step_max_clusters(_ALGOS[algo], size,
+                                                         ctypes.byref(count)),
+                    "step_max_clusters")
+    return count.value
 
 
 # Launch state reused across calls (the wrapper's host time per call is part
@@ -345,19 +449,60 @@ def _params(algo, nx, ny, kw):
     return got
 
 
-def _scratch(algo, nx, ny, shapes, timed, dev, stream):
-    key = (dev, stream, algo, nx, ny, tuple(shapes), timed)
+def _scratch(algo, nx, ny, shapes, timed, dev, stream, cases=None):
+    """The scratch tensors, the pointer array with their slots filled, the
+    output shapes and sizes.  ``cases``: the batched entry's, each scratch
+    slot (cases, *shape), the array twice as long (the strides after the
+    addresses, the scratch ones filled)."""
+    key = (dev, stream, algo, nx, ny, tuple(shapes), timed, cases)
     got = _SCRATCH.get(key)
     if got is None:
-        slots = launch_slots(algo, nx, ny, shapes, timed)
-        keep = [torch.empty(shape, dtype=dtype, device=dev)
-                for _, shape, dtype in slots[N_IO:len(slots) - timed]]
-        ptrs = (ctypes.c_longlong * len(slots))(*([0] * N_IO + [t.data_ptr() for t in keep]))
+        if cases is None:
+            slots = launch_slots(algo, nx, ny, shapes, timed)
+            lead, tail = (), timed
+        else:
+            slots = batched_launch_slots(algo, nx, ny, shapes)
+            lead, tail = (cases,), 7
+        keep = [torch.empty(lead + shape, dtype=dtype, device=dev)
+                for _, shape, dtype in slots[N_IO:len(slots) - tail]]
+        addrs = [0] * N_IO + [t.data_ptr() for t in keep] + [0] * tail
+        if cases is not None:
+            addrs += [0] * N_IO + [4 * math.prod(t.shape[1:]) for t in keep] + [0] * tail
+        ptrs = (ctypes.c_longlong * len(addrs))(*addrs)
         outs = [(shape, dtype) for _, shape, dtype in slots[4:N_IO]]
         if len(_SCRATCH) >= _CACHE_MAX:
             _SCRATCH.clear()
         got = _SCRATCH[key] = (keep, ptrs, outs, [math.prod(s) for s, _ in outs])
     return got
+
+
+def _batch_params(algo, nx, ny, kw, mus, dev):
+    """:func:`_params` of the first case with the case count appended to
+    the integer parameters, and the cases' ``(De, Dn) = (mu dy / dx, mu dx /
+    dy)`` on ``dev``: the float64 products rounded to float32, as
+    :func:`launch_params` gives them to the single launch."""
+    key = ("batched", algo, nx, ny, dev, mus) + tuple(kw[k] for k in _KW if k != "mu")
+    got = _PARAMS.get(key)
+    if got is None:
+        shapes, c_ip, c_fp = _params(algo, nx, ny, dict(kw, mu=mus[0]))
+        ip = list(c_ip) + [len(mus)]
+        dx, dy = kw["dx"], kw["dy"]
+        visc = torch.tensor([[mu * dy / dx, mu * dx / dy] for mu in mus],
+                            dtype=torch.float32).to(dev)
+        got = _PARAMS[key] = (shapes, (ctypes.c_int * len(ip))(*ip), c_fp, visc)
+    return got
+
+
+def _case_stride(x, cases, shape, dtype, name):
+    """Check ``x`` is (cases, *shape) of ``dtype`` on the card with each
+    case's slice contiguous; its case stride in bytes."""
+    want = tuple(math.prod(shape[k + 1:]) for k in range(len(shape)))
+    if not (_cuda.kernel_device(x) and x.dtype == dtype
+            and tuple(x.shape) == (cases,) + tuple(shape) and tuple(x.stride()[1:]) == want):
+        raise ValueError(f"{name}: expected a CUDA {dtype} tensor of shape "
+                         f"{(cases,) + tuple(shape)} with each case contiguous, got "
+                         f"{x.dtype} {tuple(x.shape)} strides {x.stride()} on {x.device}")
+    return x.stride(0) * x.element_size()
 
 
 def _scalars_ptr(scalars, dev):
@@ -400,6 +545,47 @@ def _launch(algo, u, v, p, scalars, timers, **kw):
     u2, v2, p2, r_u, r_v, r_p = (t.view(shape) for t, (shape, _) in zip(parts[:6], outs))
     cyc = parts[7].view(torch.int32)
     return u2, v2, p2, parts[6].unbind(0), cyc[0], r_u, r_v, r_p
+
+
+def _launch_batched(algo, u, v, p, scalars, active, held, mus, kw):
+    cases, nx, ny = p.shape
+    n_in, n_out = ALGO_SCALARS[algo]
+    dev = u.device
+    f32 = torch.float32
+    us, vs, ps = (nx + 1, ny), (nx, ny + 1), (nx, ny)
+    stream = _cuda.stream_of(u)
+    shapes, c_ip, c_fp, visc = _batch_params(algo, nx, ny, kw, mus, dev)
+    _, ptrs, outs, sizes = _scratch(algo, nx, ny, shapes, False, dev, stream, cases)
+    half = len(ptrs) // 2
+    ins = [(u, us, f32, "u"), (v, vs, f32, "v"), (p, ps, f32, "p"),
+           (scalars, (n_in,), f32, "scalars")]
+    for k, (x, shape, dtype, name) in enumerate(ins):
+        ptrs[half + k] = _case_stride(x, cases, shape, dtype, name)
+        ptrs[k] = x.data_ptr()
+    extras = [(active, (), torch.bool, "active"), (visc, (2,), f32, "visc")]
+    if held is not None:
+        h_sc, h_cyc, h_ru, h_rv, h_rp = held
+        extras = [(h_sc, (n_out,), f32, "held scalars"), (h_ru, us, f32, "held r_u"),
+                  (h_rv, vs, f32, "held r_v"), (h_rp, ps, f32, "held r_p"),
+                  (h_cyc, (), torch.int32, "held cycles")] + extras
+    else:
+        for k in range(half - 7, half - 2):
+            ptrs[k] = ptrs[half + k] = 0
+    for k, (x, shape, dtype, name) in enumerate(extras, half - len(extras)):
+        ptrs[half + k] = _case_stride(x, cases, shape, dtype, name)
+        ptrs[k] = x.data_ptr()
+    # the outputs: one buffer, each output (cases, *shape) contiguous in it
+    flat = torch.empty(cases * sum(sizes), dtype=f32, device=dev)
+    addr = flat.data_ptr()
+    for k, n in enumerate(sizes):
+        ptrs[4 + k], ptrs[half + 4 + k] = addr, 4 * n
+        addr += 4 * cases * n
+    entry = "nf_fused_outer_step_batched"
+    _cuda.check(getattr(_cuda.library(), entry)(ptrs, c_ip, c_fp, stream), entry)
+    parts = flat.split([cases * n for n in sizes])
+    u2, v2, p2, r_u, r_v, r_p = (t.view((cases,) + shape) for t, (shape, _) in
+                                 zip(parts[:6], outs))
+    return u2, v2, p2, parts[6].view(cases, n_out), parts[7].view(torch.int32), r_u, r_v, r_p
 
 
 def fused_simple_step(u, v, p, p_max_l2, *, dx, dy, rho, mu, bc, simple_cfg, mom_cfg,
