@@ -29,7 +29,11 @@ result line:
    configuration; K6 over 3 chained 63^2 steps from rest
    and one 255^2 step; K6's batched entry at 63^2 (3 cases, 2 chained
    steps) and 255^2 (4 cases, 1 step), each case also bit-equal to its
-   single launch, and a frozen case that must come back unchanged; K3 on
+   single launch, and a frozen case that must come back unchanged; the
+   batched K7 (the u and v systems), K5 and K4 at 63^2, 3 cases with their
+   own viscosities and hierarchies (``check_case_axis``), each case
+   bit-equal to its single launch, the batched plain version within the
+   kernel's tolerance, a frozen case as specified; K3 on
    the 63^2 -> 7^2 vertex hierarchy; K8 at 2048^2
    (plain, with the Gershgorin maxima, and with each Poisson fold); K9 on
    the u and v systems of a 2048^2 cavity state (degree 4); K6's simplec,
@@ -67,11 +71,12 @@ result line:
    (``profile_window``: busy time from CUDA events around each step
    replayed behind a device-side sleep, the profiler's sum beside it);
 6. the FMG run: the same case with ``cycle_type='fmg'`` (which the K6 gate
-   refuses) for 20 steps: launches K7 = 40, K5 = 20, K4 = 1 + 3 refreshes,
-   nothing else; residual finite, falling, within 5% of the composed run;
-   the step's split (``fmg_split``: host and device ms per step of K7, K5,
-   K4 and the composed FMG bootstrap, and the rest of the host's time) and
-   the device's idle share over 8 steps (``profile_window``);
+   refuses) for 12 steps (``FMG_STEPS``): launches K7 = 24, K5 = 12, K4 = 1
+   + 2 refreshes, nothing else; residual finite, falling, within 5% of the
+   composed run; the step's split (``fmg_split``: host and device ms per
+   step of K7, K5, K4 and the composed FMG bootstrap, the bootstrap's from
+   4 replayed calls, and the rest of the host's time) and the device's
+   idle share over 4 steps (``profile_window``);
 7. the 2048^2 large-grid path: SIMPLEC (20 steps), PISO, SIMPLER and SIMPLE
    with the bench's BiCGSTAB momentum (10 steps each) at Re=100 with the
    bench's large-grid configuration, with the kernels and composed: launches
@@ -102,7 +107,7 @@ result line:
     and ``loop='chunked:300'``: every level converges, the Ghia infinity
     error is below 0.10, K7, K8, K5, K2 and K3 launch and no other kernel;
     each level's iterations, seconds, ms per step and launches; the device's
-    idle share over 8 fine-level steps; then the 128 -> 32 ladder, 20 steps a
+    idle share over 4 fine-level steps; then the 128 -> 32 ladder, 20 steps a
     level, with the kernels and composed: each level's final residual within
     5% (the largest per-step gap reported);
 11. MGCG at 1024^2, Re=1000, 10 steps from rest (CG to 1e-5 preconditioned
@@ -129,7 +134,7 @@ result line:
     K3 a V-cycle; none of K1, K6, K7, K8, K9, which refuse 9-point
     momentum); every step's residual and the u, v, p fields within 1e-3 of
     composed, LUDS in place of QUICK failing that; ms a step, idle share
-    over 8 steps;
+    over 4 steps;
     then 63^2 Re=100 QUICK to 1e-5 (BiCGSTAB momentum to 1e-9, <= 150
     iterations; the headline's V-cycles: K4 at the carry's builds, K5 a
     step), Ghia below 0.10, and LUDS to 1e-3;
@@ -153,7 +158,17 @@ result line:
     iteration count), no single K6 launch and K4 once a batch; beside each
     batch the same cases one after another; ms a lockstep step at B = 1, 3,
     8; the idle share over the 8-case loop; the batched K6's max active
-    clusters;
+    clusters; then ``batch_fmg`` (``run_batch_fmg``): the FMG headline
+    configuration, which K6's gate refuses, for at most 12 lockstep steps
+    to 1e-3 over Re 100 alone, Re 100 / 400 / 1000 and the 8-case sweep:
+    the vmapped branch (``torch.func.vmap`` of the single step), batched K7
+    = 2 x the lockstep steps, batched K5 = the steps, batched K4 = the
+    refreshes, single K4 = 1 and nothing else; each case's iterations equal
+    its single solve's, its fields and every history step bit-equal or
+    within 1e-3; ms a lockstep step at B = 1, 3, 8 beside the same cases
+    one after another; the vmapped step's host split
+    (``fmg_split_batched``); the idle share over 2 lockstep steps of the
+    8-case batch;
 17. Newton-Krylov (``run_newton``): ``benchmarks/scale_runs.py``'s QUICK
     pipeline at 255^2 Re=1000 (a SIMPLE warm start, then ``newton_solve``
     to 1e-5): converged, Ghia below 0.10, K4 once a Newton step and K5 once
@@ -192,7 +207,7 @@ limit, and, last, ``{"ok": true, "device": {...}}``.  Needs no network and
 no JAX; there is no CPU path.  With ``--ab TAG`` it runs one side of an A/B
 between two trees instead (``ab_side``: K1, K2a, K2b, K7, K5, K4, K6's
 phase split, K11a and K11b, or those ``--kernels`` names; ``--save DIR``
-keeps K1's, K2a's, K2b's, K4's and K11's outputs), and with ``--ab-compare
+keeps K1's, K2a's, K2b's, K4's, K5's, K7's and K11's outputs), and with ``--ab-compare
 DIR A B`` it compares two saved sides output by output.
 """
 
@@ -210,7 +225,7 @@ N = 1024  # grid of the large-grid path (bench.py large-grid row)
 STEPS = 40
 NH = 63  # the headline grid (bench.py main)
 NH_BIG = 255  # the largest grid the K6 gate admits
-FMG_STEPS = 20
+FMG_STEPS = 12  # the FMG run's steps, and the FMG batch's at most
 NL = 2048  # the large-grid algorithms' grid (bench.py large-grid row)
 # outer steps of each large-grid run, and of the 63^2 algorithm runs' JAX
 # counts to 1e-3 (the JAX package in float32 on the CPU, bench.py's
@@ -230,7 +245,7 @@ NS = 1024
 RE_SEQ = 1000.0
 SEQ_CHECK_GRID = 128  # the kernels-against-composed ladder 128 -> 32
 SEQ_CHECK_STEPS = 20
-PROFILE_STEPS = 8
+PROFILE_STEPS = 4
 SEQ_PROFILE_LEVELS = (32, 128)  # idle share over their first steps
 # The path-level comparisons' limit on relative gaps (final residuals, a
 # residual history's steps, the u, v, p fields) and on the relative gap of
@@ -241,7 +256,8 @@ GAP_LIMIT = 1e-3
 ITER_TOTAL_LIMIT = 0.10
 MGCG_STEPS = 10
 SOLVER_GRIDS = (64, 63)
-SOLVER_STEPS = 20  # the pressure zoo's steps
+SOLVER_STEPS = 20  # the pressure zoo's steps (at 10, 63^2 BiCGSTAB pressure's rounding
+# still moves the fields past the limit: its trajectories meet again later)
 MOMENTUM_STEPS = 20  # the momentum zoo's
 RE = 100.0
 # the quick phase: benchmarks/scale_runs.py's 511^2 QUICK configuration at
@@ -898,7 +914,8 @@ def odd_inputs(n, dev, steps):
     levels = build_levels(d_u, d_v, pres, dx=mesh.dx, dy=mesh.dy, rho=1.0,
                           variant="consistent")
     b = pressure_rhs(u_star, v_star, dx=mesh.dx, dy=mesh.dy, rho=1.0, pin=False)
-    return dict(u=u, v=v, cu=cu, cv=cv, levels=levels, b=b, pres=pres)
+    return dict(u=u, v=v, p=st.p, cu=cu, cv=cv, levels=levels, b=b, pres=pres, mesh=mesh,
+                mom=mom)
 
 
 def check_bicgstab(inputs, cl_ms, sync_ms):
@@ -1198,6 +1215,199 @@ def check_step_batched(dev, cl_ms, max_clusters):
                          max_active_clusters=max_clusters, waves=waves,
                          cluster_barriers=max(bars), barrier_bound_ms=waves * max(bars) * cl_ms,
                          main=n == NH))
+    return rows
+
+
+def case_inputs(inp, res):
+    """The kernel phase's 63^2 state (``odd_inputs``) with the viscosities
+    of ``res``: each case's relaxed u and v systems, its vertex hierarchy
+    from its own d-fields (K4's levels) and a seeded zero-mean right-hand
+    side, stacked with a leading case axis; and each case's own."""
+    import numpy as np
+    import torch
+
+    from naviflow_tpu_torch.ops.powerlaw import (d_coefficient, relax_coefficients,
+                                                 u_momentum_coefficients,
+                                                 v_momentum_coefficients)
+    from naviflow_tpu_torch.ops.stencil import StencilCoeffs
+    from naviflow_tpu_torch.ops.stencil9 import Stencil9
+    from naviflow_tpu_torch.solvers.multigrid import build_levels
+
+    mesh, u, v, p = inp["mesh"], inp["u"], inp["v"], inp["p"]
+    rng = np.random.default_rng(SEED + 3)
+    cases = []
+    for re_ in res:
+        kw = dict(dx=mesh.dx, dy=mesh.dy, rho=1.0, mu=1.0 / re_)
+        cu = relax_coefficients(u_momentum_coefficients(u, v, p, **kw), u, 0.7)
+        cv = relax_coefficients(v_momentum_coefficients(u, v, p, **kw), v, 0.7)
+        levels = build_levels(d_coefficient(cu.a_p, mesh.dy, is_u=True),
+                              d_coefficient(cv.a_p, mesh.dx, is_u=False), inp["pres"],
+                              dx=mesh.dx, dy=mesh.dy, rho=1.0, variant="consistent")
+        b = torch.as_tensor(rng.normal(size=p.shape), dtype=torch.float32, device=p.device)
+        cases.append(dict(cu=cu, cv=cv, levels=levels, b=b - b.mean()))
+
+    def stack_c(key):
+        return StencilCoeffs(*(torch.stack([getattr(c[key], f) for c in cases])
+                               for f in ("a_e", "a_w", "a_n", "a_s", "a_p", "src")))
+
+    levels = [(Stencil9(*(torch.stack([getattr(c["levels"][lvl][0], f) for c in cases])
+                          for f in ("c", "e", "w", "n", "s", "ne", "nw", "se", "sw"))),
+               shp, five, lam) for lvl, (_, shp, five, lam) in enumerate(cases[0]["levels"])]
+    return dict(u=torch.stack([u] * len(res)), v=torch.stack([v] * len(res)),
+                cu=stack_c("cu"), cv=stack_c("cv"), levels=levels,
+                b=torch.stack([c["b"] for c in cases]), cases=cases)
+
+
+def case_axis_row(name, kernel, plain, rows_extra, cases, size, cl_ms, kernel_id, work,
+                  barriers, reps=REPS):
+    """One batched kernel row: times (plain batched, kernel batched in
+    turns), host ms, max active clusters of its cluster size and the waves
+    ``cases`` take, the cases' summed work and the slowest case's barrier
+    bound times the waves."""
+    from naviflow_tpu_torch.ops import _cuda
+
+    ms, plain_ms, dev_ms = time_pair(plain, kernel, reps=reps)
+    fit = _cuda.case_max_clusters(kernel_id, size)
+    waves = -(-cases // fit)
+    return dict(name=name, cases=cases, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                host_ms=host_ms(kernel, reps), work=work, cluster_size=size,
+                max_active_clusters=fit, waves=waves, cluster_barriers=barriers,
+                barrier_bound_ms=waves * barriers * cl_ms, **rows_extra)
+
+
+def check_case_axis(inp, sizes, res=BATCH_RE):
+    """The batched K7, K5 and K4 (one cluster a case) at 63^2, B = 3 (Re
+    ``res``, each case's own systems and hierarchy, ``case_inputs``): every
+    case bit-equal to its single launch in every output (each single
+    launch's device ms beside the batched launch's); the batched plain
+    version within the kernel's tolerances (K7 1e-4 of the field, K5 equal
+    cycles, p within 1e-4 and rel within 1e-5, K4 1e-5 of each array); a
+    frozen case returns its frozen outputs (K7 x0; K5 p0, zero r, 0
+    cycles, rel 0; K4 zero stencils) and leaves the other cases' bits
+    alone.  ``sizes``: per kernel (cluster size, one cluster barrier's
+    ms)."""
+    import torch
+
+    from naviflow_tpu_torch.ops import krylov, mg
+    from naviflow_tpu_torch.ops.stencil import StencilCoeffs
+    from naviflow_tpu_torch.ops.stencil9 import Stencil9
+
+    ci = case_inputs(inp, res)
+    B, dev = len(res), inp["u"].device
+    rows = []
+    # K7: the u and v systems, maxiter 20
+    for field in ("u", "v"):
+        x0, c = ci[field], ci["c" + field]
+
+        def kernel(x0=x0, c=c, active=None):
+            return krylov.bicgstab_momentum_batched(x0, c, tol=1e-6, maxiter=20, active=active)
+
+        def plain(x0=x0, c=c):
+            return krylov.bicgstab_momentum_batched_plain(x0, c, tol=1e-6, maxiter=20)
+
+        got, want = kernel(), plain()
+        bit_equal, iters, single_ms = True, [], []
+        for b in range(B):
+            cb = StencilCoeffs(*(getattr(c, f)[b] for f in ("a_e", "a_w", "a_n", "a_s", "a_p",
+                                                             "src")))
+
+            def one_case(x=x0[b], cb=cb):
+                return krylov.bicgstab_momentum(x, cb, tol=1e-6, maxiter=20)
+
+            bit_equal &= torch.equal(got[b], one_case())
+            single_ms.append(device_ms(one_case))
+            with count_applies() as applies:
+                krylov.bicgstab_momentum_plain(x0[b], cb, tol=1e-6, maxiter=20)
+            iters.append((applies[0] - 1) // 2)
+        frozen = kernel(active=torch.tensor([True, False, True], device=dev))
+        torch_sync()
+        frozen_ok = torch.equal(frozen[1], x0[1]) and torch.equal(frozen[0], got[0]) and \
+            torch.equal(frozen[2], got[2])
+        a, r = max_err(got, want)
+        work = [sum(w) for w in zip(*(bicgstab_work(x0[0].numel(), k) for k in iters))]
+        size, cl_ms = sizes["K7"]
+        rows.append(case_axis_row(
+            "bicgstab_momentum_batched", kernel, plain,
+            dict(field=field, shape=list(x0.shape[1:]), reynolds=list(res), iterations=iters,
+                 single_device_ms=single_ms,
+                 ok=r < 1e-4 and bit_equal and frozen_ok, bit_equal_to_single=bit_equal,
+                 frozen_case_ok=frozen_ok, max_abs_err=a, rel_err=r), B, size, cl_ms, 0,
+            tuple(work), max(k7_barriers(k) for k in iters)))
+    # K5: each case's hierarchy at the headline configuration
+    levels, b, pres = ci["levels"], ci["b"], inp["pres"]
+    meta = meta_of(levels)
+    p0 = torch.zeros_like(b)
+
+    def kernel(active=None):
+        return mg.fused_mg_solve_batched(p0, b, levels, pres, active=active)
+
+    def plain():
+        return mg.fused_mg_solve_batched_plain(p0, b, levels, pres)
+
+    got, want = kernel(), plain()
+    bit_equal, single_ms = True, []
+    for k, case in enumerate(ci["cases"]):
+        def one_case(k=k, lv=case["levels"]):
+            return mg.fused_mg_solve(p0[k], b[k], lv, pres)
+
+        bit_equal &= all(torch.equal(g[k], o) for g, o in zip(got, one_case()))
+        single_ms.append(device_ms(one_case))
+    frozen = kernel(active=torch.tensor([False, True, True], device=dev))
+    torch_sync()
+    frozen_ok = (torch.equal(frozen[0][0], p0[0]) and not bool(frozen[1][0].any())
+                 and int(frozen[2][0]) == 0 and float(frozen[3][0]) == 0.0
+                 and all(torch.equal(f[k], g[k]) for f, g in zip(frozen, got) for k in (1, 2)))
+    cycles = [int(x) for x in want[2]]
+    a, e = max_err(got[0], want[0])
+    ok = ([int(x) for x in got[2]] == cycles and e < 1e-4
+          and float((got[3] - want[3]).abs().max()) < 1e-5)
+    work = [sum(w) for w in zip(*(mg_solve_work(meta, pres, c) for c in cycles))]
+    size, cl_ms = sizes["K5"]
+    rows.append(case_axis_row(
+        "fused_mg_solve_batched", kernel, plain,
+        dict(hierarchy="vertex63", shape=list(b.shape[1:]), reynolds=list(res), cycles=cycles,
+             single_device_ms=single_ms,
+             ok=ok and bit_equal and frozen_ok, bit_equal_to_single=bit_equal,
+             frozen_case_ok=frozen_ok, max_abs_err=a, rel_err=e), B, size, cl_ms, 1,
+        tuple(work), max(k5_barriers(meta, pres, c) for c in cycles)))
+    # K4: each case's fine stencil
+    fine, shapes = levels[0][0], [lv[1] for lv in levels]
+    names = ("c", "e", "w", "n", "s", "ne", "nw", "se", "sw")
+
+    def kernel(active=None):
+        return mg.galerkin_levels_batched(fine, shapes, True, active=active)
+
+    def plain():
+        return mg.galerkin_levels_batched_plain(fine, shapes, True)
+
+    got, want = kernel(), plain()
+    bit_equal, single_ms = True, []
+    for k in range(B):
+        def one_case(st=Stencil9(*(getattr(fine, f)[k] for f in names))):
+            return mg.galerkin_levels(st, shapes, True)
+
+        bit_equal &= all(torch.equal(getattr(g, f)[k], getattr(o, f))
+                         for g, o in zip(got, one_case()) for f in names)
+        single_ms.append(device_ms(one_case))
+    frozen = kernel(active=torch.tensor([True, True, False], device=dev))
+    torch_sync()
+    frozen_ok = all(not bool(getattr(fz, f)[2].any())
+                    and torch.equal(getattr(fz, f)[:2], getattr(g, f)[:2])
+                    for fz, g in zip(frozen, got) for f in names)
+    worst_abs = worst_rel = 0.0
+    for g, w in zip(got, want):
+        for f in names:
+            a, r = max_err(getattr(g, f), getattr(w, f))
+            worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+    size, cl_ms = sizes["K4"]
+    one_work = rap_work(meta)
+    rows.append(case_axis_row(
+        "galerkin_levels_batched", kernel, plain,
+        dict(shape=[NH, NH], levels=[shp[0] for shp in shapes], reynolds=list(res),
+             single_device_ms=single_ms,
+             ok=worst_rel < 1e-5 and bit_equal and frozen_ok, bit_equal_to_single=bit_equal,
+             frozen_case_ok=frozen_ok, max_abs_err=worst_abs, rel_err=worst_rel),
+        B, size, cl_ms, 2, (B * one_work[0], B * one_work[1]), len(shapes) - 1))
     return rows
 
 
@@ -1709,6 +1919,9 @@ def counts():
             "galerkin_levels": mg.RAP_LAUNCHES,
             "fused_mg_solve": mg.SOLVE_LAUNCHES,
             "bicgstab_momentum": krylov.LAUNCHES,
+            "bicgstab_momentum_batched": krylov.BATCH_LAUNCHES,
+            "galerkin_levels_batched": mg.RAP_BATCH_LAUNCHES,
+            "fused_mg_solve_batched": mg.SOLVE_BATCH_LAUNCHES,
             "fused_outer_step": step.LAUNCHES,
             "fused_outer_step_batched": step.BATCH_LAUNCHES,
             "fused_assembly_pair": assembly.LAUNCHES,
@@ -1727,7 +1940,8 @@ def reset_counts():
     strip.STRIP_DOWN_LAUNCHES = 0
     strip.STRIP_UP_LAUNCHES = 0
     mg.LAUNCHES = mg.RAP_LAUNCHES = mg.SOLVE_LAUNCHES = 0
-    krylov.LAUNCHES = 0
+    mg.RAP_BATCH_LAUNCHES = mg.SOLVE_BATCH_LAUNCHES = 0
+    krylov.LAUNCHES = krylov.BATCH_LAUNCHES = 0
     step.LAUNCHES = step.BATCH_LAUNCHES = 0
     assembly.LAUNCHES = 0
     cheby.LAUNCHES = 0
@@ -2071,7 +2285,7 @@ def fmg_parts():
             setattr(module, name, real)
 
 
-def fmg_split(dev, steps=FMG_STEPS, replayed=8):
+def fmg_split(dev, steps=FMG_STEPS, replayed=4):
     """Where a 63^2 FMG step's time goes: one kernel run of ``steps`` steps
     with ``fmg_parts`` (host ms per step inside K7's, K5's and K4's wrappers
     and the composed bootstrap, and the rest: the host clock of the run
@@ -2115,7 +2329,7 @@ def run_fmg(dev):
     refreshes = math.ceil(FMG_STEPS / 8)
     want = only(bicgstab_momentum=2 * FMG_STEPS, fused_mg_solve=FMG_STEPS,
                 galerkin_levels=1 + refreshes)
-    profile_steps = 8
+    profile_steps = 4
     return dict(phase="fmg", grid=NH, steps=FMG_STEPS, launches=launches,
                 launches_expected=want, residual_kernel=res_k, residual_composed=res_c,
                 residual_gap=gap, residual_first=float(hist[0]), residual_last=float(hist[-1]),
@@ -2498,8 +2712,8 @@ def run_sequenced(dev):
     """The grid-sequenced 1024^2 Re=1000 solve to 1e-5 (bench.py's
     BENCH_MODE=seq configuration) through the port with every kernel: each
     level's iterations, convergence, seconds and launches; the Ghia error
-    of the fine state; the device's idle share over 8 fine-level steps and
-    over the first 8 steps of the 32^2 and 128^2 levels.  Then the 128 -> 32
+    of the fine state; the device's idle share over 4 fine-level steps and
+    over the first 4 steps of the 32^2 and 128^2 levels.  Then the 128 -> 32
     ladder, 20 steps a level, with the kernels and composed: each level's final
     residual and every step of its history, and the fine fields, within
     ``GAP_LIMIT``; and a control (the kernels with a V-cycle tolerance of
@@ -3059,12 +3273,16 @@ def run_api(dev):
                 algorithms=others, launches=launches, ok=bool(ok))
 
 
-def batch_run(dev, n, res, cfg, algorithm="simple"):
+def batch_run(dev, n, res, cfg, algorithm="simple", cycle_type="v", gaps=False, singles=None):
     """``batched_cavity_solve`` of ``algorithm`` at ``n``^2 over ``res`` with
-    the headline configuration from rest, then each case's single solve:
-    (state and diagnostics per case, the batch's wall seconds and launches,
-    the single solves' wall seconds, per case bit-equal in u, v, p and
-    ``total_res_history``)."""
+    the headline configuration (``cycle_type``) from rest, then each case's
+    single solve: (state and diagnostics per case, the batch's wall seconds
+    and launches, the single solves' wall seconds, per case bit-equal in u,
+    v, p and ``total_res_history``; with ``gaps``, per case its equal
+    iterations, the fields' and every history step's relative gaps to the
+    single solve and whether the fields are bit-equal).  ``singles``: a
+    dict of single solves by Reynolds number (state, diagnostics, wall
+    seconds) that this call fills and reuses."""
     import torch
 
     import naviflow_tpu_torch as nt
@@ -3072,7 +3290,7 @@ def batch_run(dev, n, res, cfg, algorithm="simple"):
 
     solve = getattr(algorithms, f"{algorithm}_solve")
     mesh, _, bc = cavity_case(n)
-    mom, pres = headline_configs()
+    mom, pres = headline_configs(cycle_type=cycle_type)
     torch_sync()
     reset_counts()
     t0 = time.perf_counter()
@@ -3082,17 +3300,30 @@ def batch_run(dev, n, res, cfg, algorithm="simple"):
     wall = time.perf_counter() - t0
     launches = counts()
     equal, single_wall = [], 0.0
+    singles = {} if singles is None else singles
     for re_, (bs, bd) in zip(res, out):
-        fluid = nt.FluidProperties(density=1.0, reynolds_number=re_)
-        state = nt.initialize_state(mesh, bc, device=dev)
-        torch_sync()
-        t0 = time.perf_counter()
-        ss, sd = solve(mesh, fluid, bc, state, cfg, momentum=mom, pressure=pres, loop="fused")
-        torch_sync()
-        single_wall += time.perf_counter() - t0
-        equal.append(bd.iterations == sd.iterations
-                     and all(torch.equal(getattr(bs, k), getattr(ss, k)) for k in ("u", "v", "p"))
-                     and torch.equal(bd.total_res_history, sd.total_res_history))
+        if re_ not in singles:
+            fluid = nt.FluidProperties(density=1.0, reynolds_number=re_)
+            state = nt.initialize_state(mesh, bc, device=dev)
+            torch_sync()
+            t0 = time.perf_counter()
+            ss, sd = solve(mesh, fluid, bc, state, cfg, momentum=mom, pressure=pres,
+                           loop="fused")
+            torch_sync()
+            singles[re_] = (ss, sd, time.perf_counter() - t0)
+        ss, sd, wall_one = singles[re_]
+        single_wall += wall_one
+        fields = all(torch.equal(getattr(bs, k), getattr(ss, k)) for k in ("u", "v", "p"))
+        same = (bd.iterations == sd.iterations and fields
+                and torch.equal(bd.total_res_history, sd.total_res_history))
+        if gaps:
+            it = sd.iterations
+            same = dict(bit_equal=same, fields_bit_equal=fields,
+                        iterations_equal=bd.iterations == sd.iterations,
+                        field_gaps=field_gaps(bs, ss),
+                        history_gap=max(rel_gap(bd.total_res_history[k], sd.total_res_history[k])
+                                        for k in range(it)) if it else 0.0)
+        equal.append(same)
     return out, wall, launches, single_wall, equal
 
 
@@ -3148,7 +3379,10 @@ def run_batch(dev):
     profile = profile_window(
         lambda: batched_cavity_solve(mesh, BATCH_RE8, bc, cfg, mom, pres, device=dev),
         max(runs["63x8"]["iterations"]))
-    return dict(phase="batch", tolerance=BATCH_TOLERANCE, runs=runs,
+    fmg = run_batch_fmg(dev)
+    ok &= fmg["ok"]
+    return dict(phase="batch", tolerance=BATCH_TOLERANCE, runs=runs, batch_fmg=fmg,
+                launches_fmg=fmg["runs"]["63x3"]["launches"],
                 ms_per_lockstep_step={str(len(r["reynolds"])): r["ms_per_lockstep_step"]
                                       for t, r in runs.items()
                                       if t in ("63x1", "63x3", "63x8")},
@@ -3157,6 +3391,93 @@ def run_batch(dev):
                                      for k in (16, 8)},
                 cluster_size=step.cluster_size("simple", dev), card=nvidia_smi(),
                 launches=runs["63x3"]["launches"], ok=ok)
+
+
+def fmg_split_batched(dev, res, steps=FMG_STEPS):
+    """``fmg_split``'s host side for the vmapped FMG batch over ``res``:
+    host ms a lockstep step inside the K7, K5 and K4 wrappers (their
+    batching rules and batched launches) and the composed bootstrap, under
+    ``torch.func.vmap``, and the rest of the run's host clock."""
+    from naviflow_tpu_torch import algorithms
+
+    mesh, _, bc = cavity_case(NH)
+    mom, pres = headline_configs(cycle_type="fmg")
+    cfg = algorithms.SIMPLEConfig(max_iterations=steps, tolerance=0.0)
+    with fmg_parts() as parts:
+        torch_sync()
+        t0 = time.perf_counter()
+        algorithms.batched_cavity_solve(mesh, res, bc, cfg, mom, pres, device=dev)
+        torch_sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    out = {part: dict(calls_per_step=n / steps, host_ms_per_step=host / steps)
+           for part, (host, n, _) in parts.items()}
+    return dict(cases=len(res), ms_per_lockstep_step=wall_ms, parts=out,
+                rest_host_ms_per_step=wall_ms - sum(v["host_ms_per_step"] for v in out.values()))
+
+
+def run_batch_fmg(dev):
+    """The FMG headline configuration (``headline_configs(cycle_type='fmg')``,
+    which K6's gate refuses) batched: ``batched_cavity_solve`` takes the
+    vmapped branch (``torch.func.vmap`` of the single step, K7, K5 and K4
+    through their batching rules) for at most ``FMG_STEPS`` lockstep steps
+    to ``BATCH_TOLERANCE``, over Re 100 alone, ``BATCH_RE`` and the 8-case
+    ``BATCH_RE8``: each case's iterations equal its single solve's, and its
+    fields and every step of its residual history bit-equal to it or
+    within ``GAP_LIMIT``; launches: batched K7 = 2 x the lockstep steps,
+    batched K5 = the steps, batched K4 = the refreshes (ceil(steps / 8)),
+    single K4 = 1 (the shared setup hierarchy), nothing else.  Beside each
+    batch the same cases one after another; ms a lockstep step at B = 1, 3,
+    8 (the single solves shared by the runs, one a Reynolds number); the
+    vmapped step's split (``fmg_split_batched``, B = 3); the idle share
+    over 2 lockstep steps of the 8-case batch; the batched kernels' max
+    active clusters."""
+    from naviflow_tpu_torch import algorithms
+    from naviflow_tpu_torch.algorithms import batched_cavity_solve
+    from naviflow_tpu_torch.ops import _cuda, krylov, mg
+
+    mom, pres = headline_configs(cycle_type="fmg")
+    cfg = algorithms.SIMPLEConfig(max_iterations=FMG_STEPS, tolerance=BATCH_TOLERANCE)
+    runs, ok, singles = {}, True, {}
+    for tag, res in (("63x1", BATCH_RE[:1]), ("63x3", BATCH_RE), ("63x8", BATCH_RE8)):
+        mesh, _, bc = cavity_case(NH)
+        batched_cavity_solve(mesh, res, bc, dataclasses.replace(cfg, max_iterations=2), mom,
+                             pres, device=dev)  # warm-up
+        out, wall, launches, single_wall, cases = batch_run(dev, NH, res, cfg, cycle_type="fmg",
+                                                            gaps=True, singles=singles)
+        iters = [d.iterations for _, d in out]
+        steps = max(iters)
+        want = only(bicgstab_momentum_batched=2 * steps, fused_mg_solve_batched=steps,
+                    galerkin_levels_batched=-(-steps // 8), galerkin_levels=1)
+        held = all(c["iterations_equal"] and (c["bit_equal"] or (
+            max(c["field_gaps"].values()) <= GAP_LIMIT and c["history_gap"] <= GAP_LIMIT))
+            for c in cases)
+        runs[tag] = dict(reynolds=list(res), iterations=iters, cases=cases,
+                         final_residual=[float(d.final_residual) for _, d in out],
+                         held_to_single=held, wall_s=wall,
+                         ms_per_lockstep_step=wall * 1e3 / steps,
+                         sequential_wall_s=single_wall,
+                         sequential_ms_per_step=single_wall * 1e3 / sum(iters),
+                         launches=launches, launches_expected=want)
+        ok &= held and launches == want
+    mesh, _, bc = cavity_case(NH)
+    profile_steps = 2
+    profile = profile_window(
+        lambda: batched_cavity_solve(mesh, BATCH_RE8, bc,
+                                     dataclasses.replace(cfg, max_iterations=profile_steps,
+                                                         tolerance=0.0), mom, pres, device=dev),
+        profile_steps)
+    sizes = {"K7": krylov.cluster_size(dev), "K5": mg.mg_solve_cluster_size(dev),
+             "K4": mg.galerkin_cluster_size(dev)}
+    return dict(steps=FMG_STEPS, tolerance=BATCH_TOLERANCE, runs=runs,
+                ms_per_lockstep_step={str(len(r["reynolds"])): r["ms_per_lockstep_step"]
+                                      for r in runs.values()},
+                sequential_ms_per_step={str(len(r["reynolds"])): r["sequential_ms_per_step"]
+                                        for r in runs.values()},
+                fmg_split=fmg_split_batched(dev, BATCH_RE), idle_profile_63x8=profile,
+                max_active_clusters={k: {str(n): _cuda.case_max_clusters(i, n, dev)
+                                         for n in (sizes[k], 8)}
+                                     for i, k in enumerate(("K7", "K5", "K4"))},
+                cluster_size=sizes, card=nvidia_smi(), ok=ok)
 
 
 def tangent_graph_check(warm, mesh, fluid, bc, scheme):
@@ -3311,7 +3632,7 @@ def run_quick(dev):
     2e-2 are run and their gaps reported beside: on this path no looser
     inner solve reached the limit on the CPU (V-cycles to 2e-2: 2.4e-4;
     BiCGSTAB capped at 5 iterations: 2.8e-4; 2 coarsest sweeps: 9.2e-4).
-    ms a step and the device's idle share over 8 steps.
+    ms a step and the device's idle share over 4 steps.
     (b) 63^2 Re=100 QUICK with the JAX package's QUICK test momentum
     (BiCGSTAB to 1e-9, <= 150 iterations) and the headline's V-cycle
     pressure, to 1e-5: converged, Ghia's infinity error below 0.10, K4 at
@@ -4152,6 +4473,13 @@ SOURCES = {
     # K6 with the case axis: the batch phase's lockstep loop
     "fused_outer_step_batched": ("fused_outer_step_batched", "naviflow_tpu_torch/csrc/step.cuh",
                                  "naviflow_tpu/ops/pallas_step.py:364", "batch"),
+    # K7, K5 and K4 with the case axis: the batch phase's vmapped FMG step
+    "bicgstab_momentum_batched": ("bicgstab_momentum_batched", "naviflow_tpu_torch/csrc/krylov.cu",
+                                  "naviflow_tpu/ops/pallas_krylov.py:142", "batch_fmg"),
+    "fused_mg_solve_batched": ("fused_mg_solve_batched", "naviflow_tpu_torch/csrc/mg.cu",
+                               "naviflow_tpu/ops/pallas_mg.py:512", "batch_fmg"),
+    "galerkin_levels_batched": ("galerkin_levels_batched", "naviflow_tpu_torch/csrc/mg.cu",
+                                "naviflow_tpu/ops/pallas_mg.py:445", "batch_fmg"),
     "fused_assembly_pair": ("fused_assembly_pair", "naviflow_tpu_torch/csrc/assembly.cu",
                             "naviflow_tpu/ops/pallas_assembly.py:294", "large_grid"),
     "chebyshev_momentum_strips": ("chebyshev_momentum_strips",
@@ -4181,7 +4509,9 @@ def kernels_line(rows, paths):
     K9 the 2048^2 runs, the other K6 bodies their 63^2 runs, batched K6 the
     batch phase's 63^2 Re 100 / 400 / 1000 run (its time, error and work:
     the kernel phase's 63^2 B = 3 row, with its cases, waves and the max
-    active clusters), K10 the 4096^2 plane run, K11 the kernel phase's
+    active clusters), batched K7, K5 and K4 the batch phase's FMG 63^2 Re
+    100 / 400 / 1000 run (their times, errors and work: the kernel phase's
+    63^2 B = 3 rows), K10 the 4096^2 plane run, K11 the kernel phase's
     checking calls), with every path's count beside them.  ``library_ms``:
     K11b's cuSPARSE SpMV; no other kernel's function is one PyTorch call."""
     out = []
@@ -4240,8 +4570,9 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
     255^2 vertex hierarchies, every output's error; K11a at ``AB_K11A`` and
     K11b at ``AB_K11B`` (``poisson_system``'s inputs); device, event and host
     times of each; K6's phase split (``k6_phases``: each body's RAP phase
-    and event ms a step).  With ``save``, K1's, K2a's, K2b's, K4's and K11's
-    outputs (K4: all nine arrays of every coarse level) go to
+    and event ms a step).  With ``save``, K1's, K2a's, K2b's, K4's, K5's,
+    K7's and K11's outputs (K4: all nine arrays of every coarse level; K5:
+    p, r, cycles and rel) go to
     ``save/TAG.pt`` for ``ab_compare``.  Run it in turns A, B, B, A, each from a tree's
     root: ``PYTHONPATH=. python3 -P <this file> --ab TAG`` (``-P``: the tree
     on PYTHONPATH, not this file's directory, supplies the package)."""
@@ -4257,8 +4588,11 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
         emit(dict(phase="ab", tag=tag, **key, ms=time_ms(fn), device_ms=device_ms(fn),
                   device_ms_again=device_ms(fn), host_ms=host_ms(fn)))
 
-    def row(fn, plain, **key):
+    def row(fn, plain, save_as=None, **key):
         got, want = fn(), plain()
+        if save and save_as:
+            outs = got if isinstance(got, tuple) else (got,)
+            saved[save_as] = {f"out{k}": g.detach().cpu() for k, g in enumerate(outs)}
         got, want = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
         a, r = max_err(got, want)
         timed(fn, **key, max_abs_err=a, rel_err=r)
@@ -4322,7 +4656,7 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
             x0, c = inp[field], inp["c" + field]
             row(lambda: krylov.bicgstab_momentum(x0, c, tol=1e-6, maxiter=20),
                 lambda: krylov.bicgstab_momentum_plain(x0, c, tol=1e-6, maxiter=20),
-                kernel="K7", n=n, field=field, shape=list(x0.shape))
+                save_as=f"K7_{n}_{field}", kernel="K7", n=n, field=field, shape=list(x0.shape))
         if n in (NH, NH_BIG) and "K5" in kernels:
             cases = [(f"vertex{n}", inp["levels"], inp["b"])]
             if n == NH_BIG:
@@ -4331,7 +4665,7 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
                 p0 = torch.zeros_like(b)
                 row(lambda: mg.fused_mg_solve(p0, b, levels, inp["pres"]),
                     lambda: mg.fused_mg_solve_plain(p0, b, levels, inp["pres"]),
-                    kernel="K5", hierarchy=label)
+                    save_as=f"K5_{label}", kernel="K5", hierarchy=label)
         if n in (NH, NH_BIG) and "K4" in kernels:
             fine, shapes = inp["levels"][0][0], [lv[1] for lv in inp["levels"]]
             names = ("c", "e", "w", "n", "s", "ne", "nw", "se", "sw")
@@ -4399,7 +4733,7 @@ def parse_args(argv):
     ap.add_argument("--kernels", default=",".join(AB_KERNELS),
                     help="the A/B's kernels, comma-separated (default: %(default)s)")
     ap.add_argument("--save", metavar="DIR",
-                    help="keep the A/B's K1, K2a, K2b, K4 and K11 outputs here")
+                    help="keep the A/B's K1, K2a, K2b, K4, K5, K7 and K11 outputs here")
     ap.add_argument("--ab-compare", nargs=3, metavar=("DIR", "TAG_A", "TAG_B"),
                     help="compare two saved A/B sides output by output and stop")
     ap.add_argument("--ranks", action="store_true",
@@ -4527,6 +4861,9 @@ def run_all(dev, card, t0) -> int:
     rows.append(check_vertex_vcycle(inp, cl_by_size[k3_size]))
     rows += check_step(dev, cl_ms)
     rows += check_step_batched(dev, cl_ms, k6_clusters[clusters["simple"]])
+    rows += check_case_axis(inp, {"K7": (k7_size, cl_by_size[k7_size]),
+                                  "K5": (k5_size, cl_by_size[k5_size]),
+                                  "K4": (k4_size, cl_by_size[k4_size])})
     del big
     rows += check_step_bodies(dev, cl_ms)
     rows += check_assembly(dev)
@@ -4563,6 +4900,8 @@ def run_all(dev, card, t0) -> int:
             return 1
         if phase == "headline":
             paths[phase] = row["runs"]["auto_0.001"]["launches"]
+        elif phase == "batch":
+            paths["batch"], paths["batch_fmg"] = row["launches"], row["launches_fmg"]
         elif phase == "algorithms63":
             paths.update({f"{phase}:{name}": c for name, c in row["paths"].items()})
         elif phase == "quick":

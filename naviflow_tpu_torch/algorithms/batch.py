@@ -7,14 +7,33 @@ masked by its own predicate, so each case freezes at its own iteration
 count and device time is set by the slowest case.  The port runs that
 loop written out (``base.run_outer_loop_batched``): a leading case axis on
 the state, the residuals and the histories, and one host read a step of
-whether any case is still active.  Where the whole-step kernel's gate
-admits the configuration, each lockstep step is one launch of K6's batched
-entry (``ops/step.fused_outer_step_batched``: one thread-block cluster a
-case, frozen cases leaving at once).  Otherwise each lockstep step runs
-every active case's own step (composed, or with its own kernels): the CPU
-path, and the configurations whose kernels have no case axis.  Either way
-each case's result is its single solve's, bit for bit.  Viscosity is the
-one per-case scalar (cavity Re = rho U L / mu with U = L = 1).
+whether any case is still active.  A lockstep step takes one of three
+branches:
+
+* where the whole-step kernel's gate admits the configuration
+  (``simple.fused_step_ok``), one launch of K6's batched entry
+  (``ops/step.fused_outer_step_batched``: one thread-block cluster a case,
+  frozen cases leaving at once);
+* else, where :func:`vmap_step_ok` admits it (a CUDA float32 state, an odd
+  square grid, multigrid pressure whose solve K5 and whose hierarchy K4
+  take, BiCGSTAB momentum through K7's gate or fixed-sweep Jacobi, on the
+  power-law scheme: the 63^2 FMG headline step), ``torch.func.vmap`` of
+  the single step over (u, v, p, the carry, each case's viscous
+  conductances), the port of ``jax.vmap(one)``: the composed operators
+  (the FMG bootstrap among them) run once for every case, and K7, K5 and
+  K4 each launch once for every case through their batching rules
+  (``ops/krylov.py``, ``ops/mg.py``), frozen cases' clusters leaving at
+  once; the frozen cases then get back what they were given;
+* else every active case's own step, one after another (composed, or with
+  its own kernels): the CPU path (where the kernel gates are closed), and
+  every configuration the other two refuse (even grids and the large-grid
+  kernels K1, K2, K3, K8, K9, K10, the pressure and momentum zoos, the
+  9-point schemes).
+
+Each case's result is its single solve's: bit for bit in the K6 and per-case
+branches, and in the vmapped one wherever the batched operators round as
+the single ones do.  Viscosity is the one per-case scalar (cavity Re = rho U
+L / mu with U = L = 1).
 """
 
 from __future__ import annotations
@@ -27,11 +46,19 @@ from ..core.bc import BoundaryConditions
 from ..core.fluid import FluidProperties
 from ..core.mesh import StructuredMesh
 from ..core.state import FlowState, initialize_state
+from ..ops import _cuda
+from ..ops.assembly import supports_fused_assembly
+from ..ops.krylov import supports_fused_bicgstab
+from ..ops.mg import supports_fused_layout, supports_fused_rap
+from ..ops.powerlaw import case_conductances
+from ..ops.stencil9 import Stencil9
 from ..ops.step import ALGO_SCALARS, fused_outer_step_batched
+from ..ops.transfer import coarse_size
 from .base import SolveDiagnostics, StepInfo, case_info, run_outer_loop_batched
 from .lagged import make_lagged_mg, uses_lagged_mg
 from .piso import make_piso_step
-from .simple import family_parts, fused_step_ok, simple_parts, zero_carry
+from .simple import (family_parts, fused_step_ok, lagged_extra0, make_simple_step,
+                     simple_parts, zero_carry)
 from .simplec import make_simplec_step, simplec_carry0
 from .simpler import make_simpler_step
 
@@ -87,6 +114,95 @@ def _fused_step(algorithm, mus, kw):
     return step
 
 
+def vmap_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm: str) -> bool:
+    """The vmapped branch's gate, for the state's ``p`` (every case's
+    shape): outside K6's gate, every kernel the single step would launch
+    has a batching rule and every composed part runs under
+    ``torch.func.vmap``.  That is an odd square grid on a device the
+    kernel gates take; multigrid pressure (Galerkin V or FMG cycles) whose
+    whole solve K5 takes and whose hierarchy K4 builds from the fine level;
+    BiCGSTAB momentum that K7 takes for both fields, or fixed-sweep Jacobi,
+    on the power-law scheme without the one-pass assembly (K8)."""
+    nx, ny = p.shape[-2:]
+    if not _cuda.kernel_device(p) or fused_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm):
+        return False
+    if nx != ny or nx % 2 == 0 or getattr(pres_cfg, "kind", "") != "multigrid":
+        return False
+    if pres_cfg.backend == "composed" or not supports_fused_rap(nx, ny, pres_cfg, p.dtype):
+        return False
+    layout = [((nx, ny), True)]
+    while layout[-1][0][0] > pres_cfg.coarsest_grid_size:
+        n = coarse_size(layout[-1][0][0])
+        layout.append(((n, n), False))
+    if not supports_fused_layout(layout, pres_cfg):  # K5 (its dtype: K4's gate)
+        return False
+    scheme = getattr(mom_cfg, "scheme", "power_law")
+    if scheme != "power_law" or supports_fused_assembly(
+            nx, ny, scheme, p.dtype, getattr(mom_cfg, "backend", "auto"), p.device):
+        return False
+    if mom_cfg.kind == "jacobi":
+        return True
+    return (mom_cfg.kind == "bicgstab" and getattr(mom_cfg, "backend", "auto") != "composed"
+            and supports_fused_bicgstab((nx + 1, ny), p.dtype)
+            and supports_fused_bicgstab((nx, ny + 1), p.dtype))
+
+
+def _flatten(tree):
+    """The tensors of a carry (tuples, lists and :class:`Stencil9` s of
+    tensors; numbers and None are static) and a function that rebuilds it
+    from a list of them."""
+    if torch.is_tensor(tree):
+        return [tree], lambda xs: xs[0]
+    if isinstance(tree, Stencil9):
+        leaves, build = _flatten(tuple(getattr(tree, f) for f in Stencil9.__dataclass_fields__))
+        return leaves, lambda xs: Stencil9(*build(xs))
+    if isinstance(tree, (tuple, list)):
+        parts = [_flatten(x) for x in tree]
+        sizes = [len(leaves) for leaves, _ in parts]
+
+        def build(xs):
+            out, k = [], 0
+            for (_, fn), n in zip(parts, sizes):
+                out.append(fn(xs[k:k + n]))
+                k += n
+            return type(tree)(out)
+
+        return [x for leaves, _ in parts for x in leaves], build
+    return [], lambda xs: tree
+
+
+def _vmapped_step(make_step, common, visc):
+    """The lockstep step as ``torch.func.vmap`` of ``make_step(**common,
+    mu=<one case's conductances>)``'s step over the cases: ``visc`` (B, 4)
+    is each case's :func:`~naviflow_tpu_torch.ops.powerlaw.case_conductances`
+    row, ``extra`` the carry with a case axis on every tensor (numbers, the
+    lagged carry's age, are shared).  K7, K5 and K4 launch once for every
+    case with the active flags (``_cuda.case_mask``); each frozen case then
+    gets back its state, carry and ``info``."""
+
+    def step(u, v, p, extra, active, info):
+        leaves, build = _flatten(extra)
+        out_build = []
+
+        def one(u, v, p, leaves, visc):
+            u2, v2, p2, extra2, info2 = make_step(**common, mu=visc)(u, v, p, build(leaves))
+            leaves2, build2 = _flatten(extra2)
+            out_build.append(build2)
+            return u2, v2, p2, leaves2, tuple(info2)
+
+        with _cuda.case_mask(active):
+            u2, v2, p2, leaves2, info2 = torch.func.vmap(one)(u, v, p, leaves, visc)
+
+        def keep(new, old):
+            return torch.where(active.view(-1, *(1,) * (new.dim() - 1)), new, old)
+
+        info2 = StepInfo(*(keep(n, o) for n, o in zip(info2, info)))
+        return (keep(u2, u), keep(v2, v), keep(p2, p),
+                out_build[0]([keep(n, o) for n, o in zip(leaves2, leaves)]), info2)
+
+    return step
+
+
 def batched_cavity_solve(
     mesh: StructuredMesh,
     reynolds: Sequence[float],
@@ -112,7 +228,20 @@ def batched_cavity_solve(
     dx, dy = mesh.get_cell_sizes()
     u0, v0, p0 = (torch.stack([x] * cases) for x in (state.u, state.v, state.p))
     refresh, every = None, 0
-    if fused_step_ok(state.p, cfg, momentum, pressure, algorithm):
+    if vmap_step_ok(state.p, cfg, momentum, pressure, algorithm):
+        # the initial carry, built once (the lagged hierarchy has no mu:
+        # one K4 launch), shared by every case (case stride 0)
+        extra0_fn, every = lagged_extra0(mesh, pressure, cfg, dx, dy, rho, carry0(cfg))
+        leaves, build = _flatten(extra0_fn(dtype, dev))
+        extra0 = build([x.expand(cases, *x.shape) for x in leaves])
+        visc = case_conductances([f.get_viscosity() for f in fluids], dx, dy, dtype, dev)
+        common = dict(dx=dx, dy=dy, rho=rho, bc=bc, cfg=cfg, mom_cfg=momentum,
+                      pres_cfg=pressure)
+        make = make_step or make_simple_step
+        step = _vmapped_step(make, common, visc)
+        if every:
+            refresh = _vmapped_step(make, dict(common, coarse_mode="rebuild"), visc)
+    elif fused_step_ok(state.p, cfg, momentum, pressure, algorithm):
         carry = carry0(cfg)(dtype, dev)
         carry = carry if isinstance(carry, tuple) else (carry,)
         inf = torch.full((), float("inf"), dtype=dtype, device=dev)

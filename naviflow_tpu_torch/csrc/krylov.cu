@@ -33,6 +33,19 @@
 //     band in global memory took 1.8x (255^2) and 3.7x (511^2) the
 //     cooperative grid's time: 16 SMs walking a band through the L2 are
 //     bound by its latency, eight dependent loads a thread a pass at 255^2.
+//
+// The case axis (nf_bicgstab_batched; the batching rule of ops/krylov.py,
+// the vmapped lockstep step of algorithms/batch.py): a grid of (cluster
+// size, B), case b = blockIdx.y, at the single launch's cluster size.  Each
+// thread moves every pointer of the case-0 parameters by b times its slot's
+// case stride and runs kb_solve, the single launch's code, on that view:
+// the same reductions in the same order, so each case's bits are its single
+// launch's whatever B is.  Each cluster's partials and bands are its own
+// CTAs' shared memory.  A frozen case (active flag false) copies x0 to its
+// output and leaves before the first cluster barrier, every CTA of its
+// cluster alike.  B above the clusters the card holds at once runs in waves.
+// Fields above the band kernel's shared memory have no batched form: the
+// wrapper launches the grid kernel once a case.
 
 #include "krylov.cuh"
 
@@ -98,8 +111,8 @@ struct KbBand {
   }
 };
 
-__global__ void __launch_bounds__(NF_CL_THREADS, 1) bicgstab_band_kernel(KbParams P) {
-  extern __shared__ __align__(16) float kb_dyn[];
+// One case's solve in one cluster; `kb_dyn` is the dynamic shared memory.
+__device__ __forceinline__ void kb_solve(const KbParams& P, float* kb_dyn) {
   nf_cl_arrive_relaxed();  // waited for before the first access to another CTA
   NfCluster C = nf_cluster(kb_dyn);
   KbBand B;
@@ -239,9 +252,57 @@ __global__ void __launch_bounds__(NF_CL_THREADS, 1) bicgstab_band_kernel(KbParam
   nf_sync(C);  // no CTA exits while another may still read its shared memory
 }
 
+__global__ void __launch_bounds__(NF_CL_THREADS, 1) bicgstab_band_kernel(KbParams P) {
+  extern __shared__ __align__(16) float kb_dyn[];
+  kb_solve(P, kb_dyn);
+}
+
+// B cases: case 0's parameters, every pointer field's case stride in bytes
+// (in S, the same fields), the active flags and their stride.
+struct KbBatch {
+  KbParams P, S;
+  const bool* active;
+  const bool* active_stride;
+};
+
+__global__ void __launch_bounds__(NF_CL_THREADS, 1) bicgstab_band_kernel_batched(KbBatch SB) {
+  extern __shared__ __align__(16) float kb_dyn[];
+  const int b = (int)blockIdx.y;
+  KbParams P = SB.P;
+  nf_case_shift(P.x0, SB.S.x0, b);
+  for (int k = 0; k < 6; ++k) nf_case_shift(P.coef[k], SB.S.coef[k], b);
+  nf_case_shift(P.out, SB.S.out, b);
+  const bool* active = SB.active;
+  nf_case_shift(active, SB.active_stride, b);
+  if (!*active) {  // frozen: x0 back, no cluster barrier
+    NfCluster C = nf_cluster(nullptr);
+    const int64_t n = (int64_t)P.ni * P.nj;
+    for (int64_t g = C.gtid; g < n; g += C.gstride) P.out[g] = P.x0[g];
+    return;
+  }
+  kb_solve(P, kb_dyn);
+}
+
 NfClusterCfg& band_cfg() {
   static NfClusterCfg cfg = {};
   return cfg;
+}
+
+NfClusterCfg& band_batch_cfg() {
+  static NfClusterCfg cfg = {};
+  return cfg;
+}
+
+// The band kernel's parameters from nf_bicgstab's slots (x0, the six
+// coefficient arrays, out) and ip / fp (the batched entry: case 0's, and
+// its strides).
+void kb_read(KbParams& P, const long long* ptrs, const int* ip, const float* fp) {
+  P.x0 = reinterpret_cast<const float*>(ptrs[0]);
+  for (int k = 0; k < 6; ++k) P.coef[k] = reinterpret_cast<const float*>(ptrs[1 + k]);
+  P.out = reinterpret_cast<float*>(ptrs[7]);
+  P.ni = ip[0]; P.nj = ip[1]; P.maxiter = ip[2];
+  P.lo_i = ip[3]; P.hi_i = ip[4]; P.lo_j = ip[5]; P.hi_j = ip[6];
+  P.tol = fp[0];
 }
 
 // Larger fields: krylov.cuh's solve over a cooperative grid.
@@ -276,12 +337,7 @@ NF_EXPORT int nf_bicgstab(const long long* ptrs, const int* ip, const float* fp,
   if (ni < 1 || nj < 1) return (int)cudaErrorInvalidValue;
   if (ip[7]) {
     KbParams P = {};
-    P.x0 = x0;
-    for (int k = 0; k < 6; ++k) P.coef[k] = coef[k];
-    P.out = out;
-    P.ni = ni; P.nj = nj; P.maxiter = ip[2];
-    P.lo_i = ip[3]; P.hi_i = ip[4]; P.lo_j = ip[5]; P.hi_j = ip[6];
-    P.tol = fp[0];
+    kb_read(P, ptrs, ip, fp);
     int size = 0;
     int err = nf_cluster_size(bicgstab_band_kernel, band_cfg(), size);
     if (err) return err;
@@ -313,4 +369,39 @@ NF_EXPORT int nf_bicgstab(const long long* ptrs, const int* ip, const float* fp,
 // into *size.
 NF_EXPORT int nf_bicgstab_cluster_size(int* size) {
   return nf_cluster_size(bicgstab_band_kernel, band_cfg(), *size);
+}
+
+// B cases of one shape in one launch of the band kernel, one cluster a case.
+// ptrs: nf_bicgstab's nine slots for case 0 (scratch 0), the cases' active
+//       flags (bool), then each of these ten slots' case stride in bytes, in
+//       the same order (0: one array shared by every case)
+// ip:   nf_bicgstab's eight (band 1), then B
+// fp:   tol
+NF_EXPORT int nf_bicgstab_batched(const long long* ptrs, const int* ip, const float* fp,
+                                  void* stream) {
+  KbBatch SB = {};
+  kb_read(SB.P, ptrs, ip, fp);
+  kb_read(SB.S, ptrs + 10, ip, fp);
+  SB.active = reinterpret_cast<const bool*>(ptrs[9]);
+  SB.active_stride = reinterpret_cast<const bool*>(ptrs[19]);
+  const int ni = ip[0], nj = ip[1], cases = ip[8];
+  if (ni < 1 || nj < 1 || !ip[7] || !SB.active) return (int)cudaErrorInvalidValue;
+  int size = 0, bsize = 0;
+  int err = nf_cluster_size(bicgstab_band_kernel, band_cfg(), size);
+  if (!err) err = nf_cluster_size(bicgstab_band_kernel_batched, band_batch_cfg(), bsize, size);
+  if (err) return err;
+  if (bsize != size) return (int)cudaErrorLaunchOutOfResources;
+  const int64_t floats = kb_smem_floats(ni, nj, size);
+  if (4 * floats > NF_CL_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  return nf_cluster_launch(bicgstab_band_kernel_batched, size, SB, (size_t)(4 * floats),
+                           (cudaStream_t)stream, cases);
+}
+
+// How many clusters of `size` CTAs of the batched K7 (kernel 0), K5 (1) or
+// K4 (2) the current device holds at once, into *count.
+int mg_case_max_clusters(int kernel, int size, int* count);  // mg.cu
+
+NF_EXPORT int nf_case_max_clusters(int kernel, int size, int* count) {
+  if (kernel == 0) return nf_max_active_clusters(bicgstab_band_kernel_batched, size, *count);
+  return mg_case_max_clusters(kernel, size, count);
 }

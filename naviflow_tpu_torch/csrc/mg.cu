@@ -27,6 +27,20 @@
 // barriers.  The cooperative launch it replaced ran every level of <= 1,024
 // cells in one block of 256 threads, with two branching weight lookups a
 // tap, about 250x its barrier bound at 63^2.
+//
+// The case axis of K5 and K4 (nf_fused_mg_solve_batched,
+// nf_galerkin_levels_batched; the batching rules of ops/mg.py, the vmapped
+// lockstep step of algorithms/batch.py): a grid of (cluster size, B), case
+// b = blockIdx.y, at the single launch's cluster size.  Thread 0 of each
+// CTA moves every pointer of the case-0 parameters by b times its slot's
+// case stride into a shared-memory copy (each case its own stencils, its
+// own global coarse-level scratch, its own outputs), and the single
+// launch's device code runs on that view: the same reductions in the same
+// order, so each case's bits are its single launch's whatever B is.  A
+// frozen case (active flag false) writes its frozen outputs (K5: p0, a zero
+// residual, 0 cycles and rel 0; K4: zero stencils) and leaves before the
+// first cluster barrier, every CTA of its cluster alike.  B above the
+// clusters the card holds at once runs in waves.
 
 #include "vcycle.cuh"
 
@@ -75,6 +89,63 @@ NfClusterCfg& mg_solve_cfg() {
   return cfg;
 }
 
+// Case b's view of K5's or K4's level pointers: each moved by its stride.
+__device__ void levels_case(NfLevel* lv, const NfLevel* S, int L, int b) {
+  for (int l = 0; l < L; ++l) {
+    for (int a = 0; a < 9; ++a) nf_case_shift(lv[l].st[a], S[l].st[a], b);
+    nf_case_shift(lv[l].x, S[l].x, b);
+    nf_case_shift(lv[l].rhs, S[l].rhs, b);
+  }
+}
+
+// B solves: case 0's parameters, their case strides (the same fields),
+// the active flags and their stride.
+struct SolveBatch {
+  SolveParams P, S;
+  const bool* active;
+  const bool* active_stride;
+};
+
+__global__ void __launch_bounds__(NF_CL_THREADS, 1) mg_solve_kernel_batched(SolveBatch SB) {
+  extern __shared__ __align__(16) float ms_dyn[];
+  __shared__ SolveParams P;  // this case's view
+  __shared__ bool on;
+  const int b = (int)blockIdx.y;
+  if (threadIdx.x == 0) {
+    P = SB.P;
+    levels_case(P.M.lv, SB.S.M.lv, P.M.L, b);
+    nf_case_shift(P.p_in, SB.S.p_in, b);
+    nf_case_shift(P.r, SB.S.r, b);
+    nf_case_shift(P.cycles, SB.S.cycles, b);
+    nf_case_shift(P.rel, SB.S.rel, b);
+    const bool* active = SB.active;
+    nf_case_shift(active, SB.active_stride, b);
+    on = *active;
+  }
+  __syncthreads();
+  if (!on) {  // frozen: p0, a zero residual, 0 cycles, rel 0; no cluster barrier
+    NfCluster C = nf_cluster(nullptr);
+    const NfLevel& F = P.M.lv[0];
+    const int64_t n = (int64_t)F.ni * F.nj;
+    for (int64_t g = C.gtid; g < n; g += C.gstride) {
+      F.x[g] = P.p_in[g];
+      P.r[g] = 0.f;
+    }
+    if (C.gtid == 0) {
+      *P.cycles = 0;
+      *P.rel = 0.f;
+    }
+    return;
+  }
+  nf_vc_mg_solve(P.M, P.Ls, P.p_in, P.r, P.max_cycles, P.check_every, P.tol,
+                 P.mean_normalize != 0, P.cycles, P.rel, ms_dyn);
+}
+
+NfClusterCfg& mg_solve_batch_cfg() {
+  static NfClusterCfg cfg = {};
+  return cfg;
+}
+
 // K4: every coarse level's entries over the cluster, one barrier a level.
 struct RapParams {
   NfLevel lv[NF_MAX_LEVELS];
@@ -87,6 +158,44 @@ __global__ void __launch_bounds__(NF_CL_THREADS, 1) galerkin_kernel(RapParams P)
 }
 
 NfClusterCfg& galerkin_cfg() {
+  static NfClusterCfg cfg = {};
+  return cfg;
+}
+
+// B hierarchies: case 0's levels, their case strides, the active flags.
+struct RapBatch {
+  RapParams P, S;
+  const bool* active;
+  const bool* active_stride;
+};
+
+__global__ void __launch_bounds__(NF_CL_THREADS, 1) galerkin_kernel_batched(RapBatch SB) {
+  __shared__ RapParams P;  // this case's view
+  __shared__ bool on;
+  const int b = (int)blockIdx.y;
+  if (threadIdx.x == 0) {
+    P = SB.P;
+    levels_case(P.lv, SB.S.lv, P.L, b);
+    const bool* active = SB.active;
+    nf_case_shift(active, SB.active_stride, b);
+    on = *active;
+  }
+  __syncthreads();
+  NfCluster C = nf_cluster(nullptr);
+  if (!on) {  // frozen: zero stencils, no cluster barrier
+    for (int l = 1; l < P.L; ++l) {
+      const int64_t n = (int64_t)P.lv[l].ni * P.lv[l].nj;
+      for (int a = 0; a < 9; ++a) {
+        float* out = const_cast<float*>(P.lv[l].st[a]);
+        for (int64_t g = C.gtid; g < n; g += C.gstride) out[g] = 0.f;
+      }
+    }
+    return;
+  }
+  nf_cl_galerkin_rap(C, P.lv, P.L);
+}
+
+NfClusterCfg& galerkin_batch_cfg() {
   static NfClusterCfg cfg = {};
   return cfg;
 }
@@ -126,6 +235,43 @@ int read_cycle(NfMG& M, const int* ip, const float* fp, int* Ls, int64_t* small)
   for (int l = L - 1; l >= 1 && cells[l] <= NF_SMALL_CELLS; --l) *Ls = l;
   if (ip[VC_IP_LS] != *Ls) return (int)cudaErrorInvalidValue;
   *small = nf_vc_smem_floats(cells, L, *Ls);
+  return 0;
+}
+
+// K5's parameters from nf_fused_mg_solve's slots, ip and fp (the batched
+// entry: case 0's, and its strides); the dynamic shared memory's bytes
+// into *smem.
+int read_solve(SolveParams& P, const long long* ptrs, const int* ip, const float* fp,
+               size_t* smem) {
+  const int L = ip[VC_IP_L];
+  int64_t small = 0;
+  int err = read_levels(P.M, ptrs, ip + MS_IP_LEVELS, L);
+  if (!err) err = read_cycle(P.M, ip, fp, &P.Ls, &small);
+  if (err) return err;
+  P.max_cycles = ip[MS_IP_MAX_CYCLES];
+  P.check_every = ip[MS_IP_CHECK_EVERY];
+  P.mean_normalize = ip[MS_IP_MEAN];
+  if (P.check_every < 1) return (int)cudaErrorInvalidValue;
+  P.tol = fp[1];
+  P.p_in = reinterpret_cast<const float*>(ptrs[11 * L]);
+  P.r = reinterpret_cast<float*>(ptrs[11 * L + 1]);
+  P.cycles = reinterpret_cast<int*>(ptrs[11 * L + 2]);
+  P.rel = reinterpret_cast<float*>(ptrs[11 * L + 3]);
+  *smem = sizeof(float) * (size_t)(NF_CL_RED_FLOATS + small);
+  return 0;
+}
+
+// K4's levels from nf_galerkin_levels' slots and ip (the batched entry:
+// case 0's, and its strides).
+int read_rap(RapParams& P, const long long* ptrs, const int* ip) {
+  P.L = ip[0];
+  if (P.L < 2 || P.L > NF_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < P.L; ++l) {
+    NfLevel& lv = P.lv[l];
+    for (int k = 0; k < 9; ++k) lv.st[k] = reinterpret_cast<const float*>(ptrs[9 * l + k]);
+    lv.ni = ip[2 + 2 * l]; lv.nj = ip[3 + 2 * l];
+    lv.five = l == 0 ? ip[1] : 0;
+  }
   return 0;
 }
 
@@ -181,25 +327,43 @@ NF_EXPORT int nf_fused_vcycle_phases(const long long* ptrs, const int* ip, const
 NF_EXPORT int nf_fused_mg_solve(const long long* ptrs, const int* ip, const float* fp,
                                 void* stream) {
   SolveParams P = {};
-  const int L = ip[VC_IP_L];
-  int64_t small = 0;
-  int err = read_levels(P.M, ptrs, ip + MS_IP_LEVELS, L);
-  if (!err) err = read_cycle(P.M, ip, fp, &P.Ls, &small);
+  size_t smem = 0;
+  int err = read_solve(P, ptrs, ip, fp, &smem);
   if (err) return err;
-  P.max_cycles = ip[MS_IP_MAX_CYCLES];
-  P.check_every = ip[MS_IP_CHECK_EVERY];
-  P.mean_normalize = ip[MS_IP_MEAN];
-  if (P.check_every < 1) return (int)cudaErrorInvalidValue;
-  P.tol = fp[1];
-  P.p_in = reinterpret_cast<const float*>(ptrs[11 * L]);
-  P.r = reinterpret_cast<float*>(ptrs[11 * L + 1]);
-  P.cycles = reinterpret_cast<int*>(ptrs[11 * L + 2]);
-  P.rel = reinterpret_cast<float*>(ptrs[11 * L + 3]);
-  const size_t smem = sizeof(float) * (size_t)(NF_CL_RED_FLOATS + small);
   int size = 0;
   err = nf_cluster_size(mg_solve_kernel, mg_solve_cfg(), size);
   if (err) return err;
   return nf_cluster_launch(mg_solve_kernel, size, P, smem, (cudaStream_t)stream);
+}
+
+// B solves of one hierarchy layout in one launch, one cluster a case.
+// ptrs: nf_fused_mg_solve's 11 L + 4 slots for case 0, the cases' active
+//       flags (bool), then each of these 11 L + 5 slots' case stride in
+//       bytes, in the same order (0 for a null slot, or one array shared by
+//       every case)
+// ip:   nf_fused_mg_solve's, then B
+// fp:   omega, tolerance
+NF_EXPORT int nf_fused_mg_solve_batched(const long long* ptrs, const int* ip, const float* fp,
+                                        void* stream) {
+  SolveBatch SB = {};
+  const int L = ip[VC_IP_L];
+  if (L < 1 || L > NF_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  const int half = 11 * L + 5;
+  size_t smem = 0, unused = 0;
+  int err = read_solve(SB.P, ptrs, ip, fp, &smem);
+  if (!err) err = read_solve(SB.S, ptrs + half, ip, fp, &unused);
+  if (err) return err;
+  SB.active = reinterpret_cast<const bool*>(ptrs[half - 1]);
+  SB.active_stride = reinterpret_cast<const bool*>(ptrs[2 * half - 1]);
+  const int cases = ip[MS_IP_LEVELS + 3 * L];
+  if (!SB.active) return (int)cudaErrorInvalidValue;
+  int size = 0, bsize = 0;
+  err = nf_cluster_size(mg_solve_kernel, mg_solve_cfg(), size);
+  if (!err) err = nf_cluster_size(mg_solve_kernel_batched, mg_solve_batch_cfg(), bsize, size);
+  if (err) return err;
+  if (bsize != size) return (int)cudaErrorLaunchOutOfResources;
+  return nf_cluster_launch(mg_solve_kernel_batched, size, SB, smem, (cudaStream_t)stream,
+                           cases);
 }
 
 // The cluster size K5 launches with on the current device, into *size.
@@ -214,18 +378,47 @@ NF_EXPORT int nf_galerkin_levels(const long long* ptrs, const int* ip, const flo
                                  void* stream) {
   (void)fp;
   RapParams P = {};
-  P.L = ip[0];
-  if (P.L < 2 || P.L > NF_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < P.L; ++l) {
-    NfLevel& lv = P.lv[l];
-    for (int k = 0; k < 9; ++k) lv.st[k] = reinterpret_cast<const float*>(ptrs[9 * l + k]);
-    lv.ni = ip[2 + 2 * l]; lv.nj = ip[3 + 2 * l];
-    lv.five = l == 0 ? ip[1] : 0;
-  }
+  int err = read_rap(P, ptrs, ip);
+  if (err) return err;
   int size = 0;
-  const int err = nf_cluster_size(galerkin_kernel, galerkin_cfg(), size);
+  err = nf_cluster_size(galerkin_kernel, galerkin_cfg(), size);
   if (err) return err;
   return nf_cluster_launch(galerkin_kernel, size, P, 0, (cudaStream_t)stream);
+}
+
+// B hierarchies of one shape in one launch, one cluster a case.
+// ptrs: nf_galerkin_levels's 9 L slots for case 0, the cases' active flags
+//       (bool), then each of these 9 L + 1 slots' case stride in bytes, in
+//       the same order
+// ip:   nf_galerkin_levels's, then B
+NF_EXPORT int nf_galerkin_levels_batched(const long long* ptrs, const int* ip, const float* fp,
+                                         void* stream) {
+  (void)fp;
+  RapBatch SB = {};
+  int err = read_rap(SB.P, ptrs, ip);
+  if (err) return err;
+  const int half = 9 * SB.P.L + 1;
+  err = read_rap(SB.S, ptrs + half, ip);
+  if (err) return err;
+  SB.active = reinterpret_cast<const bool*>(ptrs[half - 1]);
+  SB.active_stride = reinterpret_cast<const bool*>(ptrs[2 * half - 1]);
+  const int cases = ip[2 + 2 * SB.P.L];
+  if (!SB.active) return (int)cudaErrorInvalidValue;
+  int size = 0, bsize = 0;
+  err = nf_cluster_size(galerkin_kernel, galerkin_cfg(), size);
+  if (!err) err = nf_cluster_size(galerkin_kernel_batched, galerkin_batch_cfg(), bsize, size);
+  if (err) return err;
+  if (bsize != size) return (int)cudaErrorLaunchOutOfResources;
+  return nf_cluster_launch(galerkin_kernel_batched, size, SB, 0, (cudaStream_t)stream, cases);
+}
+
+// How many clusters of `size` CTAs of the batched K5 (kernel 1) or K4 (2)
+// the current device holds at once, into *count (krylov.cu's
+// nf_case_max_clusters).
+int mg_case_max_clusters(int kernel, int size, int* count) {
+  if (kernel == 1) return nf_max_active_clusters(mg_solve_kernel_batched, size, *count);
+  if (kernel == 2) return nf_max_active_clusters(galerkin_kernel_batched, size, *count);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The cluster size K4 launches with on the current device, into *size.

@@ -13,13 +13,23 @@ entries of :data:`_SIGNATURES` have their own argument lists: K11a's and
 K11b's (the lean call) take one ``c_void_p``, ``c_int`` or ``c_float`` per
 argument, so a call builds no host array.
 
+Under ``torch.func.vmap`` alone (no other transform) the gates answer from
+the device (:func:`kernel_device`), and K7, K5 and K4 run through their
+batching rules (``ops/krylov.py``, ``ops/mg.py``): the rule gets plain
+tensors with a leading case axis and launches the kernel's batched entry
+(one thread-block cluster a case) with the active flags of
+:func:`case_mask`.  Every other kernel raises at its launch
+(:func:`stream_of`), and every kernel raises under any other transform.
+
 Nothing here runs at import: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -52,6 +62,7 @@ _ARGS = [ctypes.POINTER(ctypes.c_longlong),  # device pointers
 _KERNELS = ("nf_asmcheby_pair", "nf_asmcheby_pair_phases", "nf_strip_down", "nf_strip_up",
             "nf_fused_vcycle", "nf_fused_vcycle_phases",
             "nf_galerkin_levels", "nf_fused_mg_solve", "nf_bicgstab", "nf_fused_outer_step",
+            "nf_galerkin_levels_batched", "nf_fused_mg_solve_batched", "nf_bicgstab_batched",
             "nf_fused_outer_step_phases", "nf_fused_outer_step_batched",
             "nf_fused_assembly_pair", "nf_chebyshev_strips",
             "nf_plane_strip_down", "nf_plane_strip_up",
@@ -68,6 +79,8 @@ _SIGNATURES = {"nf_apply_poisson": [_P] * 7 + [_I, _I, _P],  # p, 4 links, diag,
                "nf_bicgstab_cluster_size": [ctypes.POINTER(_I)],     # the size out
                "nf_asmcheby_blocks_per_sm": [_I, ctypes.POINTER(_I)],  # degree; blocks out
                "nf_galerkin_cluster_size": [ctypes.POINTER(_I)],     # the size out
+               # kernel (0 K7, 1 K5, 2 K4), size; how many clusters fit at once, out
+               "nf_case_max_clusters": [_I, _I, ctypes.POINTER(_I)],
                "nf_strip_down_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)],  # five, sweeps; out
                "nf_strip_up_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)]}    # five, sweeps; out
 
@@ -89,12 +102,29 @@ def under_transform() -> bool:
             or torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.PROXY) is not None)
 
 
+def under_vmap() -> bool:
+    """True inside ``torch.func.vmap`` and no other transform: no other
+    ``torch.func`` level, forward-AD dual level or ``make_fx`` trace.  There
+    the kernels with a batching rule (K7, K5, K4) run it."""
+    if not under_transform():
+        return False
+    from torch.autograd import forward_ad
+    from torch._C._functorch import TransformType
+    from torch._functorch.pyfunctorch import retrieve_all_functorch_interpreters
+
+    if (forward_ad._current_level >= 0
+            or torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.PROXY) is not None):
+        return False
+    return all(i.key() == TransformType.Vmap for i in retrieve_all_functorch_interpreters())
+
+
 def refuse_under_transform(what: str):
     """Raise where a kernel would run under a transform (no silent switch
     to the plain version)."""
     if under_transform():
         raise RuntimeError(
-            f"{what}: a CUDA kernel cannot run under torch.func or forward-mode AD; "
+            f"{what}: a CUDA kernel cannot run under torch.func or forward-mode AD (only K7, "
+            "K5 and K4 have a batching rule, and only under torch.func.vmap alone); "
             "differentiate the plain PyTorch path (backend='composed', or the plain "
             "assembly, as newton.make_residual does)")
 
@@ -102,15 +132,96 @@ def refuse_under_transform(what: str):
 def kernel_device(x) -> bool:
     """The port's kernel gate: the tensor (or device) is a CUDA one.  It
     raises on a CUDA device under a ``torch.func`` transform
-    (:func:`refuse_under_transform`).
+    (:func:`refuse_under_transform`) other than ``vmap`` alone
+    (:func:`under_vmap`), where it answers from the device: the kernel the
+    gate admits then runs its batching rule, or raises at its launch.
 
     It takes the place of the JAX package's ``jax.default_backend() ==
     'tpu'`` test in every gate."""
     dev = x if isinstance(x, torch.device) else x.device
     if dev.type != "cuda":
         return False
-    refuse_under_transform("kernel gate")
+    if not under_vmap():
+        refuse_under_transform("kernel gate")
     return True
+
+
+_CASE_MASK = []
+
+
+@contextlib.contextmanager
+def case_mask(active):
+    """Inside: the active flags (a (B,) bool tensor) of the cases of a
+    ``torch.func.vmap`` over B cases, which a batching rule hands its
+    kernel: a frozen case's clusters leave at once (the lockstep loop's
+    frozen cases, ``algorithms/batch.py``)."""
+    _CASE_MASK.append(active)
+    try:
+        yield
+    finally:
+        _CASE_MASK.pop()
+
+
+def active_cases(cases: int):
+    """The flags of the innermost :func:`case_mask` (None outside one:
+    every case is active); raises if they are not for ``cases`` cases."""
+    if not _CASE_MASK:
+        return None
+    active = _CASE_MASK[-1]
+    if tuple(active.shape) != (cases,):
+        raise ValueError(f"case_mask holds {tuple(active.shape)} flags for a batch of {cases}")
+    return active
+
+
+def case_first(x, dim, cases: int):
+    """A batching rule's operand with its case axis first: moved from
+    ``dim``, or (``dim`` None: shared by every case) expanded to ``cases``
+    (case stride 0); each case's slice made contiguous where it is not."""
+    x = x.expand(cases, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x if tuple(x.stride()[1:]) == _contiguous(x.shape[1:]) else x.contiguous()
+
+
+def _contiguous(shape):
+    return tuple(math.prod(shape[k + 1:]) for k in range(len(shape)))
+
+
+def case_stride(x, cases: int, shape, dtype, name: str) -> int:
+    """Check ``x`` is (cases, *shape) of ``dtype`` on the card with each
+    case's slice contiguous (one test a tensor); its case stride in
+    bytes (0: one array shared by every case)."""
+    shape = tuple(shape)
+    want = _contiguous(shape)
+    if not (kernel_device(x) and x.dtype is dtype and tuple(x.shape) == (cases,) + shape
+            and tuple(x.stride()[1:]) == want):
+        raise ValueError(f"{name}: expected a CUDA {dtype} tensor of shape "
+                         f"{(cases,) + shape} with each case contiguous, got "
+                         f"{x.dtype} {tuple(x.shape)} strides {x.stride()} on {x.device}")
+    return x.stride(0) * x.element_size()
+
+
+def case_strides(arrays, cases: int, shape, dtype, what: str):
+    """:func:`case_stride` of arrays of one shape, as one comparison a
+    tensor on the common path; where one fails, the full checks of every
+    array, which raise with the reason."""
+    full, want = torch.Size((cases, *shape)), _contiguous(tuple(shape))
+    out = []
+    for a in arrays:
+        if not (a.is_cuda and a.dtype is dtype and a.shape == full and a.stride()[1:] == want):
+            return [case_stride(b, cases, shape, dtype, f"{what} [{k}]")
+                    for k, b in enumerate(arrays)]
+        out.append(a.stride(0) * a.element_size())
+    return out
+
+
+def case_max_clusters(kernel: int, size: int, device=None) -> int:
+    """How many clusters of ``size`` CTAs of the batched K7 (0), K5 (1) or
+    K4 (2) the card on ``device`` holds at once: a batch of more cases runs
+    in waves."""
+    with torch.cuda.device(device):
+        count = ctypes.c_int(0)
+        check(library().nf_case_max_clusters(kernel, size, ctypes.byref(count)),
+              "case_max_clusters")
+    return count.value
 
 
 def _nvcc() -> str:
@@ -212,7 +323,10 @@ def check(err: int, what: str):
 def stream_of(x) -> int:
     """The raw handle of PyTorch's current stream on ``x``'s device (read
     from PyTorch's per-device current-stream state: no Stream object is
-    built, and a stream switched by the caller is followed)."""
+    built, and a stream switched by the caller is followed).  Every wrapper
+    asks for it before its launch, so a launch under a transform raises
+    here (:func:`refuse_under_transform`), before any pointer is read."""
+    refuse_under_transform("kernel launch")
     return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 

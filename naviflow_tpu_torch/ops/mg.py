@@ -18,6 +18,14 @@ on the H100.  Each wrapper runs its plain PyTorch version on a CPU tensor
 and launches its kernel, or raises, on a CUDA one, and keeps its host
 arrays (K3's and K5's with their scratch) per hierarchy layout.
 
+The case axis of K5 and K4 (:func:`fused_mg_solve_batched`,
+:func:`galerkin_levels_batched`; ``csrc/mg.cu``'s batched entries): B
+hierarchies of one layout in one launch, one cluster a case, each case
+bit-equal to its single launch.  Under ``torch.func.vmap`` (alone)
+:func:`fused_mg_solve` and :func:`galerkin_levels` are their batching
+rules' entries.  K3 has no case axis: under ``vmap`` it raises at its
+launch.
+
 The gates are the reference's admission rules, with their TPU VMEM
 budgets kept so that the port splits the work as the reference does; they
 are not H100 limits.
@@ -26,6 +34,7 @@ are not H100 limits.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -42,6 +51,8 @@ _MAX_LEVELS = 16  # csrc/mg.cuh NF_MAX_LEVELS
 LAUNCHES = 0  # K3
 RAP_LAUNCHES = 0  # K4
 SOLVE_LAUNCHES = 0  # K5
+RAP_BATCH_LAUNCHES = 0  # K4, batched
+SOLVE_BATCH_LAUNCHES = 0  # K5, batched
 
 _NAMES = ("c", "e", "w", "n", "s", "ne", "nw", "se", "sw")
 
@@ -54,17 +65,24 @@ def _padded_bytes(nx, ny):
 def supports_fused(levels, cfg) -> bool:
     """True when the (levels, cfg) combination is one the fused V-cycle and
     the fused solve take (the reference's rule)."""
+    return all(st.c.dtype == torch.float32 for st, _, _, _ in levels) and supports_fused_layout(
+        [(shp, five) for _, shp, five, _ in levels], cfg)
+
+
+def supports_fused_layout(layout, cfg) -> bool:
+    """:func:`supports_fused` for float32 levels of ``layout``, the
+    ``((nx, ny), five_point)`` of each level, finest first."""
     if (cfg.cycle_type not in ("v", "fmg") or cfg.smoother != "gs"
             or cfg.restriction != "full_weighting"
             or cfg.prolongation != "linear"
             or getattr(cfg, "smoother_dtype", "float32") != "float32"):
         return False
     total = 0
-    for st, (nx, ny), five, _ in levels:
-        if nx != ny or st.c.dtype != torch.float32:
+    for (nx, ny), five in layout:
+        if nx != ny:
             return False
         total += ((5 if five else 9) + 3) * _padded_bytes(nx, ny)
-    for (_, (nf, _), _, _), (_, (nc, _), _, _) in zip(levels, levels[1:]):
+    for ((nf, _), _), ((nc, _), _) in zip(layout, layout[1:]):
         if nf not in (2 * nc, 2 * nc + 1):
             return False
     return total <= VMEM_BUDGET_BYTES
@@ -335,6 +353,10 @@ def galerkin_levels(fine_st: Stencil9, shapes, fine_five: bool):
     computes each coarse entry directly from the fine stencil and the
     transfer weights in f32 (no comb, no matrix product)."""
     global RAP_LAUNCHES
+    if _cuda.under_vmap():
+        shapes = tuple(tuple(shp) for shp in shapes)
+        flat = _RapCases.apply(*_arrays9(fine_st), (shapes, bool(fine_five)))
+        return [Stencil9(*flat[9 * k:9 * k + 9]) for k in range(len(shapes) - 1)]
     if not fine_st.c.is_cuda:
         return galerkin_levels_plain(fine_st, shapes, fine_five)
     shapes = tuple(tuple(s) for s in shapes)
@@ -394,6 +416,11 @@ def fused_mg_solve(p0, b, levels, cfg, *, mean_normalize: bool = True):
     configuration; the stencil pointers are refilled when the hierarchy
     changes."""
     global SOLVE_LAUNCHES
+    if _cuda.under_vmap():
+        meta = (tuple((tuple(shp), bool(five), lam) for _, shp, five, lam in levels), cfg,
+                bool(mean_normalize))
+        return _MgSolveCases.apply(p0, b, *(a for st, _, _, _ in levels for a in _arrays9(st)),
+                                   meta)
     if not p0.is_cuda:
         return fused_mg_solve_plain(p0, b, levels, cfg, mean_normalize=mean_normalize)
     if cfg.cycle_type not in ("v", "fmg") or cfg.smoother != "gs":
@@ -425,3 +452,253 @@ def mg_solve_cluster_size(device=None) -> int:
         _cuda.check(_cuda.library().nf_mg_solve_cluster_size(ctypes.byref(size)),
                     "mg_solve_cluster_size")
     return size.value
+
+
+# ---------------------------------------------------------------------------
+# The case axis of K5 and K4.
+
+
+def _arrays9(st: Stencil9):
+    return [getattr(st, k) for k in _NAMES]
+
+
+def _case_levels(levels, b):
+    """Case ``b``'s slice of a hierarchy whose stencils carry a case axis."""
+    return [(Stencil9(*(a[b] for a in _arrays9(st))), shp, five, lam)
+            for st, shp, five, lam in levels]
+
+
+def _flags(active, cases):
+    return [True] * cases if active is None else active.tolist()
+
+
+def fused_mg_solve_batched_plain(p0, b, levels, cfg, *, mean_normalize: bool = True,
+                                 active=None):
+    """The batched K5's plain version (the CPU path and its oracle): case by
+    case through :func:`fused_mg_solve_plain`; a frozen case (``active``
+    False) gets ``p0``, a zero residual, 0 cycles and rel 0."""
+    outs = []
+    for k, on in enumerate(_flags(active, p0.shape[0])):
+        if on:
+            outs.append(fused_mg_solve_plain(p0[k], b[k], _case_levels(levels, k), cfg,
+                                             mean_normalize=mean_normalize))
+        else:
+            zero = torch.zeros((), dtype=b.dtype, device=b.device)
+            outs.append((p0[k], torch.zeros_like(b[k]), zero.to(torch.int32), zero))
+    p, r, cycles, rel = zip(*outs)
+    return torch.stack(p), torch.stack(r), torch.stack(cycles), torch.stack(rel)
+
+
+class _VcBatchLaunch:
+    """The batched K5's launch state for one (device, stream, cases,
+    layout): the pointer array (the single entry's 11 L + 4 slots, the
+    active flags, then each slot's case stride; the global coarse levels'
+    scratch, ``cases`` copies, filled once), the parameters with the case
+    count, and the flags of a batch with no frozen case."""
+
+    def __init__(self, levels, cfg, dev, cases, ip_tail, fp):
+        single = _VcLaunch(levels, cfg, dev, 4, ip_tail, fp, solve=True)
+        L = self.L = single.L
+        self.half = 11 * L + 5
+        self.scratch = [torch.empty((cases, 2, *xr.shape[1:]), dtype=torch.float32,
+                                    device=dev) for xr in single.scratch]
+        self.ptrs = (ctypes.c_longlong * (2 * self.half))()
+        for lvl, xr in enumerate(self.scratch, start=1):
+            stride = 4 * xr[0].numel()
+            for k in (0, 1):
+                self.ptrs[11 * lvl + 9 + k] = xr[:, k].data_ptr()
+                self.ptrs[self.half + 11 * lvl + 9 + k] = stride
+        self.ip = (ctypes.c_int * (len(single.ip) + 1))(*single.ip, cases)
+        self.fp = single.fp
+        self.ones = torch.ones(cases, dtype=torch.bool, device=dev)
+
+
+_SOLVE_BATCH = {}
+
+
+def fused_mg_solve_batched(p0, b, levels, cfg, *, mean_normalize: bool = True, active=None):
+    """:func:`fused_mg_solve` of B cases in one launch, one cluster a case:
+    ``p0``, ``b`` and every stencil array of ``levels`` carry a leading
+    case axis (each case's slice contiguous; a case stride of 0 shares one
+    array, a shared setup hierarchy), ``active`` (B,) bool: a frozen case
+    gets ``p0``, a zero residual, 0 cycles and rel 0, and its cluster
+    leaves at once (None: every case active).  Returns ``(p, r, cycles,
+    rel)``, each with the case axis first."""
+    global SOLVE_BATCH_LAUNCHES
+    if not p0.is_cuda:
+        return fused_mg_solve_batched_plain(p0, b, levels, cfg, mean_normalize=mean_normalize,
+                                            active=active)
+    if cfg.cycle_type not in ("v", "fmg") or cfg.smoother != "gs":
+        raise ValueError("fused_mg_solve implements Gauss-Seidel V-cycles only")
+    cases = p0.shape[0]
+    dev, stream = p0.device, _cuda.stream_of(p0)
+    ip_tail = (cfg.max_cycles, cfg.check_every, int(mean_normalize))
+    fp = (cfg.omega, cfg.tolerance)
+    case_levels = [(st, shp, five, lam) for st, shp, five, lam in levels]
+    st = _cached(_SOLVE_BATCH, (dev, stream, cases, ip_tail, cfg.tolerance)
+                 + _layout_key(levels, cfg),
+                 lambda: _VcBatchLaunch(case_levels, cfg, dev, cases, ip_tail, fp))
+    ptrs, L, half = st.ptrs, st.L, st.half
+    f32 = torch.float32
+    for lvl, (stc, shp, five, _) in enumerate(levels):
+        arrays = _stencil_arrays(stc, five)
+        ptrs[half + 11 * lvl:half + 11 * lvl + len(arrays)] = _cuda.case_strides(
+            arrays, cases, shp, f32, f"level {lvl} stencil")
+        ptrs[11 * lvl:11 * lvl + len(arrays)] = [a.data_ptr() for a in arrays]
+    shape = tuple(levels[0][1])
+    pr = torch.empty((2, cases, *shape), dtype=f32, device=dev)  # p, r: one allocation
+    scalars = torch.empty((cases, 2), dtype=torch.int32, device=dev)  # cycles, rel's bits
+    flags = st.ones if active is None else active
+    n = 4 * math.prod(shape)
+    ptrs[9], ptrs[half + 9] = pr[0].data_ptr(), n
+    ptrs[10], ptrs[half + 10] = b.data_ptr(), _cuda.case_stride(b, cases, shape, f32, "b")
+    ptrs[11 * L], ptrs[half + 11 * L] = p0.data_ptr(), _cuda.case_stride(p0, cases, shape,
+                                                                         f32, "p0")
+    ptrs[11 * L + 1], ptrs[half + 11 * L + 1] = pr[1].data_ptr(), n
+    base = scalars.data_ptr()
+    ptrs[11 * L + 2], ptrs[half + 11 * L + 2] = base, 8
+    ptrs[11 * L + 3], ptrs[half + 11 * L + 3] = base + 4, 8
+    ptrs[half - 1] = flags.data_ptr()
+    ptrs[2 * half - 1] = _cuda.case_stride(flags, cases, (), torch.bool, "active")
+    _cuda.check(_cuda.library().nf_fused_mg_solve_batched(ptrs, st.ip, st.fp, stream),
+                "fused_mg_solve_batched")
+    SOLVE_BATCH_LAUNCHES += 1
+    return pr[0], pr[1], scalars[:, 0], scalars.view(f32)[:, 1]
+
+
+def galerkin_levels_batched_plain(fine_st: Stencil9, shapes, fine_five: bool, active=None):
+    """The batched K4's plain version (the CPU path and its oracle): case by
+    case through :func:`galerkin_levels_plain`; a frozen case (``active``
+    False) gets zero stencils."""
+    cases = fine_st.c.shape[0]
+    per_case = []
+    for k, on in enumerate(_flags(active, cases)):
+        if on:
+            case_st = Stencil9(*(a[k] for a in _arrays9(fine_st)))
+            per_case.append(galerkin_levels_plain(case_st, shapes, fine_five))
+        else:
+            per_case.append([Stencil9(*[torch.zeros(shp, dtype=fine_st.c.dtype,
+                                                    device=fine_st.c.device)] * 9)
+                             for shp in shapes[1:]])
+    return [Stencil9(*(torch.stack([_arrays9(case[lvl])[k] for case in per_case])
+                       for k in range(9))) for lvl in range(len(shapes) - 1)]
+
+
+class _RapBatch:
+    """The batched K4's host arrays for one (device, stream, shapes,
+    fine_five, cases): the pointer slots (the single entry's 9 L, the
+    active flags, then each slot's case stride; the outputs' strides filled
+    once), the parameters with the case count, the output layout, and the
+    flags of a batch with no frozen case."""
+
+    def __init__(self, shapes, fine_five, cases, dev):
+        single = _Rap(shapes, fine_five)
+        self.levels, self.floats, self.offsets = single.levels, single.floats, single.offsets
+        self.half = 9 * len(shapes) + 1
+        self.ptrs = (ctypes.c_longlong * (2 * self.half))()
+        for k in range(9, self.half - 1):
+            self.ptrs[self.half + k] = 4 * self.floats
+        self.ip = (ctypes.c_int * (len(single.ip) + 1))(*single.ip, cases)
+        self.fp = single.fp
+        self.ones = torch.ones(cases, dtype=torch.bool, device=dev)
+
+
+_RAP_BATCH = {}
+
+
+def galerkin_levels_batched(fine_st: Stencil9, shapes, fine_five: bool, active=None):
+    """:func:`galerkin_levels` of B fine stencils (a leading case axis on
+    each array; each case's slice contiguous) in one launch, one cluster a
+    case; ``active`` (B,) bool: a frozen case gets zero stencils and its
+    cluster leaves at once (None: every case active).  Returns one
+    :class:`Stencil9` per coarse level with the case axis first, views of
+    one fresh buffer of B :func:`rap_layout` buffers."""
+    global RAP_BATCH_LAUNCHES
+    if not fine_st.c.is_cuda:
+        return galerkin_levels_batched_plain(fine_st, shapes, fine_five, active)
+    shapes = tuple(tuple(shp) for shp in shapes)
+    cases, dev = fine_st.c.shape[0], fine_st.c.device
+    stream = _cuda.stream_of(fine_st.c)
+    h = _cached(_RAP_BATCH, (dev, stream, shapes, bool(fine_five), cases),
+                lambda: _RapBatch(shapes, fine_five, cases, dev))
+    ptrs, half = h.ptrs, h.half
+    arrays = _stencil_arrays(fine_st, fine_five)
+    ptrs[half:half + len(arrays)] = _cuda.case_strides(arrays, cases, shapes[0], torch.float32,
+                                                       "fine stencil")
+    ptrs[:len(arrays)] = [a.data_ptr() for a in arrays]
+    buf = torch.empty((cases, h.floats), dtype=torch.float32, device=dev)
+    base = buf.data_ptr()
+    ptrs[9:half - 1] = [base + off for off in h.offsets]
+    flags = h.ones if active is None else active
+    ptrs[half - 1] = flags.data_ptr()
+    ptrs[2 * half - 1] = _cuda.case_stride(flags, cases, (), torch.bool, "active")
+    _cuda.check(_cuda.library().nf_galerkin_levels_batched(ptrs, h.ip, h.fp, stream),
+                "galerkin_levels_batched")
+    RAP_BATCH_LAUNCHES += 1
+    return [Stencil9(*buf.as_strided((9, cases, ni, nj), (pitch, h.floats, nj, 1),
+                                     off).unbind(0))
+            for (off, pitch), (ni, nj) in zip(h.levels, shapes[1:])]
+
+
+class _MgSolveCases(torch.autograd.Function):
+    """K5's batching rule: under ``torch.func.vmap`` every case's solve goes
+    into one :func:`fused_mg_solve_batched` call with the active flags of
+    ``_cuda.case_mask``; an operand shared by every case (a setup
+    hierarchy) gets case stride 0."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(p0, b, *args):
+        *arrays, (metas, cfg, mean_normalize) = args
+        return fused_mg_solve(p0, b, _levels_of(arrays, metas), cfg,
+                              mean_normalize=mean_normalize)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        cases = info.batch_size
+        *arrays, (metas, cfg, mean_normalize) = args
+        p0, b, *arrays = (_cuda.case_first(a, d, cases)
+                          for a, d in zip(arrays, in_dims[:len(arrays)]))
+        out = fused_mg_solve_batched(p0, b, _levels_of(arrays, metas), cfg,
+                                     mean_normalize=mean_normalize,
+                                     active=_cuda.active_cases(cases))
+        return out, (0, 0, 0, 0)
+
+
+def _levels_of(arrays, metas):
+    return [(Stencil9(*arrays[9 * k:9 * k + 9]), shp, five, lam)
+            for k, (shp, five, lam) in enumerate(metas)]
+
+
+class _RapCases(torch.autograd.Function):
+    """K4's batching rule: under ``torch.func.vmap`` every case's hierarchy
+    comes from one :func:`galerkin_levels_batched` call with the active
+    flags of ``_cuda.case_mask``; the outputs are the coarse levels' nine
+    arrays each, flat."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(*args):
+        *arrays, (shapes, fine_five) = args
+        out = galerkin_levels(Stencil9(*arrays), shapes, fine_five)
+        return tuple(a for st in out for a in _arrays9(st))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        cases = info.batch_size
+        *arrays, (shapes, fine_five) = args
+        arrays = [_cuda.case_first(a, d, cases) for a, d in zip(arrays, in_dims[:9])]
+        out = galerkin_levels_batched(Stencil9(*arrays), shapes, fine_five,
+                                      active=_cuda.active_cases(cases))
+        flat = tuple(a for st in out for a in _arrays9(st))
+        return flat, (0,) * len(flat)

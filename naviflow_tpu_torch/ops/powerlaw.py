@@ -11,6 +11,12 @@
 
 The CUDA kernel of ``ops/asmcheby.py`` evaluates the same formulas per face
 from global indices; the two are held together by ``chip_smoke.py``.
+
+``mu`` is a number, or, in the vmapped batch step
+(``algorithms/batch.py``), one case's viscous conductances from
+:func:`case_conductances`: a tensor ``(De, Dn, 1 / De, 1 / Dn)`` in the
+state's dtype, with which each case's coefficients round as its single
+solve's do (:func:`conductances`, :func:`power_law_A`).
 """
 
 from __future__ import annotations
@@ -20,11 +26,39 @@ import torch
 from .stencil import StencilCoeffs, pad2, where_add, where_set
 
 
-def power_law_A(F, D):
-    """A(|P|) = max(0, 1 - 0.1|F/D|)^5, zero where |D| <= 1e-10."""
-    base = torch.clamp(1.0 - 0.1 * torch.abs(F / D), min=0.0)
+def case_conductances(mus, dx, dy, dtype, device=None):
+    """Each case's ``(De, Dn, 1 / De, 1 / Dn)`` (B, 4) for the viscosities
+    ``mus``: ``De = mu dy / dx``, ``Dn = mu dx / dy`` and their reciprocals
+    in double on the host, rounded to ``dtype``, as the single solve's
+    Python numbers are where they meet a tensor of that dtype (the
+    reciprocal is the factor PyTorch's CUDA division by a Python number
+    multiplies by: a case is bit-equal to its single solve on the H100 with
+    it, and not with the reciprocal of the rounded D)."""
+    pairs = [(mu * dy / dx, mu * dx / dy) for mu in mus]
+    rows = [[de, dn, 1.0 / de, 1.0 / dn] for de, dn in pairs]
+    return torch.tensor(rows, dtype=torch.float64).to(dtype).to(device)
+
+
+def conductances(mu, dx, dy):
+    """``(De, Dn, 1 / De, 1 / Dn)``: for a number ``mu``, ``mu dy / dx`` and
+    ``mu dx / dy`` as Python numbers and no reciprocals; for one case's
+    :func:`case_conductances` row, its four entries."""
+    if torch.is_tensor(mu):
+        return mu[0], mu[1], mu[2], mu[3]
+    return mu * dy / dx, mu * dx / dy, None, None
+
+
+def power_law_A(F, D, inv_D=None):
+    """A(|P|) = max(0, 1 - 0.1|F/D|)^5, zero where |D| <= 1e-10.  With a
+    per-case tensor ``D`` (and its reciprocal ``inv_D``) it rounds as the
+    single solve's division by a Python number does: on a CUDA tensor
+    PyTorch multiplies by the reciprocal, on the CPU it divides."""
+    q = F * inv_D if inv_D is not None and F.is_cuda else F / D
+    base = torch.clamp(1.0 - 0.1 * torch.abs(q), min=0.0)
     b2 = base * base
     b5 = b2 * b2 * base
+    if torch.is_tensor(D):
+        return torch.where(torch.abs(D) > 1e-10, b5, torch.zeros_like(b5))
     if abs(D) > 1e-10:
         return b5
     return torch.zeros_like(base)
@@ -41,8 +75,7 @@ def u_momentum_coefficients(u, v, p, *, dx, dy, rho, mu) -> StencilCoeffs:
     """
     nxp1, ny = u.shape
     nx = nxp1 - 1
-    De = mu * dy / dx
-    Dn = mu * dx / dy
+    De, Dn, iDe, iDn = conductances(mu, dx, dy)
 
     # Solved rows i = 1 .. nx-1 (local row r corresponds to i = r+1).
     uc = u[1:nx, :]
@@ -53,10 +86,10 @@ def u_momentum_coefficients(u, v, p, *, dx, dy, rho, mu) -> StencilCoeffs:
     Fn = where_set(Fn, 0.0, cols=ny - 1)
     Fs = where_set(Fs, 0.0, cols=0)
 
-    a_e = De * power_law_A(Fe, De) + _relu(-Fe)
-    a_w = De * power_law_A(Fw, De) + _relu(Fw)
-    a_n = Dn * power_law_A(Fn, Dn) + _relu(-Fn)
-    a_s = Dn * power_law_A(Fs, Dn) + _relu(Fs)
+    a_e = De * power_law_A(Fe, De, iDe) + _relu(-Fe)
+    a_w = De * power_law_A(Fw, De, iDe) + _relu(Fw)
+    a_n = Dn * power_law_A(Fn, Dn, iDn) + _relu(-Fn)
+    a_s = Dn * power_law_A(Fs, Dn, iDn) + _relu(Fs)
     a_n = where_set(a_n, 0.0, cols=ny - 1)
     a_s = where_set(a_s, 0.0, cols=0)
 
@@ -89,8 +122,7 @@ def v_momentum_coefficients(u, v, p, *, dx, dy, rho, mu) -> StencilCoeffs:
     """
     nx, nyp1 = v.shape
     ny = nyp1 - 1
-    De = mu * dy / dx
-    Dn = mu * dx / dy
+    De, Dn, iDe, iDn = conductances(mu, dx, dy)
 
     # Solved columns j = 1 .. ny-1 (local column c corresponds to j = c+1).
     Fe = 0.5 * rho * dy * (u[1: nx + 1, 1:ny] + u[1: nx + 1, 0: ny - 1])
@@ -100,10 +132,10 @@ def v_momentum_coefficients(u, v, p, *, dx, dy, rho, mu) -> StencilCoeffs:
     Fn = 0.5 * rho * dx * (v[:, 1:ny] + v[:, 2: ny + 1])
     Fs = 0.5 * rho * dx * (v[:, 0: ny - 1] + v[:, 1:ny])
 
-    a_e = De * power_law_A(Fe, De) + _relu(-Fe)
-    a_w = De * power_law_A(Fw, De) + _relu(Fw)
-    a_n = Dn * power_law_A(Fn, Dn) + _relu(-Fn)
-    a_s = Dn * power_law_A(Fs, Dn) + _relu(Fs)
+    a_e = De * power_law_A(Fe, De, iDe) + _relu(-Fe)
+    a_w = De * power_law_A(Fw, De, iDe) + _relu(Fw)
+    a_n = Dn * power_law_A(Fn, Dn, iDn) + _relu(-Fn)
+    a_s = Dn * power_law_A(Fs, Dn, iDn) + _relu(Fs)
     a_e = where_set(a_e, 0.0, rows=nx - 1)
     a_w = where_set(a_w, 0.0, rows=0)
 

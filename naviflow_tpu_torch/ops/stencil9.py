@@ -67,27 +67,34 @@ def from_poisson(pc: PoissonCoeffs) -> Stencil9:
                     ne=z, nw=z, se=z, sw=z)
 
 
-def apply9(x, st: Stencil9):
-    """The 9-point apply.  The eight shifted neighbours are views of one
-    zero-padded copy of ``x`` (the values of ``shift_e`` ... ``shift_sw``,
-    one pad in place of eight)."""
+def _windows(x):
+    """The 3 x 3 shifted copies of ``x`` (zero outside), one zero-padded
+    copy's windows in one tensor: entry 3 (1 + di) + (1 + dj) is
+    x[i + di, j + dj]."""
     m, n = x.shape
-    xp = F.pad(x, (1, 1, 1, 1))
+    return F.pad(x, (1, 1, 1, 1)).unfold(0, m, 1).unfold(1, n, 1).reshape(9, m, n).unbind(0)
 
-    def at(di, dj):  # x[i+di, j+dj], zero outside
-        return xp[1 + di:1 + di + m, 1 + dj:1 + dj + n]
 
+def _apply9_from(cx, x, st: Stencil9):
+    """:func:`apply9` with its first term ``st.c * x`` given as ``cx``."""
+    x_sw, x_w, x_nw, x_s, _, x_n, x_se, x_e, x_ne = _windows(x)
     return (
-        st.c * x
-        + st.e * at(1, 0)
-        + st.w * at(-1, 0)
-        + st.n * at(0, 1)
-        + st.s * at(0, -1)
-        + st.ne * at(1, 1)
-        + st.nw * at(-1, 1)
-        + st.se * at(1, -1)
-        + st.sw * at(-1, -1)
+        cx
+        + st.e * x_e
+        + st.w * x_w
+        + st.n * x_n
+        + st.s * x_s
+        + st.ne * x_ne
+        + st.nw * x_nw
+        + st.se * x_se
+        + st.sw * x_sw
     )
+
+
+def apply9(x, st: Stencil9):
+    """The 9-point apply, the eight shifted neighbours from one zero-padded
+    copy of ``x`` (the values of ``shift_e`` ... ``shift_sw``)."""
+    return _apply9_from(st.c * x, x, st)
 
 
 def apply5(x, st: Stencil9):
@@ -176,9 +183,12 @@ def gs4_sweep(p, b, st: Stencil9, omega: float = 1.0):
     inv_c = 1.0 / stencil9_diagonal(st)
 
     def quarter(p, color_mask):
-        off = apply9(p, st) - st.c * p
+        cp = st.c * p  # apply9's first term, and the diagonal part it loses
+        off = _apply9_from(cp, p, st) - cp
         p_new = (b - off) * inv_c
-        return torch.where(color_mask, p + omega * (p_new - p), p)
+        # omega = 1: the product by 1.0 is exact, so it is left out
+        step = p_new - p if omega == 1.0 else omega * (p_new - p)
+        return torch.where(color_mask, p + step, p)
 
     for color_mask in _four_colours(tuple(p.shape), p.device):
         p = quarter(p, color_mask)

@@ -493,18 +493,6 @@ def _batch_params(algo, nx, ny, kw, mus, dev):
     return got
 
 
-def _case_stride(x, cases, shape, dtype, name):
-    """Check ``x`` is (cases, *shape) of ``dtype`` on the card with each
-    case's slice contiguous; its case stride in bytes."""
-    want = tuple(math.prod(shape[k + 1:]) for k in range(len(shape)))
-    if not (_cuda.kernel_device(x) and x.dtype == dtype
-            and tuple(x.shape) == (cases,) + tuple(shape) and tuple(x.stride()[1:]) == want):
-        raise ValueError(f"{name}: expected a CUDA {dtype} tensor of shape "
-                         f"{(cases,) + tuple(shape)} with each case contiguous, got "
-                         f"{x.dtype} {tuple(x.shape)} strides {x.stride()} on {x.device}")
-    return x.stride(0) * x.element_size()
-
-
 def _scalars_ptr(scalars, dev):
     """The device address of the scalar carries, and the tensor holding
     them: the carries themselves where they are consecutive float32
@@ -560,7 +548,7 @@ def _launch_batched(algo, u, v, p, scalars, active, held, mus, kw):
     ins = [(u, us, f32, "u"), (v, vs, f32, "v"), (p, ps, f32, "p"),
            (scalars, (n_in,), f32, "scalars")]
     for k, (x, shape, dtype, name) in enumerate(ins):
-        ptrs[half + k] = _case_stride(x, cases, shape, dtype, name)
+        ptrs[half + k] = _cuda.case_stride(x, cases, shape, dtype, name)
         ptrs[k] = x.data_ptr()
     extras = [(active, (), torch.bool, "active"), (visc, (2,), f32, "visc")]
     if held is not None:
@@ -572,7 +560,7 @@ def _launch_batched(algo, u, v, p, scalars, active, held, mus, kw):
         for k in range(half - 7, half - 2):
             ptrs[k] = ptrs[half + k] = 0
     for k, (x, shape, dtype, name) in enumerate(extras, half - len(extras)):
-        ptrs[half + k] = _case_stride(x, cases, shape, dtype, name)
+        ptrs[half + k] = _cuda.case_stride(x, cases, shape, dtype, name)
         ptrs[k] = x.data_ptr()
     # the outputs: one buffer, each output (cases, *shape) contiguous in it
     flat = torch.empty(cases * sum(sizes), dtype=f32, device=dev)

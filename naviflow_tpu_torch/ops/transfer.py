@@ -48,7 +48,7 @@ def _interleave_ax0(c, mid):
     2I+1 = c[I], row 2I+2 = mid[I], rows 0 / nf-1 = copies of the adjacent
     interior row."""
     nc = c.shape[0]
-    out = torch.empty((2 * nc + 1,) + tuple(c.shape[1:]), dtype=c.dtype, device=c.device)
+    out = c.new_empty((2 * nc + 1,) + tuple(c.shape[1:]))
     out[1::2] = c
     out[2:-1:2] = mid
     out[0] = c[0]

@@ -5,7 +5,9 @@ holds their whole-step kernel bodies).
 The configurations are the bench's 63^2 headline one (BiCGSTAB momentum to
 1e-6 in at most 20 iterations; multigrid V-cycles to 1e-2, at most 6,
 checked every 2, 8 coarsest sweeps, coarse operators rebuilt every 8
-steps), at 31^2, and its large-grid one, at 64^2.
+steps), at 31^2, and its large-grid one, at 64^2
+(``tests/test_torch_algorithms_large.py``, a file of its own so that the
+test workers share the long runs).
 """
 
 import dataclasses
@@ -19,7 +21,7 @@ import naviflow_tpu as nf
 from naviflow_tpu.algorithms import piso as jpiso
 from naviflow_tpu.algorithms import simplec as jsimplec
 from naviflow_tpu.algorithms import simpler as jsimpler
-from naviflow_tpu.solvers import ChebyshevMomentumConfig, KrylovMomentumConfig
+from naviflow_tpu.solvers import KrylovMomentumConfig
 from naviflow_tpu.solvers.multigrid import MultigridConfig
 
 import naviflow_tpu_torch as nt
@@ -92,35 +94,3 @@ def test_composed_solve_matches_jax_f64(name):
                                    rtol=1e-9, atol=1e-300, err_msg=hist)
     np.testing.assert_array_equal(td.inner_iters_history.numpy(),
                                   np.asarray(jd.inner_iters_history))
-
-
-# bench.py's large-grid configuration (_bench_large_grid), which the 2048^2
-# path runs
-LARGE_MOM = ChebyshevMomentumConfig(degree=4)
-LARGE_PRES = MultigridConfig(tolerance=0.0, max_cycles=1, cycle_type="v", pre_smoothing=1,
-                             post_smoothing=1, coarsest_sweeps=32, coarse_rebuild_every=8)
-
-
-@pytest.mark.parametrize("name", ["simplec", "piso", "simpler"])
-def test_composed_large_grid_config_matches_jax_f64(name):
-    """10 outer steps at 64^2 in float64 with the large-grid configuration
-    (Chebyshev momentum, one fixed V-cycle): u, v, p and the residual
-    history agree with the JAX solve to rel 1e-9.  SIMPLER's history falls
-    for six steps and then rises, in the JAX package as in the port (its
-    pressure p_bar from one V-cycle enters unrelaxed)."""
-    module, cfg, _ = ALGOS[name]
-    cfg = dataclasses.replace(cfg, max_iterations=10, tolerance=0.0)
-    mesh, fluid, bc = _case(64)
-    solve = getattr(module, name + "_solve")
-    js, jd = solve(mesh, fluid, bc, nf.initialize_state(mesh, bc, dtype=jnp.float64), cfg,
-                   momentum=LARGE_MOM, pressure=LARGE_PRES)
-    ts, td = _port_solve(name, cfg, mom=LARGE_MOM, pres=LARGE_PRES, dtype=torch.float64, n=64)
-    for field in ("u", "v", "p"):
-        assert rel_err(getattr(ts, field), getattr(js, field)) < 1e-9, field
-    hist = td.total_res_history.numpy()
-    np.testing.assert_allclose(hist, np.asarray(jd.total_res_history), rtol=1e-9, atol=1e-300)
-    turn = int(np.argmin(hist))
-    if name == "simpler":
-        assert 0 < turn < 9 and hist[-1] > hist[turn]
-    else:
-        assert turn == 9

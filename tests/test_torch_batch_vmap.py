@@ -1,0 +1,767 @@
+"""The case axis of K7, K5 and K4 in the PyTorch port, and the vmapped
+lockstep step it carries (``algorithms/batch.py``), on the CPU.
+
+(a) Each batched plain version (``ops/krylov.bicgstab_momentum_batched``,
+``ops/mg.fused_mg_solve_batched``, ``ops/mg.galerkin_levels_batched``: the
+CPU path and the kernels' oracle) on three seeded cases against
+``jax.vmap`` of the JAX package's Pallas kernel in interpret mode, at the
+tolerances of those kernels' single-case tests (``tests/test_torch_krylov_mg.py``),
+and a frozen case handed back as the kernels hand it back.  (b) The
+vmapped step with the kernel gates forced open: each case bit-equal to its
+single step, one batched K7 / K5 / K4 call a step, every single plain call
+inside one.  (c) The FMG batch (``cycle_type='fmg'``) at 15^2 against the
+JAX package's ``batched_cavity_solve`` (one ``jax.vmap`` program) in
+float64, and, in float32, each case bit-equal to its single solve.  (d)
+Each side of the branch's gate.  (e) Under ``torch.func.vmap`` a kernel
+with no batching rule still raises at its launch, and K7 / K5 / K4 still
+raise under ``jvp``.  (f) The batched C entries' slots against the
+wrappers' pointer arrays, through a library that records its calls.
+"""
+
+import ctypes
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+import naviflow_tpu as nf
+from naviflow_tpu.algorithms import SIMPLEConfig, batched_cavity_solve
+from naviflow_tpu.ops.pallas_krylov import bicgstab_momentum_pallas as j_bicgstab
+from naviflow_tpu.ops.pallas_mg import fused_mg_solve as j_mg_solve
+from naviflow_tpu.ops.pallas_mg import galerkin_levels_pallas as j_rap
+from naviflow_tpu.ops.powerlaw import relax_coefficients, u_momentum_coefficients
+from naviflow_tpu.solvers import KrylovMomentumConfig
+from naviflow_tpu.solvers.multigrid import MultigridConfig as JMG
+from naviflow_tpu.solvers.multigrid import build_levels as j_build_levels
+
+import naviflow_tpu_torch as nt
+from naviflow_tpu_torch import algorithms as talg
+from naviflow_tpu_torch import interop
+from naviflow_tpu_torch.algorithms import batch as tbatch
+from naviflow_tpu_torch.algorithms import simple as tsimple
+from naviflow_tpu_torch.ops import _cuda, asmcheby, krylov, mg, powerlaw, step
+from naviflow_tpu_torch.ops.stencil import StencilCoeffs
+from naviflow_tpu_torch.ops.stencil9 import Stencil9
+from naviflow_tpu_torch.solvers import momentum as tmom
+from naviflow_tpu_torch.solvers import multigrid as tmg
+from naviflow_tpu_torch.solvers.momentum import JacobiMomentumConfig
+
+torch.set_num_threads(2)
+
+CSRC = Path(mg.__file__).resolve().parent.parent / "csrc"
+NAMES = ("c", "e", "w", "n", "s", "ne", "nw", "se", "sw")
+MUS = (1.0 / 100, 1.0 / 400, 1.0 / 1000)
+# the bench's headline configuration with the FMG cycle
+MOM = KrylovMomentumConfig(tolerance=1e-6, max_iterations=20)
+PRES = JMG(tolerance=1e-2, max_cycles=6, cycle_type="fmg", check_every=2, coarsest_sweeps=8,
+           coarse_rebuild_every=8)
+
+
+def rel_err(got, want):
+    got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    return float(np.max(np.abs(got - want))) / (float(np.max(np.abs(want))) + 1e-30)
+
+
+def T(x, dtype=torch.float32):
+    return interop.tensor(x, dtype=dtype)
+
+
+def _stack(trees):
+    return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *trees)
+
+
+# ---------------------------------------------------------------------------
+# (a) the batched plain versions against jax.vmap of the Pallas kernels
+
+
+def _momentum_cases(nx=15, seed=3):
+    """Three relaxed u-momentum systems from seeded 0.1-scale states, one
+    viscosity each."""
+    rng = np.random.default_rng(seed)
+    xs, cs = [], []
+    for mu in MUS:
+        u, p = (jnp.asarray(rng.standard_normal(s) * 0.1, jnp.float32)
+                for s in ((nx + 1, nx), (nx, nx)))
+        v = jnp.asarray(rng.standard_normal((nx, nx + 1)) * 0.1, jnp.float32)
+        kw = dict(dx=1 / (nx - 1), dy=1 / (nx - 1), rho=1.0, mu=mu)
+        cs.append(relax_coefficients(u_momentum_coefficients(u, v, p, **kw), u, 0.7))
+        xs.append(u)
+    return jnp.stack(xs), _stack(cs)
+
+
+def _port_coeffs(c):
+    return StencilCoeffs(*(T(getattr(c, k)) for k in ("a_e", "a_w", "a_n", "a_s", "a_p", "src")))
+
+
+def test_k7_batched_plain_matches_jax_vmap_of_pallas():
+    """K7's batched plain version at 15^2, three cases, maxiter 25: each
+    case within 1e-4 of ``jax.vmap`` of the Pallas kernel (the single K7
+    test's tolerance); a frozen case gets x0 back and the others keep
+    their bits."""
+    x0, c = _momentum_cases()
+    want = jax.vmap(lambda x, cc: j_bicgstab(x, cc, tol=1e-8, maxiter=25,
+                                             interpret=True))(x0, c)
+    tx0, tc = T(x0), _port_coeffs(c)
+    got = krylov.bicgstab_momentum_batched(tx0, tc, tol=1e-8, maxiter=25)
+    for b in range(3):
+        assert rel_err(got[b], want[b]) < 1e-4, b
+    frozen = krylov.bicgstab_momentum_batched(tx0, tc, tol=1e-8, maxiter=25,
+                                              active=torch.tensor([True, False, True]))
+    assert torch.equal(frozen[1], tx0[1])
+    assert torch.equal(frozen[0], got[0]) and torch.equal(frozen[2], got[2])
+    assert krylov.BATCH_LAUNCHES == 0 and krylov.LAUNCHES == 0
+
+
+def _mg_cases(nx, jcfg, seed=5):
+    """Three seeded pressure systems and their vertex hierarchies (the JAX
+    package's composed build)."""
+    rng = np.random.default_rng(seed)
+    levels, bs = [], []
+    for _ in range(3):
+        d_u = jnp.asarray((rng.random((nx + 1, nx)) + 0.5).astype(np.float32))
+        d_v = jnp.asarray((rng.random((nx, nx + 1)) + 0.5).astype(np.float32))
+        b = jnp.asarray(rng.normal(size=(nx, nx)).astype(np.float32))
+        levels.append(j_build_levels(d_u, d_v, jcfg, dx=1 / (nx - 1), dy=1 / (nx - 1), rho=1.0,
+                                     variant="consistent"))
+        bs.append(b - jnp.mean(b))
+    return levels, jnp.stack(bs)
+
+
+def _port_levels(jlevels):
+    """The port's hierarchy with a case axis from per-case JAX ones."""
+    out = []
+    for lvl, (_, shp, five, lam) in enumerate(jlevels[0]):
+        arrays = [T(jnp.stack([getattr(case[lvl][0], k) for case in jlevels])) for k in NAMES]
+        out.append((Stencil9(*arrays), tuple(shp), five, lam))
+    return out
+
+
+def test_k5_batched_plain_matches_jax_vmap_of_pallas():
+    """K5's batched plain version at 15^2, three cases: cycle counts equal,
+    p within 1e-4, r within 1e-3, rel within 1e-5 of ``jax.vmap`` of the
+    Pallas kernel (the single K5 test's tolerances); a frozen case gets p0,
+    a zero residual, 0 cycles and rel 0."""
+    jcfg = JMG(tolerance=1e-4, max_cycles=30, check_every=2, coarsest_sweeps=16)
+    jlevels, b = _mg_cases(15, jcfg)
+    sts = _stack([[st for st, _, _, _ in case] for case in jlevels])
+    meta = [lv[1:] for lv in jlevels[0]]
+
+    def one(p0, bb, st_list):
+        return j_mg_solve(p0, bb, [(st, *m) for st, m in zip(st_list, meta)], jcfg,
+                          interpret=True)
+
+    p0 = jnp.zeros(b.shape, jnp.float32)
+    wp, wr, wcyc, wrel = jax.vmap(one)(p0, b, sts)
+    tlev, cfg = _port_levels(jlevels), interop.config(jcfg)
+    gp, gr, gcyc, grel = mg.fused_mg_solve_batched(torch.zeros(b.shape), T(b), tlev, cfg)
+    assert gcyc.dtype == torch.int32 and tuple(gcyc.shape) == (3,)
+    for k in range(3):
+        assert int(gcyc[k]) == int(wcyc[k])
+        assert rel_err(gp[k], wp[k]) < 1e-4
+        assert rel_err(gr[k], wr[k]) < 1e-3
+        assert abs(float(grel[k]) - float(wrel[k])) < 1e-5
+    p0t = T(jnp.asarray(np.random.default_rng(1).normal(size=b.shape), jnp.float32))
+    fp, fr, fcyc, frel = mg.fused_mg_solve_batched(p0t, T(b), tlev, cfg,
+                                                    active=torch.tensor([False, True, True]))
+    assert torch.equal(fp[0], p0t[0]) and not fr[0].any()
+    assert int(fcyc[0]) == 0 and float(frel[0]) == 0.0
+    assert mg.SOLVE_BATCH_LAUNCHES == 0
+
+
+def test_k4_batched_plain_matches_jax_vmap_of_pallas():
+    """K4's batched plain version on three 15^2 fine stencils: every coarse
+    entry within 1e-5 of its array (the single K4 test's tolerance) of
+    ``jax.vmap`` of the Pallas kernel; a frozen case gets zero stencils."""
+    jlevels, _ = _mg_cases(15, JMG())
+    shapes = [tuple(lv[1]) for lv in jlevels[0]]
+    fine = _stack([case[0][0] for case in jlevels])
+    want = jax.vmap(lambda st: j_rap(st, shapes, True, interpret=True))(fine)
+    tfine = Stencil9(*(T(getattr(fine, k)) for k in NAMES))
+    got = mg.galerkin_levels_batched(tfine, shapes, True)
+    assert len(got) == len(shapes) - 1
+    for g, w in zip(got, want):
+        for k in NAMES:
+            for b in range(3):
+                assert rel_err(getattr(g, k)[b], getattr(w, k)[b]) < 1e-5, (k, b)
+    frozen = mg.galerkin_levels_batched(tfine, shapes, True,
+                                        active=torch.tensor([True, True, False]))
+    for g, f in zip(got, frozen):
+        for k in NAMES:
+            assert torch.equal(getattr(f, k)[:2], getattr(g, k)[:2])
+            assert not getattr(f, k)[2].any()
+    assert mg.RAP_BATCH_LAUNCHES == 0
+
+
+# ---------------------------------------------------------------------------
+# (b) the vmapped step, gates open
+
+
+@pytest.fixture
+def kernel_gates_open(monkeypatch):
+    """Treat CPU tensors as kernel-capable (the path a CUDA float32 state
+    takes, on the CPU) and count the plain calls of K7, K5, K4 (single and
+    batched), K3 and K6."""
+    monkeypatch.setattr(_cuda, "kernel_device", lambda x: True)
+    calls = {}
+
+    def count(module, name, key):
+        real = getattr(module, name)
+
+        def wrapped(*a, **k):
+            calls[key] = calls.get(key, 0) + 1
+            return real(*a, **k)
+
+        monkeypatch.setattr(module, name, wrapped)
+
+    for module, name, key in (
+            (krylov, "bicgstab_momentum_batched_plain", "K7 batched"),
+            (krylov, "bicgstab_momentum_plain", "K7"),
+            (mg, "fused_mg_solve_batched_plain", "K5 batched"),
+            (mg, "fused_mg_solve_plain", "K5"),
+            (mg, "galerkin_levels_batched_plain", "K4 batched"),
+            (mg, "galerkin_levels_plain", "K4"),
+            (mg, "fused_vcycle_plain", "K3"),
+            (step, "fused_outer_step_plain", "K6"),
+            (step, "fused_outer_step_batched_plain", "K6 batched")):
+        count(module, name, key)
+    return calls
+
+
+def _noisy_cases(n, seed=11):
+    """Three seeded noisy cavity states (float32, leading case axis)."""
+    rng = np.random.default_rng(seed)
+    s = nt.initialize_state(nt.StructuredMesh(nx=n, ny=n), nt.lid_driven_cavity(1.0),
+                            device="cpu")
+    return [torch.stack([x + torch.as_tensor(0.01 * rng.normal(size=x.shape),
+                                             dtype=torch.float32) for _ in range(3)])
+            for x in (s.u, s.v, s.p)]
+
+
+def test_vmapped_step_matches_single_steps(kernel_gates_open):
+    """The headline FMG step at 15^2, Re 100 / 400 / 1000 on three noisy
+    states, as the branch runs it (``batch._vmapped_step``): a refresh step
+    then a carried step, each case bit-equal to its single step (state,
+    norms, cycles, residual fields, the carried hierarchy); a refresh step
+    is one batched K4, K5 and two batched K7 calls, a carried step no K4;
+    every single plain call is one of a batched call's cases; a frozen case
+    gets back what it was given."""
+    calls = kernel_gates_open
+    n = 15
+    mesh, bc = nt.StructuredMesh(nx=n, ny=n), nt.lid_driven_cavity(1.0)
+    cfg, mom, pres = talg.SIMPLEConfig(), interop.config(MOM), interop.config(PRES)
+    dx, dy = mesh.get_cell_sizes()
+    common = dict(dx=dx, dy=dy, rho=1.0, bc=bc, cfg=cfg, mom_cfg=mom, pres_cfg=pres)
+    u, v, p = _noisy_cases(n)
+    assert tbatch.vmap_step_ok(p[0], cfg, mom, pres, "simple")
+    extra0_fn, every = tsimple.lagged_extra0(mesh, pres, cfg, dx, dy, 1.0, tsimple.zero_carry)
+    assert every == 8
+    single0 = extra0_fn(torch.float32, "cpu")
+    leaves, build = tbatch._flatten(single0)
+    extra = build([x.expand(3, *x.shape) for x in leaves])
+    visc = powerlaw.case_conductances(MUS, dx, dy, torch.float32)
+    z = torch.zeros(3)
+    info = talg.base.StepInfo(z, z, z, torch.zeros(3, dtype=torch.int32), torch.zeros_like(u),
+                              torch.zeros_like(v), torch.zeros_like(p))
+    active = torch.ones(3, dtype=torch.bool)
+    calls.clear()
+    refresh = tbatch._vmapped_step(tsimple.make_simple_step,
+                                   dict(common, coarse_mode="rebuild"), visc)
+    out1 = refresh(u, v, p, extra, active, info)
+    assert calls == {"K7 batched": 2, "K7": 6, "K5 batched": 1, "K5": 3, "K4 batched": 1,
+                     "K4": 3}
+    calls.clear()
+    plain = tbatch._vmapped_step(tsimple.make_simple_step, common, visc)
+    out2 = plain(*out1[:4], active, out1[4])
+    assert calls == {"K7 batched": 2, "K7": 6, "K5 batched": 1, "K5": 3}
+    for b, mu in enumerate(MUS):
+        e = single0
+        for mode, got in (("rebuild", out1), ("carry", out2)):
+            one = tsimple.make_simple_step(**common, mu=mu, coarse_mode=mode)
+            if mode == "rebuild":
+                want = one(u[b], v[b], p[b], e)
+            else:
+                want = one(*want[:4])
+            for k in range(3):
+                assert torch.equal(got[k][b], want[k]), (b, mode, k)
+            got_leaves, _ = tbatch._flatten(got[3])
+            want_leaves, _ = tbatch._flatten(want[3])
+            assert all(torch.equal(g[b], w) for g, w in zip(got_leaves, want_leaves))
+            assert got[3][1][0] == want[3][1][0]  # the shared age
+            for g, w in zip(got[4], want[4]):
+                assert torch.equal(g[b], torch.as_tensor(w)), (b, mode)
+    # a frozen case: its state, carry and info come back as they went in
+    calls.clear()
+    frozen = plain(*out1[:4], torch.tensor([True, False, True]), out1[4])
+    assert calls["K7"] == 4 and calls["K5"] == 2
+    for k in range(3):
+        assert torch.equal(frozen[k][1], out1[k][1])
+        assert torch.equal(frozen[k][0], out2[k][0])
+    for g, w in zip(tbatch._flatten(frozen[3])[0], tbatch._flatten(out1[3])[0]):
+        assert torch.equal(g[1], w[1])
+    for g, w in zip(frozen[4], out1[4]):
+        assert torch.equal(g[1], w[1])
+
+
+# ---------------------------------------------------------------------------
+# (c) the FMG batch
+
+
+@pytest.fixture
+def gates_open_f64(kernel_gates_open, monkeypatch):
+    """The gates open as on the card, with their float32 admission widened
+    to float64 so that the branch runs at the JAX package's f64 precision:
+    K7, K5 and K4 (and so the vmapped branch) take a float64 state too."""
+    def rap(nx, ny, cfg, dtype):
+        return mg.supports_fused_rap(nx, ny, cfg, torch.float32)
+
+    monkeypatch.setattr(tmom, "supports_fused_bicgstab",
+                        lambda shape, dtype: krylov.supports_fused_bicgstab(shape, torch.float32))
+    monkeypatch.setattr(tbatch, "supports_fused_bicgstab", tmom.supports_fused_bicgstab)
+    monkeypatch.setattr(tmg, "supports_fused", lambda levels, cfg: mg.supports_fused_layout(
+        [(shp, five) for _, shp, five, _ in levels], cfg))
+    monkeypatch.setattr(tmg, "supports_fused_rap", rap)
+    monkeypatch.setattr(tbatch, "supports_fused_rap", rap)
+    return kernel_gates_open
+
+
+def test_fmg_batch_matches_jax_vmap_program(gates_open_f64):
+    """The FMG headline configuration at 15^2, Re 100 / 400 / 1000 to
+    1e-3, float64: the port's vmapped branch (batched plain K7 / K5 / K4
+    under ``torch.func.vmap``) against the JAX package's
+    ``batched_cavity_solve`` (one ``jax.vmap`` program, composed): the same
+    iterations a case, fields to rel 1e-9 (``tests/test_torch_batch.py``'s
+    limit), one batched K7 pair and K5 a lockstep step, a batched K4 at
+    each refresh (steps 0, 8, ...) and the single K4 of the shared setup
+    hierarchy.
+
+    BiCGSTAB runs to 1e-10 in at most 100 iterations (the limit of the
+    other batching tests), not the headline's 1e-6 in 20: at 1e-6 the JAX
+    package's ``jax.vmap`` program itself moves the Re 400 and 1000 cases
+    by up to 1.3e-5 from its own single solves (a traced per-case
+    viscosity rounds apart from the single program's constant, and the
+    early stop amplifies it), which no 1e-9 comparison survives; at 1e-10
+    the port and that program agree to about 1e-10."""
+    calls = gates_open_f64
+    mesh, bc = nf.StructuredMesh(nx=15, ny=15), nf.lid_driven_cavity(1.0)
+    cfg = SIMPLEConfig(max_iterations=300, tolerance=1e-3)
+    mom = KrylovMomentumConfig(tolerance=1e-10, max_iterations=100)
+    res = [100.0, 400.0, 1000.0]
+    jout = batched_cavity_solve(mesh, res, bc, cfg, mom, PRES, algorithm="simple",
+                                dtype=jnp.float64)
+    calls.clear()
+    tout = talg.batched_cavity_solve(interop.mesh(mesh), res, interop.boundary_conditions(bc),
+                                     interop.config(cfg), interop.config(mom),
+                                     interop.config(PRES), dtype=torch.float64, device="cpu")
+    iters = [d.iterations for _, d in tout]
+    for (js, jd), (ts, td) in zip(jout, tout):
+        assert bool(jd.converged) and td.converged
+        assert int(jd.iterations) == td.iterations
+        for name in ("u", "v", "p"):
+            assert rel_err(getattr(ts, name), getattr(js, name)) <= 1e-9, name
+    steps = max(iters)
+    assert calls["K7 batched"] == 2 * steps and calls["K5 batched"] == steps
+    assert calls["K4 batched"] == -(-steps // 8)
+    assert calls["K7"] == 2 * sum(iters) and calls["K5"] == sum(iters)
+    assert "K3" not in calls and "K6" not in calls and len(set(iters)) == 3
+
+
+def test_fmg_batch_cases_bit_equal_to_single_solves(kernel_gates_open):
+    """In float32 (the card's dtype) at 15^2: every case of the vmapped
+    FMG batch bit-equal to its single solve (state, histories, residual
+    fields), whose own path is two K7 and one K5 a step."""
+    calls = kernel_gates_open
+    mesh, bc = nt.StructuredMesh(nx=15, ny=15), nt.lid_driven_cavity(1.0)
+    cfg = talg.SIMPLEConfig(max_iterations=300, tolerance=1e-3)
+    mom, pres = interop.config(MOM), interop.config(PRES)
+    res = [100.0, 400.0, 1000.0]
+    out = talg.batched_cavity_solve(mesh, res, bc, cfg, mom, pres, device="cpu")
+    iters = [d.iterations for _, d in out]
+    assert calls["K7 batched"] == 2 * max(iters) and "K6 batched" not in calls
+    for re_, (bs, bd) in zip(res, out):
+        calls.clear()
+        ss, sd = talg.simple_solve(mesh, nt.FluidProperties(density=1.0, reynolds_number=re_),
+                                   bc, nt.initialize_state(mesh, bc, device="cpu"), cfg,
+                                   momentum=mom, pressure=pres, loop="fused")
+        assert calls["K7"] == 2 * sd.iterations and calls["K5"] == sd.iterations
+        assert bd.iterations == sd.iterations and bd.converged
+        for name in ("u", "v", "p"):
+            assert torch.equal(getattr(bs, name), getattr(ss, name)), name
+        for name in ("total_res_history", "inner_iters_history", "u_residual_field",
+                     "p_residual_field"):
+            assert torch.equal(getattr(bd, name), getattr(sd, name)), name
+
+
+def test_case_conductances_round_as_the_single_solve():
+    """A per-case ``(De, Dn, 1 / De, 1 / Dn)`` row gives each case's
+    power-law coefficients bit for bit as its Python viscosity does, in
+    float32 and float64; on a CUDA tensor ``power_law_A`` multiplies by the
+    reciprocal (PyTorch's CUDA division by a Python number), taken in
+    double and rounded, on the CPU it divides."""
+    n = 15
+    u, v, p = _noisy_cases(n)
+    dx = dy = 1.0 / n
+    for dtype in (torch.float32, torch.float64):
+        rows = powerlaw.case_conductances(MUS, dx, dy, dtype)
+        assert rows.dtype == dtype and tuple(rows.shape) == (3, 4)
+        for b, mu in enumerate(MUS):
+            kw = dict(dx=dx, dy=dy, rho=1.0)
+            args = (u[b].to(dtype), v[b].to(dtype), p[b].to(dtype))
+            for fn in (powerlaw.u_momentum_coefficients, powerlaw.v_momentum_coefficients):
+                want, got = fn(*args, mu=mu, **kw), fn(*args, mu=rows[b], **kw)
+                for k in ("a_e", "a_w", "a_n", "a_s", "a_p", "src"):
+                    assert torch.equal(getattr(got, k), getattr(want, k)), (dtype, b, k)
+            assert float(rows[b, 0]) == float(torch.tensor(mu * dy / dx, dtype=dtype))
+            # the reciprocal taken in double, then rounded (not 1 / the rounded D)
+            assert float(rows[b, 2]) == float(torch.tensor(1.0 / (mu * dy / dx), dtype=dtype))
+    F = torch.linspace(-3.0, 3.0, 101)
+    D = torch.tensor(0.37)
+    inv = torch.reciprocal(D)
+    assert torch.equal(powerlaw.power_law_A(F, D, inv), powerlaw.power_law_A(F, 0.37))
+
+
+# ---------------------------------------------------------------------------
+# (d) the gate
+
+
+def test_vmap_gate_sides(kernel_gates_open):
+    """The branch takes the FMG headline (SIMPLE, SIMPLEC, PISO, SIMPLER)
+    and Jacobi momentum on V cycles; it refuses what K6 takes, closed
+    gates, even and non-square grids, composed backends, cycles, smoothers
+    and coarsenings K5 or K4 refuse, 9-point schemes, Chebyshev momentum,
+    non-multigrid pressure and float64 (the kernels' dtype)."""
+    from dataclasses import replace
+
+    cfg, mom, pres = talg.SIMPLEConfig(), interop.config(MOM), interop.config(PRES)
+    p63 = torch.zeros(63, 63)
+
+    def ok(p=p63, mom=mom, pres=pres, algo="simple"):
+        return tbatch.vmap_step_ok(p, cfg, mom, pres, algo)
+
+    for algo in ("simple", "simplec", "piso", "simpler"):
+        assert ok(algo=algo), algo
+    assert ok(mom=JacobiMomentumConfig(n_sweeps=2), pres=replace(pres, cycle_type="v"))
+    assert ok(p=torch.zeros(255, 255)) and ok(p=torch.zeros(15, 15))
+    assert not ok(pres=replace(pres, cycle_type="v"))  # K6's
+    assert not ok(p=torch.zeros(64, 64)) and not ok(p=torch.zeros(63, 31))
+    assert not ok(p=torch.zeros(63, 63, dtype=torch.float64))
+    assert not ok(pres=replace(pres, backend="composed"))
+    assert not ok(mom=replace(mom, backend="composed"))
+    assert not ok(pres=replace(pres, cycle_type="w"))
+    assert not ok(pres=replace(pres, smoother="jacobi"))
+    assert not ok(pres=replace(pres, coarsening="rediscretize"))
+    assert not ok(mom=replace(mom, scheme="quick"))
+    assert not ok(mom=tmom.ChebyshevMomentumConfig())
+    assert not ok(pres=nt.solvers.RBGSPressureConfig())
+    assert not ok(p=torch.zeros(1023, 1023))  # K4's budget
+
+
+def test_vmap_gate_closed_on_cpu_takes_the_per_case_branch():
+    """On the CPU (gates closed) the FMG batch steps case by case."""
+    cfg, mom, pres = talg.SIMPLEConfig(), interop.config(MOM), interop.config(PRES)
+    assert not tbatch.vmap_step_ok(torch.zeros(15, 15), cfg, mom, pres, "simple")
+
+
+# ---------------------------------------------------------------------------
+# (e) transforms
+
+
+def _fake_cuda():
+    mode = FakeTensorMode()
+    with mode:
+        return mode, torch.zeros(15, 15, device="cuda")
+
+
+def test_kernels_without_a_rule_raise_under_vmap():
+    """Under ``torch.func.vmap`` the gates answer from the device, K3 and K1
+    (no batching rule) raise at their launch, before any pointer is read;
+    a vmap with another transform inside still closes the gate."""
+    mode, x = _fake_cuda()
+    with mode:
+        xs = torch.zeros(3, 15, 15, device="cuda")
+        seen = []
+        torch.func.vmap(lambda a: seen.append(_cuda.kernel_device(a)) or a)(xs)
+        assert seen == [True]
+        with pytest.raises(RuntimeError, match="no batching rule|only K7, K5 and K4"):
+            torch.func.vmap(lambda a: torch.func.jvp(
+                lambda y: y * _cuda.kernel_device(y), (a,), (a,))[0])(xs)
+        levels = [(Stencil9(*[torch.zeros(15, 15, device="cuda")] * 9), (15, 15), True, None),
+                  (Stencil9(*[torch.zeros(7, 7, device="cuda")] * 9), (7, 7), False, None)]
+        cfg = tmg.MultigridConfig()
+        with pytest.raises(RuntimeError, match="kernel launch"):
+            torch.func.vmap(lambda a, bb: mg.fused_vcycle(a, bb, levels, cfg))(xs, xs)
+        u = torch.zeros(3, 16, 15, device="cuda")
+        v = torch.zeros(3, 15, 16, device="cuda")
+        with pytest.raises(RuntimeError, match="kernel launch"):
+            torch.func.vmap(lambda a, bb, pp: asmcheby.fused_asmcheby_pair(
+                a, bb, pp, dx=0.1, dy=0.1, rho=1.0, mu=0.01, alpha=0.7, degree=4,
+                bounds_u=(1.0, 0.5, 2.0), bounds_v=(1.0, 0.5, 2.0)))(u, v, xs)
+
+
+def test_k7_k5_k4_raise_under_jvp():
+    """Under ``jvp`` K7, K5 and K4 (which have a batching rule, not a
+    derivative) raise at their launch and at their gates on a CUDA tensor,
+    as every kernel does; nothing gives way to a plain version."""
+    mode, x = _fake_cuda()
+    with mode:
+        c = StencilCoeffs(*[torch.zeros(15, 15, device="cuda")] * 6)
+        st = Stencil9(*[torch.zeros(15, 15, device="cuda")] * 9)
+        levels = [(st, (15, 15), True, None),
+                  (Stencil9(*[torch.zeros(7, 7, device="cuda")] * 9), (7, 7), False, None)]
+        cfg = tmg.MultigridConfig()
+        calls = {
+            "K7": lambda a: krylov.bicgstab_momentum(a, c, tol=1e-6, maxiter=20),
+            "K5": lambda a: mg.fused_mg_solve(a, a, levels, cfg)[0],
+            "K4": lambda a: mg.galerkin_levels(Stencil9(a, *[a] * 8), [(15, 15), (7, 7)],
+                                               True)[0].c,
+            "gate": lambda a: a * _cuda.kernel_device(a),
+        }
+        for name, fn in calls.items():
+            with pytest.raises(RuntimeError, match="cannot run under torch.func"):
+                torch.func.jvp(fn, (x,), (x,))
+
+
+def test_rules_route_under_vmap_alone():
+    """``under_vmap`` holds under vmap alone and not under jvp, a vmap of
+    a jvp, a forward-AD level or outside any transform."""
+    from torch.autograd import forward_ad
+
+    x = torch.zeros(3, 2)
+    seen = []
+
+    def probe(a):
+        seen.append(_cuda.under_vmap())
+        return a
+
+    assert not _cuda.under_vmap()
+    torch.func.vmap(probe)(x)
+    torch.func.jvp(probe, (x,), (x,))
+    torch.func.vmap(lambda a: torch.func.jvp(probe, (a,), (a,))[0])(x)
+    with forward_ad.dual_level():
+        probe(forward_ad.make_dual(x, x))
+    assert seen == [True, False, False, False]
+
+
+# ---------------------------------------------------------------------------
+# (f) the batched C entries
+
+
+def _src(name):
+    return (CSRC / name).read_text()
+
+
+def _body(src, signature):
+    start = src.index(signature)
+    return src[start:src.index("\n}\n", start)]
+
+
+class _Recorder:
+    """Records the batched K7, K5 and K4 entries' arrays."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _record(self, name, ptrs, ip, fp, stream):
+        self.calls.append((name, list(ptrs), list(ip), list(fp), stream))
+        return 0
+
+    def nf_bicgstab_batched(self, *a):
+        return self._record("nf_bicgstab_batched", *a)
+
+    def nf_fused_mg_solve_batched(self, *a):
+        return self._record("nf_fused_mg_solve_batched", *a)
+
+    def nf_galerkin_levels_batched(self, *a):
+        return self._record("nf_galerkin_levels_batched", *a)
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    lib = _Recorder()
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    monkeypatch.setattr(_cuda, "stream_of", lambda x: 7)
+    monkeypatch.setattr(_cuda, "kernel_device", lambda x: True)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(krylov, "cluster_size", lambda device=None: 16)
+    for module, name in ((krylov, "_BATCH"), (mg, "_SOLVE_BATCH"), (mg, "_RAP_BATCH")):
+        monkeypatch.setattr(module, name, {})
+    for module, name in ((krylov, "BATCH_LAUNCHES"), (mg, "SOLVE_BATCH_LAUNCHES"),
+                         (mg, "RAP_BATCH_LAUNCHES")):
+        monkeypatch.setattr(module, name, getattr(module, name))
+    return lib
+
+
+def test_k7_batched_slots_match_c_entry(recorder):
+    """``nf_bicgstab_batched`` reads nf_bicgstab's nine slots for case 0, the
+    active flags, then the ten slots' strides (``kb_read``, nf_bicgstab's
+    own reads, twice), B after
+    nf_bicgstab's eight integers, the band kernel only; the wrapper fills
+    the addresses and each tensor's own case stride (0: shared), reuses its
+    arrays, and allocates one output (B, *shape)."""
+    src = _src("krylov.cu")
+    entry = _body(src, "NF_EXPORT int nf_bicgstab_batched(")
+    assert "kb_read(SB.P, ptrs, ip, fp);" in entry and "kb_read(SB.S, ptrs + 10, ip, fp);" in entry
+    assert "SB.active = reinterpret_cast<const bool*>(ptrs[9]);" in entry
+    assert "SB.active_stride = reinterpret_cast<const bool*>(ptrs[19]);" in entry
+    assert "cases = ip[8];" in entry and "!ip[7]" in entry
+    assert "kb_read(P, ptrs, ip, fp);" in _body(src, "NF_EXPORT int nf_bicgstab(")
+    read = _body(src, "void kb_read(")
+    assert "P.x0 = reinterpret_cast<const float*>(ptrs[0]);" in read
+    assert "P.coef[k] = reinterpret_cast<const float*>(ptrs[1 + k]);" in read
+    assert "P.out = reinterpret_cast<float*>(ptrs[7]);" in read
+    kernel = _body(src, "__global__ void __launch_bounds__(NF_CL_THREADS, 1) "
+                        "bicgstab_band_kernel_batched(")
+    for field in ("P.x0, SB.S.x0", "P.coef[k], SB.S.coef[k]", "P.out, SB.S.out"):
+        assert f"nf_case_shift({field}, b);" in kernel
+    assert kernel.index("if (!*active)") < kernel.index("kb_solve(P, kb_dyn);")
+    cases, shape = 3, (16, 15)
+    x0 = torch.zeros(cases, *shape)
+    shared = torch.zeros(shape)
+    c = StencilCoeffs(*[torch.zeros(cases, *shape) for _ in range(5)],
+                      shared.expand(cases, *shape))
+    active = torch.tensor([True, False, True])
+    out1 = krylov.bicgstab_momentum_batched(x0, c, tol=1e-6, maxiter=20, active=active)
+    out2 = krylov.bicgstab_momentum_batched(x0, c, tol=1e-6, maxiter=20)
+    (e1, p1, ip1, fp1, s1), (_, p2, ip2, _, _) = recorder.calls
+    assert e1 == "nf_bicgstab_batched" and s1 == 7 and fp1 == pytest.approx([1e-6])
+    assert ip1 == ip2 == [16, 15, 20, 1, 1, 1, 1, 1, cases]
+    arrays = [x0, c.a_e, c.a_w, c.a_n, c.a_s, c.a_p, c.src]
+    assert p1[:7] == [a.data_ptr() for a in arrays] and p1[7] == out1.data_ptr()
+    assert p1[8] == 0 and p1[18] == 0 and p1[9] == active.data_ptr() and p1[19] == 1
+    assert p1[10:16] == [4 * 16 * 15] * 6 and p1[16] == 0 and p1[17] == 4 * 16 * 15
+    assert p2[9] != p1[9] and tuple(out2.shape) == (cases, *shape) and out2.is_contiguous()
+    assert krylov.BATCH_LAUNCHES == 2
+    with pytest.raises(ValueError, match="each case contiguous"):
+        krylov.bicgstab_momentum_batched(x0.transpose(1, 2).contiguous().transpose(1, 2)[:, :, :],
+                                         StencilCoeffs(*[torch.zeros(cases, 15, 16)] * 6),
+                                         tol=1e-6, maxiter=20)
+
+
+def test_k5_batched_slots_match_c_entry(recorder):
+    """``nf_fused_mg_solve_batched`` reads nf_fused_mg_solve's 11 L + 4 slots
+    for case 0 (``read_solve``, that entry's own reads), the active flags, then
+    the strides of all 11 L + 5; B after the levels' integers; each case's
+    level pointers moved by ``levels_case``.  The wrapper: the stencils by
+    address with their strides, the global coarse levels' scratch (B
+    copies, kept across calls), p and r one allocation, cycles and rel one
+    int32 pair a case."""
+    src = _src("mg.cu")
+    entry = _body(src, "NF_EXPORT int nf_fused_mg_solve_batched(")
+    assert "const int half = 11 * L + 5;" in entry
+    assert "read_solve(SB.P, ptrs, ip, fp, &smem)" in entry
+    assert "read_solve(SB.S, ptrs + half, ip, fp, &unused)" in entry
+    assert "SB.active = reinterpret_cast<const bool*>(ptrs[half - 1]);" in entry
+    assert "SB.active_stride = reinterpret_cast<const bool*>(ptrs[2 * half - 1]);" in entry
+    assert "const int cases = ip[MS_IP_LEVELS + 3 * L];" in entry
+    # the single entry reads its slots through the same function
+    assert "read_solve(P, ptrs, ip, fp, &smem)" in _body(src, "NF_EXPORT int nf_fused_mg_solve(")
+    case = _body(src, "__device__ void levels_case(")
+    for field in ("lv[l].st[a], S[l].st[a]", "lv[l].x, S[l].x", "lv[l].rhs, S[l].rhs"):
+        assert f"nf_case_shift({field}, b);" in case
+    kernel = _body(src, "__global__ void __launch_bounds__(NF_CL_THREADS, 1) "
+                        "mg_solve_kernel_batched(")
+    for field in ("p_in", "r", "cycles", "rel"):
+        assert f"nf_case_shift(P.{field}, SB.S.{field}, b);" in kernel
+    assert kernel.index("if (!on)") < kernel.index("nf_vc_mg_solve(")
+    n, cases = 63, 3
+    cfg = tmg.MultigridConfig(tolerance=1e-2, max_cycles=6, check_every=2, coarsest_sweeps=8)
+    shapes = [(63, 63), (31, 31), (15, 15), (7, 7)]
+    levels = [(Stencil9(*[torch.zeros(cases, *shp) for _ in NAMES]), shp, lvl == 0, None)
+              for lvl, shp in enumerate(shapes)]
+    p0, b = torch.zeros(cases, n, n), torch.zeros(cases, n, n)
+    p, r, cyc, rel = mg.fused_mg_solve_batched(p0, b, levels, cfg)
+    mg.fused_mg_solve_batched(p0, b, levels, cfg)
+    (e1, p1, ip1, fp1, s1), (_, p2, ip2, _, _) = recorder.calls
+    L, half = 4, 11 * 4 + 5
+    assert e1 == "nf_fused_mg_solve_batched" and s1 == 7 and len(p1) == 2 * half
+    first, _ = mg.mg_solve_layout(shapes)
+    assert first == 1
+    assert ip1 == ip2 == [L, cfg.pre_smoothing, cfg.post_smoothing, cfg.coarsest_sweeps, first,
+                          6, 2, 1] + [x for shp, lvl in zip(shapes, range(L))
+                                      for x in (*shp, int(lvl == 0))] + [cases]
+    assert fp1 == pytest.approx([cfg.omega, 1e-2])
+    for lvl, (st, shp, five, _) in enumerate(levels):
+        k = 5 if five else 9
+        assert p1[11 * lvl:11 * lvl + k] == [getattr(st, nm).data_ptr() for nm in NAMES[:k]]
+        assert p1[half + 11 * lvl:half + 11 * lvl + k] == [4 * shp[0] * shp[1]] * k
+        assert p1[11 * lvl + k:11 * lvl + 9] == [0] * (9 - k)
+        if lvl >= first:  # shared-memory levels: no x, rhs
+            assert p1[11 * lvl + 9:11 * lvl + 11] == [0, 0]
+    assert p1[9] == p.data_ptr() and p1[half + 9] == 4 * n * n
+    assert p1[10] == b.data_ptr() and p1[11 * L] == p0.data_ptr()
+    assert p1[11 * L + 1] == r.data_ptr() and r.data_ptr() - p.data_ptr() == 4 * cases * n * n
+    assert p1[11 * L + 3] - p1[11 * L + 2] == 4 and p1[half + 11 * L + 2] == 8
+    assert p1[half - 1] != 0 and p1[2 * half - 1] == 1
+    assert p2[9] != p1[9] and cyc.dtype == torch.int32 and rel.dtype == torch.float32
+    assert mg.SOLVE_BATCH_LAUNCHES == 2
+    # at 255^2 the 255^2 -> 63^2 levels' x and rhs are scratch: B copies, kept
+    shapes = [(255, 255), (127, 127), (63, 63), (31, 31), (15, 15), (7, 7)]
+    levels = [(Stencil9(*[torch.zeros(cases, *shp) for _ in NAMES]), shp, lvl == 0, None)
+              for lvl, shp in enumerate(shapes)]
+    p0 = torch.zeros(cases, 255, 255)
+    for _ in range(2):
+        mg.fused_mg_solve_batched(p0, p0, levels, cfg)
+    (_, q1, _, _, _), (_, q2, _, _, _) = recorder.calls[2:]
+    half = 11 * 6 + 5
+    for lvl in (1, 2):
+        ni = shapes[lvl][0]
+        assert q1[11 * lvl + 9] == q2[11 * lvl + 9] != 0
+        assert q1[11 * lvl + 10] - q1[11 * lvl + 9] == 4 * ni * ni
+        assert q1[half + 11 * lvl + 9] == q1[half + 11 * lvl + 10] == 8 * ni * ni
+
+
+def test_k4_batched_slots_match_c_entry(recorder):
+    """``nf_galerkin_levels_batched`` reads nf_galerkin_levels' 9 L slots for
+    case 0 (``read_rap``), the active flags, then the 9 L + 1 strides; B
+    after the levels' integers.  The wrapper: the fine stencil by address
+    and stride, the outputs one buffer of B ``rap_layout`` buffers (stride
+    one layout), returned as per-level Stencil9 views with the case axis
+    first."""
+    src = _src("mg.cu")
+    entry = _body(src, "NF_EXPORT int nf_galerkin_levels_batched(")
+    assert "const int half = 9 * SB.P.L + 1;" in entry
+    assert "read_rap(SB.P, ptrs, ip)" in entry and "read_rap(SB.S, ptrs + half, ip)" in entry
+    assert "const int cases = ip[2 + 2 * SB.P.L];" in entry
+    assert "read_rap(P, ptrs, ip)" in _body(src, "NF_EXPORT int nf_galerkin_levels(")
+    kernel = _body(src, "__global__ void __launch_bounds__(NF_CL_THREADS, 1) "
+                        "galerkin_kernel_batched(")
+    assert "levels_case(P.lv, SB.S.lv, P.L, b);" in kernel
+    assert kernel.index("if (!on)") < kernel.index("nf_cl_galerkin_rap(C, P.lv, P.L);")
+    shapes = [(63, 63), (31, 31), (15, 15), (7, 7)]
+    cases = 3
+    fine = Stencil9(*[torch.zeros(cases, 63, 63) for _ in NAMES])
+    out = mg.galerkin_levels_batched(fine, shapes, True)
+    (e1, p1, ip1, _, s1), = recorder.calls
+    half = 9 * 4 + 1
+    assert e1 == "nf_galerkin_levels_batched" and s1 == 7 and len(p1) == 2 * half
+    assert ip1 == [4, 1, 63, 63, 31, 31, 15, 15, 7, 7, cases]
+    assert p1[:5] == [getattr(fine, k).data_ptr() for k in NAMES[:5]] and p1[5:9] == [0] * 4
+    assert p1[half:half + 5] == [4 * 63 * 63] * 5
+    levels, floats = mg.rap_layout(shapes)
+    base = out[0].c.data_ptr()
+    for lvl, ((off, pitch), st) in enumerate(zip(levels, out)):
+        for k, name in enumerate(NAMES):
+            assert p1[9 + 9 * lvl + k] == base + 4 * (off + k * pitch) == \
+                getattr(st, name).data_ptr()
+            assert p1[half + 9 + 9 * lvl + k] == 4 * floats
+            assert getattr(st, name).shape == (cases, *shapes[lvl + 1])
+            assert getattr(st, name)[1].is_contiguous()
+    assert p1[2 * half - 1] == 1 and mg.RAP_BATCH_LAUNCHES == 1
+
+
+def test_case_max_clusters_entry_covers_three_kernels():
+    """``nf_case_max_clusters`` answers for the batched K7 (0), K5 (1) and
+    K4 (2), as ``_cuda.case_max_clusters`` numbers them."""
+    src = _src("krylov.cu") + _src("mg.cu")
+    assert "if (kernel == 0) return nf_max_active_clusters(bicgstab_band_kernel_batched" in src
+    assert "if (kernel == 1) return nf_max_active_clusters(mg_solve_kernel_batched" in src
+    assert "if (kernel == 2) return nf_max_active_clusters(galerkin_kernel_batched" in src
+    assert re.search(r'"nf_case_max_clusters": \[_I, _I, ctypes.POINTER\(_I\)\]',
+                     Path(_cuda.__file__).read_text())
+    assert ctypes.sizeof(ctypes.c_longlong) == 8

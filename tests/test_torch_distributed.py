@@ -8,10 +8,11 @@ on meshes of gloo ranks, on the CPU (f64).
   on a (2, 2) device mesh: every step's residual and the fields at rel
   1e-10; the state the same bits on every rank; the pressure iterations of
   every step equal to the same run on one rank.
-* A padded 30^2 grid on a 1x4 mesh (Jacobi-PCG and MGCG) against the JAX
-  package on a (1, 4) mesh; the chunked loop against the per-step loop.
-* Distributed QUICK against the single-device QUICK solve; the duplicated
-  shared faces bit-equal across neighbours after 10 steps.
+* The chunked loop against the per-step loop.
+* Distributed QUICK against the single-device QUICK solve.
+* (``tests/test_torch_distributed_1x4.py``, a file of its own so that the
+  test workers share the spawns: a padded 30^2 grid on a 1x4 mesh and the
+  duplicated shared faces bit-equal across neighbours after 10 steps.)
 * Whether the single-device SIMPLE with Chebyshev momentum of degree 6 and
   MGCG pressure runs the distributed Chebyshev + MGCG algorithm (64^2, one
   rank): it does, to rounding, so the card's 1024^2 distributed run is
@@ -118,12 +119,6 @@ def mesh22(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def mesh14(tmp_path_factory):
-    return run_ranks(_runs_body, (1, 4), tmp_path_factory.mktemp("mesh14"), 30, PADDED,
-                     ["padded-jacobi-cg"], timeout=300)
-
-
-@pytest.fixture(scope="module")
 def one_rank():
     rm = make_device_mesh(device="cpu")
     return {name: _solve(rm, N, kw) for name, kw in CASES.items()}
@@ -173,24 +168,21 @@ def test_distributed_matches_jax_2x2(name, mesh22, one_rank):
     assert len(got["diag"]["inner_iterations"]) == STEPS
 
 
-@pytest.mark.parametrize("name", list(PADDED))
-def test_padded_grid_matches_jax_1x4(name, mesh14):
-    got = _held_to_jax(mesh14, name, PADDED[name], 30, (1, 4))
-    assert got["u"].shape == (31, 30) and got["v"].shape == (30, 31) and got["p"].shape == (30, 30)
-
-
-@pytest.mark.parametrize("fixture,name", [("mesh22", "simple-bicgstab-cg"),
-                                          ("mesh14", "padded-jacobi-cg")])
-def test_chunked_loop_matches_per_step(fixture, name, request):
-    """10 steps in chunks of 4 (the chunked loop runs on to 12, as the JAX
-    package's does) against 10 single steps: the first 10 steps' residuals
-    and pressure iterations identical."""
-    res = request.getfixturevalue(fixture)[0]
+def _chunked_matches_per_step(res, name):
     ch, ps = res[name + ":chunked"]["diag"], res[name + ":per-step10"]["diag"]
     assert ch["iterations"] == 12 and ps["iterations"] == 10
     assert ch["step_residuals"][:10] == ps["step_residuals"]
     assert ch["inner_iterations"][:10] == ps["inner_iterations"]
     assert len(ch["residual_history"]) == 3 and len(ps["residual_history"]) == 3
+
+
+@pytest.mark.parametrize("fixture,name", [("mesh22", "simple-bicgstab-cg")])
+def test_chunked_loop_matches_per_step(fixture, name, request):
+    """10 steps in chunks of 4 (the chunked loop runs on to 12, as the JAX
+    package's does) against 10 single steps: the first 10 steps' residuals
+    and pressure iterations identical (the 1x4 mesh's case:
+    ``tests/test_torch_distributed_1x4.py``)."""
+    _chunked_matches_per_step(request.getfixturevalue(fixture)[0], name)
 
 
 def test_distributed_quick_matches_single_device(mesh22):
@@ -212,20 +204,6 @@ def test_distributed_quick_matches_single_device(mesh22):
     for k in ("u", "v", "p"):
         assert _rel(got[k].numpy(), getattr(s, k).numpy()) < 1e-9, k
     assert got["diag"]["inner_iterations"] == diag.inner_iters_history.numpy()[:STEPS].tolist()
-
-
-def test_shared_faces_bit_equal_after_10_steps(tmp_path):
-    """After 10 steps (power-law Jacobi + CG; QUICK BiCGSTAB + MGCG), each
-    u face on a block's x edge equals its x-neighbour's copy bit for bit,
-    and each v face on a y edge its y-neighbour's."""
-    res = run_ranks(_faces_body, (2, 2), tmp_path, 16, 10, timeout=200)
-    for name in SHARED_FACES:
-        blocks = {r[name][2]: r[name][:2] for r in res}
-        for by in range(2):
-            assert torch.equal(blocks[(0, by)][0][-1], blocks[(1, by)][0][0]), (name, by)
-        for bx in range(2):
-            assert torch.equal(blocks[(bx, 0)][1][:, -1], blocks[(bx, 1)][1][:, 0]), (name, bx)
-        assert float(torch.abs(blocks[(0, 0)][0][-1]).max()) > 0.0
 
 
 def test_single_device_mgcg_simple_is_the_distributed_algorithm():

@@ -110,10 +110,18 @@ def recorder(monkeypatch):
 # K5
 
 
+def _function(src, signature):
+    start = src.index(signature)
+    return src[start:src.index("\n}\n", start)]
+
+
 def _solve_entry():
+    """nf_fused_mg_solve's text with ``read_solve``'s, which it reads its
+    slots through."""
     src = _src("mg.cu")
-    return src[src.index("NF_EXPORT int nf_fused_mg_solve("):
-               src.index("NF_EXPORT int nf_mg_solve_cluster_size(")]
+    return (src[src.index("NF_EXPORT int nf_fused_mg_solve("):
+                src.index("NF_EXPORT int nf_mg_solve_cluster_size(")]
+            + _function(src, "int read_solve("))
 
 
 def test_k5_constants_match_c_source():
@@ -255,8 +263,10 @@ def test_k5_rejects_what_its_kernel_does_not_take(recorder):
 
 
 def _krylov_entry():
+    """nf_bicgstab's text (to the end of the file) with ``kb_read``'s,
+    which its band path reads its slots through."""
     src = _src("krylov.cu")
-    return src[src.index("NF_EXPORT int nf_bicgstab("):]
+    return src[src.index("NF_EXPORT int nf_bicgstab("):] + _function(src, "void kb_read(")
 
 
 def test_k7_constants_match_c_source():

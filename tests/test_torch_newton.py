@@ -2,11 +2,14 @@
 JAX package on the CPU (f64, the same inputs): the residual F, the
 Jacobian-vector products of ``torch.func.linearize`` and ``torch.func.jvp``
 against ``jax.jvp``,
-the SIMPLE-type preconditioner, the JAX package's 31^2 power-law Newton
-case from its own warm start (``tests/test_newton.py``; the QUICK case is
-``test_torch_newton_quick.py``, a file of its own so that the two long
-runs go to two test workers), the chunked GMRES against the monolithic
-solve, and the kernel gates' refusal under ``torch.func``."""
+the SIMPLE-type preconditioner, the chunked GMRES against the monolithic
+solve, and the kernel gates' refusal under ``torch.func``.  The JAX
+package's 31^2 Newton cases from their own warm starts
+(``tests/test_newton.py``) are ``test_torch_newton_solve.py`` (power law)
+and ``test_torch_newton_quick.py`` (QUICK), files of their own so that the
+long runs go to three test workers."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 import naviflow_tpu as nf
-from naviflow_tpu.algorithms import NewtonConfig, SIMPLEConfig, newton_solve, simple_solve
+from naviflow_tpu.algorithms import SIMPLEConfig, simple_solve
 from naviflow_tpu.algorithms import newton as jn
 from naviflow_tpu.solvers import KrylovMomentumConfig
 from naviflow_tpu.solvers.multigrid import MultigridConfig
@@ -60,9 +63,11 @@ def _port(mesh, fluid, bc, state):
             interop.flow_state(state, dtype=torch.float64))
 
 
+@functools.lru_cache(maxsize=None)
 def _pieces(scheme, nx=15, re=400.0):
     """Both packages' residual and flat iterate at a warm state, and a
-    seeded direction."""
+    seeded direction (made once a module for each scheme and grid: the
+    tests read them and change none)."""
     mesh, fluid, bc, warm = _warm(nx, re, steps=6, scheme=scheme)
     dx, dy = mesh.get_cell_sizes()
     shapes = dict(su=warm.u.shape, sv=warm.v.shape, sp=warm.p.shape)
@@ -123,24 +128,6 @@ def test_preconditioner_matches_jax(shift):
     assert _rel(Mt(_T(z)).numpy(), Mj(jnp.asarray(z))) <= 1e-10
 
 
-def test_power_law_newton_matches_jax():
-    """``tests/test_newton.py``'s first case (31^2 power-law, 30 SIMPLE
-    steps of warm start, Newton to 1e-10): the same Newton and GMRES
-    iteration counts, histories to rel 1e-6 above 1e-9, fields to 1e-9."""
-    mesh, fluid, bc, warm = _warm()
-    cfg = NewtonConfig(tolerance=1e-10, scheme="power_law", max_newton=25)
-    fj, dj = newton_solve(mesh, fluid, bc, warm, cfg)
-    ft, dt = tn.newton_solve(*_port(mesh, fluid, bc, warm), interop.config(cfg))
-    assert dj.converged and dt.converged
-    assert dt.iterations == dj.iterations and dt.gmres_iterations == dj.gmres_iterations
-    hj, ht = np.asarray(dj.residual_history), np.asarray(dt.residual_history)
-    above = hj > 1e-9
-    np.testing.assert_allclose(ht[above], hj[above], rtol=1e-6)
-    for name in ("u", "v", "p"):
-        assert float(np.max(np.abs(getattr(ft, name).numpy()
-                                   - np.asarray(getattr(fj, name))))) <= 1e-9, name
-
-
 def test_chunked_gmres_matches_monolithic():
     """A restart cycle is a fresh Arnoldi from the current residual, so the
     chunked solve is the monolithic one: the same Newton trajectory."""
@@ -159,13 +146,16 @@ def test_chunked_gmres_matches_monolithic():
 
 
 def test_kernel_gates_refuse_under_torch_func():
-    """A CUDA kernel has no forward-mode rule: under ``torch.func`` the
-    kernel gate and the launch path raise instead of switching to the
-    plain version."""
+    """A CUDA kernel has no forward-mode rule: under ``torch.func.jvp`` and
+    forward-mode AD the kernel gate and the launch path raise instead of
+    switching to the plain version.  Under ``torch.func.vmap`` alone the
+    gate answers from the device (K7, K5 and K4 have batching rules) and
+    the launch path still raises."""
     x = torch.ones(3, dtype=torch.float64)
+    seen = []
 
     def gate(t):
-        _cuda.kernel_device(torch.device("cuda"))
+        seen.append(_cuda.kernel_device(torch.device("cuda")))
         return t
 
     def launch(t):
@@ -175,11 +165,13 @@ def test_kernel_gates_refuse_under_torch_func():
     for fn in (gate, launch):
         with pytest.raises(RuntimeError, match="torch.func"):
             torch.func.jvp(fn, (x,), (x,))
-        with pytest.raises(RuntimeError, match="torch.func"):
-            torch.func.vmap(fn)(x[:, None])
         with torch.autograd.forward_ad.dual_level():
             with pytest.raises(RuntimeError, match="torch.func"):
                 fn(x)
+    with pytest.raises(RuntimeError, match="torch.func"):
+        torch.func.vmap(launch)(x[:, None])
+    torch.func.vmap(gate)(x[:, None])
+    assert seen == [True]
     assert not _cuda.under_transform()
     assert not _cuda.kernel_device(torch.device("cpu"))
 

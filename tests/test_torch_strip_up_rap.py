@@ -280,6 +280,8 @@ def test_k4_slots_match_c_entry():
         "coarse level (c, e, w, n, s, ne, nw, se, sw)")
     assert doc.group(3) == "L (levels, fine included), fine_five, then per level ni, nj"
     entry = _body(src, "NF_EXPORT int nf_galerkin_levels(")
+    assert "read_rap(P, ptrs, ip)" in entry
+    entry += _body(src, "int read_rap(")  # the slots it reads through
     assert "P.L = ip[0];" in entry
     assert "lv.st[k] = reinterpret_cast<const float*>(ptrs[9 * l + k]);" in entry
     assert "lv.ni = ip[2 + 2 * l]; lv.nj = ip[3 + 2 * l];" in entry
