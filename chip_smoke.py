@@ -33,7 +33,11 @@ result line:
    batched K7 (the u and v systems), K5 and K4 at 63^2, 3 cases with their
    own viscosities and hierarchies (``check_case_axis``), each case
    bit-equal to its single launch, the batched plain version within the
-   kernel's tolerance, a frozen case as specified; K3 on
+   kernel's tolerance, a frozen case as specified; the batched K1
+   (1024^2, degree 4), K2a and K2b (the 1024^2 five-point and 512^2
+   nine-point levels) and K3 (the 256^2 -> 4^2 tail) at B = 3, each case
+   with its own Re 100 / 400 / 1000 state, viscosity, bounds and hierarchy
+   (``check_large_case_axis``), the same checks; K3 on
    the 63^2 -> 7^2 vertex hierarchy; K8 at 2048^2
    (plain, with the Gershgorin maxima, and with each Poisson fold); K9 on
    the u and v systems of a 2048^2 cavity state (degree 4); K6's simplec,
@@ -168,7 +172,17 @@ result line:
     within 1e-3; ms a lockstep step at B = 1, 3, 8 beside the same cases
     one after another; the vmapped step's host split
     (``fmg_split_batched``); the idle share over 2 lockstep steps of the
-    8-case batch;
+    8-case batch; then ``batch_large`` (``run_batch_large``): ``bench.py``'s
+    large-grid SIMPLE (the 1024^2 slice's configuration) batched over Re
+    100 / 400 / 1000 for 10 lockstep steps, the vmapped branch's even arm:
+    batched K1 = 10, K2a = K2b = 20, K3 = 10 and nothing else; each case
+    held to its single solve bit for bit or within 1e-4 (fields and every
+    history step), a case held to its neighbour's single solve failing
+    that; whether the batched mean, norm and max round as one case's; ms a
+    lockstep step at B = 1 and 3 beside the single solves; the idle share
+    over 2 lockstep steps; and the even 256^2 8-case sweep, 10 steps, one
+    batched K5 a step (K5 takes that whole hierarchy), each case held the
+    same way;
 17. Newton-Krylov (``run_newton``): ``benchmarks/scale_runs.py``'s QUICK
     pipeline at 255^2 Re=1000 (a SIMPLE warm start, then ``newton_solve``
     to 1e-5): converged, Ghia below 0.10, K4 once a Newton step and K5 once
@@ -201,13 +215,14 @@ result line:
     kernel cycle; (i) the ``operator_sanity`` and ``cavity_basic``
     examples' ``run(args)``.
 
-Then a JSON line with every kernel's launches, error, times and bound (K2:
-each level's too, and the launches a step), the card's name and power
-limit, and, last, ``{"ok": true, "device": {...}}``.  Needs no network and
+Then a JSON line with each phase's seconds, a JSON line with every
+kernel's launches, error, times and bound (K2: each level's too, and the
+launches a step), the card's name and power limit, and, last, ``{"ok":
+true, "device": {...}}``.  Needs no network and
 no JAX; there is no CPU path.  With ``--ab TAG`` it runs one side of an A/B
-between two trees instead (``ab_side``: K1, K2a, K2b, K7, K5, K4, K6's
+between two trees instead (``ab_side``: K1, K2a, K2b, K3, K7, K5, K4, K6's
 phase split, K11a and K11b, or those ``--kernels`` names; ``--save DIR``
-keeps K1's, K2a's, K2b's, K4's, K5's, K7's and K11's outputs), and with ``--ab-compare
+keeps K1's, K2a's, K2b's, K3's, K4's, K5's, K7's and K11's outputs), and with ``--ab-compare
 DIR A B`` it compares two saved sides output by output.
 """
 
@@ -284,10 +299,14 @@ BATCH_TOLERANCE, BATCH_MAX_IT = 1e-3, 3000
 # the kernel phase's batched K6 rows: (grid, the cases' Reynolds numbers,
 # chained steps from rest)
 BATCH_KERNEL_CASES = ((NH, (100.0, 400.0, 1000.0), 2), (NH_BIG, (100.0, 400.0, 700.0, 1000.0), 1))
+# the batch phase's batch_large run: bench.py's large-grid SIMPLE at N^2 over
+# BATCH_RE, its lockstep steps, its limit on each case's relative gap to its
+# single solve where not bit-equal, and the even sweep's grid (BATCH_RE8)
+BATCH_LARGE_STEPS, BATCH_LARGE_LIMIT, BATCH_LARGE_SWEEP_GRID = 10, 1e-4, 256
 ALGORITHMS63_ITERATIONS = {}  # the algorithms63 phase's kernel runs (name -> iterations)
 SEED = 0
-REPS = 20  # timed launches per kernel measurement
-PLAIN_REPS = 4  # timed calls per turn of a kernel's plain version
+REPS = 10  # timed launches per kernel measurement (20 before the large batch's rows)
+PLAIN_REPS = 1  # timed calls per turn of a kernel's plain version (4 before)
 SLEEP_CYCLES = 60_000_000  # device_ms's head start: ~30 ms of the SM clock
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
@@ -420,7 +439,8 @@ def ptxas_kernels(src, kernel):
                       line)
         if m:
             name = None
-            if kernel in m.group(1):  # a template's instance: kernel<arguments>
+            # the mangled identifier, its length first (kernel, not kernel_batched)
+            if f"{len(kernel)}{kernel}" in m.group(1):  # a template's instance: kernel<arguments>
                 k = re.search(kernel + r"I((?:L[a-z]+\d+E)+)E", m.group(1))
                 args = re.findall(r"L[a-z]+(\d+)E", k.group(1)) if k else []
                 name = f"{kernel}<{','.join(args)}>" if args else kernel
@@ -599,7 +619,7 @@ def plain_k1():
 # the 1024^2 kernels (K1, K2, K3)
 
 
-def cavity_fields(n, dev):
+def cavity_fields(n, dev, seed=SEED):
     """A lid-driven-cavity state plus seeded noise, BCs applied."""
     import numpy as np
     import torch
@@ -607,7 +627,7 @@ def cavity_fields(n, dev):
     import naviflow_tpu_torch as nt
     from naviflow_tpu_torch.core.bc import apply_velocity_bcs
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     mesh = nt.StructuredMesh(nx=n, ny=n)
     bc = nt.lid_driven_cavity(1.0)
     st = nt.initialize_state(mesh, bc, device=dev)
@@ -1411,6 +1431,233 @@ def check_case_axis(inp, sizes, res=BATCH_RE):
     return rows
 
 
+def large_case_inputs(dev, res=BATCH_RE):
+    """The 1024^2 kernels' inputs for the cases ``res``: each case's noisy
+    cavity state (``cavity_fields``, its own seed), its own viscosity and
+    the bounds of its own assembly (K1's arguments), stacked with a leading
+    case axis; each case's hierarchy from the d-fields of its own K1 output
+    (``fine_levels``' configuration); seeded p, b and coarse corrections a
+    level (K2) and a right-hand side for the 256^2 tail (K3)."""
+    import numpy as np
+    import torch
+
+    from naviflow_tpu_torch.ops import asmcheby
+    from naviflow_tpu_torch.ops.powerlaw import (case_conductances, relax_coefficients,
+                                                 u_momentum_coefficients,
+                                                 v_momentum_coefficients)
+    from naviflow_tpu_torch.ops.stencil9 import Stencil9
+    from naviflow_tpu_torch.solvers.momentum import _u_interior_mask, _v_interior_mask
+    from naviflow_tpu_torch.solvers.multigrid import MultigridConfig, build_levels
+
+    cfg = MultigridConfig(tolerance=0.0, max_cycles=1, pre_smoothing=1, post_smoothing=1,
+                          coarsest_sweeps=32, coarse_rebuild_every=8)
+    cases = []
+    for k, re_ in enumerate(res):
+        u, v, p, kw = cavity_fields(N, dev, seed=SEED + 10 + k)
+        kw = dict(kw, mu=1.0 / re_)
+        rho_u = asmcheby._masked_ratio_max(
+            relax_coefficients(u_momentum_coefficients(u, v, p, **kw), u, 0.7),
+            _u_interior_mask(u.shape, device=dev))
+        rho_v = asmcheby._masked_ratio_max(
+            relax_coefficients(v_momentum_coefficients(u, v, p, **kw), v, 0.7),
+            _v_interior_mask(v.shape, device=dev))
+        a = k1_args(kw, rho_u, rho_v)
+        out = asmcheby.fused_asmcheby_pair(u, v, p, **a)
+        levels = build_levels(out[4], out[5], cfg, dx=kw["dx"], dy=kw["dy"], rho=1.0,
+                              variant="consistent")
+        cases.append(dict(fields=(u, v, p), args=a, levels=levels))
+    a0 = cases[0]["args"]
+    k1 = dict(dx=a0["dx"], dy=a0["dy"], rho=1.0, alpha=0.7, degree=4,
+              poisson_variant="consistent",
+              visc=case_conductances([1.0 / re_ for re_ in res], a0["dx"], a0["dy"],
+                                     torch.float32, dev),
+              bounds_u=tuple(torch.stack([c["args"]["bounds_u"][i] for c in cases])
+                             for i in range(3)),
+              bounds_v=tuple(torch.stack([c["args"]["bounds_v"][i] for c in cases])
+                             for i in range(3)))
+    fields = tuple(torch.stack([c["fields"][i] for c in cases]) for i in range(3))
+    names = ("c", "e", "w", "n", "s", "ne", "nw", "se", "sw")
+    levels = [(Stencil9(*(torch.stack([getattr(c["levels"][lvl][0], f) for c in cases])
+                          for f in names)), shp, five, lam)
+              for lvl, (_, shp, five, lam) in enumerate(cases[0]["levels"])]
+    rng = np.random.default_rng(SEED + 5)
+
+    def rnd(shape):
+        return torch.as_tensor(rng.normal(size=(len(res), *shape)), dtype=torch.float32,
+                               device=dev)
+
+    return dict(cases=cases, fields=fields, k1=k1, levels=levels, cfg=cfg, rnd=rnd)
+
+
+def check_large_case_axis(dev, cl_ms, k3_size, res=BATCH_RE):
+    """The batched K1 (1024^2, degree 4), K2a and K2b (the 1024^2 five-point
+    and 512^2 nine-point levels) and K3 (the 256^2 -> 4^2 tail), each at
+    B = 3 with the Re ``res`` cases of ``large_case_inputs``: every case
+    bit-equal to its single launch in every output (each single launch's
+    device ms beside the batched one's); the batched plain version within
+    the single kernel's tolerance (K1: ``check_asmcheby``'s; K2:
+    ``strip_close``; K3: 1e-5 of the output's scale); a frozen case (the
+    middle one) returns its frozen outputs (K1: its u and v, zeros
+    elsewhere; K2a: its p and a zero coarse residual; K2b and K3: its p)
+    and leaves the other cases' bits alone.  Work: the cases' sum; K3's
+    barrier bound: the slowest case's barriers times its waves."""
+    import torch
+
+    from naviflow_tpu_torch.ops import _cuda, asmcheby, mg, strip
+    from naviflow_tpu_torch.ops.stencil9 import Stencil9
+
+    ci = large_case_inputs(dev, res)
+    B = len(res)
+    frozen_flags = torch.tensor([k != 1 for k in range(B)], device=dev)
+    rows = []
+
+    # K1
+    u, v, p = ci["fields"]
+
+    def k1(active=None):
+        return asmcheby.fused_asmcheby_pair_batched(u, v, p, active=active, **ci["k1"])
+
+    def k1_plain():
+        return asmcheby.fused_asmcheby_pair_batched_plain(u, v, p, **ci["k1"])
+
+    got, want = asmcheby._flat(k1()), asmcheby._flat(k1_plain())
+    bit_equal, single_ms = True, []
+    for k, case in enumerate(ci["cases"]):
+        def one_case(case=case):
+            return asmcheby.fused_asmcheby_pair(*case["fields"], **case["args"])
+
+        bit_equal &= all(torch.equal(g[k], o) for g, o in zip(got, asmcheby._flat(one_case())))
+        single_ms.append(device_ms(one_case))
+    fz = asmcheby._flat(k1(active=frozen_flags))
+    torch_sync()
+    frozen_ok = (torch.equal(fz[0][1], u[1]) and torch.equal(fz[2][1], v[1])
+                 and not any(bool(fz[i][1].any()) for i in (1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12))
+                 and all(torch.equal(f[k], g[k]) for f, g in zip(fz, got) for k in (0, 2)))
+    tols = [2e-5, 5e-5, 2e-5, 5e-5, 2e-5, 2e-5] + [2e-5] * 5 + [1e-6, 1e-6]
+    worst_abs, ok = 0.0, True
+    for g, w, tol in zip(got, want, tols):
+        for k in range(B):
+            e_abs, e_rel = max_err(g[k], w[k])
+            worst_abs = max(worst_abs, e_abs)
+            ok &= e_rel < tol
+    n, degree = N, 4
+    faces = 2 * n * (n + 1)
+    one_work = (4 * (faces + n * n + 3 * faces + 5 * n * n + 2),
+                faces * (70 + degree * (APPLY5 + 8) + 10) + 10 * n * n)
+    ms, plain_ms, dev_ms = time_pair(k1_plain, k1)
+    rows.append(dict(name="fused_asmcheby_pair_batched", shape=[n, n], degree=degree,
+                     cases=B, reynolds=list(res), ok=ok and bit_equal and frozen_ok,
+                     bit_equal_to_single=bit_equal, frozen_case_ok=frozen_ok,
+                     max_abs_err=worst_abs, single_device_ms=single_ms, ms=ms,
+                     plain_ms=plain_ms, device_ms=dev_ms, host_ms=host_ms(k1),
+                     work=(B * one_work[0], B * one_work[1])))
+    # K2a, K2b on levels 0 and 1
+    levels, cfg, rnd = ci["levels"], ci["cfg"], ci["rnd"]
+    for lvl in (0, 1):
+        st, (nl, _), five, _ = levels[lvl]
+        pb, bb, ec = rnd((nl, nl)), rnd((nl, nl)), rnd((nl // 2, nl // 2))
+
+        def down(active=None, st=st, pb=pb, bb=bb, five=five):
+            return strip.strip_down_batched(pb, bb, st, cfg, five, active=active)
+
+        def down_plain(st=st, pb=pb, bb=bb, five=five):
+            return strip.strip_down_batched_plain(pb, bb, st, cfg, five)
+
+        xd = down_plain()[0]
+
+        def up(active=None, st=st, xd=xd, bb=bb, ec=ec, five=five):
+            return strip.strip_up_batched(xd, bb, st, ec, cfg, five, active=active)
+
+        def up_plain(st=st, xd=xd, bb=bb, ec=ec, five=five):
+            return strip.strip_up_batched_plain(xd, bb, st, ec, cfg, five)
+
+        gd, wd, gu, wu = down(), down_plain(), up(), up_plain()
+        bit_d = bit_u = True
+        single_d, single_u = [], []
+        for k in range(B):
+            stk = Stencil9(*(getattr(st, f)[k] for f in ("c", "e", "w", "n", "s", "ne", "nw",
+                                                         "se", "sw")))
+
+            def one_down(k=k, stk=stk):
+                return strip.strip_down(pb[k], bb[k], stk, cfg, five)
+
+            def one_up(k=k, stk=stk):
+                return strip.strip_up(xd[k], bb[k], stk, ec[k], cfg, five)
+
+            bit_d &= all(torch.equal(g[k], o) for g, o in zip(gd, one_down()))
+            bit_u &= torch.equal(gu[k], one_up())
+            single_d.append(device_ms(one_down))
+            single_u.append(device_ms(one_up))
+        fd, fu = down(active=frozen_flags), up(active=frozen_flags)
+        torch_sync()
+        frozen_d = (torch.equal(fd[0][1], pb[1]) and not bool(fd[1][1].any())
+                    and all(torch.equal(f[k], g[k]) for f, g in zip(fd, gd) for k in (0, 2)))
+        frozen_u = torch.equal(fu[1], xd[1]) and all(torch.equal(fu[k], gu[k]) for k in (0, 2))
+        ok_d = all(strip_close(g[k], w[k]) for g, w in zip(gd, wd) for k in range(B))
+        ok_u = all(strip_close(gu[k], wu[k]) for k in range(B))
+        cells, a, taps = nl * nl, _apply_ops(five), (5 if five else 9)
+        down_work = (4 * (cells * (2 + taps) + cells + cells // 4),
+                     cells * (cfg.pre_smoothing * (a + GS_UPDATE) + a + 1) + 3 * cells)
+        up_work = (4 * (cells * (2 + taps) + cells // 4 + cells),
+                   cells * (4 + cfg.post_smoothing * (a + GS_UPDATE)))
+        for name, fn, plain, okk, bit, frz, single, work, errs in (
+                ("strip_down_batched", down, down_plain, ok_d, bit_d, frozen_d, single_d,
+                 down_work, [max_err(g, w)[0] for g, w in zip(gd, wd)]),
+                ("strip_up_batched", up, up_plain, ok_u, bit_u, frozen_u, single_u, up_work,
+                 [max_err(gu, wu)[0]])):
+            ms, plain_ms, dev_ms = time_pair(plain, fn)
+            rows.append(dict(name=name, shape=[nl, nl], five_point=five, cases=B,
+                             reynolds=list(res), ok=okk and bit and frz,
+                             bit_equal_to_single=bit, frozen_case_ok=frz,
+                             max_abs_err=max(errs), single_device_ms=single, ms=ms,
+                             plain_ms=plain_ms, device_ms=dev_ms, host_ms=host_ms(fn),
+                             work=(B * work[0], B * work[1])))
+    # K3 on the tail
+    tail = levels[2:]
+    nt_ = tail[0][1][0]
+    bt = rnd((nt_, nt_))
+    pt = torch.zeros_like(bt)
+    assert mg.supports_fused(mg._case_levels(tail, 0), cfg)
+
+    def k3(active=None):
+        return mg.fused_vcycle_batched(pt, bt, tail, cfg, active=active)
+
+    def k3_plain():
+        return mg.fused_vcycle_batched_plain(pt, bt, tail, cfg)
+
+    got3, want3 = k3(), k3_plain()
+    bit3, single3 = True, []
+    for k in range(B):
+        def one3(k=k):
+            return mg.fused_vcycle(pt[k], bt[k], mg._case_levels(tail, k), cfg)
+
+        bit3 &= torch.equal(got3[k], one3())
+        single3.append(device_ms(one3))
+    pf = rnd((nt_, nt_))
+    f3 = k3(active=frozen_flags)
+    f3p = mg.fused_vcycle_batched(pf, bt, tail, cfg, active=frozen_flags)
+    torch_sync()
+    frozen3 = (torch.equal(f3[1], pt[1]) and torch.equal(f3p[1], pf[1])
+               and all(torch.equal(f3[k], got3[k]) for k in (0, 2)))
+    errs3 = [max_err(got3[k], want3[k]) for k in range(B)]
+    ms, plain_ms, dev_ms = time_pair(k3_plain, k3)
+    meta = meta_of(tail)
+    fit = _cuda.case_max_clusters(3, k3_size)
+    waves = -(-B // fit)
+    bar = k3_barriers(meta, cfg)
+    work = vcycle_work(meta, cfg)
+    rows.append(dict(name="fused_vcycle_batched", shape=[nt_, nt_],
+                     levels=[m[0][0] for m in meta], cases=B, reynolds=list(res),
+                     ok=max(r for _, r in errs3) < 1e-5 and bit3 and frozen3,
+                     bit_equal_to_single=bit3, frozen_case_ok=frozen3,
+                     max_abs_err=max(a for a, _ in errs3), rel_err=max(r for _, r in errs3),
+                     single_device_ms=single3, ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                     host_ms=host_ms(k3), work=(B * work[0], B * work[1]),
+                     cluster_size=k3_size, max_active_clusters=fit, waves=waves,
+                     cluster_barriers=bar, barrier_bound_ms=waves * bar * cl_ms))
+    return rows
+
+
 def check_assembly(dev):
     """K8 at 2048^2 from a seeded cavity state: plain, with the Gershgorin
     maxima, and with each Poisson fold; coefficients at rtol/atol 1e-5,
@@ -1924,6 +2171,10 @@ def counts():
             "fused_mg_solve_batched": mg.SOLVE_BATCH_LAUNCHES,
             "fused_outer_step": step.LAUNCHES,
             "fused_outer_step_batched": step.BATCH_LAUNCHES,
+            "fused_asmcheby_pair_batched": asmcheby.BATCH_LAUNCHES,
+            "strip_down_batched": strip.STRIP_DOWN_BATCH_LAUNCHES,
+            "strip_up_batched": strip.STRIP_UP_BATCH_LAUNCHES,
+            "fused_vcycle_batched": mg.VC_BATCH_LAUNCHES,
             "fused_assembly_pair": assembly.LAUNCHES,
             "chebyshev_momentum_strips": cheby.LAUNCHES,
             "plane_strip_down": plane_strip.DOWN_LAUNCHES,
@@ -1936,11 +2187,11 @@ def reset_counts():
     from naviflow_tpu_torch.ops import (asmcheby, assembly, cheby, kernels, krylov, mg,
                                         plane_strip, step, strip)
 
-    asmcheby.LAUNCHES = 0
-    strip.STRIP_DOWN_LAUNCHES = 0
-    strip.STRIP_UP_LAUNCHES = 0
+    asmcheby.LAUNCHES = asmcheby.BATCH_LAUNCHES = 0
+    strip.STRIP_DOWN_LAUNCHES = strip.STRIP_DOWN_BATCH_LAUNCHES = 0
+    strip.STRIP_UP_LAUNCHES = strip.STRIP_UP_BATCH_LAUNCHES = 0
     mg.LAUNCHES = mg.RAP_LAUNCHES = mg.SOLVE_LAUNCHES = 0
-    mg.RAP_BATCH_LAUNCHES = mg.SOLVE_BATCH_LAUNCHES = 0
+    mg.RAP_BATCH_LAUNCHES = mg.SOLVE_BATCH_LAUNCHES = mg.VC_BATCH_LAUNCHES = 0
     krylov.LAUNCHES = krylov.BATCH_LAUNCHES = 0
     step.LAUNCHES = step.BATCH_LAUNCHES = 0
     assembly.LAUNCHES = 0
@@ -1954,18 +2205,26 @@ def only(**nonzero):
     return {k: nonzero.get(k, 0) for k in counts()}
 
 
+def large_slice_configs(backend="auto"):
+    """``bench.py``'s large-grid momentum and pressure configurations
+    (Chebyshev of degree 4; one fixed V-cycle, 1/1 smoothing, 32 coarsest
+    sweeps, coarse rebuild every 8 steps)."""
+    from naviflow_tpu_torch.solvers import ChebyshevMomentumConfig, MultigridConfig
+
+    return (ChebyshevMomentumConfig(degree=4, backend=backend),
+            MultigridConfig(tolerance=0.0, max_cycles=1, cycle_type="v", pre_smoothing=1,
+                            post_smoothing=1, coarsest_sweeps=32, coarse_rebuild_every=8,
+                            backend=backend))
+
+
 def solve(dev, backend):
     import naviflow_tpu_torch as nt
     from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
-    from naviflow_tpu_torch.solvers import ChebyshevMomentumConfig, MultigridConfig
 
     mesh = nt.StructuredMesh(nx=N, ny=N)
     fluid = nt.FluidProperties(density=1.0, reynolds_number=RE)
     bc = nt.lid_driven_cavity(1.0)
-    mom = ChebyshevMomentumConfig(degree=4, backend=backend)
-    pres = MultigridConfig(tolerance=0.0, max_cycles=1, cycle_type="v", pre_smoothing=1,
-                           post_smoothing=1, coarsest_sweeps=32, coarse_rebuild_every=8,
-                           backend=backend)
+    mom, pres = large_slice_configs(backend)
     state = nt.initialize_state(mesh, bc, device=dev)  # a fresh state per solve
     torch_sync()
     t0 = time.perf_counter()
@@ -3380,9 +3639,11 @@ def run_batch(dev):
         lambda: batched_cavity_solve(mesh, BATCH_RE8, bc, cfg, mom, pres, device=dev),
         max(runs["63x8"]["iterations"]))
     fmg = run_batch_fmg(dev)
-    ok &= fmg["ok"]
+    large = run_batch_large(dev)
+    ok &= fmg["ok"] and large["ok"]
     return dict(phase="batch", tolerance=BATCH_TOLERANCE, runs=runs, batch_fmg=fmg,
-                launches_fmg=fmg["runs"]["63x3"]["launches"],
+                batch_large=large, launches_fmg=fmg["runs"]["63x3"]["launches"],
+                launches_large=large["launches"],
                 ms_per_lockstep_step={str(len(r["reynolds"])): r["ms_per_lockstep_step"]
                                       for t, r in runs.items()
                                       if t in ("63x1", "63x3", "63x8")},
@@ -3478,6 +3739,141 @@ def run_batch_fmg(dev):
                                          for n in (sizes[k], 8)}
                                      for i, k in enumerate(("K7", "K5", "K4"))},
                 cluster_size=sizes, card=nvidia_smi(), ok=ok)
+
+
+def large_batch(dev, n, res, steps, backend="auto"):
+    """``batched_cavity_solve`` of ``bench.py``'s large-grid configuration
+    (``solve``'s) at n^2 over ``res``, ``steps`` lockstep steps from rest
+    (tolerance 0): per-case (state, diagnostics), ms a lockstep step, the
+    launches."""
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, batched_cavity_solve
+
+    mom, pres = large_slice_configs(backend)
+    mesh, bc = nt.StructuredMesh(nx=n, ny=n), nt.lid_driven_cavity(1.0)
+    cfg = SIMPLEConfig(max_iterations=steps, tolerance=0.0)
+    torch_sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = batched_cavity_solve(mesh, res, bc, cfg, mom, pres, device=dev)
+    torch_sync()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return out, ms, counts()
+
+
+def large_single(dev, n, re_, steps):
+    """The single ``simple_solve`` of ``large_batch``'s configuration:
+    (state, diagnostics, ms a step)."""
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+
+    mom, pres = large_slice_configs()
+    mesh, bc = nt.StructuredMesh(nx=n, ny=n), nt.lid_driven_cavity(1.0)
+    state = nt.initialize_state(mesh, bc, device=dev)
+    torch_sync()
+    t0 = time.perf_counter()
+    out, diag = simple_solve(mesh, nt.FluidProperties(density=1.0, reynolds_number=re_), bc,
+                             state, SIMPLEConfig(max_iterations=steps, tolerance=0.0),
+                             momentum=mom, pressure=pres, loop="fused")
+    torch_sync()
+    return out, diag, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def held_to(bs, bd, ss, sd):
+    """A batch case against a single solve: fields and history bit-equal,
+    or the largest relative gap of the u, v, p fields and of a history
+    step (``field_gaps``, ``rel_gap``)."""
+    import torch
+
+    fields = all(torch.equal(getattr(bs, k), getattr(ss, k)) for k in ("u", "v", "p"))
+    hist = torch.equal(bd.total_res_history, sd.total_res_history)
+    gaps = field_gaps(bs, ss)
+    it = sd.iterations
+    hgap = max(rel_gap(bd.total_res_history[k], sd.total_res_history[k]) for k in range(it))
+    return dict(fields_bit_equal=fields, history_bit_equal=hist,
+                iterations_equal=bd.iterations == sd.iterations,
+                max_field_gap=max(gaps.values()), field_gaps=gaps, history_gap=hgap)
+
+
+def batched_operators(fields):
+    """Whether the composed reductions of the step round under
+    ``torch.func.vmap`` as they do on one case: ``torch.mean`` (the pressure
+    correction's mean, ``multigrid.py:425``), ``torch.linalg.vector_norm``
+    (the residual norms) and ``torch.max`` (the Gershgorin maxima), each
+    batched over ``fields`` against one call a field."""
+    import torch
+
+    x = torch.stack(fields)
+    out = {}
+    for name, fn in (("mean", torch.mean), ("vector_norm", torch.linalg.vector_norm),
+                     ("max", torch.max)):
+        batched = torch.func.vmap(fn)(x)
+        out[name] = all(torch.equal(batched[k], fn(x[k])) for k in range(len(fields)))
+    return out
+
+
+def run_batch_large(dev):
+    """``bench.py``'s large-grid SIMPLE batched (``batched_cavity_solve``'s
+    vmapped branch, its even arm): at 1024^2 over ``BATCH_RE`` for
+    ``BATCH_LARGE_STEPS`` lockstep steps, launches exact (batched K1 = the
+    steps, batched K2a = batched K2b = 2 x the steps, batched K3 = the
+    steps, nothing else: no single K1, K2 or K3); each case held to its
+    single ``simple_solve`` bit for bit or within ``BATCH_LARGE_LIMIT``
+    relative (fields and every history step), and a control that must fail
+    that: each case against its neighbour's single solve (another Re); ms a
+    lockstep step at B = 1 and 3 beside the single solves' ms a step; the
+    idle share over 2 lockstep steps of the 3 cases; then the even 256^2
+    8-case sweep (``BATCH_RE8``) for ``BATCH_LARGE_STEPS`` steps, where K5
+    takes each whole pressure solve (its gate admits the 256^2 hierarchy
+    before the V-cycle's) and K1's gate is closed (below 1024^2):
+    batched K5 = the steps, nothing else, each case held to its single
+    solve the same way."""
+    steps = BATCH_LARGE_STEPS
+    large_batch(dev, N, BATCH_RE, 2)  # warm-up: scratch, launch state
+    out, ms3, launches = large_batch(dev, N, BATCH_RE, steps)
+    want = only(fused_asmcheby_pair_batched=steps, strip_down_batched=2 * steps,
+                strip_up_batched=2 * steps, fused_vcycle_batched=steps)
+    singles = [large_single(dev, N, re_, steps) for re_ in BATCH_RE]
+    cases = [held_to(bs, bd, ss, sd) for (bs, bd), (ss, sd, _) in zip(out, singles)]
+    control = [held_to(bs, bd, ss, sd) for (bs, bd), (ss, sd, _)
+               in zip(out, singles[1:] + singles[:1])]
+
+    def within(c):
+        return c["iterations_equal"] and ((c["fields_bit_equal"] and c["history_bit_equal"])
+                                          or max(c["max_field_gap"], c["history_gap"])
+                                          <= BATCH_LARGE_LIMIT)
+
+    operators = batched_operators([bs.p for bs, _ in out])
+    out1, ms1, launches1 = large_batch(dev, N, BATCH_RE[:1], steps)
+    held1 = within(held_to(*out1[0], *singles[0][:2]))
+    profile_steps = 2
+    profile = profile_window(lambda: large_batch(dev, N, BATCH_RE, profile_steps),
+                             profile_steps)
+    # the even 256^2 sweep
+    n8 = BATCH_LARGE_SWEEP_GRID
+    large_batch(dev, n8, BATCH_RE8, 2)
+    out8, ms8, launches8 = large_batch(dev, n8, BATCH_RE8, steps)
+    want8 = only(fused_mg_solve_batched=steps)
+    singles8 = [large_single(dev, n8, re_, steps) for re_ in BATCH_RE8]
+    cases8 = [held_to(bs, bd, ss, sd) for (bs, bd), (ss, sd, _) in zip(out8, singles8)]
+    ok = (launches == want and all(within(c) for c in cases)
+          and not any(within(c) for c in control) and held1
+          and launches1 == want and launches8 == want8
+          and all(within(c) for c in cases8))
+    return dict(phase="batch_large", grid=N, reynolds=list(BATCH_RE), steps=steps,
+                limit=BATCH_LARGE_LIMIT, cases=cases, control_neighbour_re=control,
+                batched_operators_bit_equal=operators,
+                launches=launches, launches_expected=want, launches_b1=launches1,
+                ms_per_lockstep_step={"1": ms1, "3": ms3},
+                single_ms_per_step=[ms for _, _, ms in singles],
+                sequential_ms_per_step_b3=sum(ms for _, _, ms in singles),
+                idle_profile_3=profile,
+                sweep=dict(grid=n8, reynolds=list(BATCH_RE8), steps=steps, cases=cases8,
+                           launches=launches8, launches_expected=want8,
+                           ms_per_lockstep_step=ms8,
+                           single_ms_per_step=[ms for _, _, ms in singles8],
+                           sequential_ms_per_step=sum(ms for _, _, ms in singles8)),
+                card=nvidia_smi(), ok=bool(ok))
 
 
 def tangent_graph_check(warm, mesh, fluid, bc, scheme):
@@ -4480,6 +4876,17 @@ SOURCES = {
                                "naviflow_tpu/ops/pallas_mg.py:512", "batch_fmg"),
     "galerkin_levels_batched": ("galerkin_levels_batched", "naviflow_tpu_torch/csrc/mg.cu",
                                 "naviflow_tpu/ops/pallas_mg.py:445", "batch_fmg"),
+    # K1, K2a, K2b and K3 with the case axis: the batch phase's vmapped
+    # large-grid step
+    "fused_asmcheby_pair_batched": ("fused_asmcheby_pair_batched",
+                                    "naviflow_tpu_torch/csrc/asmcheby.cuh",
+                                    "naviflow_tpu/ops/pallas_asmcheby.py:303", "batch_large"),
+    "strip_down_batched": ("strip_down_batched", "naviflow_tpu_torch/csrc/strip.cu",
+                           "naviflow_tpu/ops/pallas_strip.py:304", "batch_large"),
+    "strip_up_batched": ("strip_up_batched", "naviflow_tpu_torch/csrc/strip.cu",
+                         "naviflow_tpu/ops/pallas_strip.py:339", "batch_large"),
+    "fused_vcycle_batched": ("fused_vcycle_batched", "naviflow_tpu_torch/csrc/mg.cu",
+                             "naviflow_tpu/ops/pallas_mg.py:479", "batch_large"),
     "fused_assembly_pair": ("fused_assembly_pair", "naviflow_tpu_torch/csrc/assembly.cu",
                             "naviflow_tpu/ops/pallas_assembly.py:294", "large_grid"),
     "chebyshev_momentum_strips": ("chebyshev_momentum_strips",
@@ -4497,6 +4904,10 @@ SOURCES = {
 }
 
 
+# the strip kernels' rows: one a level, summed into one step's work
+STRIP_NAMES = ("strip_down", "strip_up", "strip_down_batched", "strip_up_batched")
+
+
 def kernels_line(rows, paths):
     """One entry per kernel (and per K6 body).  The time, error and work are
     those of its main-path shape (K2: both strip levels of one step, summed,
@@ -4511,14 +4922,17 @@ def kernels_line(rows, paths):
     the kernel phase's 63^2 B = 3 row, with its cases, waves and the max
     active clusters), batched K7, K5 and K4 the batch phase's FMG 63^2 Re
     100 / 400 / 1000 run (their times, errors and work: the kernel phase's
-    63^2 B = 3 rows), K10 the 4096^2 plane run, K11 the kernel phase's
+    63^2 B = 3 rows), batched K1, K2a, K2b and K3 the batch phase's
+    ``batch_large`` run (theirs: the kernel phase's B = 3 rows at the
+    1024^2 path's shapes, the strips' two levels summed), K10 the 4096^2
+    plane run, K11 the kernel phase's
     checking calls), with every path's count beside them.  ``library_ms``:
     K11b's cuSPARSE SpMV; no other kernel's function is one PyTorch call."""
     out = []
     for name, (counter, src, replaces, path) in SOURCES.items():
         mine = [r for r in rows if r["name"] == name and r.get("main", True)
                 and not r.get("vertex")]
-        k = 1 if name in ("strip_down", "strip_up") else len(mine)
+        k = 1 if name in STRIP_NAMES else len(mine)
         ms = sum(r["ms"] for r in mine) / k
         plain_ms = sum(r["plain_ms"] for r in mine) / k
         nbytes = sum(r["work"][0] for r in mine) / k
@@ -4539,8 +4953,11 @@ def kernels_line(rows, paths):
                     "max_active_clusters", "waves"):
             if all(key in r for r in mine):
                 entry[key] = sum(r[key] for r in mine) / k
-        if name in ("strip_down", "strip_up"):
-            entry["launches_per_step"] = paths[path][counter] / STEPS
+        if "cases" in entry:
+            entry["cases"] = mine[0]["cases"]
+        if name in STRIP_NAMES:
+            entry["launches_per_step"] = paths[path][counter] / (
+                BATCH_LARGE_STEPS if path == "batch_large" else STEPS)
             entry["levels"] = []
             for r in mine:
                 lb_ms, lb_by = bound(*r["work"])
@@ -4552,7 +4969,7 @@ def kernels_line(rows, paths):
     return out
 
 
-AB_KERNELS = ("K1", "K2a", "K2b", "K7", "K5", "K4", "K6", "K11a", "K11b")
+AB_KERNELS = ("K1", "K2a", "K2b", "K3", "K7", "K5", "K4", "K6", "K11a", "K11b")
 # K11a's A/B cases (shape, sweeps) and K11b's shapes
 AB_K11A = (((63, 63), 1), ((63, 63), 3), ((256, 256), 3), ((256, 256), 6))
 AB_K11B = ((63, 63), (256, 256), (48, 96))
@@ -4643,6 +5060,17 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
             timed(lambda: strip.strip_up(p, b, st, ec, cfg, five), kernel="K2b", n=n,
                   five_point=five, rel_err=errs, max_rel_err=max(errs.values()))
         del levels
+    if "K3" in kernels:
+        levels, cfg, rng = fine_levels(dev)
+        tail = levels[2:]
+        n = tail[0][1][0]
+        b = torch.as_tensor(rng.normal(size=(n, n)), dtype=torch.float32, device=dev)
+        p = torch.zeros_like(b)
+        errs = outputs(f"K3_{n}", {"p": mg.fused_vcycle(p, b, tail, cfg)},
+                       [mg.fused_vcycle_plain(p, b, tail, cfg)])
+        timed(lambda: mg.fused_vcycle(p, b, tail, cfg), kernel="K3", n=n, rel_err=errs,
+              max_rel_err=max(errs.values()))
+        del levels, tail
     # K7 at every size, K5 and K4 on the 63^2 and 255^2 hierarchies
     if "K7" in kernels:
         odd_sizes = sizes
@@ -4821,6 +5249,10 @@ def run_all(dev, card, t0) -> int:
                  for side, sweeps in (("strip_down", (1, 2)), ("strip_up", (0, 1, 2)))},
               ptxas=ptxas, ptxas_by_kernel={
                   **ptxas_kernels("strip.cu", "strip_up_kernel"),
+                  **ptxas_kernels("strip.cu", "strip_down_kernel_batched"),
+                  **ptxas_kernels("strip.cu", "strip_up_kernel_batched"),
+                  **ptxas_kernels("asmcheby.cu", "asmcheby_kernel_batched"),
+                  **ptxas_kernels("mg.cu", "vcycle_kernel_batched"),
                   **ptxas_kernels("mg.cu", "galerkin_kernel"),
                   **ptxas_kernels("poisson.cu", "rbgs_tile_kernel"),
                   **ptxas_kernels("poisson.cu", "matvec_kernel")}))
@@ -4840,6 +5272,7 @@ def run_all(dev, card, t0) -> int:
             sync_cache[blocks] = grid_sync_ms(cells, dev)
         return sync_cache[blocks]
 
+    t_kernel = time.perf_counter()
     rows = check_asmcheby(dev)
     levels, cfg, rng = fine_levels(dev)
     rows += check_strips(dev, levels, cfg, rng)
@@ -4864,6 +5297,7 @@ def run_all(dev, card, t0) -> int:
     rows += check_case_axis(inp, {"K7": (k7_size, cl_by_size[k7_size]),
                                   "K5": (k5_size, cl_by_size[k5_size]),
                                   "K4": (k4_size, cl_by_size[k4_size])})
+    rows += check_large_case_axis(dev, cl_by_size[k3_size], k3_size)
     del big
     rows += check_step_bodies(dev, cl_ms)
     rows += check_assembly(dev)
@@ -4883,6 +5317,7 @@ def run_all(dev, card, t0) -> int:
     emit(k3_phases([("tail256", *tail), ("vertex63", inp["levels"], inp["pres"], inp["b"])]))
     del tail, inp
     emit(k1_phases(dev))
+    seconds = {"build": t_kernel - t0, "kernel": time.perf_counter() - t_kernel}
 
     paths = {"kernel_phase": k11_launches}
     for phase, fn in (("slice", run_slice), ("headline", run_headline), ("fmg", run_fmg),
@@ -4893,7 +5328,7 @@ def run_all(dev, card, t0) -> int:
                       ("batch", run_batch), ("newton", run_newton), ("cli", run_cli)):
         t_phase = time.perf_counter()
         row = fn(dev)
-        row["seconds"] = time.perf_counter() - t_phase
+        row["seconds"] = seconds[phase] = time.perf_counter() - t_phase
         emit(row)
         if not row["ok"]:
             print(f"chip_smoke: the {phase} run failed its checks", file=sys.stderr)
@@ -4902,6 +5337,7 @@ def run_all(dev, card, t0) -> int:
             paths[phase] = row["runs"]["auto_0.001"]["launches"]
         elif phase == "batch":
             paths["batch"], paths["batch_fmg"] = row["launches"], row["launches_fmg"]
+            paths["batch_large"] = row["launches_large"]
         elif phase == "algorithms63":
             paths.update({f"{phase}:{name}": c for name, c in row["paths"].items()})
         elif phase == "quick":
@@ -4915,6 +5351,7 @@ def run_all(dev, card, t0) -> int:
         print(f"chip_smoke: never launched on their path (K11's path is the kernel phase, "
               f"since no path of the JAX package calls it): {unlaunched}", file=sys.stderr)
         return 1
+    emit(dict(phase="seconds", seconds=seconds, total=time.perf_counter() - t0))
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

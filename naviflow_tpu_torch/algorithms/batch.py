@@ -14,25 +14,33 @@ branches:
   (``simple.fused_step_ok``), one launch of K6's batched entry
   (``ops/step.fused_outer_step_batched``: one thread-block cluster a case,
   frozen cases leaving at once);
-* else, where :func:`vmap_step_ok` admits it (a CUDA float32 state, an odd
-  square grid, multigrid pressure whose solve K5 and whose hierarchy K4
-  take, BiCGSTAB momentum through K7's gate or fixed-sweep Jacobi, on the
-  power-law scheme: the 63^2 FMG headline step), ``torch.func.vmap`` of
-  the single step over (u, v, p, the carry, each case's viscous
+* else, where :func:`vmap_step_ok` admits it, ``torch.func.vmap`` of the
+  single step over (u, v, p, the carry, each case's viscous
   conductances), the port of ``jax.vmap(one)``: the composed operators
-  (the FMG bootstrap among them) run once for every case, and K7, K5 and
-  K4 each launch once for every case through their batching rules
-  (``ops/krylov.py``, ``ops/mg.py``), frozen cases' clusters leaving at
-  once; the frozen cases then get back what they were given;
+  run once for every case, and every kernel of the step launches once
+  for every case through its batching rule, frozen cases' blocks leaving
+  at once; the frozen cases then get back what they were given.  Its odd
+  arm (an odd square grid, multigrid pressure whose solve K5 and whose
+  hierarchy K4 take, BiCGSTAB momentum through K7's gate or fixed-sweep
+  Jacobi: the 63^2 FMG headline step) runs K7, K5 and K4
+  (``ops/krylov.py``, ``ops/mg.py``); its even arm (an even square grid,
+  a fixed number of multigrid V-cycles that K5 takes whole or K2 strips
+  and a K3 tail take, Chebyshev momentum through K1's lagged carry or
+  composed where neither K1, K8 nor K9 takes it: ``bench.py``'s
+  large-grid SIMPLE step) runs K1, K2a, K2b and K3 (``ops/asmcheby.py``,
+  ``ops/strip.py``, ``ops/mg.py``) or K5;
 * else every active case's own step, one after another (composed, or with
   its own kernels): the CPU path (where the kernel gates are closed), and
-  every configuration the other two refuse (even grids and the large-grid
-  kernels K1, K2, K3, K8, K9, K10, the pressure and momentum zoos, the
-  9-point schemes).
+  every configuration the other two refuse (a pressure tolerance above 0,
+  whose loop reads the residual on the host; the plane layout (K10); the
+  one-pass assembly and Chebyshev strips (K8, K9: SIMPLEC, PISO and
+  SIMPLER at 2048^2); the pressure and momentum zoos; the 9-point
+  schemes).
 
 Each case's result is its single solve's: bit for bit in the K6 and per-case
 branches, and in the vmapped one wherever the batched operators round as
-the single ones do.  Viscosity is the one per-case scalar (cavity Re = rho U
+the single ones do (the batched ``torch.mean`` of the pressure correction
+and ``torch.linalg.vector_norm`` of the residuals do not, on the card).  Viscosity is the one per-case scalar (cavity Re = rho U
 L / mu with U = L = 1).
 """
 
@@ -48,16 +56,19 @@ from ..core.mesh import StructuredMesh
 from ..core.state import FlowState, initialize_state
 from ..ops import _cuda
 from ..ops.assembly import supports_fused_assembly
+from ..ops.cheby import supports_cheby_strips
 from ..ops.krylov import supports_fused_bicgstab
 from ..ops.mg import supports_fused_layout, supports_fused_rap
 from ..ops.powerlaw import case_conductances
 from ..ops.stencil9 import Stencil9
 from ..ops.step import ALGO_SCALARS, fused_outer_step_batched
+from ..ops.strip import supports_strip
 from ..ops.transfer import coarse_size
+from ..solvers.momentum import lagged_rho_enabled
 from .base import SolveDiagnostics, StepInfo, case_info, run_outer_loop_batched
 from .lagged import make_lagged_mg, uses_lagged_mg
 from .piso import make_piso_step
-from .simple import (family_parts, fused_step_ok, lagged_extra0, make_simple_step,
+from .simple import (family_parts, fused_step_ok, lagged_extra0, make_simple_step, rho_extra0,
                      simple_parts, zero_carry)
 from .simplec import make_simplec_step, simplec_carry0
 from .simpler import make_simpler_step
@@ -118,17 +129,30 @@ def vmap_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm: str) -> bool:
     """The vmapped branch's gate, for the state's ``p`` (every case's
     shape): outside K6's gate, every kernel the single step would launch
     has a batching rule and every composed part runs under
-    ``torch.func.vmap``.  That is an odd square grid on a device the
-    kernel gates take; multigrid pressure (Galerkin V or FMG cycles) whose
-    whole solve K5 takes and whose hierarchy K4 builds from the fine level;
-    BiCGSTAB momentum that K7 takes for both fields, or fixed-sweep Jacobi,
-    on the power-law scheme without the one-pass assembly (K8)."""
-    nx, ny = p.shape[-2:]
+    ``torch.func.vmap`` without a host read.  Two arms, by grid parity:
+    :func:`_odd_step_ok` (K7, K5, K4: the FMG headline) and
+    :func:`_even_step_ok` (K1, K2, K3 or K5: ``bench.py``'s large-grid
+    SIMPLE)."""
     if not _cuda.kernel_device(p) or fused_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm):
         return False
-    if nx != ny or nx % 2 == 0 or getattr(pres_cfg, "kind", "") != "multigrid":
+    nx, ny = p.shape[-2:]
+    if nx != ny or getattr(pres_cfg, "kind", "") != "multigrid" or pres_cfg.backend == "composed":
         return False
-    if pres_cfg.backend == "composed" or not supports_fused_rap(nx, ny, pres_cfg, p.dtype):
+    scheme = getattr(mom_cfg, "scheme", "power_law")
+    if scheme != "power_law":
+        return False
+    if nx % 2:
+        return _odd_step_ok(p, mom_cfg, pres_cfg)
+    return _even_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm)
+
+
+def _odd_step_ok(p, mom_cfg, pres_cfg) -> bool:
+    """An odd square grid: multigrid pressure (Galerkin V or FMG cycles)
+    whose whole solve K5 takes and whose hierarchy K4 builds from the fine
+    level; BiCGSTAB momentum that K7 takes for both fields, or fixed-sweep
+    Jacobi, without the one-pass assembly (K8)."""
+    nx, ny = p.shape[-2:]
+    if not supports_fused_rap(nx, ny, pres_cfg, p.dtype):
         return False
     layout = [((nx, ny), True)]
     while layout[-1][0][0] > pres_cfg.coarsest_grid_size:
@@ -136,15 +160,63 @@ def vmap_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm: str) -> bool:
         layout.append(((n, n), False))
     if not supports_fused_layout(layout, pres_cfg):  # K5 (its dtype: K4's gate)
         return False
-    scheme = getattr(mom_cfg, "scheme", "power_law")
-    if scheme != "power_law" or supports_fused_assembly(
-            nx, ny, scheme, p.dtype, getattr(mom_cfg, "backend", "auto"), p.device):
+    if supports_fused_assembly(nx, ny, "power_law", p.dtype, getattr(mom_cfg, "backend", "auto"),
+                               p.device):
         return False
     if mom_cfg.kind == "jacobi":
         return True
     return (mom_cfg.kind == "bicgstab" and getattr(mom_cfg, "backend", "auto") != "composed"
             and supports_fused_bicgstab((nx + 1, ny), p.dtype)
             and supports_fused_bicgstab((nx, ny + 1), p.dtype))
+
+
+def _even_layout(n: int, pres_cfg):
+    """The ``((ni, nj), five_point)`` of each level of the Galerkin hierarchy
+    of an even ``n``^2 grid (``multigrid.build_levels``' shapes), finest
+    first."""
+    layout = [((n, n), True)]
+    while layout[-1][0][0] > pres_cfg.coarsest_grid_size:
+        m = layout[-1][0][0]
+        m = m // 2 if m % 2 == 0 else coarse_size(m)
+        layout.append(((m, m), False))
+    return layout
+
+
+def _even_pressure_ok(n: int, pres_cfg, dtype) -> bool:
+    """``multigrid_solve``'s kernel path on an even ``n``^2 hierarchy with a
+    fixed cycle count (``tolerance <= 0``: the loop reads nothing on the
+    host) in the interleaved layout: the whole solve in K5, or each V-cycle
+    (``_cycle0``) as a K2 pair a level above the first tail K3 takes."""
+    if (pres_cfg.tolerance > 0 or pres_cfg.cycle_type != "v"
+            or pres_cfg.coarsening != "galerkin" or pres_cfg.smoother != "gs"
+            or getattr(pres_cfg, "fine_layout", "auto") == "plane"):
+        return False
+    layout = _even_layout(n, pres_cfg)
+    if supports_fused_layout(layout, pres_cfg):  # K5
+        return dtype == torch.float32
+    k = next((k for k in range(1, len(layout)) if supports_fused_layout(layout[k:], pres_cfg)),
+             None)
+    return k is not None and all(supports_strip(*shp, five, pres_cfg, dtype)
+                                 for shp, five in layout[:k])
+
+
+def _even_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm) -> bool:
+    """An even square grid: :func:`_even_pressure_ok`; Chebyshev momentum
+    that K1 takes through the lagged carry (SIMPLE), or composed Chebyshev
+    where neither K1 nor the one-pass assembly (K8) nor the Chebyshev
+    strips (K9) take it."""
+    n = p.shape[-1]
+    if not _even_pressure_ok(n, pres_cfg, p.dtype) or getattr(mom_cfg, "kind", "") != "chebyshev":
+        return False
+    fold = getattr(cfg, "fold_poisson", "auto") == "auto"
+    if algorithm == "simple" and lagged_rho_enabled(n, n, mom_cfg, fold_poisson=fold,
+                                                    dtype=p.dtype, device=p.device):
+        return True
+    backend = getattr(mom_cfg, "backend", "auto")
+    return not (getattr(mom_cfg, "compensated_residual", False)
+                or supports_fused_assembly(n, n, "power_law", p.dtype, backend, p.device)
+                or (backend != "composed"
+                    and supports_cheby_strips((n + 1, n), p.dtype, p.device)))
 
 
 def _flatten(tree):
@@ -176,9 +248,9 @@ def _vmapped_step(make_step, common, visc):
     mu=<one case's conductances>)``'s step over the cases: ``visc`` (B, 4)
     is each case's :func:`~naviflow_tpu_torch.ops.powerlaw.case_conductances`
     row, ``extra`` the carry with a case axis on every tensor (numbers, the
-    lagged carry's age, are shared).  K7, K5 and K4 launch once for every
-    case with the active flags (``_cuda.case_mask``); each frozen case then
-    gets back its state, carry and ``info``."""
+    lagged carry's age, are shared).  Each kernel of the step launches once
+    for every case with the active flags (``_cuda.case_mask``); each frozen
+    case then gets back its state, carry and ``info``."""
 
     def step(u, v, p, extra, active, info):
         leaves, build = _flatten(extra)
@@ -188,7 +260,11 @@ def _vmapped_step(make_step, common, visc):
             u2, v2, p2, extra2, info2 = make_step(**common, mu=visc)(u, v, p, build(leaves))
             leaves2, build2 = _flatten(extra2)
             out_build.append(build2)
-            return u2, v2, p2, leaves2, tuple(info2)
+            # a fixed cycle count is a number (multigrid_solve with
+            # tolerance <= 0): a tensor of the loop's int32 here
+            return u2, v2, p2, leaves2, tuple(
+                x if torch.is_tensor(x) else torch.tensor(x, dtype=torch.int32, device=u2.device)
+                for x in info2)
 
         with _cuda.case_mask(active):
             u2, v2, p2, leaves2, info2 = torch.func.vmap(one)(u, v, p, leaves, visc)
@@ -232,11 +308,17 @@ def batched_cavity_solve(
         # the initial carry, built once (the lagged hierarchy has no mu:
         # one K4 launch), shared by every case (case stride 0)
         extra0_fn, every = lagged_extra0(mesh, pressure, cfg, dx, dy, rho, carry0(cfg))
+        common = dict(dx=dx, dy=dy, rho=rho, bc=bc, cfg=cfg, mom_cfg=momentum,
+                      pres_cfg=pressure)
+        nx, ny = mesh.get_dimensions()
+        if make_step is None and lagged_rho_enabled(
+                nx, ny, momentum, fold_poisson=getattr(cfg, "fold_poisson", "auto") == "auto",
+                dtype=dtype, device=dev):
+            # K1's lagged Gershgorin carry, as simple_parts builds it
+            extra0_fn, common["lagged_rho"] = rho_extra0(extra0_fn), True
         leaves, build = _flatten(extra0_fn(dtype, dev))
         extra0 = build([x.expand(cases, *x.shape) for x in leaves])
         visc = case_conductances([f.get_viscosity() for f in fluids], dx, dy, dtype, dev)
-        common = dict(dx=dx, dy=dy, rho=rho, bc=bc, cfg=cfg, mom_cfg=momentum,
-                      pres_cfg=pressure)
         make = make_step or make_simple_step
         step = _vmapped_step(make, common, visc)
         if every:

@@ -221,6 +221,18 @@ def make_simple_step(*, dx, dy, rho, mu, bc, cfg, mom_cfg, pres_cfg,
     return step
 
 
+def rho_extra0(extra0_fn):
+    """``extra0_fn``'s carry followed by the lagged Gershgorin pair of the
+    merged kernel K1: the first iteration's bounds come from the
+    conservative clamp ceiling rho = 0.999."""
+
+    def fn(dt, dev):
+        ceiling = torch.full((), 0.999, dtype=dt, device=dev)
+        return (extra0_fn(dt, dev), (ceiling, ceiling.clone()))
+
+    return fn
+
+
 def simple_parts(mesh, fluid, bc, cfg, mom_cfg, pres_cfg, *, dtype, device):
     """What :func:`simple_solve` builds its loop from (``build_solver``'s
     arguments but the loop mode) for a state of ``dtype`` on ``device``,
@@ -234,17 +246,9 @@ def simple_parts(mesh, fluid, bc, cfg, mom_cfg, pres_cfg, *, dtype, device):
     common = dict(dx=dx, dy=dy, rho=rho, mu=mu, bc=bc, cfg=cfg,
                   mom_cfg=mom_cfg, pres_cfg=pres_cfg, lagged_rho=use_rho)
 
-    def scalar(v, dt, dev):
-        return torch.full((), v, dtype=dt, device=dev)
-
     extra0_fn, refresh_every = lagged_extra0(mesh, pres_cfg, cfg, dx, dy, rho, zero_carry)
     if use_rho:
-        # first-iteration bounds: the conservative clamp ceiling rho = 0.999
-        base_extra0 = extra0_fn
-
-        def extra0_fn(dt, dev):
-            return (base_extra0(dt, dev), (scalar(0.999, dt, dev), scalar(0.999, dt, dev)))
-
+        extra0_fn = rho_extra0(extra0_fn)
     return dict(
         step=make_simple_step(**common), max_iterations=cfg.max_iterations,
         tolerance=cfg.tolerance, dx=dx, dy=dy, extra0_fn=extra0_fn,

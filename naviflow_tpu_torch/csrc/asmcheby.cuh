@@ -60,6 +60,17 @@
 // boundary-free copy of the field code for inner tiles (twice the code);
 // K1 reads only u, v and p, through the L1, so it stages nothing by
 // cp.async.
+//
+// The case axis (asmcheby_kernel_batched, entry nf_asmcheby_pair_batched
+// in asmcheby.cu; the batching rule of ops/asmcheby.py): B cases of one
+// shape in one launch.  The same resident blocks walk (case, tile) items,
+// case-major; a block moves its shared-memory view of the parameters to a
+// case when its walk enters it (every pointer by its case stride, De and
+// Dn from the case's conductance row, the interval scalars by address) and
+// folds its Gershgorin maxima into the case's pair when it leaves; each
+// tile runs the single launch's k1_tile on that view, so each case's bits
+// are its single launch's.  A frozen case's tiles write u and v to x* and
+// zeros elsewhere.
 
 #pragma once
 
@@ -274,11 +285,14 @@ __device__ __forceinline__ void field_tile(const Params& P, float* sx0, float* s
   k1_stamp<PH>(P.timers, K1_RESIDUAL);
 }
 
+// One tile t of the walk: both fields' regions, then the pressure operator
+// of the owned cells; the owned faces' Gershgorin ratios folded into
+// gmax_u, gmax_v.
 template <int DEG, bool PH>
-__global__ void __launch_bounds__(THREADS, 1) asmcheby_kernel(Params P) {
+__device__ __forceinline__ void k1_tile(const Params& P, float* dyn, int t, float& gmax_u,
+                                        float& gmax_v) {
   constexpr int H = DEG + 1;
   constexpr int TI = tile_i(DEG), TJ = tile_j(DEG);
-  extern __shared__ __align__(16) float dyn[];
   float* sx0 = dyn;  // two (RI + 2) x PJ iterate buffers
   float* sx1 = sx0 + (RI + 2) * PJ;
   float* sap_un = sx1 + (RI + 2) * PJ;  // RI x RJ each
@@ -287,37 +301,142 @@ __global__ void __launch_bounds__(THREADS, 1) asmcheby_kernel(Params P) {
   float* sdv = sdu + RI * RJ;
   float* sflux = sdv + RI * RJ;  // 4 x RI x RJ
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  // zero both iterate buffers once: the borders stay zero, every interior
-  // slot is rewritten for each field before a barrier lets it be read
-  for (int k = threadIdx.x; k < 2 * (RI + 2) * PJ; k += THREADS) sx0[k] = 0.f;
-  __syncthreads();
-  k1_stamp<PH>(P.timers, -1);
-
-  float gmax_u = 0.f, gmax_v = 0.f;
   float* const pc[5] = {P.pe, P.pw, P.pn, P.ps, P.pdiag};
-  for (int t = blockIdx.x; t < P.tiles; t += gridDim.x) {
-    const int ti0 = (t / P.tiles_j) * TI, tj0 = (t % P.tiles_j) * TJ;
-    field_tile<true, DEG, PH>(P, sx0, sx1, sap_un, ssrc_un, sdu, sflux, ti0, tj0, gmax_u);
-    field_tile<false, DEG, PH>(P, sx0, sx1, sap_un, ssrc_un, sdv, sflux, ti0, tj0, gmax_v);
-    // the pressure operator of the owned cells, at the thread's own slots
+  const int ti0 = (t / P.tiles_j) * TI, tj0 = (t % P.tiles_j) * TJ;
+  field_tile<true, DEG, PH>(P, sx0, sx1, sap_un, ssrc_un, sdu, sflux, ti0, tj0, gmax_u);
+  field_tile<false, DEG, PH>(P, sx0, sx1, sap_un, ssrc_un, sdv, sflux, ti0, tj0, gmax_v);
+  // the pressure operator of the owned cells, at the thread's own slots
 #pragma unroll
-    for (int c = 0; c < CELLS; ++c) {
-      const int r = warp + WARPS * (c / CPL), q = lane + 32 * (c % CPL);
-      const int i = ti0 - H + r, j = tj0 - H + q;
-      if (r < H || r >= H + TI || q < H || q >= H + TJ || i >= P.nx || j >= P.ny) continue;
-      const int s = r * RJ + q;
-      pressure_cell_from_d(P, P.variant, i, j, sdu[s], sdu[s + RJ], sdv[s], sdv[s + 1], pc,
-                           (int64_t)i * P.ny + j);
-    }
-    k1_stamp<PH>(P.timers, K1_PRESSURE);
+  for (int c = 0; c < CELLS; ++c) {
+    const int r = warp + WARPS * (c / CPL), q = lane + 32 * (c % CPL);
+    const int i = ti0 - H + r, j = tj0 - H + q;
+    if (r < H || r >= H + TI || q < H || q >= H + TJ || i >= P.nx || j >= P.ny) continue;
+    const int s = r * RJ + q;
+    pressure_cell_from_d(P, P.variant, i, j, sdu[s], sdu[s + RJ], sdv[s], sdv[s + 1], pc,
+                         (int64_t)i * P.ny + j);
   }
+  k1_stamp<PH>(P.timers, K1_PRESSURE);
+}
 
+// Zero both iterate buffers once: the borders stay zero, every interior
+// slot is rewritten for each field before a barrier lets it be read.
+__device__ __forceinline__ void k1_zero_iterates(float* dyn) {
+  for (int k = threadIdx.x; k < 2 * (RI + 2) * PJ; k += THREADS) dyn[k] = 0.f;
+  __syncthreads();
+}
+
+// The block's Gershgorin maxima into the two-float output.
+__device__ __forceinline__ void k1_fold_gmax(float* gmax, float gmax_u, float gmax_v) {
   const float gu = nf_block_max(gmax_u);
-  if (threadIdx.x == 0) atomicMax(reinterpret_cast<int*>(P.gmax), __float_as_int(gu));
+  if (threadIdx.x == 0) atomicMax(reinterpret_cast<int*>(gmax), __float_as_int(gu));
   __syncthreads();  // nf_block_max reuses one shared scratch
   const float gv = nf_block_max(gmax_v);
-  if (threadIdx.x == 0) atomicMax(reinterpret_cast<int*>(P.gmax) + 1, __float_as_int(gv));
+  if (threadIdx.x == 0) atomicMax(reinterpret_cast<int*>(gmax) + 1, __float_as_int(gv));
+}
+
+template <int DEG, bool PH>
+__global__ void __launch_bounds__(THREADS, 1) asmcheby_kernel(Params P) {
+  extern __shared__ __align__(16) float dyn[];
+  k1_zero_iterates(dyn);
+  k1_stamp<PH>(P.timers, -1);
+  float gmax_u = 0.f, gmax_v = 0.f;
+  for (int t = blockIdx.x; t < P.tiles; t += gridDim.x) k1_tile<DEG, PH>(P, dyn, t, gmax_u, gmax_v);
+  k1_fold_gmax(P.gmax, gmax_u, gmax_v);
+}
+
+// The case axis: B cases of one shape in one launch.  Case 0's parameters,
+// each pointer field's case stride in bytes (the same fields of S), each
+// case's viscous conductances (De, Dn, 1 / De, 1 / Dn: powerlaw.py's
+// case_conductances rows, De and Dn read) and the active flags, each with
+// its stride.
+struct K1Batch {
+  Params P, S;
+  const float* visc;
+  const float* visc_stride;
+  const bool* active;
+  const bool* active_stride;
+  int cases;
+};
+
+// Case b's view of the parameters into P (thread 0), and whether it is
+// active: every pointer moved by b times its stride, De and Dn its own.
+__device__ __forceinline__ void k1_case(const K1Batch& SB, int b, Params& P, bool& on) {
+  P = SB.P;
+  const float** ins[] = {&P.u, &P.v, &P.p, &P.theta_u, &P.delta_u, &P.sigma1_u,
+                         &P.theta_v, &P.delta_v, &P.sigma1_v};
+  const float* const* sin[] = {&SB.S.u, &SB.S.v, &SB.S.p, &SB.S.theta_u, &SB.S.delta_u,
+                               &SB.S.sigma1_u, &SB.S.theta_v, &SB.S.delta_v, &SB.S.sigma1_v};
+  for (int k = 0; k < 9; ++k) nf_case_shift(*ins[k], *sin[k], b);
+  float** outs[] = {&P.u_star, &P.r_u, &P.v_star, &P.r_v, &P.d_u, &P.d_v, &P.pe,
+                    &P.pw, &P.pn, &P.ps, &P.pdiag, &P.gmax};
+  float* const* sout[] = {&SB.S.u_star, &SB.S.r_u, &SB.S.v_star, &SB.S.r_v, &SB.S.d_u,
+                          &SB.S.d_v, &SB.S.pe, &SB.S.pw, &SB.S.pn, &SB.S.ps, &SB.S.pdiag,
+                          &SB.S.gmax};
+  for (int k = 0; k < 12; ++k) nf_case_shift(*outs[k], *sout[k], b);
+  const float* visc = SB.visc;
+  nf_case_shift(visc, SB.visc_stride, b);
+  P.De = visc[0];
+  P.Dn = visc[1];
+  const bool* active = SB.active;
+  nf_case_shift(active, SB.active_stride, b);
+  on = *active;
+}
+
+// A frozen case's tile t: x* = the input field on the owned faces, zero
+// residuals, d and pressure operator (its maxima stay the entry's +0.0).
+template <int DEG>
+__device__ __forceinline__ void k1_frozen_tile(const Params& P, int t) {
+  constexpr int TI = tile_i(DEG), TJ = tile_j(DEG);
+  const int ti0 = (t / P.tiles_j) * TI, tj0 = (t % P.tiles_j) * TJ;
+  for (int k = threadIdx.x; k < TI * TJ; k += THREADS) {
+    const int i = ti0 + k / TJ, j = tj0 + k % TJ;
+    if (i <= P.nx && j < P.ny) {  // a u face
+      const int64_t g = (int64_t)i * P.ny + j;
+      P.u_star[g] = P.u[g];
+      P.r_u[g] = 0.f;
+      P.d_u[g] = 0.f;
+    }
+    if (i < P.nx && j <= P.ny) {  // a v face
+      const int64_t g = (int64_t)i * (P.ny + 1) + j;
+      P.v_star[g] = P.v[g];
+      P.r_v[g] = 0.f;
+      P.d_v[g] = 0.f;
+    }
+    if (i < P.nx && j < P.ny) {  // a cell
+      const int64_t g = (int64_t)i * P.ny + j;
+      P.pe[g] = P.pw[g] = P.pn[g] = P.ps[g] = P.pdiag[g] = 0.f;
+    }
+  }
+}
+
+// The persistent blocks walk (case, tile) items, case-major, over the same
+// resident grid as the single launch; a block's view moves to a case when
+// its walk enters it, and its maxima are folded into a case's slots when
+// the walk leaves it.  Each tile runs the single launch's device code on
+// its case's view, so each case's bits are its single launch's.
+template <int DEG>
+__global__ void __launch_bounds__(THREADS, 1) asmcheby_kernel_batched(K1Batch SB) {
+  extern __shared__ __align__(16) float dyn[];
+  __shared__ Params P;  // the current case's view
+  __shared__ bool on;
+  k1_zero_iterates(dyn);
+  float gmax_u = 0.f, gmax_v = 0.f;
+  const int tiles = SB.P.tiles;
+  int cur = -1;
+  for (int t = blockIdx.x; t < SB.cases * tiles; t += gridDim.x) {
+    const int b = t / tiles;
+    if (b != cur) {
+      if (cur >= 0 && on) k1_fold_gmax(P.gmax, gmax_u, gmax_v);
+      gmax_u = gmax_v = 0.f;
+      __syncthreads();  // every thread is done with the last case's view
+      if (threadIdx.x == 0) k1_case(SB, b, P, on);
+      __syncthreads();
+      cur = b;
+    }
+    if (on) k1_tile<DEG, false>(P, dyn, t - b * tiles, gmax_u, gmax_v);
+    else k1_frozen_tile<DEG>(P, t - b * tiles);
+  }
+  if (cur >= 0 && on) k1_fold_gmax(P.gmax, gmax_u, gmax_v);
 }
 
 using Kernel = void (*)(Params);
@@ -364,8 +483,11 @@ cudaError_t setup(int degree, int* per_sm, int* blocks) {
 //       floats), then (timed only) the timer buffer
 // ip:   nx, ny, degree (1..15), variant
 // fp:   cFu, cFv, De, Dn, dx, dy, alpha, one_m_alpha, rho
+// `read` (the batched entry: case 0's slots, then their strides): store the
+// parameters there and launch nothing.
 template <bool PH>
-int launch_asmcheby(const long long* ptrs, const int* ip, const float* fp, void* stream) {
+int launch_asmcheby(const long long* ptrs, const int* ip, const float* fp, void* stream,
+                    Params* read = nullptr) {
   Params P;
   const float** ins[] = {&P.u, &P.v, &P.p, &P.theta_u, &P.delta_u, &P.sigma1_u,
                          &P.theta_v, &P.delta_v, &P.sigma1_v};
@@ -384,6 +506,10 @@ int launch_asmcheby(const long long* ptrs, const int* ip, const float* fp, void*
   // the tiles cover the union of both fields' faces: rows 0..nx, columns 0..ny
   P.tiles_j = (P.ny + 1 + tile_j(degree) - 1) / tile_j(degree);
   P.tiles = P.tiles_j * ((P.nx + 1 + tile_i(degree) - 1) / tile_i(degree));
+  if (read) {
+    *read = P;
+    return 0;
+  }
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;

@@ -73,15 +73,6 @@ __device__ __forceinline__ NfCluster nf_cluster(float* dyn) {
 
 __device__ __forceinline__ void nf_sync(NfCluster&) { cg::this_cluster().sync(); }
 
-// A batched launch's case view (K7, K5, K4): pointer `p` of case 0 moved by
-// b times its case stride in bytes, which the strides' copy of the
-// parameters holds in the same field.
-template <class T>
-__device__ __forceinline__ void nf_case_shift(T*& p, const void* stride, int b) {
-  p = reinterpret_cast<T*>(reinterpret_cast<intptr_t>(p) +
-                           (intptr_t)b * reinterpret_cast<intptr_t>(stride));
-}
-
 // The cluster barrier split in two, for the launch's first one: arrive at
 // the start (relaxed: it orders no memory access), wait just before the
 // first access to another CTA's shared memory, so that every CTA has

@@ -13,6 +13,15 @@
 
 #define NF_EXPORT extern "C" __attribute__((visibility("default")))
 
+// A batched launch's case view (K1-K5, K7): pointer `p` of case 0 moved by
+// b times its case stride in bytes, which the strides' copy of the
+// parameters holds in the same field.
+template <class T>
+__device__ __forceinline__ void nf_case_shift(T*& p, const void* stride, int b) {
+  p = reinterpret_cast<T*>(reinterpret_cast<intptr_t>(p) +
+                           (intptr_t)b * reinterpret_cast<intptr_t>(stride));
+}
+
 // Block-wide max of one float per thread (blockDim.x a multiple of 32,
 // at most 1024 threads).  Every thread of the block must call it.
 __device__ __forceinline__ float nf_block_max(float v) {

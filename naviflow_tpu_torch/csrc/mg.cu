@@ -28,17 +28,18 @@
 // cells in one block of 256 threads, with two branching weight lookups a
 // tap, about 250x its barrier bound at 63^2.
 //
-// The case axis of K5 and K4 (nf_fused_mg_solve_batched,
-// nf_galerkin_levels_batched; the batching rules of ops/mg.py, the vmapped
-// lockstep step of algorithms/batch.py): a grid of (cluster size, B), case
-// b = blockIdx.y, at the single launch's cluster size.  Thread 0 of each
+// The case axis of K5, K4 and K3 (nf_fused_mg_solve_batched,
+// nf_galerkin_levels_batched, nf_fused_vcycle_batched; the batching rules of
+// ops/mg.py, the vmapped lockstep step of algorithms/batch.py): a grid of
+// (cluster size, B), case b = blockIdx.y, at the single launch's cluster
+// size.  Thread 0 of each
 // CTA moves every pointer of the case-0 parameters by b times its slot's
 // case stride into a shared-memory copy (each case its own stencils, its
 // own global coarse-level scratch, its own outputs), and the single
 // launch's device code runs on that view: the same reductions in the same
 // order, so each case's bits are its single launch's whatever B is.  A
 // frozen case (active flag false) writes its frozen outputs (K5: p0, a zero
-// residual, 0 cycles and rel 0; K4: zero stencils) and leaves before the
+// residual, 0 cycles and rel 0; K4: zero stencils; K3: p_in) and leaves before the
 // first cluster barrier, every CTA of its cluster alike.  B above the
 // clusters the card holds at once runs in waves.
 
@@ -142,6 +143,43 @@ __global__ void __launch_bounds__(NF_CL_THREADS, 1) mg_solve_kernel_batched(Solv
 }
 
 NfClusterCfg& mg_solve_batch_cfg() {
+  static NfClusterCfg cfg = {};
+  return cfg;
+}
+
+// B V-cycles (K3's case axis): case 0's parameters, their case strides (the
+// same fields), the active flags and their stride.
+struct VcBatch {
+  VcParams P, S;
+  const bool* active;
+  const bool* active_stride;
+};
+
+__global__ void __launch_bounds__(NF_CL_THREADS, 1) vcycle_kernel_batched(VcBatch SB) {
+  extern __shared__ __align__(16) float vc_dyn[];
+  __shared__ VcParams P;  // this case's view
+  __shared__ bool on;
+  const int b = (int)blockIdx.y;
+  if (threadIdx.x == 0) {
+    P = SB.P;
+    levels_case(P.M.lv, SB.S.M.lv, P.M.L, b);
+    nf_case_shift(P.p_in, SB.S.p_in, b);
+    const bool* active = SB.active;
+    nf_case_shift(active, SB.active_stride, b);
+    on = *active;
+  }
+  __syncthreads();
+  if (!on) {  // frozen: the input iterate; no cluster barrier
+    NfCluster C = nf_cluster(nullptr);
+    const NfLevel& F = P.M.lv[0];
+    const int64_t n = (int64_t)F.ni * F.nj;
+    for (int64_t g = C.gtid; g < n; g += C.gstride) F.x[g] = P.p_in[g];
+    return;
+  }
+  nf_vc_cycle<false>(P.M, P.Ls, P.p_in, vc_dyn, nullptr);
+}
+
+NfClusterCfg& vcycle_batch_cfg() {
   static NfClusterCfg cfg = {};
   return cfg;
 }
@@ -319,6 +357,40 @@ NF_EXPORT int nf_fused_vcycle_phases(const long long* ptrs, const int* ip, const
   return launch_vcycle<true>(ptrs, ip, fp, stream);
 }
 
+// B V-cycles of one hierarchy layout in one launch, one cluster a case.
+// ptrs: nf_fused_vcycle's 11 L + 1 slots for case 0, the cases' active
+//       flags (bool), then each of these 11 L + 2 slots' case stride in
+//       bytes, in the same order (0 for a null slot, or one array shared by
+//       every case)
+// ip:   nf_fused_vcycle's, then B
+// fp:   omega
+NF_EXPORT int nf_fused_vcycle_batched(const long long* ptrs, const int* ip, const float* fp,
+                                      void* stream) {
+  VcBatch SB = {};
+  const int L = ip[VC_IP_L];
+  if (L < 1 || L > NF_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  const int half = 11 * L + 2;
+  int64_t small = 0, unused = 0;
+  int err = read_levels(SB.P.M, ptrs, ip + VC_IP_LEVELS, L);
+  if (!err) err = read_cycle(SB.P.M, ip, fp, &SB.P.Ls, &small);
+  if (!err) err = read_levels(SB.S.M, ptrs + half, ip + VC_IP_LEVELS, L);
+  if (!err) err = read_cycle(SB.S.M, ip, fp, &SB.S.Ls, &unused);
+  if (err) return err;
+  SB.P.p_in = reinterpret_cast<const float*>(ptrs[11 * L]);
+  SB.S.p_in = reinterpret_cast<const float*>(ptrs[half + 11 * L]);
+  SB.active = reinterpret_cast<const bool*>(ptrs[half - 1]);
+  SB.active_stride = reinterpret_cast<const bool*>(ptrs[2 * half - 1]);
+  const int cases = ip[VC_IP_LEVELS + 3 * L];
+  if (!SB.active) return (int)cudaErrorInvalidValue;
+  int size = 0, bsize = 0;
+  err = nf_cluster_size(vcycle_kernel<false>, vcycle_cfg<false>(), size);
+  if (!err) err = nf_cluster_size(vcycle_kernel_batched, vcycle_batch_cfg(), bsize, size);
+  if (err) return err;
+  if (bsize != size) return (int)cudaErrorLaunchOutOfResources;
+  return nf_cluster_launch(vcycle_kernel_batched, size, SB, sizeof(float) * (size_t)small,
+                           (cudaStream_t)stream, cases);
+}
+
 // ptrs: per level 11 pointers as nf_fused_vcycle (level 0's x: the output
 //       p), then the input iterate p0, r, cycles (int32), rel
 // ip:   NfMsIp: NfVcIp's five, then max_cycles, check_every,
@@ -412,12 +484,13 @@ NF_EXPORT int nf_galerkin_levels_batched(const long long* ptrs, const int* ip, c
   return nf_cluster_launch(galerkin_kernel_batched, size, SB, 0, (cudaStream_t)stream, cases);
 }
 
-// How many clusters of `size` CTAs of the batched K5 (kernel 1) or K4 (2)
-// the current device holds at once, into *count (krylov.cu's
+// How many clusters of `size` CTAs of the batched K5 (kernel 1), K4 (2)
+// or K3 (3) the current device holds at once, into *count (krylov.cu's
 // nf_case_max_clusters).
 int mg_case_max_clusters(int kernel, int size, int* count) {
   if (kernel == 1) return nf_max_active_clusters(mg_solve_kernel_batched, size, *count);
   if (kernel == 2) return nf_max_active_clusters(galerkin_kernel_batched, size, *count);
+  if (kernel == 3) return nf_max_active_clusters(vcycle_kernel_batched, size, *count);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -47,6 +47,15 @@
 // Every value comes from the same operations in the same order as the
 // composed sweep (the update of a cell, the residual's sum, the
 // restriction's pairs, the prolongation's axis-0-first taps).
+//
+// The case axis (nf_strip_down_batched, nf_strip_up_batched; the batching
+// rules of ops/strip.py, the vmapped lockstep step of algorithms/batch.py):
+// B levels of one shape in one launch, the grid's z axis over the cases.
+// Thread 0 of each block moves every pointer of the case-0 parameters by
+// its case's stride into a shared-memory copy (strip_case), and the single
+// launch's tile code runs on that view, so each case's bits are its single
+// launch's.  A frozen case's blocks copy p to the output and zero their
+// coarse residual (down), and stage nothing.
 
 #include "common.cuh"
 
@@ -195,10 +204,9 @@ __device__ __forceinline__ void smooth_region(const StripParams& P, float* s, in
 }
 
 template <int NS, int SWEEPS>
-__global__ void __launch_bounds__(down_threads(NS)) strip_down_kernel(StripParams P) {
+__device__ __forceinline__ void strip_down_tile(const StripParams& P, float* s) {
   using R = Region<NS, SWEEPS, false>;
   constexpr int H = R::H, M = R::M, W = R::W, PLANE = R::PLANE, TJ = R::TJ;
-  extern __shared__ __align__(16) float s[];
   const int ti0 = blockIdx.y * TILE, tj0 = blockIdx.x * TJ;
   const int i0 = ti0 - H, j0 = tj0 - M;  // the cell of region slot (0, 0)
   nf_stage_region<R, 0, R::A>(P, (unsigned)__cvta_generic_to_shared(s), i0, j0);
@@ -220,6 +228,12 @@ __global__ void __launch_bounds__(down_threads(NS)) strip_down_kernel(StripParam
     P.out_rc[(int64_t)(gi / 2) * (P.ny / 2) + gj / 2] =
         0.5f * (0.5f * (r00 + r10) + 0.5f * (r01 + r11));
   }
+}
+
+template <int NS, int SWEEPS>
+__global__ void __launch_bounds__(down_threads(NS)) strip_down_kernel(StripParams P) {
+  extern __shared__ __align__(16) float s[];
+  strip_down_tile<NS, SWEEPS>(P, s);
 }
 
 // up's coarse box (BR rows x BW columns from coarse cell (I0, J0), J0 a
@@ -247,11 +261,10 @@ __device__ __forceinline__ void stage_box(const StripParams& P, unsigned base, i
 }
 
 template <int NS, int SWEEPS>
-__global__ void __launch_bounds__(down_threads(NS)) strip_up_kernel(StripParams P) {
+__device__ __forceinline__ void strip_up_tile(const StripParams& P, float* s) {
   using R = Region<NS, SWEEPS, true>;
   constexpr int H = R::H, M = R::M, W = R::W, TJ = R::TJ;
   constexpr int BR = up_box_rows(NS, SWEEPS), BW = up_box_cols(NS, SWEEPS);
-  extern __shared__ __align__(16) float s[];
   float* box = s + R::A * R::PLANE;
   const int ti0 = blockIdx.y * TILE, tj0 = blockIdx.x * TJ;
   const int i0 = ti0 - H, j0 = tj0 - M;  // the cell of region slot (0, 0)
@@ -288,7 +301,80 @@ __global__ void __launch_bounds__(down_threads(NS)) strip_up_kernel(StripParams 
   nf_store_owned<R>(P, s, ti0, tj0);
 }
 
+template <int NS, int SWEEPS>
+__global__ void __launch_bounds__(down_threads(NS)) strip_up_kernel(StripParams P) {
+  extern __shared__ __align__(16) float s[];
+  strip_up_tile<NS, SWEEPS>(P, s);
+}
+
+// B levels of one shape (the case axis): case 0's parameters, each pointer
+// field's case stride in bytes (the same fields of S), the active flags
+// and their stride.
+struct StripBatch {
+  StripParams P, S;
+  const bool* active;
+  const bool* active_stride;
+};
+
+// Case b = blockIdx.z's view of the parameters: every pointer moved by b
+// times its stride (a stride of 0 shares one array), into shared memory
+// by thread 0; whether the case is active.
+__device__ __forceinline__ bool strip_case(const StripBatch& SB, StripParams& P) {
+  __shared__ bool on;
+  if (threadIdx.x == 0) {
+    const int b = (int)blockIdx.z;
+    P = SB.P;
+    for (int a = 0; a < 11; ++a) nf_case_shift(P.a[a], SB.S.a[a], b);
+    nf_case_shift(P.ec, SB.S.ec, b);
+    nf_case_shift(P.out_p, SB.S.out_p, b);
+    nf_case_shift(P.out_rc, SB.S.out_rc, b);
+    const bool* active = SB.active;
+    nf_case_shift(active, SB.active_stride, b);
+    on = *active;
+  }
+  __syncthreads();
+  return on;
+}
+
+// A frozen case's tile: p's owned cells copied to out_p and (down) the
+// tile's coarse cells of out_rc zeroed.
+template <int THREADS>
+__device__ __forceinline__ void strip_frozen(const StripParams& P, bool down) {
+  const int ti0 = blockIdx.y * TILE, tj0 = blockIdx.x * DOWN_TJ;
+  for (int k = threadIdx.x; k < TILE * DOWN_TJ; k += THREADS) {
+    const int gi = ti0 + k / DOWN_TJ, gj = tj0 + k % DOWN_TJ;
+    if (gi >= P.nx || gj >= P.ny) continue;
+    const int64_t g = (int64_t)gi * P.ny + gj;
+    P.out_p[g] = P.a[0][g];
+    if (down && gi % 2 == 0 && gj % 2 == 0)
+      P.out_rc[(int64_t)(gi / 2) * (P.ny / 2) + gj / 2] = 0.f;
+  }
+}
+
+template <int NS, int SWEEPS>
+__global__ void __launch_bounds__(down_threads(NS)) strip_down_kernel_batched(StripBatch SB) {
+  extern __shared__ __align__(16) float s[];
+  __shared__ StripParams P;  // this case's view
+  if (!strip_case(SB, P)) {
+    strip_frozen<down_threads(NS)>(P, true);
+    return;
+  }
+  strip_down_tile<NS, SWEEPS>(P, s);
+}
+
+template <int NS, int SWEEPS>
+__global__ void __launch_bounds__(down_threads(NS)) strip_up_kernel_batched(StripBatch SB) {
+  extern __shared__ __align__(16) float s[];
+  __shared__ StripParams P;  // this case's view
+  if (!strip_case(SB, P)) {
+    strip_frozen<down_threads(NS)>(P, false);
+    return;
+  }
+  strip_up_tile<NS, SWEEPS>(P, s);
+}
+
 using Kernel = void (*)(StripParams);
+using BatchKernel = void (*)(StripBatch);
 
 // [up][five][sweeps]
 const Kernel kKernels[2][2][3] = {
@@ -300,6 +386,16 @@ const Kernel kKernels[2][2][3] = {
 Kernel kernel_of(bool up, bool five, int sweeps) {
   return sweeps >= 0 && sweeps <= 2 ? kKernels[up][five ? 1 : 0][sweeps] : nullptr;
 }
+
+const BatchKernel kBatchKernels[2][2][3] = {
+    {{strip_down_kernel_batched<9, 0>, strip_down_kernel_batched<9, 1>,
+      strip_down_kernel_batched<9, 2>},
+     {strip_down_kernel_batched<5, 0>, strip_down_kernel_batched<5, 1>,
+      strip_down_kernel_batched<5, 2>}},
+    {{strip_up_kernel_batched<9, 0>, strip_up_kernel_batched<9, 1>,
+      strip_up_kernel_batched<9, 2>},
+     {strip_up_kernel_batched<5, 0>, strip_up_kernel_batched<5, 1>,
+      strip_up_kernel_batched<5, 2>}}};
 
 size_t smem_bytes(bool up, int ns, int sweeps) {
   return sizeof(float) * (up ? up_smem_floats(ns, sweeps) : down_smem_floats(ns, sweeps));
@@ -313,28 +409,44 @@ cudaError_t setup(int device) {
   for (int up = 0; up < 2; ++up)
     for (int five = 0; five < 2; ++five)
       for (int sweeps = 0; sweeps <= 2; ++sweeps) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            (const void*)kKernels[up][five][sweeps], cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem_bytes(up, five ? 5 : 9, sweeps));
+        const int smem = (int)smem_bytes(up, five ? 5 : 9, sweeps);
+        cudaError_t err = cudaFuncSetAttribute((const void*)kKernels[up][five][sweeps],
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err == cudaSuccess)
+          err = cudaFuncSetAttribute((const void*)kBatchKernels[up][five][sweeps],
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return err;
       }
   ready[device] = true;
   return cudaSuccess;
 }
 
-// Launch one instance over the level's tiles.
-int launch(bool up, const StripParams& P, int ns, int sweeps, void* stream) {
+// The tiles of a level: (column tiles, row tiles, cases).
+dim3 tile_grid(const StripParams& P, int cases) {
+  return dim3((P.ny + DOWN_TJ - 1) / DOWN_TJ, (P.nx + TILE - 1) / TILE, cases);
+}
+
+int ready() {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = setup(device);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((P.ny + DOWN_TJ - 1) / DOWN_TJ, (P.nx + TILE - 1) / TILE);
-  kernel_of(up, ns == 5, sweeps)<<<grid, down_threads(ns), smem_bytes(up, ns, sweeps),
-                                   (cudaStream_t)stream>>>(P);
+  return (int)err;
+}
+
+// Launch one instance over the level's tiles.
+int launch(bool up, const StripParams& P, int ns, int sweeps, void* stream) {
+  const int err = ready();
+  if (err) return err;
+  kernel_of(up, ns == 5, sweeps)<<<tile_grid(P, 1), down_threads(ns),
+                                   smem_bytes(up, ns, sweeps), (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }
 
-int launch_down(const long long* ptrs, const int* ip, const float* fp, void* stream) {
+// nf_strip_down's slots, ip and fp: launch the level, or (`read`, the
+// batched entry: case 0's slots, then their strides) store the parameters
+// there.
+int launch_down(const long long* ptrs, const int* ip, const float* fp, void* stream,
+                StripParams* read = nullptr) {
   StripParams P = {};
   const int nx = ip[0], ny = ip[1], five = ip[2], sweeps = ip[3];
   const int ns = five ? 5 : 9;
@@ -349,10 +461,16 @@ int launch_down(const long long* ptrs, const int* ip, const float* fp, void* str
   P.out_rc = reinterpret_cast<float*>(ptrs[ns + 3]);
   P.nx = nx; P.ny = ny; P.omega = fp[0];
   P.vec = aligned && ptrs[ns + 2] % 16 == 0;
+  if (read) {
+    *read = P;
+    return 0;
+  }
   return launch(false, P, ns, sweeps, stream);
 }
 
-int launch_up(const long long* ptrs, const int* ip, const float* fp, void* stream) {
+// nf_strip_up's, as launch_down.
+int launch_up(const long long* ptrs, const int* ip, const float* fp, void* stream,
+              StripParams* read = nullptr) {
   StripParams P = {};
   const int nx = ip[0], ny = ip[1], five = ip[2], sweeps = ip[3];
   const int ns = five ? 5 : 9;
@@ -368,7 +486,39 @@ int launch_up(const long long* ptrs, const int* ip, const float* fp, void* strea
   P.nx = nx; P.ny = ny; P.omega = fp[0];
   P.vec = aligned && ptrs[ns + 3] % 16 == 0;
   P.ec_vec = ptrs[ns + 2] % 16 == 0 && (ny / 2) % 4 == 0;
+  if (read) {
+    *read = P;
+    return 0;
+  }
   return launch(true, P, ns, sweeps, stream);
+}
+
+// B levels in one launch: nf_strip_down's or nf_strip_up's slots for case
+// 0, the active flags, then each of those slots' case stride in bytes;
+// ip: the single entry's, then B.
+int launch_batched(bool up, const long long* ptrs, const int* ip, const float* fp,
+                   void* stream) {
+  StripBatch SB = {};
+  const int ns = ip[2] ? 5 : 9, sweeps = ip[3];
+  const int half = ns + 5;  // the single entry's ns + 4 slots and the flags
+  const auto read = up ? launch_up : launch_down;
+  int err = read(ptrs, ip, fp, stream, &SB.P);
+  if (!err) err = read(ptrs + half, ip, fp, stream, &SB.S);
+  if (err) return err;
+  SB.active = reinterpret_cast<const bool*>(ptrs[half - 1]);
+  SB.active_stride = reinterpret_cast<const bool*>(ptrs[2 * half - 1]);
+  const int cases = ip[4];
+  if (!SB.active || cases < 1 || cases > 65535) return (int)cudaErrorInvalidValue;
+  // 16-byte copies where every case's arrays are aligned: case 0's and
+  // the strides (their own "alignment" read the same way)
+  SB.P.vec = SB.P.vec && SB.S.vec;
+  SB.P.ec_vec = SB.P.ec_vec && SB.S.ec_vec;
+  err = ready();
+  if (err) return err;
+  kBatchKernels[up][ns == 5 ? 1 : 0][sweeps]<<<tile_grid(SB.P, cases), down_threads(ns),
+                                               smem_bytes(up, ns, sweeps),
+                                               (cudaStream_t)stream>>>(SB);
+  return (int)cudaGetLastError();
 }
 
 // The resident blocks an SM of one instance on the current device.
@@ -392,6 +542,16 @@ NF_EXPORT int nf_strip_down(const long long* ptrs, const int* ip, const float* f
   return launch_down(ptrs, ip, fp, stream);
 }
 
+// B levels of one shape in one launch (the case axis; grid z = B).
+// ptrs: nf_strip_down's ns + 4 slots for case 0, the cases' active flags
+//       (bool), then each of these ns + 5 slots' case stride in bytes, in
+//       the same order (0: one array shared by every case)
+// ip:   nf_strip_down's, then B;  fp: omega
+NF_EXPORT int nf_strip_down_batched(const long long* ptrs, const int* ip, const float* fp,
+                                    void* stream) {
+  return launch_batched(false, ptrs, ip, fp, stream);
+}
+
 // The resident blocks an SM of strip_down's (five, sweeps) instance on the
 // current device (a measurement aid: chip_smoke.py's build line).
 NF_EXPORT int nf_strip_down_blocks_per_sm(int five, int sweeps, int* out) {
@@ -402,6 +562,15 @@ NF_EXPORT int nf_strip_down_blocks_per_sm(int five, int sweeps, int* out) {
 NF_EXPORT int nf_strip_up(const long long* ptrs, const int* ip, const float* fp,
                           void* stream) {
   return launch_up(ptrs, ip, fp, stream);
+}
+
+// B levels of one shape in one launch (the case axis; grid z = B).
+// ptrs: nf_strip_up's ns + 4 slots for case 0, the cases' active flags
+//       (bool), then each of these ns + 5 slots' case stride in bytes
+// ip:   nf_strip_up's, then B;  fp: omega
+NF_EXPORT int nf_strip_up_batched(const long long* ptrs, const int* ip, const float* fp,
+                                  void* stream) {
+  return launch_batched(true, ptrs, ip, fp, stream);
 }
 
 // The same for strip_up's instances.

@@ -14,11 +14,13 @@ K11b's (the lean call) take one ``c_void_p``, ``c_int`` or ``c_float`` per
 argument, so a call builds no host array.
 
 Under ``torch.func.vmap`` alone (no other transform) the gates answer from
-the device (:func:`kernel_device`), and K7, K5 and K4 run through their
-batching rules (``ops/krylov.py``, ``ops/mg.py``): the rule gets plain
-tensors with a leading case axis and launches the kernel's batched entry
-(one thread-block cluster a case) with the active flags of
-:func:`case_mask`.  Every other kernel raises at its launch
+the device (:func:`kernel_device`), and K1, K2a, K2b, K3, K4, K5 and K7 run
+through their batching rules (``ops/asmcheby.py``, ``ops/strip.py``,
+``ops/mg.py``, ``ops/krylov.py``): the rule gets plain tensors with a
+leading case axis and launches the kernel's batched entry (one thread-block
+cluster a case for the cluster kernels, a grid axis over the cases for the
+strips, (case, tile) items for K1's persistent blocks) with the active
+flags of :func:`case_mask`.  Every other kernel raises at its launch
 (:func:`stream_of`), and every kernel raises under any other transform.
 
 Nothing here runs at import: the CPU tests import every module.
@@ -61,6 +63,8 @@ _ARGS = [ctypes.POINTER(ctypes.c_longlong),  # device pointers
 # C entry points (see csrc/*.cu for each one's pointer and parameter order)
 _KERNELS = ("nf_asmcheby_pair", "nf_asmcheby_pair_phases", "nf_strip_down", "nf_strip_up",
             "nf_fused_vcycle", "nf_fused_vcycle_phases",
+            "nf_asmcheby_pair_batched", "nf_strip_down_batched", "nf_strip_up_batched",
+            "nf_fused_vcycle_batched",
             "nf_galerkin_levels", "nf_fused_mg_solve", "nf_bicgstab", "nf_fused_outer_step",
             "nf_galerkin_levels_batched", "nf_fused_mg_solve_batched", "nf_bicgstab_batched",
             "nf_fused_outer_step_phases", "nf_fused_outer_step_batched",
@@ -79,7 +83,7 @@ _SIGNATURES = {"nf_apply_poisson": [_P] * 7 + [_I, _I, _P],  # p, 4 links, diag,
                "nf_bicgstab_cluster_size": [ctypes.POINTER(_I)],     # the size out
                "nf_asmcheby_blocks_per_sm": [_I, ctypes.POINTER(_I)],  # degree; blocks out
                "nf_galerkin_cluster_size": [ctypes.POINTER(_I)],     # the size out
-               # kernel (0 K7, 1 K5, 2 K4), size; how many clusters fit at once, out
+               # kernel (0 K7, 1 K5, 2 K4, 3 K3), size; how many clusters fit at once, out
                "nf_case_max_clusters": [_I, _I, ctypes.POINTER(_I)],
                "nf_strip_down_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)],  # five, sweeps; out
                "nf_strip_up_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)]}    # five, sweeps; out
@@ -105,7 +109,7 @@ def under_transform() -> bool:
 def under_vmap() -> bool:
     """True inside ``torch.func.vmap`` and no other transform: no other
     ``torch.func`` level, forward-AD dual level or ``make_fx`` trace.  There
-    the kernels with a batching rule (K7, K5, K4) run it."""
+    the kernels with a batching rule (K1, K2a, K2b, K3, K4, K5, K7) run it."""
     if not under_transform():
         return False
     from torch.autograd import forward_ad
@@ -123,8 +127,9 @@ def refuse_under_transform(what: str):
     to the plain version)."""
     if under_transform():
         raise RuntimeError(
-            f"{what}: a CUDA kernel cannot run under torch.func or forward-mode AD (only K7, "
-            "K5 and K4 have a batching rule, and only under torch.func.vmap alone); "
+            f"{what}: a CUDA kernel cannot run under torch.func or forward-mode AD (only K1, "
+            "K2a, K2b, K3, K4, K5 and K7 have a batching rule, and only under "
+            "torch.func.vmap alone); "
             "differentiate the plain PyTorch path (backend='composed', or the plain "
             "assembly, as newton.make_residual does)")
 
@@ -214,9 +219,9 @@ def case_strides(arrays, cases: int, shape, dtype, what: str):
 
 
 def case_max_clusters(kernel: int, size: int, device=None) -> int:
-    """How many clusters of ``size`` CTAs of the batched K7 (0), K5 (1) or
-    K4 (2) the card on ``device`` holds at once: a batch of more cases runs
-    in waves."""
+    """How many clusters of ``size`` CTAs of the batched K7 (0), K5 (1), K4
+    (2) or K3 (3) the card on ``device`` holds at once: a batch of more
+    cases runs in waves."""
     with torch.cuda.device(device):
         count = ctypes.c_int(0)
         check(library().nf_case_max_clusters(kernel, size, ctypes.byref(count)),

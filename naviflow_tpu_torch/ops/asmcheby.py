@@ -18,6 +18,12 @@ On a CPU tensor :func:`fused_asmcheby_pair` runs
 tensor it launches the kernel or raises.  A launch allocates one buffer for
 all its outputs and runs no other PyTorch operator: the interval scalars
 are read by address, and the Gershgorin maxima come out of the kernel.
+
+The case axis (:func:`fused_asmcheby_pair_batched`): B cases of one shape
+in one launch, each with its own fields, conductance row
+(``powerlaw.case_conductances``) and interval scalars, each bit-equal to
+its single launch.  Under ``torch.func.vmap`` (alone)
+:func:`fused_asmcheby_pair` is its batching rule's entry.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 
 from . import _cuda
 from .poisson import PoissonCoeffs, poisson_coefficients
-from .powerlaw import (d_coefficient, relax_coefficients,
+from .powerlaw import (case_conductances, d_coefficient, relax_coefficients,
                        u_momentum_coefficients, v_momentum_coefficients)
 from .stencil import apply_stencil
 
@@ -98,6 +104,7 @@ class _Launch:
 _LAUNCH = {}
 
 LAUNCHES = 0  # kernel launches since the last reset (the CPU path never counts)
+BATCH_LAUNCHES = 0  # the batched entry's
 
 
 def _strip_rows_merged(nx: int, ny: int) -> int:
@@ -155,6 +162,24 @@ def fused_asmcheby_pair_plain(u, v, p, *, dx, dy, rho, mu, alpha, degree,
             _masked_ratio_max(cu_rel, mask_u), _masked_ratio_max(cv_rel, mask_v))
 
 
+def _floats(dx, dy, rho, mu, alpha):
+    """The C entry's float parameters; ``mu`` a number, or one case's
+    ``powerlaw.case_conductances`` row (its De and Dn, which round as the
+    number's do)."""
+    if torch.is_tensor(mu):
+        de, dn = float(mu[0]), float(mu[1])
+    else:
+        de, dn = mu * dy / dx, mu * dx / dy
+    return (0.5 * rho * dy, 0.5 * rho * dx, de, dn, dx, dy, alpha, 1.0 - alpha, rho)
+
+
+def _check_args(degree, poisson_variant):
+    if degree < 1 or degree + 1 > PAD:
+        raise ValueError(f"degree {degree}: the kernel needs 1 <= degree <= {PAD - 1}")
+    if poisson_variant not in _VARIANTS:
+        raise ValueError(f"Unknown poisson operator variant: {poisson_variant}")
+
+
 def _launch(u, v, p, dx, dy, rho, mu, alpha, degree, bounds_u, bounds_v, poisson_variant,
             timers=None):
     nxp1, ny = u.shape
@@ -162,13 +187,9 @@ def _launch(u, v, p, dx, dy, rho, mu, alpha, degree, bounds_u, bounds_v, poisson
     _cuda.require_all((u,), (nx + 1, ny), "u")
     _cuda.require_all((v,), (nx, ny + 1), "v")
     _cuda.require_all((p,), (nx, ny), "p")
-    if degree < 1 or degree + 1 > PAD:
-        raise ValueError(f"degree {degree}: the kernel needs 1 <= degree <= {PAD - 1}")
-    if poisson_variant not in _VARIANTS:
-        raise ValueError(f"Unknown poisson operator variant: {poisson_variant}")
+    _check_args(degree, poisson_variant)
     dev, stream = u.device, _cuda.stream_of(u)
-    floats = (0.5 * rho * dy, 0.5 * rho * dx, mu * dy / dx, mu * dx / dy, dx, dy, alpha,
-              1.0 - alpha, rho)
+    floats = _floats(dx, dy, rho, mu, alpha)
     key = (dev, stream, nx, ny, degree, poisson_variant, floats)
     st = _LAUNCH.get(key)
     if st is None:
@@ -204,8 +225,19 @@ def fused_asmcheby_pair(u, v, p, *, dx, dy, rho, mu, alpha, degree,
     rho_v)``: the ``r`` fields are the unrelaxed residuals, zero outside
     each field's solve mask, ``pc`` the :class:`PoissonCoeffs`, and
     ``rho_u/rho_v`` the fresh masked Gershgorin ratio maxima (0-d tensors).
-    On the card every output is a view of one fresh buffer."""
+    On the card every output is a view of one fresh buffer.  ``mu`` is a
+    number or (the vmapped batch step) one case's conductance row
+    (``powerlaw.case_conductances``); under ``torch.func.vmap`` the call is
+    :class:`_AsmChebyCases`' batching rule's."""
     global LAUNCHES
+    if _cuda.under_vmap():
+        if not torch.is_tensor(mu):
+            mu = case_conductances([mu], dx, dy, torch.float32, u.device)[0]
+        scalars = [s if torch.is_tensor(s) else torch.tensor(float(s), device=u.device)
+                   for s in (*bounds_u, *bounds_v)]
+        out = _AsmChebyCases.apply(u, v, p, mu, *scalars,
+                                   (dx, dy, rho, alpha, degree, poisson_variant))
+        return _unflatten(out)
     if not u.is_cuda:
         return fused_asmcheby_pair_plain(
             u, v, p, dx=dx, dy=dy, rho=rho, mu=mu, alpha=alpha, degree=degree,
@@ -238,3 +270,154 @@ def fused_asmcheby_pair_phases(u, v, p, *, dx, dy, rho, mu, alpha, degree,
     out = _launch(u, v, p, dx, dy, rho, mu, alpha, degree, bounds_u, bounds_v,
                   poisson_variant, timers)
     return out, decode_phases(timers.cpu())
+
+
+# ---------------------------------------------------------------------------
+# The case axis: B cases of one shape in one launch, the persistent blocks
+# walking (case, tile) items; each case bit-equal to its single launch.
+
+
+def _unflatten(out):
+    """The 13 flat outputs as :func:`fused_asmcheby_pair` returns them."""
+    u_star, r_u, v_star, r_v, d_u, d_v, pe, pw, pn, ps, pdiag, rho_u, rho_v = out
+    return (u_star, r_u, v_star, r_v, d_u, d_v,
+            PoissonCoeffs(a_e=pe, a_w=pw, a_n=pn, a_s=ps, diag=pdiag), rho_u, rho_v)
+
+
+def _flat(out):
+    pc = out[6]
+    return (*out[:6], pc.a_e, pc.a_w, pc.a_n, pc.a_s, pc.diag, out[7], out[8])
+
+
+def fused_asmcheby_pair_batched_plain(u, v, p, *, dx, dy, rho, visc, alpha, degree, bounds_u,
+                                      bounds_v, poisson_variant="consistent", active=None):
+    """The batched K1's plain version (the CPU path and its oracle): case by
+    case through :func:`fused_asmcheby_pair_plain` with each case's
+    conductance row and interval scalars; a frozen case (``active`` False)
+    gets its u and v back and zeros in every other output."""
+    cases = u.shape[0]
+    flags = [True] * cases if active is None else active.tolist()
+    outs = []
+    for k, on in enumerate(flags):
+        if on:
+            outs.append(_flat(fused_asmcheby_pair_plain(
+                u[k], v[k], p[k], dx=dx, dy=dy, rho=rho, mu=visc[k], alpha=alpha,
+                degree=degree, bounds_u=tuple(s[k] for s in bounds_u),
+                bounds_v=tuple(s[k] for s in bounds_v), poisson_variant=poisson_variant)))
+        else:
+            zero = u.new_zeros(())
+            outs.append((u[k], torch.zeros_like(u[k]), v[k], torch.zeros_like(v[k]),
+                         torch.zeros_like(u[k]), torch.zeros_like(v[k]),
+                         *[torch.zeros_like(p[k])] * 5, zero, zero))
+    return _unflatten([torch.stack(xs) for xs in zip(*outs)])
+
+
+class _BatchLaunch:
+    """The batched entry's host arrays for one (device, stream, cases,
+    shape, degree, variant, physics): the pointer slots (the single entry's
+    21, the conductances, the active flags, then each slot's case stride;
+    the outputs' strides filled once), the parameters with the case count,
+    the output layout of one case, and the flags of a batch with no frozen
+    case."""
+
+    def __init__(self, nx, ny, degree, variant, floats, cases, dev):
+        self.layout, self.total = output_layout(nx, ny)
+        self.half = len(SLOTS) + 2
+        self.ptrs = (ctypes.c_longlong * (2 * self.half))()
+        self.ptrs[self.half + N_IN:self.half + len(SLOTS)] = [4 * self.total] * (len(SLOTS) - N_IN)
+        self.ip = (ctypes.c_int * 5)(nx, ny, degree, variant, cases)
+        self.fp = (ctypes.c_float * 9)(*floats)
+        self.ones = torch.ones(cases, dtype=torch.bool, device=dev)
+
+
+_BATCH = {}
+
+
+def fused_asmcheby_pair_batched(u, v, p, *, dx, dy, rho, visc, alpha, degree, bounds_u,
+                                bounds_v, poisson_variant="consistent", active=None):
+    """:func:`fused_asmcheby_pair` of B cases of one shape in one launch:
+    ``u``, ``v``, ``p`` carry a leading case axis (each case's slice
+    contiguous; a case stride of 0 shares one array), ``visc`` (B, 4) each
+    case's conductances (``powerlaw.case_conductances``), ``bounds_u`` /
+    ``bounds_v`` three float32 (B,) tensors each (theta, delta, sigma1 of
+    each case), ``active`` (B,) bool: a frozen case gets its u and v back
+    and zeros elsewhere (None: every case active).  Returns the single
+    call's outputs with the case axis first, views of one fresh buffer."""
+    global BATCH_LAUNCHES
+    if not u.is_cuda:
+        return fused_asmcheby_pair_batched_plain(
+            u, v, p, dx=dx, dy=dy, rho=rho, visc=visc, alpha=alpha, degree=degree,
+            bounds_u=bounds_u, bounds_v=bounds_v, poisson_variant=poisson_variant,
+            active=active)
+    cases, nxp1, ny = u.shape
+    nx = nxp1 - 1
+    _check_args(degree, poisson_variant)
+    f32 = torch.float32
+    dev, stream = u.device, _cuda.stream_of(u)
+    floats = (0.5 * rho * dy, 0.5 * rho * dx, 0.0, 0.0, dx, dy, alpha, 1.0 - alpha, rho)
+    key = (dev, stream, cases, nx, ny, degree, poisson_variant, floats)
+    st = _BATCH.get(key)
+    if st is None:
+        if len(_BATCH) >= 32:
+            _BATCH.clear()
+        st = _BATCH[key] = _BatchLaunch(nx, ny, degree, _VARIANTS[poisson_variant], floats,
+                                        cases, dev)
+    ptrs, half = st.ptrs, st.half
+    ins = ((u, (nx + 1, ny)), (v, (nx, ny + 1)), (p, (nx, ny)))
+    for k, (x, shape) in enumerate(ins):
+        ptrs[k] = x.data_ptr()
+        ptrs[half + k] = _cuda.case_stride(x, cases, shape, f32, SLOTS[k])
+    scalars = (*bounds_u, *bounds_v)
+    ptrs[3:N_IN] = [s.data_ptr() for s in scalars]
+    ptrs[half + 3:half + N_IN] = _cuda.case_strides(scalars, cases, (), f32, "bounds")
+    buf = torch.empty((cases, st.total), dtype=f32, device=dev)  # every output
+    base = buf.data_ptr()
+    ptrs[N_IN:len(SLOTS)] = [base + 4 * off for off, _ in st.layout]
+    flags = st.ones if active is None else active
+    n = len(SLOTS)
+    ptrs[n], ptrs[half + n] = visc.data_ptr(), _cuda.case_stride(visc, cases, (4,), f32, "visc")
+    ptrs[n + 1] = flags.data_ptr()
+    ptrs[half + n + 1] = _cuda.case_stride(flags, cases, (), torch.bool, "active")
+    _cuda.check(_cuda.library().nf_asmcheby_pair_batched(ptrs, st.ip, st.fp, stream),
+                "fused_asmcheby_pair_batched")
+    BATCH_LAUNCHES += 1
+    outs = [buf.as_strided((cases, *shape), (st.total, shape[1], 1), off)
+            for off, shape in st.layout[:-1]]
+    g = st.layout[-1][0]
+    return _unflatten([*outs, buf.as_strided((cases,), (st.total,), g),
+                       buf.as_strided((cases,), (st.total,), g + 1)])
+
+
+class _AsmChebyCases(torch.autograd.Function):
+    """K1's batching rule: under ``torch.func.vmap`` every case's call goes
+    into one :func:`fused_asmcheby_pair_batched` launch with its own
+    conductance row and interval scalars and the active flags of
+    ``_cuda.case_mask``; an operand shared by every case gets case stride
+    0."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(u, v, p, visc, *args):
+        *scalars, (dx, dy, rho, alpha, degree, variant) = args
+        return _flat(fused_asmcheby_pair(u, v, p, dx=dx, dy=dy, rho=rho, mu=visc, alpha=alpha,
+                                         degree=degree, bounds_u=tuple(scalars[:3]),
+                                         bounds_v=tuple(scalars[3:]),
+                                         poisson_variant=variant))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        cases = info.batch_size
+        *arrays, (dx, dy, rho, alpha, degree, variant) = args
+        u, v, p, visc, *scalars = (_cuda.case_first(a, d, cases)
+                                   for a, d in zip(arrays, in_dims[:len(arrays)]))
+        out = fused_asmcheby_pair_batched(
+            u, v, p, dx=dx, dy=dy, rho=rho, visc=visc, alpha=alpha, degree=degree,
+            bounds_u=tuple(scalars[:3]), bounds_v=tuple(scalars[3:]), poisson_variant=variant,
+            active=_cuda.active_cases(cases))
+        flat = _flat(out)
+        return flat, (0,) * len(flat)

@@ -108,6 +108,7 @@ def fused_assembly_pair(u, v, p, *, dx, dy, rho, mu, alpha, with_bounds=False,
     _cuda.require(v, (nx, ny + 1), "v")
     _cuda.require(p, (nx, ny), "p")
     dev = u.device
+    stream = _cuda.stream_of(u)  # raises under a transform, before a pointer is read
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -127,7 +128,7 @@ def fused_assembly_pair(u, v, p, *, dx, dy, rho, mu, alpha, with_bounds=False,
           1.0 - alpha, rho]
     _cuda.check(_cuda.library().nf_fused_assembly_pair(
         (ctypes.c_longlong * len(ptrs))(*ptrs), (ctypes.c_int * len(ip))(*ip),
-        (ctypes.c_float * len(fp))(*fp), _cuda.stream_of(u)), "fused_assembly_pair")
+        (ctypes.c_float * len(fp))(*fp), stream), "fused_assembly_pair")
     LAUNCHES += 1
     cu_un = StencilCoeffs(a_e=cu[0], a_w=cu[1], a_n=cu[2], a_s=cu[3], a_p=cu[4], src=cu[5])
     cv_un = StencilCoeffs(a_e=cv[0], a_w=cv[1], a_n=cv[2], a_s=cv[3], a_p=cv[4], src=cv[5])

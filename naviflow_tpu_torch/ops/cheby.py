@@ -85,6 +85,7 @@ def chebyshev_momentum_strips(x0, c_rel, c_un, *, theta, delta, sigma1, degree: 
               c_un.a_p, c_un.src)
     _cuda.require_all(arrays, (ni, nj), "chebyshev_momentum_strips inputs")
     dev = x0.device
+    stream = _cuda.stream_of(x0)  # raises under a transform, before a pointer is read
     scalars, held = _cuda.scalar_ptrs((theta, delta, sigma1), dev)  # held until enqueued
     x_star, r_m = torch.empty((2, ni, nj), dtype=torch.float32, device=dev)  # one allocation
     ptrs = _PTRS
@@ -94,7 +95,7 @@ def chebyshev_momentum_strips(x0, c_rel, c_un, *, theta, delta, sigma1, degree: 
         if len(_IP) >= 32:
             _IP.clear()
         ip = _IP[(ni, nj, degree)] = (ctypes.c_int * 3)(ni, nj, degree)
-    _cuda.check(_cuda.library().nf_chebyshev_strips(ptrs, ip, _FP, _cuda.stream_of(x0)),
+    _cuda.check(_cuda.library().nf_chebyshev_strips(ptrs, ip, _FP, stream),
                 "chebyshev_momentum_strips")
     LAUNCHES += 1
     return x_star, r_m

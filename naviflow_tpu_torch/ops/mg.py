@@ -18,13 +18,13 @@ on the H100.  Each wrapper runs its plain PyTorch version on a CPU tensor
 and launches its kernel, or raises, on a CUDA one, and keeps its host
 arrays (K3's and K5's with their scratch) per hierarchy layout.
 
-The case axis of K5 and K4 (:func:`fused_mg_solve_batched`,
-:func:`galerkin_levels_batched`; ``csrc/mg.cu``'s batched entries): B
-hierarchies of one layout in one launch, one cluster a case, each case
-bit-equal to its single launch.  Under ``torch.func.vmap`` (alone)
-:func:`fused_mg_solve` and :func:`galerkin_levels` are their batching
-rules' entries.  K3 has no case axis: under ``vmap`` it raises at its
-launch.
+The case axis of K5, K4 and K3 (:func:`fused_mg_solve_batched`,
+:func:`galerkin_levels_batched`, :func:`fused_vcycle_batched`;
+``csrc/mg.cu``'s batched entries): B hierarchies of one layout in one
+launch, one cluster a case, each case bit-equal to its single launch.
+Under ``torch.func.vmap`` (alone) :func:`fused_mg_solve`,
+:func:`galerkin_levels` and :func:`fused_vcycle` are their batching
+rules' entries.
 
 The gates are the reference's admission rules, with their TPU VMEM
 budgets kept so that the port splits the work as the reference does; they
@@ -53,6 +53,7 @@ RAP_LAUNCHES = 0  # K4
 SOLVE_LAUNCHES = 0  # K5
 RAP_BATCH_LAUNCHES = 0  # K4, batched
 SOLVE_BATCH_LAUNCHES = 0  # K5, batched
+VC_BATCH_LAUNCHES = 0  # K3, batched
 
 _NAMES = ("c", "e", "w", "n", "s", "ne", "nw", "se", "sw")
 
@@ -249,6 +250,10 @@ def fused_vcycle(p, b, levels, cfg):
     configuration; the stencil pointers are refilled when the hierarchy
     changes."""
     global LAUNCHES
+    if _cuda.under_vmap():
+        meta = (tuple((tuple(shp), bool(five), lam) for _, shp, five, lam in levels), cfg)
+        return _VcycleCases.apply(p, b, *(a for st, _, _, _ in levels for a in _arrays9(st)),
+                                  meta)
     if not p.is_cuda:
         return fused_vcycle_plain(p, b, levels, cfg)
     if cfg.cycle_type not in ("v", "fmg") or cfg.smoother != "gs":
@@ -455,7 +460,7 @@ def mg_solve_cluster_size(device=None) -> int:
 
 
 # ---------------------------------------------------------------------------
-# The case axis of K5 and K4.
+# The case axis of K5, K4 and K3.
 
 
 def _arrays9(st: Stencil9):
@@ -540,11 +545,7 @@ def fused_mg_solve_batched(p0, b, levels, cfg, *, mean_normalize: bool = True, a
                  lambda: _VcBatchLaunch(case_levels, cfg, dev, cases, ip_tail, fp))
     ptrs, L, half = st.ptrs, st.L, st.half
     f32 = torch.float32
-    for lvl, (stc, shp, five, _) in enumerate(levels):
-        arrays = _stencil_arrays(stc, five)
-        ptrs[half + 11 * lvl:half + 11 * lvl + len(arrays)] = _cuda.case_strides(
-            arrays, cases, shp, f32, f"level {lvl} stencil")
-        ptrs[11 * lvl:11 * lvl + len(arrays)] = [a.data_ptr() for a in arrays]
+    _fill_levels(ptrs, half, levels, cases)
     shape = tuple(levels[0][1])
     pr = torch.empty((2, cases, *shape), dtype=f32, device=dev)  # p, r: one allocation
     scalars = torch.empty((cases, 2), dtype=torch.int32, device=dev)  # cycles, rel's bits
@@ -638,6 +639,112 @@ def galerkin_levels_batched(fine_st: Stencil9, shapes, fine_five: bool, active=N
     return [Stencil9(*buf.as_strided((9, cases, ni, nj), (pitch, h.floats, nj, 1),
                                      off).unbind(0))
             for (off, pitch), (ni, nj) in zip(h.levels, shapes[1:])]
+
+
+def fused_vcycle_batched_plain(p, b, levels, cfg, active=None):
+    """The batched K3's plain version (the CPU path and its oracle): case by
+    case through :func:`fused_vcycle_plain`; a frozen case (``active``
+    False) gets ``p`` back."""
+    return torch.stack([fused_vcycle_plain(p[k], b[k], _case_levels(levels, k), cfg) if on
+                        else p[k] for k, on in enumerate(_flags(active, p.shape[0]))])
+
+
+class _VcBatch:
+    """The batched K3's launch state for one (device, stream, cases,
+    layout): the pointer array (the single entry's 11 L + 1 slots, the
+    active flags, then each slot's case stride; the global coarse levels'
+    scratch, ``cases`` copies, filled once), the parameters with the case
+    count, and the flags of a batch with no frozen case."""
+
+    def __init__(self, levels, cfg, dev, cases):
+        single = _VcLaunch(levels, cfg, dev, 1)
+        L = self.L = single.L
+        self.half = 11 * L + 2
+        self.scratch = [torch.empty((cases, 2, *xr.shape[1:]), dtype=torch.float32,
+                                    device=dev) for xr in single.scratch]
+        self.ptrs = (ctypes.c_longlong * (2 * self.half))()
+        for lvl, xr in enumerate(self.scratch, start=1):
+            stride = 4 * xr[0].numel()
+            for k in (0, 1):
+                self.ptrs[11 * lvl + 9 + k] = xr[:, k].data_ptr()
+                self.ptrs[self.half + 11 * lvl + 9 + k] = stride
+        self.ip = (ctypes.c_int * (len(single.ip) + 1))(*single.ip, cases)
+        self.fp = single.fp
+        self.ones = torch.ones(cases, dtype=torch.bool, device=dev)
+
+
+_VC_BATCH = {}
+
+
+def _fill_levels(ptrs, half, levels, cases):
+    """The stencil slots of every level and their case strides (one test a
+    tensor, ``_cuda.case_strides``)."""
+    for lvl, (stc, shp, five, _) in enumerate(levels):
+        arrays = _stencil_arrays(stc, five)
+        ptrs[half + 11 * lvl:half + 11 * lvl + len(arrays)] = _cuda.case_strides(
+            arrays, cases, shp, torch.float32, f"level {lvl} stencil")
+        ptrs[11 * lvl:11 * lvl + len(arrays)] = [a.data_ptr() for a in arrays]
+
+
+def fused_vcycle_batched(p, b, levels, cfg, active=None):
+    """:func:`fused_vcycle` of B cases in one launch, one cluster a case:
+    ``p``, ``b`` and every stencil array of ``levels`` carry a leading case
+    axis (each case's slice contiguous; a case stride of 0 shares one array),
+    ``active`` (B,) bool: a frozen case gets ``p`` back and its cluster
+    leaves at once (None: every case active).  Returns level 0's iterates
+    (B, *shape), a fresh tensor."""
+    global VC_BATCH_LAUNCHES
+    if not p.is_cuda:
+        return fused_vcycle_batched_plain(p, b, levels, cfg, active)
+    if cfg.cycle_type not in ("v", "fmg") or cfg.smoother != "gs":
+        raise ValueError("fused_vcycle implements Gauss-Seidel V-cycles only")
+    cases = p.shape[0]
+    dev, stream = p.device, _cuda.stream_of(p)
+    st = _cached(_VC_BATCH, (dev, stream, cases) + _layout_key(levels, cfg),
+                 lambda: _VcBatch(levels, cfg, dev, cases))
+    ptrs, L, half = st.ptrs, st.L, st.half
+    _fill_levels(ptrs, half, levels, cases)
+    shape = tuple(levels[0][1])
+    f32 = torch.float32
+    out = torch.empty((cases, *shape), dtype=f32, device=dev)
+    flags = st.ones if active is None else active
+    ptrs[9], ptrs[half + 9] = out.data_ptr(), 4 * math.prod(shape)
+    ptrs[10], ptrs[half + 10] = b.data_ptr(), _cuda.case_stride(b, cases, shape, f32, "b")
+    ptrs[11 * L], ptrs[half + 11 * L] = p.data_ptr(), _cuda.case_stride(p, cases, shape, f32,
+                                                                         "p")
+    ptrs[half - 1] = flags.data_ptr()
+    ptrs[2 * half - 1] = _cuda.case_stride(flags, cases, (), torch.bool, "active")
+    _cuda.check(_cuda.library().nf_fused_vcycle_batched(ptrs, st.ip, st.fp, stream),
+                "fused_vcycle_batched")
+    VC_BATCH_LAUNCHES += 1
+    return out
+
+
+class _VcycleCases(torch.autograd.Function):
+    """K3's batching rule: under ``torch.func.vmap`` every case's V-cycle
+    goes into one :func:`fused_vcycle_batched` call with the active flags of
+    ``_cuda.case_mask``; an operand shared by every case (a hierarchy built
+    before the batch) gets case stride 0."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(p, b, *args):
+        *arrays, (metas, cfg) = args
+        return fused_vcycle(p, b, _levels_of(arrays, metas), cfg)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        cases = info.batch_size
+        *arrays, (metas, cfg) = args
+        p, b, *arrays = (_cuda.case_first(a, d, cases)
+                         for a, d in zip(arrays, in_dims[:len(arrays)]))
+        return fused_vcycle_batched(p, b, _levels_of(arrays, metas), cfg,
+                                    active=_cuda.active_cases(cases)), 0
 
 
 class _MgSolveCases(torch.autograd.Function):

@@ -17,6 +17,11 @@ levels four colours.  On a CPU tensor each wrapper runs its plain version
 (``_smooth`` -> ``b - apply`` -> ``restrict_cc``, and ``p + prolong_cc(ec)``
 -> ``_smooth``); on a CUDA tensor it launches its kernel or raises.  Each
 keeps its host arrays per (device, stream, shape, points, sweeps, omega).
+
+The case axis (:func:`strip_down_batched`, :func:`strip_up_batched`): B
+levels of one shape in one launch, the grid's z axis over the cases, each
+case bit-equal to its single launch.  Under ``torch.func.vmap`` (alone)
+:func:`strip_down` and :func:`strip_up` are their batching rules' entries.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ _CAP_NINE = 384 * 1024
 
 STRIP_DOWN_LAUNCHES = 0
 STRIP_UP_LAUNCHES = 0
+STRIP_DOWN_BATCH_LAUNCHES = 0
+STRIP_UP_BATCH_LAUNCHES = 0
 
 # csrc/strip.cu's tiles (both kernels): TILE rows of owned cells by
 # DOWN_TILE_J columns
@@ -195,6 +202,8 @@ def strip_down(p, b, st: Stencil9, cfg, five: bool = True):
     """Pre-smooth + residual + cell-centred restriction of a level.
     Returns ``(p_smoothed, r_coarse)``."""
     global STRIP_DOWN_LAUNCHES
+    if _cuda.under_vmap():
+        return _DownCases.apply(p, b, *_st_arrays(st, five), (cfg, bool(five)))
     if not p.is_cuda:
         return strip_down_plain(p, b, st, cfg, five)
     nx, ny, arrays = _check(p, b, st, cfg, five)
@@ -215,6 +224,8 @@ def strip_down(p, b, st: Stencil9, cfg, five: bool = True):
 def strip_up(p, b, st: Stencil9, ec, cfg, five: bool = True):
     """Prolongated coarse correction + post-smoothing of a level."""
     global STRIP_UP_LAUNCHES
+    if _cuda.under_vmap():
+        return _UpCases.apply(p, b, ec, *_st_arrays(st, five), (cfg, bool(five)))
     if not p.is_cuda:
         return strip_up_plain(p, b, st, ec, cfg, five)
     nx, ny, arrays = _check(p, b, st, cfg, five)
@@ -227,3 +238,192 @@ def strip_up(p, b, st: Stencil9, ec, cfg, five: bool = True):
     _cuda.check(_cuda.library().nf_strip_up(h.ptrs, h.ip, h.fp, stream), "strip_up")
     STRIP_UP_LAUNCHES += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The case axis: B levels of one shape in one launch (grid z over the
+# cases), each case bit-equal to its single launch.
+
+
+def _stencil_of(arrays, five):
+    """The level's Stencil9 from its 5 or 9 arrays (a 5-point level's
+    corners, which no pass reads, None)."""
+    return Stencil9(*arrays, *([None] * (9 - len(arrays))))
+
+
+def _case_st(st, k):
+    return Stencil9(*(None if a is None else a[k] for a in (getattr(st, f) for f in _ST9)))
+
+
+def _flags(active, cases):
+    return [True] * cases if active is None else active.tolist()
+
+
+def strip_down_batched_plain(p, b, st: Stencil9, cfg, five: bool = True, active=None):
+    """The batched K2a's plain version (the CPU path and its oracle): case
+    by case through :func:`strip_down_plain`; a frozen case (``active``
+    False) gets ``p`` and a zero coarse residual."""
+    outs = [strip_down_plain(p[k], b[k], _case_st(st, k), cfg, five) if on
+            else (p[k], p.new_zeros((p.shape[1] // 2, p.shape[2] // 2)))
+            for k, on in enumerate(_flags(active, p.shape[0]))]
+    return torch.stack([x for x, _ in outs]), torch.stack([rc for _, rc in outs])
+
+
+def strip_up_batched_plain(p, b, st: Stencil9, ec, cfg, five: bool = True, active=None):
+    """The batched K2b's plain version: case by case through
+    :func:`strip_up_plain`; a frozen case gets ``p``."""
+    return torch.stack([strip_up_plain(p[k], b[k], _case_st(st, k), ec[k], cfg, five)
+                        if on else p[k] for k, on in enumerate(_flags(active, p.shape[0]))])
+
+
+class _BatchLaunch:
+    """A batched kernel's host arrays for one (device, stream, cases, shape,
+    five, sweeps, omega): the pointer slots (the single entry's, the active
+    flags, then each slot's case stride; refilled per call), the parameters
+    with the case count, and the flags of a batch with no frozen case."""
+
+    def __init__(self, slots, nx, ny, five, sweeps, omega, cases, dev):
+        self.half = len(slots) + 1
+        self.ptrs = (ctypes.c_longlong * (2 * self.half))()
+        self.ip = (ctypes.c_int * 5)(nx, ny, int(five), sweeps, cases)
+        self.fp = (ctypes.c_float * 1)(omega)
+        self.ones = torch.ones(cases, dtype=torch.bool, device=dev)
+
+
+_DOWN_BATCH = {}
+_UP_BATCH = {}
+
+
+def _batch_state(cache, slots, p, five, sweeps, omega):
+    cases, nx, ny = p.shape
+    key = (p.device, _cuda.stream_of(p), cases, nx, ny, five, sweeps, omega)
+    h = cache.get(key)
+    if h is None:
+        if len(cache) >= 32:
+            cache.clear()
+        h = cache[key] = _BatchLaunch(slots, nx, ny, five, sweeps, omega, cases, p.device)
+    return key[1], h
+
+
+def _batch_inputs(h, groups, active, cases):
+    """The input slots from ``groups`` (lists of arrays of one shape, in slot
+    order), their case strides (one test a tensor) and the active flags;
+    returns the next slot, where the caller puts the outputs."""
+    k, half = 0, h.half
+    for arrays, shape in groups:
+        strides = _cuda.case_strides(arrays, cases, shape, torch.float32, "strip input")
+        h.ptrs[k:k + len(arrays)] = [a.data_ptr() for a in arrays]
+        h.ptrs[half + k:half + k + len(arrays)] = strides
+        k += len(arrays)
+    flags = h.ones if active is None else active
+    h.ptrs[half - 1] = flags.data_ptr()
+    h.ptrs[2 * half - 1] = _cuda.case_stride(flags, cases, (), torch.bool, "active")
+    return k
+
+
+def _batch_check(p, cfg):
+    cases, nx, ny = p.shape
+    if nx % 2 or ny % 2:
+        raise ValueError(f"strip kernels need an even level, got {(nx, ny)}")
+    if cfg.smoother != "gs" or getattr(cfg, "smoother_dtype", "float32") != "float32":
+        raise ValueError("strip kernels implement float32 Gauss-Seidel smoothing only")
+    return cases, nx, ny
+
+
+def strip_down_batched(p, b, st: Stencil9, cfg, five: bool = True, active=None):
+    """:func:`strip_down` of B levels of one shape in one launch: ``p``,
+    ``b`` and the stencil arrays carry a leading case axis (each case's
+    slice contiguous; a case stride of 0 shares one array), ``active`` (B,)
+    bool: a frozen case's blocks copy ``p`` and zero its coarse residual
+    (None: every case active).  Returns ``(p_smoothed, r_coarse)`` with the
+    case axis first, views of one fresh buffer."""
+    global STRIP_DOWN_BATCH_LAUNCHES
+    if not p.is_cuda:
+        return strip_down_batched_plain(p, b, st, cfg, five, active)
+    cases, nx, ny = _batch_check(p, cfg)
+    stream, h = _batch_state(_DOWN_BATCH, down_slots(five), p, five, cfg.pre_smoothing,
+                             cfg.omega)
+    n = _batch_inputs(h, [([p, b, *_st_arrays(st, five)], (nx, ny))], active, cases)
+    cells, coarse = nx * ny, (nx // 2) * (ny // 2)
+    buf = torch.empty((cases, cells + coarse), dtype=p.dtype, device=p.device)
+    base = buf.data_ptr()
+    h.ptrs[n:n + 2] = [base, base + 4 * cells]
+    h.ptrs[h.half + n:h.half + n + 2] = [4 * (cells + coarse)] * 2
+    _cuda.check(_cuda.library().nf_strip_down_batched(h.ptrs, h.ip, h.fp, stream),
+                "strip_down_batched")
+    STRIP_DOWN_BATCH_LAUNCHES += 1
+    return (buf.as_strided((cases, nx, ny), (cells + coarse, ny, 1), 0),
+            buf.as_strided((cases, nx // 2, ny // 2), (cells + coarse, ny // 2, 1), cells))
+
+
+def strip_up_batched(p, b, st: Stencil9, ec, cfg, five: bool = True, active=None):
+    """:func:`strip_up` of B levels of one shape in one launch (the case
+    axis as :func:`strip_down_batched`; ``ec`` (B, nx / 2, ny / 2)); a
+    frozen case's blocks copy ``p``.  Returns the smoothed levels (B, nx,
+    ny), a fresh tensor."""
+    global STRIP_UP_BATCH_LAUNCHES
+    if not p.is_cuda:
+        return strip_up_batched_plain(p, b, st, ec, cfg, five, active)
+    cases, nx, ny = _batch_check(p, cfg)
+    stream, h = _batch_state(_UP_BATCH, up_slots(five), p, five, cfg.post_smoothing,
+                             cfg.omega)
+    n = _batch_inputs(h, [([p, b, *_st_arrays(st, five)], (nx, ny)),
+                          ([ec], (nx // 2, ny // 2))], active, cases)
+    out = torch.empty_like(p)
+    h.ptrs[n], h.ptrs[h.half + n] = out.data_ptr(), 4 * nx * ny
+    _cuda.check(_cuda.library().nf_strip_up_batched(h.ptrs, h.ip, h.fp, stream),
+                "strip_up_batched")
+    STRIP_UP_BATCH_LAUNCHES += 1
+    return out
+
+
+class _DownCases(torch.autograd.Function):
+    """K2a's batching rule: under ``torch.func.vmap`` every case's level goes
+    into one :func:`strip_down_batched` call with the active flags of
+    ``_cuda.case_mask``; an operand shared by every case gets case stride
+    0."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(p, b, *args):
+        *arrays, (cfg, five) = args
+        return strip_down(p, b, _stencil_of(arrays, five), cfg, five)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        cases = info.batch_size
+        *arrays, (cfg, five) = args
+        p, b, *arrays = (_cuda.case_first(a, d, cases)
+                         for a, d in zip(arrays, in_dims[:len(arrays)]))
+        out = strip_down_batched(p, b, _stencil_of(arrays, five), cfg, five,
+                                 active=_cuda.active_cases(cases))
+        return out, (0, 0)
+
+
+class _UpCases(torch.autograd.Function):
+    """K2b's batching rule, as :class:`_DownCases` for :func:`strip_up_batched`."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(p, b, ec, *args):
+        *arrays, (cfg, five) = args
+        return strip_up(p, b, _stencil_of(arrays, five), ec, cfg, five)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        cases = info.batch_size
+        *arrays, (cfg, five) = args
+        p, b, ec, *arrays = (_cuda.case_first(a, d, cases)
+                             for a, d in zip(arrays, in_dims[:len(arrays)]))
+        return strip_up_batched(p, b, _stencil_of(arrays, five), ec, cfg, five,
+                                active=_cuda.active_cases(cases)), 0

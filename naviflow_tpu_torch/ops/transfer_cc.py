@@ -35,7 +35,9 @@ def _prolong_ax0(c):
     """(m, n) -> (2m, n) bilinear along axis 0 with clamped edges."""
     up = torch.cat([c[:1], c[:-1]], 0)  # c[I-1] clamped
     dn = torch.cat([c[1:], c[-1:]], 0)  # c[I+1] clamped
-    out = torch.empty((2 * c.shape[0], c.shape[1]), dtype=c.dtype, device=c.device)
+    # new_empty: under torch.func.vmap (the batched step) the buffer takes
+    # c's case axis
+    out = c.new_empty((2 * c.shape[0], c.shape[1]))
     out[0::2] = 0.75 * c + 0.25 * up  # fine row 2I
     out[1::2] = 0.75 * c + 0.25 * dn  # fine row 2I+1
     return out

@@ -479,29 +479,30 @@ def _fake_cuda():
 
 
 def test_kernels_without_a_rule_raise_under_vmap():
-    """Under ``torch.func.vmap`` the gates answer from the device, K3 and K1
+    """Under ``torch.func.vmap`` the gates answer from the device, K8 and K9
     (no batching rule) raise at their launch, before any pointer is read;
     a vmap with another transform inside still closes the gate."""
+    from naviflow_tpu_torch.ops import assembly, cheby
+
     mode, x = _fake_cuda()
     with mode:
         xs = torch.zeros(3, 15, 15, device="cuda")
         seen = []
         torch.func.vmap(lambda a: seen.append(_cuda.kernel_device(a)) or a)(xs)
         assert seen == [True]
-        with pytest.raises(RuntimeError, match="no batching rule|only K7, K5 and K4"):
+        with pytest.raises(RuntimeError, match="no batching rule|have a batching rule"):
             torch.func.vmap(lambda a: torch.func.jvp(
                 lambda y: y * _cuda.kernel_device(y), (a,), (a,))[0])(xs)
-        levels = [(Stencil9(*[torch.zeros(15, 15, device="cuda")] * 9), (15, 15), True, None),
-                  (Stencil9(*[torch.zeros(7, 7, device="cuda")] * 9), (7, 7), False, None)]
-        cfg = tmg.MultigridConfig()
-        with pytest.raises(RuntimeError, match="kernel launch"):
-            torch.func.vmap(lambda a, bb: mg.fused_vcycle(a, bb, levels, cfg))(xs, xs)
         u = torch.zeros(3, 16, 15, device="cuda")
         v = torch.zeros(3, 15, 16, device="cuda")
         with pytest.raises(RuntimeError, match="kernel launch"):
-            torch.func.vmap(lambda a, bb, pp: asmcheby.fused_asmcheby_pair(
-                a, bb, pp, dx=0.1, dy=0.1, rho=1.0, mu=0.01, alpha=0.7, degree=4,
-                bounds_u=(1.0, 0.5, 2.0), bounds_v=(1.0, 0.5, 2.0)))(u, v, xs)
+            torch.func.vmap(lambda a, bb, pp: assembly.fused_assembly_pair(
+                a, bb, pp, dx=0.1, dy=0.1, rho=1.0, mu=0.01, alpha=0.7))(u, v, xs)
+        c = [torch.zeros(3, 16, 15, device="cuda") for _ in range(6)]
+        with pytest.raises(RuntimeError, match="kernel launch"):
+            torch.func.vmap(lambda a, *cs: cheby.chebyshev_momentum_strips(
+                a, StencilCoeffs(*cs), StencilCoeffs(*cs), theta=1.0, delta=0.5, sigma1=2.0,
+                degree=4))(u, *c)
 
 
 def test_k7_k5_k4_raise_under_jvp():

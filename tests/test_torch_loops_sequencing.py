@@ -1,91 +1,36 @@
 """The port's outer-loop modes and stall detector against the JAX package's
 on the CPU (float64): ``'fused'``, ``'host'`` and ``'chunked:K'`` with and
-without the lagged coarse rebuild, ``on_chunk``'s boundaries and early stop,
-and ``_StallDetector`` on the same sequences and on a plateauing solve.
-(Grid sequencing and Reynolds continuation: ``test_torch_sequencing.py``.)"""
+without the lagged coarse rebuild at 32^2 (31^2:
+``test_torch_loops_sequencing_odd.py``), ``on_chunk``'s boundaries and early
+stop, and ``_StallDetector`` on the same sequences and on a plateauing
+solve.  (Grid sequencing and Reynolds continuation:
+``test_torch_sequencing.py``.)"""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_loops import LOOPS, assert_same_solve, both_simple, check_loop_mode
 
 import naviflow_tpu as nf
-from naviflow_tpu.algorithms import SIMPLEConfig, simple_solve
+from naviflow_tpu.algorithms import SIMPLEConfig
 from naviflow_tpu.algorithms.base import _StallDetector as JStall
 from naviflow_tpu.solvers import MultigridConfig
 
 import naviflow_tpu_torch as nt
-from naviflow_tpu_torch import interop
 from naviflow_tpu_torch.algorithms import simple_solve as t_simple_solve
 from naviflow_tpu_torch.algorithms.base import _StallDetector as TStall
 
 torch.set_num_threads(2)
 
-HISTORIES = ("u_res_history", "v_res_history", "p_res_history", "total_res_history")
 
-
-def rel_err(got, want):
-    got, want = got.numpy(), np.asarray(want)
-    assert got.shape == want.shape
-    return float(np.max(np.abs(got - want))) / float(np.max(np.abs(want)))
-
-
-def both_simple(n, cfg, pres, loop, *, re=100, on_chunk=None, **kw):
-    """The same SIMPLE solve through both packages from rest (float64);
-    ``on_chunk`` gets a list to record into, one per package."""
-    mesh = nf.StructuredMesh(nx=n, ny=n)
-    fluid = nf.FluidProperties(density=1.0, reynolds_number=re)
-    bc = nf.lid_driven_cavity(1.0)
-    hooks = [None, None] if on_chunk is None else [on_chunk([]), on_chunk([])]
-    js, jd = simple_solve(mesh, fluid, bc, nf.initialize_state(mesh, bc, dtype=jnp.float64),
-                          cfg, pressure=pres, loop=loop, on_chunk=hooks[0], **kw)
-    tmesh, tbc = interop.mesh(mesh), interop.boundary_conditions(bc)
-    ts, td = t_simple_solve(tmesh, interop.fluid(fluid), tbc,
-                            nt.initialize_state(tmesh, tbc, dtype=torch.float64, device="cpu"),
-                            interop.config(cfg), pressure=interop.config(pres), loop=loop,
-                            on_chunk=hooks[1],
-                            **{k: interop.config(v) for k, v in kw.items()})
-    return (js, jd), (ts, td), hooks
-
-
-def assert_same_solve(j, t, rtol=1e-10):
-    (js, jd), (ts, td) = j, t
-    k = int(jd.iterations)
-    assert td.iterations == k
-    assert bool(td.converged) == bool(jd.converged)
-    assert bool(td.stalled) == bool(jd.stalled)
-    for name in HISTORIES:
-        np.testing.assert_allclose(getattr(td, name).numpy()[:k], np.asarray(getattr(jd, name))[:k],
-                                   rtol=rtol, atol=1e-300)
-    np.testing.assert_array_equal(td.inner_iters_history.numpy()[:k],
-                                  np.asarray(jd.inner_iters_history)[:k])
-    for name in ("u", "v", "p"):
-        assert rel_err(getattr(ts, name), getattr(js, name)) < rtol, name
-
-
-# two-level hierarchies (32 -> 16, 31 -> 15) keep the JAX compiles short
-LOOP_CASES = [(n, loop, rebuild) for n in (32, 31)
-              for loop in ("fused", "host", "chunked:37", "chunked:10") for rebuild in (1, 8)]
-
-
-@pytest.mark.parametrize("n,loop,rebuild", LOOP_CASES)
+# two-level hierarchies (32 -> 16, 31 -> 15) keep the JAX compiles short; the
+# 31^2 cases are test_torch_loops_sequencing_odd.py's
+@pytest.mark.parametrize("n,loop,rebuild", [(32, loop, rebuild) for loop in LOOPS
+                                            for rebuild in (1, 8)])
 def test_loop_modes_match_jax(n, loop, rebuild):
-    """Each loop mode at 32^2 and 31^2, Re=100, to 1.7e-3 (~50 iterations,
-    so chunked:37 crosses a boundary), with and without the lagged coarse
-    rebuild: iterations, histories and inner iterations equal to the same
-    JAX loop mode, fields to 1e-10.  The host loop overshoots to a
-    multiple of 10; chunked:10 with the rebuild every 8 refreshes at every
-    chunk start as well."""
-    cfg = SIMPLEConfig(max_iterations=300, tolerance=1.7e-3)
-    pres = MultigridConfig(tolerance=1e-2, max_cycles=6, check_every=2, coarsest_sweeps=8,
-                           coarsest_grid_size=16, coarse_rebuild_every=rebuild)
-    j, t, _ = both_simple(n, cfg, pres, loop)
-    assert_same_solve(j, t)
-    k = t[1].iterations
-    assert k > 37
-    if loop == "host":
-        assert k % 10 == 0
-    assert bool(t[1].converged)
+    """Each loop mode at 32^2 against the JAX package's
+    (``torch_loops.check_loop_mode``)."""
+    check_loop_mode(n, loop, rebuild)
 
 
 def test_on_chunk_boundaries_and_early_stop():
