@@ -42,7 +42,13 @@ result line:
    (plain, with the Gershgorin maxima, and with each Poisson fold); K9 on
    the u and v systems of a 2048^2 cavity state (degree 4); K6's simplec,
    piso and simpler bodies over 3 chained 63^2 steps from rest; K10a/b at
-   the 4096^2 plane shapes (1/1 smoothing) and at 1024^2 (2/2); K11a at
+   the 4096^2 plane shapes (1/1 smoothing) and at 1024^2 (2/2); the
+   batched K8 (2048^2, with the maxima and with the consistent fold), K9
+   (the u and v systems of a 2048^2 state, degree 4, each case's own
+   interval scalars) and K10a / K10b (planes 4096 x 2048) at B = 3, each
+   case with its own Re 100 / 400 / 1000 state (``check_assembly_case_axis``),
+   each case bit-equal to its single launch, the batched plain version
+   within the single kernel's tolerance, a frozen case as specified; K11a at
    63^2 (1 and 3 sweeps), 256^2 (1, 3 and 6: two launches), 48 x 96,
    255 x 257, 1024 x 64 and 64 x 1024 (3), K11b at 63^2, 256^2, 48 x 96 and
    255 x 257 with a cuSPARSE SpMV of the same operator and the device time
@@ -182,7 +188,17 @@ result line:
     lockstep step at B = 1 and 3 beside the single solves; the idle share
     over 2 lockstep steps; and the even 256^2 8-case sweep, 10 steps, one
     batched K5 a step (K5 takes that whole hierarchy), each case held the
-    same way;
+    same way; then ``batch_assembly`` (``run_batch_assembly``): SIMPLEC,
+    PISO and SIMPLER at 2048^2 with the large-grid configuration (6
+    lockstep steps), ``large_grid_3`` in the plane layout at 4096^2 (3) and
+    SIMPLE with red-black GS momentum at 1024^2 (6), each over Re 100 / 400
+    / 1000 through the even arm's K8, K9 and K10: launches exact (the
+    batched K8, K9, K10a, K10b, K1, K2a, K2b and K3 of ``run_large_grid`` /
+    ``run_plane`` a step, nothing else, no per-case step), each case held
+    to its single solve bit for bit or within 1e-4 with equal iterations
+    (SIMPLEC: equal alpha_p backoffs), the neighbour-Re control failing
+    that, ms a lockstep step at B = 1 and 3 beside the single solves, the
+    idle share over 2 lockstep steps at 2048^2 and 4096^2;
 17. Newton-Krylov (``run_newton``): ``benchmarks/scale_runs.py``'s QUICK
     pipeline at 255^2 Re=1000 (a SIMPLE warm start, then ``newton_solve``
     to 1e-5): converged, Ghia below 0.10, K4 once a Newton step and K5 once
@@ -221,8 +237,9 @@ launches a step), the card's name and power limit, and, last, ``{"ok":
 true, "device": {...}}``.  Needs no network and
 no JAX; there is no CPU path.  With ``--ab TAG`` it runs one side of an A/B
 between two trees instead (``ab_side``: K1, K2a, K2b, K3, K7, K5, K4, K6's
-phase split, K11a and K11b, or those ``--kernels`` names; ``--save DIR``
-keeps K1's, K2a's, K2b's, K3's, K4's, K5's, K7's and K11's outputs), and with ``--ab-compare
+phase split, K8, K9, K10a, K10b, K11a and K11b, or those ``--kernels``
+names; ``--save DIR`` keeps K1's, K2a's, K2b's, K3's, K4's, K5's, K7's,
+K8's, K9's, K10's and K11's outputs), and with ``--ab-compare
 DIR A B`` it compares two saved sides output by output.
 """
 
@@ -303,6 +320,9 @@ BATCH_KERNEL_CASES = ((NH, (100.0, 400.0, 1000.0), 2), (NH_BIG, (100.0, 400.0, 7
 # BATCH_RE, its lockstep steps, its limit on each case's relative gap to its
 # single solve where not bit-equal, and the even sweep's grid (BATCH_RE8)
 BATCH_LARGE_STEPS, BATCH_LARGE_LIMIT, BATCH_LARGE_SWEEP_GRID = 10, 1e-4, 256
+# the batch phase's batch_assembly runs: lockstep steps at 2048^2 and 1024^2,
+# and at 4096^2 in the plane layout
+BATCH_ASM_STEPS, BATCH_PLANE_STEPS = 6, 3
 ALGORITHMS63_ITERATIONS = {}  # the algorithms63 phase's kernel runs (name -> iterations)
 SEED = 0
 REPS = 10  # timed launches per kernel measurement (20 before the large batch's rows)
@@ -1669,7 +1689,6 @@ def check_assembly(dev):
 
     u, v, p, kw = cavity_fields(NL, dev)
     alpha = 0.7
-    faces, cells = 2 * NL * (NL + 1), NL * NL
     rows = []
     for bounds, variant in ((False, None), (True, None), (False, "consistent"),
                             (False, "symmetric"), (False, "reference")):
@@ -1702,16 +1721,10 @@ def check_assembly(dev):
 
         ms, plain_ms, dev_ms = time_pair(
             lambda: assembly.fused_assembly_pair_plain(u, v, p, **args), kernel, reps=10)
-        # u, v, p in; 16 coefficient arrays out (+ d_u, d_v, 5 operator arrays)
-        nbytes = 4 * (faces + cells + 8 * faces)
-        flops = faces * 80
-        if variant is not None:
-            nbytes += 4 * (faces + 5 * cells)
-            flops += cells * (4 * 80 + 20)
         rows.append(dict(name="fused_assembly_pair", shape=[NL, NL], with_bounds=bounds,
                          poisson_variant=variant, ok=ok, max_abs_err=worst_abs, ms=ms,
                          plain_ms=plain_ms, device_ms=dev_ms, host_ms=host_ms(kernel, 10),
-                         work=(nbytes, flops),
+                         work=assembly_work(NL, variant is not None),
                          main=bounds and variant is None))
     return rows
 
@@ -1749,8 +1762,7 @@ def check_cheby(dev):
                          degree=degree, ok=all(r < 2e-5 for _, r in errs),
                          max_abs_err=max(a for a, _ in errs), rel_err=[r for _, r in errs],
                          ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
-                         host_ms=host_ms(kernel, 10),
-                         work=(4 * 11 * n, n * (degree * (APPLY5 + 8) + APPLY5 + 1))))
+                         host_ms=host_ms(kernel, 10), work=cheby_work(n, degree)))
     return rows
 
 
@@ -2003,13 +2015,8 @@ def check_plane(dev):
             lambda: plane_strip.plane_strip_down_plain(R, B, ps, cfg), down, reps=10)
         ms_u, plain_u, dev_u = time_pair(
             lambda: plane_strip.plane_strip_up_plain(Rs, Bs, ps, ec, cfg), up, reps=10)
-        # per plane cell: a half-sweep update 8 operations, the normalised
-        # residual 10, the coarse row 3 per coarse cell, the prolongation
-        # and add 10; bytes: 14 planes + rc_zdiag in, 2 planes + rc out
-        # (down), 12 planes + ec in, 2 planes out (up)
         cells = m * nc
-        works = {"down": (4 * 17 * cells, cells * (16 * sweeps + 21) + 3 * (cells // 2)),
-                 "up": (4 * (14 * cells + cells // 2), cells * (20 + 16 * sweeps))}
+        works = {"down": plane_work(cells, sweeps, True), "up": plane_work(cells, sweeps, False)}
         for name, got, want, ms, plain_ms, dev_ms, fn in (
                 ("down", got_d, want_d, ms_d, plain_d, dev_d, down),
                 ("up", got_u, want_u, ms_u, plain_u, dev_u, up)):
@@ -2024,6 +2031,220 @@ def check_plane(dev):
         del ps, R, B, ec, got_d, want_d, got_u, want_u
     return rows
 
+
+
+# ---------------------------------------------------------------------------
+# the case axis of K8, K9, K10a and K10b (the batch phase's batch_assembly)
+
+
+def assembly_work(n, fold):
+    """K8's bytes and operations at n^2: u, v, p in, 16 coefficient arrays
+    out (+ d_u, d_v and the operator's five)."""
+    faces, cells = 2 * n * (n + 1), n * n
+    nbytes, flops = 4 * (faces + cells + 8 * faces), faces * 80
+    if fold:
+        nbytes += 4 * (faces + 5 * cells)
+        flops += cells * (4 * 80 + 20)
+    return nbytes, flops
+
+
+def cheby_work(cells, degree):
+    """K9's bytes and operations on a field of ``cells`` faces: 9 arrays
+    in, 2 out."""
+    return 4 * 11 * cells, cells * (degree * (APPLY5 + 8) + APPLY5 + 1)
+
+
+def plane_work(cells, sweeps, down):
+    """K10's bytes and operations on planes of ``cells`` cells each: per
+    plane cell a half-sweep update 8 operations, the normalised residual
+    10, the coarse row 3 per coarse cell, the prolongation and add 10;
+    bytes: 14 planes + rc_zdiag in, 2 planes + rc out (down), 12 planes +
+    ec in, 2 planes out (up)."""
+    if down:
+        return 4 * 17 * cells, cells * (16 * sweeps + 21) + 3 * (cells // 2)
+    return 4 * (14 * cells + cells // 2), cells * (20 + 16 * sweeps)
+
+
+def batched_row(name, fn, plain, got, singles, frozen_ok, ok_plain, errs, work, cases, **extra):
+    """One batched kernel row at B = ``cases``: every case bit-equal to its
+    single launch (``singles``: per case, its single call; ``got``: the
+    batched outputs, a flat tuple with the case axis first), the frozen
+    case as specified, the plain version within the single kernel's
+    tolerance; event, device and host ms beside each single launch's device
+    ms; the work summed over the cases."""
+    import torch
+
+    bit, single_ms = True, []
+    for k, one in enumerate(singles):
+        outs = one()
+        bit &= all(torch.equal(g[k], o) for g, o in zip(got, outs))
+        single_ms.append(device_ms(one))
+    ms, plain_ms, dev_ms = time_pair(plain, fn)
+    return dict(name=name, cases=cases, ok=bool(bit and frozen_ok and ok_plain),
+                bit_equal_to_single=bool(bit), frozen_case_ok=bool(frozen_ok),
+                plain_within_tolerance=bool(ok_plain), max_abs_err=max(a for a, _ in errs),
+                rel_err=max(r for _, r in errs), single_device_ms=single_ms, ms=ms,
+                plain_ms=plain_ms, device_ms=dev_ms, host_ms=host_ms(fn),
+                work=(cases * work[0], cases * work[1]), **extra)
+
+
+def check_assembly_case_axis(dev, res=BATCH_RE):
+    """The batched K8 at 2048^2 (with the Gershgorin maxima, as SIMPLEC,
+    PISO and SIMPLER call it; and with the consistent fold, as SIMPLE
+    does), the batched K9 on the u and v systems of a 2048^2 state (degree
+    4, each case's own interval scalars) and the batched K10a / K10b on
+    planes 4096 x 2048 (1 / 1 sweeps), each at B = 3 with the Re ``res``
+    cases (each its own seeded state and viscosity): every case bit-equal
+    to its single launch in every output; the batched plain version within
+    the single kernel's tolerance (K8: ``check_assembly``'s; K9: 2e-5 of
+    each output's scale; K10: ``strip_close``); a frozen case (the middle
+    one) gets its frozen outputs (K8: zeros in every output; K9: x0 and a
+    zero residual; K10a: R, B and a zero coarse residual; K10b: R and B)
+    and leaves the other cases' bits alone."""
+    import dataclasses
+
+    import torch
+
+    from naviflow_tpu_torch.ops import assembly, cheby, plane_strip
+    from naviflow_tpu_torch.ops.plane import PlaneStencil5
+    from naviflow_tpu_torch.ops.powerlaw import (case_conductances, relax_coefficients,
+                                                 u_momentum_coefficients,
+                                                 v_momentum_coefficients)
+    from naviflow_tpu_torch.ops.stencil import StencilCoeffs, interior_mask
+    from naviflow_tpu_torch.solvers.momentum import _chebyshev_bounds
+
+    B = len(res)
+    frozen_flags = torch.tensor([k != 1 for k in range(B)], device=dev)
+    states = [cavity_fields(NL, dev, seed=SEED + 20 + k) for k in range(B)]
+    kw = dict(states[0][3])
+    del kw["mu"]
+    u, v, p = (torch.stack([s[i] for s in states]) for i in range(3))
+    visc = case_conductances([1.0 / re_ for re_ in res], kw["dx"], kw["dy"], torch.float32, dev)
+    rows = []
+
+    def untouched(fz, got):
+        return all(torch.equal(f[k], g[k]) for f, g in zip(fz, got) for k in range(B) if k != 1)
+
+    # K8: the main path's call (with the maxima), then SIMPLE's (the fold)
+    for bounds, variant in ((True, None), (False, "consistent")):
+        args = dict(alpha=0.7, with_bounds=bounds, poisson_variant=variant, **kw)
+
+        def k8(active=None, args=args):
+            return assembly.fused_assembly_pair_batched(u, v, p, visc=visc, active=active,
+                                                        **args)
+
+        def k8_plain(args=args):
+            return assembly.fused_assembly_pair_batched_plain(u, v, p, visc=visc, **args)
+
+        got, want, fz = k8_flat(k8()), k8_flat(k8_plain()), k8_flat(k8(frozen_flags))
+        torch_sync()
+        frozen_ok = not any(bool(f[1].any()) for f in fz) and untouched(fz, got)
+        n_coef = 16
+        ok_plain = all(bool(torch.allclose(g, w, rtol=1e-5, atol=1e-5))
+                       for g, w in zip(got[:n_coef], want[:n_coef]))
+        rest = list(zip(got[n_coef:], want[n_coef:]))
+        if bounds:
+            ok_plain &= all(bool(((g - w).abs() <= 1e-6 * w.abs()).all()) for g, w in rest[:2])
+            rest = rest[2:]
+        ok_plain &= all(bool(torch.allclose(g, w, rtol=1e-6, atol=1e-9)) for g, w in rest)
+        errs = [max_err(g, w) for g, w in zip(got, want)]
+        singles = [lambda k=k, args=args: k8_flat(assembly.fused_assembly_pair(
+            u[k], v[k], p[k], mu=1.0 / res[k], **args)) for k in range(B)]
+        rows.append(batched_row("fused_assembly_pair_batched", k8, k8_plain, got, singles,
+                                frozen_ok, ok_plain, errs,
+                                assembly_work(NL, variant is not None), B, shape=[NL, NL],
+                                with_bounds=bounds, poisson_variant=variant,
+                                reynolds=list(res), main=bounds))
+        del got, want, fz
+    # K9 on the u and v systems, each case its own coefficients and bounds
+    degree = 4
+    for field, fn in (("u", u_momentum_coefficients), ("v", v_momentum_coefficients)):
+        x0s, c_uns, c_rels, bnds = [], [], [], []
+        for k, (uk, vk, pk, _) in enumerate(states):
+            x0 = uk if field == "u" else vk
+            c_un = fn(uk, vk, pk, mu=1.0 / res[k], **kw)
+            c_rel = relax_coefficients(c_un, x0, 0.7)
+            bnds.append(_chebyshev_bounds(c_rel, interior_mask(x0.shape, 1, 1, 1, 1,
+                                                               device=dev)))
+            x0s.append(x0)
+            c_uns.append(c_un)
+            c_rels.append(c_rel)
+
+        def stack_c(cs):
+            return StencilCoeffs(*(torch.stack([getattr(c, f) for c in cs])
+                                   for f in ("a_e", "a_w", "a_n", "a_s", "a_p", "src")))
+
+        xb, cu_b, cr_b = torch.stack(x0s), stack_c(c_uns), stack_c(c_rels)
+        theta, delta, sigma1 = (torch.stack([b[i] for b in bnds]) for i in range(3))
+        sc = dict(theta=theta, delta=delta, sigma1=sigma1, degree=degree)
+
+        def k9(active=None, xb=xb, cr_b=cr_b, cu_b=cu_b, sc=sc):
+            return cheby.chebyshev_momentum_strips_batched(xb, cr_b, cu_b, active=active, **sc)
+
+        def k9_plain(xb=xb, cr_b=cr_b, cu_b=cu_b, sc=sc):
+            return cheby.chebyshev_momentum_strips_batched_plain(xb, cr_b, cu_b, **sc)
+
+        got, want, fz = k9(), k9_plain(), k9(frozen_flags)
+        torch_sync()
+        frozen_ok = (torch.equal(fz[0][1], xb[1]) and not bool(fz[1][1].any())
+                     and untouched(fz, got))
+        errs = [max_err(g[k], w[k]) for g, w in zip(got, want) for k in range(B)]
+        singles = [lambda k=k, c_rel=c_rels, c_un=c_uns, b=bnds, x=x0s:
+                   cheby.chebyshev_momentum_strips(x[k], c_rel[k], c_un[k], theta=b[k][0],
+                                                   delta=b[k][1], sigma1=b[k][2],
+                                                   degree=degree) for k in range(B)]
+        rows.append(batched_row("chebyshev_momentum_strips_batched", k9, k9_plain, got,
+                                singles, frozen_ok,
+                                all(r < 2e-5 for _, r in errs), errs,
+                                cheby_work(xb[0].numel(), degree), B, field=field,
+                                shape=list(xb.shape[1:]), degree=degree, reynolds=list(res)))
+        del x0s, c_uns, c_rels, xb, cu_b, cr_b, got, want, fz
+    del states, u, v, p
+    # K10a / K10b on planes 4096 x 2048, each case its own stencil, b and planes
+    _, pres = large_grid_configs()
+    cfg = dataclasses.replace(pres, pre_smoothing=1, post_smoothing=1)
+    inputs = [plane_inputs(NP, dev, SEED + 30 + k) for k in range(B)]
+    pss = [x[0] for x in inputs]
+    ps_b = plane_strip.PlaneArrays(
+        [torch.stack([a[i] for a in map(plane_strip._norm_arrays, pss)]) for i in range(10)],
+        [torch.stack([q.c[i] for q in pss]) for i in range(2)],
+        torch.stack([q.rc_zdiag for q in pss]))
+    R, Bp, ec = (torch.stack([x[i] for x in inputs]) for i in (1, 2, 3))
+    del inputs
+    m, nc = R.shape[1:]
+    Rs, Bs, _ = plane_strip.plane_strip_down_batched_plain(R, Bp, ps_b, cfg)
+
+    def down(active=None):
+        return plane_strip.plane_strip_down_batched(R, Bp, ps_b, cfg, active=active)
+
+    def down_plain():
+        return plane_strip.plane_strip_down_batched_plain(R, Bp, ps_b, cfg)
+
+    def up(active=None):
+        return plane_strip.plane_strip_up_batched(Rs, Bs, ps_b, ec, cfg, active=active)
+
+    def up_plain():
+        return plane_strip.plane_strip_up_batched_plain(Rs, Bs, ps_b, ec, cfg)
+
+    for name, fn, plain, frozen_want, singles, work in (
+            ("plane_strip_down_batched", down, down_plain, (R, Bp),
+             [lambda k=k: plane_strip.plane_strip_down(R[k], Bp[k], pss[k], cfg)
+              for k in range(B)], plane_work(m * nc, 1, True)),
+            ("plane_strip_up_batched", up, up_plain, (Rs, Bs),
+             [lambda k=k: plane_strip.plane_strip_up(Rs[k], Bs[k], pss[k], ec[k], cfg)
+              for k in range(B)], plane_work(m * nc, 1, False))):
+        got, want, fz = fn(), plain(), fn(frozen_flags)
+        torch_sync()
+        frozen_ok = (all(torch.equal(f[1], w[1]) for f, w in zip(fz, frozen_want))
+                     and (len(fz) == 2 or not bool(fz[2][1].any())) and untouched(fz, got))
+        errs = [max_err(g[k], w[k]) for g, w in zip(got, want) for k in range(B)]
+        ok_plain = all(strip_close(g[k], w[k]) for g, w in zip(got, want) for k in range(B))
+        rows.append(batched_row(name, fn, plain, got, singles, frozen_ok,
+                                ok_plain, errs, work, B, shape=[m, nc], sweeps=1,
+                                reynolds=list(res)))
+        del got, want, fz
+    del pss, ps_b, R, Bp, ec, Rs, Bs
+    return rows
 
 def poisson_system(nx, ny, dev, seed):
     """tests/test_pallas.py's system: consistent-variant coefficients from
@@ -2179,6 +2400,10 @@ def counts():
             "chebyshev_momentum_strips": cheby.LAUNCHES,
             "plane_strip_down": plane_strip.DOWN_LAUNCHES,
             "plane_strip_up": plane_strip.UP_LAUNCHES,
+            "fused_assembly_pair_batched": assembly.BATCH_LAUNCHES,
+            "chebyshev_momentum_strips_batched": cheby.BATCH_LAUNCHES,
+            "plane_strip_down_batched": plane_strip.DOWN_BATCH_LAUNCHES,
+            "plane_strip_up_batched": plane_strip.UP_BATCH_LAUNCHES,
             "rbgs_sweeps": kernels.RBGS_LAUNCHES,
             "apply_poisson": kernels.MATVEC_LAUNCHES}
 
@@ -2194,9 +2419,10 @@ def reset_counts():
     mg.RAP_BATCH_LAUNCHES = mg.SOLVE_BATCH_LAUNCHES = mg.VC_BATCH_LAUNCHES = 0
     krylov.LAUNCHES = krylov.BATCH_LAUNCHES = 0
     step.LAUNCHES = step.BATCH_LAUNCHES = 0
-    assembly.LAUNCHES = 0
-    cheby.LAUNCHES = 0
+    assembly.LAUNCHES = assembly.BATCH_LAUNCHES = 0
+    cheby.LAUNCHES = cheby.BATCH_LAUNCHES = 0
     plane_strip.DOWN_LAUNCHES = plane_strip.UP_LAUNCHES = 0
+    plane_strip.DOWN_BATCH_LAUNCHES = plane_strip.UP_BATCH_LAUNCHES = 0
     kernels.RBGS_LAUNCHES = kernels.MATVEC_LAUNCHES = 0
 
 
@@ -3640,10 +3866,12 @@ def run_batch(dev):
         max(runs["63x8"]["iterations"]))
     fmg = run_batch_fmg(dev)
     large = run_batch_large(dev)
-    ok &= fmg["ok"] and large["ok"]
+    assembly = run_batch_assembly(dev)
+    ok &= fmg["ok"] and large["ok"] and assembly["ok"]
     return dict(phase="batch", tolerance=BATCH_TOLERANCE, runs=runs, batch_fmg=fmg,
-                batch_large=large, launches_fmg=fmg["runs"]["63x3"]["launches"],
-                launches_large=large["launches"],
+                batch_large=large, batch_assembly=assembly,
+                launches_fmg=fmg["runs"]["63x3"]["launches"],
+                launches_large=large["launches"], launches_assembly=assembly["launches"],
                 ms_per_lockstep_step={str(len(r["reynolds"])): r["ms_per_lockstep_step"]
                                       for t, r in runs.items()
                                       if t in ("63x1", "63x3", "63x8")},
@@ -3741,40 +3969,45 @@ def run_batch_fmg(dev):
                 cluster_size=sizes, card=nvidia_smi(), ok=ok)
 
 
-def large_batch(dev, n, res, steps, backend="auto"):
-    """``batched_cavity_solve`` of ``bench.py``'s large-grid configuration
-    (``solve``'s) at n^2 over ``res``, ``steps`` lockstep steps from rest
+def large_batch(dev, n, res, steps, backend="auto", algorithm="simple", configs=None):
+    """``batched_cavity_solve`` of ``algorithm`` with ``bench.py``'s
+    large-grid configuration (``solve``'s; ``configs``: another (momentum,
+    pressure) pair) at n^2 over ``res``, ``steps`` lockstep steps from rest
     (tolerance 0): per-case (state, diagnostics), ms a lockstep step, the
     launches."""
     import naviflow_tpu_torch as nt
-    from naviflow_tpu_torch.algorithms import SIMPLEConfig, batched_cavity_solve
+    from naviflow_tpu_torch import algorithms
 
-    mom, pres = large_slice_configs(backend)
+    mom, pres = configs or large_slice_configs(backend)
     mesh, bc = nt.StructuredMesh(nx=n, ny=n), nt.lid_driven_cavity(1.0)
-    cfg = SIMPLEConfig(max_iterations=steps, tolerance=0.0)
+    cfg = getattr(algorithms, f"{algorithm.upper()}Config")(max_iterations=steps,
+                                                             tolerance=0.0)
     torch_sync()
     reset_counts()
     t0 = time.perf_counter()
-    out = batched_cavity_solve(mesh, res, bc, cfg, mom, pres, device=dev)
+    out = algorithms.batched_cavity_solve(mesh, res, bc, cfg, mom, pres, algorithm=algorithm,
+                                          device=dev)
     torch_sync()
     ms = (time.perf_counter() - t0) * 1e3 / steps
     return out, ms, counts()
 
 
-def large_single(dev, n, re_, steps):
-    """The single ``simple_solve`` of ``large_batch``'s configuration:
-    (state, diagnostics, ms a step)."""
+def large_single(dev, n, re_, steps, algorithm="simple", configs=None):
+    """The single solve of ``large_batch``'s configuration: (state,
+    diagnostics, ms a step)."""
     import naviflow_tpu_torch as nt
-    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+    from naviflow_tpu_torch import algorithms
 
-    mom, pres = large_slice_configs()
+    mom, pres = configs or large_slice_configs()
     mesh, bc = nt.StructuredMesh(nx=n, ny=n), nt.lid_driven_cavity(1.0)
     state = nt.initialize_state(mesh, bc, device=dev)
+    solve = getattr(algorithms, f"{algorithm}_solve")
+    cfg = getattr(algorithms, f"{algorithm.upper()}Config")(max_iterations=steps,
+                                                             tolerance=0.0)
     torch_sync()
     t0 = time.perf_counter()
-    out, diag = simple_solve(mesh, nt.FluidProperties(density=1.0, reynolds_number=re_), bc,
-                             state, SIMPLEConfig(max_iterations=steps, tolerance=0.0),
-                             momentum=mom, pressure=pres, loop="fused")
+    out, diag = solve(mesh, nt.FluidProperties(density=1.0, reynolds_number=re_), bc, state,
+                      cfg, momentum=mom, pressure=pres, loop="fused")
     torch_sync()
     return out, diag, (time.perf_counter() - t0) * 1e3 / steps
 
@@ -3875,6 +4108,125 @@ def run_batch_large(dev):
                            sequential_ms_per_step=sum(ms for _, _, ms in singles8)),
                 card=nvidia_smi(), ok=bool(ok))
 
+
+
+def batch_assembly_configs(kind):
+    """The batch_assembly runs' configurations: (grid, algorithm,
+    (momentum, pressure), lockstep steps, the batched launches a lockstep
+    step per kernel).  ``kind``: an algorithm at 2048^2 with
+    ``large_grid_configs()`` (its K8 / K9 / pressure-solve counts are
+    ``run_large_grid``'s), 'plane' (``large_grid_3`` at 4096^2 in the plane
+    layout) or 'rbgs' (SIMPLE with red-black GS momentum at 1024^2)."""
+    import dataclasses
+
+    import torch
+
+    from naviflow_tpu_torch.solvers import RBGSMomentumConfig
+    from naviflow_tpu_torch.solvers.momentum import lagged_rho_enabled
+
+    mom, pres = large_grid_configs()
+    if kind == "plane":
+        pres = dataclasses.replace(pres, fine_layout="plane")
+        strips = peeled_strip_levels(NP, pres, plane=True)
+        per_step = dict(plane_strip_down_batched=1, plane_strip_up_batched=1,
+                        strip_down_batched=strips, strip_up_batched=strips,
+                        fused_vcycle_batched=1)
+        if lagged_rho_enabled(NP, NP, mom, fold_poisson=True, dtype=torch.float32,
+                              device=torch.device("cuda")):
+            per_step["fused_asmcheby_pair_batched"] = 1
+        else:
+            per_step.update(fused_assembly_pair_batched=1, chebyshev_momentum_strips_batched=2)
+        return NP, "simple", (mom, pres), BATCH_PLANE_STEPS, per_step
+    if kind == "rbgs":
+        strips = peeled_strip_levels(N, pres)
+        return N, "simple", (RBGSMomentumConfig(), pres), BATCH_ASM_STEPS, dict(
+            fused_assembly_pair_batched=1, strip_down_batched=strips,
+            strip_up_batched=strips, fused_vcycle_batched=1)
+    k8, k9, psolves = {"simplec": (1, 2, 1), "piso": (2, 2, 2), "simpler": (2, 4, 2)}[kind]
+    strips = peeled_strip_levels(NL, pres)
+    return NL, kind, (mom, pres), BATCH_ASM_STEPS, dict(
+        fused_assembly_pair_batched=k8, chebyshev_momentum_strips_batched=k9,
+        strip_down_batched=strips * psolves, strip_up_batched=strips * psolves,
+        fused_vcycle_batched=psolves)
+
+
+def run_batch_assembly(dev):
+    """The vmapped branch's even arm through K8, K9 and K10 (the batch
+    phase's ``batch_assembly`` part): SIMPLEC, PISO and SIMPLER at 2048^2
+    with ``large_grid_configs()``, ``BATCH_ASM_STEPS`` lockstep steps;
+    ``large_grid_3`` in the plane layout at 4096^2, ``BATCH_PLANE_STEPS``;
+    SIMPLE with red-black GS momentum at 1024^2, ``BATCH_ASM_STEPS``; each
+    over ``BATCH_RE`` (``batch_assembly_configs``).  Each run: launches
+    exact (the batched kernels' per-step counts times the steps, nothing
+    else: no single K1, K2, K3, K8, K9 or K10 launch and no per-case step);
+    each case held to its single solve bit for bit or within
+    ``BATCH_LARGE_LIMIT`` (fields and every history step) with equal
+    iterations (and, SIMPLEC, equal alpha_p backoffs), and a control that
+    must fail that (each case against its neighbour's single solve); ms a
+    lockstep step at B = 1 and 3 beside the single solves' ms a step; the
+    idle share over 2 lockstep steps of the 3 cases at 2048^2 (SIMPLEC) and
+    4096^2 (plane)."""
+    from naviflow_tpu_torch.algorithms import batch as tbatch
+
+    real_per_case, per_case = tbatch._per_case, []
+
+    def counted(steps):
+        per_case.append(len(steps))
+        return real_per_case(steps)
+
+    def within(c):
+        return c["iterations_equal"] and ((c["fields_bit_equal"] and c["history_bit_equal"])
+                                          or max(c["max_field_gap"], c["history_gap"])
+                                          <= BATCH_LARGE_LIMIT)
+
+    runs, ok, total = {}, True, only()
+    tbatch._per_case = counted
+    try:
+        for kind in ("simplec", "piso", "simpler", "plane", "rbgs"):
+            t_run = time.perf_counter()
+            n, algo, configs, steps, per_step = batch_assembly_configs(kind)
+            kw = dict(algorithm=algo, configs=configs)
+            large_batch(dev, n, BATCH_RE, 2, **kw)  # warm-up: scratch, launch state
+            out, ms3, launches = large_batch(dev, n, BATCH_RE, steps, **kw)
+            want = only(**{k: c * steps for k, c in per_step.items()})
+            singles = [large_single(dev, n, re_, steps, **kw) for re_ in BATCH_RE]
+            cases = [held_to(bs, bd, ss, sd) for (bs, bd), (ss, sd, _) in zip(out, singles)]
+            control = [held_to(bs, bd, ss, sd) for (bs, bd), (ss, sd, _)
+                       in zip(out, singles[1:] + singles[:1])]
+            out1, ms1, launches1 = large_batch(dev, n, BATCH_RE[:1], steps, **kw)
+            held1 = within(held_to(*out1[0], *singles[0][:2]))
+            row = dict(grid=n, algorithm=algo, layout=configs[1].fine_layout,
+                       momentum=configs[0].kind, steps=steps, cases=cases,
+                       control_neighbour_re=control, launches=launches,
+                       launches_expected=want, launches_b1=launches1,
+                       ms_per_lockstep_step={"1": ms1, "3": ms3},
+                       single_ms_per_step=[ms for _, _, ms in singles],
+                       sequential_ms_per_step_b3=sum(ms for _, _, ms in singles))
+            row["batched_operators_bit_equal"] = batched_operators([bs.p for bs, _ in out])
+            ok_run = (launches == want and launches1 == want and held1
+                      and all(within(c) for c in cases)
+                      and not any(within(c) for c in control))
+            if algo == "simplec":
+                row["alpha_p_backoffs"] = dict(batch=[alpha_backoffs(bd) for _, bd in out],
+                                               single=[alpha_backoffs(sd)
+                                                       for _, sd, _ in singles])
+                ok_run &= row["alpha_p_backoffs"]["batch"] == row["alpha_p_backoffs"]["single"]
+            if kind in ("simplec", "plane"):
+                profile_steps = 2
+                row["idle_profile_3"] = profile_window(
+                    lambda: large_batch(dev, n, BATCH_RE, profile_steps, **kw), profile_steps)
+            row["ok"] = bool(ok_run)
+            row["seconds"] = time.perf_counter() - t_run
+            runs[kind] = row
+            ok &= ok_run
+            total = {k: total[k] + launches[k] for k in total}
+            del out, singles, out1
+    finally:
+        tbatch._per_case = real_per_case
+    ok &= not per_case
+    return dict(phase="batch_assembly", reynolds=list(BATCH_RE), limit=BATCH_LARGE_LIMIT,
+                runs=runs, per_case_steps=len(per_case), launches=total, card=nvidia_smi(),
+                ok=bool(ok))
 
 def tangent_graph_check(warm, mesh, fluid, bc, scheme):
     """Newton's captured tangent program (one CUDA graph replay) against
@@ -4887,6 +5239,19 @@ SOURCES = {
                          "naviflow_tpu/ops/pallas_strip.py:339", "batch_large"),
     "fused_vcycle_batched": ("fused_vcycle_batched", "naviflow_tpu_torch/csrc/mg.cu",
                              "naviflow_tpu/ops/pallas_mg.py:479", "batch_large"),
+    # K8, K9, K10a and K10b with the case axis: the batch phase's vmapped
+    # SIMPLEC / PISO / SIMPLER, plane-layout and RBGS steps
+    "fused_assembly_pair_batched": ("fused_assembly_pair_batched",
+                                    "naviflow_tpu_torch/csrc/assembly.cu",
+                                    "naviflow_tpu/ops/pallas_assembly.py:294", "batch_assembly"),
+    "chebyshev_momentum_strips_batched": ("chebyshev_momentum_strips_batched",
+                                          "naviflow_tpu_torch/csrc/cheby.cu",
+                                          "naviflow_tpu/ops/pallas_cheby.py:192",
+                                          "batch_assembly"),
+    "plane_strip_down_batched": ("plane_strip_down_batched", "naviflow_tpu_torch/csrc/plane.cu",
+                                 "naviflow_tpu/ops/pallas_plane.py:266", "batch_assembly"),
+    "plane_strip_up_batched": ("plane_strip_up_batched", "naviflow_tpu_torch/csrc/plane.cu",
+                               "naviflow_tpu/ops/pallas_plane.py:299", "batch_assembly"),
     "fused_assembly_pair": ("fused_assembly_pair", "naviflow_tpu_torch/csrc/assembly.cu",
                             "naviflow_tpu/ops/pallas_assembly.py:294", "large_grid"),
     "chebyshev_momentum_strips": ("chebyshev_momentum_strips",
@@ -4924,7 +5289,10 @@ def kernels_line(rows, paths):
     100 / 400 / 1000 run (their times, errors and work: the kernel phase's
     63^2 B = 3 rows), batched K1, K2a, K2b and K3 the batch phase's
     ``batch_large`` run (theirs: the kernel phase's B = 3 rows at the
-    1024^2 path's shapes, the strips' two levels summed), K10 the 4096^2
+    1024^2 path's shapes, the strips' two levels summed), batched K8, K9,
+    K10a and K10b the batch phase's ``batch_assembly`` runs (theirs: the
+    kernel phase's B = 3 rows, K8 with the maxima at 2048^2, K9 the u and
+    v fields averaged, K10 on the 4096^2 planes), K10 the 4096^2
     plane run, K11 the kernel phase's
     checking calls), with every path's count beside them.  ``library_ms``:
     K11b's cuSPARSE SpMV; no other kernel's function is one PyTorch call."""
@@ -4969,7 +5337,8 @@ def kernels_line(rows, paths):
     return out
 
 
-AB_KERNELS = ("K1", "K2a", "K2b", "K3", "K7", "K5", "K4", "K6", "K11a", "K11b")
+AB_KERNELS = ("K1", "K2a", "K2b", "K3", "K7", "K5", "K4", "K6", "K8", "K9", "K10a", "K10b",
+              "K11a", "K11b")
 # K11a's A/B cases (shape, sweeps) and K11b's shapes
 AB_K11A = (((63, 63), 1), ((63, 63), 3), ((256, 256), 3), ((256, 256), 6))
 AB_K11B = ((63, 63), (256, 256), (48, 96))
@@ -4985,11 +5354,14 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
     the same states and on the 256^2 cell-centred one (the headline
     configuration), the error of the first output; K4 on the same 63^2 and
     255^2 vertex hierarchies, every output's error; K11a at ``AB_K11A`` and
-    K11b at ``AB_K11B`` (``poisson_system``'s inputs); device, event and host
-    times of each; K6's phase split (``k6_phases``: each body's RAP phase
-    and event ms a step).  With ``save``, K1's, K2a's, K2b's, K4's, K5's,
-    K7's and K11's outputs (K4: all nine arrays of every coarse level; K5:
-    p, r, cycles and rel) go to
+    K11b at ``AB_K11B`` (``poisson_system``'s inputs); K8 at 2048^2 with the
+    maxima and with the consistent fold, K9 on that state's u and v systems
+    (degree 4) and K10a / K10b on the 4096^2 planes (1 / 1 sweeps), every
+    output's error (``cavity_fields``, ``plane_inputs``); device, event and
+    host times of each; K6's phase split (``k6_phases``: each body's RAP
+    phase and event ms a step).  With ``save``, K1's, K2a's, K2b's, K4's,
+    K5's, K7's, K8's, K9's, K10's and K11's outputs (K4: all nine arrays of
+    every coarse level; K5: p, r, cycles and rel) go to
     ``save/TAG.pt`` for ``ab_compare``.  Run it in turns A, B, B, A, each from a tree's
     root: ``PYTHONPATH=. python3 -P <this file> --ab TAG`` (``-P``: the tree
     on PYTHONPATH, not this file's directory, supplies the package)."""
@@ -5122,6 +5494,53 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
                            [k11.apply_poisson_plain(p, c)])
             timed(lambda: k11.apply_poisson_kernel(p, c), kernel="K11b", shape=[nx, ny],
                   max_rel_err=max(errs.values()))
+    if "K8" in kernels or "K9" in kernels:
+        from naviflow_tpu_torch.ops import assembly, cheby
+        from naviflow_tpu_torch.ops.stencil import interior_mask
+        from naviflow_tpu_torch.solvers.momentum import _chebyshev_bounds
+
+        u, v, p, kw = cavity_fields(NL, dev)
+        for bounds, variant in ((True, None), (False, "consistent")):
+            args = dict(alpha=0.7, with_bounds=bounds, poisson_variant=variant, **kw)
+            got = k8_flat(assembly.fused_assembly_pair(u, v, p, **args))
+            want = k8_flat(assembly.fused_assembly_pair_plain(u, v, p, **args))
+            label = "bounds" if bounds else variant
+            errs = outputs(f"K8_{label}", {f"out{k}": g for k, g in enumerate(got)}, want)
+            if "K8" in kernels:
+                timed(lambda: assembly.fused_assembly_pair(u, v, p, **args), kernel="K8", n=NL,
+                      variant=label, max_rel_err=max(errs.values()))
+            if "K9" in kernels and bounds:
+                for field, x0, k in (("u", u, 0), ("v", v, 2)):
+                    c_un, c_rel = got_c(got, k), got_c(got, k + 1)
+                    sc = _chebyshev_bounds(c_rel, interior_mask(x0.shape, 1, 1, 1, 1,
+                                                                device=dev))
+                    a9 = dict(theta=sc[0], delta=sc[1], sigma1=sc[2], degree=4)
+                    errs9 = outputs(f"K9_{field}", dict(zip(
+                        ("x", "r"), cheby.chebyshev_momentum_strips(x0, c_rel, c_un, **a9))),
+                        cheby.chebyshev_momentum_strips_plain(x0, c_rel, c_un, **a9))
+                    timed(lambda: cheby.chebyshev_momentum_strips(x0, c_rel, c_un, **a9),
+                          kernel="K9", n=NL, field=field, max_rel_err=max(errs9.values()))
+            del got, want
+        del u, v, p
+    if "K10a" in kernels or "K10b" in kernels:
+        from naviflow_tpu_torch.ops import plane_strip
+
+        _, pres = large_grid_configs()
+        cfg = dataclasses.replace(pres, pre_smoothing=1, post_smoothing=1)
+        ps, R, B, ec = plane_inputs(NP, dev, SEED + 2)
+        got = plane_strip.plane_strip_down(R, B, ps, cfg)
+        errs = outputs("K10a", dict(zip(("R", "B", "rc"), got)),
+                       plane_strip.plane_strip_down_plain(R, B, ps, cfg))
+        if "K10a" in kernels:
+            timed(lambda: plane_strip.plane_strip_down(R, B, ps, cfg), kernel="K10a",
+                  shape=list(R.shape), max_rel_err=max(errs.values()))
+        Rs, Bs = got[:2]
+        errs = outputs("K10b", dict(zip(("R", "B"), plane_strip.plane_strip_up(
+            Rs, Bs, ps, ec, cfg))), plane_strip.plane_strip_up_plain(Rs, Bs, ps, ec, cfg))
+        if "K10b" in kernels:
+            timed(lambda: plane_strip.plane_strip_up(Rs, Bs, ps, ec, cfg), kernel="K10b",
+                  shape=list(R.shape), max_rel_err=max(errs.values()))
+        del ps, R, B, ec, got, Rs, Bs
     if "K6" in kernels:
         for algo, body in k6_phases(dev)["bodies"].items():
             emit(dict(phase="ab", tag=tag, kernel="K6", algo=algo,
@@ -5130,6 +5549,33 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
     if save:
         Path(save).mkdir(parents=True, exist_ok=True)
         torch.save(saved, Path(save) / f"{tag}.pt")
+
+
+def k8_flat(out):
+    """K8's outputs as a flat tuple of tensors (each field's six unrelaxed
+    arrays and its relaxed a_p and src, then the maxima and the fold where
+    present), read from the result's own structure: the A/B's other tree
+    may not have the module's helper."""
+    flat = []
+    for k, x in enumerate(out):
+        if k in (1, 3):
+            flat += [x.a_p, x.src]
+        elif hasattr(x, "a_e"):
+            flat += [getattr(x, f) for f in ("a_e", "a_w", "a_n", "a_s")] + [
+                getattr(x, f) for f in (("a_p", "src") if hasattr(x, "src") else ("diag",))]
+        else:
+            flat.append(x)
+    return tuple(flat)
+
+
+def got_c(flat, k):
+    """Coefficient set ``k`` (0 cu_un, 1 cu_rel, 2 cv_un, 3 cv_rel) of K8's
+    flat outputs (``k8_flat``)."""
+    from naviflow_tpu_torch.ops.stencil import StencilCoeffs
+
+    base = 8 * (k // 2)
+    un = StencilCoeffs(*flat[base:base + 6])
+    return un if k % 2 == 0 else un.replace(a_p=flat[base + 6], src=flat[base + 7])
 
 
 def ab_compare(save, tag_a, tag_b):
@@ -5161,7 +5607,7 @@ def parse_args(argv):
     ap.add_argument("--kernels", default=",".join(AB_KERNELS),
                     help="the A/B's kernels, comma-separated (default: %(default)s)")
     ap.add_argument("--save", metavar="DIR",
-                    help="keep the A/B's K1, K2a, K2b, K4, K5, K7 and K11 outputs here")
+                    help="keep the A/B's K1-K5 and K7-K11 outputs here")
     ap.add_argument("--ab-compare", nargs=3, metavar=("DIR", "TAG_A", "TAG_B"),
                     help="compare two saved A/B sides output by output and stop")
     ap.add_argument("--ranks", action="store_true",
@@ -5234,7 +5680,7 @@ def run_all(dev, card, t0) -> int:
     ptxas = {src: [line.strip() for line in _cuda.build_log.get(src, "").splitlines()
                    if "registers" in line or "spill" in line]
              for src in ("asmcheby.cu", "strip.cu", "step.cu", "step_batched.cu", "mg.cu",
-                         "krylov.cu", "cheby.cu")}
+                         "krylov.cu", "cheby.cu", "assembly.cu", "plane.cu")}
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=_cuda.build_seconds, library=_cuda.library_path().name,
               k6_cluster_size=clusters,
@@ -5253,6 +5699,11 @@ def run_all(dev, card, t0) -> int:
                   **ptxas_kernels("strip.cu", "strip_up_kernel_batched"),
                   **ptxas_kernels("asmcheby.cu", "asmcheby_kernel_batched"),
                   **ptxas_kernels("mg.cu", "vcycle_kernel_batched"),
+                  **ptxas_kernels("cheby.cu", "cheby_kernel"),
+                  **ptxas_kernels("cheby.cu", "cheby_kernel_batched"),
+                  **ptxas_kernels("assembly.cu", "assembly_kernel_batched"),
+                  **ptxas_kernels("plane.cu", "plane_down_kernel_batched"),
+                  **ptxas_kernels("plane.cu", "plane_up_kernel_batched"),
                   **ptxas_kernels("mg.cu", "galerkin_kernel"),
                   **ptxas_kernels("poisson.cu", "rbgs_tile_kernel"),
                   **ptxas_kernels("poisson.cu", "matvec_kernel")}))
@@ -5303,6 +5754,7 @@ def run_all(dev, card, t0) -> int:
     rows += check_assembly(dev)
     rows += check_cheby(dev)
     rows += check_plane(dev)
+    rows += check_assembly_case_axis(dev)
     rows += check_asmcheby(dev, NP, lagged=True)  # K1 at the plane run's 4096^2 shapes
     k11_rows, k11_launches = check_poisson_kernels(dev)
     rows += k11_rows
@@ -5338,6 +5790,7 @@ def run_all(dev, card, t0) -> int:
         elif phase == "batch":
             paths["batch"], paths["batch_fmg"] = row["launches"], row["launches_fmg"]
             paths["batch_large"] = row["launches_large"]
+            paths["batch_assembly"] = row["launches_assembly"]
         elif phase == "algorithms63":
             paths.update({f"{phase}:{name}": c for name, c in row["paths"].items()})
         elif phase == "quick":

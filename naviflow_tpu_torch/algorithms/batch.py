@@ -24,18 +24,26 @@ branches:
   hierarchy K4 take, BiCGSTAB momentum through K7's gate or fixed-sweep
   Jacobi: the 63^2 FMG headline step) runs K7, K5 and K4
   (``ops/krylov.py``, ``ops/mg.py``); its even arm (an even square grid,
-  a fixed number of multigrid V-cycles that K5 takes whole or K2 strips
-  and a K3 tail take, Chebyshev momentum through K1's lagged carry or
-  composed where neither K1, K8 nor K9 takes it: ``bench.py``'s
-  large-grid SIMPLE step) runs K1, K2a, K2b and K3 (``ops/asmcheby.py``,
-  ``ops/strip.py``, ``ops/mg.py``) or K5;
+  a fixed number of multigrid V-cycles that K5 takes whole, or K2 strips
+  and a K3 tail take below the finest level, which is K2's or, in the
+  colour-plane layout, K10's; Chebyshev momentum through K1's lagged
+  carry, or through the one-pass assembly K8 and the Chebyshev strips K9
+  where their gates open and composed where they do not; fixed-sweep
+  Jacobi or red-black GS momentum through K8: ``bench.py``'s large-grid
+  SIMPLE step, SIMPLEC, PISO and SIMPLER at 2048^2, SIMPLE with Jacobi or
+  RBGS momentum from 384^2, and ``large_grid_3``'s plane layout at
+  4096^2) runs K1, K8, K9, K10a, K10b, K2a, K2b and K3
+  (``ops/asmcheby.py``, ``ops/assembly.py``, ``ops/cheby.py``,
+  ``ops/plane_strip.py``, ``ops/strip.py``, ``ops/mg.py``) or K5;
 * else every active case's own step, one after another (composed, or with
   its own kernels): the CPU path (where the kernel gates are closed), and
-  every configuration the other two refuse (a pressure tolerance above 0,
-  whose loop reads the residual on the host; the plane layout (K10); the
-  one-pass assembly and Chebyshev strips (K8, K9: SIMPLEC, PISO and
-  SIMPLER at 2048^2); the pressure and momentum zoos; the 9-point
-  schemes).
+  every configuration the other two refuse: a pressure tolerance above 0,
+  whose loop reads the residual on the host
+  (``solvers/multigrid.py``'s ``float(rel)``); BiCGSTAB, GMRES and IDR(s)
+  momentum, whose loops read the host, and the rest of the momentum and
+  pressure zoos; the compensated residual; W and FMG cycles on even grids;
+  the 9-point schemes; and K7's grid form (fields past its band's shared
+  memory).
 
 Each case's result is its single solve's: bit for bit in the K6 and per-case
 branches, and in the vmapped one wherever the batched operators round as
@@ -56,9 +64,9 @@ from ..core.mesh import StructuredMesh
 from ..core.state import FlowState, initialize_state
 from ..ops import _cuda
 from ..ops.assembly import supports_fused_assembly
-from ..ops.cheby import supports_cheby_strips
 from ..ops.krylov import supports_fused_bicgstab
 from ..ops.mg import supports_fused_layout, supports_fused_rap
+from ..ops.plane_strip import supports_plane_strip
 from ..ops.powerlaw import case_conductances
 from ..ops.stencil9 import Stencil9
 from ..ops.step import ALGO_SCALARS, fused_outer_step_batched
@@ -131,8 +139,8 @@ def vmap_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm: str) -> bool:
     has a batching rule and every composed part runs under
     ``torch.func.vmap`` without a host read.  Two arms, by grid parity:
     :func:`_odd_step_ok` (K7, K5, K4: the FMG headline) and
-    :func:`_even_step_ok` (K1, K2, K3 or K5: ``bench.py``'s large-grid
-    SIMPLE)."""
+    :func:`_even_step_ok` (K1, K8, K9, K10, K2, K3 or K5: ``bench.py``'s
+    large-grid SIMPLE, SIMPLEC, PISO and SIMPLER, the plane layout)."""
     if not _cuda.kernel_device(p) or fused_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm):
         return False
     nx, ny = p.shape[-2:]
@@ -185,38 +193,42 @@ def _even_layout(n: int, pres_cfg):
 def _even_pressure_ok(n: int, pres_cfg, dtype) -> bool:
     """``multigrid_solve``'s kernel path on an even ``n``^2 hierarchy with a
     fixed cycle count (``tolerance <= 0``: the loop reads nothing on the
-    host) in the interleaved layout: the whole solve in K5, or each V-cycle
-    (``_cycle0``) as a K2 pair a level above the first tail K3 takes."""
+    host): the whole solve in K5, or each V-cycle (``_cycle0``) as a K2
+    pair a level above the first tail K3 takes; in the colour-plane layout
+    the finest level K10's (its planes n x n / 2) and the levels below it
+    K2 pairs above a K3 tail, or one K3."""
     if (pres_cfg.tolerance > 0 or pres_cfg.cycle_type != "v"
-            or pres_cfg.coarsening != "galerkin" or pres_cfg.smoother != "gs"
-            or getattr(pres_cfg, "fine_layout", "auto") == "plane"):
+            or pres_cfg.coarsening != "galerkin" or pres_cfg.smoother != "gs"):
         return False
     layout = _even_layout(n, pres_cfg)
     if supports_fused_layout(layout, pres_cfg):  # K5
         return dtype == torch.float32
-    k = next((k for k in range(1, len(layout)) if supports_fused_layout(layout[k:], pres_cfg)),
-             None)
+    first = 1
+    if getattr(pres_cfg, "fine_layout", "auto") == "plane":
+        if len(layout) < 2 or not supports_plane_strip(n, n // 2, pres_cfg, dtype):
+            return False
+        layout, first = layout[1:], 0
+    k = next((k for k in range(first, len(layout))
+              if supports_fused_layout(layout[k:], pres_cfg)), None)
     return k is not None and all(supports_strip(*shp, five, pres_cfg, dtype)
                                  for shp, five in layout[:k])
 
 
 def _even_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm) -> bool:
     """An even square grid: :func:`_even_pressure_ok`; Chebyshev momentum
-    that K1 takes through the lagged carry (SIMPLE), or composed Chebyshev
-    where neither K1 nor the one-pass assembly (K8) nor the Chebyshev
-    strips (K9) take it."""
+    (K1 through SIMPLE's lagged carry; else K8 and K9 where their gates
+    open, composed where they do not), or fixed-sweep Jacobi or red-black
+    GS momentum whose coefficients the one-pass assembly (K8) takes; not
+    the compensated residual."""
     n = p.shape[-1]
-    if not _even_pressure_ok(n, pres_cfg, p.dtype) or getattr(mom_cfg, "kind", "") != "chebyshev":
+    if (not _even_pressure_ok(n, pres_cfg, p.dtype)
+            or getattr(mom_cfg, "compensated_residual", False)):
         return False
-    fold = getattr(cfg, "fold_poisson", "auto") == "auto"
-    if algorithm == "simple" and lagged_rho_enabled(n, n, mom_cfg, fold_poisson=fold,
-                                                    dtype=p.dtype, device=p.device):
+    kind = getattr(mom_cfg, "kind", "")
+    if kind == "chebyshev":
         return True
-    backend = getattr(mom_cfg, "backend", "auto")
-    return not (getattr(mom_cfg, "compensated_residual", False)
-                or supports_fused_assembly(n, n, "power_law", p.dtype, backend, p.device)
-                or (backend != "composed"
-                    and supports_cheby_strips((n + 1, n), p.dtype, p.device)))
+    return kind in ("jacobi", "rbgs") and supports_fused_assembly(
+        n, n, "power_law", p.dtype, getattr(mom_cfg, "backend", "auto"), p.device)
 
 
 def _flatten(tree):

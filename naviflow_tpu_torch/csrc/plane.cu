@@ -29,6 +29,15 @@
 // never updated (the zero boundary links annihilate the wrapped rolls of
 // the plain version), and nothing reads outside an allocation.  Tiles start
 // on even global rows, so the coarse rows of a tile are its own.
+//
+// The case axis (nf_plane_strip_down_batched, nf_plane_strip_up_batched;
+// the batching rules of ops/plane_strip.py, the vmapped lockstep step of
+// algorithms/batch.py): B levels of one shape in one launch, the grid's z
+// axis over the cases.  Thread 0 of each block moves every pointer of the
+// case-0 parameters by its case's stride into a shared-memory copy
+// (plane_case), and the single launch's tile code runs on that view, so
+// each case's bits are its single launch's.  A frozen case's blocks copy R
+// and B to the outputs and zero their coarse rows of rc (down).
 
 #include "common.cuh"
 
@@ -145,8 +154,7 @@ __device__ __forceinline__ float residual_pair(const Params& P, const float* sR,
   return rR + rB;
 }
 
-__global__ void __launch_bounds__(THREADS) plane_down_kernel(Params P) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ void plane_down_tile(const Params& P, float* smem) {
   const int H = P.halo, RI = TI + 2 * H, RJ = TJ + 2 * H;
   float* sR = smem;
   float* sB = smem + RI * RJ;
@@ -168,8 +176,7 @@ __global__ void __launch_bounds__(THREADS) plane_down_kernel(Params P) {
   }
 }
 
-__global__ void __launch_bounds__(THREADS) plane_up_kernel(Params P) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ void plane_up_tile(const Params& P, float* smem) {
   const int H = P.halo, RI = TI + 2 * H, RJ = TJ + 2 * H;
   float* sR = smem;
   float* sB = smem + RI * RJ;
@@ -179,8 +186,89 @@ __global__ void __launch_bounds__(THREADS) plane_up_kernel(Params P) {
   store_owned(P, sR, sB, ti0, tj0, RJ);
 }
 
-int launch(bool down, const long long* ptrs, const int* ip, void* stream) {
-  Params P = {};
+__global__ void __launch_bounds__(THREADS) plane_down_kernel(Params P) {
+  extern __shared__ float smem[];
+  plane_down_tile(P, smem);
+}
+
+__global__ void __launch_bounds__(THREADS) plane_up_kernel(Params P) {
+  extern __shared__ float smem[];
+  plane_up_tile(P, smem);
+}
+
+// B levels of one shape (the case axis): case 0's parameters, each pointer
+// field's case stride in bytes (the same fields of S), the active flags
+// and their stride.
+struct PlaneBatch {
+  Params P, S;
+  const bool* active;
+  const bool* active_stride;
+};
+
+// Case b = blockIdx.z's view of the parameters (thread 0; a stride of 0
+// shares one array) and whether the case is active.
+__device__ __forceinline__ bool plane_case(const PlaneBatch& SB, Params& P) {
+  __shared__ bool on;
+  if (threadIdx.x == 0) {
+    const int b = (int)blockIdx.z;
+    P = SB.P;
+    nf_case_shift(P.R, SB.S.R, b);
+    nf_case_shift(P.B, SB.S.B, b);
+    for (int k = 0; k < 10; ++k) nf_case_shift(P.nrm[k], SB.S.nrm[k], b);
+    nf_case_shift(P.c0, SB.S.c0, b);
+    nf_case_shift(P.c1, SB.S.c1, b);
+    nf_case_shift(P.rc_zdiag, SB.S.rc_zdiag, b);
+    nf_case_shift(P.ec, SB.S.ec, b);
+    nf_case_shift(P.out_R, SB.S.out_R, b);
+    nf_case_shift(P.out_B, SB.S.out_B, b);
+    nf_case_shift(P.out_rc, SB.S.out_rc, b);
+    const bool* active = SB.active;
+    nf_case_shift(active, SB.active_stride, b);
+    on = *active;
+  }
+  __syncthreads();
+  return on;
+}
+
+// A frozen case's tile: R and B copied to the outputs on the owned cells,
+// and (down) the tile's coarse rows of rc zeroed.
+__device__ __forceinline__ void plane_frozen(const Params& P, bool down) {
+  const int ti0 = blockIdx.y * TI, tj0 = blockIdx.x * TJ;
+  for (int k = threadIdx.x; k < TI * TJ; k += blockDim.x) {
+    const int gi = ti0 + k / TJ, gj = tj0 + k % TJ;
+    if (gi >= P.m || gj >= P.nc) continue;
+    const int64_t g = (int64_t)gi * P.nc + gj;
+    P.out_R[g] = P.R[g];
+    P.out_B[g] = P.B[g];
+    if (down && gi % 2 == 0) P.out_rc[(int64_t)(gi / 2) * P.nc + gj] = 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) plane_down_kernel_batched(PlaneBatch SB) {
+  extern __shared__ float smem[];
+  __shared__ Params P;  // this case's view
+  if (!plane_case(SB, P)) {
+    plane_frozen(P, true);
+    return;
+  }
+  plane_down_tile(P, smem);
+}
+
+__global__ void __launch_bounds__(THREADS) plane_up_kernel_batched(PlaneBatch SB) {
+  extern __shared__ float smem[];
+  __shared__ Params P;  // this case's view
+  if (!plane_case(SB, P)) {
+    plane_frozen(P, false);
+    return;
+  }
+  plane_up_tile(P, smem);
+}
+
+// nf_plane_strip_down's / nf_plane_strip_up's slots and ip into P (the
+// halo from the sweeps); the batched entry reads case 0's slots and then
+// their strides with it.
+void read_plane(bool down, const long long* ptrs, const int* ip, Params& P) {
+  P = {};
   P.m = ip[0];
   P.nc = ip[1];
   P.sweeps = ip[2];
@@ -202,13 +290,45 @@ int launch(bool down, const long long* ptrs, const int* ip, void* stream) {
     P.out_B = out(14);
   }
   P.halo = 2 * P.sweeps + (down ? 1 : 0);
-  const size_t smem = sizeof(float) * 2 * (TI + 2 * P.halo) * (TJ + 2 * P.halo);
-  dim3 grid((P.nc + TJ - 1) / TJ, (P.m + TI - 1) / TI);
+}
+
+size_t plane_smem(const Params& P) {
+  return sizeof(float) * 2 * (TI + 2 * P.halo) * (TJ + 2 * P.halo);
+}
+
+dim3 plane_grid(const Params& P, int cases) {
+  return dim3((P.nc + TJ - 1) / TJ, (P.m + TI - 1) / TI, cases);
+}
+
+int launch(bool down, const long long* ptrs, const int* ip, void* stream) {
+  Params P;
+  read_plane(down, ptrs, ip, P);
   cudaStream_t s = (cudaStream_t)stream;
   if (down)
-    plane_down_kernel<<<grid, THREADS, smem, s>>>(P);
+    plane_down_kernel<<<plane_grid(P, 1), THREADS, plane_smem(P), s>>>(P);
   else
-    plane_up_kernel<<<grid, THREADS, smem, s>>>(P);
+    plane_up_kernel<<<plane_grid(P, 1), THREADS, plane_smem(P), s>>>(P);
+  return (int)cudaGetLastError();
+}
+
+// B levels in one launch: the single entry's n slots for case 0, the
+// active flags, then each of these n + 1 slots' case stride in bytes; ip:
+// the single entry's, then B.
+int launch_batched(bool down, const long long* ptrs, const int* ip, void* stream) {
+  const int half = (down ? 18 : 15) + 1;
+  PlaneBatch SB;
+  read_plane(down, ptrs, ip, SB.P);
+  read_plane(down, ptrs + half, ip, SB.S);
+  SB.active = reinterpret_cast<const bool*>(ptrs[half - 1]);
+  SB.active_stride = reinterpret_cast<const bool*>(ptrs[2 * half - 1]);
+  const int cases = ip[3];
+  if (!SB.active || cases < 1 || cases > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid = plane_grid(SB.P, cases);
+  if (down)
+    plane_down_kernel_batched<<<grid, THREADS, plane_smem(SB.P), s>>>(SB);
+  else
+    plane_up_kernel_batched<<<grid, THREADS, plane_smem(SB.P), s>>>(SB);
   return (int)cudaGetLastError();
 }
 
@@ -228,4 +348,25 @@ NF_EXPORT int nf_plane_strip_up(const long long* ptrs, const int* ip, const floa
                                 void* stream) {
   (void)fp;
   return launch(false, ptrs, ip, stream);
+}
+
+// B levels of one shape in one launch (the case axis; grid z = B).
+// ptrs: nf_plane_strip_down's 18 slots for case 0, the cases' active flags
+//       (bool), then each of these 19 slots' case stride in bytes, in the
+//       same order (0: one array shared by every case)
+// ip:   nf_plane_strip_down's, then B
+NF_EXPORT int nf_plane_strip_down_batched(const long long* ptrs, const int* ip, const float* fp,
+                                          void* stream) {
+  (void)fp;
+  return launch_batched(true, ptrs, ip, stream);
+}
+
+// B levels of one shape in one launch (the case axis; grid z = B).
+// ptrs: nf_plane_strip_up's 15 slots for case 0, the active flags, then
+//       each of these 16 slots' case stride in bytes
+// ip:   nf_plane_strip_up's, then B
+NF_EXPORT int nf_plane_strip_up_batched(const long long* ptrs, const int* ip, const float* fp,
+                                        void* stream) {
+  (void)fp;
+  return launch_batched(false, ptrs, ip, stream);
 }

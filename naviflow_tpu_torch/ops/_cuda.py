@@ -14,14 +14,16 @@ K11b's (the lean call) take one ``c_void_p``, ``c_int`` or ``c_float`` per
 argument, so a call builds no host array.
 
 Under ``torch.func.vmap`` alone (no other transform) the gates answer from
-the device (:func:`kernel_device`), and K1, K2a, K2b, K3, K4, K5 and K7 run
-through their batching rules (``ops/asmcheby.py``, ``ops/strip.py``,
-``ops/mg.py``, ``ops/krylov.py``): the rule gets plain tensors with a
-leading case axis and launches the kernel's batched entry (one thread-block
-cluster a case for the cluster kernels, a grid axis over the cases for the
-strips, (case, tile) items for K1's persistent blocks) with the active
-flags of :func:`case_mask`.  Every other kernel raises at its launch
-(:func:`stream_of`), and every kernel raises under any other transform.
+the device (:func:`kernel_device`), and K1-K5 and K7-K10 run through their
+batching rules (``ops/asmcheby.py``, ``ops/strip.py``, ``ops/mg.py``,
+``ops/krylov.py``, ``ops/assembly.py``, ``ops/cheby.py``,
+``ops/plane_strip.py``): the rule gets plain tensors with a leading case
+axis and launches the kernel's batched entry (one thread-block cluster a
+case for the cluster kernels, a grid axis over the cases for K2, K8 and
+K10, (case, tile) items for K1's and K9's persistent blocks) with the
+active flags of :func:`case_mask`.  Every other kernel (K6 outside its own
+batched entry, K11) raises at its launch (:func:`stream_of`), and every
+kernel raises under any other transform.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -70,6 +72,8 @@ _KERNELS = ("nf_asmcheby_pair", "nf_asmcheby_pair_phases", "nf_strip_down", "nf_
             "nf_fused_outer_step_phases", "nf_fused_outer_step_batched",
             "nf_fused_assembly_pair", "nf_chebyshev_strips",
             "nf_plane_strip_down", "nf_plane_strip_up",
+            "nf_fused_assembly_pair_batched", "nf_chebyshev_strips_batched",
+            "nf_plane_strip_down_batched", "nf_plane_strip_up_batched",
             "nf_grid_sync_probe", "nf_cluster_sync_probe")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"nf_apply_poisson": [_P] * 7 + [_I, _I, _P],  # p, 4 links, diag, out; nx, ny
@@ -109,7 +113,7 @@ def under_transform() -> bool:
 def under_vmap() -> bool:
     """True inside ``torch.func.vmap`` and no other transform: no other
     ``torch.func`` level, forward-AD dual level or ``make_fx`` trace.  There
-    the kernels with a batching rule (K1, K2a, K2b, K3, K4, K5, K7) run it."""
+    the kernels with a batching rule (K1-K5, K7-K10) run it."""
     if not under_transform():
         return False
     from torch.autograd import forward_ad
@@ -127,8 +131,8 @@ def refuse_under_transform(what: str):
     to the plain version)."""
     if under_transform():
         raise RuntimeError(
-            f"{what}: a CUDA kernel cannot run under torch.func or forward-mode AD (only K1, "
-            "K2a, K2b, K3, K4, K5 and K7 have a batching rule, and only under "
+            f"{what}: a CUDA kernel cannot run under torch.func or forward-mode AD (only "
+            "K1-K5 and K7-K10 have a batching rule, and only under "
             "torch.func.vmap alone); "
             "differentiate the plain PyTorch path (backend='composed', or the plain "
             "assembly, as newton.make_residual does)")
@@ -216,6 +220,31 @@ def case_strides(arrays, cases: int, shape, dtype, what: str):
                     for k, b in enumerate(arrays)]
         out.append(a.stride(0) * a.element_size())
     return out
+
+
+def case_flags(active, cases: int):
+    """The active flags of a batched plain version's case loop, as a list
+    of bools (None: every case active)."""
+    return [True] * cases if active is None else active.tolist()
+
+
+def case_slots(h, groups, active, cases: int, what: str) -> int:
+    """Fill a batched entry's host slots ``h.ptrs`` (the single entry's
+    slots, the active flags last, then each slot's case stride in the
+    second half of ``h.half`` slots): the inputs of ``groups`` (lists of
+    arrays of one shape, in slot order) from slot 0 with their case
+    strides (one test a tensor), and the active flags (``h.ones`` for
+    None); returns the next slot, where the caller puts the outputs."""
+    k, half = 0, h.half
+    for arrays, shape in groups:
+        h.ptrs[k:k + len(arrays)] = [a.data_ptr() for a in arrays]
+        h.ptrs[half + k:half + k + len(arrays)] = case_strides(arrays, cases, shape,
+                                                               torch.float32, what)
+        k += len(arrays)
+    flags = h.ones if active is None else active
+    h.ptrs[half - 1] = flags.data_ptr()
+    h.ptrs[2 * half - 1] = case_stride(flags, cases, (), torch.bool, "active")
+    return k
 
 
 def case_max_clusters(kernel: int, size: int, device=None) -> int:

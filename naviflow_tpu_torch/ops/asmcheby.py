@@ -295,10 +295,8 @@ def fused_asmcheby_pair_batched_plain(u, v, p, *, dx, dy, rho, visc, alpha, degr
     case through :func:`fused_asmcheby_pair_plain` with each case's
     conductance row and interval scalars; a frozen case (``active`` False)
     gets its u and v back and zeros in every other output."""
-    cases = u.shape[0]
-    flags = [True] * cases if active is None else active.tolist()
     outs = []
-    for k, on in enumerate(flags):
+    for k, on in enumerate(_cuda.case_flags(active, u.shape[0])):
         if on:
             outs.append(_flat(fused_asmcheby_pair_plain(
                 u[k], v[k], p[k], dx=dx, dy=dy, rho=rho, mu=visc[k], alpha=alpha,
@@ -362,22 +360,13 @@ def fused_asmcheby_pair_batched(u, v, p, *, dx, dy, rho, visc, alpha, degree, bo
             _BATCH.clear()
         st = _BATCH[key] = _BatchLaunch(nx, ny, degree, _VARIANTS[poisson_variant], floats,
                                         cases, dev)
-    ptrs, half = st.ptrs, st.half
-    ins = ((u, (nx + 1, ny)), (v, (nx, ny + 1)), (p, (nx, ny)))
-    for k, (x, shape) in enumerate(ins):
-        ptrs[k] = x.data_ptr()
-        ptrs[half + k] = _cuda.case_stride(x, cases, shape, f32, SLOTS[k])
-    scalars = (*bounds_u, *bounds_v)
-    ptrs[3:N_IN] = [s.data_ptr() for s in scalars]
-    ptrs[half + 3:half + N_IN] = _cuda.case_strides(scalars, cases, (), f32, "bounds")
+    ptrs, half, n = st.ptrs, st.half, len(SLOTS)
+    _cuda.case_slots(st, [([u], (nx + 1, ny)), ([v], (nx, ny + 1)), ([p], (nx, ny)),
+                          ([*bounds_u, *bounds_v], ())], active, cases, "fused_asmcheby_pair")
     buf = torch.empty((cases, st.total), dtype=f32, device=dev)  # every output
     base = buf.data_ptr()
-    ptrs[N_IN:len(SLOTS)] = [base + 4 * off for off, _ in st.layout]
-    flags = st.ones if active is None else active
-    n = len(SLOTS)
+    ptrs[N_IN:n] = [base + 4 * off for off, _ in st.layout]
     ptrs[n], ptrs[half + n] = visc.data_ptr(), _cuda.case_stride(visc, cases, (4,), f32, "visc")
-    ptrs[n + 1] = flags.data_ptr()
-    ptrs[half + n + 1] = _cuda.case_stride(flags, cases, (), torch.bool, "active")
     _cuda.check(_cuda.library().nf_asmcheby_pair_batched(ptrs, st.ip, st.fp, stream),
                 "fused_asmcheby_pair_batched")
     BATCH_LAUNCHES += 1

@@ -13,19 +13,26 @@ where the large-grid momentum solves do not go through the merged kernel K1
 On a CPU tensor :func:`fused_assembly_pair` runs
 :func:`fused_assembly_pair_plain`, the composed PyTorch version; on a CUDA
 tensor it launches the kernel or raises.
+
+The case axis (:func:`fused_assembly_pair_batched`): B cases of one shape
+in one launch, the grid's y axis over the cases, each case with its own
+fields and conductance row (``powerlaw.case_conductances``), each bit-equal
+to its single launch.  Under ``torch.func.vmap`` (alone)
+:func:`fused_assembly_pair` is its batching rule's entry.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _cuda
-from .asmcheby import _masked_ratio_max
+from .asmcheby import _floats, _masked_ratio_max
 from .poisson import PoissonCoeffs, poisson_coefficients
-from .powerlaw import (d_coefficient, relax_coefficients, u_momentum_coefficients,
-                       v_momentum_coefficients)
+from .powerlaw import (case_conductances, d_coefficient, relax_coefficients,
+                       u_momentum_coefficients, v_momentum_coefficients)
 from .stencil import StencilCoeffs
 
 # The TPU kernel's folded-window cap in cells and its halo rows (a VMEM
@@ -38,6 +45,7 @@ _THREADS = 256  # csrc/assembly.cu THREADS
 _VARIANTS = {"consistent": 0, "symmetric": 1, "reference": 2}
 
 LAUNCHES = 0  # kernel launches since the last reset (the CPU path never counts)
+BATCH_LAUNCHES = 0  # the batched entry's
 
 
 def supports_fused_assembly(nx, ny, scheme, dtype, backend, device) -> bool:
@@ -94,10 +102,19 @@ def fused_assembly_pair(u, v, p, *, dx, dy, rho, mu, alpha, with_bounds=False,
     sharing the unrelaxed links), then ``(rho_u, rho_v)`` (0-d tensors, the
     masked Gershgorin ratio maxima of the relaxed systems) when
     ``with_bounds``, then ``(d_u, d_v, pc)`` when ``poisson_variant`` is
-    set ('consistent', 'symmetric' or 'reference')."""
+    set ('consistent', 'symmetric' or 'reference').  ``mu`` is a number or
+    (the vmapped batch step) one case's conductance row
+    (``powerlaw.case_conductances``); under ``torch.func.vmap`` the call is
+    :class:`_AssemblyCases`' batching rule's."""
     global LAUNCHES
     if poisson_variant is not None and poisson_variant not in _VARIANTS:
         raise ValueError(f"Unknown poisson operator variant: {poisson_variant}")
+    if _cuda.under_vmap():
+        if not torch.is_tensor(mu):
+            mu = case_conductances([mu], dx, dy, torch.float32, u.device)[0]
+        out = _AssemblyCases.apply(u, v, p, mu, (dx, dy, rho, alpha, bool(with_bounds),
+                                                 poisson_variant))
+        return _unflatten(out, with_bounds, poisson_variant)
     if not u.is_cuda:
         return fused_assembly_pair_plain(u, v, p, dx=dx, dy=dy, rho=rho, mu=mu, alpha=alpha,
                                          with_bounds=with_bounds,
@@ -124,8 +141,7 @@ def fused_assembly_pair(u, v, p, *, dx, dy, rho, mu, alpha, with_bounds=False,
         outs += fold
     ptrs = [u.data_ptr(), v.data_ptr(), p.data_ptr()] + [t.data_ptr() for t in outs]
     ip = [nx, ny, _VARIANTS[poisson_variant] if poisson_variant is not None else -1, blocks]
-    fp = [0.5 * rho * dy, 0.5 * rho * dx, mu * dy / dx, mu * dx / dy, dx, dy, alpha,
-          1.0 - alpha, rho]
+    fp = _floats(dx, dy, rho, mu, alpha)
     _cuda.check(_cuda.library().nf_fused_assembly_pair(
         (ctypes.c_longlong * len(ptrs))(*ptrs), (ctypes.c_int * len(ip))(*ip),
         (ctypes.c_float * len(fp))(*fp), stream), "fused_assembly_pair")
@@ -139,3 +155,180 @@ def fused_assembly_pair(u, v, p, *, dx, dy, rho, mu, alpha, with_bounds=False,
         fold = (d_u, d_v, PoissonCoeffs(a_e=pe, a_w=pw, a_n=pn, a_s=ps, diag=pdiag))
     rho_u, rho_v = (torch.max(gmax[0]), torch.max(gmax[1])) if with_bounds else (None, None)
     return _result(cu_un, cu_rel, cv_un, cv_rel, rho_u, rho_v, fold, with_bounds)
+
+
+# ---------------------------------------------------------------------------
+# The case axis: B cases of one shape in one launch (grid y over the
+# cases), each case bit-equal to its single launch.
+
+_COEF = ("a_e", "a_w", "a_n", "a_s", "a_p", "src")
+
+
+def _flat(out, with_bounds, poisson_variant):
+    """:func:`fused_assembly_pair`'s result as a flat tuple of tensors: each
+    field's six unrelaxed arrays and its relaxed a_p and src, then the
+    maxima, then d_u, d_v and the operator's five arrays."""
+    cu_un, cu_rel, cv_un, cv_rel = out[:4]
+    flat = tuple(getattr(cu_un, f) for f in _COEF) + (cu_rel.a_p, cu_rel.src)
+    flat += tuple(getattr(cv_un, f) for f in _COEF) + (cv_rel.a_p, cv_rel.src)
+    rest = out[4:]
+    if with_bounds:
+        flat += tuple(rest[:2])
+        rest = rest[2:]
+    if poisson_variant is not None:
+        d_u, d_v, pc = rest
+        flat += (d_u, d_v, pc.a_e, pc.a_w, pc.a_n, pc.a_s, pc.diag)
+    return flat
+
+
+def _unflatten(flat, with_bounds, poisson_variant):
+    """The inverse of :func:`_flat`."""
+    cu_un = StencilCoeffs(*flat[:6])
+    cv_un = StencilCoeffs(*flat[8:14])
+    rho_u = rho_v = fold = None
+    rest = flat[16:]
+    if with_bounds:
+        (rho_u, rho_v), rest = rest[:2], rest[2:]
+    if poisson_variant is not None:
+        d_u, d_v, pe, pw, pn, ps, pdiag = rest
+        fold = (d_u, d_v, PoissonCoeffs(a_e=pe, a_w=pw, a_n=pn, a_s=ps, diag=pdiag))
+    return _result(cu_un, cu_un.replace(a_p=flat[6], src=flat[7]), cv_un,
+                   cv_un.replace(a_p=flat[14], src=flat[15]), rho_u, rho_v, fold, with_bounds)
+
+
+def fused_assembly_pair_batched_plain(u, v, p, *, dx, dy, rho, visc, alpha, with_bounds=False,
+                                      poisson_variant=None, active=None):
+    """The batched K8's plain version (the CPU path and its oracle): case by
+    case through :func:`fused_assembly_pair_plain` with each case's
+    conductance row; a frozen case (``active`` False) gets zeros in every
+    output."""
+    outs = []
+    for k, on in enumerate(_cuda.case_flags(active, u.shape[0])):
+        if on:
+            outs.append(_flat(fused_assembly_pair_plain(
+                u[k], v[k], p[k], dx=dx, dy=dy, rho=rho, mu=visc[k], alpha=alpha,
+                with_bounds=with_bounds, poisson_variant=poisson_variant),
+                with_bounds, poisson_variant))
+        else:
+            zu, zv, zp = (torch.zeros_like(x[k]) for x in (u, v, p))
+            outs.append((zu,) * 8 + (zv,) * 8 + (u.new_zeros(()),) * (2 if with_bounds else 0)
+                        + ((zu, zv) + (zp,) * 5 if poisson_variant is not None else ()))
+    return _unflatten(tuple(torch.stack(xs) for xs in zip(*outs)), with_bounds,
+                      poisson_variant)
+
+
+def batch_layout(nx: int, ny: int, blocks: int, fold: bool):
+    """``[(offset, shape)]`` of each output of one case in the batched
+    entry's buffer, in the C entry's slot order (16 coefficient arrays, the
+    two Gershgorin partials of ``blocks`` floats, with the fold d_u, d_v and
+    the operator's five arrays), each on a 256-byte boundary; the case's
+    length (the case stride in floats) last."""
+    u, v, c = (nx + 1, ny), (nx, ny + 1), (nx, ny)
+    shapes = [u] * 8 + [v] * 8 + [(blocks,)] * 2 + ([u, v] + [c] * 5 if fold else [])
+    out, off = [], 0
+    for shape in shapes:
+        out.append((off, shape))
+        off += -(-math.prod(shape) // 64) * 64
+    return out, off
+
+
+class _BatchLaunch:
+    """The batched entry's host arrays for one (device, stream, cases,
+    shape, variant, physics): the pointer slots (the single entry's, the
+    conductances, the active flags, then each slot's case stride; the
+    outputs' strides filled once), the parameters with the case count, the
+    output layout of one case, and the flags of a batch with no frozen
+    case."""
+
+    def __init__(self, nx, ny, variant, floats, cases, dev):
+        blocks = -(-max((nx + 1) * ny, nx * (ny + 1)) // _THREADS)
+        self.layout, self.total = batch_layout(nx, ny, blocks, variant >= 0)
+        self.n = 3 + len(self.layout)
+        self.half = self.n + 2
+        self.ptrs = (ctypes.c_longlong * (2 * self.half))()
+        self.ptrs[self.half + 3:self.half + self.n] = [4 * self.total] * len(self.layout)
+        self.ip = (ctypes.c_int * 5)(nx, ny, variant, blocks, cases)
+        self.fp = (ctypes.c_float * 9)(*floats)
+        self.ones = torch.ones(cases, dtype=torch.bool, device=dev)
+
+
+_BATCH = {}
+
+
+def fused_assembly_pair_batched(u, v, p, *, dx, dy, rho, visc, alpha, with_bounds=False,
+                                poisson_variant=None, active=None):
+    """:func:`fused_assembly_pair` of B cases of one shape in one launch:
+    ``u``, ``v``, ``p`` carry a leading case axis (each case's slice
+    contiguous; a case stride of 0 shares one array), ``visc`` (B, 4) each
+    case's conductances (``powerlaw.case_conductances``), ``active`` (B,)
+    bool: a frozen case gets zeros in every output (None: every case
+    active).  Returns the single call's outputs with the case axis first
+    (the maxima (B,)), views of one fresh buffer."""
+    global BATCH_LAUNCHES
+    if poisson_variant is not None and poisson_variant not in _VARIANTS:
+        raise ValueError(f"Unknown poisson operator variant: {poisson_variant}")
+    if not u.is_cuda:
+        return fused_assembly_pair_batched_plain(
+            u, v, p, dx=dx, dy=dy, rho=rho, visc=visc, alpha=alpha, with_bounds=with_bounds,
+            poisson_variant=poisson_variant, active=active)
+    cases, nxp1, ny = u.shape
+    nx = nxp1 - 1
+    f32 = torch.float32
+    dev, stream = u.device, _cuda.stream_of(u)
+    variant = _VARIANTS[poisson_variant] if poisson_variant is not None else -1
+    floats = _floats(dx, dy, rho, 0.0, alpha)
+    key = (dev, stream, cases, nx, ny, variant, floats)
+    st = _BATCH.get(key)
+    if st is None:
+        if len(_BATCH) >= 32:
+            _BATCH.clear()
+        st = _BATCH[key] = _BatchLaunch(nx, ny, variant, floats, cases, dev)
+    ptrs, half, n = st.ptrs, st.half, st.n
+    _cuda.case_slots(st, [([u], (nx + 1, ny)), ([v], (nx, ny + 1)), ([p], (nx, ny))], active,
+                     cases, "fused_assembly_pair")
+    buf = torch.empty((cases, st.total), dtype=f32, device=dev)  # every output
+    base = buf.data_ptr()
+    ptrs[3:n] = [base + 4 * off for off, _ in st.layout]
+    ptrs[n], ptrs[half + n] = visc.data_ptr(), _cuda.case_stride(visc, cases, (4,), f32, "visc")
+    _cuda.check(_cuda.library().nf_fused_assembly_pair_batched(ptrs, st.ip, st.fp, stream),
+                "fused_assembly_pair_batched")
+    BATCH_LAUNCHES += 1
+    outs = [buf.as_strided((cases, *shape), (st.total, *_cuda._contiguous(shape)), off)
+            for off, shape in st.layout]
+    flat = outs[:16]
+    if with_bounds:  # each case's maxima over its blocks' partials
+        flat += [torch.amax(outs[16], dim=1), torch.amax(outs[17], dim=1)]
+    return _unflatten(tuple(flat + outs[18:]), with_bounds, poisson_variant)
+
+
+class _AssemblyCases(torch.autograd.Function):
+    """K8's batching rule: under ``torch.func.vmap`` every case's call goes
+    into one :func:`fused_assembly_pair_batched` launch with its own
+    conductance row and the active flags of ``_cuda.case_mask``; an operand
+    shared by every case gets case stride 0."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(u, v, p, visc, static):
+        dx, dy, rho, alpha, with_bounds, variant = static
+        return _flat(fused_assembly_pair(u, v, p, dx=dx, dy=dy, rho=rho, mu=visc, alpha=alpha,
+                                         with_bounds=with_bounds, poisson_variant=variant),
+                     with_bounds, variant)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, u, v, p, visc, static):
+        cases = info.batch_size
+        dx, dy, rho, alpha, with_bounds, variant = static
+        u, v, p, visc = (_cuda.case_first(a, d, cases)
+                         for a, d in zip((u, v, p, visc), in_dims[:4]))
+        out = fused_assembly_pair_batched(u, v, p, dx=dx, dy=dy, rho=rho, visc=visc,
+                                          alpha=alpha, with_bounds=with_bounds,
+                                          poisson_variant=variant,
+                                          active=_cuda.active_cases(cases))
+        flat = _flat(out, with_bounds, variant)
+        return flat, (0,) * len(flat)

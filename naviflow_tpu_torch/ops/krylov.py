@@ -159,7 +159,7 @@ def bicgstab_momentum_batched_plain(x0, c: StencilCoeffs, *, tol: float, maxiter
     """The batched kernel's plain version (the CPU path and its oracle):
     case by case through :func:`bicgstab_momentum_plain`; a frozen case
     (``active`` False) gets ``x0`` back."""
-    flags = [True] * x0.shape[0] if active is None else active.tolist()
+    flags = _cuda.case_flags(active, x0.shape[0])
     return torch.stack([
         bicgstab_momentum_plain(x0[b], _case_coeffs(c, b), tol=tol, maxiter=maxiter,
                                 margins=margins) if on else x0[b]
@@ -201,7 +201,7 @@ def bicgstab_momentum_batched(x0, c: StencilCoeffs, *, tol: float, maxiter: int,
                  lambda: _BatchLaunch(shape, maxiter, margins, tol, cases, dev))
     if not st.band:
         # the cooperative grid kernel has no per-case form: a launch a case
-        flags = [True] * cases if active is None else active.tolist()
+        flags = _cuda.case_flags(active, cases)
         return torch.stack([
             bicgstab_momentum(x0[b], _case_coeffs(c, b), tol=tol, maxiter=maxiter,
                               margins=margins) if on else x0[b]

@@ -473,17 +473,13 @@ def _case_levels(levels, b):
             for st, shp, five, lam in levels]
 
 
-def _flags(active, cases):
-    return [True] * cases if active is None else active.tolist()
-
-
 def fused_mg_solve_batched_plain(p0, b, levels, cfg, *, mean_normalize: bool = True,
                                  active=None):
     """The batched K5's plain version (the CPU path and its oracle): case by
     case through :func:`fused_mg_solve_plain`; a frozen case (``active``
     False) gets ``p0``, a zero residual, 0 cycles and rel 0."""
     outs = []
-    for k, on in enumerate(_flags(active, p0.shape[0])):
+    for k, on in enumerate(_cuda.case_flags(active, p0.shape[0])):
         if on:
             outs.append(fused_mg_solve_plain(p0[k], b[k], _case_levels(levels, k), cfg,
                                              mean_normalize=mean_normalize))
@@ -573,7 +569,7 @@ def galerkin_levels_batched_plain(fine_st: Stencil9, shapes, fine_five: bool, ac
     False) gets zero stencils."""
     cases = fine_st.c.shape[0]
     per_case = []
-    for k, on in enumerate(_flags(active, cases)):
+    for k, on in enumerate(_cuda.case_flags(active, cases)):
         if on:
             case_st = Stencil9(*(a[k] for a in _arrays9(fine_st)))
             per_case.append(galerkin_levels_plain(case_st, shapes, fine_five))
@@ -646,7 +642,7 @@ def fused_vcycle_batched_plain(p, b, levels, cfg, active=None):
     case through :func:`fused_vcycle_plain`; a frozen case (``active``
     False) gets ``p`` back."""
     return torch.stack([fused_vcycle_plain(p[k], b[k], _case_levels(levels, k), cfg) if on
-                        else p[k] for k, on in enumerate(_flags(active, p.shape[0]))])
+                        else p[k] for k, on in enumerate(_cuda.case_flags(active, p.shape[0]))])
 
 
 class _VcBatch:

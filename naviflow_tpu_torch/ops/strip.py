@@ -255,25 +255,22 @@ def _case_st(st, k):
     return Stencil9(*(None if a is None else a[k] for a in (getattr(st, f) for f in _ST9)))
 
 
-def _flags(active, cases):
-    return [True] * cases if active is None else active.tolist()
-
-
 def strip_down_batched_plain(p, b, st: Stencil9, cfg, five: bool = True, active=None):
     """The batched K2a's plain version (the CPU path and its oracle): case
     by case through :func:`strip_down_plain`; a frozen case (``active``
     False) gets ``p`` and a zero coarse residual."""
     outs = [strip_down_plain(p[k], b[k], _case_st(st, k), cfg, five) if on
             else (p[k], p.new_zeros((p.shape[1] // 2, p.shape[2] // 2)))
-            for k, on in enumerate(_flags(active, p.shape[0]))]
+            for k, on in enumerate(_cuda.case_flags(active, p.shape[0]))]
     return torch.stack([x for x, _ in outs]), torch.stack([rc for _, rc in outs])
 
 
 def strip_up_batched_plain(p, b, st: Stencil9, ec, cfg, five: bool = True, active=None):
     """The batched K2b's plain version: case by case through
     :func:`strip_up_plain`; a frozen case gets ``p``."""
+    flags = _cuda.case_flags(active, p.shape[0])
     return torch.stack([strip_up_plain(p[k], b[k], _case_st(st, k), ec[k], cfg, five)
-                        if on else p[k] for k, on in enumerate(_flags(active, p.shape[0]))])
+                        if on else p[k] for k, on in enumerate(flags)])
 
 
 class _BatchLaunch:
@@ -305,22 +302,6 @@ def _batch_state(cache, slots, p, five, sweeps, omega):
     return key[1], h
 
 
-def _batch_inputs(h, groups, active, cases):
-    """The input slots from ``groups`` (lists of arrays of one shape, in slot
-    order), their case strides (one test a tensor) and the active flags;
-    returns the next slot, where the caller puts the outputs."""
-    k, half = 0, h.half
-    for arrays, shape in groups:
-        strides = _cuda.case_strides(arrays, cases, shape, torch.float32, "strip input")
-        h.ptrs[k:k + len(arrays)] = [a.data_ptr() for a in arrays]
-        h.ptrs[half + k:half + k + len(arrays)] = strides
-        k += len(arrays)
-    flags = h.ones if active is None else active
-    h.ptrs[half - 1] = flags.data_ptr()
-    h.ptrs[2 * half - 1] = _cuda.case_stride(flags, cases, (), torch.bool, "active")
-    return k
-
-
 def _batch_check(p, cfg):
     cases, nx, ny = p.shape
     if nx % 2 or ny % 2:
@@ -343,7 +324,8 @@ def strip_down_batched(p, b, st: Stencil9, cfg, five: bool = True, active=None):
     cases, nx, ny = _batch_check(p, cfg)
     stream, h = _batch_state(_DOWN_BATCH, down_slots(five), p, five, cfg.pre_smoothing,
                              cfg.omega)
-    n = _batch_inputs(h, [([p, b, *_st_arrays(st, five)], (nx, ny))], active, cases)
+    n = _cuda.case_slots(h, [([p, b, *_st_arrays(st, five)], (nx, ny))], active, cases,
+                         "strip input")
     cells, coarse = nx * ny, (nx // 2) * (ny // 2)
     buf = torch.empty((cases, cells + coarse), dtype=p.dtype, device=p.device)
     base = buf.data_ptr()
@@ -367,8 +349,8 @@ def strip_up_batched(p, b, st: Stencil9, ec, cfg, five: bool = True, active=None
     cases, nx, ny = _batch_check(p, cfg)
     stream, h = _batch_state(_UP_BATCH, up_slots(five), p, five, cfg.post_smoothing,
                              cfg.omega)
-    n = _batch_inputs(h, [([p, b, *_st_arrays(st, five)], (nx, ny)),
-                          ([ec], (nx // 2, ny // 2))], active, cases)
+    n = _cuda.case_slots(h, [([p, b, *_st_arrays(st, five)], (nx, ny)),
+                             ([ec], (nx // 2, ny // 2))], active, cases, "strip input")
     out = torch.empty_like(p)
     h.ptrs[n], h.ptrs[h.half + n] = out.data_ptr(), 4 * nx * ny
     _cuda.check(_cuda.library().nf_strip_up_batched(h.ptrs, h.ip, h.fp, stream),

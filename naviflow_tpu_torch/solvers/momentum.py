@@ -22,6 +22,9 @@ launch of K9 (``ops/cheby.py``) per field.  Every kernel gate refuses a
 gates do; such a system runs composed.  The assembly gate (K8) does not
 look at the momentum kind, as in the JAX package: RBGS, GMRES and IDR(s)
 solves on large power-law float32 grids take their coefficients from K8.
+Under ``torch.func.vmap`` (the batched lockstep step, ``algorithms/batch.py``)
+``mu`` is one case's ``powerlaw.case_conductances`` row, and K1, K7, K8 and
+K9 run their batching rules: one launch for every case, no host read.
 
 IDR(s)'s shadow space: the JAX package draws it with
 ``jax.random.normal(PRNGKey(0), ...)``, which PyTorch cannot reproduce.

@@ -55,13 +55,13 @@ def test_even_batch_cases_bit_equal_to_single_solves(gates_open):
 def test_even_gate_sides(gates_open):
     """The even arm takes ``bench.py``'s large-grid SIMPLE (K1 + K2 strips +
     a K3 tail), its K1-free sibling algorithms and composed-Chebyshev
-    grids below K1's gate, and a hierarchy K5 takes whole; it refuses a
-    pressure tolerance > 0 (the loop reads it on the host), the plane
-    layout (K10), other cycles, smoothers and coarsenings, non-Chebyshev
-    momentum, the K8 / K9 configurations (SIMPLEC, PISO, SIMPLER at
-    2048^2), a level the strips refuse above the tail, odd or non-square
-    grids, and the CPU (closed gates), each of which steps case by
-    case."""
+    grids below K1's gate, a hierarchy K5 takes whole, the plane layout
+    where K10's gate opens, and the K8 / K9 configurations (SIMPLEC, PISO,
+    SIMPLER at 2048^2); it refuses a pressure tolerance > 0 (the loop reads
+    it on the host), a plane layout K10 refuses, other cycles, smoothers and
+    coarsenings, non-Chebyshev momentum K8 does not assemble, a level the
+    strips refuse above the tail, odd or non-square grids, and the CPU
+    (closed gates), each of which steps case by case."""
     from dataclasses import replace
 
     cfg, mom, pres = talg.SIMPLEConfig(), interop.config(MOM), interop.config(PRES)
@@ -74,7 +74,8 @@ def test_even_gate_sides(gates_open):
         assert ok(algo=algo), algo
     assert ok(p=torch.zeros(16, 16))  # K5 takes the whole 16^2 hierarchy
     assert not ok(pres=replace(pres, tolerance=1e-3))
-    assert not ok(pres=replace(pres, fine_layout="plane"))
+    assert ok(pres=replace(pres, fine_layout="plane"))  # K10 on the 64^2 planes
+    assert not ok(pres=replace(pres, fine_layout="plane", omega=1.2))  # K10's gate refuses
     assert not ok(pres=replace(pres, cycle_type="w"))
     assert not ok(pres=replace(pres, smoother="jacobi"))
     assert not ok(pres=replace(pres, backend="composed"))
@@ -86,7 +87,7 @@ def test_even_gate_sides(gates_open):
     # 2048^2: SIMPLEC, PISO and SIMPLER take K8 (and K9), SIMPLE takes K1
     big = torch.zeros(2048, 2048)
     for algo in ("simplec", "piso", "simpler"):
-        assert not ok(p=big, algo=algo), algo
+        assert ok(p=big, algo=algo), algo
     assert ok(p=big)
     assert ok(p=big, algo="simplec", mom=replace(mom, backend="composed"))  # no K8, no K9
     # float64 takes the kernels only where the dtype gates are widened

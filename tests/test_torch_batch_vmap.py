@@ -479,10 +479,13 @@ def _fake_cuda():
 
 
 def test_kernels_without_a_rule_raise_under_vmap():
-    """Under ``torch.func.vmap`` the gates answer from the device, K8 and K9
-    (no batching rule) raise at their launch, before any pointer is read;
-    a vmap with another transform inside still closes the gate."""
-    from naviflow_tpu_torch.ops import assembly, cheby
+    """Under ``torch.func.vmap`` the gates answer from the device, and the
+    kernels with no batching rule (K11a, K11b: no solve path calls them;
+    K8 and K9 have one since their case axis was ported) raise at their
+    launch, before any pointer is read; a vmap with another transform
+    inside still closes the gate."""
+    from naviflow_tpu_torch.ops import kernels
+    from naviflow_tpu_torch.ops.poisson import PoissonCoeffs
 
     mode, x = _fake_cuda()
     with mode:
@@ -493,16 +496,11 @@ def test_kernels_without_a_rule_raise_under_vmap():
         with pytest.raises(RuntimeError, match="no batching rule|have a batching rule"):
             torch.func.vmap(lambda a: torch.func.jvp(
                 lambda y: y * _cuda.kernel_device(y), (a,), (a,))[0])(xs)
-        u = torch.zeros(3, 16, 15, device="cuda")
-        v = torch.zeros(3, 15, 16, device="cuda")
+        c = PoissonCoeffs(*[torch.zeros(15, 15, device="cuda")] * 5)
         with pytest.raises(RuntimeError, match="kernel launch"):
-            torch.func.vmap(lambda a, bb, pp: assembly.fused_assembly_pair(
-                a, bb, pp, dx=0.1, dy=0.1, rho=1.0, mu=0.01, alpha=0.7))(u, v, xs)
-        c = [torch.zeros(3, 16, 15, device="cuda") for _ in range(6)]
+            torch.func.vmap(lambda a: kernels.rbgs_sweeps(a, a, c, n_sweeps=2))(xs)
         with pytest.raises(RuntimeError, match="kernel launch"):
-            torch.func.vmap(lambda a, *cs: cheby.chebyshev_momentum_strips(
-                a, StencilCoeffs(*cs), StencilCoeffs(*cs), theta=1.0, delta=0.5, sigma1=2.0,
-                degree=4))(u, *c)
+            torch.func.vmap(lambda a: kernels.apply_poisson_kernel(a, c))(xs)
 
 
 def test_k7_k5_k4_raise_under_jvp():

@@ -235,8 +235,12 @@ def test_k3_rejects_what_its_kernel_does_not_take(recorder):
 
 
 def _cheby_entry():
+    """The C entry's slot reader (``read_cheby``, which the single entry and
+    the batched one call), after checking the single entry calls it."""
     src = _src("cheby.cu")
-    return src[src.index("NF_EXPORT int nf_chebyshev_strips("):]
+    entry = src[src.index("NF_EXPORT int nf_chebyshev_strips("):]
+    assert "read_cheby(ptrs, ip, P);" in entry[:entry.index("\n}\n")]
+    return src[src.index("void read_cheby("):]
 
 
 def test_k9_slots_match_c_entry():
