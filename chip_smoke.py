@@ -323,6 +323,12 @@ BATCH_LARGE_STEPS, BATCH_LARGE_LIMIT, BATCH_LARGE_SWEEP_GRID = 10, 1e-4, 256
 # the batch phase's batch_assembly runs: lockstep steps at 2048^2 and 1024^2,
 # and at 4096^2 in the plane layout
 BATCH_ASM_STEPS, BATCH_PLANE_STEPS = 6, 3
+# the batch_loops phase (BiCGSTAB momentum and tolerance-driven multigrid
+# through ops/while_loop.py): lockstep steps from rest; K7's grid-form rows'
+# grids (the 256^2 fields are the command line's default sweep's) and the
+# cooperative grid's largest field the gate admits (bit-equality alone)
+BATCH_LOOP_STEPS = 6
+GRID_CASE_GRIDS, GRID_CASE_LARGEST = (256, 255), 511
 ALGORITHMS63_ITERATIONS = {}  # the algorithms63 phase's kernel runs (name -> iterations)
 SEED = 0
 REPS = 10  # timed launches per kernel measurement (20 before the large batch's rows)
@@ -386,8 +392,8 @@ def time_ms(fn, reps=REPS):
 def time_pair(plain, kernel, reps=REPS):
     """ms per call of each, in turns plain, kernel, kernel, plain, and the
     kernel's device time per call (``device_ms``).  The plain version runs
-    ``PLAIN_REPS`` calls a turn: it is host-bound and up to 0.5 s a call
-    (K6's bodies), where the kernel takes 0.01-1 ms."""
+    ``PLAIN_REPS`` calls a turn: it is host-bound and up to 1.3 s a call
+    (the batched K6 bodies), where the kernel takes 0.01-1 ms."""
     p1, k1 = time_ms(plain, PLAIN_REPS), time_ms(kernel, reps)
     k2, p2 = time_ms(kernel, reps), time_ms(plain, PLAIN_REPS)
     return (k1 + k2) / 2, (p1 + p2) / 2, device_ms(kernel, reps)
@@ -986,13 +992,16 @@ def check_bicgstab(inputs, cl_ms, sync_ms):
                 ms, plain_ms, dev_ms = time_pair(plain, kernel)
                 _, band, smem = krylov.band_layout(tuple(x0.shape),
                                                    krylov.cluster_size(x0.device))
-                row = dict(name="bicgstab_momentum", field=field, shape=list(x0.shape),
+                # the cooperative grid form has its own row (its main path:
+                # the sequenced ladder's 256^2 level)
+                row = dict(name="bicgstab_momentum" if band else "bicgstab_momentum_grid",
+                           field=field, shape=list(x0.shape),
                            maxiter=maxiter, iterations=iters,
                            kernel="cluster" if band else "grid", smem_bytes=smem,
                            ok=r < 1e-4, max_abs_err=a, rel_err=r, ms=ms, plain_ms=plain_ms,
                            device_ms=dev_ms, host_ms=host_ms(kernel),
                            work=bicgstab_work(x0.numel(), iters),
-                           main=n == NH and maxiter == 20)
+                           main=not band or (n == NH and maxiter == 20))
                 if band:
                     bar = k7_barriers(iters)
                     row.update(cluster_barriers=bar, barrier_bound_ms=bar * cl_ms)
@@ -1448,6 +1457,113 @@ def check_case_axis(inp, sizes, res=BATCH_RE):
              ok=worst_rel < 1e-5 and bit_equal and frozen_ok, bit_equal_to_single=bit_equal,
              frozen_case_ok=frozen_ok, max_abs_err=worst_abs, rel_err=worst_rel),
         B, size, cl_ms, 2, (B * one_work[0], B * one_work[1]), len(shapes) - 1))
+    return rows
+
+
+def grid_case_inputs(n, dev, res=BATCH_RE, steps=3):
+    """K7's grid-form inputs at n^2 for the cases ``res``: the lid-driven
+    cavity after ``steps`` steps of the command line's default solvers at
+    Re 100 from rest, and each case's relaxed u and v momentum systems at
+    its own viscosity, stacked with a leading case axis."""
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.core.bc import apply_velocity_bcs
+    from naviflow_tpu_torch.ops.powerlaw import (relax_coefficients, u_momentum_coefficients,
+                                                 v_momentum_coefficients)
+    from naviflow_tpu_torch.ops.stencil import StencilCoeffs
+
+    mesh, bc = nt.StructuredMesh(nx=n, ny=n), nt.lid_driven_cavity(1.0)
+    st, _, _ = large_single(dev, n, 100.0, steps, configs=cli_default_configs())
+    u, v = apply_velocity_bcs(st.u, st.v, bc)
+    cs = {"u": [], "v": []}
+    for re_ in res:
+        kw = dict(dx=mesh.dx, dy=mesh.dy, rho=1.0, mu=1.0 / re_)
+        cs["u"].append(relax_coefficients(u_momentum_coefficients(u, v, st.p, **kw), u, 0.7))
+        cs["v"].append(relax_coefficients(v_momentum_coefficients(u, v, st.p, **kw), v, 0.7))
+
+    def stack(key):
+        return StencilCoeffs(*(torch.stack([getattr(c, f) for c in cs[key]])
+                               for f in ("a_e", "a_w", "a_n", "a_s", "a_p", "src")))
+
+    return dict(u=torch.stack([u] * len(res)), v=torch.stack([v] * len(res)),
+                cu=stack("u"), cv=stack("v"))
+
+
+def check_grid_case_axis(dev, sync_ms, res=BATCH_RE):
+    """The batched K7 in its grid form (``nf_bicgstab_grid_batched``: one
+    cooperative grid for every case) at B = 3 (Re ``res``, each case's own
+    u and v systems, ``grid_case_inputs``) on the fields of
+    ``GRID_CASE_GRIDS`` (tolerance 1e-6 and 60 iterations, the command
+    line's default), and on the largest field the gate admits
+    (``GRID_CASE_LARGEST``, the u field, 20 iterations): every case
+    bit-equal to its single launch (each single launch's device ms beside
+    the batched launch's), the batched plain version within 1e-4 of the
+    field (K7's tolerance), a frozen case given x0 back and the other
+    cases' bits kept; the plain version timed on the 256^2 fields only.
+    The bound: the cases' summed work, and the slowest
+    case's barriers (3 + 5 a iteration) once at one grid barrier's time at
+    the single launch's blocks (``sync_ms(cells)``)."""
+    import torch
+
+    from naviflow_tpu_torch.ops import krylov
+    from naviflow_tpu_torch.ops.stencil import StencilCoeffs
+
+    rows = []
+    for n in GRID_CASE_GRIDS + (GRID_CASE_LARGEST,):
+        ci = grid_case_inputs(n, dev, res)
+        maxiter = 20 if n == GRID_CASE_LARGEST else 60
+        for field in ("u",) if n == GRID_CASE_LARGEST else ("u", "v"):
+            x0, c = ci[field], ci["c" + field]
+            shape = tuple(x0.shape[1:])
+            assert not krylov.band_layout(shape, krylov.cluster_size(dev))[1]
+
+            def kernel(x0=x0, c=c, active=None, maxiter=maxiter):
+                return krylov.bicgstab_momentum_batched(x0, c, tol=1e-6, maxiter=maxiter,
+                                                        active=active)
+
+            def plain(x0=x0, c=c, maxiter=maxiter):
+                return krylov.bicgstab_momentum_batched_plain(x0, c, tol=1e-6, maxiter=maxiter)
+
+            before = krylov.GRID_BATCH_LAUNCHES
+            got, want = kernel(), plain()
+            launched = krylov.GRID_BATCH_LAUNCHES - before
+            bit_equal, iters, single_ms = True, [], []
+            for b in range(len(res)):
+                cb = StencilCoeffs(*(getattr(c, f)[b] for f in ("a_e", "a_w", "a_n", "a_s",
+                                                                 "a_p", "src")))
+
+                def one_case(x=x0[b], cb=cb, maxiter=maxiter):
+                    return krylov.bicgstab_momentum(x, cb, tol=1e-6, maxiter=maxiter)
+
+                bit_equal &= torch.equal(got[b], one_case())
+                single_ms.append(device_ms(one_case))
+                with count_applies() as applies:
+                    krylov.bicgstab_momentum_plain(x0[b], cb, tol=1e-6, maxiter=maxiter)
+                iters.append((applies[0] - 1) // 2)
+            frozen = kernel(active=torch.tensor([True, False, True], device=dev))
+            torch_sync()
+            frozen_ok = (torch.equal(frozen[1], x0[1]) and torch.equal(frozen[0], got[0])
+                         and torch.equal(frozen[2], got[2]))
+            a, r = max_err(got, want)
+            main = n == GRID_CASE_GRIDS[0]
+            if main:
+                ms, plain_ms, dev_ms = time_pair(plain, kernel)
+            else:  # the other shapes' plain version is not timed (the script's budget)
+                ms, plain_ms, dev_ms = time_ms(kernel), None, device_ms(kernel)
+            cells = x0[0].numel()
+            bar = 3 + 5 * max(iters)  # krylov.cuh: the slowest case's, once
+            work = [sum(w) for w in zip(*(bicgstab_work(cells, k) for k in iters))]
+            rows.append(dict(
+                name="bicgstab_momentum_grid_batched", field=field, shape=list(shape),
+                reynolds=list(res), maxiter=maxiter, iterations=iters, cases=len(res),
+                launched_grid_form=launched == 1, single_device_ms=single_ms,
+                single_device_ms_sum=sum(single_ms),
+                ok=r < 1e-4 and bit_equal and frozen_ok and launched == 1,
+                bit_equal_to_single=bit_equal, frozen_case_ok=frozen_ok, max_abs_err=a,
+                rel_err=r, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, host_ms=host_ms(kernel),
+                work=tuple(work), grid_barriers=bar,
+                barrier_bound_ms=bar * sync_ms(cells), main=main))
     return rows
 
 
@@ -2387,7 +2503,9 @@ def counts():
             "galerkin_levels": mg.RAP_LAUNCHES,
             "fused_mg_solve": mg.SOLVE_LAUNCHES,
             "bicgstab_momentum": krylov.LAUNCHES,
+            "bicgstab_momentum_grid": krylov.GRID_LAUNCHES,
             "bicgstab_momentum_batched": krylov.BATCH_LAUNCHES,
+            "bicgstab_momentum_grid_batched": krylov.GRID_BATCH_LAUNCHES,
             "galerkin_levels_batched": mg.RAP_BATCH_LAUNCHES,
             "fused_mg_solve_batched": mg.SOLVE_BATCH_LAUNCHES,
             "fused_outer_step": step.LAUNCHES,
@@ -2418,6 +2536,7 @@ def reset_counts():
     mg.LAUNCHES = mg.RAP_LAUNCHES = mg.SOLVE_LAUNCHES = 0
     mg.RAP_BATCH_LAUNCHES = mg.SOLVE_BATCH_LAUNCHES = mg.VC_BATCH_LAUNCHES = 0
     krylov.LAUNCHES = krylov.BATCH_LAUNCHES = 0
+    krylov.GRID_LAUNCHES = krylov.GRID_BATCH_LAUNCHES = 0
     step.LAUNCHES = step.BATCH_LAUNCHES = 0
     assembly.LAUNCHES = assembly.BATCH_LAUNCHES = 0
     cheby.LAUNCHES = cheby.BATCH_LAUNCHES = 0
@@ -2542,6 +2661,26 @@ def _host_waits(func, args, kwargs):
     return False
 
 
+def op_counter():
+    """A ``TorchDispatchMode`` that counts the aten operators a run
+    dispatches (``.ops``) and those among them that make the host wait for
+    the device (``.waits``, ``_host_waits``); the kernel wrappers' launches
+    are not operators."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = self.waits = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            self.ops += 1
+            self.waits += _host_waits(func, args, kwargs)
+            return func(*args, **kwargs)
+
+    return Ops()
+
 
 def queued_segments(sleeps=None, ops=128):
     """A ``TorchDispatchMode`` that splits the work a run enqueues into
@@ -2636,6 +2775,9 @@ def device_busy(run):
     return sum(span for span, _, _ in spans), spans
 
 
+_SEGMENTS_WARM = False  # profile_window: a queued_segments replay has run
+
+
 def profile_window(run, steps, profiler=True):
     """The device's idle share over ``run()`` (``steps`` outer steps, warmed
     up by one call before): the window is the host clock over one run; the
@@ -2644,18 +2786,23 @@ def profile_window(run, steps, profiler=True):
     outlasted its sleep all the same, its span holds at most that overrun of
     waiting (``overrun_ms``, the sum): the busy time lies between
     ``device_busy_ms - overrun_ms`` and ``device_busy_ms``.  Beside it, from
-    a fourth run under ``torch.profiler``, the profiler's sum of device-side
-    kernel time (``profiler_busy_ms``, which missed launches on the H100)
-    and its idle share over its own window (the profiler's host overhead
-    lengthens it), and the kernels by that time.  ``profiler=False`` skips
-    that run, as the QUICK and distributed phases do: summing its trace of
-    the distributed phase's 1024^2 step (some 10^5 operators) took
-    minutes."""
+    a further run under ``torch.profiler`` (device activity alone: the host's
+    operators are not traced), the profiler's sum of device-side kernel
+    time (``profiler_busy_ms``, which missed launches on the H100) and its
+    idle share over its own window (the profiler's overhead lengthens it),
+    and the kernels by that time.  ``profiler=False`` skips that run, as the
+    QUICK, distributed, large-grid batch and batch_loops profiles do:
+    summing its trace of the distributed phase's 1024^2 step (some 10^5
+    operators) took minutes, and the large batches' runs and traces cost
+    seconds the script's budget does not have."""
     from torch.profiler import ProfilerActivity, profile
 
-    run()  # warm-up (the first use of a dispatch mode also loads modules)
-    with queued_segments():
-        run()
+    global _SEGMENTS_WARM
+    run()  # warm-up
+    if not _SEGMENTS_WARM:  # the first use of a dispatch mode also loads modules
+        with queued_segments():
+            run()
+        _SEGMENTS_WARM = True
     torch_sync()
     t0 = time.perf_counter()
     run()
@@ -2669,7 +2816,7 @@ def profile_window(run, steps, profiler=True):
                sleep_ms=sum(sleep for _, _, sleep in spans))
     if not profiler:
         return out
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         prof_window_ms = (time.perf_counter() - t0) * 1e3
@@ -3221,8 +3368,8 @@ def run_sequenced(dev):
     # the kernels the gates send this ladder to (K7 <= 256^2, K8 >= 384^2,
     # K5 where a whole hierarchy fits, K2 strips and the K3 tail at 512^2 and
     # 1024^2) and none of the others
-    on_path = ("bicgstab_momentum", "fused_assembly_pair", "strip_down", "strip_up",
-               "fused_vcycle", "fused_mg_solve")
+    on_path = ("bicgstab_momentum", "bicgstab_momentum_grid", "fused_assembly_pair",
+               "strip_down", "strip_up", "fused_vcycle", "fused_mg_solve")
     launched_ok = (all(launches[k] > 0 for k in on_path)
                    and all(v == 0 for k, v in launches.items() if k not in on_path))
 
@@ -4080,8 +4227,9 @@ def run_batch_large(dev):
     out1, ms1, launches1 = large_batch(dev, N, BATCH_RE[:1], steps)
     held1 = within(held_to(*out1[0], *singles[0][:2]))
     profile_steps = 2
+    # the event-based idle share alone (as batch_assembly's)
     profile = profile_window(lambda: large_batch(dev, N, BATCH_RE, profile_steps),
-                             profile_steps)
+                             profile_steps, profiler=False)
     # the even 256^2 sweep
     n8 = BATCH_LARGE_SWEEP_GRID
     large_batch(dev, n8, BATCH_RE8, 2)
@@ -4213,8 +4361,11 @@ def run_batch_assembly(dev):
                 ok_run &= row["alpha_p_backoffs"]["batch"] == row["alpha_p_backoffs"]["single"]
             if kind in ("simplec", "plane"):
                 profile_steps = 2
+                # the event-based idle share alone: the profiler's kernel
+                # breakdown of the large batches is left to a benchmark
                 row["idle_profile_3"] = profile_window(
-                    lambda: large_batch(dev, n, BATCH_RE, profile_steps, **kw), profile_steps)
+                    lambda: large_batch(dev, n, BATCH_RE, profile_steps, **kw), profile_steps,
+                    profiler=False)
             row["ok"] = bool(ok_run)
             row["seconds"] = time.perf_counter() - t_run
             runs[kind] = row
@@ -4227,6 +4378,173 @@ def run_batch_assembly(dev):
     return dict(phase="batch_assembly", reynolds=list(BATCH_RE), limit=BATCH_LARGE_LIMIT,
                 runs=runs, per_case_steps=len(per_case), launches=total, card=nvidia_smi(),
                 ok=bool(ok))
+
+def cli_default_configs():
+    """The command line's default momentum and pressure solvers
+    (``naviflow_tpu_torch/cli.py`` ``_make_solvers``: BiCGSTAB to 1e-6 in at
+    most 60 iterations, multigrid V-cycles to ``--pressure-tol`` 1e-3 in at
+    most 30)."""
+    from naviflow_tpu_torch.solvers import KrylovMomentumConfig, MultigridConfig
+
+    return (KrylovMomentumConfig(tolerance=1e-6, max_iterations=60),
+            MultigridConfig(tolerance=1e-3, max_cycles=30))
+
+
+def batch_loop_configs():
+    """The batch_loops runs: (tag, grid, (momentum, pressure)): (a) the
+    command line's default at 256^2 (K7's grid form a field, K5 the whole
+    pressure solve), (b) at 1024^2 (K8, the pair loop, a K2 pair a strip
+    level and a K3 a cycle until the tolerance), (c) ``bench.py``'s
+    sequenced configuration at its 1024^2 level, (d) the FMG headline at
+    255^2 (K7's grid form, K5, K4)."""
+    return (("cli256", 256, cli_default_configs()), ("cli1024", N, cli_default_configs()),
+            ("sequenced1024", NS, sequenced_configs()[1:]),
+            ("fmg255", NH_BIG, headline_configs(cycle_type="fmg")))
+
+
+def loop_launches(tag, n, pres, diags, steps):
+    """The batched launches of a batch_loops run: each kernel's batched
+    calls a lockstep step; a cycle kernel's (K2, K3) once a cycle of the
+    slowest case that step (``diags``' inner iterations)."""
+    if n % 2:
+        return only(bicgstab_momentum_batched=2 * steps, bicgstab_momentum_grid_batched=2 * steps,
+                    fused_mg_solve_batched=steps, galerkin_levels_batched=-(-steps // 8),
+                    galerkin_levels=1)
+    if tag.endswith("256"):
+        return only(bicgstab_momentum_batched=2 * steps, bicgstab_momentum_grid_batched=2 * steps,
+                    fused_mg_solve_batched=steps)
+    lock = sum(max(int(d.inner_iters_history[k]) for d in diags) for k in range(steps))
+    strips = peeled_strip_levels(n, pres)
+    return only(fused_assembly_pair_batched=steps, strip_down_batched=strips * lock,
+                strip_up_batched=strips * lock, fused_vcycle_batched=lock)
+
+
+def single_of(batched):
+    """The single solve's launches of a batched run's expected ones: each
+    batched kernel's count under its single name."""
+    out = only()
+    for k, v in batched.items():
+        out[k.replace("_batched", "")] += v
+    return out
+
+
+def pair_dot_bit_equal(fields):
+    """Whether the pair loop's dot (``torch.sum`` over the last two axes of
+    a (2, M, N) stack) rounds under ``torch.func.vmap`` as on one case."""
+    import torch
+
+    x = torch.stack([torch.stack([f, f.flip(0)]) for f in fields])
+    batched = torch.func.vmap(lambda a: torch.sum(a * a, dim=(1, 2)))(x)
+    return all(torch.equal(batched[k], torch.sum(x[k] * x[k], dim=(1, 2)))
+               for k in range(len(fields)))
+
+
+def run_batch_loops(dev):
+    """The vmapped branch with the loops that read the host run through
+    ``ops/while_loop.py`` (the ``batch_loops`` phase): each of
+    ``batch_loop_configs`` over ``BATCH_RE`` for ``BATCH_LOOP_STEPS``
+    lockstep steps from rest (tolerance 0), and Re 100 alone beside (a) and
+    (b).  Each run: launches exact (``loop_launches``: no single K7, K8, K2,
+    K3 or K5 launch) and no per-case step; each case held to its single
+    ``simple_solve`` (iterations and every step's inner iterations equal;
+    fields and every history step bit-equal or within
+    ``BATCH_LARGE_LIMIT``, with the batched operators' rounding named) and
+    a control that must fail that (each case against its neighbour's single
+    solve); the loops' host reads a lockstep step against the single solves'
+    a step, summed; ms a lockstep step against the 3 single solves' ms a
+    step, summed; the idle share over 2 lockstep steps of (b)."""
+    import torch
+
+    from naviflow_tpu_torch.algorithms import batch as tbatch
+    from naviflow_tpu_torch.ops import while_loop
+
+    real_per_case, per_case = tbatch._per_case, []
+
+    def counted(steps):
+        per_case.append(len(steps))
+        return real_per_case(steps)
+
+    def within(c):
+        return c["iterations_equal"] and c["inner_iterations_equal"] and (
+            (c["fields_bit_equal"] and c["history_bit_equal"])
+            or max(c["max_field_gap"], c["history_gap"]) <= BATCH_LARGE_LIMIT)
+
+    steps = BATCH_LOOP_STEPS
+
+    def held(bs, bd, ss, sd):
+        return dict(held_to(bs, bd, ss, sd), inner_iterations_equal=torch.equal(
+            bd.inner_iters_history[:steps].cpu(), sd.inner_iters_history[:steps].cpu()))
+
+    runs, ok, total = {}, True, only()
+    tbatch._per_case = counted
+    try:
+        for tag, n, configs in batch_loop_configs():
+            t_run = time.perf_counter()
+            kw = dict(configs=configs)
+            large_batch(dev, n, BATCH_RE, 2, **kw)  # warm-up: scratch, launch state
+            while_loop.HOST_READS = 0
+            out, ms3, launches = large_batch(dev, n, BATCH_RE, steps, **kw)
+            reads3 = while_loop.HOST_READS / steps
+            want = loop_launches(tag, n, configs[1], [d for _, d in out], steps)
+            singles, single_reads, single_launches, singles_exact = [], 0, [], True
+            for re_ in BATCH_RE:
+                while_loop.HOST_READS = 0
+                reset_counts()
+                singles.append(large_single(dev, n, re_, steps, **kw))
+                single_reads += while_loop.HOST_READS / steps
+                launched = counts()
+                single_launches.append({k: v for k, v in launched.items() if v})
+                # the single step's kernels, each once where the batch runs
+                # its batched one (a cycle kernel: once a cycle of its own)
+                singles_exact &= launched == single_of(
+                    loop_launches(tag, n, configs[1], [singles[-1][1]], steps))
+            cases = [held(bs, bd, ss, sd) for (bs, bd), (ss, sd, _) in zip(out, singles)]
+            control = [held(bs, bd, ss, sd) for (bs, bd), (ss, sd, _)
+                       in zip(out, singles[1:] + singles[:1])]
+            row = dict(grid=n, momentum=configs[0].kind, pressure_tolerance=configs[1].tolerance,
+                       cycle_type=configs[1].cycle_type, steps=steps, cases=cases,
+                       iterations=[int(d.iterations) for _, d in out],
+                       inner_iterations=[d.inner_iters_history[:steps].tolist() for _, d in out],
+                       control_neighbour_re=control, launches=launches,
+                       launches_expected=want, single_launches=single_launches,
+                       single_launches_exact=singles_exact,
+                       loop_host_reads_per_lockstep_step=reads3,
+                       single_loop_host_reads_per_step_b3=single_reads,
+                       ms_per_lockstep_step={"3": ms3},
+                       single_ms_per_step=[ms for _, _, ms in singles],
+                       sequential_ms_per_step_b3=sum(ms for _, _, ms in singles),
+                       batched_operators_bit_equal=dict(
+                           batched_operators([bs.p for bs, _ in out]),
+                           pair_dot=pair_dot_bit_equal([bs.p for bs, _ in out])))
+            ok_run = (launches == want and singles_exact and all(within(c) for c in cases)
+                      and not any(within(c) for c in control))
+            if tag in ("cli256", "cli1024"):
+                out1, ms1, launches1 = large_batch(dev, n, BATCH_RE[:1], steps, **kw)
+                want1 = loop_launches(tag, n, configs[1], [out1[0][1]], steps)
+                held1 = held(*out1[0], *singles[0][:2])
+                row.update(launches_b1=launches1, launches_expected_b1=want1, case_b1=held1)
+                row["ms_per_lockstep_step"]["1"] = ms1
+                ok_run &= launches1 == want1 and within(held1)
+            if tag == "cli1024":
+                profile_steps = 2
+                # the CUDA-event idle share alone (the profiler's run costs
+                # seconds the script's budget does not have)
+                row["idle_profile_3"] = profile_window(
+                    lambda: large_batch(dev, n, BATCH_RE, profile_steps, **kw), profile_steps,
+                    profiler=False)
+            row["ok"] = bool(ok_run)
+            row["seconds"] = time.perf_counter() - t_run
+            runs[tag] = row
+            ok &= ok_run
+            total = {k: total[k] + launches[k] for k in total}
+            del out, singles
+    finally:
+        tbatch._per_case = real_per_case
+    ok &= not per_case
+    return dict(phase="batch_loops", reynolds=list(BATCH_RE), limit=BATCH_LARGE_LIMIT,
+                runs=runs, per_case_steps=len(per_case), launches=total, card=nvidia_smi(),
+                ok=bool(ok))
+
 
 def tangent_graph_check(warm, mesh, fluid, bc, scheme):
     """Newton's captured tangent program (one CUDA graph replay) against
@@ -5208,6 +5526,10 @@ SOURCES = {
                        "naviflow_tpu/ops/pallas_mg.py:512", "fmg"),
     "bicgstab_momentum": ("bicgstab_momentum", "naviflow_tpu_torch/csrc/krylov.cu",
                           "naviflow_tpu/ops/pallas_krylov.py:142", "fmg"),
+    # K7's cooperative grid form (fields past the band's shared memory):
+    # the sequenced ladder's 256^2 level
+    "bicgstab_momentum_grid": ("bicgstab_momentum_grid", "naviflow_tpu_torch/csrc/krylov.cuh",
+                               "naviflow_tpu/ops/pallas_krylov.py:142", "sequenced"),
     "fused_simple_step": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cuh",
                           "naviflow_tpu/ops/pallas_step.py:364", "headline"),
     "fused_outer_step[simplec]": ("fused_outer_step", "naviflow_tpu_torch/csrc/step.cuh",
@@ -5228,6 +5550,10 @@ SOURCES = {
                                "naviflow_tpu/ops/pallas_mg.py:512", "batch_fmg"),
     "galerkin_levels_batched": ("galerkin_levels_batched", "naviflow_tpu_torch/csrc/mg.cu",
                                 "naviflow_tpu/ops/pallas_mg.py:445", "batch_fmg"),
+    # K7's grid form with the case axis: the batch_loops phase's runs
+    "bicgstab_momentum_grid_batched": ("bicgstab_momentum_grid_batched",
+                                       "naviflow_tpu_torch/csrc/krylov.cuh",
+                                       "naviflow_tpu/ops/pallas_krylov.py:142", "batch_loops"),
     # K1, K2a, K2b and K3 with the case axis: the batch phase's vmapped
     # large-grid step
     "fused_asmcheby_pair_batched": ("fused_asmcheby_pair_batched",
@@ -5292,8 +5618,10 @@ def kernels_line(rows, paths):
     1024^2 path's shapes, the strips' two levels summed), batched K8, K9,
     K10a and K10b the batch phase's ``batch_assembly`` runs (theirs: the
     kernel phase's B = 3 rows, K8 with the maxima at 2048^2, K9 the u and
-    v fields averaged, K10 on the 4096^2 planes), K10 the 4096^2
-    plane run, K11 the kernel phase's
+    v fields averaged, K10 on the 4096^2 planes), K7's grid form the
+    sequenced ladder (its 255^2 u and v rows), batched K7 in its grid form
+    the ``batch_loops`` runs (its 256^2 B = 3 u and v rows, averaged), K10
+    the 4096^2 plane run, K11 the kernel phase's
     checking calls), with every path's count beside them.  ``library_ms``:
     K11b's cuSPARSE SpMV; no other kernel's function is one PyTorch call."""
     out = []
@@ -5338,10 +5666,73 @@ def kernels_line(rows, paths):
 
 
 AB_KERNELS = ("K1", "K2a", "K2b", "K3", "K7", "K5", "K4", "K6", "K8", "K9", "K10a", "K10b",
-              "K11a", "K11b")
+              "K11a", "K11b", "loops")
 # K11a's A/B cases (shape, sweeps) and K11b's shapes
 AB_K11A = (((63, 63), 1), ((63, 63), 3), ((256, 256), 3), ((256, 256), 6))
 AB_K11B = ((63, 63), (256, 256), (48, 96))
+
+
+def ab_loop_runs():
+    """The A/B's single solves through the loops that read the host (name,
+    grid, Re, SIMPLE config, momentum, pressure): the command line's default
+    solvers at 256^2 with composed BiCGSTAB (the single-field loop) and at
+    1024^2 (K8 and the pair loop), both with the multigrid tolerance loop,
+    and the quick phase's 511^2 QUICK configuration (the single-field loop,
+    9-point), each over a few steps from rest."""
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig
+
+    mom, pres = cli_default_configs()
+    cfg = SIMPLEConfig(max_iterations=6, tolerance=0.0, alpha_p=0.3, alpha_u=0.7)
+    qcfg, qmom, qpres = quick_configs()
+    return (("composed256", 256, 400.0, cfg,
+             dataclasses.replace(mom, backend="composed", batch_pair="off"), pres),
+            ("pair1024", N, 400.0, cfg, mom, pres),
+            ("quick511", NQ, RE_Q, dataclasses.replace(qcfg, max_iterations=10), qmom, qpres))
+
+
+def ab_loops(dev, tag, saved, save):
+    """The ``loops`` entry of ``ab_side``: each of ``ab_loop_runs`` after a
+    2-step warm-up, three times; each run's ms a step (``ms_per_step``: the
+    median), every step's inner iterations and (with ``save``) the fields
+    for ``ab_compare``; then once more under ``op_counter``: the aten
+    operators the host dispatches a step and its waits for the device a
+    step, which the host clock's spread does not blur; then the device's
+    busy ms a step and the host's ms a step spent enqueueing, without its
+    waits (``device_busy``'s segments)."""
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import simple_solve
+
+    for name, n, re_, cfg, mom, pres in ab_loop_runs():
+        mesh, bc = nt.StructuredMesh(nx=n, ny=n), nt.lid_driven_cavity(1.0)
+        fluid = nt.FluidProperties(density=1.0, reynolds_number=re_)
+        simple_solve(mesh, fluid, bc, nt.initialize_state(mesh, bc, device=dev),
+                     dataclasses.replace(cfg, max_iterations=2), momentum=mom, pressure=pres)
+        runs = []
+        for _ in range(3):
+            state = nt.initialize_state(mesh, bc, device=dev)
+            torch_sync()
+            t0 = time.perf_counter()
+            out, diag = simple_solve(mesh, fluid, bc, state, cfg, momentum=mom, pressure=pres)
+            torch_sync()
+            runs.append((time.perf_counter() - t0) * 1e3 / cfg.max_iterations)
+        steps = cfg.max_iterations
+        def solve():
+            return simple_solve(mesh, fluid, bc, nt.initialize_state(mesh, bc, device=dev), cfg,
+                                momentum=mom, pressure=pres)
+
+        with op_counter() as ops:
+            solve()
+        busy, spans = device_busy(solve)
+        emit(dict(phase="ab", tag=tag, kernel="loops", run=name, n=n, steps=steps,
+                  ms_per_step=sorted(runs)[1], ms_per_step_runs=runs,
+                  device_busy_ms_per_step=busy / steps,
+                  host_enqueue_ms_per_step=sum(host for _, host, _ in spans) / steps,
+                  ops_per_step=ops.ops / steps, host_waits_per_step=ops.waits / steps,
+                  inner_iterations=[int(k) for k in diag.inner_iters_history[:steps]],
+                  residual=float(diag.total_res_history[steps - 1])))
+        if save:
+            saved[f"loops_{name}"] = {k: getattr(out, k).detach().cpu() for k in ("u", "v", "p")}
+        del out, diag, state
 
 
 def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG, 511)):
@@ -5359,9 +5750,11 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
     (degree 4) and K10a / K10b on the 4096^2 planes (1 / 1 sweeps), every
     output's error (``cavity_fields``, ``plane_inputs``); device, event and
     host times of each; K6's phase split (``k6_phases``: each body's RAP
-    phase and event ms a step).  With ``save``, K1's, K2a's, K2b's, K4's,
-    K5's, K7's, K8's, K9's, K10's and K11's outputs (K4: all nine arrays of
-    every coarse level; K5: p, r, cycles and rel) go to
+    phase and event ms a step); ``loops``: the single solves of
+    ``ab_loop_runs`` (``ab_loops``).  With ``save``, K1's, K2a's, K2b's,
+    K4's, K5's, K7's, K8's, K9's, K10's and K11's outputs (K4: all nine
+    arrays of every coarse level; K5: p, r, cycles and rel) and the loops'
+    fields go to
     ``save/TAG.pt`` for ``ab_compare``.  Run it in turns A, B, B, A, each from a tree's
     root: ``PYTHONPATH=. python3 -P <this file> --ab TAG`` (``-P``: the tree
     on PYTHONPATH, not this file's directory, supplies the package)."""
@@ -5546,6 +5939,8 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
             emit(dict(phase="ab", tag=tag, kernel="K6", algo=algo,
                       rap_ms=body["phases_ms"]["rap"], sum_ms=body["sum_ms"],
                       event_ms=body["event_ms"]))
+    if "loops" in kernels:
+        ab_loops(dev, tag, saved, save)
     if save:
         Path(save).mkdir(parents=True, exist_ok=True)
         torch.save(saved, Path(save) / f"{tag}.pt")
@@ -5705,6 +6100,8 @@ def run_all(dev, card, t0) -> int:
                   **ptxas_kernels("plane.cu", "plane_down_kernel_batched"),
                   **ptxas_kernels("plane.cu", "plane_up_kernel_batched"),
                   **ptxas_kernels("mg.cu", "galerkin_kernel"),
+                  **ptxas_kernels("krylov.cu", "bicgstab_grid_kernel"),
+                  **ptxas_kernels("krylov.cu", "bicgstab_grid_kernel_batched"),
                   **ptxas_kernels("poisson.cu", "rbgs_tile_kernel"),
                   **ptxas_kernels("poisson.cu", "matvec_kernel")}))
     # one cluster barrier at each kernel's size (its bound's unit) and at 8
@@ -5748,6 +6145,7 @@ def run_all(dev, card, t0) -> int:
     rows += check_case_axis(inp, {"K7": (k7_size, cl_by_size[k7_size]),
                                   "K5": (k5_size, cl_by_size[k5_size]),
                                   "K4": (k4_size, cl_by_size[k4_size])})
+    rows += check_grid_case_axis(dev, sync_ms)
     rows += check_large_case_axis(dev, cl_by_size[k3_size], k3_size)
     del big
     rows += check_step_bodies(dev, cl_ms)
@@ -5777,7 +6175,8 @@ def run_all(dev, card, t0) -> int:
                       ("plane", run_plane), ("sequenced", run_sequenced), ("mgcg", run_mgcg),
                       ("solvers", run_solvers), ("quick", run_quick),
                       ("distributed", run_distributed), ("api", run_api),
-                      ("batch", run_batch), ("newton", run_newton), ("cli", run_cli)):
+                      ("batch", run_batch), ("batch_loops", run_batch_loops),
+                      ("newton", run_newton), ("cli", run_cli)):
         t_phase = time.perf_counter()
         row = fn(dev)
         row["seconds"] = seconds[phase] = time.perf_counter() - t_phase

@@ -34,16 +34,24 @@ branches:
   RBGS momentum from 384^2, and ``large_grid_3``'s plane layout at
   4096^2) runs K1, K8, K9, K10a, K10b, K2a, K2b and K3
   (``ops/asmcheby.py``, ``ops/assembly.py``, ``ops/cheby.py``,
-  ``ops/plane_strip.py``, ``ops/strip.py``, ``ops/mg.py``) or K5;
+  ``ops/plane_strip.py``, ``ops/strip.py``, ``ops/mg.py``) or K5.  Both
+  arms take BiCGSTAB momentum and a pressure tolerance: the loops that
+  read the host (``solvers/momentum.py``'s ``_bicgstab_masked`` and
+  ``_bicgstab_pair_masked``, ``solvers/multigrid.py``'s tolerance loop)
+  run through ``ops/while_loop.py``, whose batching rule iterates every
+  case in one masked loop with one host read an iteration, and K7 takes
+  each field in one launch for every case in its band form (one cluster
+  a case) or its grid form (one cooperative grid): the command line's
+  default ``sweep --vmap`` on even grids, ``bench.py``'s sequenced
+  configuration at any of its levels, and the FMG headline at 255^2;
 * else every active case's own step, one after another (composed, or with
   its own kernels): the CPU path (where the kernel gates are closed), and
-  every configuration the other two refuse: a pressure tolerance above 0,
-  whose loop reads the residual on the host
-  (``solvers/multigrid.py``'s ``float(rel)``); BiCGSTAB, GMRES and IDR(s)
-  momentum, whose loops read the host, and the rest of the momentum and
-  pressure zoos; the compensated residual; W and FMG cycles on even grids;
-  the 9-point schemes; and K7's grid form (fields past its band's shared
-  memory).
+  every configuration the other two refuse: GMRES and IDR(s) momentum,
+  the Krylov and MGCG pressure solvers (the same loop primitive would
+  serve them) and the rest of the momentum and pressure zoos; W and FMG
+  cycles on even grids; the compensated residual and dots; the 9-point
+  schemes; odd grids above 255^2 under the command line's default (K5
+  cannot take their whole solve, and the odd arm needs it).
 
 Each case's result is its single solve's: bit for bit in the K6 and per-case
 branches, and in the vmapped one wherever the batched operators round as
@@ -68,10 +76,10 @@ from ..ops.krylov import supports_fused_bicgstab
 from ..ops.mg import supports_fused_layout, supports_fused_rap
 from ..ops.plane_strip import supports_plane_strip
 from ..ops.powerlaw import case_conductances
-from ..ops.stencil9 import Stencil9
 from ..ops.step import ALGO_SCALARS, fused_outer_step_batched
 from ..ops.strip import supports_strip
 from ..ops.transfer import coarse_size
+from ..ops.while_loop import flatten as _flatten
 from ..solvers.momentum import lagged_rho_enabled
 from .base import SolveDiagnostics, StepInfo, case_info, run_outer_loop_batched
 from .lagged import make_lagged_mg, uses_lagged_mg
@@ -157,8 +165,9 @@ def vmap_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm: str) -> bool:
 def _odd_step_ok(p, mom_cfg, pres_cfg) -> bool:
     """An odd square grid: multigrid pressure (Galerkin V or FMG cycles)
     whose whole solve K5 takes and whose hierarchy K4 builds from the fine
-    level; BiCGSTAB momentum that K7 takes for both fields, or fixed-sweep
-    Jacobi, without the one-pass assembly (K8)."""
+    level; BiCGSTAB momentum that K7 takes for both fields (its band form or,
+    past the band's shared memory, its grid form: both batched), or
+    fixed-sweep Jacobi, without the one-pass assembly (K8)."""
     nx, ny = p.shape[-2:]
     if not supports_fused_rap(nx, ny, pres_cfg, p.dtype):
         return False
@@ -191,13 +200,14 @@ def _even_layout(n: int, pres_cfg):
 
 
 def _even_pressure_ok(n: int, pres_cfg, dtype) -> bool:
-    """``multigrid_solve``'s kernel path on an even ``n``^2 hierarchy with a
-    fixed cycle count (``tolerance <= 0``: the loop reads nothing on the
-    host): the whole solve in K5, or each V-cycle (``_cycle0``) as a K2
-    pair a level above the first tail K3 takes; in the colour-plane layout
-    the finest level K10's (its planes n x n / 2) and the levels below it
-    K2 pairs above a K3 tail, or one K3."""
-    if (pres_cfg.tolerance > 0 or pres_cfg.cycle_type != "v"
+    """``multigrid_solve``'s kernel path on an even ``n``^2 hierarchy of
+    V-cycles: the whole solve in K5 (which keeps each case's cycles and
+    ``rel`` where a tolerance is set), or each V-cycle (``_cycle0``) as a K2
+    pair a level above the first tail K3 takes, a fixed number of them or
+    until the tolerance, whose loop runs through ``ops/while_loop.py``; in
+    the colour-plane layout the finest level K10's (its planes n x n / 2)
+    and the levels below it K2 pairs above a K3 tail, or one K3."""
+    if (pres_cfg.cycle_type != "v"
             or pres_cfg.coarsening != "galerkin" or pres_cfg.smoother != "gs"):
         return False
     layout = _even_layout(n, pres_cfg)
@@ -217,9 +227,14 @@ def _even_pressure_ok(n: int, pres_cfg, dtype) -> bool:
 def _even_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm) -> bool:
     """An even square grid: :func:`_even_pressure_ok`; Chebyshev momentum
     (K1 through SIMPLE's lagged carry; else K8 and K9 where their gates
-    open, composed where they do not), or fixed-sweep Jacobi or red-black
-    GS momentum whose coefficients the one-pass assembly (K8) takes; not
-    the compensated residual."""
+    open, composed where they do not), fixed-sweep Jacobi or red-black GS
+    momentum whose coefficients the one-pass assembly (K8) takes, or
+    BiCGSTAB momentum as the single step dispatches it (K7 per field where
+    its gate opens, band or grid form; else the coefficients from K8 where
+    its gate opens, composed where it does not, and the pair loop or the
+    single-field loop through ``ops/while_loop.py``), without the
+    compensated dots or the composed backend; not the compensated
+    residual."""
     n = p.shape[-1]
     if (not _even_pressure_ok(n, pres_cfg, p.dtype)
             or getattr(mom_cfg, "compensated_residual", False)):
@@ -227,32 +242,11 @@ def _even_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm) -> bool:
     kind = getattr(mom_cfg, "kind", "")
     if kind == "chebyshev":
         return True
+    if kind == "bicgstab":
+        return (not getattr(mom_cfg, "compensated_dots", False)
+                and getattr(mom_cfg, "backend", "auto") != "composed")
     return kind in ("jacobi", "rbgs") and supports_fused_assembly(
         n, n, "power_law", p.dtype, getattr(mom_cfg, "backend", "auto"), p.device)
-
-
-def _flatten(tree):
-    """The tensors of a carry (tuples, lists and :class:`Stencil9` s of
-    tensors; numbers and None are static) and a function that rebuilds it
-    from a list of them."""
-    if torch.is_tensor(tree):
-        return [tree], lambda xs: xs[0]
-    if isinstance(tree, Stencil9):
-        leaves, build = _flatten(tuple(getattr(tree, f) for f in Stencil9.__dataclass_fields__))
-        return leaves, lambda xs: Stencil9(*build(xs))
-    if isinstance(tree, (tuple, list)):
-        parts = [_flatten(x) for x in tree]
-        sizes = [len(leaves) for leaves, _ in parts]
-
-        def build(xs):
-            out, k = [], 0
-            for (_, fn), n in zip(parts, sizes):
-                out.append(fn(xs[k:k + n]))
-                k += n
-            return type(tree)(out)
-
-        return [x for leaves, _ in parts for x in leaves], build
-    return [], lambda xs: tree
 
 
 def _vmapped_step(make_step, common, visc):

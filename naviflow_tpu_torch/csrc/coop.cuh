@@ -1,6 +1,7 @@
-// Cooperative-launch helpers of K7's large-field kernel (krylov.cu) and of
-// the grid-barrier probe (mg.cu), and the reduction slot count and
-// NaN-keeping maximum that cluster.cuh's reductions share.
+// Cooperative-launch helpers of K7's large-field kernels (krylov.cu: one
+// field, and B fields in one launch) and of the grid-barrier probe (mg.cu),
+// and the reduction slot count and NaN-keeping maximum that cluster.cuh's
+// reductions share.
 //
 // A kernel of this family runs as one cooperative launch of as many blocks
 // as fit on the SMs at once.  Its work is a sequence of grid-strided passes,
@@ -43,13 +44,14 @@ __device__ __forceinline__ NfCoop nf_coop(float* red) {
   return C;
 }
 
-// Sum N double-single partials (one set per thread) over the whole grid;
-// every thread of every block returns the same N floats.  Every thread of
-// the grid must call it.  Ends with the grid in step.
+// One block's part of a grid sum of N double-single partials (one set per
+// thread): warp shuffles, then thread 0 adds the warps' sums in order and
+// writes them to this block's NF_RED_SLOTS slots of `buf`.  Every thread of
+// the block must call it; `warp_part` is free again after the next block
+// barrier.
 template <int N>
-__device__ void nf_grid_reduce(NfCoop& C, NfDS (&v)[N], float (&out)[N]) {
+__device__ __forceinline__ void nf_block_sum(NfDS (&v)[N], float* buf) {
   __shared__ NfDS warp_part[N][NF_THREADS / 32];
-  __shared__ float result[N];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
 #pragma unroll
@@ -62,7 +64,6 @@ __device__ void nf_grid_reduce(NfCoop& C, NfDS (&v)[N], float (&out)[N]) {
     if (lane == 0) warp_part[k][warp] = a;
   }
   __syncthreads();
-  float* buf = C.red + (size_t)C.phase * NF_RED_SLOTS * NF_MAX_BLOCKS;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int k = 0; k < N; ++k) {
@@ -72,19 +73,43 @@ __device__ void nf_grid_reduce(NfCoop& C, NfDS (&v)[N], float (&out)[N]) {
       buf[(size_t)blockIdx.x * NF_RED_SLOTS + 2 * k + 1] = a.e;
     }
   }
-  C.grid.sync();
-  if (warp == 0) {
+}
+
+// The grid's N sums from the `blocks` blocks' slots of `buf`, added by one
+// whole warp in a fixed order (lanes stride the blocks, then a shuffle
+// tree); lane 0 returns them.
+template <int N>
+__device__ __forceinline__ void nf_warp_sum(const float* buf, int blocks, float (&out)[N]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      NfDS a = nf_ds_zero();
-      for (int b = lane; b < (int)gridDim.x; b += 32)
-        a = nf_ds_add(a, NfDS{buf[(size_t)b * NF_RED_SLOTS + 2 * k],
-                              buf[(size_t)b * NF_RED_SLOTS + 2 * k + 1]});
-      for (int off = 16; off > 0; off >>= 1) {
-        NfDS b{__shfl_down_sync(0xffffffffu, a.s, off), __shfl_down_sync(0xffffffffu, a.e, off)};
-        a = nf_ds_add(a, b);
-      }
-      if (lane == 0) result[k] = nf_ds_value(a);
+  for (int k = 0; k < N; ++k) {
+    NfDS a = nf_ds_zero();
+    for (int b = lane; b < blocks; b += 32)
+      a = nf_ds_add(a, NfDS{buf[(size_t)b * NF_RED_SLOTS + 2 * k],
+                            buf[(size_t)b * NF_RED_SLOTS + 2 * k + 1]});
+    for (int off = 16; off > 0; off >>= 1) {
+      NfDS b{__shfl_down_sync(0xffffffffu, a.s, off), __shfl_down_sync(0xffffffffu, a.e, off)};
+      a = nf_ds_add(a, b);
+    }
+    out[k] = nf_ds_value(a);
+  }
+}
+
+// Sum N double-single partials (one set per thread) over the whole grid;
+// every thread of every block returns the same N floats.  Every thread of
+// the grid must call it.  Ends with the grid in step.
+template <int N>
+__device__ void nf_grid_reduce(NfCoop& C, NfDS (&v)[N], float (&out)[N]) {
+  __shared__ float result[N];
+  float* buf = C.red + (size_t)C.phase * NF_RED_SLOTS * NF_MAX_BLOCKS;
+  nf_block_sum<N>(v, buf);
+  C.grid.sync();
+  if ((threadIdx.x >> 5) == 0) {
+    float sum[N];
+    nf_warp_sum<N>(buf, (int)gridDim.x, sum);
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) result[k] = sum[k];
     }
   }
   __syncthreads();
@@ -108,25 +133,39 @@ __device__ __forceinline__ void nf_reduce(NfCoop& C, NfDS (&v)[N], float (&out)[
   nf_grid_reduce<N>(C, v, out);
 }
 
-// Launch `kernel(params)` cooperatively: as many blocks as `cells` needs at
-// NF_THREADS a block, and no more than fit on the SMs at once.
-template <class Kernel, class Params>
-inline int nf_coop_launch(Kernel kernel, Params& params, int64_t cells, cudaStream_t stream) {
+// The block count of a cooperative launch of `kernel` over `cells`: as
+// many blocks as `cells` needs at NF_THREADS a block, and no more than fit
+// on the SMs at once (with `smem` bytes of dynamic shared memory a block;
+// at most `per_sm_cap` an SM where it is not 0) or than NF_MAX_BLOCKS.
+template <class Kernel>
+inline int nf_coop_blocks(Kernel kernel, int64_t cells, int& blocks, size_t smem = 0,
+                          int per_sm_cap = 0) {
   int device = 0, n_sm = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NF_THREADS, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NF_THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  int64_t blocks = (cells + NF_THREADS - 1) / NF_THREADS;
-  if (blocks > (int64_t)per_sm * n_sm) blocks = (int64_t)per_sm * n_sm;
-  if (blocks > NF_MAX_BLOCKS) blocks = NF_MAX_BLOCKS;
-  if (blocks < 1) blocks = 1;
+  if (per_sm_cap > 0 && per_sm > per_sm_cap) per_sm = per_sm_cap;
+  int64_t want = (cells + NF_THREADS - 1) / NF_THREADS;
+  if (want > (int64_t)per_sm * n_sm) want = (int64_t)per_sm * n_sm;
+  if (want > NF_MAX_BLOCKS) want = NF_MAX_BLOCKS;
+  if (want < 1) want = 1;
+  blocks = (int)want;
+  return 0;
+}
+
+// Launch `kernel(params)` cooperatively over nf_coop_blocks(kernel, cells).
+template <class Kernel, class Params>
+inline int nf_coop_launch(Kernel kernel, Params& params, int64_t cells, cudaStream_t stream) {
+  int blocks = 0;
+  const int e = nf_coop_blocks(kernel, cells, blocks);
+  if (e) return e;
   void* args[] = {&params};
-  err = cudaLaunchCooperativeKernel((void*)kernel, dim3((unsigned)blocks), dim3(NF_THREADS), args,
-                                    0, stream);
+  cudaError_t err = cudaLaunchCooperativeKernel((void*)kernel, dim3((unsigned)blocks),
+                                                dim3(NF_THREADS), args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

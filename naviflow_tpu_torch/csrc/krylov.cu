@@ -29,10 +29,11 @@
 //     after the second reduction.  Three cluster barriers an iteration
 //     instead of five;
 //   * larger fields: krylov.cuh's solve over a cooperative grid of as many
-//     blocks as fit on the 132 SMs (coop.cuh).  The same band scheme with the
-//     band in global memory took 1.8x (255^2) and 3.7x (511^2) the
-//     cooperative grid's time: 16 SMs walking a band through the L2 are
-//     bound by its latency, eight dependent loads a thread a pass at 255^2.
+//     blocks as fit on the 132 SMs, four an SM (coop.cuh).  The same band
+//     scheme with the band in global memory took 1.8x (255^2) and 3.7x
+//     (511^2) the cooperative grid's time: 16 SMs walking a band through the
+//     L2 are bound by its latency, eight dependent loads a thread a pass at
+//     255^2.
 //
 // The case axis (nf_bicgstab_batched; the batching rule of ops/krylov.py,
 // the vmapped lockstep step of algorithms/batch.py): a grid of (cluster
@@ -44,8 +45,16 @@
 // CTAs' shared memory.  A frozen case (active flag false) copies x0 to its
 // output and leaves before the first cluster barrier, every CTA of its
 // cluster alike.  B above the clusters the card holds at once runs in waves.
-// Fields above the band kernel's shared memory have no batched form: the
-// wrapper launches the grid kernel once a case.
+// Fields above the band kernel's shared memory take the grid kernel's case
+// form (nf_bicgstab_grid_batched): krylov.cuh's nf_bicgstab_solve_cases,
+// one cooperative launch at the single grid kernel's block count.  Each
+// block covers the cells of every case that it covers in the single
+// launch, each case's sums go to its own partials and are added in the
+// single launch's order, so each case's bits are its single launch's; each
+// grid barrier serves every case, so a launch pays the slowest case's
+// 3 + 5 k barriers once instead of B times, and a block's work a pass
+// grows B-fold.  Each case's scratch is the single launch's (six vectors,
+// then the partials), B of them.
 
 #include "krylov.cuh"
 
@@ -305,7 +314,12 @@ void kb_read(KbParams& P, const long long* ptrs, const int* ip, const float* fp)
   P.tol = fp[0];
 }
 
-// Larger fields: krylov.cuh's solve over a cooperative grid.
+// Larger fields: krylov.cuh's solve over a cooperative grid, of one field
+// (the scalars in every thread's registers, NfKryOne) or of B (NfKryCases).
+// The case kernel with B = 1 computes the single kernel's bits, and took
+// 10-14% longer on 255^2 and 511^2 fields on an H100 80GB HBM3 at 700 W
+// (its scalars go through shared memory and block barriers), so a single
+// field keeps its own kernel.
 struct GridParams {
   NfKrylov K;
   float* red;
@@ -313,9 +327,66 @@ struct GridParams {
   int maxiter;
 };
 
-__global__ void __launch_bounds__(NF_THREADS) bicgstab_grid_kernel(GridParams P) {
+struct GridCasesParams {
+  NfKrylovCases Q;
+  float tol;
+  int maxiter;
+};
+
+// Blocks an SM: at most 64 registers a thread keep 4 blocks of 256 threads
+// resident, and both kernels launch no more, so that their block counts,
+// and with them each case's order of sums, are equal.
+constexpr int KG_BLOCKS_PER_SM = 4;
+
+__global__ void __launch_bounds__(NF_THREADS, KG_BLOCKS_PER_SM)
+    bicgstab_grid_kernel(GridParams P) {
   NfCoop C = nf_coop(P.red);
   nf_bicgstab_solve(C, P.K, P.tol, P.maxiter);
+}
+
+__global__ void __launch_bounds__(NF_THREADS, KG_BLOCKS_PER_SM)
+    bicgstab_grid_kernel_batched(GridCasesParams P) {
+  extern __shared__ float kc_dyn[];
+  NfCoop C = nf_coop(nullptr);
+  nf_bicgstab_solve_cases(C, P.Q, P.tol, P.maxiter, kc_dyn);
+}
+
+// One cooperative launch of `kernel` over nf_coop_blocks of an ni x nj
+// field's cells, at most KG_BLOCKS_PER_SM an SM, with `smem` bytes of
+// dynamic shared memory a block.
+template <class Kernel, class Params>
+int kg_launch(Kernel kernel, Params& P, int ni, int nj, size_t smem, cudaStream_t stream) {
+  if (ni < 1 || nj < 1) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  const int err = nf_coop_blocks(kernel, (int64_t)ni * nj, blocks, smem, KG_BLOCKS_PER_SM);
+  if (err) return err;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  void* args[] = {&P};
+  const cudaError_t e = cudaLaunchCooperativeKernel((void*)kernel, dim3((unsigned)blocks),
+                                                    dim3(NF_THREADS), args, smem, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The grid kernel's arrays from nf_bicgstab's slots (x0, the six
+// coefficient arrays, out, scratch: six vectors of ni x nj, then the
+// partials) and ip / fp (the batched entry: case 0's, and its strides).
+void kg_read(NfKrylov& K, float*& red, const long long* ptrs, const int* ip) {
+  K.x0 = reinterpret_cast<const float*>(ptrs[0]);
+  const float** coef[] = {&K.ae, &K.aw, &K.an, &K.as, &K.ap, &K.src};
+  for (int k = 0; k < 6; ++k) *coef[k] = reinterpret_cast<const float*>(ptrs[1 + k]);
+  K.x = reinterpret_cast<float*>(ptrs[7]);
+  float* scratch = reinterpret_cast<float*>(ptrs[8]);
+  K.ni = ip[0]; K.nj = ip[1];
+  K.lo_i = ip[3]; K.hi_i = ip[4]; K.lo_j = ip[5]; K.hi_j = ip[6];
+  const int64_t n = (int64_t)K.ni * K.nj;
+  float** vecs[] = {&K.r, &K.rhat, &K.v, &K.p, &K.s, &K.t};
+  for (int k = 0; k < 6; ++k) *vecs[k] = scratch + k * n;
+  red = scratch + 6 * n;
 }
 
 }  // namespace
@@ -329,10 +400,6 @@ __global__ void __launch_bounds__(NF_THREADS) bicgstab_grid_kernel(GridParams P)
 //       NF_CL_SMEM_MAX; 0: the cooperative grid)
 // fp:   tol
 NF_EXPORT int nf_bicgstab(const long long* ptrs, const int* ip, const float* fp, void* stream) {
-  const float* x0 = reinterpret_cast<const float*>(ptrs[0]);
-  const float* coef[6];
-  for (int k = 0; k < 6; ++k) coef[k] = reinterpret_cast<const float*>(ptrs[1 + k]);
-  float* out = reinterpret_cast<float*>(ptrs[7]);
   const int ni = ip[0], nj = ip[1];
   if (ni < 1 || nj < 1) return (int)cudaErrorInvalidValue;
   if (ip[7]) {
@@ -346,23 +413,12 @@ NF_EXPORT int nf_bicgstab(const long long* ptrs, const int* ip, const float* fp,
     return nf_cluster_launch(bicgstab_band_kernel, size, P, (size_t)(4 * floats),
                              (cudaStream_t)stream);
   }
-  float* scratch = reinterpret_cast<float*>(ptrs[8]);
-  if (!scratch) return (int)cudaErrorInvalidValue;
+  if (!ptrs[8]) return (int)cudaErrorInvalidValue;
   GridParams P = {};
-  NfKrylov& K = P.K;
-  K.x0 = x0;
-  K.ae = coef[0]; K.aw = coef[1]; K.an = coef[2]; K.as = coef[3]; K.ap = coef[4];
-  K.src = coef[5];
-  K.x = out;
-  K.ni = ni; K.nj = nj;
-  const int64_t n = (int64_t)ni * nj;
-  float** vecs[] = {&K.r, &K.rhat, &K.v, &K.p, &K.s, &K.t};
-  for (int k = 0; k < 6; ++k) *vecs[k] = scratch + k * n;
-  P.red = scratch + 6 * n;
+  kg_read(P.K, P.red, ptrs, ip);
   P.maxiter = ip[2];
-  K.lo_i = ip[3]; K.hi_i = ip[4]; K.lo_j = ip[5]; K.hi_j = ip[6];
   P.tol = fp[0];
-  return nf_coop_launch(bicgstab_grid_kernel, P, n, (cudaStream_t)stream);
+  return kg_launch(bicgstab_grid_kernel, P, ni, nj, 0, (cudaStream_t)stream);
 }
 
 // The cluster size K7's band kernel launches with on the current device,
@@ -395,6 +451,34 @@ NF_EXPORT int nf_bicgstab_batched(const long long* ptrs, const int* ip, const fl
   if (4 * floats > NF_CL_SMEM_MAX) return (int)cudaErrorInvalidValue;
   return nf_cluster_launch(bicgstab_band_kernel_batched, size, SB, (size_t)(4 * floats),
                            (cudaStream_t)stream, cases);
+}
+
+// B cases of one shape in one cooperative launch of the grid kernel's case
+// form, at nf_bicgstab's block count.
+// ptrs: nf_bicgstab_batched's twenty slots, with each case's scratch (the
+//       single launch's: six vectors of ni x nj, then 2 x NF_RED_SLOTS x
+//       NF_MAX_BLOCKS floats of partials) in slot 8 and its case stride in
+//       slot 18
+// ip:   nf_bicgstab's eight (band 0), then B
+// fp:   tol
+NF_EXPORT int nf_bicgstab_grid_batched(const long long* ptrs, const int* ip, const float* fp,
+                                       void* stream) {
+  GridCasesParams P = {};
+  NfKrylovCases& Q = P.Q;
+  float* red_stride = nullptr;
+  kg_read(Q.K, Q.red, ptrs, ip);
+  kg_read(Q.S, red_stride, ptrs + 10, ip);
+  // the strides: each slot's own, not an offset into the scratch
+  Q.S.r = Q.S.rhat = Q.S.v = Q.S.p = Q.S.s = Q.S.t = reinterpret_cast<float*>(ptrs[18]);
+  Q.red_stride = reinterpret_cast<const float*>(ptrs[18]);
+  Q.active = reinterpret_cast<const bool*>(ptrs[9]);
+  Q.active_stride = reinterpret_cast<const bool*>(ptrs[19]);
+  Q.cases = ip[8];
+  P.maxiter = ip[2];
+  P.tol = fp[0];
+  if (ip[7] || Q.cases < 1 || !ptrs[8] || !Q.active) return (int)cudaErrorInvalidValue;
+  return kg_launch(bicgstab_grid_kernel_batched, P, ip[0], ip[1],
+                   sizeof(float) * KC_FIELDS * (size_t)Q.cases, (cudaStream_t)stream);
 }
 
 // How many clusters of `size` CTAs of the batched K7 (kernel 0), K5 (1) or

@@ -21,9 +21,13 @@ batching rules (``ops/asmcheby.py``, ``ops/strip.py``, ``ops/mg.py``,
 axis and launches the kernel's batched entry (one thread-block cluster a
 case for the cluster kernels, a grid axis over the cases for K2, K8 and
 K10, (case, tile) items for K1's and K9's persistent blocks) with the
-active flags of :func:`case_mask`.  Every other kernel (K6 outside its own
-batched entry, K11) raises at its launch (:func:`stream_of`), and every
-kernel raises under any other transform.
+active flags of :func:`case_mask` (K7's grid form: one cooperative grid
+for every case).  Every other kernel (K6 outside its own batched entry,
+K11) raises at its launch (:func:`stream_of`), and every kernel raises
+under any other transform.  The solvers' data-dependent loops run through
+``ops/while_loop.py``, whose batching rule keeps one host read an
+iteration for every case and nests its body's kernels in a
+:func:`case_mask` of the cases still iterating.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -69,6 +73,7 @@ _KERNELS = ("nf_asmcheby_pair", "nf_asmcheby_pair_phases", "nf_strip_down", "nf_
             "nf_fused_vcycle_batched",
             "nf_galerkin_levels", "nf_fused_mg_solve", "nf_bicgstab", "nf_fused_outer_step",
             "nf_galerkin_levels_batched", "nf_fused_mg_solve_batched", "nf_bicgstab_batched",
+            "nf_bicgstab_grid_batched",
             "nf_fused_outer_step_phases", "nf_fused_outer_step_batched",
             "nf_fused_assembly_pair", "nf_chebyshev_strips",
             "nf_plane_strip_down", "nf_plane_strip_up",

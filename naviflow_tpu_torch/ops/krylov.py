@@ -9,8 +9,8 @@ the H100), chosen by shape (:func:`band_layout`):
   CTAs each own a band of rows, with three cluster reductions an
   iteration;
 * larger fields: the solve of ``csrc/krylov.cuh`` over a cooperative grid
-  of as many blocks as fit on the SMs (the band scheme in global memory
-  was slower there: 16 SMs walking the L2 lose to 132).
+  of as many blocks as fit on the SMs, four an SM (the band scheme in
+  global memory was slower there: 16 SMs walking the L2 lose to 132).
 
 Both sum each dot in the same order in every CTA or block, so the stopping
 test and the breakdown guards agree everywhere; the dots and the stopping
@@ -20,13 +20,20 @@ are.
 The plain version is ``solvers/momentum._bicgstab_masked`` with
 ``compensated_dots=True``.
 
-The case axis (:func:`bicgstab_momentum_batched`, ``csrc/krylov.cu``
-``nf_bicgstab_batched``): B fields of one shape in one launch of the band
-kernel, one cluster a case, each case bit-equal to its single launch; a
-frozen case gets x0 back.  Under ``torch.func.vmap`` (alone)
-:func:`bicgstab_momentum` is its batching rule's entry.  Fields that take
-the cooperative grid have no batched form: the batched wrapper launches it
-once a case (counted in ``LAUNCHES``).
+The case axis (:func:`bicgstab_momentum_batched`): B fields of one shape in
+one launch, each case bit-equal to its single launch, a frozen case given
+x0 back: where the band fits, one launch of the band kernel
+(``csrc/krylov.cu`` ``nf_bicgstab_batched``), one cluster a case; larger
+fields, one cooperative launch of the grid kernel for every case
+(``nf_bicgstab_grid_batched``) at the single launch's block count, each
+block covering the same cells of every case, each case's sums in its own
+partials, one grid barrier for every case.  Under
+``torch.func.vmap`` (alone) :func:`bicgstab_momentum` is its batching
+rule's entry.
+
+Counters: ``LAUNCHES`` every single launch, ``GRID_LAUNCHES`` those of the
+grid kernel among them; ``BATCH_LAUNCHES`` every batched launch,
+``GRID_BATCH_LAUNCHES`` those of the grid kernel among them.
 """
 
 from __future__ import annotations
@@ -53,7 +60,9 @@ GRID_VECTORS = ("r", "rhat", "v", "p", "s", "t")
 GRID_RED_FLOATS = 2 * 8 * 1024
 
 LAUNCHES = 0
+GRID_LAUNCHES = 0
 BATCH_LAUNCHES = 0
+GRID_BATCH_LAUNCHES = 0
 
 
 def supports_fused_bicgstab(shape, dtype) -> bool:
@@ -127,7 +136,7 @@ def bicgstab_momentum(x0, c: StencilCoeffs, *, tol: float, maxiter: int,
     launch state is reused across calls with the same shape and
     parameters on one device and stream.  Under ``torch.func.vmap`` alone
     every case goes into one :func:`bicgstab_momentum_batched` call."""
-    global LAUNCHES
+    global LAUNCHES, GRID_LAUNCHES
     if _cuda.under_vmap():
         return _BicgstabCases.apply(x0, *_coeff_arrays(c), (tol, maxiter, tuple(margins)))
     if not x0.is_cuda:
@@ -143,6 +152,7 @@ def bicgstab_momentum(x0, c: StencilCoeffs, *, tol: float, maxiter: int,
     _cuda.check(_cuda.library().nf_bicgstab(st.ptrs, st.ip, st.fp, stream),
                 "bicgstab_momentum")
     LAUNCHES += 1
+    GRID_LAUNCHES += st.scratch is not None
     return out
 
 
@@ -170,15 +180,21 @@ class _BatchLaunch:
     """The batched launch state for one (device, stream, shape, maxiter,
     margins, tol, cases): the pointer array (``nf_bicgstab``'s nine slots,
     the active flags, then each slot's case stride; the inputs and outputs
-    filled per call), the parameters with the case count, and the flags of
-    a batch with no frozen case."""
+    filled per call), the parameters with the case count, the flags of a
+    batch with no frozen case and, for the grid kernel, every case's
+    scratch (the single launch's, B of them)."""
 
     def __init__(self, shape, maxiter, margins, tol, cases, dev):
         self.band = band_layout(shape, cluster_size(dev))[1]
         self.ptrs = (ctypes.c_longlong * 20)()
-        self.ip = (ctypes.c_int * 9)(*shape, maxiter, *margins, 1, cases)
+        self.ip = (ctypes.c_int * 9)(*shape, maxiter, *margins, int(self.band), cases)
         self.fp = (ctypes.c_float * 1)(tol)
         self.ones = torch.ones(cases, dtype=torch.bool, device=dev)
+        self.scratch = None
+        if not self.band:
+            per_case = grid_scratch_floats(shape)
+            self.scratch = torch.empty((cases, per_case), dtype=torch.float32, device=dev)
+            self.ptrs[8], self.ptrs[18] = self.scratch.data_ptr(), 4 * per_case
 
 
 _BATCH = {}
@@ -188,10 +204,11 @@ def bicgstab_momentum_batched(x0, c: StencilCoeffs, *, tol: float, maxiter: int,
                               margins=(1, 1, 1, 1), active=None):
     """:func:`bicgstab_momentum` of B cases (the leading axis of ``x0`` and
     of every coefficient array; each case's slice contiguous, a case stride
-    of 0 shares one array) in one launch, one cluster a case; ``active``
-    (B,) bool: a frozen case gets ``x0`` back and its cluster leaves at
-    once (None: every case active).  Returns (B, *shape)."""
-    global BATCH_LAUNCHES, LAUNCHES
+    of 0 shares one array) in one launch: one cluster a case where the band
+    fits, else one cooperative grid for every case; ``active`` (B,) bool: a
+    frozen case gets ``x0`` back and skips its work (None: every case
+    active).  Returns (B, *shape)."""
+    global BATCH_LAUNCHES, GRID_BATCH_LAUNCHES
     if not x0.is_cuda:
         return bicgstab_momentum_batched_plain(x0, c, tol=tol, maxiter=maxiter,
                                                margins=margins, active=active)
@@ -199,13 +216,6 @@ def bicgstab_momentum_batched(x0, c: StencilCoeffs, *, tol: float, maxiter: int,
     dev, stream = x0.device, _cuda.stream_of(x0)
     st = _cached(_BATCH, (dev, stream, shape, maxiter, tuple(margins), tol, cases),
                  lambda: _BatchLaunch(shape, maxiter, margins, tol, cases, dev))
-    if not st.band:
-        # the cooperative grid kernel has no per-case form: a launch a case
-        flags = _cuda.case_flags(active, cases)
-        return torch.stack([
-            bicgstab_momentum(x0[b], _case_coeffs(c, b), tol=tol, maxiter=maxiter,
-                              margins=margins) if on else x0[b]
-            for b, on in enumerate(flags)])
     out = torch.empty((cases, *shape), dtype=torch.float32, device=dev)
     flags = st.ones if active is None else active
     ptrs, arrays = st.ptrs, (x0, *_coeff_arrays(c), out)
@@ -214,8 +224,14 @@ def bicgstab_momentum_batched(x0, c: StencilCoeffs, *, tol: float, maxiter: int,
     ptrs[:8] = [a.data_ptr() for a in arrays]
     ptrs[19] = _cuda.case_stride(flags, cases, (), torch.bool, "active")
     ptrs[9] = flags.data_ptr()
-    _cuda.check(_cuda.library().nf_bicgstab_batched(ptrs, st.ip, st.fp, stream),
-                "bicgstab_momentum_batched")
+    lib = _cuda.library()
+    if st.band:
+        _cuda.check(lib.nf_bicgstab_batched(ptrs, st.ip, st.fp, stream),
+                    "bicgstab_momentum_batched")
+    else:
+        _cuda.check(lib.nf_bicgstab_grid_batched(ptrs, st.ip, st.fp, stream),
+                    "bicgstab_momentum_batched (grid)")
+        GRID_BATCH_LAUNCHES += 1
     BATCH_LAUNCHES += 1
     return out
 

@@ -59,6 +59,7 @@ from ..ops.powerlaw import (
 )
 from ..ops.stencil import (StencilCoeffs, apply_stencil, index_grids, interior_mask,
                            neighbor_sum, pad2, shift_e, shift_n, shift_s, shift_w)
+from ..ops.while_loop import flatten, while_loop
 
 BACKENDS = ("auto", "kernel", "composed")
 
@@ -274,46 +275,58 @@ def _bicgstab_masked(x0, c, mask, tol: float, maxiter: int,
                      compensated_dots: bool = False):
     """Matrix-free BiCGSTAB restricted to masked nodes (boundary nodes are
     held fixed; Practice-B folding makes the masked system self-contained).
-    ``compensated_dots``: the dots and norms are :func:`fold_dot`."""
-    mask_f = mask.to(x0.dtype)
+    ``compensated_dots``: the dots and norms are :func:`fold_dot`.  The
+    loop is the JAX package's ``lax.while_loop`` (carry ``(x, r, rhat, rho,
+    alpha, omega, v, p, k, ok)``) through ``ops/while_loop.py``: one host
+    read an iteration, and under ``torch.func.vmap`` one for every case."""
     if compensated_dots:
         dot = fold_dot
     else:
         def dot(a, b):
             return torch.sum(a * b)
 
-    def A(x):
-        return _apply(x, c) * mask_f
+    eps = torch.finfo(x0.dtype).tiny * 1e6
+    leaves, build = flatten(c)
 
+    def A(x, cs, mask_f):
+        return _apply(x, cs) * mask_f
+
+    mask_f = mask.to(x0.dtype)
     b = c.src * mask_f
     x = x0 * mask_f
-    r = b - A(x)
-    rhat = r
+    r = b - A(x, c, mask_f)
     one = torch.ones((), dtype=x0.dtype, device=x0.device)
-    rho = alpha = omega_ = one
+    zero = 0.0 * one
     v = p = torch.zeros_like(x0)
     bnorm = torch.sqrt(dot(b, b))
     tol2 = (tol * torch.clamp(bnorm, min=1e-30)) ** 2
-    eps = torch.finfo(x0.dtype).tiny * 1e6
-    k, ok = 0, True
-    while ok and k < maxiter and bool(dot(r, r) > tol2):
+    k = torch.zeros((), dtype=torch.int32, device=x0.device)
+    ok = torch.ones((), dtype=torch.bool, device=x0.device)
+
+    def cond(x, r, rhat, rho, alpha, omega_, v, p, k, ok, *consts):
+        return ok & (k < maxiter) & (dot(r, r) > consts[0])
+
+    def body(x, r, rhat, rho, alpha, omega_, v, p, k, ok, *consts):
+        tol2, mask_f, zero, *cl = consts
+        cs = build(cl)
         rho_new = dot(rhat, r)
-        good = bool((torch.abs(rho) > eps) & (torch.abs(omega_) > eps))
-        beta = ((rho_new / torch.where(rho == 0, one, rho))
-                * (alpha / torch.where(omega_ == 0, one, omega_))) if good else 0.0 * one
+        good = (torch.abs(rho) > eps) & (torch.abs(omega_) > eps)
+        beta = torch.where(good, (rho_new / rho) * (alpha / omega_), zero)
         p = r + beta * (p - omega_ * v)
-        v = A(p)
+        v = A(p, cs, mask_f)
         denom = dot(rhat, v)
-        good = good and bool(torch.abs(denom) > eps)
-        alpha = rho_new / torch.where(denom == 0, one, denom) if good else 0.0 * one
+        good = good & (torch.abs(denom) > eps)
+        alpha = torch.where(good, rho_new / denom, zero)
         s = r - alpha * v
-        t = A(s)
+        t = A(s, cs, mask_f)
         tt = dot(t, t)
-        omega_ = dot(t, s) / torch.where(tt == 0, one, tt) if bool(tt > eps) else 0.0 * one
+        omega_ = torch.where(tt > eps, dot(t, s) / tt, zero)
         x = x + alpha * p + omega_ * s
         r = s - omega_ * t
-        rho = rho_new
-        k, ok = k + 1, good
+        return (x, r, rhat, rho_new, alpha, omega_, v, p, k + 1, good, *consts)
+
+    x, *_ = while_loop(cond, body, x, r, r, one, one, one, v, p, k, ok,
+                       tol2, mask_f, zero, *leaves)
     return torch.where(mask, x, x0)
 
 
@@ -321,7 +334,8 @@ def _bicgstab_pair_masked(xu0, cu, mask_u, xv0, cv, mask_v, tol: float, maxiter:
     """The u and v solves batched into one Krylov loop: the two systems are
     padded to one (2, M, N) stack, every dot is one reduction to a 2-vector
     and each system freezes once its own residual passes the tolerance, so
-    per-system arithmetic is that of :func:`_bicgstab_masked`."""
+    per-system arithmetic is that of :func:`_bicgstab_masked`.  The loop is
+    the JAX package's ``lax.while_loop`` through ``ops/while_loop.py``."""
     nxp1, ny = xu0.shape
     nx, nyp1 = xv0.shape
     M, N = max(nxp1, nx), max(ny, nyp1)
@@ -343,7 +357,7 @@ def _bicgstab_pair_masked(xu0, cu, mask_u, xv0, cv, mask_v, tol: float, maxiter:
             x[:, max(di, 0):M - max(-di, 0), max(dj, 0):N - max(-dj, 0)]
         return out
 
-    def A(x):
+    def A(x, a_e, a_w, a_n, a_s, a_p, mask):
         return (a_p * x - a_e * sh(x, 1, 0) - a_w * sh(x, -1, 0)
                 - a_n * sh(x, 0, 1) - a_s * sh(x, 0, -1)) * mask
 
@@ -353,42 +367,44 @@ def _bicgstab_pair_masked(xu0, cu, mask_u, xv0, cv, mask_v, tol: float, maxiter:
     def col(s):
         return s[:, None, None]
 
+    system = (a_e, a_w, a_n, a_s, a_p, mask)
     x = x0 * mask
-    r = b - A(x)
-    rhat = r
+    r = b - A(x, *system)
     ones = torch.ones((2,), dtype=x0.dtype, device=x0.device)
-    rho = alpha = omega_ = ones
     v = p = torch.zeros_like(x)
     bnorm = torch.sqrt(dot(b, b))
     tol2 = (tol * torch.clamp(bnorm, min=1e-30)) ** 2
     eps = torch.finfo(x0.dtype).tiny * 1e6
     ok = torch.ones((2,), dtype=torch.bool, device=x0.device)
-    k = 0
-    while k < maxiter and bool(torch.any(ok & (dot(r, r) > tol2))):
+    k = torch.zeros((), dtype=torch.int32, device=x0.device)
+
+    def cond(x, r, rhat, rho, alpha, omega_, v, p, k, ok, tol2, zeros, *system):
+        return (k < maxiter) & torch.any(ok & (dot(r, r) > tol2))
+
+    def body(x, r, rhat, rho, alpha, omega_, v, p, k, ok, tol2, zeros, *system):
         act = ok & (dot(r, r) > tol2)
         rho_new = dot(rhat, r)
         good = (torch.abs(rho) > eps) & (torch.abs(omega_) > eps)
-        beta = torch.where(good, (rho_new / torch.where(rho == 0, ones, rho))
-                           * (alpha / torch.where(omega_ == 0, ones, omega_)), 0.0 * ones)
+        beta = torch.where(good, (rho_new / rho) * (alpha / omega_), zeros)
         p_new = r + col(beta) * (p - col(omega_) * v)
-        v_new = A(p_new)
+        v_new = A(p_new, *system)
         denom = dot(rhat, v_new)
         good = good & (torch.abs(denom) > eps)
-        alpha_new = torch.where(good, rho_new / torch.where(denom == 0, ones, denom), 0.0 * ones)
+        alpha_new = torch.where(good, rho_new / denom, zeros)
         s = r - col(alpha_new) * v_new
-        t = A(s)
+        t = A(s, *system)
         tt = dot(t, t)
-        omega_new = torch.where(tt > eps, dot(t, s) / torch.where(tt == 0, ones, tt), 0.0 * ones)
+        omega_new = torch.where(tt > eps, dot(t, s) / tt, zeros)
         x_new = x + col(alpha_new) * p_new + col(omega_new) * s
         r_new = s - col(omega_new) * t
         a = col(act)
-        x, r = torch.where(a, x_new, x), torch.where(a, r_new, r)
-        v, p = torch.where(a, v_new, v), torch.where(a, p_new, p)
-        rho = torch.where(act, rho_new, rho)
-        alpha = torch.where(act, alpha_new, alpha)
-        omega_ = torch.where(act, omega_new, omega_)
-        ok = torch.where(act, good, ok)
-        k += 1
+        return (torch.where(a, x_new, x), torch.where(a, r_new, r), rhat,
+                torch.where(act, rho_new, rho), torch.where(act, alpha_new, alpha),
+                torch.where(act, omega_new, omega_), torch.where(a, v_new, v),
+                torch.where(a, p_new, p), k + 1, torch.where(act, good, ok), tol2, zeros, *system)
+
+    x, *_ = while_loop(cond, body, x, r, r, ones, ones, ones, v, p, k, ok, tol2, 0.0 * ones,
+                       *system)
     xu = torch.where(mask_u, x[0, :nxp1, :ny], xu0)
     xv = torch.where(mask_v, x[1, :nx, :nyp1], xv0)
     return xu, xv

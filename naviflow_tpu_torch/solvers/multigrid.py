@@ -67,6 +67,7 @@ from ..ops.transfer import (coarse_size, prolong_cubic, prolong_linear,
                             restrict_d_coefficients, restrict_full_weighting,
                             restrict_inject)
 from ..ops.transfer_cc import prolong_cc, restrict_cc
+from ..ops.while_loop import flatten, while_loop
 from .chebyshev import chebyshev_smooth, estimate_lambda_max
 from .pressure import PressureSolveInfo
 
@@ -348,7 +349,10 @@ def multigrid_solve(
     levels=None,
 ) -> Tuple[torch.Tensor, PressureSolveInfo]:
     """Solve A(d_u, d_v) p = b to ``cfg.tolerance`` by repeated cycles
-    (``tolerance <= 0``: exactly ``max_cycles`` cycles, no residual checks).
+    (``tolerance <= 0``: exactly ``max_cycles`` cycles, no residual checks,
+    and ``iterations`` the number; else a residual check every
+    ``check_every`` cycles through ``ops/while_loop.py``, and ``iterations``
+    the loop's int32 count).
     Gauge-free: the correction is mean-normalized unless ``variant`` is
     'reference'.  ``levels`` optionally supplies a prebuilt hierarchy."""
     if levels is None:
@@ -379,6 +383,8 @@ def multigrid_solve(
     )
     bnorm = torch.linalg.vector_norm(b)
     safe_bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
+    # each cycle and check reads (b, levels, ps) through its arguments, so
+    # that the tolerance loop's operands carry every tensor it reads
     if use_plane:
         # b and the stencil are split once per solve, the planes merged once
         ps = PlaneStencil5(st_fine, b)
@@ -386,9 +392,10 @@ def multigrid_solve(
         plane_kernel = _kernel_path(cfg, b) and supports_plane_strip(*state[0].shape, cfg,
                                                                      b.dtype)
 
-        def one_cycle(R, B):
+        def one_cycle(state, b, levels, ps):
             # the fine level in plane form (K10 on the kernel path), the
             # levels below it as an ordinary cycle on the standard layout
+            R, B = state
             if plane_kernel:
                 R, B, rc = plane_strip_down(R, B, ps, cfg)
                 ec = _cycle0(torch.zeros_like(rc), rc, levels[1:], cfg)
@@ -397,29 +404,43 @@ def multigrid_solve(
             ec = _cycle0(torch.zeros_like(rc), rc, levels[1:], cfg)
             return plane_fine_up(R, B, ps, ec, cfg.post_smoothing)
 
-        def norm(R, B):
-            return plane_residual_norm(R, B, ps)
+        def norm(state, b, levels, ps):
+            return plane_residual_norm(*state, ps)
     else:
-        state = (p_start,)
+        ps, state = None, (p_start,)
 
-        def one_cycle(p):
-            return (_cycle0(p, b, levels, cfg),)
+        def one_cycle(state, b, levels, ps):
+            return (_cycle0(state[0], b, levels, cfg),)
 
-        def norm(p):
-            return torch.linalg.vector_norm(b - apply_five(p, st_fine, five_fine))
+        def norm(state, b, levels, ps):
+            return torch.linalg.vector_norm(b - apply_five(state[0], levels[0][0], five_fine))
 
     if cfg.tolerance <= 0.0:
         for _ in range(cfg.max_cycles):
-            state = one_cycle(*state)
+            state = one_cycle(state, b, levels, ps)
         cycles, rel = cfg.max_cycles, None
     else:
-        cycles = 0
-        rel = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
-        while cycles < cfg.max_cycles and float(rel) >= cfg.tolerance:
+        # the JAX package's lax.while_loop over (state, cycles, rel): one
+        # host read a check (one for every case under torch.func.vmap)
+        consts, build = flatten((b, levels, ps, safe_bnorm))
+        n = len(state)
+
+        def cond(*ops):
+            cycles, rel = ops[n:n + 2]
+            return (cycles < cfg.max_cycles) & (rel.double() >= cfg.tolerance)
+
+        def body(*ops):
+            state, (cycles, _), rest = ops[:n], ops[n:n + 2], ops[n + 2:]
+            b, levels, ps, safe_bnorm = build(rest)
             for _ in range(cfg.check_every):
-                state = one_cycle(*state)
-            rel = norm(*state) / safe_bnorm
-            cycles += cfg.check_every
+                state = one_cycle(state, b, levels, ps)
+            rel = norm(state, b, levels, ps) / safe_bnorm
+            return (*state, cycles + cfg.check_every, rel, *rest)
+
+        cycles = torch.zeros((), dtype=torch.int32, device=b.device)
+        rel = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
+        out = while_loop(cond, body, *state, cycles, rel, *consts)
+        state, (cycles, rel) = out[:n], out[n:n + 2]
     p = merge_planes(*state) if use_plane else state[0]
     if variant != "reference":
         p = p - torch.mean(p)

@@ -19,7 +19,8 @@ from ..ops.stencil import index_grids, shift_e, shift_n, shift_s, shift_w, where
 class PressureSolveInfo:
     """Residual info returned by every pressure solve."""
 
-    iterations: int  # inner-iteration count
+    # inner-iteration count (a tolerance loop's: its int32 count, a tensor)
+    iterations: int | torch.Tensor
     residual_field: torch.Tensor  # b - A p (full grid)
     rel_residual: torch.Tensor  # ||b - Ap|| / ||b|| at exit (0-d)
 

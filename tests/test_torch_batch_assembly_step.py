@@ -129,23 +129,28 @@ def test_assembly_step_frozen_case(assembly_gates_open):
 
 
 def test_per_case_configurations_stay_refused(assembly_gates_open, monkeypatch):
-    """With every gate open, the configurations whose step reads the host
-    stay case by case: BiCGSTAB momentum (its loop's convergence test), a
-    pressure tolerance above 0 (the cycle loop's), the compensated residual,
-    W cycles; a refused batch takes ``_per_case`` and no batched call."""
+    """With every gate open, the configurations the vmapped branch still
+    refuses stay case by case: GMRES momentum (its restart loop reads the
+    host), BiCGSTAB with the compensated dots, the compensated residual, W
+    cycles (with or without a pressure tolerance); a refused batch takes
+    ``_per_case`` and no batched call.  (BiCGSTAB momentum and a pressure
+    tolerance run through ``ops/while_loop.py`` since its port:
+    ``test_torch_batch_loops_step.py``.)"""
     calls = assembly_gates_open
     cfg = talg.SIMPLECConfig(max_iterations=2, tolerance=0.0)
     mom, pres = interop.config(MOM), interop.config(PRES)
     p = torch.zeros(N, N)
     assert tbatch.vmap_step_ok(p, cfg, mom, pres, "simplec")
-    for m, pr in ((tmom.KrylovMomentumConfig(tolerance=1e-6, max_iterations=5), pres),
-                  (mom, dataclasses.replace(pres, tolerance=1e-3)),
+    for m, pr in ((tmom.GMRESMomentumConfig(tolerance=1e-6, max_iterations=5), pres),
+                  (tmom.KrylovMomentumConfig(tolerance=1e-6, max_iterations=5,
+                                             compensated_dots=True), pres),
+                  (mom, dataclasses.replace(pres, tolerance=1e-3, cycle_type="w")),
                   (dataclasses.replace(mom, compensated_residual=True), pres),
                   (mom, dataclasses.replace(pres, cycle_type="w"))):
         assert not tbatch.vmap_step_ok(p, cfg, m, pr, "simplec"), (m, pr)
     mesh, bc = nt.StructuredMesh(nx=N, ny=N), nt.lid_driven_cavity(1.0)
     calls.clear()
     talg.batched_cavity_solve(mesh, list(RES), bc, cfg,
-                              tmom.KrylovMomentumConfig(tolerance=1e-6, max_iterations=5),
+                              tmom.GMRESMomentumConfig(tolerance=1e-6, max_iterations=5),
                               pres, algorithm="simplec", device="cpu")
     assert calls["per case"] >= 1 and not any(k.endswith("batched") for k in calls)

@@ -57,8 +57,9 @@ def test_even_gate_sides(gates_open):
     a K3 tail), its K1-free sibling algorithms and composed-Chebyshev
     grids below K1's gate, a hierarchy K5 takes whole, the plane layout
     where K10's gate opens, and the K8 / K9 configurations (SIMPLEC, PISO,
-    SIMPLER at 2048^2); it refuses a pressure tolerance > 0 (the loop reads
-    it on the host), a plane layout K10 refuses, other cycles, smoothers and
+    SIMPLER at 2048^2), and a pressure tolerance > 0 (the cycle loop through
+    ``ops/while_loop.py``); it refuses a plane layout K10 refuses, other
+    cycles, smoothers and
     coarsenings, non-Chebyshev momentum K8 does not assemble, a level the
     strips refuse above the tail, odd or non-square grids, and the CPU
     (closed gates), each of which steps case by case."""
@@ -73,7 +74,8 @@ def test_even_gate_sides(gates_open):
     for algo in ("simple", "simplec", "piso", "simpler"):
         assert ok(algo=algo), algo
     assert ok(p=torch.zeros(16, 16))  # K5 takes the whole 16^2 hierarchy
-    assert not ok(pres=replace(pres, tolerance=1e-3))
+    assert ok(pres=replace(pres, tolerance=1e-3))
+    assert not ok(pres=replace(pres, tolerance=1e-3, cycle_type="w"))
     assert ok(pres=replace(pres, fine_layout="plane"))  # K10 on the 64^2 planes
     assert not ok(pres=replace(pres, fine_layout="plane", omega=1.2))  # K10's gate refuses
     assert not ok(pres=replace(pres, cycle_type="w"))

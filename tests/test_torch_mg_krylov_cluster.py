@@ -263,10 +263,12 @@ def test_k5_rejects_what_its_kernel_does_not_take(recorder):
 
 
 def _krylov_entry():
-    """nf_bicgstab's text (to the end of the file) with ``kb_read``'s,
-    which its band path reads its slots through."""
+    """nf_bicgstab's text (to the end of the file) with ``kb_read``'s and
+    ``kg_read``'s, which its band and grid paths read their slots through
+    (as the batched entries do)."""
     src = _src("krylov.cu")
-    return src[src.index("NF_EXPORT int nf_bicgstab("):] + _function(src, "void kb_read(")
+    return (src[src.index("NF_EXPORT int nf_bicgstab("):] + _function(src, "void kb_read(")
+            + _function(src, "void kg_read("))
 
 
 def test_k7_constants_match_c_source():
@@ -284,19 +286,21 @@ def test_k7_constants_match_c_source():
     assert "float** vecs[] = {&K.r, &K.rhat, &K.v, &K.p, &K.s, &K.t};" in entry
     assert list(krylov.GRID_VECTORS) == ["r", "rhat", "v", "p", "s", "t"]
     assert "for (int k = 0; k < 6; ++k) *vecs[k] = scratch + k * n;" in entry
-    assert "P.red = scratch + 6 * n;" in entry
+    assert "red = scratch + 6 * n;" in entry and "kg_read(P.K, P.red, ptrs, ip);" in entry
     assert krylov.GRID_RED_FLOATS == 2 * _constant("NF_RED_SLOTS", "coop.cuh") * \
         _constant("NF_MAX_BLOCKS", "coop.cuh")
-    assert "const float* x0 = reinterpret_cast<const float*>(ptrs[0]);" in entry
-    assert "for (int k = 0; k < 6; ++k) coef[k] = reinterpret_cast<const float*>(ptrs[1 + k]);" \
+    assert "K.x0 = reinterpret_cast<const float*>(ptrs[0]);" in entry
+    assert "const float** coef[] = {&K.ae, &K.aw, &K.an, &K.as, &K.ap, &K.src};" in entry
+    assert "for (int k = 0; k < 6; ++k) *coef[k] = reinterpret_cast<const float*>(ptrs[1 + k]);" \
         in entry
-    assert "float* out = reinterpret_cast<float*>(ptrs[7]);" in entry
+    assert "K.x = reinterpret_cast<float*>(ptrs[7]);" in entry
     assert "float* scratch = reinterpret_cast<float*>(ptrs[8]);" in entry
-    assert "const int ni = ip[0], nj = ip[1];" in entry
-    assert entry.count("P.maxiter = ip[2];") == 2
+    assert "const int ni = ip[0], nj = ip[1];" in entry and "K.ni = ip[0]; K.nj = ip[1];" in entry
+    # kb_read's, nf_bicgstab's grid path's and nf_bicgstab_grid_batched's
+    assert entry.count("P.maxiter = ip[2];") == 3
     assert "P.lo_i = ip[3]; P.hi_i = ip[4]; P.lo_j = ip[5]; P.hi_j = ip[6];" in entry
     assert "K.lo_i = ip[3]; K.hi_i = ip[4]; K.lo_j = ip[5]; K.hi_j = ip[6];" in entry
-    assert "if (ip[7]) {" in entry and entry.count("P.tol = fp[0];") == 2
+    assert "if (ip[7]) {" in entry and entry.count("P.tol = fp[0];") == 3
     assert "if (4 * floats > NF_CL_SMEM_MAX) return (int)cudaErrorInvalidValue;" in entry
 
 

@@ -1,10 +1,14 @@
 """Shared by the large-grid batch tests (``test_torch_batch_large_step.py``,
-``test_torch_batch_large_jax.py`` and ``test_torch_batch_assembly_step.py``):
-the kernel gates forced open and scaled down so that a 64^2 grid takes the
-path a 1024^2 one takes on the card (``gates_open``: the plain calls of K1,
-K2a, K2b, K3 and K5 counted), and with K8's, K9's and K10's gates too the
-path of 2048^2 SIMPLEC / PISO / SIMPLER and of the 4096^2 plane layout
-(``assembly_gates_open``: their plain calls counted as well)."""
+``test_torch_batch_large_jax.py``, ``test_torch_batch_assembly_step.py`` and
+``test_torch_batch_loops_step.py``): the kernel gates forced open and
+scaled down so that a 64^2 grid takes the path a 1024^2 one takes on the
+card (``gates_open``: the plain calls of K1, K2a, K2b, K3 and K5 counted),
+with K8's, K9's and K10's gates too the path of 2048^2 SIMPLEC / PISO /
+SIMPLER and of the 4096^2 plane layout (``assembly_gates_open``: their
+plain calls counted as well), and with K7's gate widened to float64 the
+BiCGSTAB paths (``loops_gates_open``: K7's plain calls counted; a 32^2
+field stands for the 256^2 ones K7 takes in its grid form, and
+:func:`close_k7` shuts K7's gate as the 1024^2 fields find it)."""
 
 import dataclasses
 
@@ -15,7 +19,8 @@ from naviflow_tpu.solvers import ChebyshevMomentumConfig
 from naviflow_tpu.solvers.multigrid import MultigridConfig as JMG
 
 from naviflow_tpu_torch.algorithms import batch as tbatch
-from naviflow_tpu_torch.ops import _cuda, asmcheby, assembly, cheby, mg, plane_strip, strip
+from naviflow_tpu_torch.ops import (_cuda, asmcheby, assembly, cheby, krylov, mg, plane_strip,
+                                    strip)
 from naviflow_tpu_torch.solvers import momentum as tmom
 from naviflow_tpu_torch.solvers import multigrid as tmg
 
@@ -162,3 +167,34 @@ def against_jax(calls, algorithm, momentum, pressure, per_step):
         np.testing.assert_allclose(td.total_res_history.numpy(),
                                    np.asarray(jd.total_res_history), rtol=1e-9)
     assert not torch.equal(tout[0][0].u, tout[2][0].u)
+
+
+@pytest.fixture
+def loops_gates_open(assembly_gates_open, monkeypatch):
+    """``assembly_gates_open`` with K7's gate widened to float64 (the JAX
+    package's precision; its byte budget kept); counts K7's plain calls,
+    single and batched, and K5's batched ones beside the others."""
+    calls = assembly_gates_open
+
+    def k7_gate(shape, dtype):
+        return krylov.supports_fused_bicgstab(shape, torch.float32)
+
+    monkeypatch.setattr(tmom, "supports_fused_bicgstab", k7_gate)
+    monkeypatch.setattr(tbatch, "supports_fused_bicgstab", k7_gate)
+    for module, name, key in ((krylov, "bicgstab_momentum_batched_plain", "K7 batched"),
+                              (krylov, "bicgstab_momentum_plain", "K7"),
+                              (mg, "fused_mg_solve_batched_plain", "K5 batched")):
+        _count(monkeypatch, calls, module, name, key)
+    return calls
+
+
+def close_k7(monkeypatch):
+    """K7's gate shut for every field (the 1024^2 fields are past its
+    1 MiB): BiCGSTAB momentum takes the pair loop."""
+    monkeypatch.setattr(krylov, "MAX_FIELD_BYTES", 0)
+
+
+def open_k5(monkeypatch):
+    """K5's budget back at the card's, so that it takes a whole 32^2
+    hierarchy as it takes the 256^2 one on the card."""
+    monkeypatch.setattr(mg, "VMEM_BUDGET_BYTES", 8 * 2**20)
