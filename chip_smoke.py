@@ -1794,20 +1794,31 @@ def check_large_case_axis(dev, cl_ms, k3_size, res=BATCH_RE):
     return rows
 
 
+# K8's forms: with or without the Gershgorin maxima, with no fold or each
+# Poisson fold; and the rows check_assembly adds at other shapes (the
+# sequenced ladder's 1024^2 level takes the consistent fold)
+K8_FORMS = tuple((b, f) for f in (None, "consistent", "symmetric", "reference")
+                 for b in (False, True))
+K8_EXTRA = ((1024, False, "consistent"),)
+
+
 def check_assembly(dev):
-    """K8 at 2048^2 from a seeded cavity state: plain, with the Gershgorin
-    maxima, and with each Poisson fold; coefficients at rtol/atol 1e-5,
-    maxima at rtol 1e-6, d and the operator at rtol 1e-6 / atol 1e-9
-    (tests/test_pallas_assembly.py's tolerances)."""
+    """K8 at 2048^2 from a seeded cavity state in every form (``K8_FORMS``)
+    and at ``K8_EXTRA``'s shapes; coefficients at rtol/atol 1e-5, maxima at
+    rtol 1e-6, d and the operator at rtol 1e-6 / atol 1e-9
+    (tests/test_pallas_assembly.py's tolerances); each row's bound and its
+    share of the device time."""
     import torch
 
     from naviflow_tpu_torch.ops import assembly
 
-    u, v, p, kw = cavity_fields(NL, dev)
     alpha = 0.7
     rows = []
-    for bounds, variant in ((False, None), (True, None), (False, "consistent"),
-                            (False, "symmetric"), (False, "reference")):
+    fields = {}
+    for n, bounds, variant in [(NL, b, f) for b, f in K8_FORMS] + list(K8_EXTRA):
+        if n not in fields:
+            fields = {n: cavity_fields(n, dev)}
+        u, v, p, kw = fields[n]
         args = dict(alpha=alpha, with_bounds=bounds, poisson_variant=variant, **kw)
         got = assembly.fused_assembly_pair(u, v, p, **args)
         want = assembly.fused_assembly_pair_plain(u, v, p, **args)
@@ -1837,11 +1848,13 @@ def check_assembly(dev):
 
         ms, plain_ms, dev_ms = time_pair(
             lambda: assembly.fused_assembly_pair_plain(u, v, p, **args), kernel, reps=10)
-        rows.append(dict(name="fused_assembly_pair", shape=[NL, NL], with_bounds=bounds,
+        work = assembly_work(n, variant is not None)
+        rows.append(dict(name="fused_assembly_pair", shape=[n, n], with_bounds=bounds,
                          poisson_variant=variant, ok=ok, max_abs_err=worst_abs, ms=ms,
                          plain_ms=plain_ms, device_ms=dev_ms, host_ms=host_ms(kernel, 10),
-                         work=assembly_work(NL, variant is not None),
-                         main=bounds and variant is None))
+                         work=work, bound_share=bound(*work)[0] / dev_ms,
+                         main=n == NL and bounds and variant is None))
+        del got, want
     return rows
 
 
@@ -2266,11 +2279,12 @@ def check_assembly_case_axis(dev, res=BATCH_RE):
         errs = [max_err(g, w) for g, w in zip(got, want)]
         singles = [lambda k=k, args=args: k8_flat(assembly.fused_assembly_pair(
             u[k], v[k], p[k], mu=1.0 / res[k], **args)) for k in range(B)]
-        rows.append(batched_row("fused_assembly_pair_batched", k8, k8_plain, got, singles,
-                                frozen_ok, ok_plain, errs,
-                                assembly_work(NL, variant is not None), B, shape=[NL, NL],
-                                with_bounds=bounds, poisson_variant=variant,
-                                reynolds=list(res), main=bounds))
+        row = batched_row("fused_assembly_pair_batched", k8, k8_plain, got, singles,
+                          frozen_ok, ok_plain, errs, assembly_work(NL, variant is not None), B,
+                          shape=[NL, NL], with_bounds=bounds, poisson_variant=variant,
+                          reynolds=list(res), main=bounds)
+        row["bound_share"] = bound(*row["work"])[0] / row["device_ms"]
+        rows.append(row)
         del got, want, fz
     # K9 on the u and v systems, each case its own coefficients and bounds
     degree = 4
@@ -5745,16 +5759,17 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
     the same states and on the 256^2 cell-centred one (the headline
     configuration), the error of the first output; K4 on the same 63^2 and
     255^2 vertex hierarchies, every output's error; K11a at ``AB_K11A`` and
-    K11b at ``AB_K11B`` (``poisson_system``'s inputs); K8 at 2048^2 with the
-    maxima and with the consistent fold, K9 on that state's u and v systems
-    (degree 4) and K10a / K10b on the 4096^2 planes (1 / 1 sweeps), every
-    output's error (``cavity_fields``, ``plane_inputs``); device, event and
-    host times of each; K6's phase split (``k6_phases``: each body's RAP
-    phase and event ms a step); ``loops``: the single solves of
-    ``ab_loop_runs`` (``ab_loops``).  With ``save``, K1's, K2a's, K2b's,
-    K4's, K5's, K7's, K8's, K9's, K10's and K11's outputs (K4: all nine
-    arrays of every coarse level; K5: p, r, cycles and rel) and the loops'
-    fields go to
+    K11b at ``AB_K11B`` (``poisson_system``'s inputs); K8 at 2048^2 and
+    1024^2 in every form (``K8_FORMS``) and batched at B = 3 (Re
+    ``BATCH_RE``, with the maxima and with the consistent fold), K9 on the
+    2048^2 state's u and v systems (degree 4) and K10a / K10b on the 4096^2
+    planes (1 / 1 sweeps), every output's error (``cavity_fields``,
+    ``plane_inputs``); device, event and host times of each; K6's phase
+    split (``k6_phases``: each body's RAP phase and event ms a step);
+    ``loops``: the single solves of ``ab_loop_runs`` (``ab_loops``).  With
+    ``save``, K1's, K2a's, K2b's, K4's, K5's, K7's, K9's, K10's and K11's
+    outputs (K4: all nine arrays of every coarse level; K5: p, r, cycles
+    and rel), K8's outputs' SHA-256 digests and the loops' fields go to
     ``save/TAG.pt`` for ``ab_compare``.  Run it in turns A, B, B, A, each from a tree's
     root: ``PYTHONPATH=. python3 -P <this file> --ab TAG`` (``-P``: the tree
     on PYTHONPATH, not this file's directory, supplies the package)."""
@@ -5783,6 +5798,18 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
         errs = {k: max_err(g, w)[1] for (k, g), w in zip(tensors.items(), want)}
         if save:
             saved[name] = {k: g.detach().cpu() for k, g in tensors.items()}
+        return errs
+
+    def digests(name, got, want):
+        """``outputs`` for outputs too large to keep a side: each one's
+        SHA-256 (a uint8 tensor) instead of its values."""
+        import hashlib
+
+        errs = {f"out{k}": max_err(g, w)[1] for k, (g, w) in enumerate(zip(got, want))}
+        if save:
+            saved[name] = {f"out{k}": torch.frombuffer(bytearray(hashlib.sha256(
+                g.detach().contiguous().cpu().numpy().tobytes()).digest()), dtype=torch.uint8)
+                for k, g in enumerate(got)}
         return errs
 
     if "K1" in kernels:
@@ -5889,32 +5916,55 @@ def ab_side(dev, tag, kernels=AB_KERNELS, save=None, sizes=(NH, 95, 127, NH_BIG,
                   max_rel_err=max(errs.values()))
     if "K8" in kernels or "K9" in kernels:
         from naviflow_tpu_torch.ops import assembly, cheby
+        from naviflow_tpu_torch.ops.powerlaw import case_conductances
         from naviflow_tpu_torch.ops.stencil import interior_mask
         from naviflow_tpu_torch.solvers.momentum import _chebyshev_bounds
 
-        u, v, p, kw = cavity_fields(NL, dev)
-        for bounds, variant in ((True, None), (False, "consistent")):
-            args = dict(alpha=0.7, with_bounds=bounds, poisson_variant=variant, **kw)
-            got = k8_flat(assembly.fused_assembly_pair(u, v, p, **args))
-            want = k8_flat(assembly.fused_assembly_pair_plain(u, v, p, **args))
-            label = "bounds" if bounds else variant
-            errs = outputs(f"K8_{label}", {f"out{k}": g for k, g in enumerate(got)}, want)
-            if "K8" in kernels:
-                timed(lambda: assembly.fused_assembly_pair(u, v, p, **args), kernel="K8", n=NL,
-                      variant=label, max_rel_err=max(errs.values()))
-            if "K9" in kernels and bounds:
-                for field, x0, k in (("u", u, 0), ("v", v, 2)):
-                    c_un, c_rel = got_c(got, k), got_c(got, k + 1)
-                    sc = _chebyshev_bounds(c_rel, interior_mask(x0.shape, 1, 1, 1, 1,
-                                                                device=dev))
-                    a9 = dict(theta=sc[0], delta=sc[1], sigma1=sc[2], degree=4)
-                    errs9 = outputs(f"K9_{field}", dict(zip(
-                        ("x", "r"), cheby.chebyshev_momentum_strips(x0, c_rel, c_un, **a9))),
-                        cheby.chebyshev_momentum_strips_plain(x0, c_rel, c_un, **a9))
-                    timed(lambda: cheby.chebyshev_momentum_strips(x0, c_rel, c_un, **a9),
-                          kernel="K9", n=NL, field=field, max_rel_err=max(errs9.values()))
-            del got, want
-        del u, v, p
+        for n in (NL, 1024) if "K8" in kernels else (NL,):
+            u, v, p, kw = cavity_fields(n, dev)
+            for bounds, variant in K8_FORMS if "K8" in kernels else ((True, None),):
+                args = dict(alpha=0.7, with_bounds=bounds, poisson_variant=variant, **kw)
+                got = k8_flat(assembly.fused_assembly_pair(u, v, p, **args))
+                want = k8_flat(assembly.fused_assembly_pair_plain(u, v, p, **args))
+                label = f"{'bounds' if bounds else 'none'}_{variant}"
+                errs = digests(f"K8_{n}_{label}", got, want)
+                if "K8" in kernels:
+                    timed(lambda: assembly.fused_assembly_pair(u, v, p, **args), kernel="K8",
+                          n=n, variant=label, max_rel_err=max(errs.values()))
+                if "K9" in kernels and n == NL and bounds and variant is None:
+                    for field, x0, k in (("u", u, 0), ("v", v, 2)):
+                        c_un, c_rel = got_c(got, k), got_c(got, k + 1)
+                        sc = _chebyshev_bounds(c_rel, interior_mask(x0.shape, 1, 1, 1, 1,
+                                                                    device=dev))
+                        a9 = dict(theta=sc[0], delta=sc[1], sigma1=sc[2], degree=4)
+                        errs9 = outputs(f"K9_{field}", dict(zip(
+                            ("x", "r"), cheby.chebyshev_momentum_strips(x0, c_rel, c_un, **a9))),
+                            cheby.chebyshev_momentum_strips_plain(x0, c_rel, c_un, **a9))
+                        timed(lambda: cheby.chebyshev_momentum_strips(x0, c_rel, c_un, **a9),
+                              kernel="K9", n=NL, field=field, max_rel_err=max(errs9.values()))
+                del got, want
+            del u, v, p
+            if "K8" not in kernels:
+                continue
+            # the batched K8 at B = 3 (Re 100 / 400 / 1000, each its own state)
+            states = [cavity_fields(n, dev, seed=SEED + 20 + k) for k in range(len(BATCH_RE))]
+            ub, vb, pb = (torch.stack([st[i] for st in states]) for i in range(3))
+            kw = dict(states[0][3])
+            del kw["mu"], states
+            visc = case_conductances([1.0 / r for r in BATCH_RE], kw["dx"], kw["dy"],
+                                     torch.float32, dev)
+            for bounds, variant in ((True, None), (False, "consistent")):
+                args = dict(alpha=0.7, with_bounds=bounds, poisson_variant=variant, visc=visc,
+                            **kw)
+                got = k8_flat(assembly.fused_assembly_pair_batched(ub, vb, pb, **args))
+                want = k8_flat(assembly.fused_assembly_pair_batched_plain(ub, vb, pb, **args))
+                label = f"{'bounds' if bounds else 'none'}_{variant}"
+                errs = digests(f"K8_batched_{n}_{label}", got, want)
+                timed(lambda: assembly.fused_assembly_pair_batched(ub, vb, pb, **args),
+                      kernel="K8_batched", n=n, cases=len(BATCH_RE), variant=label,
+                      max_rel_err=max(errs.values()))
+                del got, want
+            del ub, vb, pb
     if "K10a" in kernels or "K10b" in kernels:
         from naviflow_tpu_torch.ops import plane_strip
 
@@ -5985,6 +6035,10 @@ def ab_compare(save, tag_a, tag_b):
     for case in sorted(set(a) & set(b)):
         for name, x in a[case].items():
             y = b[case][name]
+            if x.dtype == torch.uint8:  # a digest (ab_side's digests)
+                emit(dict(phase="ab_compare", a=tag_a, b=tag_b, case=case, output=name,
+                          bit_equal=bool(torch.equal(x, y)), digest=True))
+                continue
             bits_x = x.contiguous().view(torch.int32)
             bits_y = y.contiguous().view(torch.int32)
             emit(dict(phase="ab_compare", a=tag_a, b=tag_b, case=case, output=name,
@@ -6096,7 +6150,7 @@ def run_all(dev, card, t0) -> int:
                   **ptxas_kernels("mg.cu", "vcycle_kernel_batched"),
                   **ptxas_kernels("cheby.cu", "cheby_kernel"),
                   **ptxas_kernels("cheby.cu", "cheby_kernel_batched"),
-                  **ptxas_kernels("assembly.cu", "assembly_kernel_batched"),
+                  **ptxas_kernels("assembly.cu", "assembly_kernel"),
                   **ptxas_kernels("plane.cu", "plane_down_kernel_batched"),
                   **ptxas_kernels("plane.cu", "plane_up_kernel_batched"),
                   **ptxas_kernels("mg.cu", "galerkin_kernel"),

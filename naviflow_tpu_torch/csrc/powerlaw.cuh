@@ -1,9 +1,10 @@
 // Power-law momentum coefficients of one staggered face, from global
 // indices (ops/powerlaw.py, face by face).  Shared by K1 (asmcheby.cuh), K6
-// (step.cu) and K8 (assembly.cu).  `Prm` is the kernel's parameter struct; it must hold the
-// BC-applied fields u (nx+1, ny), v (nx, ny+1), p (nx, ny), the sizes nx,
-// ny, and the scalars cFu = 0.5 rho dy, cFv = 0.5 rho dx, De = mu dy / dx,
-// Dn = mu dx / dy, dx, dy and alpha.
+// (step.cu) and K8 (assembly.cu).  `Prm` is the kernel's parameter struct
+// (or a per-case view of it); it must hold the BC-applied fields u
+// (nx+1, ny), v (nx, ny+1), p (nx, ny), the sizes nx, ny, and the scalars
+// cFu = 0.5 rho dy, cFv = 0.5 rho dx, De = mu dy / dx, Dn = mu dx / dy,
+// dx, dy and alpha.
 #pragma once
 
 #include "common.cuh"
@@ -83,45 +84,54 @@ __device__ Coef v_coef(const Prm& P, int i, int j) {
   return c;
 }
 
-// K1's assembly in two passes.  The west flux of face (i + 1, j) and the
-// east flux of face (i, j) are the same sum of the same two velocities
-// (added in either order, which IEEE addition does not see), and so are
-// the south flux of (i, j + 1) and the north flux of (i, j); their
-// power-law terms D A(F) are then the same too.  So each face computes its
-// east and north terms once (face_flux), and u_coef_flux / v_coef_flux
-// take the west and south ones from the neighbours: the coefficients are
-// u_coef's and v_coef's bit for bit, with half the divisions and loads.
+// The assembly of K1 and K8 with shared fluxes.  The west flux of face
+// (i + 1, j) and the east flux of face (i, j) are the same sum of the same
+// two velocities (added in either order, which IEEE addition does not
+// see), and so are the south flux of (i, j + 1) and the north flux of
+// (i, j); their power-law terms D A(F) are then the same too.  So each face
+// computes its east and north terms once (face_flux, or flux_east /
+// flux_north alone), and u_coef_flux / v_coef_flux take the west and south
+// ones from the neighbours: the coefficients are u_coef's and v_coef's bit
+// for bit, with half the divisions and loads.
 struct FaceFlux {
   float Fe, DAe, Fn, DAn;  // the east and north flux and D A(F) (0 where not defined)
 };
 
-// The east and north terms of u face (i, j) (IS_U) or v face (i, j), as
-// u_coef / v_coef compute them for the face or for its east / north
-// neighbour's west / south side.
+struct Flux {
+  float F, DA;  // a side's flux and D A(F) (0 where not defined)
+};
+
+// The east terms of u face (i, j) (IS_U) or v face (i, j), as u_coef /
+// v_coef compute them for the face or for its east neighbour's west side.
 template <bool IS_U, class Prm>
-__device__ __forceinline__ FaceFlux face_flux(const Prm& P, int i, int j) {
-  FaceFlux f = {0.f, 0.f, 0.f, 0.f};
-  const int nx = P.nx, ny = P.ny;
-  if (IS_U) {
-    if (i < nx) {
-      f.Fe = P.cFu * (U(P, i + 1, j) + U(P, i, j));
-      f.DAe = P.De * power_law_A(f.Fe, P.De);
-    }
-    if (i >= 1 && i <= nx - 1 && j < ny - 1) {
-      f.Fn = P.cFv * (V(P, i, j + 1) + V(P, i - 1, j + 1));
-      f.DAn = P.Dn * power_law_A(f.Fn, P.Dn);
-    }
-  } else {
-    if (i < nx - 1 && j >= 1 && j <= ny - 1) {
-      f.Fe = P.cFu * (U(P, i + 1, j) + U(P, i + 1, j - 1));
-      f.DAe = P.De * power_law_A(f.Fe, P.De);
-    }
-    if (j <= ny - 1) {
-      f.Fn = P.cFv * (V(P, i, j) + V(P, i, j + 1));
-      f.DAn = P.Dn * power_law_A(f.Fn, P.Dn);
-    }
+__device__ __forceinline__ Flux flux_east(const Prm& P, int i, int j) {
+  Flux f = {0.f, 0.f};
+  if (IS_U ? i < P.nx : (i < P.nx - 1 && j >= 1 && j <= P.ny - 1)) {
+    if constexpr (IS_U) f.F = P.cFu * (U(P, i + 1, j) + U(P, i, j));
+    else f.F = P.cFu * (U(P, i + 1, j) + U(P, i + 1, j - 1));
+    f.DA = P.De * power_law_A(f.F, P.De);
   }
   return f;
+}
+
+// The north terms of the face, as u_coef / v_coef compute them for the
+// face or for its north neighbour's south side.
+template <bool IS_U, class Prm>
+__device__ __forceinline__ Flux flux_north(const Prm& P, int i, int j) {
+  Flux f = {0.f, 0.f};
+  if (IS_U ? (i >= 1 && i <= P.nx - 1 && j < P.ny - 1) : j <= P.ny - 1) {
+    if constexpr (IS_U) f.F = P.cFv * (V(P, i, j + 1) + V(P, i - 1, j + 1));
+    else f.F = P.cFv * (V(P, i, j) + V(P, i, j + 1));
+    f.DA = P.Dn * power_law_A(f.F, P.Dn);
+  }
+  return f;
+}
+
+// Both: the face's east and north terms.
+template <bool IS_U, class Prm>
+__device__ __forceinline__ FaceFlux face_flux(const Prm& P, int i, int j) {
+  const Flux e = flux_east<IS_U>(P, i, j), n = flux_north<IS_U>(P, i, j);
+  return {e.F, e.DA, n.F, n.DA};
 }
 
 // u_coef from the face's own terms `o` and the west neighbour's east
@@ -180,68 +190,21 @@ __device__ __forceinline__ float relax_ap(const Prm& P, float ap) {
   return (fabsf(ap) > 1e-12f ? ap : 1e-12f) / P.alpha;
 }
 
-// ops/powerlaw.d_coefficient, with the consistent-variant face masks of
-// ops/poisson.poisson_coefficients folded in when `consistent`
-template <class Prm>
-__device__ float d_u_face(const Prm& P, int i, int j, bool consistent) {
-  if (i < 1 || i > P.nx - 1) return 0.f;
-  if (consistent && (j < 1 || j > P.ny - 2)) return 0.f;
-  const float ap = relax_ap(P, u_coef(P, i, j).ap);
-  return fabsf(ap) > 1e-12f ? P.dy / ap : 0.f;
-}
-
-template <class Prm>
-__device__ float d_v_face(const Prm& P, int i, int j, bool consistent) {
-  if (j < 1 || j > P.ny - 1) return 0.f;
-  if (consistent && (i < 1 || i > P.nx - 2)) return 0.f;
-  const float ap = relax_ap(P, v_coef(P, i, j).ap);
-  return fabsf(ap) > 1e-12f ? P.dx / ap : 0.f;
-}
-
-// ops/poisson.poisson_coefficients of cell (i, j), its four d faces
-// recomputed from the coefficients; variant 0 consistent, 1 symmetric,
-// 2 reference.  Writes a_e, a_w, a_n, a_s, diag at index k of pc[0..4].
-// Needs P.rho besides the fields above.  Shared by K1 and K8.
-template <class Prm>
-__device__ void pressure_cell_from_faces(const Prm& P, int variant, int i, int j,
-                                         float* const* pc, int64_t k) {
-  const int nx = P.nx, ny = P.ny;
-  const bool consistent = variant == 0;
-  float ae = (i < nx - 1) ? P.rho * d_u_face(P, i + 1, j, consistent) * P.dy : 0.f;
-  float aw = (i > 0) ? P.rho * d_u_face(P, i, j, consistent) * P.dy : 0.f;
-  float an = (j < ny - 1) ? P.rho * d_v_face(P, i, j + 1, consistent) * P.dx : 0.f;
-  float as = (j > 0) ? P.rho * d_v_face(P, i, j, consistent) * P.dx : 0.f;
-  float dg = 0.f;
-  if (variant == 2) {  // 'reference' boundary fold
-    if (i == 0) dg = dg + ae;
-    if (i == nx - 1) dg = dg + aw;
-    if (j == 0) dg = dg + an;
-    if (j == ny - 1) dg = dg + as;
-    if (i == 0) ae = 0.f;
-    if (i == nx - 1) aw = 0.f;
-    if (j == 0) an = 0.f;
-    if (j == ny - 1) as = 0.f;
-  }
-  pc[0][k] = ae;
-  pc[1][k] = aw;
-  pc[2][k] = an;
-  pc[3][k] = as;
-  pc[4][k] = dg + ae + aw + an + as;
-}
-
-// pressure_cell_from_faces with the four faces' d given (d_u of faces
-// (i, j) and (i + 1, j), d_v of faces (i, j) and (i, j + 1), each as
-// ops/powerlaw.d_coefficient gives it): the same operations, the same
-// consistent-variant face masks and the same folds.  K1 keeps d of its
-// tile's faces and calls this instead of re-assembling them.
+// ops/poisson.poisson_coefficients of cell (i, j) from the d of its four
+// faces (d_u of faces (i, j) and (i + 1, j), d_v of faces (i, j) and
+// (i, j + 1), each as ops/powerlaw.d_coefficient gives it); variant 0
+// consistent (its face masks applied here), 1 symmetric, 2 reference.
+// Writes a_e, a_w, a_n, a_s, diag at index k of pc[0..4].  Needs P.rho
+// besides the fields above.  K1 and K8 keep d of their faces and call it,
+// so no coefficient set is rebuilt for the operator.
 template <class Prm>
 __device__ __forceinline__ void pressure_cell_from_d(const Prm& P, int variant, int i, int j,
                                                      float du_w, float du_e, float dv_s,
                                                      float dv_n, float* const* pc, int64_t k) {
   const int nx = P.nx, ny = P.ny;
   const bool consistent = variant == 0;
-  const bool j_out = consistent && (j < 1 || j > ny - 2);  // d_u_face's mask
-  const bool i_out = consistent && (i < 1 || i > nx - 2);  // d_v_face's mask
+  const bool j_out = consistent && (j < 1 || j > ny - 2);  // the u faces' mask
+  const bool i_out = consistent && (i < 1 || i > nx - 2);  // the v faces' mask
   float ae = (i < nx - 1) ? P.rho * (j_out ? 0.f : du_e) * P.dy : 0.f;
   float aw = (i > 0) ? P.rho * (j_out ? 0.f : du_w) * P.dy : 0.f;
   float an = (j < ny - 1) ? P.rho * (i_out ? 0.f : dv_n) * P.dx : 0.f;

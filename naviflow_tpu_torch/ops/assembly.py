@@ -12,12 +12,14 @@ where the large-grid momentum solves do not go through the merged kernel K1
 
 On a CPU tensor :func:`fused_assembly_pair` runs
 :func:`fused_assembly_pair_plain`, the composed PyTorch version; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises.  A launch allocates one buffer
+for all its outputs (:func:`output_layout`) and runs no other PyTorch
+operator: the Gershgorin maxima come out of the kernel.
 
 The case axis (:func:`fused_assembly_pair_batched`): B cases of one shape
-in one launch, the grid's y axis over the cases, each case with its own
-fields and conductance row (``powerlaw.case_conductances``), each bit-equal
-to its single launch.  Under ``torch.func.vmap`` (alone)
+in one launch, the persistent blocks walking (case, tile) items, each case
+with its own fields and conductance row (``powerlaw.case_conductances``),
+each bit-equal to its single launch.  Under ``torch.func.vmap`` (alone)
 :func:`fused_assembly_pair` is its batching rule's entry.
 """
 
@@ -41,8 +43,8 @@ from .stencil import StencilCoeffs
 _PAD = 16
 _CAP_CELLS_FOLDED = 280 * 1024
 
-_THREADS = 256  # csrc/assembly.cu THREADS
 _VARIANTS = {"consistent": 0, "symmetric": 1, "reference": 2}
+_ALIGN = 64  # floats: every output starts on a 256-byte boundary of the one buffer
 
 LAUNCHES = 0  # kernel launches since the last reset (the CPU path never counts)
 BATCH_LAUNCHES = 0  # the batched entry's
@@ -94,6 +96,87 @@ def fused_assembly_pair_plain(u, v, p, *, dx, dy, rho, mu, alpha, with_bounds=Fa
     return _result(cu_un, cu_rel, cv_un, cv_rel, rho_u, rho_v, fold, with_bounds)
 
 
+def output_groups(nx: int, ny: int, fold: bool):
+    """The one output buffer's groups, ``[(offset, count, shape, pitch)]``:
+    the u arrays (the eight coefficient arrays, then with the fold d_u),
+    the v arrays (likewise d_v), with the fold the pressure operator's five,
+    then the two maxima; each array on a 256-byte boundary, the arrays of a
+    group ``pitch`` floats apart.  The buffer's length in floats last."""
+    u, v, c = (nx + 1, ny), (nx, ny + 1), (nx, ny)
+    groups, off = [], 0
+    for count, shape in ((8 + fold, u), (8 + fold, v), (5 * fold, c), (1, (2,))):
+        if count:
+            pitch = -(-math.prod(shape) // _ALIGN) * _ALIGN
+            groups.append((off, count, shape, pitch))
+            off += count * pitch
+    return groups, off
+
+
+def output_layout(nx: int, ny: int, fold: bool):
+    """``[(offset, shape)]`` of each output in the C entry's slot order
+    (the 16 coefficient arrays, the maxima pair, with the fold d_u, d_v and
+    the operator's five arrays), as :func:`output_groups` lays them out;
+    the buffer's length in floats last."""
+    groups, total = output_groups(nx, ny, fold)
+
+    def at(g, k):
+        off, _, shape, pitch = groups[g]
+        return off + k * pitch, shape
+
+    slots = [at(0, k) for k in range(8)] + [at(1, k) for k in range(8)] + [at(-1, 0)]
+    if fold:
+        slots += [at(0, 8), at(1, 8)] + [at(2, k) for k in range(5)]
+    return slots, total
+
+
+def _outputs(buf, groups, cases=None):
+    """The views of one buffer (``cases``: a buffer of case layouts, the case
+    axis first): the u arrays, the v arrays, with the fold the operator's
+    five, and the maxima pair, each group in one ``as_strided`` and
+    ``unbind``."""
+    lead, step = ((), ()) if cases is None else ((cases,), (buf.shape[1],))
+    out = []
+    for off, count, shape, pitch in groups:
+        if shape == (2,):
+            out.append(buf.as_strided((*lead, 2), (*step, 1), off).unbind(-1))
+        else:
+            out.append(buf.as_strided((*lead, count, *shape), (*step, pitch, shape[1], 1),
+                                      off).unbind(len(lead)))
+    return out
+
+
+def _result_of(outs, with_bounds, fold):
+    """:func:`fused_assembly_pair`'s result from :func:`_outputs`' views (the
+    relaxed sets share the unrelaxed links)."""
+    ua, va, *rest = outs
+    rho_u = rho_v = pc = None
+    if with_bounds:
+        rho_u, rho_v = rest[-1]
+    if fold:
+        pc = (ua[8], va[8], PoissonCoeffs(*rest[0]))
+    return _result(StencilCoeffs(*ua[:6]), StencilCoeffs(*ua[:4], ua[6], ua[7]),
+                   StencilCoeffs(*va[:6]), StencilCoeffs(*va[:4], va[6], va[7]),
+                   rho_u, rho_v, pc, with_bounds)
+
+
+class _Launch:
+    """The host arrays of one (device, stream, shape, variant, bounds,
+    physics) launch: the pointer slots (u, v, p and the outputs refilled
+    per call), the integer and float parameters, the output groups and the
+    slots' offsets in bytes."""
+
+    def __init__(self, nx, ny, variant, bounds, floats):
+        self.groups, self.total = output_groups(nx, ny, variant >= 0)
+        layout, _ = output_layout(nx, ny, variant >= 0)
+        self.offsets = [4 * off for off, _ in layout]
+        self.ptrs = (ctypes.c_longlong * (3 + len(layout)))()
+        self.ip = (ctypes.c_int * 4)(nx, ny, variant, int(bounds))
+        self.fp = (ctypes.c_float * 9)(*floats)
+
+
+_LAUNCH = {}
+
+
 def fused_assembly_pair(u, v, p, *, dx, dy, rho, mu, alpha, with_bounds=False,
                         poisson_variant=None):
     """Both momentum fields' (unrelaxed, relaxed) coefficient sets in one
@@ -102,8 +185,9 @@ def fused_assembly_pair(u, v, p, *, dx, dy, rho, mu, alpha, with_bounds=False,
     sharing the unrelaxed links), then ``(rho_u, rho_v)`` (0-d tensors, the
     masked Gershgorin ratio maxima of the relaxed systems) when
     ``with_bounds``, then ``(d_u, d_v, pc)`` when ``poisson_variant`` is
-    set ('consistent', 'symmetric' or 'reference').  ``mu`` is a number or
-    (the vmapped batch step) one case's conductance row
+    set ('consistent', 'symmetric' or 'reference').  On the card every
+    output is a view of one fresh buffer.  ``mu`` is a number or (the
+    vmapped batch step) one case's conductance row
     (``powerlaw.case_conductances``); under ``torch.func.vmap`` the call is
     :class:`_AssemblyCases`' batching rule's."""
     global LAUNCHES
@@ -121,45 +205,32 @@ def fused_assembly_pair(u, v, p, *, dx, dy, rho, mu, alpha, with_bounds=False,
                                          poisson_variant=poisson_variant)
     nxp1, ny = u.shape
     nx = nxp1 - 1
-    _cuda.require(u, (nx + 1, ny), "u")
-    _cuda.require(v, (nx, ny + 1), "v")
-    _cuda.require(p, (nx, ny), "p")
-    dev = u.device
-    stream = _cuda.stream_of(u)  # raises under a transform, before a pointer is read
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    blocks = -(-max((nx + 1) * ny, nx * (ny + 1)) // _THREADS)
-    cu = [empty(nx + 1, ny) for _ in range(8)]
-    cv = [empty(nx, ny + 1) for _ in range(8)]
-    gmax = [empty(blocks), empty(blocks)]
-    outs = cu + cv + gmax
-    fold = None
-    if poisson_variant is not None:
-        fold = [empty(nx + 1, ny), empty(nx, ny + 1)] + [empty(nx, ny) for _ in range(5)]
-        outs += fold
-    ptrs = [u.data_ptr(), v.data_ptr(), p.data_ptr()] + [t.data_ptr() for t in outs]
-    ip = [nx, ny, _VARIANTS[poisson_variant] if poisson_variant is not None else -1, blocks]
-    fp = _floats(dx, dy, rho, mu, alpha)
-    _cuda.check(_cuda.library().nf_fused_assembly_pair(
-        (ctypes.c_longlong * len(ptrs))(*ptrs), (ctypes.c_int * len(ip))(*ip),
-        (ctypes.c_float * len(fp))(*fp), stream), "fused_assembly_pair")
+    _cuda.require_all((u,), (nx + 1, ny), "u")
+    _cuda.require_all((v,), (nx, ny + 1), "v")
+    _cuda.require_all((p,), (nx, ny), "p")
+    dev, stream = u.device, _cuda.stream_of(u)  # raises under a transform
+    variant = _VARIANTS[poisson_variant] if poisson_variant is not None else -1
+    floats = _floats(dx, dy, rho, mu, alpha)
+    key = (dev, stream, nx, ny, variant, bool(with_bounds), floats)
+    st = _LAUNCH.get(key)
+    if st is None:
+        if len(_LAUNCH) >= 32:
+            _LAUNCH.clear()
+        st = _LAUNCH[key] = _Launch(nx, ny, variant, with_bounds, floats)
+    buf = torch.empty(st.total, dtype=torch.float32, device=dev)  # every output
+    base = buf.data_ptr()
+    ptrs = st.ptrs
+    ptrs[:3] = [u.data_ptr(), v.data_ptr(), p.data_ptr()]
+    ptrs[3:] = [base + off for off in st.offsets]
+    _cuda.check(_cuda.library().nf_fused_assembly_pair(ptrs, st.ip, st.fp, stream),
+                "fused_assembly_pair")
     LAUNCHES += 1
-    cu_un = StencilCoeffs(a_e=cu[0], a_w=cu[1], a_n=cu[2], a_s=cu[3], a_p=cu[4], src=cu[5])
-    cv_un = StencilCoeffs(a_e=cv[0], a_w=cv[1], a_n=cv[2], a_s=cv[3], a_p=cv[4], src=cv[5])
-    cu_rel = cu_un.replace(a_p=cu[6], src=cu[7])
-    cv_rel = cv_un.replace(a_p=cv[6], src=cv[7])
-    if fold is not None:
-        d_u, d_v, pe, pw, pn, ps, pdiag = fold
-        fold = (d_u, d_v, PoissonCoeffs(a_e=pe, a_w=pw, a_n=pn, a_s=ps, diag=pdiag))
-    rho_u, rho_v = (torch.max(gmax[0]), torch.max(gmax[1])) if with_bounds else (None, None)
-    return _result(cu_un, cu_rel, cv_un, cv_rel, rho_u, rho_v, fold, with_bounds)
+    return _result_of(_outputs(buf, st.groups), with_bounds, variant >= 0)
 
 
 # ---------------------------------------------------------------------------
-# The case axis: B cases of one shape in one launch (grid y over the
-# cases), each case bit-equal to its single launch.
+# The case axis: B cases of one shape in one launch (the persistent blocks
+# walk (case, tile) items), each case bit-equal to its single launch.
 
 _COEF = ("a_e", "a_w", "a_n", "a_s", "a_p", "src")
 
@@ -217,38 +288,20 @@ def fused_assembly_pair_batched_plain(u, v, p, *, dx, dy, rho, visc, alpha, with
                       poisson_variant)
 
 
-def batch_layout(nx: int, ny: int, blocks: int, fold: bool):
-    """``[(offset, shape)]`` of each output of one case in the batched
-    entry's buffer, in the C entry's slot order (16 coefficient arrays, the
-    two Gershgorin partials of ``blocks`` floats, with the fold d_u, d_v and
-    the operator's five arrays), each on a 256-byte boundary; the case's
-    length (the case stride in floats) last."""
-    u, v, c = (nx + 1, ny), (nx, ny + 1), (nx, ny)
-    shapes = [u] * 8 + [v] * 8 + [(blocks,)] * 2 + ([u, v] + [c] * 5 if fold else [])
-    out, off = [], 0
-    for shape in shapes:
-        out.append((off, shape))
-        off += -(-math.prod(shape) // 64) * 64
-    return out, off
-
-
-class _BatchLaunch:
+class _BatchLaunch(_Launch):
     """The batched entry's host arrays for one (device, stream, cases,
-    shape, variant, physics): the pointer slots (the single entry's, the
-    conductances, the active flags, then each slot's case stride; the
-    outputs' strides filled once), the parameters with the case count, the
-    output layout of one case, and the flags of a batch with no frozen
-    case."""
+    shape, variant, bounds, physics): :class:`_Launch`'s for one case, the
+    pointer slots grown by the conductances, the active flags and each
+    slot's case stride (the outputs' filled once), the case count after the
+    parameters, and the flags of a batch with no frozen case."""
 
-    def __init__(self, nx, ny, variant, floats, cases, dev):
-        blocks = -(-max((nx + 1) * ny, nx * (ny + 1)) // _THREADS)
-        self.layout, self.total = batch_layout(nx, ny, blocks, variant >= 0)
-        self.n = 3 + len(self.layout)
+    def __init__(self, nx, ny, variant, bounds, floats, cases, dev):
+        super().__init__(nx, ny, variant, bounds, floats)
+        self.n = len(self.ptrs)
         self.half = self.n + 2
         self.ptrs = (ctypes.c_longlong * (2 * self.half))()
-        self.ptrs[self.half + 3:self.half + self.n] = [4 * self.total] * len(self.layout)
-        self.ip = (ctypes.c_int * 5)(nx, ny, variant, blocks, cases)
-        self.fp = (ctypes.c_float * 9)(*floats)
+        self.ptrs[self.half + 3:self.half + self.n] = [4 * self.total] * (self.n - 3)
+        self.ip = (ctypes.c_int * 5)(*self.ip, cases)
         self.ones = torch.ones(cases, dtype=torch.bool, device=dev)
 
 
@@ -263,7 +316,7 @@ def fused_assembly_pair_batched(u, v, p, *, dx, dy, rho, visc, alpha, with_bound
     case's conductances (``powerlaw.case_conductances``), ``active`` (B,)
     bool: a frozen case gets zeros in every output (None: every case
     active).  Returns the single call's outputs with the case axis first
-    (the maxima (B,)), views of one fresh buffer."""
+    (the maxima (B,)), views of one fresh buffer of case layouts."""
     global BATCH_LAUNCHES
     if poisson_variant is not None and poisson_variant not in _VARIANTS:
         raise ValueError(f"Unknown poisson operator variant: {poisson_variant}")
@@ -277,28 +330,23 @@ def fused_assembly_pair_batched(u, v, p, *, dx, dy, rho, visc, alpha, with_bound
     dev, stream = u.device, _cuda.stream_of(u)
     variant = _VARIANTS[poisson_variant] if poisson_variant is not None else -1
     floats = _floats(dx, dy, rho, 0.0, alpha)
-    key = (dev, stream, cases, nx, ny, variant, floats)
+    key = (dev, stream, cases, nx, ny, variant, bool(with_bounds), floats)
     st = _BATCH.get(key)
     if st is None:
         if len(_BATCH) >= 32:
             _BATCH.clear()
-        st = _BATCH[key] = _BatchLaunch(nx, ny, variant, floats, cases, dev)
+        st = _BATCH[key] = _BatchLaunch(nx, ny, variant, with_bounds, floats, cases, dev)
     ptrs, half, n = st.ptrs, st.half, st.n
     _cuda.case_slots(st, [([u], (nx + 1, ny)), ([v], (nx, ny + 1)), ([p], (nx, ny))], active,
                      cases, "fused_assembly_pair")
     buf = torch.empty((cases, st.total), dtype=f32, device=dev)  # every output
     base = buf.data_ptr()
-    ptrs[3:n] = [base + 4 * off for off, _ in st.layout]
+    ptrs[3:n] = [base + off for off in st.offsets]
     ptrs[n], ptrs[half + n] = visc.data_ptr(), _cuda.case_stride(visc, cases, (4,), f32, "visc")
     _cuda.check(_cuda.library().nf_fused_assembly_pair_batched(ptrs, st.ip, st.fp, stream),
                 "fused_assembly_pair_batched")
     BATCH_LAUNCHES += 1
-    outs = [buf.as_strided((cases, *shape), (st.total, *_cuda._contiguous(shape)), off)
-            for off, shape in st.layout]
-    flat = outs[:16]
-    if with_bounds:  # each case's maxima over its blocks' partials
-        flat += [torch.amax(outs[16], dim=1), torch.amax(outs[17], dim=1)]
-    return _unflatten(tuple(flat + outs[18:]), with_bounds, poisson_variant)
+    return _result_of(_outputs(buf, st.groups, cases), with_bounds, variant >= 0)
 
 
 class _AssemblyCases(torch.autograd.Function):

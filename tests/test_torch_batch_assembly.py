@@ -231,33 +231,42 @@ def recorder(monkeypatch):
 @pytest.mark.parametrize("variant", [None, "consistent"])
 def test_k8_batched_slots_match_c_entry(recorder, variant):
     """``nf_fused_assembly_pair_batched`` reads the single entry's slots for
-    case 0 (``read_assembly``, the single entry's own reader: 21, 28 with
+    case 0 (``read_assembly``, the single entry's own reader: 20, 27 with
     the fold), the conductances and the active flags, then the strides of
-    all n + 2; B after the four integers; the grid's y axis is the cases,
-    each CTA's view moving every pointer by its stride and taking De and Dn
-    from its conductance row, and walking its case's blocks of faces (a
-    Gershgorin partial each, as the single launch's blocks).  The wrapper: u, v, p by address and
-    stride (0: shared), every output in one buffer of B case layouts (each
-    on a 256-byte boundary, stride one layout), the maxima reduced per
-    case over its blocks' partials; its host arrays kept across calls."""
+    all n + 2 (the outputs' one stride: one buffer of case layouts); B
+    after the four integers; the persistent blocks walk (case, tile) items,
+    each item's view moving u, v, p and the outputs by their strides, De
+    and Dn from the case's conductance row read when the walk enters it, a
+    frozen case's tiles writing zeros; the entry launches the cases in
+    chunks that keep every output index below 2^31.  The wrapper: u, v, p by address and stride (0: shared),
+    every output in one buffer of B case layouts (each on a 256-byte
+    boundary, stride one layout), the maxima each case's pair from the
+    kernel; its host arrays kept across calls."""
     src = _src("assembly.cu")
     entry = _body(src, "NF_EXPORT int nf_fused_assembly_pair_batched(")
-    assert "const int n = read_assembly(ptrs, ip, fp, SB.P);" in entry
-    assert "const int half = n + 2;" in entry
-    assert "read_assembly(ptrs + half, ip, fp, SB.S);" in entry
-    assert "SB.visc = reinterpret_cast<const float*>(ptrs[n]);" in entry
-    assert "SB.active = reinterpret_cast<const bool*>(ptrs[n + 1]);" in entry
-    assert "const int cases = ip[4], blocks = ip[3];" in entry
-    kernel = _body(src, "assembly_kernel_batched(AsmBatch SB, int blocks) {")
-    assert "for (int bx = blockIdx.x; bx < blocks; bx += gridDim.x) {" in kernel
-    assert "assembly_block(P, bx);" in kernel and "assembly_frozen(P, bx);" in kernel
-    assert "read_assembly(ptrs, ip, fp, P);" in _body(src, "NF_EXPORT int nf_fused_assembly_pair(")
-    case = _body(src, "__device__ __forceinline__ void asm_case(")
-    assert "P.De = visc[0];" in case and "P.Dn = visc[1];" in case
-    for field in ("P.u, SB.S.u", "P.cu[a], SB.S.cu[a]", "P.cv[a], SB.S.cv[a]",
-                  "P.gmax_u, SB.S.gmax_u", "P.pc[a], SB.S.pc[a]", "P.d_v, SB.S.d_v"):
-        assert f"nf_case_shift({field}, b);" in case
-    assert "asm_case(SB, (int)blockIdx.y, P, on)" in src
+    assert "const int n = read_assembly(ptrs, ip, fp, P);" in entry
+    assert "const long long* S = ptrs + n + 2;" in entry
+    assert "reinterpret_cast<const float*>(ptrs[n]), S[n]," in entry
+    assert "reinterpret_cast<const bool*>(ptrs[n + 1]), S[n + 1], ip[4]};" in entry
+    assert "if (S[k] != B.so) return (int)cudaErrorInvalidValue;" in entry
+    assert "return launch<true>(P, B, ip[3] != 0, (cudaStream_t)stream);" in entry
+    single = _body(src, "NF_EXPORT int nf_fused_assembly_pair(")
+    assert "read_assembly(ptrs, ip, fp, P);" in single
+    assert "return launch<false>(P, AsmCases{}, ip[3] != 0, (cudaStream_t)stream);" in single
+    kernel = _body(src, "    assembly_kernel(AsmParams P, AsmCases B) {")
+    assert "for (int t = blockIdx.x; t < items; t += gridDim.x) {" in kernel
+    assert "const int b = CASES ? t / P.tiles : 0;" in kernel
+    for line in ("de = visc[0];", "dn = visc[1];", "on = *shifted(B.active, B.sactive, b);",
+                 "const View w = view_of<CASES>(P, B, b, de, dn);",
+                 "const int ob = b * (int)(B.so / 4);",
+                 "if (BOUNDS && cur >= 0 && on) fold_gmax(shifted(P.gmax, B.so, cur), gu, gv);",
+                 "if (CASES && !on) strip<FOLD, BOUNDS, true>(P, w, ob, i0, j0, gu, gv, halo);"):
+        assert line in kernel, line
+    view = _body(src, "__device__ __forceinline__ View view_of(")
+    for line in ("shifted(P.u, B.su, b)", "shifted(P.v, B.sv, b)", "shifted(P.p, B.sp, b)"):
+        assert line in view, line
+    launch = _body(src, "int launch(AsmParams P, AsmCases B, bool bounds, cudaStream_t s) {")
+    assert "C.cases = (int)(cases - c0 < chunk ? cases - c0 : chunk);" in launch
     cases, n = 3, 64
     u, v = torch.zeros(cases, n + 1, n), torch.zeros(cases, n, n + 1)
     p = torch.zeros(n, n).expand(cases, n, n)
@@ -268,15 +277,14 @@ def test_k8_batched_slots_match_c_entry(recorder, variant):
     assembly.fused_assembly_pair_batched(u, v, p, active=torch.tensor([True, False, True]),
                                          **args)
     (e1, p1, ip1, fp1, s1), (_, p2, _, _, _) = recorder.calls
-    slots = 28 if variant else 21
+    slots = 27 if variant else 20
     half = slots + 2
-    blocks = -(-(n + 1) * n // 256)
     assert e1 == "nf_fused_assembly_pair_batched" and s1 == 7 and len(p1) == 2 * half
-    assert ip1 == [n, n, 0 if variant else -1, blocks, cases]
+    assert ip1 == [n, n, 0 if variant else -1, 1, cases]
     assert fp1[2:4] == [0.0, 0.0] and fp1[:2] == pytest.approx([0.05, 0.05])
     assert p1[:3] == [u.data_ptr(), v.data_ptr(), p.data_ptr()]
     assert p1[half:half + 3] == [4 * (n + 1) * n, 4 * n * (n + 1), 0]
-    layout, total = assembly.batch_layout(n, n, blocks, variant is not None)
+    layout, total = assembly.output_layout(n, n, variant is not None)
     assert len(layout) == slots - 3 and total % 64 == 0
     flat = assembly._flat(out, True, variant)
     assert p1[3:slots] == [flat[0].data_ptr() + 4 * off for off, _ in layout]
@@ -285,7 +293,9 @@ def test_k8_batched_slots_match_c_entry(recorder, variant):
     assert p1[slots] == visc.data_ptr() and p1[half + slots] == 16
     assert p1[slots + 1] != p2[slots + 1] and p1[half + slots + 1] == 1
     assert tuple(flat[0].shape) == (cases, n + 1, n) and flat[0].stride(0) == total
-    assert tuple(flat[16].shape) == (cases,)
+    assert tuple(flat[16].shape) == (cases,) and flat[16].stride(0) == total
+    assert flat[17].data_ptr() == flat[16].data_ptr() + 4
+    assert flat[16].data_ptr() == flat[0].data_ptr() + 4 * layout[16][0]
     assert len(assembly._BATCH) == 1 and assembly.BATCH_LAUNCHES == 2
 
 
