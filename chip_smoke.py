@@ -133,13 +133,15 @@ result line:
     baseline under the 'fused', 'host' and 'chunked:7' loops; the momentum
     solvers (20 steps, Gauss-Seidel multigrid pressure) red-black GS, GMRES
     and IDR(s), and (63^2) QUICK through GMRES: each card run within 1e-3
-    of the same run on the CPU in float64; no K2, K3, K5 or K6 launch off the
+    of the same run on the CPU in float64 (computed in a spawned process,
+    which ``main`` starts right after the build, beside the newton phase's
+    reference); no K2, K3, K5 or K6 launch off the
     Gauss-Seidel multigrid, at least one on it; then SIMPLE at 1024^2 with
     red-black GS momentum and bench.py's large-grid pressure, 10 steps:
     K8 a step, a K2 pair per peeled level and one K3 a step, every step
     within 1e-3 of the same run with composed pressure;
 13. the 9-point QUICK path (``run_quick``): ``benchmarks/scale_runs.py``'s
-    511^2 QUICK configuration at Re=1000, 40 steps from rest, with the
+    511^2 QUICK configuration at Re=1000, 20 steps from rest, with the
     kernels and composed: launches exactly what the gates admit (K4 a step,
     K3 a V-cycle; none of K1, K6, K7, K8, K9, which refuse 9-point
     momentum); every step's residual and the u, v, p fields within 1e-3 of
@@ -189,9 +191,9 @@ result line:
     over 2 lockstep steps; and the even 256^2 8-case sweep, 10 steps, one
     batched K5 a step (K5 takes that whole hierarchy), each case held the
     same way; then ``batch_assembly`` (``run_batch_assembly``): SIMPLEC,
-    PISO and SIMPLER at 2048^2 with the large-grid configuration (6
+    PISO and SIMPLER at 2048^2 with the large-grid configuration (4
     lockstep steps), ``large_grid_3`` in the plane layout at 4096^2 (3) and
-    SIMPLE with red-black GS momentum at 1024^2 (6), each over Re 100 / 400
+    SIMPLE with red-black GS momentum at 1024^2 (4), each over Re 100 / 400
     / 1000 through the even arm's K8, K9 and K10: launches exact (the
     batched K8, K9, K10a, K10b, K1, K2a, K2b and K3 of ``run_large_grid`` /
     ``run_plane`` a step, nothing else, no per-case step), each case held
@@ -199,7 +201,32 @@ result line:
     (SIMPLEC: equal alpha_p backoffs), the neighbour-Re control failing
     that, ms a lockstep step at B = 1 and 3 beside the single solves, the
     idle share over 2 lockstep steps at 2048^2 and 4096^2;
-17. Newton-Krylov (``run_newton``): ``benchmarks/scale_runs.py``'s QUICK
+17. the loops batch (``run_batch_loops``): the command line's default
+    ``sweep --vmap`` at 256^2 and 1024^2, ``bench.py``'s sequenced
+    configuration at 1024^2 and the FMG headline at 255^2, 4 lockstep
+    steps over Re 100 / 400 / 1000 through ``ops/while_loop.py``: launches
+    exact (K7 in its grid form, K5, K4; K8, K2 and K3 once a cycle of the
+    slowest case), no per-case step, each case within 1e-4 of its single
+    solve, the neighbour-Re control failing; host reads, ms a lockstep
+    step against the single solves', the idle share at 1024^2;
+18. the Krylov batch (``run_batch_krylov``): the Krylov and stationary
+    loops through ``ops/while_loop.py`` over Re 100 / 400 / 1000 from rest:
+    (a) ``sweep --vmap --pressure mgcg`` at 1024^2 (SIMPLE, BiCGSTAB
+    momentum to 1e-6 in <= 60, CG to 1e-3 in <= 100), 6 lockstep steps;
+    (b) the same under SIMPLEC and PISO, 3 steps; (c) GMRES and IDR(s)
+    momentum with the default multigrid pressure at 1024^2, 3 steps; (d)
+    CG, BiCGSTAB, GMRES, Jacobi and RBGS pressure (the command line's
+    constructors, ``--pressure-tol 1e-3``) at ``BATCH_ZOO``'s grids and
+    steps: launches exact (batched K8 a momentum solve, a K2 pair a strip
+    level and a K3 an application of the preconditioner or a cycle of the
+    slowest case; K7 a field in the zoo; no single launch), no per-case
+    step and no operator's per-case fallback, each case held to its single
+    solve (u, v, p and every history step within 1e-3, inner iterations
+    equal or their total within 10%, the batched operators that round
+    apart named), a control failing that ((a): Re 1000 against a single
+    solve at Re 1100); every step's inner iterations, host reads and ms a
+    lockstep step against the single solves', (a)'s idle share;
+19. Newton-Krylov (``run_newton``): ``benchmarks/scale_runs.py``'s QUICK
     pipeline at 255^2 Re=1000 (a SIMPLE warm start, then ``newton_solve``
     to 1e-5): converged, Ghia below 0.10, K4 once a Newton step and K5 once
     a preconditioner application; its captured tangent program against
@@ -208,7 +235,7 @@ result line:
     float64 run (computed in a spawned process while the earlier phases
     run): Newton iterations within one, u, v, p within 1e-3, and the
     power-law residual in place of QUICK failing that;
-18. the command line (``run_cli``): ``naviflow_tpu_torch.cli.main``
+20. the command line (``run_cli``): ``naviflow_tpu_torch.cli.main``
     in-process on the card, its JSON line read back: (a) ``run`` with the
     CLI's defaults at 63^2 Re=100 to 1e-5, bit-equal to the direct
     ``simple_solve`` with ``_make_solvers``' configs and its launches (K6 a
@@ -252,6 +279,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 N = 1024  # grid of the large-grid path (bench.py large-grid row)
 STEPS = 40
@@ -294,7 +322,7 @@ MOMENTUM_STEPS = 20  # the momentum zoo's
 RE = 100.0
 # the quick phase: benchmarks/scale_runs.py's 511^2 QUICK configuration at
 # its schedule's first Reynolds number (per_re(1000): alpha_p 0.25 * 0.6)
-NQ, RE_Q, QUICK_STEPS, QUICK_ALPHA_P = 511, 1000.0, 40, 0.15
+NQ, RE_Q, QUICK_STEPS, QUICK_ALPHA_P = 511, 1000.0, 20, 0.15
 # the distributed phase: bench.py's 64^2 parity check, then 1024^2
 NB, BENCH_DIST_STEPS = 64, 5
 ND, DIST_STEPS = 1024, 10
@@ -304,10 +332,10 @@ RBGS_LARGE_STEPS = 10  # the solvers phase's 1024^2 red-black GS momentum run
 # (run_newton_511) at Re=1000 on 255^2, and at 63^2 against the port's CPU
 # float64 run of the same pipeline, which takes minutes of one CPU core (the
 # preconditioner's composed multigrid), so a spawned process computes it
-# while the card runs the earlier phases (``start_newton_reference``)
+# while the card runs the earlier phases (``start_reference``)
 NN, NN_SMALL, RE_N = 255, 63, 1000.0
 NEWTON_WARM_STEPS = {NN: 300, NN_SMALL: 200}  # SIMPLE warm-start steps from rest
-NEWTON_REFERENCE_TIMEOUT = 900.0  # seconds the newton phase waits for it
+REFERENCE_TIMEOUT = 900.0  # seconds a phase waits for its CPU reference
 NEWTON_ITER_SLACK = 1  # Newton iterations of the card's 63^2 run: the reference's +-1
 BATCH_RE = (100.0, 400.0, 1000.0)  # the batch phase's cases (63^2, headline config)
 BATCH_RE8 = (100.0, 200.0, 300.0, 400.0, 500.0, 600.0, 800.0, 1000.0)  # its 8-case sweep
@@ -322,13 +350,28 @@ BATCH_KERNEL_CASES = ((NH, (100.0, 400.0, 1000.0), 2), (NH_BIG, (100.0, 400.0, 7
 BATCH_LARGE_STEPS, BATCH_LARGE_LIMIT, BATCH_LARGE_SWEEP_GRID = 10, 1e-4, 256
 # the batch phase's batch_assembly runs: lockstep steps at 2048^2 and 1024^2,
 # and at 4096^2 in the plane layout
-BATCH_ASM_STEPS, BATCH_PLANE_STEPS = 6, 3
+BATCH_ASM_STEPS, BATCH_PLANE_STEPS = 4, 3
 # the batch_loops phase (BiCGSTAB momentum and tolerance-driven multigrid
 # through ops/while_loop.py): lockstep steps from rest; K7's grid-form rows'
 # grids (the 256^2 fields are the command line's default sweep's) and the
 # cooperative grid's largest field the gate admits (bit-equality alone)
-BATCH_LOOP_STEPS = 6
+BATCH_LOOP_STEPS = 4
 GRID_CASE_GRIDS, GRID_CASE_LARGEST = (256, 255), 511
+# the batch_krylov phase (the Krylov and stationary loops through
+# ops/while_loop.py): (a)'s lockstep steps and the other runs', the pressure
+# zoo's (grid, lockstep steps) by kind, and the Reynolds number of (a)'s
+# control.  Each iteration of these loops is a host read: Jacobi at 64^2,
+# RBGS and GMRES(20) at 128^2 took 7.5, 7.1 and 0.89 s a lockstep step on an
+# H100 80GB HBM3 (700 W) machine (some 8 x 10^3, 5 x 10^3 and 7 x 10^2
+# iterations), so they run on smaller grids.
+# BiCGSTAB amplifies the batched reductions' rounding (its fields sat 1.2e-3
+# from the single solves after 3 steps at 128^2): it runs 20 steps, as the
+# solvers phase's BiCGSTAB pressure does, by which its trajectories meet
+# again
+BATCH_KRYLOV_STEPS, BATCH_KRYLOV_SHORT = 6, 3
+BATCH_ZOO = {"cg": (128, 3), "bicgstab": (32, 20), "gmres": (32, 3), "jacobi": (16, 3),
+             "rbgs": (16, 3)}
+RE_CONTROL = 1100.0
 ALGORITHMS63_ITERATIONS = {}  # the algorithms63 phase's kernel runs (name -> iterations)
 SEED = 0
 REPS = 10  # timed launches per kernel measurement (20 before the large batch's rows)
@@ -3616,6 +3659,70 @@ def rbgs_large(dev, steps=RBGS_LARGE_STEPS):
     return out
 
 
+def solver_cases(n):
+    """The solvers phase's runs on the n^2 grid (name -> (momentum config,
+    pressure config, loop, steps)): ``solver_configs`` with the headline's
+    momentum, ``SOLVER_STEPS``; ``momentum_configs`` with the Gauss-Seidel
+    multigrid pressure, ``MOMENTUM_STEPS``."""
+    head_mom, gs = headline_configs()
+    cases = {name: (head_mom, pres, loop, SOLVER_STEPS)
+             for name, (pres, loop) in solver_configs(n).items()}
+    cases.update({name: (mom, gs, "fused", MOMENTUM_STEPS)
+                  for name, mom in momentum_configs(n).items()})
+    return cases
+
+
+def solver_run(n, mom, pres, loop, where, dtype, steps):
+    """SIMPLE at n^2, Re=100, from rest on ``where``: (state, diagnostics,
+    ms a step, the launches)."""
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+
+    mesh, fluid, bc = cavity_case(n)
+    state = nt.initialize_state(mesh, bc, dtype=dtype, device=where)
+    on_card = torch.device(where).type == "cuda"
+    if on_card:
+        torch_sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    out, diag = simple_solve(mesh, fluid, bc, state,
+                             SIMPLEConfig(max_iterations=steps, tolerance=0.0),
+                             momentum=mom, pressure=pres, loop=loop)
+    if on_card:
+        torch_sync()
+    return out, diag, (time.perf_counter() - t0) * 1e3 / steps, counts()
+
+
+def _solver_reference_worker(conn):
+    """The solvers phase's runs on the CPU in float64 (``solver_cases`` on
+    each of ``SOLVER_GRIDS``), in a spawned process: sends, for each
+    "n:name", the final u, v, p, the iterations, the inner iterations, the
+    final residual and ms a step (numpy and numbers), or the traceback of a
+    failure."""
+    import traceback
+
+    import torch
+
+    try:
+        torch.set_num_threads(1)  # one core: the card's phases run beside it
+        out = {}
+        for n in SOLVER_GRIDS:
+            for name, (mom, pres, loop, steps) in solver_cases(n).items():
+                state, diag, ms, _ = solver_run(n, mom, pres, loop, "cpu", torch.float64, steps)
+                out[f"{n}:{name}"] = dict(
+                    **{f: getattr(state, f).numpy() for f in ("u", "v", "p")},
+                    iterations=int(diag.iterations),
+                    inner_iters_history=diag.inner_iters_history.numpy(),
+                    final_residual=float(diag.final_residual), ms=ms)
+        conn.send(out)
+    except Exception:
+        conn.send(dict(error=traceback.format_exc()))
+    finally:
+        conn.close()
+
+
 def run_solvers(dev):
     """SIMPLE at 64^2 and 63^2, Re=100, from rest, with each newly ported
     pressure configuration (``solver_configs``, 20 steps: CG, BiCGSTAB and
@@ -3624,34 +3731,23 @@ def run_solvers(dev):
     injection restriction and (63^2) rediscretized coarsening with cubic
     prolongation, and the 'host' and 'chunked:7' loops) and with each newly
     ported momentum solver (``momentum_configs``, 20 steps): each card run
-    (float32) against the same run on the CPU in float64: the final
-    residual and the u, v, p fields within ``GAP_LIMIT``, and the inner
-    iterations of every step equal (BiCGSTAB pressure, whose count a
-    rounding moves by up to 20 a step, and the GMRES and IDR(s) momentum
-    runs: their total within ``ITER_TOTAL_LIMIT``); the controls
-    (``solver_controls``) must fail that.  The configurations other than
-    the Gauss-Seidel multigrid launch none of K2, K3, K5 and K6, and the
-    Gauss-Seidel ones do.  Then ``rbgs_large`` (1024^2)."""
-    import torch
+    (float32) against the same run on the CPU in float64 (computed in a
+    spawned process while the earlier phases run,
+    ``_solver_reference_worker``): the final residual and the u, v, p
+    fields within ``GAP_LIMIT``, and the inner iterations of every step
+    equal (BiCGSTAB pressure, whose count a rounding moves by up to 20 a
+    step, and the GMRES and IDR(s) momentum runs: their total within
+    ``ITER_TOTAL_LIMIT``); the controls (``solver_controls``) must fail
+    that.  The configurations other than the Gauss-Seidel multigrid launch
+    none of K2, K3, K5 and K6, and the Gauss-Seidel ones do.  Then
+    ``rbgs_large`` (1024^2)."""
+    import types
 
-    import naviflow_tpu_torch as nt
-    from naviflow_tpu_torch.algorithms import SIMPLEConfig, simple_solve
+    import torch
 
     gs_kernels = ("strip_down", "strip_up", "fused_vcycle", "fused_mg_solve",
                   "fused_outer_step")
-    head_mom, gs = headline_configs()
     runs, ok, total = {}, True, {k: 0 for k in counts()}
-
-    def solve(mesh, fluid, bc, mom, pres, loop, where, dtype, steps):
-        state = nt.initialize_state(mesh, bc, dtype=dtype, device=where)
-        torch_sync()
-        reset_counts()
-        t0 = time.perf_counter()
-        out, diag = simple_solve(mesh, fluid, bc, state,
-                                 SIMPLEConfig(max_iterations=steps, tolerance=0.0),
-                                 momentum=mom, pressure=pres, loop=loop)
-        torch_sync()
-        return out, diag, (time.perf_counter() - t0) * 1e3 / steps, counts()
 
     def held(name, card, cpu, steps):
         (sk, dk, _, _), (sc, dc, _, _) = card, cpu
@@ -3670,16 +3766,21 @@ def run_solvers(dev):
                        and inner_ok and out["iterations"] == steps)
         return out
 
+    def cpu_run(r):
+        """A reference's run as ``solver_run``'s (state, diagnostics, ms, -)."""
+        state = types.SimpleNamespace(**{f: torch.from_numpy(r[f]) for f in ("u", "v", "p")})
+        diag = types.SimpleNamespace(iterations=r["iterations"],
+                                     inner_iters_history=torch.from_numpy(
+                                         r["inner_iters_history"]),
+                                     final_residual=r["final_residual"])
+        return state, diag, r["ms"], None
+
+    refs = reference("solvers", _solver_reference_worker)
     controls = {}
     for n in SOLVER_GRIDS:
-        mesh, fluid, bc = cavity_case(n)
-        cases = {name: (head_mom, pres, loop, SOLVER_STEPS)
-                 for name, (pres, loop) in solver_configs(n).items()}
-        cases.update({name: (mom, gs, "fused", MOMENTUM_STEPS)
-                      for name, mom in momentum_configs(n).items()})
-        for name, (mom, pres, loop, steps) in cases.items():
-            card = solve(mesh, fluid, bc, mom, pres, loop, dev, torch.float32, steps)
-            cpu = solve(mesh, fluid, bc, mom, pres, loop, "cpu", torch.float64, steps)
+        for name, (mom, pres, loop, steps) in solver_cases(n).items():
+            card = solver_run(n, mom, pres, loop, dev, torch.float32, steps)
+            cpu = cpu_run(refs[f"{n}:{name}"])
             launches = card[3]
             gs_launches = sum(launches[k] for k in gs_kernels)
             gs_ok = (gs_launches > 0 if name.startswith(("mg_gs", "loop_", "mom_"))
@@ -3695,8 +3796,8 @@ def run_solvers(dev):
             if n == SOLVER_GRIDS[0]:
                 for cname, (base, change) in solver_controls().items():
                     if base == name:
-                        c = held(base, solve(mesh, fluid, bc, mom, change(pres), loop, dev,
-                                             torch.float32, steps), cpu, steps)
+                        c = held(base, solver_run(n, mom, change(pres), loop, dev,
+                                                  torch.float32, steps), cpu, steps)
                         controls[f"{n}:{cname}"] = dict(c, detected=not c["held"])
                         ok &= not c["held"]
     largest = {k: max(max(r[k] if k != "fields" else max(r[k].values()) for r in runs.values()),
@@ -3796,49 +3897,53 @@ def _newton_reference_worker(conn):
         conn.close()
 
 
-_NEWTON_REFERENCE = []  # (process, connection) of the running reference
+_REFERENCES = {}  # name -> (process, connection) of a running CPU reference
 
 
-def start_newton_reference():
-    """Start the newton phase's CPU float64 reference in a spawned process
-    (no CUDA in it); :func:`newton_reference` collects it."""
+def start_reference(name, worker):
+    """Start a CPU float64 reference (``worker(conn)``, no CUDA in it) in a
+    spawned process under ``name``; :func:`reference` collects it."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     recv, send = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=_newton_reference_worker, args=(send,), daemon=True)
+    proc = ctx.Process(target=worker, args=(send,), daemon=True)
     proc.start()
     send.close()
-    _NEWTON_REFERENCE.append((proc, recv))
+    _REFERENCES[name] = (proc, recv)
 
 
-def newton_reference(timeout=NEWTON_REFERENCE_TIMEOUT):
-    """The reference's result (started here if :func:`start_newton_reference`
-    was not called); the process is joined, or killed on a timeout."""
-    if not _NEWTON_REFERENCE:
-        start_newton_reference()
-    proc, recv = _NEWTON_REFERENCE.pop()
+def reference(name, worker, timeout=REFERENCE_TIMEOUT):
+    """The result of the reference ``name`` (started here if
+    :func:`start_reference` was not called); the process is joined, or
+    killed on a timeout."""
+    if name not in _REFERENCES:
+        start_reference(name, worker)
+    proc, recv = _REFERENCES.pop(name)
     try:
         if not recv.poll(timeout):
-            raise RuntimeError(f"the CPU float64 Newton reference took over {timeout} s")
+            raise RuntimeError(f"the CPU float64 {name} reference took over {timeout} s")
         out = recv.recv()
     finally:
-        stop_newton_reference(proc)
+        stop_process(proc)
     if "error" in out:
-        raise RuntimeError(f"the CPU float64 Newton reference failed:\n{out['error']}")
+        raise RuntimeError(f"the CPU float64 {name} reference failed:\n{out['error']}")
     return out
 
 
-def stop_newton_reference(proc=None):
-    """Join the reference's process (terminate it if it still runs)."""
-    procs = [proc] if proc is not None else [p for p, _ in _NEWTON_REFERENCE]
-    for p in procs:
-        p.join(timeout=5.0)
-        if p.is_alive():
-            p.kill()
-            p.join()
-    if proc is None:
-        _NEWTON_REFERENCE.clear()
+def stop_process(proc):
+    """Join a reference's process (kill it if it still runs)."""
+    proc.join(timeout=5.0)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+
+
+def stop_references():
+    """Join every reference still running."""
+    for proc, _ in _REFERENCES.values():
+        stop_process(proc)
+    _REFERENCES.clear()
 
 
 def run_api(dev):
@@ -4560,6 +4665,214 @@ def run_batch_loops(dev):
                 ok=bool(ok))
 
 
+def batch_krylov_configs():
+    """The batch_krylov runs: (tag, algorithm, grid, lockstep steps,
+    (momentum, pressure)), with the command line's constructors
+    (``naviflow_tpu_torch/cli.py`` ``_make_solvers``, ``--pressure-tol
+    1e-3``): (a) ``sweep --vmap --pressure mgcg`` at 1024^2 (K8, the pair
+    loop, a K2 pair a strip level and a K3 an application of the
+    preconditioner); (b) the same under SIMPLEC and PISO; (c) GMRES and
+    IDR(s) momentum with the default multigrid pressure at 1024^2 (K8, a
+    K2 pair a strip level and a K3 a cycle); (d) CG, BiCGSTAB, GMRES,
+    Jacobi and RBGS pressure at ``BATCH_ZOO``'s grids (K7 a field, the
+    pressure loop composed)."""
+    from naviflow_tpu_torch.solvers import (BiCGSTABPressureConfig, CGPressureConfig,
+                                            GMRESMomentumConfig, GMRESPressureConfig,
+                                            IDRSMomentumConfig, JacobiPressureConfig,
+                                            MGCGPressureConfig, RBGSPressureConfig)
+
+    mom, mg = cli_default_configs()
+    mgcg = MGCGPressureConfig(tolerance=1e-3, max_iterations=100)
+    short = BATCH_KRYLOV_SHORT
+    runs = [("mgcg", "simple", N, BATCH_KRYLOV_STEPS, (mom, mgcg)),
+            ("mgcg_simplec", "simplec", N, short, (mom, mgcg)),
+            ("mgcg_piso", "piso", N, short, (mom, mgcg)),
+            ("gmres_momentum", "simple", N, short,
+             (GMRESMomentumConfig(tolerance=1e-6, max_iterations=40), mg)),
+            ("idrs_momentum", "simple", N, short, (IDRSMomentumConfig(tolerance=1e-6), mg))]
+    zoo = (("cg", CGPressureConfig(tolerance=1e-3, max_iterations=5000)),
+           ("bicgstab", BiCGSTABPressureConfig(tolerance=1e-3, max_iterations=5000)),
+           ("gmres", GMRESPressureConfig(tolerance=1e-3, max_iterations=5000)),
+           ("jacobi", JacobiPressureConfig(tolerance=1e-3, max_iterations=50000)),
+           ("rbgs", RBGSPressureConfig(tolerance=1e-3, max_iterations=50000)))
+    return runs + [(f"{kind}{BATCH_ZOO[kind][0]}", "simple", *BATCH_ZOO[kind], (mom, pres))
+                   for kind, pres in zoo]
+
+
+@contextlib.contextmanager
+def krylov_loop_reads():
+    """Inside: the host reads of each loop of ``solvers/krylov.py`` (PCG,
+    BiCGSTAB, GMRES), one entry a loop.  A PCG loop's reads are its
+    preconditioner's applications: its iterations + 1 alone, and under
+    ``torch.func.vmap`` those of its slowest case."""
+    from naviflow_tpu_torch.ops import while_loop
+    from naviflow_tpu_torch.solvers import krylov as tk
+
+    reads, real = [], tk.while_loop
+
+    def counted(*operands):
+        before = while_loop.HOST_READS
+        out = real(*operands)
+        reads.append(while_loop.HOST_READS - before)
+        return out
+
+    tk.while_loop = counted
+    try:
+        yield reads
+    finally:
+        tk.while_loop = real
+
+
+def krylov_launches(n, algorithm, pres, diags, steps, pcg_reads):
+    """The batched launches of a batch_krylov run (``diags`` its cases'
+    diagnostics, ``pcg_reads`` its PCG loops' host reads): at 1024^2 K8 a
+    momentum solve (PISO's Jacobi corrector a second), and a K2 pair a
+    strip level and a K3 an application of the preconditioner (MGCG: the
+    PCG loops' reads) or a multigrid cycle of the slowest case; in the
+    pressure zoo K7 a field (its grid form where the band's shared memory
+    is too small)."""
+    from naviflow_tpu_torch.ops import krylov
+
+    if pres.kind not in ("mgcg", "multigrid"):
+        grid = not krylov.band_layout((n + 1, n), krylov.cluster_size())[1]
+        return only(bicgstab_momentum_batched=2 * steps,
+                    bicgstab_momentum_grid_batched=2 * steps if grid else 0)
+    if pres.kind == "mgcg":
+        applications, strips = sum(pcg_reads), peeled_strip_levels(n, pres.mg)
+    else:
+        applications = sum(max(int(d.inner_iters_history[k]) for d in diags)
+                           for k in range(steps))
+        strips = peeled_strip_levels(n, pres)
+    return only(fused_assembly_pair_batched=steps * (2 if algorithm == "piso" else 1),
+                strip_down_batched=strips * applications, strip_up_batched=strips * applications,
+                fused_vcycle_batched=applications)
+
+
+def dot_bit_equal(fields):
+    """Whether ``torch.dot`` (the Krylov pressure loops' and GMRES's dot,
+    ``solvers/krylov.py`` ``_dot``) rounds under ``torch.func.vmap`` as on
+    one case."""
+    import torch
+
+    x = torch.stack([f.reshape(-1) for f in fields])
+    batched = torch.func.vmap(torch.dot)(x, x.flip(1))
+    return all(torch.equal(batched[k], torch.dot(x[k], x[k].flip(0)))
+               for k in range(len(fields)))
+
+
+def run_batch_krylov(dev):
+    """The vmapped branch with the Krylov and stationary loops run through
+    ``ops/while_loop.py`` (the ``batch_krylov`` phase): each of
+    ``batch_krylov_configs`` over ``BATCH_RE`` from rest (tolerance 0).
+    Each run: launches exact (``krylov_launches``: no single K7, K8, K2 or
+    K3 launch, and each single solve's own kernels once where the batch
+    runs its batched one) and no per-case step; each case held to its
+    single solve (iterations equal; u, v, p and every history step within
+    ``GAP_LIMIT``; the inner iterations equal step by step or their total
+    within ``ITER_TOTAL_LIMIT``; bit-equality and which batched operators
+    round apart reported) and a control that must fail that ((a): the Re
+    1000 case against a single solve at ``RE_CONTROL``; the others: each
+    case against its neighbour's single solve); each step's inner
+    iterations case by case; the loops' host reads a lockstep step against
+    the single solves' a step, summed; ms a lockstep step against the 3
+    single solves' ms a step, summed; (a): the idle share over 2 lockstep
+    steps."""
+    import torch
+
+    from naviflow_tpu_torch.algorithms import batch as tbatch
+    from naviflow_tpu_torch.ops import while_loop
+
+    real_per_case, per_case = tbatch._per_case, []
+
+    def counted(steps):
+        per_case.append(len(steps))
+        return real_per_case(steps)
+
+    def held(bs, bd, ss, sd, steps):
+        out = held_to(bs, bd, ss, sd)
+        mine = bd.inner_iters_history[:steps].cpu()
+        theirs = sd.inner_iters_history[:steps].cpu()
+        total, ref = int(mine.sum()), int(theirs.sum())
+        out.update(inner_iterations_equal=torch.equal(mine, theirs), inner_total=total,
+                   inner_total_gap=abs(total - ref) / max(ref, 1))
+        out["ok"] = (out["iterations_equal"]
+                     and max(out["max_field_gap"], out["history_gap"]) <= GAP_LIMIT
+                     and (out["inner_iterations_equal"]
+                          or out["inner_total_gap"] <= ITER_TOTAL_LIMIT))
+        return out
+
+    runs, ok, total = {}, True, only()
+    tbatch._per_case = counted
+    try:
+        for tag, algorithm, n, steps, configs in batch_krylov_configs():
+            t_run = time.perf_counter()
+            kw = dict(algorithm=algorithm, configs=configs)
+            if tag == "mgcg":
+                large_batch(dev, n, BATCH_RE, 1, **kw)  # warm-up
+            while_loop.HOST_READS = 0
+            with krylov_loop_reads() as reads, warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out, ms3, launches = large_batch(dev, n, BATCH_RE, steps, **kw)
+            reads3 = while_loop.HOST_READS / steps
+            # an operator without a batching rule runs case by case, with this warning
+            fallbacks = sorted({str(w.message)[:160] for w in caught
+                                if "batching rule" in str(w.message)})
+            want = krylov_launches(n, algorithm, configs[1], [d for _, d in out], steps, reads)
+            singles, single_reads, single_launches, singles_exact = [], 0, [], True
+            for re_ in BATCH_RE:
+                while_loop.HOST_READS = 0
+                reset_counts()
+                with krylov_loop_reads() as sreads:
+                    singles.append(large_single(dev, n, re_, steps, **kw))
+                single_reads += while_loop.HOST_READS / steps
+                launched = counts()
+                single_launches.append({k: v for k, v in launched.items() if v})
+                singles_exact &= launched == single_of(krylov_launches(
+                    n, algorithm, configs[1], [singles[-1][1]], steps, sreads))
+            cases = [held(bs, bd, ss, sd, steps)
+                     for (bs, bd), (ss, sd, _) in zip(out, singles)]
+            if tag == "mgcg":
+                ref = large_single(dev, n, RE_CONTROL, steps, **kw)
+                control = [dict(held(*out[-1], *ref[:2], steps), against=RE_CONTROL)]
+            else:
+                control = [held(bs, bd, ss, sd, steps) for (bs, bd), (ss, sd, _)
+                           in zip(out, singles[1:] + singles[:1])]
+            row = dict(algorithm=algorithm, grid=n, momentum=configs[0].kind,
+                       pressure=configs[1].kind, steps=steps, cases=cases,
+                       iterations=[int(d.iterations) for _, d in out],
+                       inner_iterations=[d.inner_iters_history[:steps].tolist() for _, d in out],
+                       control=control, launches=launches, launches_expected=want,
+                       single_launches=single_launches, single_launches_exact=singles_exact,
+                       per_case_fallbacks=fallbacks, pcg_loop_reads=list(reads),
+                       loop_host_reads_per_lockstep_step=reads3,
+                       single_loop_host_reads_per_step_b3=single_reads,
+                       ms_per_lockstep_step=ms3,
+                       single_ms_per_step=[ms for _, _, ms in singles],
+                       sequential_ms_per_step_b3=sum(ms for _, _, ms in singles),
+                       batched_operators_bit_equal=dict(
+                           batched_operators([bs.p for bs, _ in out]),
+                           dot=dot_bit_equal([bs.p for bs, _ in out]),
+                           pair_dot=pair_dot_bit_equal([bs.p for bs, _ in out])))
+            ok_run = (launches == want and singles_exact and not fallbacks
+                      and all(c["ok"] for c in cases) and not any(c["ok"] for c in control))
+            if tag == "mgcg":
+                # the CUDA-event idle share alone (as batch_loops)
+                row["idle_profile_3"] = profile_window(
+                    lambda: large_batch(dev, n, BATCH_RE, 2, **kw), 2, profiler=False)
+            row["ok"] = bool(ok_run)
+            row["seconds"] = time.perf_counter() - t_run
+            runs[tag] = row
+            ok &= ok_run
+            total = {k: total[k] + launches[k] for k in total}
+            del out, singles
+    finally:
+        tbatch._per_case = real_per_case
+    ok &= not per_case
+    return dict(phase="batch_krylov", reynolds=list(BATCH_RE), limits=dict(
+        gap=GAP_LIMIT, iter_total=ITER_TOTAL_LIMIT), runs=runs, per_case_steps=len(per_case),
+        launches=total, card=nvidia_smi(), ok=bool(ok))
+
+
 def tangent_graph_check(warm, mesh, fluid, bc, scheme):
     """Newton's captured tangent program (one CUDA graph replay) against
     ``torch.func.jvp`` of the same residual at the warm state, along a
@@ -4591,7 +4904,7 @@ def run_newton(dev):
     preconditioner application (GMRES(m): m + 1 a restart cycle) and
     nothing else; the idle share over one Newton step from the warm start;
     (b) the same pipeline at 63^2 against the port's CPU float64 run
-    (``newton_reference``): Newton iterations within ``NEWTON_ITER_SLACK``,
+    (``_newton_reference_worker``): Newton iterations within ``NEWTON_ITER_SLACK``,
     u, v, p within ``GAP_LIMIT``; the control (the power-law residual in
     place of QUICK from the same warm start) must fail that.  Beside (a),
     ``tangent_graph_check``: the CUDA-graph tangent program against
@@ -4619,7 +4932,7 @@ def run_newton(dev):
         lambda: newton_solve(mesh, fluid, bc, warm, one, pressure=npres), 1, profiler=False)
     del warm, state
 
-    ref = newton_reference()
+    ref = reference("newton", _newton_reference_worker)
     ref_state = types.SimpleNamespace(**{f: torch.from_numpy(ref[f]) for f in ("u", "v", "p")})
     ref_it = ref["iterations"]
 
@@ -4703,7 +5016,7 @@ def run_quick(dev):
     """The 9-point QUICK path on one device, float32.
 
     (a) ``benchmarks/scale_runs.py``'s 511^2 QUICK configuration at Re=1000
-    from rest for 40 steps (``quick_configs``), with the kernels and with
+    from rest for ``QUICK_STEPS`` steps (``quick_configs``), with the kernels and with
     ``backend='composed'``: the launches exactly what the gates admit
     (``gate_launches``: K4 a step and K3 a cycle; no K1, K6, K7, K8 or K9:
     every gate refuses 9-point momentum); every step's residual and the u,
@@ -5074,7 +5387,7 @@ CLI_CKPT = ("chunked:100", 300, 600)  # the checkpointed run's loop, then its re
 CLI_SWEEP_RE = ("100", "400", "1000")
 CLI_SEQ_NX, CLI_SEQ_TOL = 255, 1e-4
 CLI_NEWTON = ("--nx", "63", "--re", "1000", "--scheme", "quick", "--max-iterations", "200")
-CLI_DIST = ("--nx", "64", "--max-iterations", "50")
+CLI_DIST = ("--nx", "64", "--max-iterations", "20")
 WALL_KEYS = ("wall_seconds", "wall_seconds_batch", "batched")
 
 
@@ -5376,7 +5689,7 @@ def cli_newton(dev):
 
 
 def cli_distributed(dev, tmp):
-    """(g) ``run --distributed`` on 64^2 (50 steps) on the single rank:
+    """(g) ``run --distributed`` on 64^2 (20 steps) on the single rank:
     the saved fields and the iterations equal to a direct
     ``distributed_simple_solve`` with the CLI's mapped config on the
     one-rank mesh; no kernel launch, as in the JAX package."""
@@ -6101,12 +6414,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.library()
-    # the newton phase's CPU float64 reference runs beside the card's phases
-    start_newton_reference()
+    # the solvers and newton phases' CPU float64 references run beside the
+    # card's phases
+    start_reference("solvers", _solver_reference_worker)
+    start_reference("newton", _newton_reference_worker)
     try:
         return run_all(dev, card, t0)
     finally:
-        stop_newton_reference()
+        stop_references()
 
 
 def run_all(dev, card, t0) -> int:
@@ -6230,6 +6545,7 @@ def run_all(dev, card, t0) -> int:
                       ("solvers", run_solvers), ("quick", run_quick),
                       ("distributed", run_distributed), ("api", run_api),
                       ("batch", run_batch), ("batch_loops", run_batch_loops),
+                      ("batch_krylov", run_batch_krylov),
                       ("newton", run_newton), ("cli", run_cli)):
         t_phase = time.perf_counter()
         row = fn(dev)

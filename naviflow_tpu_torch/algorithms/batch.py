@@ -43,15 +43,21 @@ branches:
   each field in one launch for every case in its band form (one cluster
   a case) or its grid form (one cooperative grid): the command line's
   default ``sweep --vmap`` on even grids, ``bench.py``'s sequenced
-  configuration at any of its levels, and the FMG headline at 255^2;
+  configuration at any of its levels, and the FMG headline at 255^2.  So
+  do GMRES and IDR(s) momentum (``_gmres_masked``, ``_idrs_masked``; the
+  shadow space drawn once, outside ``vmap``) and the pressure loops, with
+  either arm's momentum: CG, BiCGSTAB and GMRES (``solvers/krylov.py``),
+  Jacobi and red-black GS (``solvers/pressure.py``), and MGCG, whose
+  preconditioner is a K3, or K2 strips and a K3 tail, an application for
+  every case (the reference's job farm of AMG-preconditioned CG runs over
+  SIMPLE, SIMPLEC, PISO and SIMPLER);
 * else every active case's own step, one after another (composed, or with
   its own kernels): the CPU path (where the kernel gates are closed), and
-  every configuration the other two refuse: GMRES and IDR(s) momentum,
-  the Krylov and MGCG pressure solvers (the same loop primitive would
-  serve them) and the rest of the momentum and pressure zoos; W and FMG
+  every configuration the other two refuse: direct pressure; W and FMG
   cycles on even grids; the compensated residual and dots; the 9-point
   schemes; odd grids above 255^2 under the command line's default (K5
-  cannot take their whole solve, and the odd arm needs it).
+  cannot take their whole solve, and the odd arm needs it); the composed
+  backend.
 
 Each case's result is its single solve's: bit for bit in the K6 and per-case
 branches, and in the vmapped one wherever the batched operators round as
@@ -80,7 +86,7 @@ from ..ops.step import ALGO_SCALARS, fused_outer_step_batched
 from ..ops.strip import supports_strip
 from ..ops.transfer import coarse_size
 from ..ops.while_loop import flatten as _flatten
-from ..solvers.momentum import lagged_rho_enabled
+from ..solvers.momentum import idrs_shadow_space, idrs_shadows, lagged_rho_enabled
 from .base import SolveDiagnostics, StepInfo, case_info, run_outer_loop_batched
 from .lagged import make_lagged_mg, uses_lagged_mg
 from .piso import make_piso_step
@@ -145,29 +151,58 @@ def vmap_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm: str) -> bool:
     """The vmapped branch's gate, for the state's ``p`` (every case's
     shape): outside K6's gate, every kernel the single step would launch
     has a batching rule and every composed part runs under
-    ``torch.func.vmap`` without a host read.  Two arms, by grid parity:
-    :func:`_odd_step_ok` (K7, K5, K4: the FMG headline) and
-    :func:`_even_step_ok` (K1, K8, K9, K10, K2, K3 or K5: ``bench.py``'s
-    large-grid SIMPLE, SIMPLEC, PISO and SIMPLER, the plane layout)."""
+    ``torch.func.vmap`` without a host read (the loops that read it run
+    through ``ops/while_loop.py``).  Multigrid pressure takes one of two
+    arms, by grid parity: :func:`_odd_step_ok` (K7, K5, K4: the FMG
+    headline) and :func:`_even_step_ok` (K1, K8, K9, K10, K2, K3 or K5:
+    ``bench.py``'s large-grid SIMPLE, SIMPLEC, PISO and SIMPLER, the plane
+    layout); the pressure loops (:func:`_loop_pressure_ok`: CG, BiCGSTAB,
+    GMRES, MGCG, Jacobi, red-black GS) take the momentum of the grid's
+    arm."""
     if not _cuda.kernel_device(p) or fused_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm):
         return False
     nx, ny = p.shape[-2:]
-    if nx != ny or getattr(pres_cfg, "kind", "") != "multigrid" or pres_cfg.backend == "composed":
+    if nx != ny or getattr(mom_cfg, "scheme", "power_law") != "power_law":
         return False
-    scheme = getattr(mom_cfg, "scheme", "power_law")
-    if scheme != "power_law":
+    kind = getattr(pres_cfg, "kind", "")
+    if kind == "multigrid":
+        if pres_cfg.backend == "composed":
+            return False
+        if nx % 2:
+            return _odd_step_ok(p, mom_cfg, pres_cfg)
+        return _even_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm)
+    if not _loop_pressure_ok(nx, pres_cfg, p.dtype):
         return False
     if nx % 2:
-        return _odd_step_ok(p, mom_cfg, pres_cfg)
-    return _even_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm)
+        return _odd_momentum_ok(p, mom_cfg)
+    return _even_momentum_ok(p, mom_cfg)
+
+
+def _loop_pressure_ok(n: int, pres_cfg, dtype) -> bool:
+    """A pressure solve that is one loop through ``ops/while_loop.py``:
+    CG, BiCGSTAB and GMRES (``solvers/krylov.py``), Jacobi and red-black GS
+    (``solvers/pressure.py``), composed, on any square grid; MGCG where each
+    preconditioner application is ``multigrid._cycle0``'s kernel path on
+    the n^2 hierarchy of its ``mg`` (one K3, or V-cycles of K2 strips above
+    a K3 tail), its backend not 'composed'."""
+    kind = getattr(pres_cfg, "kind", "")
+    if kind in ("cg", "bicgstab", "gmres", "jacobi", "rbgs"):
+        return True
+    if kind != "mgcg" or pres_cfg.mg.backend == "composed":
+        return False
+    mg = pres_cfg.mg
+    layout = _layout(n, mg)
+    if supports_fused_layout(layout, mg):  # K3
+        return dtype == torch.float32
+    k = next((k for k in range(1, len(layout)) if supports_fused_layout(layout[k:], mg)), None)
+    return k is not None and mg.cycle_type == "v" and all(
+        supports_strip(*shp, five, mg, dtype) for shp, five in layout[:k])
 
 
 def _odd_step_ok(p, mom_cfg, pres_cfg) -> bool:
     """An odd square grid: multigrid pressure (Galerkin V or FMG cycles)
     whose whole solve K5 takes and whose hierarchy K4 builds from the fine
-    level; BiCGSTAB momentum that K7 takes for both fields (its band form or,
-    past the band's shared memory, its grid form: both batched), or
-    fixed-sweep Jacobi, without the one-pass assembly (K8)."""
+    level, and :func:`_odd_momentum_ok`."""
     nx, ny = p.shape[-2:]
     if not supports_fused_rap(nx, ny, pres_cfg, p.dtype):
         return False
@@ -177,19 +212,32 @@ def _odd_step_ok(p, mom_cfg, pres_cfg) -> bool:
         layout.append(((n, n), False))
     if not supports_fused_layout(layout, pres_cfg):  # K5 (its dtype: K4's gate)
         return False
+    return _odd_momentum_ok(p, mom_cfg)
+
+
+def _odd_momentum_ok(p, mom_cfg) -> bool:
+    """The odd arm's momentum, without the one-pass assembly (K8):
+    BiCGSTAB that K7 takes for both fields (its band form or, past the
+    band's shared memory, its grid form: both batched), fixed-sweep
+    Jacobi, or GMRES and IDR(s) (composed, their loops through
+    ``ops/while_loop.py``) without the compensated residual."""
+    nx, ny = p.shape[-2:]
     if supports_fused_assembly(nx, ny, "power_law", p.dtype, getattr(mom_cfg, "backend", "auto"),
                                p.device):
         return False
-    if mom_cfg.kind == "jacobi":
+    kind = getattr(mom_cfg, "kind", "")
+    if kind == "jacobi":
         return True
-    return (mom_cfg.kind == "bicgstab" and getattr(mom_cfg, "backend", "auto") != "composed"
+    if kind in ("gmres", "idrs"):
+        return not getattr(mom_cfg, "compensated_residual", False)
+    return (kind == "bicgstab" and getattr(mom_cfg, "backend", "auto") != "composed"
             and supports_fused_bicgstab((nx + 1, ny), p.dtype)
             and supports_fused_bicgstab((nx, ny + 1), p.dtype))
 
 
-def _even_layout(n: int, pres_cfg):
+def _layout(n: int, pres_cfg):
     """The ``((ni, nj), five_point)`` of each level of the Galerkin hierarchy
-    of an even ``n``^2 grid (``multigrid.build_levels``' shapes), finest
+    of an ``n``^2 grid (``multigrid.build_levels``' shapes), finest
     first."""
     layout = [((n, n), True)]
     while layout[-1][0][0] > pres_cfg.coarsest_grid_size:
@@ -210,7 +258,7 @@ def _even_pressure_ok(n: int, pres_cfg, dtype) -> bool:
     if (pres_cfg.cycle_type != "v"
             or pres_cfg.coarsening != "galerkin" or pres_cfg.smoother != "gs"):
         return False
-    layout = _even_layout(n, pres_cfg)
+    layout = _layout(n, pres_cfg)
     if supports_fused_layout(layout, pres_cfg):  # K5
         return dtype == torch.float32
     first = 1
@@ -225,38 +273,45 @@ def _even_pressure_ok(n: int, pres_cfg, dtype) -> bool:
 
 
 def _even_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm) -> bool:
-    """An even square grid: :func:`_even_pressure_ok`; Chebyshev momentum
-    (K1 through SIMPLE's lagged carry; else K8 and K9 where their gates
-    open, composed where they do not), fixed-sweep Jacobi or red-black GS
-    momentum whose coefficients the one-pass assembly (K8) takes, or
-    BiCGSTAB momentum as the single step dispatches it (K7 per field where
-    its gate opens, band or grid form; else the coefficients from K8 where
-    its gate opens, composed where it does not, and the pair loop or the
-    single-field loop through ``ops/while_loop.py``), without the
-    compensated dots or the composed backend; not the compensated
-    residual."""
+    """An even square grid: :func:`_even_pressure_ok` and
+    :func:`_even_momentum_ok`."""
+    return _even_pressure_ok(p.shape[-1], pres_cfg, p.dtype) and _even_momentum_ok(p, mom_cfg)
+
+
+def _even_momentum_ok(p, mom_cfg) -> bool:
+    """The even arm's momentum: Chebyshev (K1 through SIMPLE's lagged
+    carry; else K8 and K9 where their gates open, composed where they do
+    not), fixed-sweep Jacobi or red-black GS whose coefficients the
+    one-pass assembly (K8) takes, or BiCGSTAB as the single step
+    dispatches it (K7 per field where its gate opens, band or grid form;
+    else the coefficients from K8 where its gate opens, composed where it
+    does not, and the pair loop or the single-field loop through
+    ``ops/while_loop.py``), GMRES or IDR(s) (their coefficients so, their
+    loops through ``ops/while_loop.py``), without the compensated dots or
+    the composed backend; not the compensated residual."""
     n = p.shape[-1]
-    if (not _even_pressure_ok(n, pres_cfg, p.dtype)
-            or getattr(mom_cfg, "compensated_residual", False)):
+    if getattr(mom_cfg, "compensated_residual", False):
         return False
     kind = getattr(mom_cfg, "kind", "")
     if kind == "chebyshev":
         return True
-    if kind == "bicgstab":
+    if kind in ("bicgstab", "gmres", "idrs"):
         return (not getattr(mom_cfg, "compensated_dots", False)
                 and getattr(mom_cfg, "backend", "auto") != "composed")
     return kind in ("jacobi", "rbgs") and supports_fused_assembly(
         n, n, "power_law", p.dtype, getattr(mom_cfg, "backend", "auto"), p.device)
 
 
-def _vmapped_step(make_step, common, visc):
+def _vmapped_step(make_step, common, visc, shadows=()):
     """The lockstep step as ``torch.func.vmap`` of ``make_step(**common,
     mu=<one case's conductances>)``'s step over the cases: ``visc`` (B, 4)
     is each case's :func:`~naviflow_tpu_torch.ops.powerlaw.case_conductances`
     row, ``extra`` the carry with a case axis on every tensor (numbers, the
-    lagged carry's age, are shared).  Each kernel of the step launches once
-    for every case with the active flags (``_cuda.case_mask``); each frozen
-    case then gets back its state, carry and ``info``."""
+    lagged carry's age, are shared), ``shadows`` IDR(s)'s shadow spaces
+    (``solvers.momentum.idrs_shadows``), shared.  Each kernel of the step
+    launches once for every case with the active flags
+    (``_cuda.case_mask``); each frozen case then gets back its state, carry
+    and ``info``."""
 
     def step(u, v, p, extra, active, info):
         leaves, build = _flatten(extra)
@@ -272,7 +327,7 @@ def _vmapped_step(make_step, common, visc):
                 x if torch.is_tensor(x) else torch.tensor(x, dtype=torch.int32, device=u2.device)
                 for x in info2)
 
-        with _cuda.case_mask(active):
+        with _cuda.case_mask(active), idrs_shadows(shadows):
             u2, v2, p2, leaves2, info2 = torch.func.vmap(one)(u, v, p, leaves, visc)
 
         def keep(new, old):
@@ -325,10 +380,14 @@ def batched_cavity_solve(
         leaves, build = _flatten(extra0_fn(dtype, dev))
         extra0 = build([x.expand(cases, *x.shape) for x in leaves])
         visc = case_conductances([f.get_viscosity() for f in fluids], dx, dy, dtype, dev)
+        # IDR(s)'s shadow spaces, drawn once here: a draw raises under vmap
+        shadows = ([idrs_shadow_space(momentum.s, shape, dtype, dev)
+                    for shape in ((nx + 1, ny), (nx, ny + 1))]
+                   if getattr(momentum, "kind", "") == "idrs" else ())
         make = make_step or make_simple_step
-        step = _vmapped_step(make, common, visc)
+        step = _vmapped_step(make, common, visc, shadows)
         if every:
-            refresh = _vmapped_step(make, dict(common, coarse_mode="rebuild"), visc)
+            refresh = _vmapped_step(make, dict(common, coarse_mode="rebuild"), visc, shadows)
     elif fused_step_ok(state.p, cfg, momentum, pressure, algorithm):
         carry = carry0(cfg)(dtype, dev)
         carry = carry if isinstance(carry, tuple) else (carry,)

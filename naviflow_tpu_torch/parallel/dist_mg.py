@@ -323,7 +323,7 @@ def dist_mg_solve(b, st_fine: Stencil9, dec: Decomp, rm, cfg: MultigridConfig, *
 def make_dist_mg_preconditioner(st_fine: Stencil9, dec: Decomp, rm, cfg: MultigridConfig, *,
                                 gather_cutoff: int = 32, n_cycles: int = 1):
     """M^{-1} r ~= ``n_cycles`` distributed multigrid cycles from a zero
-    guess (the distributed counterpart of ``multigrid.make_preconditioner``)."""
+    guess (the distributed counterpart of ``multigrid.precondition``)."""
     dist_levels, tail_levels = build_dist_levels(st_fine, dec, rm, cfg,
                                                  gather_cutoff=gather_cutoff)
 

@@ -26,17 +26,25 @@ Under ``torch.func.vmap`` (the batched lockstep step, ``algorithms/batch.py``)
 ``mu`` is one case's ``powerlaw.case_conductances`` row, and K1, K7, K8 and
 K9 run their batching rules: one launch for every case, no host read.
 
+The Krylov loops (BiCGSTAB, GMRES, IDR(s)) are the JAX package's
+``lax.while_loop`` s through ``ops/while_loop.py``: one host read an
+iteration (a restart cycle, an outer iteration), and under
+``torch.func.vmap`` one for every case.
+
 IDR(s)'s shadow space: the JAX package draws it with
 ``jax.random.normal(PRNGKey(0), ...)``, which PyTorch cannot reproduce.
 By default :func:`_idrs_masked` draws it from a ``torch.Generator``
 seeded 0 on the CPU and moves it to the field's device, so the card and
 the CPU use the same space; its iterates then differ from the JAX
 package's and agree with them only to the solve's tolerance.  Passing
-the JAX package's space (``shadow=``) reproduces its iterates.
+the JAX package's space (``shadow=``) reproduces its iterates.  A draw
+raises under ``torch.func.vmap``: the batched step draws the spaces once
+outside it and hands them in (:func:`idrs_shadows`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -412,21 +420,22 @@ def _bicgstab_pair_masked(xu0, cu, mask_u, xv0, cv, mask_v, tol: float, maxiter:
 
 def _gmres_masked(x0, c, mask, tol: float, maxiter: int, restart: int):
     """Restarted GMRES(m) on the masked momentum system with Jacobi right
-    preconditioning (one host read per restart cycle)."""
+    preconditioning (``solvers/krylov.gmres_solve``: one host read per
+    restart cycle; the coefficients, the mask and the inverse diagonal are
+    the loop's operands)."""
     from .krylov import gmres_solve
 
     mask_f = mask.to(x0.dtype)
 
-    def A(x):
+    def A(x, c, mask_f, inv_d):
         return _apply(x, c) * mask_f
 
-    inv_d = torch.where(c.a_p == 0, torch.zeros_like(c.a_p), 1.0 / c.a_p) * mask_f
-
-    def M(r):
+    def M(r, c, mask_f, inv_d):
         return r * inv_d
 
+    inv_d = torch.where(c.a_p == 0, torch.zeros_like(c.a_p), 1.0 / c.a_p) * mask_f
     b = c.src * mask_f
-    x, _, _ = gmres_solve(b, A, M, x0 * mask_f, tol, maxiter, restart)
+    x, _, _ = gmres_solve(b, A, M, x0 * mask_f, tol, maxiter, restart, (c, mask_f, inv_d))
     return torch.where(mask, x, x0)
 
 
@@ -438,15 +447,37 @@ def idrs_shadow_space(s: int, shape, dtype, device):
     return torch.randn((s,) + tuple(shape), generator=g, dtype=dtype).to(device)
 
 
+_SHADOWS = {}  # ((s,) + shape, dtype) -> the shadow space of :func:`idrs_shadows`
+
+
+@contextlib.contextmanager
+def idrs_shadows(spaces):
+    """Inside: an IDR(s) solve whose field and ``s`` match one of ``spaces``
+    (each an ``(s,) + shape`` shadow space) takes it, as its ``shadow=``,
+    in place of a fresh draw.  The batched lockstep step builds them once,
+    outside ``torch.func.vmap`` (a random draw raises under it), and every
+    case reads them (case stride 0): the single solve's numbers."""
+    saved = dict(_SHADOWS)
+    _SHADOWS.update({(tuple(P.shape), P.dtype): P for P in spaces})
+    try:
+        yield
+    finally:
+        _SHADOWS.clear()
+        _SHADOWS.update(saved)
+
+
 def _idrs_masked(x0, c, mask, tol: float, max_outer: int, s: int, angle: float,
                  shadow=None):
-    """IDR(s) on the masked momentum system (see :class:`IDRSMomentumConfig`;
-    one host read per outer iteration).  ``shadow``: the ``(s,) +
-    x0.shape`` shadow space, by default :func:`idrs_shadow_space`."""
+    """IDR(s) on the masked momentum system (see :class:`IDRSMomentumConfig`).
+    ``shadow``: the ``(s,) + x0.shape`` shadow space, by default
+    :func:`idrs_shadow_space`.  The loop is the JAX package's
+    ``lax.while_loop`` over outer iterations, ``(x, r, U, G, Ms, om, it)``,
+    through ``ops/while_loop.py`` (one host read an outer iteration)."""
     dtype = x0.dtype
     mask_f = mask.to(dtype)
+    leaves, build = flatten(c)
 
-    def A(x):
+    def A(x, c, mask_f):
         return _apply(x, c) * mask_f
 
     def pdot(a, w):
@@ -457,22 +488,26 @@ def _idrs_masked(x0, c, mask, tol: float, max_outer: int, s: int, angle: float,
 
     b = c.src * mask_f
     x = x0 * mask_f
-    r = b - A(x)
+    r = b - A(x, c, mask_f)
     P = idrs_shadow_space(s, x0.shape, dtype, x0.device) if shadow is None else shadow
     U = torch.zeros((s,) + tuple(x0.shape), dtype=dtype, device=x0.device)
-    G = torch.zeros_like(U)
     Ms = torch.eye(s, dtype=dtype, device=x0.device)
     om = torch.ones((), dtype=dtype, device=x0.device)
     tolb = tol * torch.clamp(torch.linalg.vector_norm(b), min=1e-30)
-    zero = torch.zeros((), dtype=dtype, device=x0.device)
-    it = 0
-    while it < max_outer and bool(torch.linalg.vector_norm(r) >= tolb):
+    it = torch.zeros((), dtype=torch.int32, device=x0.device)
+
+    def cond(x, r, U, G, Ms, om, it, P, tolb, mask_f, *leaves):
+        return (it < max_outer) & (torch.linalg.vector_norm(r) >= tolb)
+
+    def body(x, r, U, G, Ms, om, it, P, tolb, mask_f, *leaves):
+        cs = build(leaves)
+        zero = torch.zeros_like(om)
         f = torch.stack([pdot(P[i], r) for i in range(s)])
         for k in range(s):
             ck = torch.linalg.solve_ex(Ms[k:, k:], f[k:])[0]
             v = r - torch.tensordot(ck, G[k:], dims=1)
             u_new = torch.tensordot(ck, U[k:], dims=1) + om * v
-            g_new = A(u_new)
+            g_new = A(u_new, cs, mask_f)
             for i in range(k):
                 alpha = pdot(P[i], g_new) / safe(Ms[i, i])
                 g_new = g_new - alpha * G[i]
@@ -488,7 +523,7 @@ def _idrs_masked(x0, c, mask, tol: float, max_outer: int, s: int, angle: float,
             if k < s - 1:
                 f = torch.cat([f[:k + 1], f[k + 1:] + -beta * Ms[k + 1:, k]])
         # the dimension-reduction omega step
-        t = A(r)
+        t = A(r, cs, mask_f)
         nr = torch.linalg.vector_norm(r)
         nt = torch.linalg.vector_norm(t)
         ts = pdot(t, r)
@@ -497,7 +532,10 @@ def _idrs_masked(x0, c, mask, tol: float, max_outer: int, s: int, angle: float,
         om = torch.where(rho < angle, om * angle / torch.clamp(rho, min=1e-30), om)
         x = x + om * r
         r = r - om * t
-        it += 1
+        return (x, r, U, G, Ms, om, it + 1, P, tolb, mask_f, *leaves)
+
+    x, *_ = while_loop(cond, body, x, r, U, torch.zeros_like(U), Ms, om, it, P, tolb, mask_f,
+                       *leaves)
     return torch.where(mask, x, x0)
 
 
@@ -521,7 +559,8 @@ def _inner_solve(x0, c_rel, mask, cfg, bounds=None):
         return _gmres_masked(x0, c_rel, mask, cfg.tolerance, cfg.max_iterations, cfg.restart)
     if cfg.kind == "idrs":
         return _idrs_masked(x0, c_rel, mask, cfg.tolerance, cfg.max_iterations, cfg.s,
-                            cfg.angle)
+                            cfg.angle,
+                            shadow=_SHADOWS.get(((cfg.s,) + tuple(x0.shape), x0.dtype)))
     raise ValueError(f"Unknown momentum solver kind: {cfg.kind}")
 
 

@@ -9,7 +9,7 @@ smoothers, in the state's dtype or (``smoother_dtype='bfloat16'``) on the
 error equation in bfloat16; vertex-centred transfers (``ops/transfer.py``,
 linear or cubic prolongation) on odd grids, cell-centred ones
 (``ops/transfer_cc.py``) on even grids; V, W and FMG cycles; and
-:func:`make_preconditioner`, the cycles MGCG applies.
+:func:`precondition`, the cycles MGCG applies.
 
 Kernel path (CUDA tensors, ``backend`` 'auto' or 'kernel'):
 * the coarse hierarchy of an odd grid comes from one launch of K4
@@ -450,16 +450,13 @@ def multigrid_solve(
     return p, PressureSolveInfo(iterations=cycles, residual_field=r, rel_residual=rel)
 
 
-def make_preconditioner(levels, cfg: MultigridConfig, n_cycles: int = 1):
+def precondition(r, levels, cfg: MultigridConfig, n_cycles: int = 1):
     """M^{-1} r ~= ``n_cycles`` multigrid cycles from a zero guess (the
     preconditioner of MGCG), each through :func:`_cycle0`: on the kernel
     path a K3 launch, or K2 strips and a K3 tail, where the gates admit
-    the hierarchy."""
-
-    def apply_M(r):
-        e = torch.zeros_like(r)
-        for _ in range(n_cycles):
-            e = _cycle0(e, r, levels, cfg)
-        return e
-
-    return apply_M
+    the hierarchy.  ``levels`` is an argument, so that a Krylov loop takes
+    the hierarchy as its operand."""
+    e = torch.zeros_like(r)
+    for _ in range(n_cycles):
+        e = _cycle0(e, r, levels, cfg)
+    return e

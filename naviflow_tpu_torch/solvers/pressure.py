@@ -1,8 +1,9 @@
 """Pressure-correction solvers (port of ``naviflow_tpu/solvers/pressure.py``):
 red-black SOR and weighted-Jacobi sweeps with their sweep-until-converged
-loop, which reads the relative residual back on the host after every
-``check_every`` sweeps, and the dense direct solve (``torch.linalg.solve``
-on the assembled matrix; intended for <= ~64^2 grids).
+loop (``ops/while_loop.py``), which reads the relative residual back on
+the host after every ``check_every`` sweeps, and the dense direct solve
+(``torch.linalg.solve`` on the assembled matrix; intended for <= ~64^2
+grids).
 """
 
 from __future__ import annotations
@@ -13,13 +14,14 @@ import torch
 
 from ..ops.poisson import PoissonCoeffs, apply_poisson, poisson_diagonal
 from ..ops.stencil import index_grids, shift_e, shift_n, shift_s, shift_w, where_set
+from ..ops.while_loop import flatten, while_loop
 
 
 @dataclasses.dataclass(frozen=True)
 class PressureSolveInfo:
     """Residual info returned by every pressure solve."""
 
-    # inner-iteration count (a tolerance loop's: its int32 count, a tensor)
+    # inner-iteration count (a loop's: its int32 count, a tensor)
     iterations: int | torch.Tensor
     residual_field: torch.Tensor  # b - A p (full grid)
     rel_residual: torch.Tensor  # ||b - Ap|| / ||b|| at exit (0-d)
@@ -93,18 +95,29 @@ def jacobi_sweep(p, b, c: PoissonCoeffs, omega: float, *, pin: bool = True):
 
 
 def _iterate(p0, b, c: PoissonCoeffs, sweep_fn, tol, max_iter, check_every, pin):
-    """Sweep-until-converged loop: ``check_every`` sweeps per residual
-    evaluation, stop on ||b - Ap||/||b|| < tol (host check)."""
+    """Sweep-until-converged loop: ``check_every`` sweeps ``sweep_fn(p, b,
+    c)`` per residual evaluation, stop on ||b - Ap||/||b|| < tol.  The loop
+    is the JAX package's ``lax.while_loop`` over ``(p, k, rel)`` through
+    ``ops/while_loop.py`` (one host read a check; under ``torch.func.vmap``
+    one for every case); ``iterations`` is its int32 count."""
     bnorm = torch.linalg.vector_norm(b)
     safe_bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
-    p, k = p0, 0
-    rel = torch.full((), float("inf"), dtype=p0.dtype, device=p0.device)
-    while k < max_iter and float(rel) >= tol:
+    leaves, build = flatten(c)
+
+    def cond(p, k, rel, b, safe_bnorm, *leaves):
+        return (k < max_iter) & (rel.double() >= tol)
+
+    def body(p, k, rel, b, safe_bnorm, *leaves):
+        c = build(leaves)
         for _ in range(check_every):
-            p = sweep_fn(p)
+            p = sweep_fn(p, b, c)
         r = b - apply_poisson(p, c, pinned=pin)
         rel = torch.linalg.vector_norm(r) / safe_bnorm
-        k += check_every
+        return (p, k + check_every, rel, b, safe_bnorm, *leaves)
+
+    k0 = torch.zeros((), dtype=torch.int32, device=p0.device)
+    rel0 = torch.full((), float("inf"), dtype=p0.dtype, device=p0.device)
+    p, k, rel, *_ = while_loop(cond, body, p0, k0, rel0, b, safe_bnorm, *leaves)
     if not pin:
         p = p - torch.mean(p)
     r = b - apply_poisson(p, c, pinned=pin)
@@ -165,10 +178,10 @@ def solve_pressure(b, c: PoissonCoeffs, p0, cfg, *, pin: bool = False):
     if cfg.kind == "direct":
         return solve_pressure_direct(b, c, pin=pin)
     if cfg.kind == "jacobi":
-        def sweep(p):
+        def sweep(p, b, c):
             return jacobi_sweep(p, b, c, cfg.omega, pin=pin)
     elif cfg.kind == "rbgs":
-        def sweep(p):
+        def sweep(p, b, c):
             return rbgs_sweep(p, b, c, cfg.omega, pin=pin)
     else:
         raise ValueError(f"Unknown pressure solver kind: {cfg.kind}")

@@ -152,13 +152,13 @@ def test_fmg_headline_odd_k7_k5_k4(loops_gates_open):
 
 def test_loops_gate_sides(loops_gates_open, monkeypatch):
     """The widened gates: the even arm admits BiCGSTAB momentum (K7 a
-    field, or the pair loop or the single-field loop) and a pressure
+    field, or the pair loop or the single-field loop), GMRES and IDR(s)
+    momentum (their loops in the loop primitive too) and a pressure
     tolerance (K5, or the strips and the tail in the loop primitive,
     either layout); it refuses the compensated dots, the composed backend,
-    GMRES and IDR(s) momentum, W and FMG cycles and the compensated
-    residual; the odd arm keeps its rule (K7, K5 and K4 for the FMG
-    headline; the command line's default on an odd grid past K5's budget
-    steps case by case)."""
+    W and FMG cycles and the compensated residual; the odd arm keeps its
+    rule (K7, K5 and K4 for the FMG headline; the command line's default on
+    an odd grid past K5's budget steps case by case)."""
     cfg = talg.SIMPLEConfig()
     p32 = torch.zeros(32, 32)
 
@@ -174,8 +174,7 @@ def test_loops_gate_sides(loops_gates_open, monkeypatch):
     assert not ok(dataclasses.replace(mom, compensated_dots=True), pres)
     assert not ok(dataclasses.replace(mom, backend="composed"), pres)
     assert not ok(dataclasses.replace(mom, compensated_residual=True), pres)
-    assert not ok(tmom.GMRESMomentumConfig(), pres)
-    assert not ok(tmom.IDRSMomentumConfig(), pres)
+    assert ok(tmom.GMRESMomentumConfig(), pres) and ok(tmom.IDRSMomentumConfig(), pres)
     assert not ok(mom, dataclasses.replace(pres, cycle_type="w"))
     assert not ok(mom, dataclasses.replace(pres, cycle_type="fmg"))
     monkeypatch.setattr(krylov, "MAX_FIELD_BYTES", 2**20)

@@ -435,7 +435,8 @@ def test_vmap_gate_sides(kernel_gates_open):
     and Jacobi momentum on V cycles; it refuses what K6 takes, closed
     gates, even and non-square grids, composed backends, cycles, smoothers
     and coarsenings K5 or K4 refuse, 9-point schemes, Chebyshev momentum,
-    non-multigrid pressure and float64 (the kernels' dtype)."""
+    direct pressure and float64 (the kernels' dtype); a pressure loop
+    (red-black GS here) takes the odd arm's momentum."""
     from dataclasses import replace
 
     cfg, mom, pres = talg.SIMPLEConfig(), interop.config(MOM), interop.config(PRES)
@@ -458,7 +459,8 @@ def test_vmap_gate_sides(kernel_gates_open):
     assert not ok(pres=replace(pres, coarsening="rediscretize"))
     assert not ok(mom=replace(mom, scheme="quick"))
     assert not ok(mom=tmom.ChebyshevMomentumConfig())
-    assert not ok(pres=nt.solvers.RBGSPressureConfig())
+    assert ok(pres=nt.solvers.RBGSPressureConfig())  # a pressure loop, K7's momentum
+    assert not ok(pres=nt.solvers.DirectPressureConfig())
     assert not ok(p=torch.zeros(1023, 1023))  # K4's budget
 
 
