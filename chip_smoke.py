@@ -212,14 +212,17 @@ result line:
 18. the Krylov batch (``run_batch_krylov``): the Krylov and stationary
     loops through ``ops/while_loop.py`` over Re 100 / 400 / 1000 from rest:
     (a) ``sweep --vmap --pressure mgcg`` at 1024^2 (SIMPLE, BiCGSTAB
-    momentum to 1e-6 in <= 60, CG to 1e-3 in <= 100), 6 lockstep steps;
-    (b) the same under SIMPLEC and PISO, 3 steps; (c) GMRES and IDR(s)
-    momentum with the default multigrid pressure at 1024^2, 3 steps; (d)
-    CG, BiCGSTAB, GMRES, Jacobi and RBGS pressure (the command line's
-    constructors, ``--pressure-tol 1e-3``) at ``BATCH_ZOO``'s grids and
-    steps: launches exact (batched K8 a momentum solve, a K2 pair a strip
-    level and a K3 an application of the preconditioner or a cycle of the
-    slowest case; K7 a field in the zoo; no single launch), no per-case
+    momentum to 1e-6 in <= 60, CG to 1e-3 in <= 100), 6 lockstep steps,
+    and at the command line's default 63^2 (the odd arm), 3 steps; (b)
+    the same under SIMPLEC and PISO at 1024^2, 3 steps; (c) GMRES and
+    IDR(s) momentum with the default multigrid pressure at 1024^2, 3
+    steps; (d) CG, BiCGSTAB, GMRES (128^2), Jacobi and RBGS (16^2)
+    pressure (the command line's constructors, ``--pressure-tol 1e-3``),
+    3 steps: launches exact (batched K8 a momentum solve, a K2 pair a
+    strip level and a K3 an application of the preconditioner, counted
+    from the cases' own CG counts, or a cycle of the slowest case; K7 a
+    field in the zoo and at 63^2, with a K4 a solve there; no single
+    launch), each PCG loop's host reads its slowest case's count + 1, no per-case
     step and no operator's per-case fallback, each case held to its single
     solve (u, v, p and every history step within 1e-3, inner iterations
     equal or their total within 10%, the batched operators that round
@@ -358,20 +361,15 @@ BATCH_ASM_STEPS, BATCH_PLANE_STEPS = 4, 3
 BATCH_LOOP_STEPS = 4
 GRID_CASE_GRIDS, GRID_CASE_LARGEST = (256, 255), 511
 # the batch_krylov phase (the Krylov and stationary loops through
-# ops/while_loop.py): (a)'s lockstep steps and the other runs', the pressure
-# zoo's (grid, lockstep steps) by kind, and the Reynolds number of (a)'s
-# control.  Each iteration of these loops is a host read: Jacobi at 64^2,
-# RBGS and GMRES(20) at 128^2 took 7.5, 7.1 and 0.89 s a lockstep step on an
-# H100 80GB HBM3 (700 W) machine (some 8 x 10^3, 5 x 10^3 and 7 x 10^2
-# iterations), so they run on smaller grids.
-# BiCGSTAB amplifies the batched reductions' rounding (its fields sat 1.2e-3
-# from the single solves after 3 steps at 128^2): it runs 20 steps, as the
-# solvers phase's BiCGSTAB pressure does, by which its trajectories meet
-# again
+# ops/while_loop.py): (a)'s lockstep steps and the other runs', and the
+# pressure zoo's (grid, lockstep steps) by kind.  Jacobi and RBGS check the
+# residual after every sweep, one host read each: at 128^2 (some 2 x 10^4
+# and 5 x 10^3 sweeps a step) a lockstep step took 7.5 and 7.1 s on an
+# H100 80GB HBM3 (700 W) machine, so they run at 16^2
 BATCH_KRYLOV_STEPS, BATCH_KRYLOV_SHORT = 6, 3
-BATCH_ZOO = {"cg": (128, 3), "bicgstab": (32, 20), "gmres": (32, 3), "jacobi": (16, 3),
+BATCH_ZOO = {"cg": (128, 3), "bicgstab": (128, 3), "gmres": (128, 3), "jacobi": (16, 3),
              "rbgs": (16, 3)}
-RE_CONTROL = 1100.0
+RE_CONTROL = 1100.0  # (a)'s control: Re 1000 against this single solve
 ALGORITHMS63_ITERATIONS = {}  # the algorithms63 phase's kernel runs (name -> iterations)
 SEED = 0
 REPS = 10  # timed launches per kernel measurement (20 before the large batch's rows)
@@ -4671,11 +4669,12 @@ def batch_krylov_configs():
     (``naviflow_tpu_torch/cli.py`` ``_make_solvers``, ``--pressure-tol
     1e-3``): (a) ``sweep --vmap --pressure mgcg`` at 1024^2 (K8, the pair
     loop, a K2 pair a strip level and a K3 an application of the
-    preconditioner); (b) the same under SIMPLEC and PISO; (c) GMRES and
-    IDR(s) momentum with the default multigrid pressure at 1024^2 (K8, a
-    K2 pair a strip level and a K3 a cycle); (d) CG, BiCGSTAB, GMRES,
-    Jacobi and RBGS pressure at ``BATCH_ZOO``'s grids (K7 a field, the
-    pressure loop composed)."""
+    preconditioner) and at the command line's default 63^2 (the odd arm:
+    K7 a field, a K4 a solve, a K3 an application); (b) the same under
+    SIMPLEC and PISO at 1024^2; (c) GMRES and IDR(s) momentum with the
+    default multigrid pressure at 1024^2 (K8, a K2 pair a strip level and
+    a K3 a cycle); (d) CG, BiCGSTAB, GMRES, Jacobi and RBGS pressure at
+    ``BATCH_ZOO``'s grids (K7 a field, the pressure loop composed)."""
     from naviflow_tpu_torch.solvers import (BiCGSTABPressureConfig, CGPressureConfig,
                                             GMRESMomentumConfig, GMRESPressureConfig,
                                             IDRSMomentumConfig, JacobiPressureConfig,
@@ -4685,6 +4684,7 @@ def batch_krylov_configs():
     mgcg = MGCGPressureConfig(tolerance=1e-3, max_iterations=100)
     short = BATCH_KRYLOV_SHORT
     runs = [("mgcg", "simple", N, BATCH_KRYLOV_STEPS, (mom, mgcg)),
+            ("mgcg63", "simple", NH, short, (mom, mgcg)),
             ("mgcg_simplec", "simplec", N, short, (mom, mgcg)),
             ("mgcg_piso", "piso", N, short, (mom, mgcg)),
             ("gmres_momentum", "simple", N, short,
@@ -4699,53 +4699,88 @@ def batch_krylov_configs():
                    for kind, pres in zoo]
 
 
+def case_counts(k):
+    """A loop's int32 count, case by case: under ``torch.func.vmap`` read
+    from the batch's own tensor (one host read)."""
+    import torch
+
+    if torch._C._functorch.is_batchedtensor(k):
+        bdim = torch._C._functorch.maybe_get_bdim(k)
+        return torch._C._functorch.get_unwrapped(k).movedim(bdim, 0).tolist()
+    return [int(k)]
+
+
 @contextlib.contextmanager
 def krylov_loop_reads():
-    """Inside: the host reads of each loop of ``solvers/krylov.py`` (PCG,
-    BiCGSTAB, GMRES), one entry a loop.  A PCG loop's reads are its
-    preconditioner's applications: its iterations + 1 alone, and under
-    ``torch.func.vmap`` those of its slowest case."""
+    """Inside: each loop of ``solvers/krylov.py`` (PCG, BiCGSTAB, GMRES),
+    one entry a loop: its function (``_pcg``, ...), its host reads and each
+    case's own count (the loop's int32 carry).  A PCG loop applies its
+    preconditioner to r0 and once an iteration, its slowest case's count +
+    1 times, and reads the host as often."""
+    import torch
+
     from naviflow_tpu_torch.ops import while_loop
     from naviflow_tpu_torch.solvers import krylov as tk
 
-    reads, real = [], tk.while_loop
+    loops, real = [], tk.while_loop
 
-    def counted(*operands):
+    def counted(cond, body, *operands):
         before = while_loop.HOST_READS
-        out = real(*operands)
-        reads.append(while_loop.HOST_READS - before)
+        out = real(cond, body, *operands)
+        k = next(x for x in out if x.dtype == torch.int32 and x.dim() == 0)
+        loops.append(dict(loop=body.__qualname__.split(".")[0],
+                          reads=while_loop.HOST_READS - before, counts=case_counts(k)))
         return out
 
     tk.while_loop = counted
     try:
-        yield reads
+        yield loops
     finally:
         tk.while_loop = real
 
 
-def krylov_launches(n, algorithm, pres, diags, steps, pcg_reads):
+def pcg_applications(loops):
+    """The preconditioner applications of the PCG loops among ``loops``
+    (``krylov_loop_reads``' entries), from the cases' own CG counts: each
+    loop its slowest case's + 1; and whether each loop read the host that
+    often."""
+    pcg = [lp for lp in loops if lp["loop"] == "_pcg"]
+    return (sum(max(lp["counts"]) + 1 for lp in pcg),
+            all(lp["reads"] == max(lp["counts"]) + 1 for lp in pcg))
+
+
+def krylov_launches(n, algorithm, pres, diags, steps, loops):
     """The batched launches of a batch_krylov run (``diags`` its cases'
-    diagnostics, ``pcg_reads`` its PCG loops' host reads): at 1024^2 K8 a
-    momentum solve (PISO's Jacobi corrector a second), and a K2 pair a
-    strip level and a K3 an application of the preconditioner (MGCG: the
-    PCG loops' reads) or a multigrid cycle of the slowest case; in the
-    pressure zoo K7 a field (its grid form where the band's shared memory
-    is too small)."""
+    diagnostics, ``loops`` its ``krylov_loop_reads`` entries).  K7 a
+    momentum field (its grid form where the band's shared memory is too
+    small) where K8's gate is shut (the pressure zoo, the odd arm); at
+    1024^2 K8 a momentum solve (PISO's Jacobi corrector a second).  An
+    MGCG application of the preconditioner (``pcg_applications``) is a
+    K2 pair a strip level and a K3 (on the odd arm a K3 alone, and a K4 a
+    solve builds the hierarchy); a multigrid solve a K2 pair a strip
+    level and a K3 a cycle of the slowest case."""
     from naviflow_tpu_torch.ops import krylov
 
-    if pres.kind not in ("mgcg", "multigrid"):
+    want = {}
+    if n % 2 or pres.kind not in ("mgcg", "multigrid"):
         grid = not krylov.band_layout((n + 1, n), krylov.cluster_size())[1]
-        return only(bicgstab_momentum_batched=2 * steps,
+        want.update(bicgstab_momentum_batched=2 * steps,
                     bicgstab_momentum_grid_batched=2 * steps if grid else 0)
-    if pres.kind == "mgcg":
-        applications, strips = sum(pcg_reads), peeled_strip_levels(n, pres.mg)
     else:
+        want.update(fused_assembly_pair_batched=steps * (2 if algorithm == "piso" else 1))
+    if pres.kind == "mgcg" and n % 2:
+        return only(**want, galerkin_levels_batched=steps,
+                    fused_vcycle_batched=pcg_applications(loops)[0])
+    if pres.kind == "mgcg":
+        applications, strips = pcg_applications(loops)[0], peeled_strip_levels(n, pres.mg)
+    elif pres.kind == "multigrid":
         applications = sum(max(int(d.inner_iters_history[k]) for d in diags)
                            for k in range(steps))
         strips = peeled_strip_levels(n, pres)
-    return only(fused_assembly_pair_batched=steps * (2 if algorithm == "piso" else 1),
-                strip_down_batched=strips * applications, strip_up_batched=strips * applications,
-                fused_vcycle_batched=applications)
+    else:
+        return only(**want)
+    return only(**want, strip_down_batched=strips * applications,
+                strip_up_batched=strips * applications, fused_vcycle_batched=applications)
 
 
 def dot_bit_equal(fields):
@@ -4764,9 +4799,11 @@ def run_batch_krylov(dev):
     """The vmapped branch with the Krylov and stationary loops run through
     ``ops/while_loop.py`` (the ``batch_krylov`` phase): each of
     ``batch_krylov_configs`` over ``BATCH_RE`` from rest (tolerance 0).
-    Each run: launches exact (``krylov_launches``: no single K7, K8, K2 or
-    K3 launch, and each single solve's own kernels once where the batch
-    runs its batched one) and no per-case step; each case held to its
+    Each run: launches exact (``krylov_launches``, an MGCG application
+    counted from the cases' own CG counts: no single K7, K8, K4, K2 or K3
+    launch, and each single solve's own kernels once where the batch runs
+    its batched one), each PCG loop's host reads its slowest case's count
+    + 1, and no per-case step; each case held to its
     single solve (iterations equal; u, v, p and every history step within
     ``GAP_LIMIT``; the inner iterations equal step by step or their total
     within ``ITER_TOTAL_LIMIT``; bit-equality and which batched operators
@@ -4810,25 +4847,28 @@ def run_batch_krylov(dev):
             if tag == "mgcg":
                 large_batch(dev, n, BATCH_RE, 1, **kw)  # warm-up
             while_loop.HOST_READS = 0
-            with krylov_loop_reads() as reads, warnings.catch_warnings(record=True) as caught:
+            with krylov_loop_reads() as loops, warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 out, ms3, launches = large_batch(dev, n, BATCH_RE, steps, **kw)
             reads3 = while_loop.HOST_READS / steps
             # an operator without a batching rule runs case by case, with this warning
             fallbacks = sorted({str(w.message)[:160] for w in caught
                                 if "batching rule" in str(w.message)})
-            want = krylov_launches(n, algorithm, configs[1], [d for _, d in out], steps, reads)
+            want = krylov_launches(n, algorithm, configs[1], [d for _, d in out], steps, loops)
+            # each PCG loop read the host once an application: its slowest case's count + 1
+            reads_exact = pcg_applications(loops)[1]
             singles, single_reads, single_launches, singles_exact = [], 0, [], True
             for re_ in BATCH_RE:
                 while_loop.HOST_READS = 0
                 reset_counts()
-                with krylov_loop_reads() as sreads:
+                with krylov_loop_reads() as sloops:
                     singles.append(large_single(dev, n, re_, steps, **kw))
                 single_reads += while_loop.HOST_READS / steps
                 launched = counts()
                 single_launches.append({k: v for k, v in launched.items() if v})
                 singles_exact &= launched == single_of(krylov_launches(
-                    n, algorithm, configs[1], [singles[-1][1]], steps, sreads))
+                    n, algorithm, configs[1], [singles[-1][1]], steps, sloops))
+                reads_exact &= pcg_applications(sloops)[1]
             cases = [held(bs, bd, ss, sd, steps)
                      for (bs, bd), (ss, sd, _) in zip(out, singles)]
             if tag == "mgcg":
@@ -4843,7 +4883,10 @@ def run_batch_krylov(dev):
                        inner_iterations=[d.inner_iters_history[:steps].tolist() for _, d in out],
                        control=control, launches=launches, launches_expected=want,
                        single_launches=single_launches, single_launches_exact=singles_exact,
-                       per_case_fallbacks=fallbacks, pcg_loop_reads=list(reads),
+                       per_case_fallbacks=fallbacks,
+                       pcg_loops=[dict(reads=lp["reads"], counts=lp["counts"]) for lp in loops
+                                  if lp["loop"] == "_pcg"],
+                       pcg_reads_exact=reads_exact,
                        loop_host_reads_per_lockstep_step=reads3,
                        single_loop_host_reads_per_step_b3=single_reads,
                        ms_per_lockstep_step=ms3,
@@ -4853,7 +4896,7 @@ def run_batch_krylov(dev):
                            batched_operators([bs.p for bs, _ in out]),
                            dot=dot_bit_equal([bs.p for bs, _ in out]),
                            pair_dot=pair_dot_bit_equal([bs.p for bs, _ in out])))
-            ok_run = (launches == want and singles_exact and not fallbacks
+            ok_run = (launches == want and singles_exact and reads_exact and not fallbacks
                       and all(c["ok"] for c in cases) and not any(c["ok"] for c in control))
             if tag == "mgcg":
                 # the CUDA-event idle share alone (as batch_loops)
@@ -5387,7 +5430,7 @@ CLI_CKPT = ("chunked:100", 300, 600)  # the checkpointed run's loop, then its re
 CLI_SWEEP_RE = ("100", "400", "1000")
 CLI_SEQ_NX, CLI_SEQ_TOL = 255, 1e-4
 CLI_NEWTON = ("--nx", "63", "--re", "1000", "--scheme", "quick", "--max-iterations", "200")
-CLI_DIST = ("--nx", "64", "--max-iterations", "20")
+CLI_DIST = ("--nx", "64", "--max-iterations", "10")
 WALL_KEYS = ("wall_seconds", "wall_seconds_batch", "batched")
 
 
@@ -5689,7 +5732,7 @@ def cli_newton(dev):
 
 
 def cli_distributed(dev, tmp):
-    """(g) ``run --distributed`` on 64^2 (20 steps) on the single rank:
+    """(g) ``run --distributed`` on 64^2 (10 steps) on the single rank:
     the saved fields and the iterations equal to a direct
     ``distributed_simple_solve`` with the CLI's mapped config on the
     one-rank mesh; no kernel launch, as in the JAX package."""

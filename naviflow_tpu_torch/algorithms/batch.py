@@ -45,7 +45,7 @@ branches:
   default ``sweep --vmap`` on even grids, ``bench.py``'s sequenced
   configuration at any of its levels, and the FMG headline at 255^2.  So
   do GMRES and IDR(s) momentum (``_gmres_masked``, ``_idrs_masked``; the
-  shadow space drawn once, outside ``vmap``) and the pressure loops, with
+  shadow space drawn once, outside ``vmap``, and kept) and the pressure loops, with
   either arm's momentum: CG, BiCGSTAB and GMRES (``solvers/krylov.py``),
   Jacobi and red-black GS (``solvers/pressure.py``), and MGCG, whose
   preconditioner is a K3, or K2 strips and a K3 tail, an application for
@@ -62,8 +62,10 @@ branches:
 Each case's result is its single solve's: bit for bit in the K6 and per-case
 branches, and in the vmapped one wherever the batched operators round as
 the single ones do (the batched ``torch.mean`` of the pressure correction
-and ``torch.linalg.vector_norm`` of the residuals do not, on the card).  Viscosity is the one per-case scalar (cavity Re = rho U
-L / mu with U = L = 1).
+and ``torch.linalg.vector_norm`` of the residuals do not, on the card; the
+pressure loops' dots, norms and means run case by case, through
+``while_loop.case_by_case``, and so round as the single ones).  Viscosity
+is the one per-case scalar (cavity Re = rho U L / mu with U = L = 1).
 """
 
 from __future__ import annotations
@@ -86,7 +88,7 @@ from ..ops.step import ALGO_SCALARS, fused_outer_step_batched
 from ..ops.strip import supports_strip
 from ..ops.transfer import coarse_size
 from ..ops.while_loop import flatten as _flatten
-from ..solvers.momentum import idrs_shadow_space, idrs_shadows, lagged_rho_enabled
+from ..solvers.momentum import idrs_shadow_space, lagged_rho_enabled
 from .base import SolveDiagnostics, StepInfo, case_info, run_outer_loop_batched
 from .lagged import make_lagged_mg, uses_lagged_mg
 from .piso import make_piso_step
@@ -302,13 +304,12 @@ def _even_momentum_ok(p, mom_cfg) -> bool:
         n, n, "power_law", p.dtype, getattr(mom_cfg, "backend", "auto"), p.device)
 
 
-def _vmapped_step(make_step, common, visc, shadows=()):
+def _vmapped_step(make_step, common, visc):
     """The lockstep step as ``torch.func.vmap`` of ``make_step(**common,
     mu=<one case's conductances>)``'s step over the cases: ``visc`` (B, 4)
     is each case's :func:`~naviflow_tpu_torch.ops.powerlaw.case_conductances`
     row, ``extra`` the carry with a case axis on every tensor (numbers, the
-    lagged carry's age, are shared), ``shadows`` IDR(s)'s shadow spaces
-    (``solvers.momentum.idrs_shadows``), shared.  Each kernel of the step
+    lagged carry's age, are shared).  Each kernel of the step
     launches once for every case with the active flags
     (``_cuda.case_mask``); each frozen case then gets back its state, carry
     and ``info``."""
@@ -327,7 +328,7 @@ def _vmapped_step(make_step, common, visc, shadows=()):
                 x if torch.is_tensor(x) else torch.tensor(x, dtype=torch.int32, device=u2.device)
                 for x in info2)
 
-        with _cuda.case_mask(active), idrs_shadows(shadows):
+        with _cuda.case_mask(active):
             u2, v2, p2, leaves2, info2 = torch.func.vmap(one)(u, v, p, leaves, visc)
 
         def keep(new, old):
@@ -380,14 +381,15 @@ def batched_cavity_solve(
         leaves, build = _flatten(extra0_fn(dtype, dev))
         extra0 = build([x.expand(cases, *x.shape) for x in leaves])
         visc = case_conductances([f.get_viscosity() for f in fluids], dx, dy, dtype, dev)
-        # IDR(s)'s shadow spaces, drawn once here: a draw raises under vmap
-        shadows = ([idrs_shadow_space(momentum.s, shape, dtype, dev)
-                    for shape in ((nx + 1, ny), (nx, ny + 1))]
-                   if getattr(momentum, "kind", "") == "idrs" else ())
+        if getattr(momentum, "kind", "") == "idrs":
+            # IDR(s)'s shadow spaces, drawn here (a draw raises under vmap)
+            # and kept: the solves under vmap read them
+            for shape in ((nx + 1, ny), (nx, ny + 1)):
+                idrs_shadow_space(momentum.s, torch.Size(shape), dtype, dev)
         make = make_step or make_simple_step
-        step = _vmapped_step(make, common, visc, shadows)
+        step = _vmapped_step(make, common, visc)
         if every:
-            refresh = _vmapped_step(make, dict(common, coarse_mode="rebuild"), visc, shadows)
+            refresh = _vmapped_step(make, dict(common, coarse_mode="rebuild"), visc)
     elif fused_step_ok(state.p, cfg, momentum, pressure, algorithm):
         carry = carry0(cfg)(dtype, dev)
         carry = carry if isinstance(carry, tuple) else (carry,)

@@ -11,7 +11,9 @@ Each loop is the JAX package's ``lax.while_loop`` (carry, ``cond``,
 ``body``) through ``ops/while_loop.py``: one host read an iteration (a
 restart cycle for GMRES), and under ``torch.func.vmap`` one for every
 case, each case stopping at its own count.  Every tensor the operator and
-the preconditioner read is a loop operand.
+the preconditioner read is a loop operand.  The dots, norms, means and
+GMRES's least-squares solve run through ``while_loop.case_by_case``: under
+``vmap`` one case after another, each rounding as its single solve's.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Tuple
 import torch
 
 from ..ops.poisson import PoissonCoeffs, apply_poisson, poisson_diagonal
-from ..ops.while_loop import flatten, while_loop
+from ..ops.while_loop import case_by_case, flatten, while_loop
 from .multigrid import MultigridConfig, build_levels, precondition
 from .pressure import PressureSolveInfo
 
@@ -71,15 +73,19 @@ class MGCGPressureConfig:
 
 
 def _dot(a, b):
+    return case_by_case(_flat_dot, a, b)
+
+
+def _flat_dot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
 def _norm(x):
-    return torch.linalg.vector_norm(x)
+    return case_by_case(torch.linalg.vector_norm, x)
 
 
 def _zero_mean(x):
-    return x - torch.mean(x)
+    return x - case_by_case(torch.mean, x)
 
 
 def _tol_abs(b, tol):
@@ -192,6 +198,10 @@ def _bicgstab(b, A, M, x0, tol, maxiter, data=()):
 def _lstsq(H, e1):
     """min_y ||e1 - H y|| by the pseudo-inverse with the JAX package's
     cutoff (singular values below ``eps * max(m, n) * s[0]`` dropped)."""
+    return case_by_case(_pinv_solve, H, e1)
+
+
+def _pinv_solve(H, e1):
     return torch.linalg.pinv(H, rtol=torch.finfo(H.dtype).eps * max(H.shape)) @ e1
 
 

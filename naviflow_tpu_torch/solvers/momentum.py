@@ -38,14 +38,15 @@ seeded 0 on the CPU and moves it to the field's device, so the card and
 the CPU use the same space; its iterates then differ from the JAX
 package's and agree with them only to the solve's tolerance.  Passing
 the JAX package's space (``shadow=``) reproduces its iterates.  A draw
-raises under ``torch.func.vmap``: the batched step draws the spaces once
-outside it and hands them in (:func:`idrs_shadows`).
+raises under ``torch.func.vmap``: :func:`idrs_shadow_space` keeps each
+space it drew, and the batched step draws the spaces once outside
+``vmap``, so that the solves under it read them.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import functools
 
 import torch
 
@@ -439,31 +440,15 @@ def _gmres_masked(x0, c, mask, tol: float, maxiter: int, restart: int):
     return torch.where(mask, x, x0)
 
 
+@functools.lru_cache(maxsize=8)
 def idrs_shadow_space(s: int, shape, dtype, device):
     """IDR(s)'s default shadow space: ``s`` standard-normal fields from a
     ``torch.Generator`` seeded 0 on the CPU, moved to ``device`` (the same
-    numbers on every device)."""
+    numbers on every device).  Each space is drawn once and kept (read,
+    never written): a solve under ``torch.func.vmap``, where a draw raises,
+    reads the space drawn before it, shared by every case."""
     g = torch.Generator().manual_seed(0)
     return torch.randn((s,) + tuple(shape), generator=g, dtype=dtype).to(device)
-
-
-_SHADOWS = {}  # ((s,) + shape, dtype) -> the shadow space of :func:`idrs_shadows`
-
-
-@contextlib.contextmanager
-def idrs_shadows(spaces):
-    """Inside: an IDR(s) solve whose field and ``s`` match one of ``spaces``
-    (each an ``(s,) + shape`` shadow space) takes it, as its ``shadow=``,
-    in place of a fresh draw.  The batched lockstep step builds them once,
-    outside ``torch.func.vmap`` (a random draw raises under it), and every
-    case reads them (case stride 0): the single solve's numbers."""
-    saved = dict(_SHADOWS)
-    _SHADOWS.update({(tuple(P.shape), P.dtype): P for P in spaces})
-    try:
-        yield
-    finally:
-        _SHADOWS.clear()
-        _SHADOWS.update(saved)
 
 
 def _idrs_masked(x0, c, mask, tol: float, max_outer: int, s: int, angle: float,
@@ -559,8 +544,7 @@ def _inner_solve(x0, c_rel, mask, cfg, bounds=None):
         return _gmres_masked(x0, c_rel, mask, cfg.tolerance, cfg.max_iterations, cfg.restart)
     if cfg.kind == "idrs":
         return _idrs_masked(x0, c_rel, mask, cfg.tolerance, cfg.max_iterations, cfg.s,
-                            cfg.angle,
-                            shadow=_SHADOWS.get(((cfg.s,) + tuple(x0.shape), x0.dtype)))
+                            cfg.angle)
     raise ValueError(f"Unknown momentum solver kind: {cfg.kind}")
 
 

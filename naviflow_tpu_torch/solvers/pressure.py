@@ -14,7 +14,7 @@ import torch
 
 from ..ops.poisson import PoissonCoeffs, apply_poisson, poisson_diagonal
 from ..ops.stencil import index_grids, shift_e, shift_n, shift_s, shift_w, where_set
-from ..ops.while_loop import flatten, while_loop
+from ..ops.while_loop import case_by_case, flatten, while_loop
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,8 +99,9 @@ def _iterate(p0, b, c: PoissonCoeffs, sweep_fn, tol, max_iter, check_every, pin)
     c)`` per residual evaluation, stop on ||b - Ap||/||b|| < tol.  The loop
     is the JAX package's ``lax.while_loop`` over ``(p, k, rel)`` through
     ``ops/while_loop.py`` (one host read a check; under ``torch.func.vmap``
-    one for every case); ``iterations`` is its int32 count."""
-    bnorm = torch.linalg.vector_norm(b)
+    one for every case, the norms and the mean case by case:
+    ``while_loop.case_by_case``); ``iterations`` is its int32 count."""
+    bnorm = case_by_case(torch.linalg.vector_norm, b)
     safe_bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
     leaves, build = flatten(c)
 
@@ -112,14 +113,14 @@ def _iterate(p0, b, c: PoissonCoeffs, sweep_fn, tol, max_iter, check_every, pin)
         for _ in range(check_every):
             p = sweep_fn(p, b, c)
         r = b - apply_poisson(p, c, pinned=pin)
-        rel = torch.linalg.vector_norm(r) / safe_bnorm
+        rel = case_by_case(torch.linalg.vector_norm, r) / safe_bnorm
         return (p, k + check_every, rel, b, safe_bnorm, *leaves)
 
     k0 = torch.zeros((), dtype=torch.int32, device=p0.device)
     rel0 = torch.full((), float("inf"), dtype=p0.dtype, device=p0.device)
     p, k, rel, *_ = while_loop(cond, body, p0, k0, rel0, b, safe_bnorm, *leaves)
     if not pin:
-        p = p - torch.mean(p)
+        p = p - case_by_case(torch.mean, p)
     r = b - apply_poisson(p, c, pinned=pin)
     return p, PressureSolveInfo(iterations=k, residual_field=r, rel_residual=rel)
 

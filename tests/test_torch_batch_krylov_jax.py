@@ -33,6 +33,7 @@ from naviflow_tpu.solvers import (GMRESPressureConfig, IDRSMomentumConfig, Krylo
 from naviflow_tpu_torch import algorithms as talg
 from naviflow_tpu_torch import interop
 from naviflow_tpu_torch.algorithms import batch as tbatch
+from naviflow_tpu_torch.solvers import momentum as tmomentum
 
 torch.set_num_threads(2)
 
@@ -66,10 +67,18 @@ def test_krylov_batch_matches_jax_vmap_program(loops_gates_open, monkeypatch, na
     calls = loops_gates_open
     close_k7(monkeypatch)
     mom, pres = CONFIGS[name]
-    if name == "idrs_gmres":  # the JAX package's shadow spaces (u's, v's)
-        monkeypatch.setattr(tbatch, "idrs_shadow_space", lambda s, shape, dtype, device: (
-            torch.tensor(np.asarray(jax.random.normal(jax.random.PRNGKey(0), (s,) + shape,
-                                                      jnp.float64)))))
+    if name == "idrs_gmres":  # the JAX package's shadow spaces (u's, v's), each drawn once
+        spaces = {}
+
+        def jax_space(s, shape, dtype, device):
+            key = (s,) + tuple(shape)
+            if key not in spaces:
+                spaces[key] = torch.tensor(np.asarray(
+                    jax.random.normal(jax.random.PRNGKey(0), key, jnp.float64)))
+            return spaces[key]
+
+        monkeypatch.setattr(tmomentum, "idrs_shadow_space", jax_space)
+        monkeypatch.setattr(tbatch, "idrs_shadow_space", jax_space)
     mesh, bc = nf.StructuredMesh(nx=N, ny=N), nf.lid_driven_cavity(1.0)
     cfg = SIMPLEConfig(max_iterations=STEPS, tolerance=0.0)
     jout = jbatch.batched_cavity_solve(mesh, list(RES), bc, cfg, mom, pres, dtype=jnp.float64)

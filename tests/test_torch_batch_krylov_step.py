@@ -12,13 +12,12 @@ application of the preconditioner.  Configurations: the command line's
 momentum with the command line's default multigrid pressure, CG and RBGS
 pressure.  Each takes the vmapped branch with no ``_per_case`` step, with
 exact batched calls of each kernel's plain version (a cycle kernel once an
-application of the slowest case: the PCG loops' host reads, each one
-application), and each case is held to its single solve: bit for bit
-where the step's operators round batched as single (IDR(s), RBGS, the
-multigrid loop); where the loops' ``torch.dot`` (``solvers/krylov.py``
-``_dot``: CG, MGCG, GMRES) rounds apart batched, every step's inner
-iterations equal and u, v, p and every history step within 1e-5.  Then both
-sides of the widened gate.  (The batch against the JAX package's:
+application of the slowest case, counted from the cases' own CG counts,
+which also give the PCG loops' host reads), and each case bit-equal to its
+single solve (the pressure loops' dots, norms and means run case by case under
+``vmap``).  The odd arm at 31^2 (the command line's default 63^2 grid's
+path: K7 a field, for MGCG a K4 a solve and a K3 an application) the same
+way.  Then both sides of the widened gate.  (The batch against the JAX package's:
 ``test_torch_batch_krylov_jax.py``.)
 """
 
@@ -27,13 +26,13 @@ import warnings
 
 import pytest
 import torch
-from torch_batch_gates import (RES, assembly_gates_open, close_k7, gates_open,  # noqa: F401
-                               loops_gates_open)
+from torch_batch_gates import (RES, _count, assembly_gates_open, close_k7,  # noqa: F401
+                               gates_open, loops_gates_open)
 
 import naviflow_tpu_torch as nt
 from naviflow_tpu_torch import algorithms as talg
 from naviflow_tpu_torch.algorithms import batch as tbatch
-from naviflow_tpu_torch.ops import while_loop
+from naviflow_tpu_torch.ops import mg, while_loop
 from naviflow_tpu_torch.solvers import krylov as tk
 from naviflow_tpu_torch.solvers import (CGPressureConfig, DirectPressureConfig,
                                         GMRESMomentumConfig, IDRSMomentumConfig,
@@ -43,7 +42,6 @@ from naviflow_tpu_torch.solvers import (CGPressureConfig, DirectPressureConfig,
 torch.set_num_threads(2)
 
 N, STEPS = 32, 3
-LIMIT = 1e-5  # where torch.dot rounds apart batched (float32)
 # the command line's constructors (cli._make_solvers), --pressure-tol 1e-3
 BICGSTAB = KrylovMomentumConfig(tolerance=1e-6, max_iterations=60)
 MULTIGRID = MultigridConfig(tolerance=1e-3, max_cycles=30)
@@ -57,25 +55,45 @@ CASES = {
     "cg": ("simple", BICGSTAB, CGPressureConfig(tolerance=1e-3, max_iterations=5000)),
     "rbgs": ("simple", BICGSTAB, RBGSPressureConfig(tolerance=1e-3, max_iterations=50000)),
 }
-BIT_EQUAL = ("idrs_momentum", "rbgs")
+
+
+def case_counts(k):
+    """A loop's int32 count, case by case: under ``vmap`` read from the
+    batch's own tensor."""
+    if torch._C._functorch.is_batchedtensor(k):
+        bdim = torch._C._functorch.maybe_get_bdim(k)
+        return torch._C._functorch.get_unwrapped(k).movedim(bdim, 0).tolist()
+    return [int(k)]
 
 
 @pytest.fixture
 def pcg_reads(monkeypatch):
-    """The host reads of each PCG loop (``solvers/krylov.py``), appended
-    call by call: under ``vmap`` the slowest case's iterations + 1, the
-    preconditioner applications of the batch."""
+    """Each loop of ``solvers/krylov.py``, appended call by call: its host
+    reads and each case's own count (the loop's int32 carry).  A PCG loop
+    applies its preconditioner to r0 and once an iteration: under ``vmap``
+    its slowest case's count + 1 times."""
     reads = []
     real = tk.while_loop
 
     def wrapped(*a):
         before = while_loop.HOST_READS
         out = real(*a)
-        reads.append(while_loop.HOST_READS - before)
+        k = next(x for x in out if x.dtype == torch.int32 and x.dim() == 0)
+        reads.append((while_loop.HOST_READS - before, case_counts(k)))
         return out
 
     monkeypatch.setattr(tk, "while_loop", wrapped)
     return reads
+
+
+def _applications(reads, solves):
+    """The preconditioner applications of the batch's ``solves`` PCG loops,
+    from the cases' own counts (each loop: its slowest case's + 1, the
+    loop's host reads), and of the single solves inside them (every
+    case's + 1)."""
+    assert len(reads) == solves
+    assert [r for r, _ in reads] == [max(k) + 1 for _, k in reads]
+    return sum(max(k) + 1 for _, k in reads), sum(c + 1 for _, k in reads for c in k)
 
 
 def _run(calls, reads, algorithm, mom, pres, n=N, steps=STEPS):
@@ -98,23 +116,15 @@ def _run(calls, reads, algorithm, mom, pres, n=N, steps=STEPS):
     return out, singles, batch_calls, batch_reads
 
 
-def _gap(a, b):
-    return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
-
-
-def _held(out, singles, bit_equal, steps=STEPS):
+def _held(out, singles, steps=STEPS):
+    """Each case bit-equal to its single solve (the loops' reductions run
+    case by case under ``vmap``: ``while_loop.case_by_case``)."""
     for (bs, bd), (ss, sd) in zip(out, singles):
         assert bd.iterations == sd.iterations == steps
         assert torch.equal(bd.inner_iters_history, sd.inner_iters_history)
-        if bit_equal:
-            for name in ("u", "v", "p"):
-                assert torch.equal(getattr(bs, name), getattr(ss, name)), name
-            assert torch.equal(bd.total_res_history, sd.total_res_history)
-            continue
         for name in ("u", "v", "p"):
-            assert _gap(getattr(bs, name), getattr(ss, name)) <= LIMIT, name
-        for k in range(steps):
-            assert _gap(bd.total_res_history[k], sd.total_res_history[k]) <= LIMIT
+            assert torch.equal(getattr(bs, name), getattr(ss, name)), name
+        assert torch.equal(bd.total_res_history, sd.total_res_history)
     assert not torch.equal(out[0][0].u, out[2][0].u)
 
 
@@ -141,11 +151,12 @@ def test_krylov_batch_takes_one_vmapped_step(loops_gates_open, pcg_reads, monkey
     want = {"K8 batched": k8 * STEPS, "K8": 3 * k8 * STEPS}
     if pres.kind == "mgcg":
         solves = 2 if algorithm == "piso" else 1
-        # each solve applies M to r0, then once an iteration
-        assert len(reads) == solves * STEPS
+        lock, total = _applications(reads, solves * STEPS)
         if solves == 1:
-            assert reads == [max(c) + 1 for c in inner]
-        lock, total = sum(reads), sum(map(sum, inner)) + solves * STEPS * len(RES)
+            assert [k for _, k in reads] == [list(c) for c in inner]
+        else:  # a PISO step's count is its two solves'
+            assert [[x + y for x, y in zip(a, b)] for (_, a), (_, b)
+                    in zip(reads[::2], reads[1::2])] == [list(c) for c in inner]
         want.update({"K2a batched": lock, "K2a": total, "K2b batched": lock, "K2b": total,
                      "K3 batched": lock, "K3": total})
     elif pres.kind == "multigrid":
@@ -155,7 +166,44 @@ def test_krylov_batch_takes_one_vmapped_step(loops_gates_open, pcg_reads, monkey
     assert got == want
     if algorithm == "simple":  # the cases stop at their own counts
         assert len({c for step in inner for c in step}) > 1
-    _held(out, singles, name in BIT_EQUAL)
+    _held(out, singles)
+
+
+# the odd arm at 31^2 (the command line's default 63^2 grid's path): K7's
+# band form for both fields, or IDR(s) composed; for MGCG a K4 a solve and a
+# K3 (the whole 31^2 hierarchy) an application of the preconditioner
+ODD = {
+    "mgcg_odd": (BICGSTAB, MGCG),
+    "cg_odd": (BICGSTAB, CGPressureConfig(tolerance=1e-3, max_iterations=5000)),
+    "idrs_odd": (IDRSMomentumConfig(tolerance=1e-6), MGCG),
+}
+
+
+@pytest.mark.parametrize("name", list(ODD))
+def test_odd_krylov_batch_takes_one_vmapped_step(loops_gates_open, pcg_reads, monkeypatch,
+                                                 name):
+    """Each odd-arm configuration at 31^2: the vmapped branch, no
+    ``_per_case`` step, the exact batched calls (K7 a field with BiCGSTAB
+    momentum; for MGCG a K4 a solve and a K3 an application of the slowest
+    case, from the cases' own CG counts), each case bit-equal to its single
+    solve."""
+    calls = loops_gates_open
+    for key, fn in (("K4 batched", "galerkin_levels_batched_plain"),
+                    ("K4", "galerkin_levels_plain")):
+        _count(monkeypatch, calls, mg, fn, key)
+    mom, pres = ODD[name]
+    n = 31
+    assert tbatch.vmap_step_ok(torch.zeros(n, n), talg.SIMPLEConfig(), mom, pres, "simple")
+    out, singles, got, reads = _run(calls, pcg_reads, "simple", mom, pres, n=n)
+    inner = _inner(out)
+    want = {"K7 batched": 2 * STEPS, "K7": 6 * STEPS} if mom.kind == "bicgstab" else {}
+    if pres.kind == "mgcg":
+        lock, total = _applications(reads, STEPS)
+        assert [k for _, k in reads] == [list(c) for c in inner]
+        want.update({"K4 batched": STEPS, "K4": 3 * STEPS, "K3 batched": lock, "K3": total})
+    assert got == want
+    assert len({c for step in inner for c in step}) > 1
+    _held(out, singles)
 
 
 def test_krylov_gate_sides(loops_gates_open, monkeypatch):
