@@ -37,7 +37,10 @@ result line:
    (1024^2, degree 4), K2a and K2b (the 1024^2 five-point and 512^2
    nine-point levels) and K3 (the 256^2 -> 4^2 tail) at B = 3, each case
    with its own Re 100 / 400 / 1000 state, viscosity, bounds and hierarchy
-   (``check_large_case_axis``), the same checks; K3 on
+   (``check_large_case_axis``), the same checks; the batched K4 on the
+   9-point 255^2 level of each case's 511^2 hierarchy and K3 on its 255^2
+   -> 7^2 tail, B = 3 (``check_highorder_case_axis``), and the batched K7
+   grid form on the 512 x 511 / 511 x 512 fields, the same checks; K3 on
    the 63^2 -> 7^2 vertex hierarchy; K8 at 2048^2
    (plain, with the Gershgorin maxima, and with each Poisson fold); K9 on
    the u and v systems of a 2048^2 cavity state (degree 4); K6's simplec,
@@ -229,7 +232,20 @@ result line:
     apart named), a control failing that ((a): Re 1000 against a single
     solve at Re 1100); every step's inner iterations, host reads and ms a
     lockstep step against the single solves', (a)'s idle share;
-19. Newton-Krylov (``run_newton``): ``benchmarks/scale_runs.py``'s QUICK
+19. the 9-point and odd-grid batch (``run_batch_highorder``): ``sweep
+    --vmap`` with the command line's constructors over Re 100 / 400 / 1000,
+    3 lockstep steps from rest: (a) ``--scheme quick``, ``luds``,
+    ``upwind`` at 63^2 (the 9-point momentum composed, batched K4 and K5 a
+    step); (b) ``--nx 511`` (batched K7's grid form a field, K4 a step from
+    the 255^2 level, K3 a cycle of the slowest case); (c) ``--nx 511
+    --scheme quick`` (K4, K3); (d) ``--nx 256 --scheme quick`` (K5 a step):
+    launches exact, no single launch, no per-case step and no operator's
+    per-case fallback, each case bit-equal to its single solve or within
+    1e-5 with every step's inner iterations equal (the batched operators
+    that round apart named), each case against its neighbour's single
+    solve beyond 1e-3; host reads and ms a lockstep step against the single
+    solves', the idle share over 2 lockstep steps at 511^2;
+20. Newton-Krylov (``run_newton``): ``benchmarks/scale_runs.py``'s QUICK
     pipeline at 255^2 Re=1000 (a SIMPLE warm start, then ``newton_solve``
     to 1e-5): converged, Ghia below 0.10, K4 once a Newton step and K5 once
     a preconditioner application; its captured tangent program against
@@ -238,7 +254,7 @@ result line:
     float64 run (computed in a spawned process while the earlier phases
     run): Newton iterations within one, u, v, p within 1e-3, and the
     power-law residual in place of QUICK failing that;
-20. the command line (``run_cli``): ``naviflow_tpu_torch.cli.main``
+21. the command line (``run_cli``): ``naviflow_tpu_torch.cli.main``
     in-process on the card, its JSON line read back: (a) ``run`` with the
     CLI's defaults at 63^2 Re=100 to 1e-5, bit-equal to the direct
     ``simple_solve`` with ``_make_solvers``' configs and its launches (K6 a
@@ -370,6 +386,11 @@ BATCH_KRYLOV_STEPS, BATCH_KRYLOV_SHORT = 6, 3
 BATCH_ZOO = {"cg": (128, 3), "bicgstab": (128, 3), "gmres": (128, 3), "jacobi": (16, 3),
              "rbgs": (16, 3)}
 RE_CONTROL = 1100.0  # (a)'s control: Re 1000 against this single solve
+# the batch_highorder phase (9-point momentum, and odd grids whose whole
+# pressure solve K5 cannot take, through the vmapped step): lockstep steps
+# from rest, the even arm's grid, and the limit on a case's relative gap to
+# its single solve where it is not bit-equal
+BATCH_HIGHORDER_STEPS, BATCH_HIGHORDER_EVEN, BATCH_HIGHORDER_LIMIT = 3, 256, 1e-5
 ALGORITHMS63_ITERATIONS = {}  # the algorithms63 phase's kernel runs (name -> iterations)
 SEED = 0
 REPS = 10  # timed launches per kernel measurement (20 before the large batch's rows)
@@ -1535,13 +1556,15 @@ def check_grid_case_axis(dev, sync_ms, res=BATCH_RE):
     """The batched K7 in its grid form (``nf_bicgstab_grid_batched``: one
     cooperative grid for every case) at B = 3 (Re ``res``, each case's own
     u and v systems, ``grid_case_inputs``) on the fields of
-    ``GRID_CASE_GRIDS`` (tolerance 1e-6 and 60 iterations, the command
-    line's default), and on the largest field the gate admits
-    (``GRID_CASE_LARGEST``, the u field, 20 iterations): every case
+    ``GRID_CASE_GRIDS`` and on the largest fields the gate admits
+    (``GRID_CASE_LARGEST``: 512 x 511 and 511 x 512, exactly its 1 MiB, the
+    fields of ``sweep --vmap --nx 511``), with the command line's tolerance
+    1e-6 and 60 iterations: every case
     bit-equal to its single launch (each single launch's device ms beside
     the batched launch's), the batched plain version within 1e-4 of the
     field (K7's tolerance), a frozen case given x0 back and the other
-    cases' bits kept; the plain version timed on the 256^2 fields only.
+    cases' bits kept; the plain version timed on the 256^2 and 511^2
+    fields only.
     The bound: the cases' summed work, and the slowest
     case's barriers (3 + 5 a iteration) once at one grid barrier's time at
     the single launch's blocks (``sync_ms(cells)``)."""
@@ -1553,8 +1576,8 @@ def check_grid_case_axis(dev, sync_ms, res=BATCH_RE):
     rows = []
     for n in GRID_CASE_GRIDS + (GRID_CASE_LARGEST,):
         ci = grid_case_inputs(n, dev, res)
-        maxiter = 20 if n == GRID_CASE_LARGEST else 60
-        for field in ("u",) if n == GRID_CASE_LARGEST else ("u", "v"):
+        maxiter = 60
+        for field in ("u", "v"):
             x0, c = ci[field], ci["c" + field]
             shape = tuple(x0.shape[1:])
             assert not krylov.band_layout(shape, krylov.cluster_size(dev))[1]
@@ -1588,9 +1611,9 @@ def check_grid_case_axis(dev, sync_ms, res=BATCH_RE):
                          and torch.equal(frozen[2], got[2]))
             a, r = max_err(got, want)
             main = n == GRID_CASE_GRIDS[0]
-            if main:
+            if main or n == GRID_CASE_LARGEST:  # the 256^2 and the 511^2 batches' fields
                 ms, plain_ms, dev_ms = time_pair(plain, kernel)
-            else:  # the other shapes' plain version is not timed (the script's budget)
+            else:  # the other shape's plain version is not timed (the script's budget)
                 ms, plain_ms, dev_ms = time_ms(kernel), None, device_ms(kernel)
             cells = x0[0].numel()
             bar = 3 + 5 * max(iters)  # krylov.cuh: the slowest case's, once
@@ -1832,6 +1855,144 @@ def check_large_case_axis(dev, cl_ms, k3_size, res=BATCH_RE):
                      host_ms=host_ms(k3), work=(B * work[0], B * work[1]),
                      cluster_size=k3_size, max_active_clusters=fit, waves=waves,
                      cluster_barriers=bar, barrier_bound_ms=waves * bar * cl_ms))
+    return rows
+
+
+def highorder_case_inputs(dev, res=BATCH_RE):
+    """The shapes ``sweep --vmap --nx 511`` gives K4 and K3 at B = 3: each
+    case's 511^2 vertex hierarchy (``build_levels`` on the kernel path: the
+    511^2 -> 255^2 level coarsened composed, K4 from the 9-point 255^2
+    level) from its own d-fields at the state and systems of
+    ``grid_case_inputs(511)``, its levels from 255^2 down stacked with a
+    leading case axis, and a seeded zero-mean right-hand side of the 255^2
+    level for each case."""
+    import numpy as np
+    import torch
+
+    import naviflow_tpu_torch as nt
+    from naviflow_tpu_torch.ops.powerlaw import d_coefficient
+    from naviflow_tpu_torch.ops.stencil9 import Stencil9
+    from naviflow_tpu_torch.solvers.multigrid import build_levels
+
+    mesh = nt.StructuredMesh(nx=NQ, ny=NQ)
+    ci = grid_case_inputs(NQ, dev, res)
+    pres = cli_default_configs()[1]
+    hiers = [build_levels(d_coefficient(ci["cu"].a_p[k], mesh.dy, is_u=True),
+                          d_coefficient(ci["cv"].a_p[k], mesh.dx, is_u=False), pres,
+                          dx=mesh.dx, dy=mesh.dy, rho=1.0, variant="consistent")[1:]
+             for k in range(len(res))]
+    names = ("c", "e", "w", "n", "s", "ne", "nw", "se", "sw")
+    tail = [(Stencil9(*(torch.stack([getattr(h[lvl][0], f) for h in hiers]) for f in names)),
+             shp, five, lam) for lvl, (_, shp, five, lam) in enumerate(hiers[0])]
+    rng = np.random.default_rng(SEED + 5)
+    n = tail[0][1][0]
+    b = torch.as_tensor(rng.normal(size=(len(res), n, n)), dtype=torch.float32, device=dev)
+    b = b - b.mean(dim=(1, 2), keepdim=True)
+    return dict(tail=tail, b=b, pres=pres,
+                p_frozen=torch.as_tensor(rng.normal(size=(len(res), n, n)),
+                                         dtype=torch.float32, device=dev))
+
+
+def check_highorder_case_axis(dev, sizes, res=BATCH_RE):
+    """The batched K4 and K3 at the shapes of ``sweep --vmap --nx 511``, B =
+    3 (``highorder_case_inputs``): K4 on each case's 9-point 255^2 stencil
+    (255^2 -> 7^2, ``fine_five`` False), K3 on each case's 255^2 -> 7^2
+    vertex tail; every case bit-equal to its single launch in every output
+    (each single launch's device ms beside the batched one's), the batched
+    plain version within the single kernel's tolerance (1e-5 of each
+    array's / the output's scale), a frozen case given its frozen outputs
+    (K4: zero stencils; K3: its p) and the other cases' bits kept.  Work:
+    the cases' sum; the barrier bound: the slowest case's barriers times
+    its waves.  ``sizes``: per kernel (cluster size, one cluster barrier's
+    ms).  (K7's grid form at 512 x 511 / 511 x 512: ``check_grid_case_axis``.)"""
+    import torch
+
+    from naviflow_tpu_torch.ops import mg
+    from naviflow_tpu_torch.ops.stencil9 import Stencil9
+
+    hi = highorder_case_inputs(dev, res)
+    tail, b, pres = hi["tail"], hi["b"], hi["pres"]
+    B = len(res)
+    names = ("c", "e", "w", "n", "s", "ne", "nw", "se", "sw")
+    meta = meta_of(tail)
+    rows = []
+    # K4 from the 9-point 255^2 level
+    fine, shapes = tail[0][0], [lv[1] for lv in tail]
+    assert not tail[0][2] and mg.supports_fused_rap(*shapes[0], pres, torch.float32)
+
+    def k4(active=None):
+        return mg.galerkin_levels_batched(fine, shapes, False, active=active)
+
+    def k4_plain():
+        return mg.galerkin_levels_batched_plain(fine, shapes, False)
+
+    got, want = k4(), k4_plain()
+    bit, single_ms = True, []
+    for k in range(B):
+        def one(st=Stencil9(*(getattr(fine, f)[k] for f in names))):
+            return mg.galerkin_levels(st, shapes, False)
+
+        bit &= all(torch.equal(getattr(g, f)[k], getattr(o, f))
+                   for g, o in zip(got, one()) for f in names)
+        single_ms.append(device_ms(one))
+    frozen = k4(active=torch.tensor([True, True, False], device=dev))
+    torch_sync()
+    frozen_ok = all(not bool(getattr(fz, f)[2].any())
+                    and torch.equal(getattr(fz, f)[:2], getattr(g, f)[:2])
+                    for fz, g in zip(frozen, got) for f in names)
+    worst_abs = worst_rel = 0.0
+    for g, w in zip(got, want):
+        for f in names:
+            a, r = max_err(getattr(g, f), getattr(w, f))
+            worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+    size, cl_ms = sizes["K4"]
+    one_work = rap_work(meta)
+    work = (B * one_work[0], B * one_work[1])
+    rows.append(case_axis_row(
+        "galerkin_levels_batched", k4, k4_plain,
+        dict(shape=list(shapes[0]), levels=[shp[0] for shp in shapes], fine_five=False,
+             reynolds=list(res), single_device_ms=single_ms,
+             ok=worst_rel < 1e-5 and bit and frozen_ok, bit_equal_to_single=bit,
+             frozen_case_ok=frozen_ok, max_abs_err=worst_abs, rel_err=worst_rel, main=False,
+             path="sweep --vmap --nx 511", **dict(zip(("bound_ms", "bound_by"), bound(*work)))),
+        B, size, cl_ms, 2, work, len(shapes) - 1))
+    # K3 on the 255^2 -> 7^2 tail, one cycle
+    assert mg.supports_fused(mg._case_levels(tail, 0), pres)
+    p0 = torch.zeros_like(b)
+
+    def k3(active=None, p=p0):
+        return mg.fused_vcycle_batched(p, b, tail, pres, active=active)
+
+    def k3_plain():
+        return mg.fused_vcycle_batched_plain(p0, b, tail, pres)
+
+    got, want = k3(), k3_plain()
+    bit, single_ms = True, []
+    for k in range(B):
+        def one(k=k):
+            return mg.fused_vcycle(p0[k], b[k], mg._case_levels(tail, k), pres)
+
+        bit &= torch.equal(got[k], one())
+        single_ms.append(device_ms(one))
+    flags = torch.tensor([True, False, True], device=dev)
+    frozen = k3(active=flags, p=hi["p_frozen"])
+    again = k3(active=flags)
+    torch_sync()
+    frozen_ok = (torch.equal(frozen[1], hi["p_frozen"][1])
+                 and all(torch.equal(again[k], got[k]) for k in (0, 2)))
+    errs = [max_err(got[k], want[k]) for k in range(B)]
+    size, cl_ms = sizes["K3"]
+    one_work = vcycle_work(meta, pres)
+    work = (B * one_work[0], B * one_work[1])
+    rows.append(case_axis_row(
+        "fused_vcycle_batched", k3, k3_plain,
+        dict(shape=list(shapes[0]), levels=[shp[0] for shp in shapes], reynolds=list(res),
+             single_device_ms=single_ms, smem_bytes=mg.vcycle_layout(shapes)[1],
+             ok=max(r for _, r in errs) < 1e-5 and bit and frozen_ok,
+             bit_equal_to_single=bit, frozen_case_ok=frozen_ok,
+             max_abs_err=max(a for a, _ in errs), rel_err=max(r for _, r in errs), main=False,
+             path="sweep --vmap --nx 511", **dict(zip(("bound_ms", "bound_by"), bound(*work)))),
+        B, size, cl_ms, 3, work, k3_barriers(meta, pres)))
     return rows
 
 
@@ -4916,6 +5077,162 @@ def run_batch_krylov(dev):
         launches=total, card=nvidia_smi(), ok=bool(ok))
 
 
+def cli_solvers(n, scheme):
+    """The momentum and pressure configurations of ``sweep --vmap --nx n
+    --scheme scheme`` (``naviflow_tpu_torch/cli.py``'s parser and
+    ``_make_solvers``: BiCGSTAB to 1e-6 in at most 60 iterations, multigrid
+    V-cycles to 1e-3 in at most 30)."""
+    from naviflow_tpu_torch import cli
+
+    args = cli._build_parser().parse_args(
+        ["sweep", "--vmap", "--nx", str(n), "--scheme", scheme])
+    return cli._make_solvers(args)
+
+
+def batch_highorder_configs():
+    """The batch_highorder runs: (tag, grid, scheme) of ``sweep --vmap``:
+    (a) ``--scheme quick``, ``luds`` and ``upwind`` at the default 63^2 (the
+    odd arm: the 9-point momentum composed, K4 and K5 a step); (b) ``--nx
+    511`` (power-law: K7's grid form a field, K4 from 255^2 a step, K3 a
+    cycle); (c) ``--nx 511 --scheme quick`` (K4, K3); (d) ``--nx 256
+    --scheme quick`` (the even arm: K5 a step)."""
+    return (("quick63", NH, "quick"), ("luds63", NH, "luds"), ("upwind63", NH, "upwind"),
+            ("power_law511", NQ, "power_law"), ("quick511", NQ, "quick"),
+            (f"quick{BATCH_HIGHORDER_EVEN}", BATCH_HIGHORDER_EVEN, "quick"))
+
+
+def highorder_launches(n, scheme, pres, diags, steps):
+    """The batched launches of a batch_highorder run (``pres`` its pressure
+    configuration, ``diags`` its cases' diagnostics): on odd grids K4 a
+    step; K5 a step where it takes the whole solve, else (511^2) K3 a cycle
+    of the slowest case that step; for power-law momentum K7 a field (its
+    grid form past the band's shared memory); no other kernel (every
+    momentum gate refuses 9-point systems)."""
+    from naviflow_tpu_torch.algorithms import batch as tbatch
+    from naviflow_tpu_torch.ops import krylov, mg
+
+    want = {}
+    if n % 2:
+        want["galerkin_levels_batched"] = steps
+    if mg.supports_fused_layout(tbatch._layout(n, pres), pres):
+        want["fused_mg_solve_batched"] = steps
+    else:
+        want["fused_vcycle_batched"] = sum(max(int(d.inner_iters_history[k]) for d in diags)
+                                           for k in range(steps))
+    if scheme == "power_law":
+        grid = not krylov.band_layout((n + 1, n), krylov.cluster_size())[1]
+        want.update(bicgstab_momentum_batched=2 * steps,
+                    bicgstab_momentum_grid_batched=2 * steps if grid else 0)
+    return only(**want)
+
+
+def run_batch_highorder(dev):
+    """The vmapped branch with 9-point momentum and on odd grids whose whole
+    pressure solve K5 cannot take (the ``batch_highorder`` phase): each of
+    ``batch_highorder_configs`` with the command line's constructors
+    (``cli_solvers``) over ``BATCH_RE`` for ``BATCH_HIGHORDER_STEPS``
+    lockstep steps from rest (tolerance 0).  Each run: launches exact
+    (``highorder_launches``: no single K4, K5, K3 or K7 launch, and each
+    single solve's own kernels once where the batch runs its batched one, a
+    cycle kernel once a cycle of its own), no per-case step and no
+    operator's per-case fallback warning; each case held to its single
+    solve (iterations and every step's inner iterations equal; u, v, p and
+    every history step bit-equal or within ``BATCH_HIGHORDER_LIMIT``, the
+    batched operators that round apart named) and a control that must fail
+    ``GAP_LIMIT`` (each case against its neighbour's single solve); the
+    loops' host reads a lockstep step against the single solves' a step,
+    summed; ms a lockstep step against the 3 single solves' ms a step; the
+    idle share over 2 lockstep steps at 511^2."""
+    import torch
+
+    from naviflow_tpu_torch.algorithms import batch as tbatch
+    from naviflow_tpu_torch.ops import while_loop
+
+    real_per_case, per_case = tbatch._per_case, []
+
+    def counted(steps):
+        per_case.append(len(steps))
+        return real_per_case(steps)
+
+    steps = BATCH_HIGHORDER_STEPS
+
+    def held(bs, bd, ss, sd):
+        out = dict(held_to(bs, bd, ss, sd), inner_iterations_equal=torch.equal(
+            bd.inner_iters_history[:steps].cpu(), sd.inner_iters_history[:steps].cpu()))
+        out["ok"] = (out["iterations_equal"] and out["inner_iterations_equal"] and (
+            (out["fields_bit_equal"] and out["history_bit_equal"])
+            or max(out["max_field_gap"], out["history_gap"]) <= BATCH_HIGHORDER_LIMIT))
+        return out
+
+    runs, ok, total = {}, True, only()
+    tbatch._per_case = counted
+    try:
+        for tag, n, scheme in batch_highorder_configs():
+            t_run = time.perf_counter()
+            configs = cli_solvers(n, scheme)
+            kw = dict(configs=configs)
+            large_batch(dev, n, BATCH_RE, 1, **kw)  # warm-up: scratch, launch state
+            while_loop.HOST_READS = 0
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out, ms3, launches = large_batch(dev, n, BATCH_RE, steps, **kw)
+            reads3 = while_loop.HOST_READS / steps
+            # an operator without a batching rule runs case by case, with this warning
+            fallbacks = sorted({str(w.message)[:160] for w in caught
+                                if "batching rule" in str(w.message)})
+            want = highorder_launches(n, scheme, configs[1], [d for _, d in out], steps)
+            singles, single_reads, single_launches, singles_exact = [], 0, [], True
+            for re_ in BATCH_RE:
+                while_loop.HOST_READS = 0
+                reset_counts()
+                singles.append(large_single(dev, n, re_, steps, **kw))
+                single_reads += while_loop.HOST_READS / steps
+                launched = counts()
+                single_launches.append({k: v for k, v in launched.items() if v})
+                singles_exact &= launched == single_of(
+                    highorder_launches(n, scheme, configs[1], [singles[-1][1]], steps))
+            cases = [held(bs, bd, ss, sd) for (bs, bd), (ss, sd, _) in zip(out, singles)]
+            control = [held(bs, bd, ss, sd) for (bs, bd), (ss, sd, _)
+                       in zip(out, singles[1:] + singles[:1])]
+            detected = all(max(c["max_field_gap"], c["history_gap"]) > GAP_LIMIT
+                           for c in control)
+            row = dict(grid=n, scheme=scheme, momentum=configs[0].kind,
+                       pressure=configs[1].kind, pressure_tolerance=configs[1].tolerance,
+                       steps=steps, cases=cases,
+                       iterations=[int(d.iterations) for _, d in out],
+                       inner_iterations=[d.inner_iters_history[:steps].tolist() for _, d in out],
+                       control_neighbour_re=control, control_detected=detected,
+                       launches=launches, launches_expected=want,
+                       single_launches=single_launches, single_launches_exact=singles_exact,
+                       per_case_fallbacks=fallbacks,
+                       loop_host_reads_per_lockstep_step=reads3,
+                       single_loop_host_reads_per_step_b3=single_reads,
+                       ms_per_lockstep_step=ms3,
+                       single_ms_per_step=[ms for _, _, ms in singles],
+                       sequential_ms_per_step_b3=sum(ms for _, _, ms in singles),
+                       batched_operators_bit_equal=dict(
+                           batched_operators([bs.p for bs, _ in out]),
+                           dot=dot_bit_equal([bs.p for bs, _ in out])))
+            ok_run = (launches == want and singles_exact and not fallbacks
+                      and all(c["ok"] for c in cases) and detected)
+            if n == NQ:
+                # the CUDA-event idle share alone (as batch_loops)
+                row["idle_profile_3"] = profile_window(
+                    lambda: large_batch(dev, n, BATCH_RE, 2, **kw), 2, profiler=False)
+            row["ok"] = bool(ok_run)
+            row["seconds"] = time.perf_counter() - t_run
+            runs[tag] = row
+            ok &= ok_run
+            total = {k: total[k] + launches[k] for k in total}
+            del out, singles
+    finally:
+        tbatch._per_case = real_per_case
+    ok &= not per_case
+    return dict(phase="batch_highorder", reynolds=list(BATCH_RE),
+                limits=dict(case=BATCH_HIGHORDER_LIMIT, control=GAP_LIMIT), runs=runs,
+                per_case_steps=len(per_case), launches=total, card=nvidia_smi(), ok=bool(ok))
+
+
 def tangent_graph_check(warm, mesh, fluid, bc, scheme):
     """Newton's captured tangent program (one CUDA graph replay) against
     ``torch.func.jvp`` of the same residual at the warm state, along a
@@ -6559,6 +6876,8 @@ def run_all(dev, card, t0) -> int:
                                   "K4": (k4_size, cl_by_size[k4_size])})
     rows += check_grid_case_axis(dev, sync_ms)
     rows += check_large_case_axis(dev, cl_by_size[k3_size], k3_size)
+    rows += check_highorder_case_axis(dev, {"K4": (k4_size, cl_by_size[k4_size]),
+                                            "K3": (k3_size, cl_by_size[k3_size])})
     del big
     rows += check_step_bodies(dev, cl_ms)
     rows += check_assembly(dev)
@@ -6589,6 +6908,7 @@ def run_all(dev, card, t0) -> int:
                       ("distributed", run_distributed), ("api", run_api),
                       ("batch", run_batch), ("batch_loops", run_batch_loops),
                       ("batch_krylov", run_batch_krylov),
+                      ("batch_highorder", run_batch_highorder),
                       ("newton", run_newton), ("cli", run_cli)):
         t_phase = time.perf_counter()
         row = fn(dev)

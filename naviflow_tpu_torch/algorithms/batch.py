@@ -50,22 +50,33 @@ branches:
   Jacobi and red-black GS (``solvers/pressure.py``), and MGCG, whose
   preconditioner is a K3, or K2 strips and a K3 tail, an application for
   every case (the reference's job farm of AMG-preconditioned CG runs over
-  SIMPLE, SIMPLEC, PISO and SIMPLER);
+  SIMPLE, SIMPLEC, PISO and SIMPLER).  Both arms take the 9-point schemes
+  (QUICK, LUDS, upwind: ``sweep --vmap --scheme quick``), whose momentum
+  every kernel gate refuses, as the single step runs it: assembled
+  composed (each case's conductances from its row), BiCGSTAB the
+  single-field loop, GMRES, IDR(s), Jacobi and red-black GS composed,
+  beside the arm's pressure kernels.  The odd arm also takes odd grids
+  whose whole solve K5 cannot take (above 255^2: ``sweep --vmap --nx
+  511``), with V-cycles: the Galerkin levels coarsened composed down to
+  the first level K4's gate takes and K4 from there, each cycle's levels
+  above its K3 tail composed and the tail one K3 for every case (the
+  high-Re envelope of ``benchmarks/scale_runs.py``: 511^2 QUICK);
 * else every active case's own step, one after another (composed, or with
   its own kernels): the CPU path (where the kernel gates are closed), and
   every configuration the other two refuse: direct pressure; W and FMG
-  cycles on even grids; the compensated residual and dots; the 9-point
-  schemes; odd grids above 255^2 under the command line's default (K5
-  cannot take their whole solve, and the odd arm needs it); the composed
-  backend.
+  cycles on even grids, and on odd grids whose whole solve K5 cannot take;
+  the compensated residual and dots; 9-point Chebyshev momentum; the
+  composed backend.
 
 Each case's result is its single solve's: bit for bit in the K6 and per-case
 branches, and in the vmapped one wherever the batched operators round as
 the single ones do (the batched ``torch.mean`` of the pressure correction
 and ``torch.linalg.vector_norm`` of the residuals do not, on the card; the
-pressure loops' dots, norms and means run case by case, through
-``while_loop.case_by_case``, and so round as the single ones).  Viscosity
-is the one per-case scalar (cavity Re = rho U L / mu with U = L = 1).
+pressure loops' dots, norms and means, the multigrid loop's norms and its
+correction's mean, and the single-field BiCGSTAB's dots run case by case,
+through ``while_loop.case_by_case``, and so round as the single ones).
+Viscosity is the one per-case scalar (cavity Re = rho U L / mu with U = L =
+1).
 """
 
 from __future__ import annotations
@@ -81,14 +92,16 @@ from ..core.state import FlowState, initialize_state
 from ..ops import _cuda
 from ..ops.assembly import supports_fused_assembly
 from ..ops.krylov import supports_fused_bicgstab
+from ..ops.highorder import SCHEME_WEIGHTS
 from ..ops.mg import supports_fused_layout, supports_fused_rap
 from ..ops.plane_strip import supports_plane_strip
 from ..ops.powerlaw import case_conductances
+from ..ops.stencil9 import Stencil9
 from ..ops.step import ALGO_SCALARS, fused_outer_step_batched
 from ..ops.strip import supports_strip
-from ..ops.transfer import coarse_size
 from ..ops.while_loop import flatten as _flatten
 from ..solvers.momentum import idrs_shadow_space, lagged_rho_enabled
+from ..solvers.multigrid import cycle_tail, galerkin_shapes, rap_start
 from .base import SolveDiagnostics, StepInfo, case_info, run_outer_loop_batched
 from .lagged import make_lagged_mg, uses_lagged_mg
 from .piso import make_piso_step
@@ -156,15 +169,16 @@ def vmap_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm: str) -> bool:
     ``torch.func.vmap`` without a host read (the loops that read it run
     through ``ops/while_loop.py``).  Multigrid pressure takes one of two
     arms, by grid parity: :func:`_odd_step_ok` (K7, K5, K4: the FMG
-    headline) and :func:`_even_step_ok` (K1, K8, K9, K10, K2, K3 or K5:
-    ``bench.py``'s large-grid SIMPLE, SIMPLEC, PISO and SIMPLER, the plane
-    layout); the pressure loops (:func:`_loop_pressure_ok`: CG, BiCGSTAB,
-    GMRES, MGCG, Jacobi, red-black GS) take the momentum of the grid's
-    arm."""
+    headline; K4, K3 where K5 cannot take the whole solve: 511^2) and
+    :func:`_even_step_ok` (K1, K8, K9, K10, K2, K3 or K5: ``bench.py``'s
+    large-grid SIMPLE, SIMPLEC, PISO and SIMPLER, the plane layout); the
+    pressure loops (:func:`_loop_pressure_ok`: CG, BiCGSTAB, GMRES, MGCG,
+    Jacobi, red-black GS) take the momentum of the grid's arm; either arm
+    takes the 9-point schemes (:func:`_nine_point_momentum_ok`)."""
     if not _cuda.kernel_device(p) or fused_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm):
         return False
     nx, ny = p.shape[-2:]
-    if nx != ny or getattr(mom_cfg, "scheme", "power_law") != "power_law":
+    if nx != ny or _scheme(mom_cfg) not in ("power_law", *SCHEME_WEIGHTS):
         return False
     kind = getattr(pres_cfg, "kind", "")
     if kind == "multigrid":
@@ -202,19 +216,36 @@ def _loop_pressure_ok(n: int, pres_cfg, dtype) -> bool:
 
 
 def _odd_step_ok(p, mom_cfg, pres_cfg) -> bool:
-    """An odd square grid: multigrid pressure (Galerkin V or FMG cycles)
-    whose whole solve K5 takes and whose hierarchy K4 builds from the fine
-    level, and :func:`_odd_momentum_ok`."""
-    nx, ny = p.shape[-2:]
-    if not supports_fused_rap(nx, ny, pres_cfg, p.dtype):
+    """An odd square grid: multigrid pressure (Galerkin cycles) that
+    :func:`_odd_pressure_ok` admits, and :func:`_odd_momentum_ok`."""
+    return _odd_pressure_ok(p.shape[-1], pres_cfg, p.dtype) and _odd_momentum_ok(p, mom_cfg)
+
+
+def _odd_pressure_ok(n: int, pres_cfg, dtype) -> bool:
+    """``multigrid_solve``'s kernel path on an odd ``n``^2 vertex hierarchy,
+    one of two: V or FMG cycles whose whole solve K5 takes and whose
+    hierarchy K4 builds from the fine level (the FMG headline); or, where
+    K5 cannot take the whole solve (odd grids above 255^2), V-cycles on
+    ``build_levels``' hierarchy (Galerkin levels coarsened composed down to
+    the first level K4's gate takes, ``multigrid.rap_start``, and K4 from
+    there) whose cycle is ``multigrid._cycle0``'s peeled one
+    (``multigrid.cycle_tail``: the levels above the first K3 tail
+    composed, K3 on the tail), a fixed number of them or until the
+    tolerance.  The dispatch of both is ``solvers/multigrid.py``'s own
+    rule, read here on a hierarchy of ``dtype`` with no data."""
+    layout = _layout(n, pres_cfg)
+    if supports_fused_rap(n, n, pres_cfg, dtype) and supports_fused_layout(layout, pres_cfg):
+        return True  # K4 from the fine level, K5 (its dtype: K4's gate)
+    if pres_cfg.cycle_type != "v":
         return False
-    layout = [((nx, ny), True)]
-    while layout[-1][0][0] > pres_cfg.coarsest_grid_size:
-        n = coarse_size(layout[-1][0][0])
-        layout.append(((n, n), False))
-    if not supports_fused_layout(layout, pres_cfg):  # K5 (its dtype: K4's gate)
-        return False
-    return _odd_momentum_ok(p, mom_cfg)
+    z = torch.zeros((), dtype=dtype)
+    levels = [(Stencil9(*[z] * 9), shp, five, None) for shp, five in layout]
+    return (rap_start([shp for shp, _ in layout], pres_cfg, dtype) < len(layout) - 1
+            and cycle_tail(levels, pres_cfg) is not None)
+
+
+def _scheme(mom_cfg) -> str:
+    return getattr(mom_cfg, "scheme", "power_law")
 
 
 def _odd_momentum_ok(p, mom_cfg) -> bool:
@@ -222,8 +253,11 @@ def _odd_momentum_ok(p, mom_cfg) -> bool:
     BiCGSTAB that K7 takes for both fields (its band form or, past the
     band's shared memory, its grid form: both batched), fixed-sweep
     Jacobi, or GMRES and IDR(s) (composed, their loops through
-    ``ops/while_loop.py``) without the compensated residual."""
+    ``ops/while_loop.py``) without the compensated residual; or a 9-point
+    system (:func:`_nine_point_momentum_ok`)."""
     nx, ny = p.shape[-2:]
+    if _scheme(mom_cfg) != "power_law":
+        return _nine_point_momentum_ok(mom_cfg)
     if supports_fused_assembly(nx, ny, "power_law", p.dtype, getattr(mom_cfg, "backend", "auto"),
                                p.device):
         return False
@@ -237,16 +271,28 @@ def _odd_momentum_ok(p, mom_cfg) -> bool:
             and supports_fused_bicgstab((nx, ny + 1), p.dtype))
 
 
+def _nine_point_momentum_ok(mom_cfg) -> bool:
+    """A 9-point system (QUICK, LUDS, upwind) on either arm, as the single
+    step dispatches it: never K1, K7, K8 or K9 (every gate refuses it);
+    BiCGSTAB the single-field ``_bicgstab_masked`` (not the pair loop,
+    which takes five-point systems), GMRES and IDR(s) composed, their loops
+    through ``ops/while_loop.py``, fixed-sweep Jacobi or red-black GS
+    composed; not the compensated residual or dots, nor Chebyshev."""
+    kind = getattr(mom_cfg, "kind", "")
+    if getattr(mom_cfg, "compensated_residual", False) or getattr(mom_cfg, "compensated_dots",
+                                                                  False):
+        return False
+    if kind in ("jacobi", "rbgs"):
+        return True
+    return (kind in ("bicgstab", "gmres", "idrs")
+            and getattr(mom_cfg, "backend", "auto") != "composed")
+
+
 def _layout(n: int, pres_cfg):
     """The ``((ni, nj), five_point)`` of each level of the Galerkin hierarchy
     of an ``n``^2 grid (``multigrid.build_levels``' shapes), finest
     first."""
-    layout = [((n, n), True)]
-    while layout[-1][0][0] > pres_cfg.coarsest_grid_size:
-        m = layout[-1][0][0]
-        m = m // 2 if m % 2 == 0 else coarse_size(m)
-        layout.append(((m, m), False))
-    return layout
+    return [(shp, k == 0) for k, shp in enumerate(galerkin_shapes(n, n, pres_cfg))]
 
 
 def _even_pressure_ok(n: int, pres_cfg, dtype) -> bool:
@@ -292,6 +338,8 @@ def _even_momentum_ok(p, mom_cfg) -> bool:
     loops through ``ops/while_loop.py``), without the compensated dots or
     the composed backend; not the compensated residual."""
     n = p.shape[-1]
+    if _scheme(mom_cfg) != "power_law":
+        return _nine_point_momentum_ok(mom_cfg)
     if getattr(mom_cfg, "compensated_residual", False):
         return False
     kind = getattr(mom_cfg, "kind", "")

@@ -54,8 +54,12 @@ def _build_parser():
     sweep.add_argument("--vmap", action="store_true",
                        help="batch all Reynolds numbers of each grid size "
                             "(algorithms.batch.batched_cavity_solve: the cases in "
-                            "one lockstep loop, one batched K6 launch a step where "
-                            "its gate admits the configuration)")
+                            "one lockstep loop; a step is one batched K6 launch "
+                            "where its gate admits the configuration, else one "
+                            "vmapped step whose kernels launch once for every case "
+                            "where algorithms.batch.vmap_step_ok admits it, as for "
+                            "--scheme quick|luds|upwind and odd grids such as "
+                            "--nx 511; the rest step case by case)")
     return p
 
 

@@ -17,6 +17,11 @@ is an unsolved (boundary) node is folded into the source with the
 neighbour's current (BC) value and the link is cut.  No CUDA kernel takes a
 9-point system: every kernel gate refuses these schemes, as the JAX
 package's do.
+
+``mu`` is a number, or, in the vmapped batch step
+(``algorithms/batch.py``), one case's ``powerlaw.case_conductances`` row:
+the diffusion conductances come from ``powerlaw.conductances`` either way,
+so that a case rounds as its single solve does.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import dataclasses
 
 import torch
 
+from .powerlaw import conductances
 from .stencil import index_grids, pad2
 
 
@@ -185,8 +191,7 @@ def u_momentum_coefficients9(u, v, p, *, dx, dy, rho, mu, scheme="quick") -> Mom
     nxp1, ny = u.shape
     nx = nxp1 - 1
     weights = SCHEME_WEIGHTS[scheme]
-    De = mu * dy / dx
-    Dn = mu * dx / dy
+    De, Dn, _, _ = conductances(mu, dx, dy)
 
     ii, jj = index_grids(u.shape, u.device)
     solved = (ii >= 1) & (ii <= nx - 1) & (jj >= 1) & (jj <= ny - 2)
@@ -219,8 +224,7 @@ def v_momentum_coefficients9(u, v, p, *, dx, dy, rho, mu, scheme="quick") -> Mom
     nx, nyp1 = v.shape
     ny = nyp1 - 1
     weights = SCHEME_WEIGHTS[scheme]
-    De = mu * dy / dx
-    Dn = mu * dx / dy
+    De, Dn, _, _ = conductances(mu, dx, dy)
 
     ii, jj = index_grids(v.shape, v.device)
     solved = (ii >= 1) & (ii <= nx - 2) & (jj >= 1) & (jj <= ny - 1)

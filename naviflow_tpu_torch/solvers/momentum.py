@@ -23,13 +23,16 @@ gates do; such a system runs composed.  The assembly gate (K8) does not
 look at the momentum kind, as in the JAX package: RBGS, GMRES and IDR(s)
 solves on large power-law float32 grids take their coefficients from K8.
 Under ``torch.func.vmap`` (the batched lockstep step, ``algorithms/batch.py``)
-``mu`` is one case's ``powerlaw.case_conductances`` row, and K1, K7, K8 and
-K9 run their batching rules: one launch for every case, no host read.
+``mu`` is one case's ``powerlaw.case_conductances`` row (the 9-point
+assembly takes it as the power-law one does), and K1, K7, K8 and K9 run
+their batching rules: one launch for every case, no host read.
 
 The Krylov loops (BiCGSTAB, GMRES, IDR(s)) are the JAX package's
 ``lax.while_loop`` s through ``ops/while_loop.py``: one host read an
 iteration (a restart cycle, an outer iteration), and under
-``torch.func.vmap`` one for every case.
+``torch.func.vmap`` one for every case; the single-field BiCGSTAB's dots
+then run case by case (``while_loop.case_by_case``), so that each case
+rounds as its single solve.
 
 IDR(s)'s shadow space: the JAX package draws it with
 ``jax.random.normal(PRNGKey(0), ...)``, which PyTorch cannot reproduce.
@@ -68,7 +71,7 @@ from ..ops.powerlaw import (
 )
 from ..ops.stencil import (StencilCoeffs, apply_stencil, index_grids, interior_mask,
                            neighbor_sum, pad2, shift_e, shift_n, shift_s, shift_w)
-from ..ops.while_loop import flatten, while_loop
+from ..ops.while_loop import case_by_case, flatten, while_loop
 
 BACKENDS = ("auto", "kernel", "composed")
 
@@ -280,6 +283,10 @@ def _chebyshev_masked(x0, c, mask, degree: int, margin: float = 1.05,
     return _chebyshev_iterate(x0, c, mask, theta, delta, sigma1, degree)
 
 
+def _sum_dot(a, b):
+    return torch.sum(a * b)
+
+
 def _bicgstab_masked(x0, c, mask, tol: float, maxiter: int,
                      compensated_dots: bool = False):
     """Matrix-free BiCGSTAB restricted to masked nodes (boundary nodes are
@@ -292,7 +299,9 @@ def _bicgstab_masked(x0, c, mask, tol: float, maxiter: int,
         dot = fold_dot
     else:
         def dot(a, b):
-            return torch.sum(a * b)
+            # case by case under torch.func.vmap: each case rounds as its
+            # single solve (ops/while_loop.case_by_case)
+            return case_by_case(_sum_dot, a, b)
 
     eps = torch.finfo(x0.dtype).tiny * 1e6
     leaves, build = flatten(c)

@@ -67,7 +67,7 @@ from ..ops.transfer import (coarse_size, prolong_cubic, prolong_linear,
                             restrict_d_coefficients, restrict_full_weighting,
                             restrict_inject)
 from ..ops.transfer_cc import prolong_cc, restrict_cc
-from ..ops.while_loop import flatten, while_loop
+from ..ops.while_loop import case_by_case, flatten, while_loop
 from .chebyshev import chebyshev_smooth, estimate_lambda_max
 from .pressure import PressureSolveInfo
 
@@ -190,6 +190,26 @@ def _level_transfers(nx, ny, cfg):
     raise ValueError(f"mixed-parity grid ({nx}, {ny}) cannot be coarsened")
 
 
+def galerkin_shapes(nx, ny, cfg: MultigridConfig):
+    """The level shapes of the Galerkin hierarchy of an (nx, ny) grid
+    (:func:`build_levels`' shapes), finest first."""
+    shapes = [(nx, ny)]
+    while min(shapes[-1]) > cfg.coarsest_grid_size:
+        shapes.append(_level_transfers(*shapes[-1], cfg)[2])
+    return shapes
+
+
+def rap_start(shapes, cfg: MultigridConfig, dtype) -> int:
+    """On the kernel path, the first level of ``shapes`` (finest first) from
+    which one K4 launch builds the rest of the Galerkin hierarchy, the
+    levels above it coarsened composed; ``len(shapes) - 1`` where K4 takes
+    none of them (every level composed)."""
+    cur = 0
+    while cur < len(shapes) - 1 and not supports_fused_rap(*shapes[cur], cfg, dtype):
+        cur += 1
+    return cur
+
+
 def build_levels(d_u, d_v, cfg: MultigridConfig, *, dx, dy, rho, variant):
     """List of (Stencil9, (nx, ny), five_point, lam_max) finest -> coarsest
     (``lam_max`` only for the Chebyshev smoother, else None)."""
@@ -213,18 +233,13 @@ def build_levels(d_u, d_v, cfg: MultigridConfig, *, dx, dy, rho, variant):
         return levels
     if cfg.coarsening != "galerkin":
         raise ValueError(f"Unknown coarsening: {cfg.coarsening}")
-    shapes = [(nx, ny)]
-    while min(shapes[-1]) > cfg.coarsest_grid_size:
-        shapes.append(_level_transfers(*shapes[-1], cfg)[2])
-    kernel = _kernel_path(cfg, d_u) and len(shapes) > 1
-
-    def rap_ok(shp):
-        return kernel and supports_fused_rap(*shp, cfg, fine.c.dtype)
-
+    shapes = galerkin_shapes(nx, ny, cfg)
     # levels too large for the one-launch RAP (K4) are coarsened composed;
     # K4 then builds the whole remaining sub-hierarchy
+    first = (rap_start(shapes, cfg, fine.c.dtype) if _kernel_path(cfg, d_u)
+             else len(shapes) - 1)
     st, cur = fine, 0
-    while cur < len(shapes) - 1 and not rap_ok(shapes[cur]):
+    while cur < first:
         rf, pf, _ = _level_transfers(*shapes[cur], cfg)
         st = galerkin_coarsen(st, rf, pf, *shapes[cur + 1])
         levels.append((st, shapes[cur + 1], False, lam_of(st, shapes[cur + 1])))
@@ -280,15 +295,27 @@ def _tail_start(levels, cfg):
                  if supports_fused(levels[k:], cfg)), None)
 
 
+def cycle_tail(levels, cfg):
+    """:func:`_cycle0`'s kernel path on ``levels``: 0 where K3 takes the
+    whole hierarchy, the first level ``k >= 1`` of the K3 tail of a V-cycle
+    whose levels above it are peeled (K2 strips where the strip gate takes
+    a level, composed where it does not), or None (the composed cycle)."""
+    if supports_fused(levels, cfg):
+        return 0
+    k = _tail_start(levels, cfg)
+    return k if k is not None and cfg.cycle_type == "v" else None
+
+
 def _cycle0(p, b, levels, cfg):
     """One cycle at the finest level: the fused kernel K3 when it admits the
     whole hierarchy, else the peeled cycle with K2 strips and a K3 tail, on
-    the kernel path; the composed :func:`_cycle` otherwise."""
+    the kernel path (:func:`cycle_tail`); the composed :func:`_cycle`
+    otherwise."""
     if _kernel_path(cfg, p):
-        if supports_fused(levels, cfg):
+        k = cycle_tail(levels, cfg)
+        if k == 0:
             return fused_vcycle(p, b, levels, cfg)
-        k = _tail_start(levels, cfg)
-        if k is not None and cfg.cycle_type == "v":
+        if k is not None:
             return _peeled_cycle(
                 p, b, levels, cfg, k,
                 lambda e0, rc: fused_vcycle(e0, rc, levels[k:], cfg),
@@ -381,7 +408,9 @@ def multigrid_solve(
         and getattr(cfg, "smoother_dtype", "float32") == "float32"
         and b.shape[0] % 2 == 0 and b.shape[1] % 2 == 0
     )
-    bnorm = torch.linalg.vector_norm(b)
+    # the norms and the mean case by case under torch.func.vmap: each case
+    # rounds as its single solve (ops/while_loop.case_by_case)
+    bnorm = case_by_case(torch.linalg.vector_norm, b)
     safe_bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
     # each cycle and check reads (b, levels, ps) through its arguments, so
     # that the tolerance loop's operands carry every tensor it reads
@@ -413,7 +442,8 @@ def multigrid_solve(
             return (_cycle0(state[0], b, levels, cfg),)
 
         def norm(state, b, levels, ps):
-            return torch.linalg.vector_norm(b - apply_five(state[0], levels[0][0], five_fine))
+            return case_by_case(torch.linalg.vector_norm,
+                                b - apply_five(state[0], levels[0][0], five_fine))
 
     if cfg.tolerance <= 0.0:
         for _ in range(cfg.max_cycles):
@@ -443,10 +473,10 @@ def multigrid_solve(
         state, (cycles, rel) = out[:n], out[n:n + 2]
     p = merge_planes(*state) if use_plane else state[0]
     if variant != "reference":
-        p = p - torch.mean(p)
+        p = p - case_by_case(torch.mean, p)
     r = b - apply_five(p, st_fine, five_fine)
     if rel is None:
-        rel = torch.linalg.vector_norm(r) / safe_bnorm
+        rel = case_by_case(torch.linalg.vector_norm, r) / safe_bnorm
     return p, PressureSolveInfo(iterations=cycles, residual_field=r, rel_residual=rel)
 
 

@@ -208,10 +208,11 @@ def test_odd_krylov_batch_takes_one_vmapped_step(loops_gates_open, pcg_reads, mo
 
 def test_krylov_gate_sides(loops_gates_open, monkeypatch):
     """The widened gate admits the pressure loops (CG, BiCGSTAB, GMRES,
-    MGCG, Jacobi, RBGS) with either arm's momentum and GMRES and IDR(s)
-    momentum on both arms; it refuses MGCG on the composed backend, direct
-    pressure, QUICK momentum, GMRES with the compensated residual and an
-    MGCG hierarchy the kernels cannot take (W cycles)."""
+    MGCG, Jacobi, RBGS) with either arm's momentum, GMRES and IDR(s)
+    momentum on both arms, and QUICK momentum (composed); it refuses MGCG on
+    the composed backend, direct pressure, QUICK Chebyshev momentum, GMRES
+    with the compensated residual and an MGCG hierarchy the kernels cannot
+    take (W cycles)."""
     close_k7(monkeypatch)
     cfg = talg.SIMPLEConfig()
     p32 = torch.zeros(N, N)
@@ -230,7 +231,8 @@ def test_krylov_gate_sides(loops_gates_open, monkeypatch):
     assert not ok(BICGSTAB, dataclasses.replace(MGCG, mg=dataclasses.replace(MGCG.mg,
                                                                             cycle_type="w")))
     assert not ok(BICGSTAB, DirectPressureConfig())
-    assert not ok(dataclasses.replace(BICGSTAB, scheme="quick"), MGCG)
+    assert ok(dataclasses.replace(BICGSTAB, scheme="quick"), MGCG)
+    assert not ok(nt.solvers.ChebyshevMomentumConfig(scheme="quick"), MGCG)
     assert not ok(GMRESMomentumConfig(compensated_residual=True), MGCG)
     # the odd arm: K7 for both fields, GMRES or IDR(s) composed (BiCGSTAB
     # with the multigrid is K6's step)
@@ -247,8 +249,9 @@ def test_krylov_gate_sides(loops_gates_open, monkeypatch):
     MGCG.mg, backend="composed")), DirectPressureConfig()], ids=["mgcg_composed", "direct"])
 def test_refused_steps_case_by_case(loops_gates_open, monkeypatch, pres):
     """MGCG on the composed backend and direct pressure (gates open) step
-    case by case, as QUICK momentum does; so does the CPU device with the
-    gates closed (``test_cpu_steps_case_by_case``)."""
+    case by case, as QUICK momentum with the compensated residual does; so
+    does the CPU device with the gates closed
+    (``test_cpu_steps_case_by_case``)."""
     seen = []
     real = tbatch._per_case
     monkeypatch.setattr(tbatch, "_per_case", lambda steps: seen.append(len(steps)) or real(steps))
@@ -256,7 +259,8 @@ def test_refused_steps_case_by_case(loops_gates_open, monkeypatch, pres):
     talg.batched_cavity_solve(mesh, [100.0, 400.0], bc, talg.SIMPLEConfig(max_iterations=2),
                               BICGSTAB, pres, device="cpu")
     talg.batched_cavity_solve(mesh, [100.0, 400.0], bc, talg.SIMPLEConfig(max_iterations=2),
-                              dataclasses.replace(BICGSTAB, scheme="quick"), MGCG, device="cpu")
+                              dataclasses.replace(BICGSTAB, scheme="quick",
+                                                  compensated_residual=True), MGCG, device="cpu")
     assert seen == [2, 2]
 
 

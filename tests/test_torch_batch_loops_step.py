@@ -156,9 +156,10 @@ def test_loops_gate_sides(loops_gates_open, monkeypatch):
     momentum (their loops in the loop primitive too) and a pressure
     tolerance (K5, or the strips and the tail in the loop primitive,
     either layout); it refuses the compensated dots, the composed backend,
-    W and FMG cycles and the compensated residual; the odd arm keeps its
-    rule (K7, K5 and K4 for the FMG headline; the command line's default on
-    an odd grid past K5's budget steps case by case)."""
+    W and FMG cycles and the compensated residual; the odd arm takes K7,
+    K5 and K4 for the FMG headline, and the command line's default on an
+    odd grid past K5's budget as V-cycles (K4 from the first level its gate
+    takes, a K3 tail), its W cycles case by case."""
     cfg = talg.SIMPLEConfig()
     p32 = torch.zeros(32, 32)
 
@@ -179,7 +180,11 @@ def test_loops_gate_sides(loops_gates_open, monkeypatch):
     assert not ok(mom, dataclasses.replace(pres, cycle_type="fmg"))
     monkeypatch.setattr(krylov, "MAX_FIELD_BYTES", 2**20)
     assert ok(*FMG, p=torch.zeros(31, 31))
-    assert not ok(*CLI, p=torch.zeros(511, 511))  # K5 cannot take the whole solve
+    # K5 cannot take the whole solve: K4 from a coarser level, the K3 tail
+    # a V-cycle, W cycles case by case (K8's own gate, which refuses 511^2)
+    monkeypatch.setattr(tbatch, "supports_fused_assembly", assembly.supports_fused_assembly)
+    assert ok(*CLI, p=torch.zeros(511, 511))
+    assert not ok(CLI[0], dataclasses.replace(CLI[1], cycle_type="w"), p=torch.zeros(511, 511))
 
 
 def test_loops_gate_closed_on_cpu_steps_case_by_case(monkeypatch):

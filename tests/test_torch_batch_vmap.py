@@ -434,9 +434,11 @@ def test_vmap_gate_sides(kernel_gates_open):
     """The branch takes the FMG headline (SIMPLE, SIMPLEC, PISO, SIMPLER)
     and Jacobi momentum on V cycles; it refuses what K6 takes, closed
     gates, even and non-square grids, composed backends, cycles, smoothers
-    and coarsenings K5 or K4 refuse, 9-point schemes, Chebyshev momentum,
-    direct pressure and float64 (the kernels' dtype); a pressure loop
-    (red-black GS here) takes the odd arm's momentum."""
+    and coarsenings K5 or K4 refuse, 9-point momentum with the compensated
+    dots, Chebyshev momentum, direct pressure and float64 (the kernels'
+    dtype); a pressure loop (red-black GS here) takes the odd arm's
+    momentum, and 9-point (QUICK) momentum runs composed beside K5 and
+    K4."""
     from dataclasses import replace
 
     cfg, mom, pres = talg.SIMPLEConfig(), interop.config(MOM), interop.config(PRES)
@@ -457,7 +459,8 @@ def test_vmap_gate_sides(kernel_gates_open):
     assert not ok(pres=replace(pres, cycle_type="w"))
     assert not ok(pres=replace(pres, smoother="jacobi"))
     assert not ok(pres=replace(pres, coarsening="rediscretize"))
-    assert not ok(mom=replace(mom, scheme="quick"))
+    assert ok(mom=replace(mom, scheme="quick"))
+    assert not ok(mom=replace(mom, scheme="quick", compensated_dots=True))
     assert not ok(mom=tmom.ChebyshevMomentumConfig())
     assert ok(pres=nt.solvers.RBGSPressureConfig())  # a pressure loop, K7's momentum
     assert not ok(pres=nt.solvers.DirectPressureConfig())
