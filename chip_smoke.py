@@ -245,7 +245,21 @@ result line:
     that round apart named), each case against its neighbour's single
     solve beyond 1e-3; host reads and ms a lockstep step against the single
     solves', the idle share over 2 lockstep steps at 511^2;
-20. Newton-Krylov (``run_newton``): ``benchmarks/scale_runs.py``'s QUICK
+20. the command line's remaining batch (``run_batch_cli``): ``sweep
+    --vmap`` with the command line's constructors over Re 100 / 400 / 1000,
+    3 lockstep steps from rest: (a) ``--momentum rbgs`` at 63^2 (the
+    momentum sweeps composed, batched K4 and K5 a step); (b) ``--momentum
+    jacobi`` and ``rbgs`` at 256^2 (K5 a step); (c) ``--pressure mgcg --nx
+    511`` (batched K7's grid form a field, K4 a solve, K3 an application of
+    the preconditioner); (d) ``--pressure direct`` at 63^2 (K7's band form a
+    field, the dense solve case by case): launches exact, no single launch,
+    no per-case step and no operator's per-case fallback, each case's u, v,
+    p and inner iterations bit-equal to its single solve and its history
+    bit-equal or within two float32 ulps, each case against its neighbour's
+    single solve beyond 1e-3; host reads a lockstep step against the single
+    solves', and ms a lockstep step against theirs at 256^2 RBGS and 511^2
+    MGCG;
+21. Newton-Krylov (``run_newton``): ``benchmarks/scale_runs.py``'s QUICK
     pipeline at 255^2 Re=1000 (a SIMPLE warm start, then ``newton_solve``
     to 1e-5): converged, Ghia below 0.10, K4 once a Newton step and K5 once
     a preconditioner application; its captured tangent program against
@@ -254,7 +268,7 @@ result line:
     float64 run (computed in a spawned process while the earlier phases
     run): Newton iterations within one, u, v, p within 1e-3, and the
     power-law residual in place of QUICK failing that;
-21. the command line (``run_cli``): ``naviflow_tpu_torch.cli.main``
+22. the command line (``run_cli``): ``naviflow_tpu_torch.cli.main``
     in-process on the card, its JSON line read back: (a) ``run`` with the
     CLI's defaults at 63^2 Re=100 to 1e-5, bit-equal to the direct
     ``simple_solve`` with ``_make_solvers``' configs and its launches (K6 a
@@ -391,6 +405,13 @@ RE_CONTROL = 1100.0  # (a)'s control: Re 1000 against this single solve
 # from rest, the even arm's grid, and the limit on a case's relative gap to
 # its single solve where it is not bit-equal
 BATCH_HIGHORDER_STEPS, BATCH_HIGHORDER_EVEN, BATCH_HIGHORDER_LIMIT = 3, 256, 1e-5
+# the batch_cli phase (the command line's remaining sweep --vmap
+# configurations): lockstep steps from rest; the limit on a history step's
+# relative gap where it is not bit-equal (two float32 ulps: the batched
+# vector_norm of the momentum and pressure residuals rounds an ulp apart);
+# the runs timed against their single steps
+BATCH_CLI_STEPS, BATCH_CLI_HISTORY_LIMIT = 3, 2.0 ** -22
+BATCH_CLI_TIMED = ("rbgs256", "mgcg511")
 ALGORITHMS63_ITERATIONS = {}  # the algorithms63 phase's kernel runs (name -> iterations)
 SEED = 0
 REPS = 10  # timed launches per kernel measurement (20 before the large batch's rows)
@@ -4717,6 +4738,110 @@ def pair_dot_bit_equal(fields):
                for k in range(len(fields)))
 
 
+@contextlib.contextmanager
+def per_case_steps():
+    """Inside: the cases ``algorithms/batch.py``'s ``_per_case`` was handed,
+    one entry a lockstep step of that branch (none where every step is
+    vmapped or K6's)."""
+    from naviflow_tpu_torch.algorithms import batch as tbatch
+
+    real, seen = tbatch._per_case, []
+
+    def counted(steps):
+        seen.append(len(steps))
+        return real(steps)
+
+    tbatch._per_case = counted
+    try:
+        yield seen
+    finally:
+        tbatch._per_case = real
+
+
+def batch_against_singles(dev, n, steps, kw, expected, warm=0, watch=contextlib.nullcontext):
+    """One run of a batch_* phase at n^2 over ``BATCH_RE`` (``large_batch``'s
+    ``kw``): ``warm`` lockstep steps of warm-up (scratch, launch state), the
+    batch for ``steps`` lockstep steps from rest, then each case's single
+    solve.  ``expected(diags, record)`` gives the batched launches from the
+    cases' diagnostics and ``watch``'s record (a context manager that yields
+    one, such as ``krylov_loop_reads``).  Returns the batch's ``out``,
+    ``ms3`` (ms a lockstep step), ``launches``, ``want``, ``reads3`` (the
+    loops' host reads a lockstep step), ``fallbacks`` (an operator without a
+    batching rule runs case by case, with a warning) and ``record``; and the
+    ``singles`` ((state, diagnostics, ms a step) each), their
+    ``single_reads`` a step summed, ``single_launches``, ``singles_exact``
+    (each single launched the batch's kernels singly: a cycle kernel once a
+    cycle of its own) and ``single_records``."""
+    from naviflow_tpu_torch.ops import while_loop
+
+    if warm:
+        large_batch(dev, n, BATCH_RE, warm, **kw)
+    while_loop.HOST_READS = 0
+    with watch() as record, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out, ms3, launches = large_batch(dev, n, BATCH_RE, steps, **kw)
+    run = dict(out=out, ms3=ms3, launches=launches, reads3=while_loop.HOST_READS / steps,
+               fallbacks=sorted({str(w.message)[:160] for w in caught
+                                 if "batching rule" in str(w.message)}),
+               record=record, want=expected([d for _, d in out], record), singles=[],
+               single_reads=0, single_launches=[], singles_exact=True, single_records=[])
+    for re_ in BATCH_RE:
+        while_loop.HOST_READS = 0
+        reset_counts()
+        with watch() as srec:
+            run["singles"].append(large_single(dev, n, re_, steps, **kw))
+        run["single_reads"] += while_loop.HOST_READS / steps
+        launched = counts()
+        run["single_launches"].append({k: v for k, v in launched.items() if v})
+        run["singles_exact"] &= launched == single_of(expected([run["singles"][-1][1]], srec))
+        run["single_records"].append(srec)
+    return run
+
+
+def held_cases(run, held):
+    """``held`` of each batch case against its single solve, and the
+    control: each case against its neighbour's single solve."""
+    pairs = [(bs, bd, ss, sd) for (bs, bd), (ss, sd, _) in zip(run["out"], run["singles"])]
+    control = [(bs, bd, ss, sd) for (bs, bd), (ss, sd, _)
+               in zip(run["out"], run["singles"][1:] + run["singles"][:1])]
+    return [held(*c) for c in pairs], [held(*c) for c in control]
+
+
+def batch_counts(run):
+    """The launches and host reads a batch_* row reports."""
+    return dict(launches=run["launches"], launches_expected=run["want"],
+                single_launches=run["single_launches"],
+                single_launches_exact=run["singles_exact"],
+                loop_host_reads_per_lockstep_step=run["reads3"],
+                single_loop_host_reads_per_step_b3=run["single_reads"])
+
+
+def batch_ms(run):
+    """ms a lockstep step against the 3 single solves' ms a step."""
+    singles = [ms for _, _, ms in run["singles"]]
+    return dict(ms_per_lockstep_step=run["ms3"], single_ms_per_step=singles,
+                sequential_ms_per_step_b3=sum(singles))
+
+
+def batch_phase(phase, configs, run_one, **fields):
+    """A batch_* phase: ``run_one(*config) -> (tag, row)`` for each of
+    ``configs`` with ``_per_case`` watched, each row's ``seconds`` and the
+    launches summed; ok where every row is and no step went case by
+    case."""
+    runs, ok, total = {}, True, only()
+    with per_case_steps() as per_case:
+        for config in configs:
+            t_run = time.perf_counter()
+            tag, row = run_one(*config)
+            row["seconds"] = time.perf_counter() - t_run
+            runs[tag] = row
+            ok &= row["ok"]
+            total = {k: total[k] + row["launches"][k] for k in total}
+    return dict(phase=phase, reynolds=list(BATCH_RE), **fields, runs=runs,
+                per_case_steps=len(per_case), launches=total, card=nvidia_smi(),
+                ok=bool(ok and not per_case))
+
+
 def run_batch_loops(dev):
     """The vmapped branch with the loops that read the host run through
     ``ops/while_loop.py`` (the ``batch_loops`` phase): each of
@@ -4733,15 +4858,6 @@ def run_batch_loops(dev):
     step, summed; the idle share over 2 lockstep steps of (b)."""
     import torch
 
-    from naviflow_tpu_torch.algorithms import batch as tbatch
-    from naviflow_tpu_torch.ops import while_loop
-
-    real_per_case, per_case = tbatch._per_case, []
-
-    def counted(steps):
-        per_case.append(len(steps))
-        return real_per_case(steps)
-
     def within(c):
         return c["iterations_equal"] and c["inner_iterations_equal"] and (
             (c["fields_bit_equal"] and c["history_bit_equal"])
@@ -4753,75 +4869,42 @@ def run_batch_loops(dev):
         return dict(held_to(bs, bd, ss, sd), inner_iterations_equal=torch.equal(
             bd.inner_iters_history[:steps].cpu(), sd.inner_iters_history[:steps].cpu()))
 
-    runs, ok, total = {}, True, only()
-    tbatch._per_case = counted
-    try:
-        for tag, n, configs in batch_loop_configs():
-            t_run = time.perf_counter()
-            kw = dict(configs=configs)
-            large_batch(dev, n, BATCH_RE, 2, **kw)  # warm-up: scratch, launch state
-            while_loop.HOST_READS = 0
-            out, ms3, launches = large_batch(dev, n, BATCH_RE, steps, **kw)
-            reads3 = while_loop.HOST_READS / steps
-            want = loop_launches(tag, n, configs[1], [d for _, d in out], steps)
-            singles, single_reads, single_launches, singles_exact = [], 0, [], True
-            for re_ in BATCH_RE:
-                while_loop.HOST_READS = 0
-                reset_counts()
-                singles.append(large_single(dev, n, re_, steps, **kw))
-                single_reads += while_loop.HOST_READS / steps
-                launched = counts()
-                single_launches.append({k: v for k, v in launched.items() if v})
-                # the single step's kernels, each once where the batch runs
-                # its batched one (a cycle kernel: once a cycle of its own)
-                singles_exact &= launched == single_of(
-                    loop_launches(tag, n, configs[1], [singles[-1][1]], steps))
-            cases = [held(bs, bd, ss, sd) for (bs, bd), (ss, sd, _) in zip(out, singles)]
-            control = [held(bs, bd, ss, sd) for (bs, bd), (ss, sd, _)
-                       in zip(out, singles[1:] + singles[:1])]
-            row = dict(grid=n, momentum=configs[0].kind, pressure_tolerance=configs[1].tolerance,
-                       cycle_type=configs[1].cycle_type, steps=steps, cases=cases,
-                       iterations=[int(d.iterations) for _, d in out],
-                       inner_iterations=[d.inner_iters_history[:steps].tolist() for _, d in out],
-                       control_neighbour_re=control, launches=launches,
-                       launches_expected=want, single_launches=single_launches,
-                       single_launches_exact=singles_exact,
-                       loop_host_reads_per_lockstep_step=reads3,
-                       single_loop_host_reads_per_step_b3=single_reads,
-                       ms_per_lockstep_step={"3": ms3},
-                       single_ms_per_step=[ms for _, _, ms in singles],
-                       sequential_ms_per_step_b3=sum(ms for _, _, ms in singles),
-                       batched_operators_bit_equal=dict(
-                           batched_operators([bs.p for bs, _ in out]),
-                           pair_dot=pair_dot_bit_equal([bs.p for bs, _ in out])))
-            ok_run = (launches == want and singles_exact and all(within(c) for c in cases)
-                      and not any(within(c) for c in control))
-            if tag in ("cli256", "cli1024"):
-                out1, ms1, launches1 = large_batch(dev, n, BATCH_RE[:1], steps, **kw)
-                want1 = loop_launches(tag, n, configs[1], [out1[0][1]], steps)
-                held1 = held(*out1[0], *singles[0][:2])
-                row.update(launches_b1=launches1, launches_expected_b1=want1, case_b1=held1)
-                row["ms_per_lockstep_step"]["1"] = ms1
-                ok_run &= launches1 == want1 and within(held1)
-            if tag == "cli1024":
-                profile_steps = 2
-                # the CUDA-event idle share alone (the profiler's run costs
-                # seconds the script's budget does not have)
-                row["idle_profile_3"] = profile_window(
-                    lambda: large_batch(dev, n, BATCH_RE, profile_steps, **kw), profile_steps,
-                    profiler=False)
-            row["ok"] = bool(ok_run)
-            row["seconds"] = time.perf_counter() - t_run
-            runs[tag] = row
-            ok &= ok_run
-            total = {k: total[k] + launches[k] for k in total}
-            del out, singles
-    finally:
-        tbatch._per_case = real_per_case
-    ok &= not per_case
-    return dict(phase="batch_loops", reynolds=list(BATCH_RE), limit=BATCH_LARGE_LIMIT,
-                runs=runs, per_case_steps=len(per_case), launches=total, card=nvidia_smi(),
-                ok=bool(ok))
+    def one(tag, n, configs):
+        kw = dict(configs=configs)
+        run = batch_against_singles(
+            dev, n, steps, kw, lambda diags, _: loop_launches(tag, n, configs[1], diags, steps),
+            warm=2)
+        out, singles = run["out"], run["singles"]
+        cases, control = held_cases(run, held)
+        row = dict(grid=n, momentum=configs[0].kind, pressure_tolerance=configs[1].tolerance,
+                   cycle_type=configs[1].cycle_type, steps=steps, cases=cases,
+                   iterations=[int(d.iterations) for _, d in out],
+                   inner_iterations=[d.inner_iters_history[:steps].tolist() for _, d in out],
+                   control_neighbour_re=control, **batch_counts(run), **batch_ms(run),
+                   batched_operators_bit_equal=dict(
+                       batched_operators([bs.p for bs, _ in out]),
+                       pair_dot=pair_dot_bit_equal([bs.p for bs, _ in out])))
+        row["ms_per_lockstep_step"] = {"3": run["ms3"]}
+        ok_run = (run["launches"] == run["want"] and run["singles_exact"]
+                  and all(within(c) for c in cases) and not any(within(c) for c in control))
+        if tag in ("cli256", "cli1024"):
+            out1, ms1, launches1 = large_batch(dev, n, BATCH_RE[:1], steps, **kw)
+            want1 = loop_launches(tag, n, configs[1], [out1[0][1]], steps)
+            held1 = held(*out1[0], *singles[0][:2])
+            row.update(launches_b1=launches1, launches_expected_b1=want1, case_b1=held1)
+            row["ms_per_lockstep_step"]["1"] = ms1
+            ok_run &= launches1 == want1 and within(held1)
+        if tag == "cli1024":
+            profile_steps = 2
+            # the CUDA-event idle share alone (the profiler's run costs
+            # seconds the script's budget does not have)
+            row["idle_profile_3"] = profile_window(
+                lambda: large_batch(dev, n, BATCH_RE, profile_steps, **kw), profile_steps,
+                profiler=False)
+        row["ok"] = bool(ok_run)
+        return tag, row
+
+    return batch_phase("batch_loops", batch_loop_configs(), one, limit=BATCH_LARGE_LIMIT)
 
 
 def batch_krylov_configs():
@@ -4977,15 +5060,6 @@ def run_batch_krylov(dev):
     steps."""
     import torch
 
-    from naviflow_tpu_torch.algorithms import batch as tbatch
-    from naviflow_tpu_torch.ops import while_loop
-
-    real_per_case, per_case = tbatch._per_case, []
-
-    def counted(steps):
-        per_case.append(len(steps))
-        return real_per_case(steps)
-
     def held(bs, bd, ss, sd, steps):
         out = held_to(bs, bd, ss, sd)
         mine = bd.inner_iters_history[:steps].cpu()
@@ -4999,93 +5073,54 @@ def run_batch_krylov(dev):
                           or out["inner_total_gap"] <= ITER_TOTAL_LIMIT))
         return out
 
-    runs, ok, total = {}, True, only()
-    tbatch._per_case = counted
-    try:
-        for tag, algorithm, n, steps, configs in batch_krylov_configs():
-            t_run = time.perf_counter()
-            kw = dict(algorithm=algorithm, configs=configs)
-            if tag == "mgcg":
-                large_batch(dev, n, BATCH_RE, 1, **kw)  # warm-up
-            while_loop.HOST_READS = 0
-            with krylov_loop_reads() as loops, warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                out, ms3, launches = large_batch(dev, n, BATCH_RE, steps, **kw)
-            reads3 = while_loop.HOST_READS / steps
-            # an operator without a batching rule runs case by case, with this warning
-            fallbacks = sorted({str(w.message)[:160] for w in caught
-                                if "batching rule" in str(w.message)})
-            want = krylov_launches(n, algorithm, configs[1], [d for _, d in out], steps, loops)
-            # each PCG loop read the host once an application: its slowest case's count + 1
-            reads_exact = pcg_applications(loops)[1]
-            singles, single_reads, single_launches, singles_exact = [], 0, [], True
-            for re_ in BATCH_RE:
-                while_loop.HOST_READS = 0
-                reset_counts()
-                with krylov_loop_reads() as sloops:
-                    singles.append(large_single(dev, n, re_, steps, **kw))
-                single_reads += while_loop.HOST_READS / steps
-                launched = counts()
-                single_launches.append({k: v for k, v in launched.items() if v})
-                singles_exact &= launched == single_of(krylov_launches(
-                    n, algorithm, configs[1], [singles[-1][1]], steps, sloops))
-                reads_exact &= pcg_applications(sloops)[1]
-            cases = [held(bs, bd, ss, sd, steps)
-                     for (bs, bd), (ss, sd, _) in zip(out, singles)]
-            if tag == "mgcg":
-                ref = large_single(dev, n, RE_CONTROL, steps, **kw)
-                control = [dict(held(*out[-1], *ref[:2], steps), against=RE_CONTROL)]
-            else:
-                control = [held(bs, bd, ss, sd, steps) for (bs, bd), (ss, sd, _)
-                           in zip(out, singles[1:] + singles[:1])]
-            row = dict(algorithm=algorithm, grid=n, momentum=configs[0].kind,
-                       pressure=configs[1].kind, steps=steps, cases=cases,
-                       iterations=[int(d.iterations) for _, d in out],
-                       inner_iterations=[d.inner_iters_history[:steps].tolist() for _, d in out],
-                       control=control, launches=launches, launches_expected=want,
-                       single_launches=single_launches, single_launches_exact=singles_exact,
-                       per_case_fallbacks=fallbacks,
-                       pcg_loops=[dict(reads=lp["reads"], counts=lp["counts"]) for lp in loops
-                                  if lp["loop"] == "_pcg"],
-                       pcg_reads_exact=reads_exact,
-                       loop_host_reads_per_lockstep_step=reads3,
-                       single_loop_host_reads_per_step_b3=single_reads,
-                       ms_per_lockstep_step=ms3,
-                       single_ms_per_step=[ms for _, _, ms in singles],
-                       sequential_ms_per_step_b3=sum(ms for _, _, ms in singles),
-                       batched_operators_bit_equal=dict(
-                           batched_operators([bs.p for bs, _ in out]),
-                           dot=dot_bit_equal([bs.p for bs, _ in out]),
-                           pair_dot=pair_dot_bit_equal([bs.p for bs, _ in out])))
-            ok_run = (launches == want and singles_exact and reads_exact and not fallbacks
-                      and all(c["ok"] for c in cases) and not any(c["ok"] for c in control))
-            if tag == "mgcg":
-                # the CUDA-event idle share alone (as batch_loops)
-                row["idle_profile_3"] = profile_window(
-                    lambda: large_batch(dev, n, BATCH_RE, 2, **kw), 2, profiler=False)
-            row["ok"] = bool(ok_run)
-            row["seconds"] = time.perf_counter() - t_run
-            runs[tag] = row
-            ok &= ok_run
-            total = {k: total[k] + launches[k] for k in total}
-            del out, singles
-    finally:
-        tbatch._per_case = real_per_case
-    ok &= not per_case
-    return dict(phase="batch_krylov", reynolds=list(BATCH_RE), limits=dict(
-        gap=GAP_LIMIT, iter_total=ITER_TOTAL_LIMIT), runs=runs, per_case_steps=len(per_case),
-        launches=total, card=nvidia_smi(), ok=bool(ok))
+    def one(tag, algorithm, n, steps, configs):
+        kw = dict(algorithm=algorithm, configs=configs)
+        run = batch_against_singles(
+            dev, n, steps, kw,
+            lambda diags, loops: krylov_launches(n, algorithm, configs[1], diags, steps, loops),
+            warm=1 if tag == "mgcg" else 0, watch=krylov_loop_reads)
+        out, loops = run["out"], run["record"]
+        # each PCG loop read the host once an application: its slowest case's count + 1
+        reads_exact = all(pcg_applications(lp)[1] for lp in [loops, *run["single_records"]])
+        cases, control = held_cases(run, lambda *c: held(*c, steps))
+        if tag == "mgcg":
+            ref = large_single(dev, n, RE_CONTROL, steps, **kw)
+            control = [dict(held(*out[-1], *ref[:2], steps), against=RE_CONTROL)]
+        row = dict(algorithm=algorithm, grid=n, momentum=configs[0].kind,
+                   pressure=configs[1].kind, steps=steps, cases=cases,
+                   iterations=[int(d.iterations) for _, d in out],
+                   inner_iterations=[d.inner_iters_history[:steps].tolist() for _, d in out],
+                   control=control, **batch_counts(run), per_case_fallbacks=run["fallbacks"],
+                   pcg_loops=[dict(reads=lp["reads"], counts=lp["counts"]) for lp in loops
+                              if lp["loop"] == "_pcg"],
+                   pcg_reads_exact=reads_exact, **batch_ms(run),
+                   batched_operators_bit_equal=dict(
+                       batched_operators([bs.p for bs, _ in out]),
+                       dot=dot_bit_equal([bs.p for bs, _ in out]),
+                       pair_dot=pair_dot_bit_equal([bs.p for bs, _ in out])))
+        ok_run = (run["launches"] == run["want"] and run["singles_exact"] and reads_exact
+                  and not run["fallbacks"] and all(c["ok"] for c in cases)
+                  and not any(c["ok"] for c in control))
+        if tag == "mgcg":
+            # the CUDA-event idle share alone (as batch_loops)
+            row["idle_profile_3"] = profile_window(
+                lambda: large_batch(dev, n, BATCH_RE, 2, **kw), 2, profiler=False)
+        row["ok"] = bool(ok_run)
+        return tag, row
+
+    return batch_phase("batch_krylov", batch_krylov_configs(), one,
+                       limits=dict(gap=GAP_LIMIT, iter_total=ITER_TOTAL_LIMIT))
 
 
-def cli_solvers(n, scheme):
+def cli_solvers(n, scheme="power_law", *flags):
     """The momentum and pressure configurations of ``sweep --vmap --nx n
-    --scheme scheme`` (``naviflow_tpu_torch/cli.py``'s parser and
-    ``_make_solvers``: BiCGSTAB to 1e-6 in at most 60 iterations, multigrid
-    V-cycles to 1e-3 in at most 30)."""
+    --scheme scheme <flags>`` (``naviflow_tpu_torch/cli.py``'s parser and
+    ``_make_solvers``: by default BiCGSTAB to 1e-6 in at most 60
+    iterations, multigrid V-cycles to 1e-3 in at most 30)."""
     from naviflow_tpu_torch import cli
 
     args = cli._build_parser().parse_args(
-        ["sweep", "--vmap", "--nx", str(n), "--scheme", scheme])
+        ["sweep", "--vmap", "--nx", str(n), "--scheme", scheme, *flags])
     return cli._make_solvers(args)
 
 
@@ -5145,15 +5180,6 @@ def run_batch_highorder(dev):
     idle share over 2 lockstep steps at 511^2."""
     import torch
 
-    from naviflow_tpu_torch.algorithms import batch as tbatch
-    from naviflow_tpu_torch.ops import while_loop
-
-    real_per_case, per_case = tbatch._per_case, []
-
-    def counted(steps):
-        per_case.append(len(steps))
-        return real_per_case(steps)
-
     steps = BATCH_HIGHORDER_STEPS
 
     def held(bs, bd, ss, sd):
@@ -5164,73 +5190,119 @@ def run_batch_highorder(dev):
             or max(out["max_field_gap"], out["history_gap"]) <= BATCH_HIGHORDER_LIMIT))
         return out
 
-    runs, ok, total = {}, True, only()
-    tbatch._per_case = counted
-    try:
-        for tag, n, scheme in batch_highorder_configs():
-            t_run = time.perf_counter()
-            configs = cli_solvers(n, scheme)
-            kw = dict(configs=configs)
-            large_batch(dev, n, BATCH_RE, 1, **kw)  # warm-up: scratch, launch state
-            while_loop.HOST_READS = 0
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                out, ms3, launches = large_batch(dev, n, BATCH_RE, steps, **kw)
-            reads3 = while_loop.HOST_READS / steps
-            # an operator without a batching rule runs case by case, with this warning
-            fallbacks = sorted({str(w.message)[:160] for w in caught
-                                if "batching rule" in str(w.message)})
-            want = highorder_launches(n, scheme, configs[1], [d for _, d in out], steps)
-            singles, single_reads, single_launches, singles_exact = [], 0, [], True
-            for re_ in BATCH_RE:
-                while_loop.HOST_READS = 0
-                reset_counts()
-                singles.append(large_single(dev, n, re_, steps, **kw))
-                single_reads += while_loop.HOST_READS / steps
-                launched = counts()
-                single_launches.append({k: v for k, v in launched.items() if v})
-                singles_exact &= launched == single_of(
-                    highorder_launches(n, scheme, configs[1], [singles[-1][1]], steps))
-            cases = [held(bs, bd, ss, sd) for (bs, bd), (ss, sd, _) in zip(out, singles)]
-            control = [held(bs, bd, ss, sd) for (bs, bd), (ss, sd, _)
-                       in zip(out, singles[1:] + singles[:1])]
-            detected = all(max(c["max_field_gap"], c["history_gap"]) > GAP_LIMIT
-                           for c in control)
-            row = dict(grid=n, scheme=scheme, momentum=configs[0].kind,
-                       pressure=configs[1].kind, pressure_tolerance=configs[1].tolerance,
-                       steps=steps, cases=cases,
-                       iterations=[int(d.iterations) for _, d in out],
-                       inner_iterations=[d.inner_iters_history[:steps].tolist() for _, d in out],
-                       control_neighbour_re=control, control_detected=detected,
-                       launches=launches, launches_expected=want,
-                       single_launches=single_launches, single_launches_exact=singles_exact,
-                       per_case_fallbacks=fallbacks,
-                       loop_host_reads_per_lockstep_step=reads3,
-                       single_loop_host_reads_per_step_b3=single_reads,
-                       ms_per_lockstep_step=ms3,
-                       single_ms_per_step=[ms for _, _, ms in singles],
-                       sequential_ms_per_step_b3=sum(ms for _, _, ms in singles),
-                       batched_operators_bit_equal=dict(
-                           batched_operators([bs.p for bs, _ in out]),
-                           dot=dot_bit_equal([bs.p for bs, _ in out])))
-            ok_run = (launches == want and singles_exact and not fallbacks
-                      and all(c["ok"] for c in cases) and detected)
-            if n == NQ:
-                # the CUDA-event idle share alone (as batch_loops)
-                row["idle_profile_3"] = profile_window(
-                    lambda: large_batch(dev, n, BATCH_RE, 2, **kw), 2, profiler=False)
-            row["ok"] = bool(ok_run)
-            row["seconds"] = time.perf_counter() - t_run
-            runs[tag] = row
-            ok &= ok_run
-            total = {k: total[k] + launches[k] for k in total}
-            del out, singles
-    finally:
-        tbatch._per_case = real_per_case
-    ok &= not per_case
-    return dict(phase="batch_highorder", reynolds=list(BATCH_RE),
-                limits=dict(case=BATCH_HIGHORDER_LIMIT, control=GAP_LIMIT), runs=runs,
-                per_case_steps=len(per_case), launches=total, card=nvidia_smi(), ok=bool(ok))
+    def one(tag, n, scheme):
+        configs = cli_solvers(n, scheme)
+        kw = dict(configs=configs)
+        run = batch_against_singles(
+            dev, n, steps, kw,
+            lambda diags, _: highorder_launches(n, scheme, configs[1], diags, steps), warm=1)
+        out = run["out"]
+        cases, control = held_cases(run, held)
+        detected = all(max(c["max_field_gap"], c["history_gap"]) > GAP_LIMIT for c in control)
+        row = dict(grid=n, scheme=scheme, momentum=configs[0].kind,
+                   pressure=configs[1].kind, pressure_tolerance=configs[1].tolerance,
+                   steps=steps, cases=cases,
+                   iterations=[int(d.iterations) for _, d in out],
+                   inner_iterations=[d.inner_iters_history[:steps].tolist() for _, d in out],
+                   control_neighbour_re=control, control_detected=detected,
+                   **batch_counts(run), per_case_fallbacks=run["fallbacks"], **batch_ms(run),
+                   batched_operators_bit_equal=dict(
+                       batched_operators([bs.p for bs, _ in out]),
+                       dot=dot_bit_equal([bs.p for bs, _ in out])))
+        ok_run = (run["launches"] == run["want"] and run["singles_exact"]
+                  and not run["fallbacks"] and all(c["ok"] for c in cases) and detected)
+        if n == NQ:
+            # the CUDA-event idle share alone (as batch_loops)
+            row["idle_profile_3"] = profile_window(
+                lambda: large_batch(dev, n, BATCH_RE, 2, **kw), 2, profiler=False)
+        row["ok"] = bool(ok_run)
+        return tag, row
+
+    return batch_phase("batch_highorder", batch_highorder_configs(), one,
+                       limits=dict(case=BATCH_HIGHORDER_LIMIT, control=GAP_LIMIT))
+
+
+def batch_cli_configs():
+    """The batch_cli runs: (tag, grid, the command line's flags) of ``sweep
+    --vmap`` that the vmapped branch takes last: (a) ``--momentum rbgs``
+    at the default 63^2 (the odd arm: K4 and K5 a step); (b) ``--momentum
+    jacobi`` and ``rbgs`` at 256^2 (the even arm below K8's 384^2: K5 a
+    step); (c) ``--pressure mgcg --nx 511`` (K7's grid form a field, K4 from
+    255^2 a solve, K3 an application of the preconditioner); (d)
+    ``--pressure direct`` at 63^2 (K7's band form a field)."""
+    return (("rbgs63", NH, ("--momentum", "rbgs")),
+            (f"jacobi{BATCH_HIGHORDER_EVEN}", BATCH_HIGHORDER_EVEN, ("--momentum", "jacobi")),
+            (f"rbgs{BATCH_HIGHORDER_EVEN}", BATCH_HIGHORDER_EVEN, ("--momentum", "rbgs")),
+            (f"mgcg{NQ}", NQ, ("--pressure", "mgcg")),
+            ("direct63", NH, ("--pressure", "direct")))
+
+
+def cli_launches(n, pres, diags, steps, loops):
+    """The batched launches of a batch_cli run: multigrid pressure K5 a step
+    (on odd grids K4 a step too), the momentum sweeps composed; MGCG and
+    direct pressure under the default BiCGSTAB momentum as
+    ``krylov_launches`` counts them (K7 a field; MGCG on the odd arm K4 a
+    solve and K3 an application)."""
+    if pres.kind != "multigrid":
+        return krylov_launches(n, "simple", pres, diags, steps, loops)
+    return only(fused_mg_solve_batched=steps, galerkin_levels_batched=steps if n % 2 else 0)
+
+
+def run_batch_cli(dev):
+    """The vmapped branch under the command line's remaining ``sweep --vmap``
+    configurations (the ``batch_cli`` phase): each of ``batch_cli_configs``
+    with the command line's constructors (``cli_solvers``) over ``BATCH_RE``
+    for ``BATCH_CLI_STEPS`` lockstep steps from rest (tolerance 0).  Each
+    run: launches exact (``cli_launches``: no single launch, and each single
+    solve's own kernels once where the batch runs its batched one), no
+    per-case step and no operator's per-case fallback warning; each case's
+    u, v, p and every step's inner iterations bit-equal to its single solve
+    and every history step bit-equal or within ``BATCH_CLI_HISTORY_LIMIT``;
+    a control that must lie beyond ``GAP_LIMIT`` (each case against its
+    neighbour's single solve); the loops' host reads a lockstep step against
+    the single solves' a step, summed; and, for ``BATCH_CLI_TIMED``, ms a
+    lockstep step (after a step of warm-up) against the 3 single solves'
+    ms a step."""
+    import torch
+
+    steps = BATCH_CLI_STEPS
+
+    def held(bs, bd, ss, sd):
+        out = dict(held_to(bs, bd, ss, sd), inner_iterations_equal=torch.equal(
+            bd.inner_iters_history[:steps].cpu(), sd.inner_iters_history[:steps].cpu()))
+        out["ok"] = (out["iterations_equal"] and out["inner_iterations_equal"]
+                     and out["fields_bit_equal"]
+                     and (out["history_bit_equal"]
+                          or out["history_gap"] <= BATCH_CLI_HISTORY_LIMIT))
+        return out
+
+    def one(tag, n, flags):
+        configs = cli_solvers(n, "power_law", *flags)
+        kw = dict(configs=configs)
+        timed = tag in BATCH_CLI_TIMED
+        run = batch_against_singles(
+            dev, n, steps, kw,
+            lambda diags, loops: cli_launches(n, configs[1], diags, steps, loops),
+            warm=1 if timed else 0, watch=krylov_loop_reads)
+        out = run["out"]
+        cases, control = held_cases(run, held)
+        detected = all(max(c["max_field_gap"], c["history_gap"]) > GAP_LIMIT for c in control)
+        row = dict(grid=n, flags=" ".join(flags), momentum=configs[0].kind,
+                   pressure=configs[1].kind, steps=steps, cases=cases,
+                   iterations=[int(d.iterations) for _, d in out],
+                   inner_iterations=[d.inner_iters_history[:steps].tolist() for _, d in out],
+                   control_neighbour_re=control, control_detected=detected,
+                   **batch_counts(run), per_case_fallbacks=run["fallbacks"],
+                   pcg_loops=[dict(reads=lp["reads"], counts=lp["counts"])
+                              for lp in run["record"] if lp["loop"] == "_pcg"],
+                   **(batch_ms(run) if timed else {}))
+        ok_run = (run["launches"] == run["want"] and run["singles_exact"]
+                  and not run["fallbacks"] and all(c["ok"] for c in cases) and detected)
+        row["ok"] = bool(ok_run)
+        return tag, row
+
+    return batch_phase("batch_cli", batch_cli_configs(), one,
+                       limits=dict(history=BATCH_CLI_HISTORY_LIMIT, control=GAP_LIMIT))
 
 
 def tangent_graph_check(warm, mesh, fluid, bc, scheme):
@@ -6909,6 +6981,7 @@ def run_all(dev, card, t0) -> int:
                       ("batch", run_batch), ("batch_loops", run_batch_loops),
                       ("batch_krylov", run_batch_krylov),
                       ("batch_highorder", run_batch_highorder),
+                      ("batch_cli", run_batch_cli),
                       ("newton", run_newton), ("cli", run_cli)):
         t_phase = time.perf_counter()
         row = fn(dev)

@@ -60,21 +60,30 @@ branches:
   511``), with V-cycles: the Galerkin levels coarsened composed down to
   the first level K4's gate takes and K4 from there, each cycle's levels
   above its K3 tail composed and the tail one K3 for every case (the
-  high-Re envelope of ``benchmarks/scale_runs.py``: 511^2 QUICK);
+  high-Re envelope of ``benchmarks/scale_runs.py``: 511^2 QUICK), and MGCG
+  there, whose preconditioner is that V-cycle (``sweep --vmap --pressure
+  mgcg --nx 511``).  Both arms take fixed-sweep Jacobi and red-black GS
+  momentum composed, each case's conductances from its row, where K8 does
+  not assemble it (``sweep --vmap --momentum rbgs`` at 63^2, ``--momentum
+  jacobi|rbgs`` below 384^2), and the dense direct pressure solve
+  (``--pressure direct``), its matrix built out of place and factored case
+  by case;
 * else every active case's own step, one after another (composed, or with
   its own kernels): the CPU path (where the kernel gates are closed), and
-  every configuration the other two refuse: direct pressure; W and FMG
-  cycles on even grids, and on odd grids whose whole solve K5 cannot take;
-  the compensated residual and dots; 9-point Chebyshev momentum; the
-  composed backend.
+  every configuration the other two refuse: W and FMG cycles on even
+  grids, and on odd grids whose whole solve K5 cannot take; the
+  compensated residual and dots; 9-point Chebyshev momentum; the composed
+  backend; and float64 wherever a kernel's gate decides the arm (on the
+  card no kernel gate admits float64).
 
 Each case's result is its single solve's: bit for bit in the K6 and per-case
 branches, and in the vmapped one wherever the batched operators round as
 the single ones do (the batched ``torch.mean`` of the pressure correction
 and ``torch.linalg.vector_norm`` of the residuals do not, on the card; the
 pressure loops' dots, norms and means, the multigrid loop's norms and its
-correction's mean, and the single-field BiCGSTAB's dots run case by case,
-through ``while_loop.case_by_case``, and so round as the single ones).
+correction's mean, the single-field BiCGSTAB's dots and the direct solve's
+factorisation, mean and norms run case by case, through
+``while_loop.case_by_case``, and so round as the single ones).
 Viscosity is the one per-case scalar (cavity Re = rho U L / mu with U = L =
 1).
 """
@@ -173,8 +182,9 @@ def vmap_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm: str) -> bool:
     :func:`_even_step_ok` (K1, K8, K9, K10, K2, K3 or K5: ``bench.py``'s
     large-grid SIMPLE, SIMPLEC, PISO and SIMPLER, the plane layout); the
     pressure loops (:func:`_loop_pressure_ok`: CG, BiCGSTAB, GMRES, MGCG,
-    Jacobi, red-black GS) take the momentum of the grid's arm; either arm
-    takes the 9-point schemes (:func:`_nine_point_momentum_ok`)."""
+    Jacobi, red-black GS) and the dense direct solve
+    (:func:`_direct_pressure_ok`) take the momentum of the grid's arm;
+    either arm takes the 9-point schemes (:func:`_nine_point_momentum_ok`)."""
     if not _cuda.kernel_device(p) or fused_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm):
         return False
     nx, ny = p.shape[-2:]
@@ -187,7 +197,7 @@ def vmap_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm: str) -> bool:
         if nx % 2:
             return _odd_step_ok(p, mom_cfg, pres_cfg)
         return _even_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm)
-    if not _loop_pressure_ok(nx, pres_cfg, p.dtype):
+    if not (_loop_pressure_ok(nx, pres_cfg, p.dtype) or _direct_pressure_ok(pres_cfg)):
         return False
     if nx % 2:
         return _odd_momentum_ok(p, mom_cfg)
@@ -199,8 +209,9 @@ def _loop_pressure_ok(n: int, pres_cfg, dtype) -> bool:
     CG, BiCGSTAB and GMRES (``solvers/krylov.py``), Jacobi and red-black GS
     (``solvers/pressure.py``), composed, on any square grid; MGCG where each
     preconditioner application is ``multigrid._cycle0``'s kernel path on
-    the n^2 hierarchy of its ``mg`` (one K3, or V-cycles of K2 strips above
-    a K3 tail), its backend not 'composed'."""
+    the n^2 hierarchy of its ``mg`` (one K3; V-cycles of K2 strips above a
+    K3 tail; or, on odd grids whose hierarchy K3 cannot take whole, the
+    V-cycle of :func:`_odd_cycle_ok`), its backend not 'composed'."""
     kind = getattr(pres_cfg, "kind", "")
     if kind in ("cg", "bicgstab", "gmres", "jacobi", "rbgs"):
         return True
@@ -210,9 +221,20 @@ def _loop_pressure_ok(n: int, pres_cfg, dtype) -> bool:
     layout = _layout(n, mg)
     if supports_fused_layout(layout, mg):  # K3
         return dtype == torch.float32
+    if n % 2:
+        return _odd_cycle_ok(n, mg, dtype)
     k = next((k for k in range(1, len(layout)) if supports_fused_layout(layout[k:], mg)), None)
     return k is not None and mg.cycle_type == "v" and all(
         supports_strip(*shp, five, mg, dtype) for shp, five in layout[:k])
+
+
+def _direct_pressure_ok(pres_cfg) -> bool:
+    """The dense direct solve (``solvers/pressure.py``
+    ``solve_pressure_direct``), on either arm: its matrix built out of place
+    from each case's coefficients, the factorisation, the mean and the
+    norms case by case (``while_loop.case_by_case``).  It launches no
+    kernel, as in the single step."""
+    return getattr(pres_cfg, "kind", "") == "direct"
 
 
 def _odd_step_ok(p, mom_cfg, pres_cfg) -> bool:
@@ -236,12 +258,25 @@ def _odd_pressure_ok(n: int, pres_cfg, dtype) -> bool:
     layout = _layout(n, pres_cfg)
     if supports_fused_rap(n, n, pres_cfg, dtype) and supports_fused_layout(layout, pres_cfg):
         return True  # K4 from the fine level, K5 (its dtype: K4's gate)
-    if pres_cfg.cycle_type != "v":
+    return _odd_cycle_ok(n, pres_cfg, dtype)
+
+
+def _odd_cycle_ok(n: int, mg, dtype) -> bool:
+    """V-cycles of the multigrid configuration ``mg`` on an odd ``n``^2
+    vertex hierarchy whose whole solve K5 cannot take: ``build_levels``'
+    levels coarsened composed down to ``multigrid.rap_start`` (not the
+    last level) and K4 from there, each cycle ``multigrid._cycle0``'s peeled
+    one (``multigrid.cycle_tail`` not None: the levels above the tail
+    composed, K3 on the tail).  The pressure solve of the odd arm without
+    K5 (:func:`_odd_pressure_ok`) and MGCG's preconditioner there
+    (:func:`_loop_pressure_ok`) take it alike."""
+    if mg.cycle_type != "v":
         return False
+    layout = _layout(n, mg)
     z = torch.zeros((), dtype=dtype)
     levels = [(Stencil9(*[z] * 9), shp, five, None) for shp, five in layout]
-    return (rap_start([shp for shp, _ in layout], pres_cfg, dtype) < len(layout) - 1
-            and cycle_tail(levels, pres_cfg) is not None)
+    return (rap_start([shp for shp, _ in layout], mg, dtype) < len(layout) - 1
+            and cycle_tail(levels, mg) is not None)
 
 
 def _scheme(mom_cfg) -> str:
@@ -252,9 +287,10 @@ def _odd_momentum_ok(p, mom_cfg) -> bool:
     """The odd arm's momentum, without the one-pass assembly (K8):
     BiCGSTAB that K7 takes for both fields (its band form or, past the
     band's shared memory, its grid form: both batched), fixed-sweep
-    Jacobi, or GMRES and IDR(s) (composed, their loops through
-    ``ops/while_loop.py``) without the compensated residual; or a 9-point
-    system (:func:`_nine_point_momentum_ok`)."""
+    Jacobi or red-black GS (``solvers/momentum.py``'s ``_jacobi_sweeps``
+    and ``_rbgs_sweeps``, composed), or GMRES and IDR(s) (composed, their
+    loops through ``ops/while_loop.py``), without the compensated
+    residual; or a 9-point system (:func:`_nine_point_momentum_ok`)."""
     nx, ny = p.shape[-2:]
     if _scheme(mom_cfg) != "power_law":
         return _nine_point_momentum_ok(mom_cfg)
@@ -262,7 +298,7 @@ def _odd_momentum_ok(p, mom_cfg) -> bool:
                                p.device):
         return False
     kind = getattr(mom_cfg, "kind", "")
-    if kind == "jacobi":
+    if kind in ("jacobi", "rbgs"):
         return True
     if kind in ("gmres", "idrs"):
         return not getattr(mom_cfg, "compensated_residual", False)
@@ -329,15 +365,15 @@ def _even_step_ok(p, cfg, mom_cfg, pres_cfg, algorithm) -> bool:
 def _even_momentum_ok(p, mom_cfg) -> bool:
     """The even arm's momentum: Chebyshev (K1 through SIMPLE's lagged
     carry; else K8 and K9 where their gates open, composed where they do
-    not), fixed-sweep Jacobi or red-black GS whose coefficients the
-    one-pass assembly (K8) takes, or BiCGSTAB as the single step
+    not), fixed-sweep Jacobi or red-black GS (their coefficients from K8
+    where its gate opens, from 384^2, and composed with the case's
+    conductance row where it does not), or BiCGSTAB as the single step
     dispatches it (K7 per field where its gate opens, band or grid form;
     else the coefficients from K8 where its gate opens, composed where it
     does not, and the pair loop or the single-field loop through
     ``ops/while_loop.py``), GMRES or IDR(s) (their coefficients so, their
     loops through ``ops/while_loop.py``), without the compensated dots or
     the composed backend; not the compensated residual."""
-    n = p.shape[-1]
     if _scheme(mom_cfg) != "power_law":
         return _nine_point_momentum_ok(mom_cfg)
     if getattr(mom_cfg, "compensated_residual", False):
@@ -348,8 +384,7 @@ def _even_momentum_ok(p, mom_cfg) -> bool:
     if kind in ("bicgstab", "gmres", "idrs"):
         return (not getattr(mom_cfg, "compensated_dots", False)
                 and getattr(mom_cfg, "backend", "auto") != "composed")
-    return kind in ("jacobi", "rbgs") and supports_fused_assembly(
-        n, n, "power_law", p.dtype, getattr(mom_cfg, "backend", "auto"), p.device)
+    return kind in ("jacobi", "rbgs")
 
 
 def _vmapped_step(make_step, common, visc):

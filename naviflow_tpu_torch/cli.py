@@ -58,8 +58,10 @@ def _build_parser():
                             "where its gate admits the configuration, else one "
                             "vmapped step whose kernels launch once for every case "
                             "where algorithms.batch.vmap_step_ok admits it, as for "
-                            "--scheme quick|luds|upwind and odd grids such as "
-                            "--nx 511; the rest step case by case)")
+                            "--scheme quick|luds|upwind, odd grids such as --nx 511, "
+                            "--momentum jacobi|rbgs and --pressure direct|mgcg; "
+                            "--f64 with the default solvers steps case by case, "
+                            "since no kernel admits float64)")
     return p
 
 

@@ -177,23 +177,81 @@ def _four_colours(shape, device):
     return tuple((ii % 2 == a) & (jj % 2 == bpar) for a in range(2) for bpar in range(2))
 
 
+@functools.lru_cache(maxsize=64)
+def red_black(shape, device):
+    """The masks of red ((i + j) even) and black cells."""
+    ii, jj = index_grids(shape, device)
+    red = (ii + jj) % 2 == 0
+    return red, torch.logical_not(red)
+
+
+# apply9's terms in its order of summation (c, e, w, n, s, ne, nw, se, sw) as
+# indices of the 3 x 3 windows of ``_windows`` (3 (1 + di) + (1 + dj));
+# apply5's are the first five
+_SUM_ORDER = (4, 7, 1, 5, 3, 8, 2, 6, 0)
+
+
+@functools.lru_cache(maxsize=16)
+def _sum_order(k: int, device):
+    return torch.tensor(_SUM_ORDER[:k], device=device)
+
+
+def _window_stencil(st: Stencil9):
+    """The stencil's nine arrays stacked in the order of the windows,
+    (3, 3, m, n): entry (1 + di, 1 + dj) multiplies x[i + di, j + dj]; a
+    five-point level's missing corners are zeros."""
+    arrays = [st.sw, st.w, st.nw, st.s, st.c, st.n, st.se, st.e, st.ne]
+    z = torch.zeros_like(st.c)
+    return torch.stack([z if a is None else a for a in arrays]).unflatten(0, (3, 3))
+
+
+def _off_diagonal(p, sw, k: int):
+    """``apply9(p, st) - st.c * p`` (``k`` = 9), or ``apply5``'s (``k`` =
+    5), bit for bit, for the stencil ``sw`` of :func:`_window_stencil`: the
+    products of all nine windows in one operator, the first ``k`` of them
+    in the order of summation, and that sum as one CPU float64 ``cumsum``
+    (its loop adds them one after another in double, as the chain of
+    additions does) or as the chain of additions."""
+    m, n = p.shape
+    x = torch.constant_pad_nd(p, (1, 1, 1, 1)).unfold(0, m, 1).unfold(1, n, 1)
+    terms = (sw * x).flatten(0, 1).index_select(0, _sum_order(k, p.device))
+    if p.dtype == torch.float64 and p.device.type == "cpu":
+        total = terms.cumsum(0)[-1]
+    else:
+        total = functools.reduce(torch.add, terms.unbind(0))
+    return total - terms[0]
+
+
+def colour_sweeper(b, st: Stencil9, colours, k: int, omega: float = 1.0):
+    """Gauss-Seidel over ``colours`` (boolean masks, in order; no two
+    neighbours of a cell of the stencil's ``k`` points share its colour) as
+    a function of the iterate: the stencil's arrays stacked and its
+    diagonal inverted once, each colour's update then ~15 operators."""
+    sw = _window_stencil(st)
+    inv_c = 1.0 / stencil9_diagonal(st)
+
+    def sweep(p):
+        for color_mask in colours:
+            p_new = (b - _off_diagonal(p, sw, k)) * inv_c
+            # omega = 1: the product by 1.0 is exact, so it is left out
+            step = p_new - p if omega == 1.0 else omega * (p_new - p)
+            p = torch.where(color_mask, p + step, p)
+        return p
+
+    return sweep
+
+
+def gs4_sweeper(b, st: Stencil9, omega: float = 1.0, shape=None):
+    """:func:`gs4_sweep` as a function of the iterate (of ``shape``, the
+    stencil's by default)."""
+    shape = tuple(st.c.shape) if shape is None else tuple(shape)
+    return colour_sweeper(b, st, _four_colours(shape, st.c.device), 9, omega)
+
+
 def gs4_sweep(p, b, st: Stencil9, omega: float = 1.0):
     """One four-color Gauss-Seidel sweep (valid for any 9-point stencil);
     colours ``(i%2, j%2)`` in the order (0,0), (0,1), (1,0), (1,1)."""
-    inv_c = 1.0 / stencil9_diagonal(st)
-
-    def quarter(p, color_mask):
-        cp = st.c * p  # apply9's first term, and the diagonal part it loses
-        off = _apply9_from(cp, p, st) - cp
-        p_new = (b - off) * inv_c
-        # omega = 1: the product by 1.0 is exact, so it is left out
-        step = p_new - p if omega == 1.0 else omega * (p_new - p)
-        return torch.where(color_mask, p + step, p)
-
-    for color_mask in _four_colours(tuple(p.shape), p.device):
-        p = quarter(p, color_mask)
-    return p
-
+    return gs4_sweeper(b, st, omega, p.shape)(p)
 
 
 def jacobi9_sweep(p, b, st: Stencil9, omega: float = 0.8):

@@ -51,16 +51,15 @@ from ..ops.plane import (PlaneStencil5, merge_planes, plane_fine_down, plane_fin
                          plane_residual_norm, split_planes)
 from ..ops.plane_strip import plane_strip_down, plane_strip_up, supports_plane_strip
 from ..ops.poisson import poisson_coefficients
-from ..ops.stencil import index_grids
 from ..ops.stencil9 import (
     Stencil9,
-    apply5,
     apply_five,
+    colour_sweeper,
     from_poisson,
     galerkin_coarsen,
-    gs4_sweep,
+    gs4_sweeper,
     jacobi9_sweep,
-    stencil9_diagonal,
+    red_black,
 )
 from ..ops.strip import strip_down, strip_up, supports_strip
 from ..ops.transfer import (coarse_size, prolong_cubic, prolong_linear,
@@ -114,19 +113,15 @@ def _kernel_path(cfg, x) -> bool:
     return cfg.backend != "composed" and _cuda.kernel_device(x)
 
 
+def _rb2_sweeper(b, st: Stencil9, omega: float, shape):
+    """Two-colour red-black SOR on a 5-point level (red = (i+j) even first)
+    as a function of the iterate (of ``shape``)."""
+    return colour_sweeper(b, st, red_black(tuple(shape), st.c.device), 5, omega)
+
+
 def _rb2_sweep(p, b, st: Stencil9, omega: float):
-    """Two-colour red-black SOR on a 5-point level (red = (i+j) even first)."""
-    ii, jj = index_grids(p.shape, p.device)
-    red = (ii + jj) % 2 == 0
-    inv_c = 1.0 / stencil9_diagonal(st)
-
-    def half(p, color):
-        off = apply5(p, st) - st.c * p
-        p_new = (b - off) * inv_c
-        return torch.where(color, p + omega * (p_new - p), p)
-
-    p = half(p, red)
-    return half(p, torch.logical_not(red))
+    """One sweep of :func:`_rb2_sweeper`."""
+    return _rb2_sweeper(b, st, omega, p.shape)(p)
 
 
 def _smooth(p, b, st: Stencil9, cfg, n, five_point: bool, lam=None):
@@ -152,15 +147,16 @@ def _smooth_core(p, b, st: Stencil9, cfg, n, five_point: bool, lam=None):
     if cfg.smoother == "chebyshev":
         return chebyshev_smooth(p, b, st, lam, degree=max(cfg.cheby_degree, n),
                                 theta=cfg.cheby_theta)
+    if n == 0:
+        return p
     if cfg.smoother == "jacobi":
         def fn(q):
             return jacobi9_sweep(q, b, st, min(cfg.omega, 0.9))
     elif five_point:
-        def fn(q):
-            return _rb2_sweep(q, b, st, cfg.omega)
+        # the stencil stacked and its diagonal inverted once for the n sweeps
+        fn = _rb2_sweeper(b, st, cfg.omega, p.shape)
     else:
-        def fn(q):
-            return gs4_sweep(q, b, st, cfg.omega)
+        fn = gs4_sweeper(b, st, cfg.omega, p.shape)
     for _ in range(n):
         p = fn(p)
     return p

@@ -136,40 +136,47 @@ def dense_poisson_matrix(c: PoissonCoeffs, *, pin: bool):
     Unpinned (singular, symmetric variants): empty rows are floored to
     identity and a rank-one ones/n shift fixes the constant-mode gauge, so
     for a compatible b the solution satisfies A x = b with mean(x) ~ 0.
-    Pinned: row 0 is the identity row."""
+    Pinned: row 0 is the identity row.  Built out of place (each band a
+    ``diag_embed``), so that ``torch.func.vmap`` takes it with a case's
+    coefficients."""
     nx, ny = c.diag.shape
     n = nx * ny
-    idx = torch.arange(n, device=c.diag.device)
     diag = _fortran(c.diag)
     if not pin:
         diag = torch.where(torch.abs(diag) < 1e-15, torch.ones_like(diag), diag)
-    A = torch.zeros((n, n), dtype=c.diag.dtype, device=c.diag.device)
-    A[idx, idx] = diag
-    # each (row, col) pair below is hit once; a_e is zero where i == nx-1,
-    # so the wrap into the next column of cells is harmless
-    A.index_put_((idx[:-1], idx[:-1] + 1), -_fortran(c.a_e)[:-1], accumulate=True)
-    A.index_put_((idx[1:], idx[1:] - 1), -_fortran(c.a_w)[1:], accumulate=True)
-    A.index_put_((idx[:-nx], idx[:-nx] + nx), -_fortran(c.a_n)[:-nx], accumulate=True)
-    A.index_put_((idx[nx:], idx[nx:] - nx), -_fortran(c.a_s)[nx:], accumulate=True)
+    # each off-diagonal entry is one band's (a_e is zero where i == nx-1, so
+    # its wrap into the next column of cells is harmless), added to zeros
+    off = (torch.diag_embed(-_fortran(c.a_e)[:-1], 1)
+           + torch.diag_embed(-_fortran(c.a_w)[1:], -1)
+           + torch.diag_embed(-_fortran(c.a_n)[:-nx], nx)
+           + torch.diag_embed(-_fortran(c.a_s)[nx:], -nx))
+    eye = torch.eye(n, dtype=torch.bool, device=c.diag.device)
+    A = torch.where(eye, torch.diag_embed(diag), off)
     if pin:
-        A[0, :] = 0.0
-        A[0, 0] = 1.0
+        first = torch.zeros(n, dtype=torch.bool, device=c.diag.device)
+        first[0] = True
+        A = torch.where(first.view(-1, 1), eye.to(A.dtype), A)
     else:
         A = A + torch.ones_like(A) / n
     return A
 
 
 def solve_pressure_direct(b, c: PoissonCoeffs, *, pin: bool = False):
-    """The exact dense solve of A p = b."""
+    """The exact dense solve of A p = b.  The solve, the mean and the norms
+    run through ``while_loop.case_by_case``: under ``torch.func.vmap`` each
+    case factors and rounds as its single solve (a batched LU need not)."""
     nx, ny = b.shape
     A = dense_poisson_matrix(c, pin=pin)
-    x = torch.linalg.solve(A, _fortran(b))
-    p = x.reshape(ny, nx).T
+    x = case_by_case(torch.linalg.solve, A, _fortran(b))
+    # contiguous, as each case's field under vmap is: the mean and the norms
+    # below sum in memory order
+    p = x.reshape(ny, nx).T.contiguous()
     if not pin:
-        p = p - torch.mean(p)
+        p = p - case_by_case(torch.mean, p)
     r = b - apply_poisson(p, c, pinned=pin)
-    bnorm = torch.linalg.vector_norm(b)
-    rel = torch.linalg.vector_norm(r) / torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
+    bnorm = case_by_case(torch.linalg.vector_norm, b)
+    rel = (case_by_case(torch.linalg.vector_norm, r)
+           / torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm)))
     return p, PressureSolveInfo(iterations=1, residual_field=r, rel_residual=rel)
 
 

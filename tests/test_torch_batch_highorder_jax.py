@@ -23,8 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_batch_gates import (_count, assembly_gates_open, gates_open,  # noqa: F401
-                               loops_gates_open)
+from torch_batch_gates import (SCALED_BUDGET, _count, assembly_gates_open,  # noqa: F401
+                               gates_open, loops_gates_open)
 
 import naviflow_tpu as nf
 import naviflow_tpu.algorithms.batch as jbatch
@@ -50,8 +50,6 @@ RES = (100.0, 400.0, 1000.0)
 # port's single solve as far from either
 MOM = KrylovMomentumConfig(tolerance=1e-9, max_iterations=150, scheme="quick")
 PRES = MultigridConfig(tolerance=1e-3, max_cycles=30)
-# test_torch_batch_highorder_step.py's budget: 63^2 takes the 511^2 path
-SCALED_BUDGET = 400_000
 
 
 def rel_err(got, want):

@@ -35,19 +35,17 @@ import warnings
 
 import pytest
 import torch
-from torch_batch_gates import (RES, _count, assembly_gates_open, gates_open,  # noqa: F401
-                               loops_gates_open, open_k5)
+from torch_batch_gates import (RES, SCALED_BUDGET, assembly_gates_open, gates_open,  # noqa: F401
+                               loops_gates_open, odd_gates_open, open_k5)
 
 import naviflow_tpu_torch as nt
 from naviflow_tpu_torch import algorithms as talg
 from naviflow_tpu_torch.algorithms import batch as tbatch
 from naviflow_tpu_torch.algorithms import simple as tsimple
-from naviflow_tpu_torch.ops import assembly, highorder, mg, powerlaw
-from naviflow_tpu_torch.solvers import momentum as tmom
-from naviflow_tpu_torch.solvers import (DirectPressureConfig, GMRESMomentumConfig,
-                                        IDRSMomentumConfig, JacobiMomentumConfig,
-                                        KrylovMomentumConfig, MultigridConfig,
-                                        RBGSMomentumConfig)
+from naviflow_tpu_torch.ops import highorder, mg, powerlaw
+from naviflow_tpu_torch.solvers import (GMRESMomentumConfig, IDRSMomentumConfig,
+                                        JacobiMomentumConfig, KrylovMomentumConfig,
+                                        MultigridConfig, RBGSMomentumConfig)
 from naviflow_tpu_torch.solvers.momentum import ChebyshevMomentumConfig
 
 torch.set_num_threads(2)
@@ -56,28 +54,10 @@ STEPS = 3
 # the command line's constructors (cli._make_solvers), --pressure-tol 1e-3
 BICGSTAB = KrylovMomentumConfig(tolerance=1e-6, max_iterations=60)
 MULTIGRID = MultigridConfig(tolerance=1e-3, max_cycles=30)
-# the multigrid budget under which a 63^2 hierarchy takes the 511^2 path:
-# K4's gate (14 padded fine arrays) opens at 31^2 and not at 63^2, K3 takes
-# the 31^2 -> 7^2 tail and not the whole hierarchy, and so K5 refuses it
-SCALED_BUDGET = 400_000
 
 
 def _quick(scheme="quick", mom=BICGSTAB):
     return dataclasses.replace(mom, scheme=scheme)
-
-
-@pytest.fixture
-def odd_gates_open(loops_gates_open, monkeypatch):
-    """``loops_gates_open`` with K8's own gate back (it refuses these grids
-    as it refuses 511^2, which no strip width divides) and K4's plain calls
-    counted, single and batched."""
-    calls = loops_gates_open
-    monkeypatch.setattr(tmom, "supports_fused_assembly", assembly.supports_fused_assembly)
-    monkeypatch.setattr(tbatch, "supports_fused_assembly", assembly.supports_fused_assembly)
-    for key, fn in (("K4 batched", "galerkin_levels_batched_plain"),
-                    ("K4", "galerkin_levels_plain")):
-        _count(monkeypatch, calls, mg, fn, key)
-    return calls
 
 
 def _run(calls, n, mom, pres=MULTIGRID, steps=STEPS):
@@ -179,9 +159,9 @@ def test_highorder_gate_sides(odd_gates_open, monkeypatch):
     """The widened gate admits 9-point BiCGSTAB, GMRES, IDR(s), Jacobi and
     red-black GS momentum on both arms and the odd arm without K5 (V-cycles,
     with or without a pressure tolerance); it refuses 9-point Chebyshev,
-    the compensated residual and dots, the composed backend, W and FMG
-    cycles where K5 cannot take the solve, a hierarchy that K4 takes
-    nowhere, and direct pressure."""
+    the compensated residual and dots, the composed backend (of the
+    momentum and of the multigrid), W and FMG cycles where K5 cannot take
+    the solve, and a hierarchy that K4 takes nowhere."""
     cfg = talg.SIMPLEConfig()
 
     def ok(mom, pres=MULTIGRID, n=31):
@@ -199,7 +179,7 @@ def test_highorder_gate_sides(odd_gates_open, monkeypatch):
                     _quick(mom=dataclasses.replace(BICGSTAB, compensated_dots=True)),
                     _quick(mom=dataclasses.replace(BICGSTAB, backend="composed"))):
             assert not ok(mom, n=n), (mom, n)
-        assert not ok(_quick(), DirectPressureConfig(), n=n)
+        assert not ok(_quick(), dataclasses.replace(MULTIGRID, backend="composed"), n=n)
     # the odd arm without K5 (63^2 as 511^2)
     monkeypatch.setattr(mg, "VMEM_BUDGET_BYTES", SCALED_BUDGET)
     for mom in (BICGSTAB, _quick()):
@@ -215,11 +195,12 @@ def test_highorder_gate_sides(odd_gates_open, monkeypatch):
 
 
 @pytest.mark.parametrize("pres,n", [(dataclasses.replace(MULTIGRID, cycle_type="w"), 63),
-                                    (DirectPressureConfig(), 15)], ids=["w_cycles", "direct"])
+                                    (dataclasses.replace(MULTIGRID, cycle_type="fmg"), 63)],
+                         ids=["w_cycles", "fmg_cycles"])
 def test_refused_steps_stay_case_by_case(odd_gates_open, monkeypatch, pres, n):
-    """With the gates open, W cycles on the odd arm without K5 (63^2 at
-    ``SCALED_BUDGET``) and direct pressure under QUICK momentum step case
-    by case (``_per_case``), with no batched call."""
+    """With the gates open, W and FMG cycles on the odd arm without K5
+    (63^2 at ``SCALED_BUDGET``) under QUICK momentum step case by case
+    (``_per_case``), with no batched call."""
     calls = odd_gates_open
     monkeypatch.setattr(mg, "VMEM_BUDGET_BYTES", SCALED_BUDGET)
     mesh, bc = nt.StructuredMesh(nx=n, ny=n), nt.lid_driven_cavity(1.0)

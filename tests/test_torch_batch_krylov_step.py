@@ -34,10 +34,10 @@ from naviflow_tpu_torch import algorithms as talg
 from naviflow_tpu_torch.algorithms import batch as tbatch
 from naviflow_tpu_torch.ops import mg, while_loop
 from naviflow_tpu_torch.solvers import krylov as tk
-from naviflow_tpu_torch.solvers import (CGPressureConfig, DirectPressureConfig,
-                                        GMRESMomentumConfig, IDRSMomentumConfig,
-                                        KrylovMomentumConfig, MGCGPressureConfig,
-                                        MultigridConfig, RBGSPressureConfig)
+from naviflow_tpu_torch.solvers import (CGPressureConfig, GMRESMomentumConfig,
+                                        IDRSMomentumConfig, KrylovMomentumConfig,
+                                        MGCGPressureConfig, MultigridConfig,
+                                        RBGSPressureConfig)
 
 torch.set_num_threads(2)
 
@@ -210,9 +210,9 @@ def test_krylov_gate_sides(loops_gates_open, monkeypatch):
     """The widened gate admits the pressure loops (CG, BiCGSTAB, GMRES,
     MGCG, Jacobi, RBGS) with either arm's momentum, GMRES and IDR(s)
     momentum on both arms, and QUICK momentum (composed); it refuses MGCG on
-    the composed backend, direct pressure, QUICK Chebyshev momentum, GMRES
-    with the compensated residual and an MGCG hierarchy the kernels cannot
-    take (W cycles)."""
+    the composed backend, BiCGSTAB momentum with the compensated dots, QUICK
+    Chebyshev momentum, GMRES with the compensated residual and an MGCG
+    hierarchy the kernels cannot take (W cycles)."""
     close_k7(monkeypatch)
     cfg = talg.SIMPLEConfig()
     p32 = torch.zeros(N, N)
@@ -230,7 +230,7 @@ def test_krylov_gate_sides(loops_gates_open, monkeypatch):
     assert not ok(BICGSTAB, composed)
     assert not ok(BICGSTAB, dataclasses.replace(MGCG, mg=dataclasses.replace(MGCG.mg,
                                                                             cycle_type="w")))
-    assert not ok(BICGSTAB, DirectPressureConfig())
+    assert not ok(dataclasses.replace(BICGSTAB, compensated_dots=True), MGCG)
     assert ok(dataclasses.replace(BICGSTAB, scheme="quick"), MGCG)
     assert not ok(nt.solvers.ChebyshevMomentumConfig(scheme="quick"), MGCG)
     assert not ok(GMRESMomentumConfig(compensated_residual=True), MGCG)
@@ -246,9 +246,10 @@ def test_krylov_gate_sides(loops_gates_open, monkeypatch):
 
 
 @pytest.mark.parametrize("pres", [dataclasses.replace(MGCG, mg=dataclasses.replace(
-    MGCG.mg, backend="composed")), DirectPressureConfig()], ids=["mgcg_composed", "direct"])
+    MGCG.mg, backend="composed")), dataclasses.replace(MGCG, mg=dataclasses.replace(
+        MGCG.mg, cycle_type="w"))], ids=["mgcg_composed", "mgcg_w_cycles"])
 def test_refused_steps_case_by_case(loops_gates_open, monkeypatch, pres):
-    """MGCG on the composed backend and direct pressure (gates open) step
+    """MGCG on the composed backend and with W cycles (gates open) step
     case by case, as QUICK momentum with the compensated residual does; so
     does the CPU device with the gates closed
     (``test_cpu_steps_case_by_case``)."""

@@ -19,7 +19,6 @@ from naviflow_tpu_torch import algorithms as talg
 from naviflow_tpu_torch import interop
 from naviflow_tpu_torch.algorithms import batch as tbatch
 from naviflow_tpu_torch.algorithms import simple as tsimple
-from naviflow_tpu_torch.solvers import momentum as tmom
 
 torch.set_num_threads(2)
 
@@ -60,8 +59,8 @@ def test_even_gate_sides(gates_open):
     SIMPLER at 2048^2), and a pressure tolerance > 0 (the cycle loop through
     ``ops/while_loop.py``); it refuses a plane layout K10 refuses, other
     cycles, smoothers and
-    coarsenings, non-Chebyshev momentum K8 does not assemble, a level the
-    strips refuse above the tail, odd or non-square grids, and the CPU
+    coarsenings, Chebyshev momentum with the compensated residual, a level
+    the strips refuse above the tail, odd or non-square grids, and the CPU
     (closed gates), each of which steps case by case."""
     from dataclasses import replace
 
@@ -81,7 +80,7 @@ def test_even_gate_sides(gates_open):
     assert not ok(pres=replace(pres, cycle_type="w"))
     assert not ok(pres=replace(pres, smoother="jacobi"))
     assert not ok(pres=replace(pres, backend="composed"))
-    assert not ok(mom=tmom.JacobiMomentumConfig())
+    assert not ok(mom=replace(mom, compensated_residual=True))
     assert not ok(mom=replace(mom, scheme="quick"))
     assert not ok(p=torch.zeros(N, N - 2)) and not ok(p=torch.zeros(N - 1, N - 1))
     # a 56^2 hierarchy: its 28^2 level is no strip and above the 14^2 tail

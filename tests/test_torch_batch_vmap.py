@@ -435,8 +435,8 @@ def test_vmap_gate_sides(kernel_gates_open):
     and Jacobi momentum on V cycles; it refuses what K6 takes, closed
     gates, even and non-square grids, composed backends, cycles, smoothers
     and coarsenings K5 or K4 refuse, 9-point momentum with the compensated
-    dots, Chebyshev momentum, direct pressure and float64 (the kernels'
-    dtype); a pressure loop (red-black GS here) takes the odd arm's
+    dots, Chebyshev momentum (power-law or 9-point) and float64 (the
+    kernels' dtype); a pressure loop (red-black GS here) takes the odd arm's
     momentum, and 9-point (QUICK) momentum runs composed beside K5 and
     K4."""
     from dataclasses import replace
@@ -463,7 +463,7 @@ def test_vmap_gate_sides(kernel_gates_open):
     assert not ok(mom=replace(mom, scheme="quick", compensated_dots=True))
     assert not ok(mom=tmom.ChebyshevMomentumConfig())
     assert ok(pres=nt.solvers.RBGSPressureConfig())  # a pressure loop, K7's momentum
-    assert not ok(pres=nt.solvers.DirectPressureConfig())
+    assert not ok(mom=tmom.ChebyshevMomentumConfig(scheme="quick"))
     assert not ok(p=torch.zeros(1023, 1023))  # K4's budget
 
 

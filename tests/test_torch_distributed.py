@@ -7,12 +7,17 @@ on meshes of gloo ranks, on the CPU (f64).
   2x2 mesh at 16^2 against the JAX package's ``distributed_simple_solve``
   on a (2, 2) device mesh: every step's residual and the fields at rel
   1e-10; the state the same bits on every rank; the pressure iterations of
-  every step equal to the same run on one rank.
+  every step equal to the same run on one rank.  The multigrid cases
+  (``MG_CASES``: MGCG, MG, FMG) run on a 2x2 spawn of their own in
+  ``tests/test_torch_distributed_mg.py``, so that the test workers share
+  the spawns.
 * The chunked loop against the per-step loop.
 * Distributed QUICK against the single-device QUICK solve.
 * (``tests/test_torch_distributed_1x4.py``, a file of its own so that the
-  test workers share the spawns: a padded 30^2 grid on a 1x4 mesh and the
-  duplicated shared faces bit-equal across neighbours after 10 steps.)
+  test workers share the spawns: a padded 30^2 grid on a 1x4 mesh; and
+  ``tests/test_torch_distributed_mg.py``: the duplicated shared faces
+  bit-equal across neighbours after 10 steps, on the multigrid cases'
+  spawn.)
 * Whether the single-device SIMPLE with Chebyshev momentum of degree 6 and
   MGCG pressure runs the distributed Chebyshev + MGCG algorithm (64^2, one
   rank): it does, to rounding, so the card's 1024^2 distributed run is
@@ -32,7 +37,7 @@ from naviflow_tpu_torch.parallel.dist_simple import (DistributedConfig, aux_init
                                                      make_distributed_step)
 from naviflow_tpu_torch.parallel import decompose as d
 from naviflow_tpu_torch.parallel.sharding import make_device_mesh
-from torch_ranks import run_ranks
+from torch_ranks import start_ranks
 
 torch.set_num_threads(2)
 
@@ -57,6 +62,10 @@ CASES = {
                                  momentum_tol=1e-6, momentum_max_iter=40),
     "simple-quick-cg": dict(scheme="quick", pressure_solver="cg"),
 }
+# the multigrid pressure cases, on their own spawn
+# (tests/test_torch_distributed_mg.py); the rest run on this file's
+MG_CASES = ("simple-chebyshev-mgcg", "simple-jacobi-fmg", "piso-jacobi-mg")
+HERE = {name: kw for name, kw in CASES.items() if name not in MG_CASES}
 PADDED = {
     "padded-jacobi-cg": dict(pressure_solver="cg"),
     "padded-jacobi-mgcg": dict(pressure_solver="mgcg"),
@@ -111,17 +120,45 @@ def _faces_body(rm, n, steps):
     return out
 
 
-@pytest.fixture(scope="module")
-def mesh22(tmp_path_factory):
-    """Every case on one 2x2 spawn: the ranks' results, rank order."""
-    return run_ranks(_runs_body, (2, 2), tmp_path_factory.mktemp("mesh22"), N, CASES,
-                     ["simple-bicgstab-cg"], timeout=400)
+def _mg_body(rm, n, cases, faces_steps):
+    """``_runs_body`` of ``cases`` and ``_faces_body`` of ``faces_steps``
+    steps on one spawn (``tests/test_torch_distributed_mg.py``)."""
+    return dict(runs=_runs_body(rm, n, cases, []), faces=_faces_body(rm, n, faces_steps))
 
 
-@pytest.fixture(scope="module")
-def one_rank():
+def one_rank_runs(cases):
+    """Each of ``cases`` on one rank (no group)."""
     rm = make_device_mesh(device="cpu")
-    return {name: _solve(rm, N, kw) for name, kw in CASES.items()}
+    return {name: _solve(rm, N, CASES[name]) for name in cases}
+
+
+def references_while(ranks, cases, n, shape, one_rank=False):
+    """While ``ranks`` (``torch_ranks.start_ranks``) run: the JAX package's
+    run of each of ``cases`` (name -> config) on a ``shape`` device mesh
+    and, with ``one_rank``, each case on one rank of the port; then the
+    ranks' results.  Returns (the ranks' results in rank order, {name: JAX
+    run}, {name: one-rank run})."""
+    try:
+        jax_runs = {name: _jax_run(n, kw, shape) for name, kw in cases.items()}
+        single = one_rank_runs(cases) if one_rank else {}
+    finally:
+        results = ranks.join()
+    return results, jax_runs, single
+
+
+@pytest.fixture(scope="module")
+def runs22(tmp_path_factory):
+    """This file's cases on one 2x2 spawn, the JAX package's runs and the
+    one-rank runs computed while the ranks run (``references_while``)."""
+    ranks = start_ranks(_runs_body, (2, 2), tmp_path_factory.mktemp("mesh22"), N, HERE,
+                        ["simple-bicgstab-cg"], timeout=400)
+    return references_while(ranks, HERE, N, (2, 2), one_rank=True)
+
+
+@pytest.fixture(scope="module")
+def mesh22(runs22):
+    """The ranks' results, rank order."""
+    return runs22[0]
 
 
 def _rel(got, want):
@@ -145,8 +182,8 @@ def _jax_run(n, kw, shape):
                   loop="per-step")
 
 
-def _held_to_jax(ranks, name, kw, n, shape):
-    js, jd = _jax_run(n, kw, shape)
+def _held_to_jax(ranks, name, jax_run):
+    js, jd = jax_run
     got = ranks[0][name]
     steps = np.asarray(got["diag"]["step_residuals"])
     want = np.asarray(jd["residual_history"])  # check_every=1: one entry a step
@@ -161,9 +198,10 @@ def _held_to_jax(ranks, name, kw, n, shape):
     return got
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_distributed_matches_jax_2x2(name, mesh22, one_rank):
-    got = _held_to_jax(mesh22, name, CASES[name], N, (2, 2))
+@pytest.mark.parametrize("name", list(HERE))
+def test_distributed_matches_jax_2x2(name, runs22):
+    ranks, jax_runs, one_rank = runs22
+    got = _held_to_jax(ranks, name, jax_runs[name])
     assert got["diag"]["inner_iterations"] == one_rank[name]["diag"]["inner_iterations"]
     assert len(got["diag"]["inner_iterations"]) == STEPS
 

@@ -7,9 +7,12 @@ solve, and the kernel gates' refusal under ``torch.func``.  The JAX
 package's 31^2 Newton cases from their own warm starts
 (``tests/test_newton.py``) are ``test_torch_newton_solve.py`` (power law)
 and ``test_torch_newton_quick.py`` (QUICK), files of their own so that the
-long runs go to three test workers."""
+long runs go to three test workers; each runs the JAX package's solve in a
+spawned process beside the port's (``jax_newton_beside``)."""
 
+import concurrent.futures
 import functools
+import multiprocessing
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +59,33 @@ def _warm(nx=31, re=100.0, steps=30, scheme="power_law"):
                                                                 tolerance=0.0),
                            momentum=mom, pressure=PRES, loop="fused")
     return mesh, fluid, bc, warm
+
+
+def _jax_newton_worker(nx, re, fields, cfg):
+    """The JAX package's ``newton_solve`` of ``_setup(nx, re)``'s case from
+    the state ``fields`` (u, v, p), in a spawned process with the tests'
+    JAX settings (the CPU, float64): its fields and diagnostics in numpy."""
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    mesh, fluid, bc, _ = _setup(nx, re)
+    warm = nf.FlowState(*(jnp.asarray(x) for x in fields))
+    fj, dj = jn.newton_solve(mesh, fluid, bc, warm, cfg)
+    return dict(u=np.asarray(fj.u), v=np.asarray(fj.v), p=np.asarray(fj.p),
+                converged=bool(dj.converged), iterations=int(dj.iterations),
+                gmres_iterations=int(dj.gmres_iterations),
+                residual_history=np.asarray(dj.residual_history))
+
+
+def jax_newton_beside(nx, re, warm, cfg):
+    """Start ``_jax_newton_worker`` on the JAX state ``warm`` in a spawned
+    process and return its future, so that the JAX package's Newton solve
+    runs while the port's runs here."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    future = pool.submit(_jax_newton_worker, nx, re,
+                         tuple(np.asarray(x) for x in (warm.u, warm.v, warm.p)), cfg)
+    pool.shutdown(wait=False)
+    return future
 
 
 def _port(mesh, fluid, bc, state):

@@ -2,17 +2,18 @@
 31^2, 30 SIMPLE steps of warm start, Newton to 1e-10) through the port's
 ``newton_solve`` from the same warm start, on the CPU in f64 (a file of its
 own, as ``test_torch_newton_quick.py`` is, so that the long runs go to
-separate test workers)."""
+separate test workers; the JAX package's Newton solve runs in a spawned
+process beside the port's, ``test_torch_newton.jax_newton_beside``)."""
 
 import numpy as np
 import torch
 
-from naviflow_tpu.algorithms import NewtonConfig, newton_solve
+from naviflow_tpu.algorithms import NewtonConfig
 
 from naviflow_tpu_torch import interop
 from naviflow_tpu_torch.algorithms import newton as tn
 
-from test_torch_newton import _port, _warm
+from test_torch_newton import _port, _warm, jax_newton_beside
 
 torch.set_num_threads(2)
 
@@ -23,13 +24,13 @@ def test_power_law_newton_matches_jax():
     iteration counts, histories to rel 1e-6 above 1e-9, fields to 1e-9."""
     mesh, fluid, bc, warm = _warm()
     cfg = NewtonConfig(tolerance=1e-10, scheme="power_law", max_newton=25)
-    fj, dj = newton_solve(mesh, fluid, bc, warm, cfg)
+    jax_run = jax_newton_beside(31, 100.0, warm, cfg)
     ft, dt = tn.newton_solve(*_port(mesh, fluid, bc, warm), interop.config(cfg))
-    assert dj.converged and dt.converged
-    assert dt.iterations == dj.iterations and dt.gmres_iterations == dj.gmres_iterations
-    hj, ht = np.asarray(dj.residual_history), np.asarray(dt.residual_history)
+    dj = jax_run.result()
+    assert dj["converged"] and dt.converged
+    assert dt.iterations == dj["iterations"] and dt.gmres_iterations == dj["gmres_iterations"]
+    hj, ht = dj["residual_history"], np.asarray(dt.residual_history)
     above = hj > 1e-9
     np.testing.assert_allclose(ht[above], hj[above], rtol=1e-6)
     for name in ("u", "v", "p"):
-        assert float(np.max(np.abs(getattr(ft, name).numpy()
-                                   - np.asarray(getattr(fj, name))))) <= 1e-9, name
+        assert float(np.max(np.abs(getattr(ft, name).numpy() - dj[name]))) <= 1e-9, name

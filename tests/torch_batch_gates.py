@@ -18,6 +18,7 @@ import torch
 from naviflow_tpu.solvers import ChebyshevMomentumConfig
 from naviflow_tpu.solvers.multigrid import MultigridConfig as JMG
 
+from naviflow_tpu_torch import cli
 from naviflow_tpu_torch.algorithms import batch as tbatch
 from naviflow_tpu_torch.ops import (_cuda, asmcheby, assembly, cheby, krylov, mg, plane_strip,
                                     strip)
@@ -32,6 +33,13 @@ PRES = JMG(tolerance=0.0, max_cycles=1, cycle_type="v", pre_smoothing=1, post_sm
            coarsest_sweeps=32, coarse_rebuild_every=8)
 # the same in the colour-plane fine layout (bench.py's large_grid_3)
 PLANE = dataclasses.replace(PRES, fine_layout="plane")
+# the multigrid budget under which a 63^2 hierarchy takes the 511^2 path:
+# K4's gate (14 padded fine arrays) opens at 31^2 and not at 63^2, K3 takes
+# the 31^2 -> 7^2 tail and not the whole hierarchy, and so K5 refuses it
+SCALED_BUDGET = 400_000
+# the same path at 31^2: K4 from 15^2, K3 on the 15^2 -> 7^2 tail, the
+# 31^2 level composed
+SCALED_BUDGET_31 = 200_000
 
 
 def _strip_gate(nx, ny, five, cfg, dtype):
@@ -198,3 +206,23 @@ def open_k5(monkeypatch):
     """K5's budget back at the card's, so that it takes a whole 32^2
     hierarchy as it takes the 256^2 one on the card."""
     monkeypatch.setattr(mg, "VMEM_BUDGET_BYTES", 8 * 2**20)
+
+
+@pytest.fixture
+def odd_gates_open(loops_gates_open, monkeypatch):
+    """``loops_gates_open`` with K8's own gate back (it refuses every grid
+    below 384 x 256, and 511^2, which no strip width divides) and K4's plain
+    calls counted, single and batched."""
+    calls = loops_gates_open
+    monkeypatch.setattr(tmom, "supports_fused_assembly", assembly.supports_fused_assembly)
+    monkeypatch.setattr(tbatch, "supports_fused_assembly", assembly.supports_fused_assembly)
+    for key, fn in (("K4 batched", "galerkin_levels_batched_plain"),
+                    ("K4", "galerkin_levels_plain")):
+        _count(monkeypatch, calls, mg, fn, key)
+    return calls
+
+
+def cli_solvers(*flags):
+    """The momentum and pressure configurations of ``sweep --vmap
+    <flags>``: the command line's parser and ``cli._make_solvers``."""
+    return cli._make_solvers(cli._build_parser().parse_args(["sweep", "--vmap", *flags]))

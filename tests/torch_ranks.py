@@ -49,9 +49,43 @@ def _rank_main(rank, shape, store, out_dir, fn, args):
         raise SystemExit(1)
 
 
-def run_ranks(fn, shape, tmp_path, *args, timeout=120.0):
-    """``[fn(rank_mesh, *args) for each rank]`` on an ``shape`` = (mx, my)
-    mesh of spawned gloo ranks, in rank order."""
+class Ranks:
+    """A spawned mesh of ranks (:func:`start_ranks`); :meth:`join` waits for
+    it and returns ``[fn(rank_mesh, *args) for each rank]`` in rank order."""
+
+    def __init__(self, procs, out_dir, deadline, timeout):
+        self.procs, self.out_dir = procs, out_dir
+        self.deadline, self.timeout = deadline, timeout
+
+    def join(self):
+        procs, out_dir, n = self.procs, self.out_dir, len(self.procs)
+        for p in procs:
+            p.join(max(0.0, self.deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+        errors = []
+        for r in range(n):
+            err = os.path.join(out_dir, f"rank{r}.err")
+            if os.path.exists(err):
+                with open(err) as f:
+                    errors.append(f"rank {r}:\n{f.read()}")
+        if hung:
+            raise TimeoutError(f"ranks {hung} still running after {self.timeout} s (killed)\n"
+                               + "\n".join(errors))
+        if errors or any(p.exitcode != 0 for p in procs):
+            raise RuntimeError("rank failure: exit codes "
+                               f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                for r in range(n)]
+
+
+def start_ranks(fn, shape, tmp_path, *args, timeout=120.0) -> Ranks:
+    """Spawn ``fn(rank_mesh, *args)`` on an ``shape`` = (mx, my) mesh of gloo
+    ranks and return at once, so that the caller can work while they run;
+    ``timeout`` counts from the spawn."""
     n = shape[0] * shape[1]
     out_dir = os.path.join(str(tmp_path), f"ranks{next(_SPAWNS)}")
     os.makedirs(out_dir)
@@ -61,25 +95,10 @@ def run_ranks(fn, shape, tmp_path, *args, timeout=120.0):
                          daemon=True) for r in range(n)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + timeout
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        p.join(10)
-    errors = []
-    for r in range(n):
-        err = os.path.join(out_dir, f"rank{r}.err")
-        if os.path.exists(err):
-            with open(err) as f:
-                errors.append(f"rank {r}:\n{f.read()}")
-    if hung:
-        raise TimeoutError(f"ranks {hung} still running after {timeout} s (killed)\n"
-                           + "\n".join(errors))
-    if errors or any(p.exitcode != 0 for p in procs):
-        raise RuntimeError("rank failure: exit codes "
-                           f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
-    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
-            for r in range(n)]
+    return Ranks(procs, out_dir, time.monotonic() + timeout, timeout)
+
+
+def run_ranks(fn, shape, tmp_path, *args, timeout=120.0):
+    """``[fn(rank_mesh, *args) for each rank]`` on an ``shape`` = (mx, my)
+    mesh of spawned gloo ranks, in rank order."""
+    return start_ranks(fn, shape, tmp_path, *args, timeout=timeout).join()
